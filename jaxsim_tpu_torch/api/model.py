@@ -1,0 +1,62 @@
+"""The time-invariant model: parameters + simulation configuration.
+
+Counterpart of ``JaxSimModel.build_from_model_description`` and
+``JaxSimModel.build`` in ``jaxsim_tpu/api/model.py``, reduced to what
+:meth:`~jaxsim_tpu_torch.ops.batched_engine.BatchedEngine.build` reads: the
+kin-dyn parameters, the soft contact parameters, the time step and gravity,
+on flat ground with the semi-implicit Euler integrator. The functional API
+(``js.model.step`` and the rest) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pathlib
+
+import numpy as np
+
+from jaxsim_tpu_torch.api.kin_dyn_parameters import FROZEN_DTYPE, KinDynParameters
+from jaxsim_tpu_torch.ops.contacts.common import STANDARD_GRAVITY
+from jaxsim_tpu_torch.ops.contacts.soft import SoftContactsParams
+from jaxsim_tpu_torch.parsers import build_model_description
+
+
+@dataclasses.dataclass(frozen=True)
+class JaxSimModel:
+    """Model parameters on flat ground, integrated with semi-implicit Euler."""
+
+    model_name: str
+    kin_dyn_parameters: KinDynParameters
+    contact_params: SoftContactsParams | None = None
+    # Negative: the z component of the gravity acceleration.
+    gravity: float = -STANDARD_GRAVITY
+    time_step: np.float32 = FROZEN_DTYPE(1e-3)
+    _fixed_base: bool = False
+
+    @staticmethod
+    def build_from_model_description(
+        model_description: str | pathlib.Path,
+        *,
+        model_name: str | None = None,
+        time_step: float | None = None,
+        contact_params: SoftContactsParams | None = None,
+        gravity: float = STANDARD_GRAVITY,
+    ) -> "JaxSimModel":
+        """Parse a URDF (path or string) and build a model."""
+        description = build_model_description(model_description)
+        model = JaxSimModel(
+            model_name=model_name if model_name is not None else description.name,
+            kin_dyn_parameters=KinDynParameters.build(description),
+            gravity=-float(gravity),
+            time_step=FROZEN_DTYPE(time_step if time_step is not None else 1e-3),
+            _fixed_base=bool(description.fixed_base),
+        )
+        if contact_params is None:
+            contact_params = SoftContactsParams.build_default_from_jaxsim_model(model)
+        return model.replace(contact_params=contact_params)
+
+    def replace(self, **kwargs) -> "JaxSimModel":
+        return dataclasses.replace(self, **kwargs)
+
+    def floating_base(self) -> bool:
+        return not self._fixed_base

@@ -1,0 +1,612 @@
+"""Batch-minor simulation engine in plain PyTorch (the CPU twin).
+
+Counterpart of ``jaxsim_tpu/ops/batched_engine.py`` for the flagship path:
+Hunt/Crossley soft contacts on plane terrain, the three-pass ABA with the 6×6
+base Cholesky, and semi-implicit Euler. Every tensor keeps the env batch in
+the TRAILING axis, ``(..., B)``, as the JAX engine does; that is also the
+coalesced layout of the one-thread-per-env CUDA kernel in
+:mod:`jaxsim_tpu_torch.ops.cuda_rollout`, which is held against this module.
+
+The static tree topology is unrolled as Python loops over the parent array,
+and small matrix algebra is written as broadcast multiply-and-sum over the
+leading axes, so no product goes through a matrix library (and none through
+TF32 on a GPU). The JAX engine's other contact models, terrains and
+integrators are not ported yet; the bridge refuses them with ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+# ----------------------------------------------------------------------
+# Trailing-batch algebra helpers. Operands are (n, m, *b) / (n, *b); a model
+# constant carries a trailing 1 in place of the batch axis.
+# ----------------------------------------------------------------------
+
+
+def _mm(A, B):
+    """(n,k,*b) @ (k,m,*b)."""
+    return (A.unsqueeze(2) * B.unsqueeze(0)).sum(1)
+
+
+def _mv(A, v):
+    """(n,k,*b) @ (k,*b)."""
+    return (A * v.unsqueeze(0)).sum(1)
+
+
+def _mtv(A, v):
+    """Aᵀ v for (k,n,*b) A."""
+    return (A * v.unsqueeze(1)).sum(0)
+
+
+def _cross(a, b):
+    return torch.stack(
+        [
+            a[1] * b[2] - a[2] * b[1],
+            a[2] * b[0] - a[0] * b[2],
+            a[0] * b[1] - a[1] * b[0],
+        ]
+    )
+
+
+def _c(a):
+    """Model constant → broadcastable against one trailing batch axis."""
+    return a.unsqueeze(-1)
+
+
+def _skew(a):
+    """(3,3) skew matrix of a (3,) vector."""
+    z = torch.zeros_like(a[0])
+    return torch.stack(
+        [
+            torch.stack([z, -a[2], a[1]]),
+            torch.stack([a[2], z, -a[0]]),
+            torch.stack([-a[1], a[0], z]),
+        ]
+    )
+
+
+def _quat_to_rot(q):
+    """(4,*b) wxyz → (3,3,*b) (norm-robust)."""
+    w, x, y, z = q[0], q[1], q[2], q[3]
+    n = w * w + x * x + y * y + z * z
+    s = 2.0 / torch.where(n == 0, torch.ones_like(n), n)
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    one = torch.ones_like(w)
+    return torch.stack(
+        [
+            torch.stack([one - (yy + zz), xy - wz, xz + wy]),
+            torch.stack([xy + wz, one - (xx + zz), yz - wx]),
+            torch.stack([xz - wy, yz + wx, one - (xx + yy)]),
+        ]
+    )
+
+
+def _xv(R, p, v6):
+    """Motion transform [[R, p̂R],[0,R]] applied to (6,*b)."""
+    lin, ang = v6[0:3], v6[3:6]
+    Ra = _mv(R, ang)
+    return torch.cat([_mv(R, lin) + _cross(p, Ra), Ra])
+
+
+def _xtf(R, p, f6):
+    """Force co-transform Xᵀ f for X = [[R, p̂R],[0,R]]:
+    [Rᵀ f_l ; Rᵀ(f_a − p × f_l)]."""
+    lin, ang = f6[0:3], f6[3:6]
+    return torch.cat([_mtv(R, lin), _mtv(R, ang - _cross(p, lin))])
+
+
+def _inv_rp(R, p):
+    """Inverse transform pair."""
+    Rt = R.transpose(0, 1)
+    return Rt, -_mv(Rt, p)
+
+
+def _build_X(R, p):
+    """Explicit 6×6 adjoint (6,6,*b) from an (R, p) pair."""
+    z = torch.zeros_like(p[0])
+    px = torch.stack(
+        [
+            torch.stack([z, -p[2], p[1]]),
+            torch.stack([p[2], z, -p[0]]),
+            torch.stack([-p[1], p[0], z]),
+        ]
+    )
+    top = torch.cat([R, _mm(px, R)], dim=1)
+    bot = torch.cat([torch.zeros_like(R), R], dim=1)
+    return torch.cat([top, bot], dim=0)
+
+
+def _chol6_factor(M):
+    """Unrolled Cholesky factor L of an SPD (6,6,*b) matrix, element-wise
+    over the batch. Returns a 6×6 lower list-of-lists."""
+    L = [[None] * 6 for _ in range(6)]
+    for i in range(6):
+        s = M[i, i]
+        for k in range(i):
+            s = s - L[i][k] * L[i][k]
+        L[i][i] = torch.sqrt(torch.clamp(s, min=1e-12))
+        inv_d = 1.0 / L[i][i]
+        for j in range(i + 1, 6):
+            s = M[j, i]
+            for k in range(i):
+                s = s - L[j][k] * L[i][k]
+            L[j][i] = s * inv_d
+    return L
+
+
+def _chol6_substitute(L, b):
+    """Forward/backward substitution with a :func:`_chol6_factor` factor."""
+    y = [None] * 6
+    for i in range(6):
+        s = b[i]
+        for k in range(i):
+            s = s - L[i][k] * y[k]
+        y[i] = s / L[i][i]
+    x = [None] * 6
+    for i in reversed(range(6)):
+        s = y[i]
+        for k in range(i + 1, 6):
+            s = s - L[k][i] * x[k]
+        x[i] = s / L[i][i]
+    return torch.stack(x)
+
+
+def _vx(v, w):
+    """Motion cross product ν × w: [[ω̂, v̂],[0, ω̂]] w."""
+    vl, va = v[0:3], v[3:6]
+    wl, wa = w[0:3], w[3:6]
+    return torch.cat([_cross(va, wl) + _cross(vl, wa), _cross(va, wa)])
+
+
+def _vxstar_Mv(v, M):
+    """ν×* (M ν): [ω×f_l ; v×f_l + ω×f_a] with f = M ν."""
+    Mv = _mv(M, v)
+    vl, va = v[0:3], v[3:6]
+    fl, fa = Mv[0:3], Mv[3:6]
+    return torch.cat([_cross(va, fl), _cross(vl, fl) + _cross(va, fa)])
+
+
+# ----------------------------------------------------------------------
+# State + engine
+# ----------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BatchedState:
+    """Structure-of-arrays env-batch state: every tensor has a trailing batch
+    axis ``B``."""
+
+    s: torch.Tensor  # (n, B) joint positions
+    sd: torch.Tensor  # (n, B) joint velocities
+    p: torch.Tensor  # (3, B) base position
+    q: torch.Tensor  # (4, B) base quaternion (wxyz)
+    v: torch.Tensor  # (6, B) base inertial velocity
+    m: torch.Tensor  # (nC, 3, B) tangential deformation
+
+    def fields(self) -> tuple[torch.Tensor, ...]:
+        return (self.s, self.sd, self.p, self.q, self.v, self.m)
+
+
+class BatchedEngine(nn.Module):
+    """Static topology + scalar parameters as attributes; the numeric model
+    arrays (``S``, ``M``, ``axis``, ``lamH``, ``sucH``, ``cpoint``) as
+    buffers, so ``.to(device)`` moves them."""
+
+    PARAM_NAMES = ("S", "M", "axis", "lamH", "sucH", "cpoint")
+
+    def __init__(
+        self,
+        *,
+        n_links: int,
+        n_joints: int,
+        n_points: int,
+        lam: tuple[int, ...],
+        joint_types: tuple[int, ...],
+        contact_parent: tuple[int, ...],
+        K: float,
+        D: float,
+        mu: float,
+        hc_p: float,
+        hc_q: float,
+        gravity_z: float,
+        dt: float,
+        floating_base: bool,
+        S,
+        M,
+        axis,
+        lamH,
+        sucH,
+        cpoint,
+        terrain_normal: tuple[float, float, float] = (0.0, 0.0, 1.0),
+        terrain_offset: float = 0.0,
+        dtype: torch.dtype = torch.float32,
+        device: torch.device | str | None = None,
+    ):
+        super().__init__()
+        self.n_links = int(n_links)
+        self.n_joints = int(n_joints)
+        self.n_points = int(n_points)
+        self.lam = tuple(int(i) for i in lam)
+        self.joint_types = tuple(int(t) for t in joint_types)
+        self.contact_parent = tuple(int(i) for i in contact_parent)
+        self.K = float(K)
+        self.D = float(D)
+        self.mu = float(mu)
+        self.hc_p = float(hc_p)
+        self.hc_q = float(hc_q)
+        self.gravity_z = float(gravity_z)
+        self.dt = float(dt)
+        self.floating_base = bool(floating_base)
+        # Plane terrain through (0, 0, H) with unit normal n̂ = (a, b, c);
+        # terrain_offset = c·H, so the penetration is δ = max(0, offset − n̂·p).
+        # The default (ẑ, 0) takes the flat-ground code path.
+        self.terrain_normal = tuple(float(x) for x in terrain_normal)
+        self.terrain_offset = float(terrain_offset)
+
+        arrays = dict(S=S, M=M, axis=axis, lamH=lamH, sucH=sucH, cpoint=cpoint)
+        shapes = dict(
+            S=(self.n_links, 6),
+            M=(self.n_links, 6, 6),
+            axis=(self.n_joints, 3),
+            lamH=(1 + self.n_joints, 4, 4),
+            sucH=(1 + self.n_joints, 4, 4),
+            cpoint=(self.m_rows, 3),
+        )
+        if len(self.lam) != self.n_links or len(self.joint_types) != 1 + self.n_joints:
+            raise ValueError("topology sizes disagree with n_links/n_joints")
+        if len(self.contact_parent) != self.n_points:
+            raise ValueError("contact_parent must have n_points entries")
+        for name in self.PARAM_NAMES:
+            t = torch.tensor(np.array(arrays[name]), dtype=dtype, device=device)
+            if tuple(t.shape) != shapes[name]:
+                raise ValueError(f"{name} must have shape {shapes[name]}, got {tuple(t.shape)}")
+            self.register_buffer(name, t)
+
+    @staticmethod
+    def build(
+        model, *, dtype: torch.dtype = torch.float32, device=None
+    ) -> "BatchedEngine":
+        """Lower a :class:`~jaxsim_tpu_torch.api.model.JaxSimModel` (soft
+        contacts, flat ground, semi-implicit Euler: the only configuration
+        the port's model expresses) to engine arrays."""
+        kdp = model.kin_dyn_parameters
+        cp = kdp.contact_parameters
+        idx = cp.indices_of_enabled_collidable_points
+        pars = model.contact_params
+        return BatchedEngine(
+            n_links=kdp.number_of_links(),
+            n_joints=kdp.number_of_joints(),
+            n_points=len(idx),
+            lam=kdp.parent_array_static,
+            joint_types=kdp.joint_model.joint_types,
+            contact_parent=tuple(int(cp.body[i]) for i in idx),
+            K=float(pars.K),
+            D=float(pars.D),
+            mu=float(pars.mu),
+            hc_p=float(pars.p),
+            hc_q=float(pars.q),
+            gravity_z=float(model.gravity),
+            dt=float(model.time_step),
+            floating_base=model.floating_base(),
+            S=kdp.motion_subspaces,
+            M=kdp.link_parameters.spatial_inertia(),
+            axis=kdp.joint_model.joint_axis,
+            lamH=kdp.joint_model.lambda_H_pre,
+            sucH=kdp.joint_model.suc_H_i,
+            # Contact-free models pad to one zero row (never read).
+            cpoint=cp.point[idx] if len(idx) else np.zeros((1, 3)),
+            dtype=dtype,
+            device=device,
+        )
+
+    def params(self) -> dict[str, torch.Tensor]:
+        """The numeric model arrays by name."""
+        return {name: getattr(self, name) for name in self.PARAM_NAMES}
+
+    @property
+    def m_rows(self) -> int:
+        """Leading size of the ``m`` state leaf: contact-free models carry one
+        inert zero row, as in the JAX engine."""
+        return max(self.n_points, 1)
+
+    @property
+    def flat(self) -> bool:
+        return self.terrain_normal == (0.0, 0.0, 1.0) and self.terrain_offset == 0.0
+
+    def init_state(
+        self,
+        B: int,
+        *,
+        base_position=(0.0, 0.0, 0.9),
+        generator: torch.Generator | None = None,
+    ) -> BatchedState:
+        """Rest state at ``base_position``; with a generator, 0.01·N(0, 1)
+        noise on the base position (drawn on the generator's device, which
+        must be the engine's)."""
+        dtype, device = self.S.dtype, self.S.device
+        p0 = torch.as_tensor(base_position, dtype=dtype, device=device)[:, None].repeat(1, B)
+        if generator is not None:
+            p0 = p0 + 0.01 * torch.randn(
+                (3, B), generator=generator, dtype=dtype, device=device
+            )
+        q0 = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)[:, None]
+        zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
+        return BatchedState(
+            s=zeros(self.n_joints, B),
+            sd=zeros(self.n_joints, B),
+            p=p0,
+            q=q0.repeat(1, B),
+            v=zeros(6, B),
+            m=zeros(self.m_rows, 3, B),
+        )
+
+    # ----- kinematics -----
+
+    def _relative_transforms(self, s):
+        """Forward parent→child (R, p) pairs per joint i = 1..nL-1."""
+        out_R, out_p = [], []
+        eye = _c(torch.eye(3, dtype=s.dtype, device=s.device))
+        for j in range(1, self.n_joints + 1):
+            lamH, sucH = self.lamH[j], self.sucH[j]
+            jt = self.joint_types[j]
+            th = s[j - 1]
+            if jt == 1:  # revolute: Rodrigues about the joint axis
+                K = _skew(self.axis[j - 1])
+                K2 = _mm(K, K)
+                R_j = eye + torch.sin(th) * _c(K) + (1 - torch.cos(th)) * _c(K2)
+                p_j = torch.zeros((3,) + th.shape, dtype=th.dtype, device=th.device)
+            elif jt == 2:  # prismatic
+                R_j = eye.expand(3, 3, th.shape[0])
+                p_j = _c(self.axis[j - 1]) * th
+            else:  # fixed
+                R_j = eye.expand(3, 3, th.shape[0])
+                p_j = torch.zeros((3,) + th.shape, dtype=th.dtype, device=th.device)
+
+            # λ_H_i = λ_H_pre ∘ joint ∘ suc_H_i.
+            R1, p1 = _c(lamH[:3, :3]), _c(lamH[:3, 3])
+            R2, p2 = _c(sucH[:3, :3]), _c(sucH[:3, 3])
+            R_a = _mm(R1, R_j)
+            p_a = p1 + _mv(R1, p_j)
+            out_R.append(_mm(R_a, R2))
+            out_p.append(p_a + _mv(R_a, p2))
+        return out_R, out_p
+
+    def fk(self, state: BatchedState):
+        """World (R, p) pose pairs + inertial 6D velocities of all links."""
+        rel_R, rel_p = self._relative_transforms(state.s)
+
+        R_B = _quat_to_rot(state.q)
+        suc0 = self.sucH[0]
+        W_R = [_mm(R_B, _c(suc0[:3, :3]))]
+        W_p = [state.p + _mv(R_B, _c(suc0[:3, 3]))]
+        W_v = [state.v if self.floating_base else torch.zeros_like(state.v)]
+
+        for i in range(1, self.n_links):
+            lam = self.lam[i]
+            Rl, pl = W_R[lam], W_p[lam]
+            Ri = _mm(Rl, rel_R[i - 1])
+            pi = pl + _mv(Rl, rel_p[i - 1])
+            W_R.append(Ri)
+            W_p.append(pi)
+            S = _c(self.S[i])
+            sdi = state.sd[i - 1]
+            RSa = _mv(Ri, S[3:6] * sdi)
+            dv = torch.cat([_mv(Ri, S[0:3] * sdi) + _cross(pi, RSa), RSa])
+            W_v.append(W_v[lam] + dv)
+        return W_R, W_p, W_v
+
+    # ----- contacts -----
+
+    def soft_contact_forces(self, W_R, W_p, W_v, m):
+        """Hunt/Crossley per point, vectorized over the points; per-link 6D
+        inertial forces (list of (6,B) or None) and ṁ (nC,3,B)."""
+        f_links = [None] * self.n_links
+        if self.n_points == 0:
+            return f_links, torch.zeros_like(m)
+        eps = torch.finfo(torch.float32).eps
+        ax, ay, az = self.terrain_normal
+        off = self.terrain_offset
+        flat = self.flat
+        K, D, mu = self.K, self.D, self.mu
+
+        parents = self.contact_parent
+        Rp = torch.stack([W_R[i] for i in parents], 2)  # (3,3,nC,B)
+        pp = torch.stack([W_p[i] for i in parents], 1)  # (3,nC,B)
+        vp = torch.stack([W_v[i] for i in parents], 1)  # (6,nC,B)
+        Lp = self.cpoint.transpose(0, 1)[:, :, None]  # (3,nC,1)
+        pc = _mv(Rp, Lp) + pp
+        pd = vp[0:3] + _cross(vp[3:6], pc)
+
+        mc = m.transpose(0, 1)  # (3,nC,B)
+        zb = torch.zeros_like(pd[0])
+        if flat:
+            delta = torch.clamp(-pc[2], min=0.0)
+            delta_dot = torch.where(delta > 0, -pd[2], zb)
+        else:
+            ndotp = ax * pc[0] + ay * pc[1] + az * pc[2]
+            ndotv = ax * pd[0] + ay * pd[1] + az * pd[2]
+            delta = torch.clamp(off - ndotp, min=0.0)
+            delta_dot = torch.where(delta > 0, -ndotv, zb)
+
+        dp = torch.pow(delta + eps, self.hc_p)
+        dq = torch.pow(delta + eps, self.hc_q)
+        fn_mag = torch.clamp((K * dp) * delta + (D * dq) * delta_dot, min=0.0)
+
+        if flat:
+            v_t = torch.stack([pd[0], pd[1], zb])
+            m_n = torch.stack([zb, zb, mc[2]])
+            m_t = torch.stack([mc[0], mc[1], zb])
+        else:
+            v_t = torch.stack(
+                [pd[0] - ndotv * ax, pd[1] - ndotv * ay, pd[2] - ndotv * az]
+            )
+            mdotn = ax * mc[0] + ay * mc[1] + az * mc[2]
+            m_n = torch.stack([mdotn * ax, mdotn * ay, mdotn * az])
+            m_t = mc - m_n
+
+        f_t = -((K * dp) * m_t + (D * dq) * v_t)
+        f_t_sq = (f_t * f_t).sum(0)
+        no_contact = delta <= 0
+        sticking = no_contact | (f_t_sq <= (mu * fn_mag) ** 2)
+        norm = torch.sqrt(torch.clamp(f_t_sq, min=eps**2))
+        scale = torch.minimum(mu * fn_mag, norm) / norm
+        f_t = torch.where(sticking, f_t, f_t * scale)
+        f_t = torch.where(no_contact, torch.zeros_like(f_t), f_t)
+
+        md_nc = -(K / D) * mc
+        md_st = v_t - (K / D) * m_n
+        md_sl = -(f_t + (K * dp) * m_t) / (D * dq)
+        md = torch.where(no_contact, md_nc, torch.where(sticking, md_st, md_sl))
+
+        if flat:
+            f_lin = torch.stack([f_t[0], f_t[1], f_t[2] + fn_mag])
+        else:
+            f_lin = torch.stack(
+                [f_t[0] + fn_mag * ax, f_t[1] + fn_mag * ay, f_t[2] + fn_mag * az]
+            )
+        f6 = torch.cat([f_lin, _cross(pc, f_lin)])  # (6,nC,B)
+
+        # Sum into the parent links in contact-index order.
+        for c, parent in enumerate(parents):
+            f_links[parent] = f6[:, c] if f_links[parent] is None else f_links[parent] + f6[:, c]
+        return f_links, md.transpose(0, 1)
+
+    # ----- dynamics -----
+
+    def aba(self, state: BatchedState, W_R, W_p, W_v, f_ext, tau):
+        """Articulated-Body Algorithm, trailing batch, unrolled tree.
+        ``f_ext``: per-link world 6D forces, (6,B) or None."""
+        nL = self.n_links
+        rel_R, rel_p = self._relative_transforms(state.s)
+        zb = torch.zeros_like(state.p[0])
+        g6 = torch.stack([zb, zb, zb + self.gravity_z, zb, zb, zb])
+
+        inv_R = [None] * nL
+        inv_p = [None] * nL
+        for i in range(1, nL):
+            inv_R[i], inv_p[i] = _inv_rp(rel_R[i - 1], rel_p[i - 1])
+
+        R0, p0 = W_R[0], W_p[0]
+        R0_inv, p0_inv = _inv_rp(R0, p0)
+
+        v = [None] * nL
+        c = [None] * nL
+        pA = [None] * nL
+        MA = [None] * nL
+        v[0] = _xv(R0_inv, p0_inv, state.v) if self.floating_base else torch.zeros_like(state.v)
+
+        MA[0] = _c(self.M[0])
+        pA[0] = _vxstar_Mv(v[0], MA[0])
+        if f_ext[0] is not None:
+            pA[0] = pA[0] - _xtf(R0, p0, f_ext[0])
+
+        for i in range(1, nL):
+            lam = self.lam[i]
+            vJ = _c(self.S[i]) * state.sd[i - 1]
+            v[i] = _xv(inv_R[i], inv_p[i], v[lam]) + vJ
+            c[i] = _vx(v[i], vJ)
+            MA[i] = _c(self.M[i])
+            pA[i] = _vxstar_Mv(v[i], MA[i])
+            if f_ext[i] is not None:
+                pA[i] = pA[i] - _xtf(W_R[i], W_p[i], f_ext[i])
+
+        U = [None] * nL
+        d = [None] * nL
+        u = [None] * nL
+        for i in range(nL - 1, 0, -1):
+            lam = self.lam[i]
+            S = _c(self.S[i])
+            U[i] = _mv(MA[i], S)
+            d[i] = (S * U[i]).sum(0)
+            u[i] = tau[i - 1] - (S * pA[i]).sum(0)
+            inv_d = 1.0 / d[i]
+            Ma = MA[i] - U[i].unsqueeze(1) * U[i].unsqueeze(0) * inv_d
+            pa = pA[i] + _mv(Ma, c[i]) + U[i] * (u[i] * inv_d)
+            if lam != 0 or self.floating_base:
+                X = _build_X(inv_R[i], inv_p[i])
+                MA[lam] = MA[lam] + _mm(X.transpose(0, 1), _mm(Ma, X))
+                pA[lam] = pA[lam] + _mtv(X, pa)
+
+        if self.floating_base:
+            a0 = -_chol6_substitute(_chol6_factor(MA[0]), pA[0])
+        else:
+            a0 = -_xv(R0_inv, p0_inv, g6)
+
+        a = [None] * nL
+        a[0] = a0
+        sdd = [None] * self.n_joints
+        for i in range(1, nL):
+            lam = self.lam[i]
+            a_i = _xv(inv_R[i], inv_p[i], a[lam]) + c[i]
+            sdd_i = (u[i] - (U[i] * a_i).sum(0)) / d[i]
+            sdd[i - 1] = sdd_i
+            a[i] = a_i + _c(self.S[i]) * sdd_i
+
+        W_a = _xv(R0, p0, a0) + g6 if self.floating_base else torch.zeros_like(g6)
+        sdd_out = torch.stack(sdd) if sdd else torch.zeros_like(state.s)
+        return W_a, sdd_out
+
+    # ----- the step -----
+
+    @staticmethod
+    def _quat_derivative(q, omega):
+        """q̇ = ½ [0, ω] ⊗ q with inertial-fixed ω (no norm stabilization,
+        as the JAX engine's SIE step calls it)."""
+        qw, qx, qy, qz = q[0], q[1], q[2], q[3]
+        ox, oy, oz = omega[0], omega[1], omega[2]
+        return 0.5 * torch.stack(
+            [
+                -qx * ox - qy * oy - qz * oz,
+                qw * ox - qy * oz + qz * oy,
+                qw * oy + qx * oz - qz * ox,
+                qw * oz - qx * oy + qy * ox,
+            ]
+        )
+
+    @staticmethod
+    def _normalize_quat(q):
+        return q / torch.sqrt(torch.clamp((q * q).sum(0), min=1e-12))
+
+    def step(self, state: BatchedState, tau: torch.Tensor | None = None) -> BatchedState:
+        """One semi-implicit Euler step with soft contacts."""
+        tau = tau if tau is not None else torch.zeros_like(state.s)
+
+        W_R, W_p, W_v = self.fk(state)
+        f_links, md = self.soft_contact_forces(W_R, W_p, W_v, state.m)
+        W_a, sdd = self.aba(state, W_R, W_p, W_v, f_links, tau)
+
+        dt = self.dt
+        v_new = state.v + dt * W_a
+        sd_new = state.sd + dt * sdd
+
+        # The position update uses the NEW linear velocity and the OLD p.
+        omega = v_new[3:6]
+        pd = v_new[0:3] + _cross(omega, state.p)
+        p_new = state.p + dt * pd
+
+        qd = self._quat_derivative(state.q, omega)
+        q_new = self._normalize_quat(state.q + dt * qd)
+
+        return BatchedState(
+            s=state.s + dt * sd_new,
+            sd=sd_new,
+            p=p_new,
+            q=q_new,
+            v=v_new,
+            m=state.m + dt * md,
+        )
+
+    def rollout(self, state: BatchedState, n_steps: int, policy=None) -> BatchedState:
+        """``n_steps`` of :meth:`step`; ``policy(state) -> (n, B)`` torques,
+        by default the PD policy ``-60·s - 0.5·ṡ``."""
+        policy = policy or (lambda st: -60.0 * st.s - 0.5 * st.sd)
+        for _ in range(n_steps):
+            state = self.step(state, policy(state))
+        return state
