@@ -1,25 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's flagship rollout once on one NVIDIA GPU.
+"""Drive the PyTorch port's kernels and main paths once on one NVIDIA GPU.
 
 Usage, from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the CUDA rollout kernel from ``jaxsim_tpu_torch/csrc`` with
-``nvcc``, holds it against its plain PyTorch version on the card in every
-state field (the fixed-base pendulum, then the 23-DoF humanoid at 8192 envs
-from the main path's start and with its joints moving; see ``CASES``), then
-runs the main path: the humanoid with soft contacts on flat ground,
-semi-implicit Euler and the PD policy ``tau = -60·s - 0.5·ṡ``, 8192 envs
-and five chained 1000-step rollouts, each one kernel launch. It prints the
-card's name and power limit, a JSON line with each kernel's numbers, and
-last ``{"ok": true, "device": {...}}``. Any failure raises, and the script
-then exits non-zero without that line; it also exits non-zero when no CUDA
-device is visible.
+It builds every CUDA kernel of the port from ``jaxsim_tpu_torch/csrc`` with
+``nvcc`` (one process per library, all at once) and holds each against its
+plain PyTorch version on the card:
+
+* K1 (``rollout.cu``), K2 and K3 (``step.cu``), in every state field, on the
+  fixed-base pendulum and on the 23-DoF humanoid at 8192 envs, from the main
+  path's start and with the joints moving (``CASES``); K3 also under
+  call-time model arrays (``M`` scaled by 1.2);
+* K5 (``env_rollout.cu``) in every state field, the reward sums, the resets
+  and the steps: truncation only (the MLP policy with 8 candidates), real
+  terminations (the linear policy), and respawns with reset noise.
+
+Then it runs the main paths, each with every launch counter set to 0 just
+before it and read just after:
+
+* the flagship rollout: humanoid, soft contacts, flat ground, semi-implicit
+  Euler, PD policy, 8192 envs, five chained 1000-step K1 launches;
+* the per-step rollout (the JAX ``pallas_rollout``): 100 K2 launches;
+* evolution strategies, ``examples/train_es_mlp.py``'s configuration uncut:
+  8 candidates × 1024 envs, a tanh MLP with H = 16 and per-candidate
+  weights, 500 steps a generation, episodes of 400, healthy height
+  (0.6, 1.2) m, torques clipped at 100; three generations, one K5 launch each;
+* ``BatchedEnv.step``: 20 steps at 8192 envs, one K3 launch each.
+
+It prints each phase's seconds, the card's name and power limit, a JSON line
+with each kernel's numbers (device ms per launch, the plain version's ms for
+the same work, the bound the card's peaks set, the launches of the main
+path) and last ``{"ok": true, "device": {...}}``. Any failure raises, and the
+script then exits non-zero without that line; it also exits non-zero when no
+CUDA device is visible.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -27,12 +47,22 @@ import subprocess
 import sys
 import time
 
+DEVICE = "cuda:0"
 BATCH = 8192
-HORIZON = 1000  # steps per main-path call
+HORIZON = 1000  # steps per K1 main-path call
 TIMED_CALLS = 5
-# Kernel vs plain twin: the limit on |Δ| in every state field (s, sd, p, q, v,
-# m), taken per env as the largest entry, then over the envs by the case's
-# statistic (below).
+# The plain twin takes 50-110 ms a humanoid step on the card (thousands of
+# small launches); its time is taken over fewer steps than the kernel's
+# launch and scaled to the same work, linearly in the steps.
+PLAIN_TIMED_STEPS = dict(rollout=100, step_pd=10, step_tau=10, env_rollout=20)
+PER_STEP_LAUNCHES = 100  # K2 main path
+ENV_STEPS = 20  # BatchedEnv.step main path
+# ES main path: examples/train_es_mlp.py uncut.
+ES = dict(candidates=8, envs_per=1024, hidden=16, steps=500, generations=3, sigma=0.05, lr=0.03)
+ES_OPTIONS = dict(episode_length=400, healthy_z_range=(0.6, 1.2), tau_limit=100.0)
+# Kernel vs plain: the limit on |Δ| in every state field (s, sd, p, q, v,
+# m) and in the reward sums, taken per env as the largest entry, then over
+# the envs by the case's statistic (below).
 TOL = 1e-3
 # (start state, steps, statistic over envs). From rest every env is held at
 # its max. With the joints moving, float32 rounding alone sends a few envs of
@@ -45,14 +75,48 @@ CASES = (
     ("humanoid23 joints moving", 10, "max"),
     ("humanoid23 joints moving", 100, "p99.9"),
 )
+# m, the healthy range of the K5 real-terminations case: from the joints-
+# moving start, under the stable policy of that case, most envs sink below
+# 0.87 m within 100 steps, so episodes end by height. A policy that leaves
+# (0.6, 1.2) m as fast is chaotic enough that rounding alone moves when
+# episodes end: there the float32 and float64 plain versions disagree on the
+# step counts of many envs (``chip_probe.py terminations``).
+TERMINATION_Z = (0.87, 1.2)
 # m, plausible base heights after the main path: a humanoid that fell lies
 # with the pelvis centre about its smallest half-extent (0.075 m) above the
 # ground; lower means it sank through the floor, higher that it flew off.
 HEIGHT_BAND = (0.05, 1.2)
+# The card's peaks (NVIDIA H100 SXM data sheet, at 700 W): float32 outside
+# the tensor cores, and device memory.
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# Envs of a main path's state over which the operations of an env-step are
+# counted and averaged (the count depends on the data: which contact points
+# touch the ground, which entries are zero).
+COUNT_ENVS = 32
+REPLACES = dict(
+    rollout="jaxsim_tpu/ops/pallas_step.py:664",
+    step_pd="jaxsim_tpu/ops/pallas_step.py:86",
+    step_tau="jaxsim_tpu/ops/pallas_step.py:178",
+    env_rollout="jaxsim_tpu/ops/pallas_step.py:787",
+)
+SOURCES = dict(
+    rollout="jaxsim_tpu_torch/csrc/rollout.cu",
+    step_pd="jaxsim_tpu_torch/csrc/step.cu",
+    step_tau="jaxsim_tpu_torch/csrc/step.cu",
+    env_rollout="jaxsim_tpu_torch/csrc/env_rollout.cu",
+)
 
 
 def _run(cmd: list[str]) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
 def humanoid_engine(device):
@@ -67,15 +131,15 @@ def humanoid_engine(device):
         max_penetration=0.006,
         damping_ratio=0.15,
     )
-    return BatchedEngine.build(model.replace(contact_params=params)).to(device)
+    return BatchedEngine.build(model.replace(contact_params=params), device=device)
 
 
 def pendulum_engine(device):
     from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, models
 
     return BatchedEngine.build(
-        JaxSimModel.build_from_model_description(models.build_pendulum_urdf(1))
-    ).to(device)
+        JaxSimModel.build_from_model_description(models.build_pendulum_urdf(1)), device=device
+    )
 
 
 def per_env_abs_diff(a, b) -> dict:
@@ -83,6 +147,7 @@ def per_env_abs_diff(a, b) -> dict:
     return {
         k: (x - y).abs().reshape(-1, x.shape[-1]).amax(0)
         for k, x, y in zip("s sd p q v m".split(), a.fields(), b.fields())
+        if x.numel()
     }
 
 
@@ -92,29 +157,25 @@ def all_finite(state) -> bool:
     return all(bool(torch.isfinite(t).all()) for t in state.fields())
 
 
-def compare(name, engine, state, n_steps, stat, sync) -> float:
-    """Kernel vs plain version on the same state. Fails when ``stat`` (max or
-    p99.9 over envs) of any field's per-env |Δ| exceeds TOL; returns the
-    largest max |Δ| over the fields."""
+def gate(name: str, diff: dict, stat: str) -> float:
+    """Fails when ``stat`` (max or p99.9 over envs) of any entry's per-env
+    |Δ| exceeds TOL; returns the largest max |Δ| over the entries."""
     import torch
 
-    from jaxsim_tpu_torch.ops import cuda_rollout
-
-    kern = cuda_rollout.rollout(engine, state, n_steps)
-    plain = cuda_rollout.rollout_reference(engine, state, n_steps)
-    sync()
-    if not (all_finite(kern) and all_finite(plain)):
-        raise RuntimeError(f"{name}: non-finite state after {n_steps} steps")
-    diff = per_env_abs_diff(kern, plain)
     err = {k: float(d.max()) for k, d in diff.items()}
     p999 = {k: float(torch.quantile(d.double(), 0.999)) for k, d in diff.items()}
-    print(f"{name}: kernel vs plain after {n_steps} steps, max |Δ| {json.dumps(err)}, "
-          f"p99.9 over envs {json.dumps(p999)}", flush=True)
+    print(f"{name}: max |Δ| {json.dumps(err)}, p99.9 over envs {json.dumps(p999)}", flush=True)
     gated = err if stat == "max" else p999
     bad = {k: e for k, e in gated.items() if not e <= TOL}
     if bad:
         raise RuntimeError(f"{name}: kernel disagrees with plain beyond {TOL} ({stat}): {bad}")
     return max(err.values())
+
+
+def compare_states(name, kern, plain, stat) -> float:
+    if not (all_finite(kern) and all_finite(plain)):
+        raise RuntimeError(f"{name}: non-finite state")
+    return gate(name, per_env_abs_diff(kern, plain), stat)
 
 
 def moving_joints(state, gen):
@@ -145,6 +206,119 @@ def start_states(pend, hum) -> dict:
     }
 
 
+def counters() -> dict[str, int]:
+    from jaxsim_tpu_torch.ops import cuda_env_rollout, cuda_rollout, cuda_step
+
+    return dict(
+        rollout=cuda_rollout.ROLLOUT_KERNEL_LAUNCHES,
+        step_pd=cuda_step.STEP_PD_KERNEL_LAUNCHES,
+        step_tau=cuda_step.STEP_TAU_KERNEL_LAUNCHES,
+        env_rollout=cuda_env_rollout.ENV_ROLLOUT_KERNEL_LAUNCHES,
+    )
+
+
+def zero_counters() -> None:
+    from jaxsim_tpu_torch.ops import cuda_env_rollout, cuda_rollout, cuda_step
+
+    cuda_rollout.ROLLOUT_KERNEL_LAUNCHES = 0
+    cuda_step.STEP_PD_KERNEL_LAUNCHES = 0
+    cuda_step.STEP_TAU_KERNEL_LAUNCHES = 0
+    cuda_env_rollout.ENV_ROLLOUT_KERNEL_LAUNCHES = 0
+
+
+def main_path(name: str, expect: dict[str, int], drive):
+    """Run ``drive()`` with every launch counter set to 0 just before it;
+    fail unless the counts read just after are ``expect`` (0 elsewhere)."""
+    zero_counters()
+    out = drive()
+    got = counters()
+    want = {k: expect.get(k, 0) for k in got}
+    print(f"main path {name}: launches {json.dumps(got)}", flush=True)
+    if got != want:
+        raise RuntimeError(f"main path {name} launched {got}, expected {want}")
+    return out, got
+
+
+def device_ms(fn, repeats: int) -> list[float]:
+    """CUDA-event milliseconds of each of ``repeats`` calls of ``fn``."""
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def wall_ms(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for the work, and what binds."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def state_bytes(engine, B: int) -> int:
+    return 4 * B * (2 * engine.n_joints + 3 + 4 + 6 + 3 * engine.m_rows)
+
+
+def ops_per_env_step(engine, step_state, env_state, policy_weights, **options) -> dict[str, float]:
+    """Floating-point operations one env-step needs (see
+    ``jaxsim_tpu_torch.ops.flop_count``), counted on a CPU copy of the engine
+    at the run's own data, envs 1..COUNT_ENVS of a main path's state: the
+    step under the PD policy at ``step_state``; the env rollout's step, with
+    its policy, reward and reset selection, at ``env_state``; and, for
+    reference, the step with generic model arrays in place of the
+    humanoid's, which keeps only the algebra's own zeros."""
+    from jaxsim_tpu_torch.ops import cuda_env_rollout, cuda_step, flop_count
+
+    def cpu(state):
+        return flop_count.head(type(state)(*(t.cpu() for t in state.fields())), COUNT_ENVS + 1)
+
+    step_state, env_state = cpu(step_state), cpu(env_state)
+    generic = flop_count.generic_arrays(engine)
+    return dict(
+        step=flop_count.least_step_ops(engine, lambda st: cuda_step.step_pd_reference(engine, st), step_state),
+        env_step=flop_count.least_step_ops(engine, lambda st: cuda_env_rollout.env_rollout_reference(
+            engine, st, 1, **policy_weights, **options), env_state),
+        step_generic_model=flop_count.least_step_ops(engine, lambda st: cuda_step.step_tau_reference(
+            engine, st, -60.0 * st.s - 0.5 * st.sd, generic), step_state, pr=generic),
+    )  # fmt: skip
+
+
+def es_sizes(n: int, d: int) -> list[int]:
+    """Sizes of an MLP candidate's W1, b1, W2, b2, flattened in that order."""
+    H = ES["hidden"]
+    return [H * d, H, n * H, n]
+
+
+def es_population(theta_mu, gen, n: int, d: int):
+    """ES candidates around the mean ``theta_mu``, as examples/train_es_mlp.py
+    samples them: antithetic perturbations ``theta_mu ± sigma·eps``, returned
+    with the weights (a leading population axis, one candidate per 1024-env
+    slice)."""
+    import torch
+
+    H, P = ES["hidden"], ES["candidates"]
+    eps = torch.randn(P // 2, theta_mu.numel(), generator=gen, device=theta_mu.device)
+    eps = torch.cat([eps, -eps])
+    parts = torch.split(theta_mu[None] + ES["sigma"] * eps, es_sizes(n, d), dim=1)
+    shapes = ((H, d), (H, 1), (n, H), (n, 1))
+    return eps, {k: t.reshape(P, *s).contiguous() for k, t, s in zip(("W1", "b1", "W2", "b2"), parts, shapes)}
+
+
 def main() -> int:
     import torch
 
@@ -155,87 +329,273 @@ def main() -> int:
     print(_run(["nvcc", "--version"]).splitlines()[-1], flush=True)
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
 
-    from jaxsim_tpu_torch.ops import cuda_rollout
+    from jaxsim_tpu_torch.envs import BatchedEnv
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_env_rollout, cuda_rollout, cuda_step
+    from jaxsim_tpu_torch.ops.policies import obs_dim
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    device = torch.device("cuda:0")
+    device = torch.device(DEVICE)
     sync = torch.cuda.synchronize
+    t_start = time.perf_counter()
 
-    # ----- build -----
     hum = humanoid_engine(device)
     pend = pendulum_engine(device)
-    t0 = time.perf_counter()
-    builds = [cuda_rollout.build(e) for e in (pend, hum)]
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {[round(b.seconds, 2) for b in builds]} s)")
+    n, d = hum.n_joints, obs_dim(hum.n_joints)
+    gen = torch.Generator(device).manual_seed(1)
+    # The real-terminations case's linear policy: the PD gains written as a
+    # linear policy, perturbed by 0.01·N, with a 0.5·N bias (TERMINATION_Z).
+    W = torch.zeros(n, d, device=device)
+    W[:, :n] = -60.0 * torch.eye(n, device=device)
+    W[:, n : 2 * n] = -0.5 * torch.eye(n, device=device)
+    lin = dict(W=W + 0.01 * torch.randn(n, d, generator=gen, device=device),
+               b=0.5 * torch.randn(n, 1, generator=gen, device=device))  # fmt: skip
+    theta_mu = 0.1 * torch.randn(sum(es_sizes(n, d)), generator=gen, device=device)
+    _, mlp = es_population(theta_mu, gen, n, d)
+    pols = {k: cuda_env_rollout.make_policy(hum, **w) for k, w in (("linear", lin), ("mlp", mlp))}
+
+    # ----- build: every library at once -----
+    with phase("build"):
+        jobs = [cuda_rollout.job(pend), cuda_rollout.job(hum), cuda_step.job(pend), cuda_step.job(hum),
+                *(cuda_env_rollout.job(hum, p) for p in pols.values())]  # fmt: skip
+        builds = cuda_build.build_many(jobs)
+    print(f"nvcc seconds {[round(b.seconds, 2) for b in builds]}")
     for b in builds:
         print(f"ptxas {b.path.parent.name}: " + " | ".join(
             ln.strip() for ln in b.ptxas_log.splitlines() if "registers" in ln or "spill" in ln or "stack frame" in ln
-        ), flush=True)
+        ), flush=True)  # fmt: skip
 
-    # ----- kernel vs plain -----
-    starts = start_states(pend, hum)
-    state0 = starts["humanoid23 main-path start"][1]
-    max_errs = []
-    for name, n_steps, stat in CASES:
-        engine, state = starts[name]
-        err = compare(f"{name} B={state.p.shape[-1]}", engine, state, n_steps, stat, sync)
-        if stat == "max":
-            max_errs.append(err)
+    # ----- K1, K2, K3 vs plain: one plain trajectory gates all three -----
+    # The plain versions of K1 (rollout_reference), K2 (step_pd_reference,
+    # chained) and K3 (step_tau_reference with the PD torques, chained) are
+    # the same twin steps under the same PD torques, so one plain run holds
+    # all three kernels.
+    max_errs = {k: [] for k in SOURCES}
+    with phase("K1 K2 K3 vs plain"):
+        starts = start_states(pend, hum)
+        state0 = starts["humanoid23 main-path start"][1]
+        for name, n_steps, stat in CASES:
+            engine, state = starts[name]
+            label = f"{name} B={state.p.shape[-1]} {n_steps} steps"
+            plain = cuda_rollout.rollout_reference(engine, state, n_steps)
+            k3 = state
+            for _ in range(n_steps):
+                k3 = cuda_step.step_tau(engine, k3, (-60.0 * k3.s - 0.5 * k3.sd).contiguous())
+            kernels = dict(
+                rollout=cuda_rollout.rollout(engine, state, n_steps),
+                step_pd=cuda_step.rollout_per_step(engine, state, n_steps),
+                step_tau=k3,
+            )
+            sync()
+            for kname, kern in kernels.items():
+                err = compare_states(f"{kname} vs plain, {label}", kern, plain, stat)
+                if stat == "max":
+                    max_errs[kname].append(err)
 
-    # ----- main path -----
-    cuda_rollout.ROLLOUT_KERNEL_LAUNCHES = 0
-    out = cuda_rollout.rollout(hum, state0, HORIZON)  # warm-up
-    sync()
-    wall, dev_ms = [], []
-    for _ in range(TIMED_CALLS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        out = cuda_rollout.rollout(hum, out, HORIZON)
-        end.record()
+        # K3 under call-time model arrays.
+        moving = starts["humanoid23 joints moving"][1]
+        pr = {"M": (1.2 * hum.M).contiguous()}
+        scaled, unscaled, plain = moving, moving, moving
+        for _ in range(10):
+            scaled = cuda_step.step_tau(hum, scaled, (-60.0 * scaled.s - 0.5 * scaled.sd).contiguous(), pr)
+            unscaled = cuda_step.step_tau(hum, unscaled, (-60.0 * unscaled.s - 0.5 * unscaled.sd).contiguous())
+            plain = cuda_step.step_tau_reference(hum, plain, -60.0 * plain.s - 0.5 * plain.sd, pr)
         sync()
-        wall.append(time.perf_counter() - t0)
-        dev_ms.append(start.elapsed_time(end))
-    launches = cuda_rollout.ROLLOUT_KERNEL_LAUNCHES
-    kernel_s = statistics.median(wall)
-    print(f"kernel: {BATCH}x{HORIZON} steps per call, wall s {wall}, device ms {dev_ms}")
-    print(f"kernel env_steps_per_s (median): {BATCH * HORIZON / kernel_s:.6g}", flush=True)
+        max_errs["step_tau"].append(compare_states("step_tau vs plain, pr M x1.2, 10 steps", scaled, plain, "max"))
+        moved = max(float(d.max()) for d in per_env_abs_diff(scaled, unscaled).values())
+        print(f"step_tau: M x1.2 moves the state by {moved:.6g} after 10 steps")
+        if not moved > 1e-4:
+            raise RuntimeError("K3 ignored the call-time model arrays")
 
-    sync()
-    t0 = time.perf_counter()
-    plain = cuda_rollout.rollout_reference(hum, state0, HORIZON)
-    sync()
-    plain_s = time.perf_counter() - t0
-    print(f"plain twin: {BATCH}x{HORIZON} steps in {plain_s:.4f} s, env_steps_per_s {BATCH * HORIZON / plain_s:.6g}")
+    # ----- K5 vs plain -----
+    def env_case(label, state, n_steps, stat, resets_share, **kw):
+        kern = cuda_env_rollout.env_rollout(hum, state, n_steps, **kw)
+        plain = cuda_env_rollout.env_rollout_reference(hum, state, n_steps, **kw)
+        sync()
+        same_resets = float((kern[2] == plain[2]).float().mean())
+        same_steps = float((kern[3] == plain[3]).float().mean())
+        print(f"env_rollout {label}: envs that reset {int((plain[2] > 0).sum())} of {BATCH}, resets "
+              f"{int(plain[2].sum())}; resets equal in {same_resets:.6f}, steps in {same_steps:.6f} of envs")  # fmt: skip
+        if same_resets < resets_share or same_steps < resets_share:
+            raise RuntimeError(f"env_rollout {label}: resets or steps differ beyond {resets_share}")
+        if not (all_finite(kern[0]) and bool(torch.isfinite(kern[1]).all())):
+            raise RuntimeError(f"env_rollout {label}: non-finite output")
+        diff = {**per_env_abs_diff(kern[0], plain[0]), "reward_sum": (kern[1] - plain[1]).abs()}
+        err = gate(f"env_rollout vs plain, {label}", diff, stat)
+        if stat == "max":
+            max_errs["env_rollout"].append(err)
+        return kern
 
-    # ----- checks -----
-    if launches != 1 + TIMED_CALLS:
-        raise RuntimeError(f"main path launched the kernel {launches} times, expected {1 + TIMED_CALLS}")
-    if not (all_finite(out) and all_finite(plain)):
-        raise RuntimeError("non-finite final state")
-    z = out.p[2]
-    z_min, z_max = float(z.min()), float(z.max())
-    standing = float((z > 0.5).float().mean())
-    print(f"base height after {(1 + TIMED_CALLS) * HORIZON} steps: min {z_min:.4f} m,"
-          f" max {z_max:.4f} m, share of envs above 0.5 m {standing:.4f}")
-    if not HEIGHT_BAND[0] <= z_min <= z_max <= HEIGHT_BAND[1]:
-        raise RuntimeError(f"base height outside {HEIGHT_BAND} m")
+    with phase("K5 vs plain"):
+        truncation = dict(episode_length=4, healthy_z_range=(-1e6, 1e6), tau_limit=100.0, **mlp)
+        env_case("truncation only, MLP H=16 P=8, episodes of 4, 10 steps", state0, 10, "max", 1.0, **truncation)
+        env_case(f"real terminations, linear, z in {TERMINATION_Z}, 100 steps", moving, 100, "p99.9", 0.999,
+                 healthy_z_range=TERMINATION_Z, **lin)  # fmt: skip
+        noisy = env_case("reset noise 0.02, MLP, episodes of 4, 8 steps", state0, 8, "max", 1.0,
+                         reset_noise=0.02, seed=5, **truncation)  # fmt: skip
+        spread = float((noisy[0].p[0] - state0.p[0]).std())
+        print(f"env_rollout: respawned p[0] - start p[0] std {spread:.6g} (asked 0.02)")
+        if not 0.018 <= spread <= 0.022:
+            raise RuntimeError("reset noise off its standard deviation")
 
+    # ----- main paths -----
+    results = {}
+    with phase("main path: flagship rollout (K1)"):
+        def flagship():
+            out = cuda_rollout.rollout(hum, state0, HORIZON)  # warm-up
+            sync()
+            times = []
+            for _ in range(TIMED_CALLS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                out = cuda_rollout.rollout(hum, out, HORIZON)
+                end.record()
+                sync()
+                times.append((time.perf_counter() - t0, start.elapsed_time(end)))
+            return out, times
+
+        (out, times), launches = main_path("flagship", dict(rollout=1 + TIMED_CALLS), flagship)
+        wall = [t[0] for t in times]
+        results["rollout"] = dict(launches=launches["rollout"], ms=statistics.median(t[1] for t in times))
+        print(f"K1: {BATCH}x{HORIZON} steps per call, wall s {wall}, device ms {[t[1] for t in times]}")
+        print(f"K1 env_steps_per_s (median wall): {BATCH * HORIZON / statistics.median(wall):.6g}", flush=True)
+        if not all_finite(out):
+            raise RuntimeError("non-finite final state")
+        z = out.p[2]
+        z_min, z_max = float(z.min()), float(z.max())
+        print(f"base height after {(1 + TIMED_CALLS) * HORIZON} steps: min {z_min:.4f} m,"
+              f" max {z_max:.4f} m, share of envs above 0.5 m {float((z > 0.5).float().mean()):.4f}")  # fmt: skip
+        if not HEIGHT_BAND[0] <= z_min <= z_max <= HEIGHT_BAND[1]:
+            raise RuntimeError(f"base height outside {HEIGHT_BAND} m")
+        flagship_final = out
+
+    with phase("main path: per-step rollout (K2)"):
+        def per_step():
+            cuda_step.rollout_per_step(hum, state0, 1)  # warm-up
+            sync()
+            holder = {}
+            ms = device_ms(lambda: holder.update(out=cuda_step.rollout_per_step(hum, state0, PER_STEP_LAUNCHES)), 1)[0]
+            return holder["out"], ms
+
+        (out, ms), launches = main_path("per-step rollout", dict(step_pd=1 + PER_STEP_LAUNCHES), per_step)
+        results["step_pd"] = dict(launches=launches["step_pd"], ms=ms / PER_STEP_LAUNCHES)
+        print(f"K2: {PER_STEP_LAUNCHES} launches at B={BATCH}, device ms per launch {ms / PER_STEP_LAUNCHES:.6g}")
+        if not all_finite(out):
+            raise RuntimeError("non-finite state after the per-step rollout")
+
+    with phase("main path: ES generations (K5)"):
+        def es():
+            cuda_env_rollout.env_rollout(hum, state0, ES["steps"], **ES_OPTIONS, **mlp)  # warm-up
+            sync()
+            mean, gens = theta_mu.clone(), []
+            for _ in range(ES["generations"]):
+                eps, w = es_population(mean, gen, n, d)  # fresh weights every generation
+                holder = {}
+                ms = device_ms(lambda: holder.update(
+                    out=cuda_env_rollout.env_rollout(hum, state0, ES["steps"], **ES_OPTIONS, **w)), 1)[0]  # fmt: skip
+                final, reward, resets, steps = holder["out"]
+                fitness = reward.reshape(ES["candidates"], -1).mean(1)
+                gens.append(dict(ms=ms, final=final, reward=reward, resets=resets, steps=steps, fitness=fitness))
+                adv = (fitness - fitness.mean()) / (fitness.std() + 1e-8)
+                mean = mean + ES["lr"] / (ES["candidates"] * ES["sigma"]) * (adv[:, None] * eps).sum(0)
+            return gens
+
+        gens, launches = main_path("ES", dict(env_rollout=1 + ES["generations"]), es)
+        results["env_rollout"] = dict(launches=launches["env_rollout"], ms=statistics.median(g["ms"] for g in gens))
+        lo, hi = ES_OPTIONS["healthy_z_range"]
+        for i, g in enumerate(gens):
+            per_cand = g["resets"].reshape(ES["candidates"], -1).sum(1).tolist()
+            print(f"ES generation {i}: device ms {g['ms']:.6g}, env_steps_per_s "
+                  f"{BATCH * ES['steps'] / (g['ms'] * 1e-3):.6g}, resets per candidate {per_cand}, "
+                  f"mean reward per candidate {[round(x, 4) for x in g['fitness'].tolist()]}")  # fmt: skip
+            z = g["final"].p[2]
+            if not (all_finite(g["final"]) and bool(torch.isfinite(g["reward"]).all())):
+                raise RuntimeError("ES: non-finite output")
+            # Every final state is either stepped and healthy, or respawned.
+            if not (lo <= float(z.min()) and float(z.max()) <= hi):
+                raise RuntimeError(f"ES: final base height outside the healthy range {lo, hi}")
+            if not (int(g["steps"].max()) < ES_OPTIONS["episode_length"] and int(g["resets"].sum()) > 0):
+                raise RuntimeError("ES: episode bookkeeping out of range")
+
+    with phase("main path: BatchedEnv.step (K3)"):
+        env = BatchedEnv(engine=hum, episode_length=ES_OPTIONS["episode_length"],
+                         healthy_z_range=ES_OPTIONS["healthy_z_range"])  # fmt: skip
+
+        def env_steps():
+            state, obs = env.reset(torch.Generator(device).manual_seed(2), BATCH)
+            state, obs, _, _ = env.step(state, torch.zeros(n, BATCH, device=device))  # warm-up
+            sync()
+            t0 = time.perf_counter()
+            rewards = []
+            for _ in range(ENV_STEPS):
+                action = (-60.0 * state.sim.s - 0.5 * state.sim.sd).contiguous()
+                state, obs, reward, done = env.step(state, action)
+                rewards.append(reward)
+            sync()
+            return state, obs, rewards, (time.perf_counter() - t0) * 1e3 / ENV_STEPS
+
+        (state, obs, rewards, step_ms), launches = main_path("BatchedEnv.step", dict(step_tau=1 + ENV_STEPS), env_steps)
+        results["step_tau"] = dict(launches=launches["step_tau"])
+        print(f"BatchedEnv.step: B={BATCH}, wall ms per step {step_ms:.6g}")
+        if not (bool(torch.isfinite(obs).all()) and all(bool(torch.isfinite(r).all()) for r in rewards)):
+            raise RuntimeError("BatchedEnv.step: non-finite output")
+        if tuple(obs.shape) != (d, BATCH) or int(state.steps.max()) > 1 + ENV_STEPS:
+            raise RuntimeError("BatchedEnv.step: wrong shapes or step counts")
+
+    # ----- kernel and plain times at the main paths' shapes -----
+    with phase("timing"):
+        tau0 = (-60.0 * state0.s - 0.5 * state0.sd).contiguous()
+        cuda_step.step_tau(hum, state0, tau0)
+        sync()
+        results["step_tau"]["ms"] = statistics.median(device_ms(lambda: cuda_step.step_tau(hum, state0, tau0), 20))
+        plain_ms = dict(
+            rollout=wall_ms(lambda: cuda_rollout.rollout_reference(hum, state0, PLAIN_TIMED_STEPS["rollout"]))
+            * HORIZON / PLAIN_TIMED_STEPS["rollout"],
+            step_pd=wall_ms(lambda: [cuda_step.step_pd_reference(hum, state0) for _ in range(PLAIN_TIMED_STEPS["step_pd"])])
+            / PLAIN_TIMED_STEPS["step_pd"],
+            step_tau=wall_ms(lambda: [cuda_step.step_tau_reference(hum, state0, tau0)
+                                      for _ in range(PLAIN_TIMED_STEPS["step_tau"])])
+            / PLAIN_TIMED_STEPS["step_tau"],
+            env_rollout=wall_ms(lambda: cuda_env_rollout.env_rollout_reference(
+                hum, state0, PLAIN_TIMED_STEPS["env_rollout"], **ES_OPTIONS, **mlp))
+            * ES["steps"] / PLAIN_TIMED_STEPS["env_rollout"],
+        )  # fmt: skip
+        print(f"plain ms for each kernel's launch (timed over {json.dumps(PLAIN_TIMED_STEPS)} steps): {json.dumps(plain_ms)}")
+
+    # ----- bounds -----
+    with phase("bounds"):
+        cpu_hum = humanoid_engine("cpu")
+        one = {k: v[0].cpu() for k, v in mlp.items()}
+        flops = ops_per_env_step(cpu_hum, flagship_final, gens[-1]["final"], one, **ES_OPTIONS)
+        print(f"float32 operations an env-step needs (twin under TorchDispatchMode, mean over {COUNT_ENVS} envs of"
+              f" the flagship's and the last ES generation's final states): {json.dumps(flops)}")  # fmt: skip
+        sb, pb = state_bytes(hum, BATCH), 4 * cuda_build.packed_params(hum).numel()
+        work = dict(
+            rollout=(flops["step"] * BATCH * HORIZON, 2 * sb + pb),
+            step_pd=(flops["step"] * BATCH, 2 * sb + pb),
+            step_tau=(flops["step"] * BATCH, 2 * sb + pb + 4 * n * BATCH),
+            env_rollout=(flops["env_step"] * BATCH * ES["steps"],
+                         2 * sb + pb + 12 * BATCH + 4 * pols["mlp"].packed().numel()),
+        )  # fmt: skip
+
+    kernels = []
+    for name in SOURCES:
+        bound_ms, bound_by = bound(*work[name])
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=results[name]["launches"], max_abs_err=max(max_errs[name]),
+            ms=results[name]["ms"], plain_ms=plain_ms[name], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None,
+        ))  # fmt: skip
+        print(f"{name}: {results[name]['ms']:.6g} ms a launch, bound {bound_ms:.6g} ms ({bound_by}), "
+              f"{100 * bound_ms / results[name]['ms']:.3g} % of the bound")  # fmt: skip
+    print(f"total: {time.perf_counter() - t_start:.2f} s")
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "rollout",
-        "route": "cuda",
-        "source": "jaxsim_tpu_torch/csrc/rollout.cu",
-        "replaces": "jaxsim_tpu/ops/pallas_step.py:664",
-        "launches": launches,
-        "max_abs_err": max(max_errs),
-        "ms": statistics.median(dev_ms),
-        "plain_ms": plain_s * 1e3,
-    }]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
-    }}))
+    }}))  # fmt: skip
     return 0
 
 

@@ -2,16 +2,20 @@
 
 The port mirrors the JAX package's module paths, so the counterpart of
 ``jaxsim_tpu/ops/batched_engine.py`` is ``jaxsim_tpu_torch/ops/batched_engine.py``.
-It imports ``torch`` and NumPy and never ``jax``. This first slice covers the
-flagship rollout: URDF → model → :class:`~jaxsim_tpu_torch.ops.batched_engine.BatchedEngine`
+It imports ``torch`` and NumPy and never ``jax``. It covers the flagship
+rollout: URDF → model → :class:`~jaxsim_tpu_torch.ops.batched_engine.BatchedEngine`
 (Hunt/Crossley soft contacts, plane terrain, semi-implicit Euler), with the
 whole horizon in one hand-written CUDA kernel
-(:mod:`jaxsim_tpu_torch.ops.cuda_rollout`).
+(:mod:`jaxsim_tpu_torch.ops.cuda_rollout`); one step per launch
+(:mod:`jaxsim_tpu_torch.ops.cuda_step`); and RL policy evaluation,
+:class:`~jaxsim_tpu_torch.envs.BatchedEnv` over the auto-resetting env
+rollout kernel (:mod:`jaxsim_tpu_torch.ops.cuda_env_rollout`). Entry points
+run on the CUDA card unless the caller names another device.
 """
 
 from __future__ import annotations
 
-from . import api, math, models, ops, parsers
+from . import api, envs, math, models, ops, parsers
 from .api.model import JaxSimModel
 from .ops.batched_engine import BatchedEngine, BatchedState
 

@@ -1,4 +1,5 @@
-"""Carry a model and a state across from the JAX package, as NumPy arrays.
+"""Carry a model, a state, an env and policy weights across from the JAX
+package, as NumPy arrays and Python values.
 
 The functions here import neither ``jax`` nor ``jaxsim_tpu``: a caller that
 has both packages (the tests) hands over NumPy arrays, e.g. from
@@ -13,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from jaxsim_tpu_torch.ops.batched_engine import BatchedEngine, BatchedState
+from jaxsim_tpu_torch.ops.batched_engine import BatchedEngine, BatchedState, resolve_device
 
 # Static fields of the JAX BatchedEngine that the port's engine takes.
 STATIC_FIELDS = (
@@ -36,6 +37,16 @@ STATIC_FIELDS = (
 )
 
 STATE_FIELDS = ("s", "sd", "p", "q", "v", "m")
+
+# Fields of the JAX BatchedEnv that the port's env takes as they are.
+ENV_FIELDS = (
+    "episode_length",
+    "action_scale",
+    "reset_base_position",
+    "reset_noise_std",
+    "healthy_z_range",
+)
+POLICY_WEIGHTS = ("W", "b", "W1", "b1", "W2", "b2")
 
 # Static fields whose value the port's engine does not implement otherwise.
 _REQUIRED = dict(
@@ -66,7 +77,8 @@ def engine_from_numpy(
     device: torch.device | str | None = None,
     dtype: torch.dtype = torch.float32,
 ) -> BatchedEngine:
-    """The port's engine from the JAX engine's static fields and ``params()``."""
+    """The port's engine from the JAX engine's static fields and ``params()``,
+    on ``device`` (by default the CUDA card)."""
     for key, want in _REQUIRED.items():
         got = static.get(key, want)
         if (tuple(got) if isinstance(want, tuple) else got) != want:
@@ -88,7 +100,8 @@ def state_from_numpy(
     dtype: torch.dtype = torch.float32,
 ) -> BatchedState:
     """A :class:`BatchedState` from ``{"s", "sd", "p", "q", "v", "m"}`` arrays
-    with a trailing batch axis."""
+    with a trailing batch axis, on ``device`` (by default the CUDA card)."""
+    device = resolve_device(device)
     return BatchedState(
         **{
             k: torch.as_tensor(np.asarray(arrays[k]), dtype=dtype, device=device)
@@ -99,3 +112,50 @@ def state_from_numpy(
 
 def state_to_numpy(state: BatchedState) -> dict[str, np.ndarray]:
     return {k: getattr(state, k).detach().cpu().numpy() for k in STATE_FIELDS}
+
+
+def reference_env_fields(env) -> dict:
+    """The :data:`ENV_FIELDS` of a ``jaxsim_tpu`` BatchedEnv, as Python values."""
+    for name in ("reward_fn", "obs_fn"):
+        if getattr(env, name) is not None:
+            raise ValueError(f"a JAX {name} closure cannot be carried across")
+    if getattr(env, "terrain_relative", False):
+        raise ValueError("terrain_relative needs Fourier terrain, not ported yet")
+    return {name: getattr(env, name) for name in ENV_FIELDS}
+
+
+def env_from_numpy(static_env_fields: dict, engine: BatchedEngine):
+    """The port's :class:`~jaxsim_tpu_torch.envs.BatchedEnv` over ``engine``
+    from a JAX BatchedEnv's :data:`ENV_FIELDS` (see :func:`reference_env_fields`)."""
+    from jaxsim_tpu_torch.envs import BatchedEnv
+
+    f = static_env_fields
+    return BatchedEnv(
+        engine=engine,
+        episode_length=int(f["episode_length"]),
+        action_scale=float(f["action_scale"]),
+        reset_base_position=tuple(float(x) for x in f["reset_base_position"]),
+        reset_noise_std=float(f["reset_noise_std"]),
+        healthy_z_range=tuple(float(x) for x in f["healthy_z_range"]),
+    )
+
+
+def policy_weights_from_numpy(
+    *,
+    device: torch.device | str | None = None,
+    dtype: torch.dtype = torch.float32,
+    **weights: np.ndarray | None,
+) -> dict[str, torch.Tensor]:
+    """The JAX env rollout's policy weights (``W``, ``b`` or ``W1``, ``b1``,
+    ``W2``, ``b2``, with or without the population axis) as the port's
+    tensors, on ``device`` (by default the CUDA card); ``None`` entries are
+    dropped."""
+    unknown = set(weights) - set(POLICY_WEIGHTS)
+    if unknown:
+        raise ValueError(f"unknown policy weights: {sorted(unknown)}")
+    device = resolve_device(device)
+    return {
+        k: torch.as_tensor(np.asarray(w), dtype=dtype, device=device).contiguous()
+        for k, w in weights.items()
+        if w is not None
+    }

@@ -1,2 +1,11 @@
-from . import batched_engine, contacts, cuda_rollout
+from . import (
+    batched_engine,
+    contacts,
+    cuda_build,
+    cuda_env_rollout,
+    cuda_rollout,
+    cuda_step,
+    philox,
+    policies,
+)
 from .batched_engine import BatchedEngine, BatchedState

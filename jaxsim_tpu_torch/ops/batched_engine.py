@@ -158,6 +158,20 @@ def _chol6_substitute(L, b):
     return torch.stack(x)
 
 
+def _articulated(MA, pA, U, inv_d, u, c):
+    """ABA pass 2 at one link: the articulated inertia and bias force the
+    link hands its parent, Mₐ = MA − U Uᵀ/d and pₐ = pA + Mₐ c + U u/d."""
+    Ma = MA - U.unsqueeze(1) * U.unsqueeze(0) * inv_d
+    return Ma, pA + _mv(Ma, c) + U * (u * inv_d)
+
+
+def _to_parent(MA_parent, pA_parent, R, p, Ma, pa):
+    """Accumulate a link's Mₐ and pₐ into its parent's, through the explicit
+    6×6 ``X`` of the child→parent (R, p) pair: Xᵀ Mₐ X and Xᵀ pₐ."""
+    X = _build_X(R, p)
+    return MA_parent + _mm(X.transpose(0, 1), _mm(Ma, X)), pA_parent + _mtv(X, pa)
+
+
 def _vx(v, w):
     """Motion cross product ν × w: [[ω̂, v̂],[0, ω̂]] w."""
     vl, va = v[0:3], v[3:6]
@@ -176,6 +190,21 @@ def _vxstar_Mv(v, M):
 # ----------------------------------------------------------------------
 # State + engine
 # ----------------------------------------------------------------------
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The device an entry point runs on: the caller's, else the CUDA card.
+
+    With no device named and no CUDA device visible this raises instead of
+    running on the CPU: a CPU run is asked for with ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible and no device was named: pass"
+            ' device="cpu" to run the plain PyTorch version on the CPU'
+        )
+    return torch.device("cuda")
 
 
 @dataclasses.dataclass
@@ -229,7 +258,9 @@ class BatchedEngine(nn.Module):
         dtype: torch.dtype = torch.float32,
         device: torch.device | str | None = None,
     ):
+        """``device`` defaults to the CUDA card (see :func:`resolve_device`)."""
         super().__init__()
+        device = resolve_device(device)
         self.n_links = int(n_links)
         self.n_joints = int(n_joints)
         self.n_points = int(n_points)
@@ -275,7 +306,8 @@ class BatchedEngine(nn.Module):
     ) -> "BatchedEngine":
         """Lower a :class:`~jaxsim_tpu_torch.api.model.JaxSimModel` (soft
         contacts, flat ground, semi-implicit Euler: the only configuration
-        the port's model expresses) to engine arrays."""
+        the port's model expresses) to engine arrays, on ``device`` (by
+        default the CUDA card; see :func:`resolve_device`)."""
         kdp = model.kin_dyn_parameters
         cp = kdp.contact_parameters
         idx = cp.indices_of_enabled_collidable_points
@@ -306,9 +338,21 @@ class BatchedEngine(nn.Module):
             device=device,
         )
 
-    def params(self) -> dict[str, torch.Tensor]:
-        """The numeric model arrays by name."""
-        return {name: getattr(self, name) for name in self.PARAM_NAMES}
+    def params(self, pr: dict[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
+        """The numeric model arrays by name; entries of ``pr`` override the
+        engine's own (the call-time model arrays of the JAX engine's ``pr``)."""
+        own = {name: getattr(self, name) for name in self.PARAM_NAMES}
+        if pr is None:
+            return own
+        unknown = set(pr) - set(own)
+        if unknown:
+            raise ValueError(f"unknown model arrays in pr: {sorted(unknown)}")
+        for name, t in pr.items():
+            if tuple(t.shape) != tuple(own[name].shape):
+                raise ValueError(
+                    f"pr[{name!r}] must have shape {tuple(own[name].shape)}, got {tuple(t.shape)}"
+                )
+        return {**own, **pr}
 
     @property
     def m_rows(self) -> int:
@@ -349,22 +393,22 @@ class BatchedEngine(nn.Module):
 
     # ----- kinematics -----
 
-    def _relative_transforms(self, s):
+    def _relative_transforms(self, s, pr):
         """Forward parent→child (R, p) pairs per joint i = 1..nL-1."""
         out_R, out_p = [], []
         eye = _c(torch.eye(3, dtype=s.dtype, device=s.device))
         for j in range(1, self.n_joints + 1):
-            lamH, sucH = self.lamH[j], self.sucH[j]
+            lamH, sucH = pr["lamH"][j], pr["sucH"][j]
             jt = self.joint_types[j]
             th = s[j - 1]
             if jt == 1:  # revolute: Rodrigues about the joint axis
-                K = _skew(self.axis[j - 1])
+                K = _skew(pr["axis"][j - 1])
                 K2 = _mm(K, K)
                 R_j = eye + torch.sin(th) * _c(K) + (1 - torch.cos(th)) * _c(K2)
                 p_j = torch.zeros((3,) + th.shape, dtype=th.dtype, device=th.device)
             elif jt == 2:  # prismatic
                 R_j = eye.expand(3, 3, th.shape[0])
-                p_j = _c(self.axis[j - 1]) * th
+                p_j = _c(pr["axis"][j - 1]) * th
             else:  # fixed
                 R_j = eye.expand(3, 3, th.shape[0])
                 p_j = torch.zeros((3,) + th.shape, dtype=th.dtype, device=th.device)
@@ -378,12 +422,13 @@ class BatchedEngine(nn.Module):
             out_p.append(p_a + _mv(R_a, p2))
         return out_R, out_p
 
-    def fk(self, state: BatchedState):
+    def fk(self, state: BatchedState, pr=None):
         """World (R, p) pose pairs + inertial 6D velocities of all links."""
-        rel_R, rel_p = self._relative_transforms(state.s)
+        pr = self.params(pr)
+        rel_R, rel_p = self._relative_transforms(state.s, pr)
 
         R_B = _quat_to_rot(state.q)
-        suc0 = self.sucH[0]
+        suc0 = pr["sucH"][0]
         W_R = [_mm(R_B, _c(suc0[:3, :3]))]
         W_p = [state.p + _mv(R_B, _c(suc0[:3, 3]))]
         W_v = [state.v if self.floating_base else torch.zeros_like(state.v)]
@@ -395,7 +440,7 @@ class BatchedEngine(nn.Module):
             pi = pl + _mv(Rl, rel_p[i - 1])
             W_R.append(Ri)
             W_p.append(pi)
-            S = _c(self.S[i])
+            S = _c(pr["S"][i])
             sdi = state.sd[i - 1]
             RSa = _mv(Ri, S[3:6] * sdi)
             dv = torch.cat([_mv(Ri, S[0:3] * sdi) + _cross(pi, RSa), RSa])
@@ -404,7 +449,7 @@ class BatchedEngine(nn.Module):
 
     # ----- contacts -----
 
-    def soft_contact_forces(self, W_R, W_p, W_v, m):
+    def soft_contact_forces(self, W_R, W_p, W_v, m, pr=None):
         """Hunt/Crossley per point, vectorized over the points; per-link 6D
         inertial forces (list of (6,B) or None) and ṁ (nC,3,B)."""
         f_links = [None] * self.n_links
@@ -420,7 +465,7 @@ class BatchedEngine(nn.Module):
         Rp = torch.stack([W_R[i] for i in parents], 2)  # (3,3,nC,B)
         pp = torch.stack([W_p[i] for i in parents], 1)  # (3,nC,B)
         vp = torch.stack([W_v[i] for i in parents], 1)  # (6,nC,B)
-        Lp = self.cpoint.transpose(0, 1)[:, :, None]  # (3,nC,1)
+        Lp = self.params(pr)["cpoint"].transpose(0, 1)[:, :, None]  # (3,nC,1)
         pc = _mv(Rp, Lp) + pp
         pd = vp[0:3] + _cross(vp[3:6], pc)
 
@@ -480,11 +525,13 @@ class BatchedEngine(nn.Module):
 
     # ----- dynamics -----
 
-    def aba(self, state: BatchedState, W_R, W_p, W_v, f_ext, tau):
+    def aba(self, state: BatchedState, W_R, W_p, W_v, f_ext, tau, pr=None):
         """Articulated-Body Algorithm, trailing batch, unrolled tree.
         ``f_ext``: per-link world 6D forces, (6,B) or None."""
         nL = self.n_links
-        rel_R, rel_p = self._relative_transforms(state.s)
+        pr = self.params(pr)
+        S_all, M_all = pr["S"], pr["M"]
+        rel_R, rel_p = self._relative_transforms(state.s, pr)
         zb = torch.zeros_like(state.p[0])
         g6 = torch.stack([zb, zb, zb + self.gravity_z, zb, zb, zb])
 
@@ -502,17 +549,17 @@ class BatchedEngine(nn.Module):
         MA = [None] * nL
         v[0] = _xv(R0_inv, p0_inv, state.v) if self.floating_base else torch.zeros_like(state.v)
 
-        MA[0] = _c(self.M[0])
+        MA[0] = _c(M_all[0])
         pA[0] = _vxstar_Mv(v[0], MA[0])
         if f_ext[0] is not None:
             pA[0] = pA[0] - _xtf(R0, p0, f_ext[0])
 
         for i in range(1, nL):
             lam = self.lam[i]
-            vJ = _c(self.S[i]) * state.sd[i - 1]
+            vJ = _c(S_all[i]) * state.sd[i - 1]
             v[i] = _xv(inv_R[i], inv_p[i], v[lam]) + vJ
             c[i] = _vx(v[i], vJ)
-            MA[i] = _c(self.M[i])
+            MA[i] = _c(M_all[i])
             pA[i] = _vxstar_Mv(v[i], MA[i])
             if f_ext[i] is not None:
                 pA[i] = pA[i] - _xtf(W_R[i], W_p[i], f_ext[i])
@@ -522,17 +569,14 @@ class BatchedEngine(nn.Module):
         u = [None] * nL
         for i in range(nL - 1, 0, -1):
             lam = self.lam[i]
-            S = _c(self.S[i])
+            S = _c(S_all[i])
             U[i] = _mv(MA[i], S)
             d[i] = (S * U[i]).sum(0)
             u[i] = tau[i - 1] - (S * pA[i]).sum(0)
             inv_d = 1.0 / d[i]
-            Ma = MA[i] - U[i].unsqueeze(1) * U[i].unsqueeze(0) * inv_d
-            pa = pA[i] + _mv(Ma, c[i]) + U[i] * (u[i] * inv_d)
+            Ma, pa = _articulated(MA[i], pA[i], U[i], inv_d, u[i], c[i])
             if lam != 0 or self.floating_base:
-                X = _build_X(inv_R[i], inv_p[i])
-                MA[lam] = MA[lam] + _mm(X.transpose(0, 1), _mm(Ma, X))
-                pA[lam] = pA[lam] + _mtv(X, pa)
+                MA[lam], pA[lam] = _to_parent(MA[lam], pA[lam], inv_R[i], inv_p[i], Ma, pa)
 
         if self.floating_base:
             a0 = -_chol6_substitute(_chol6_factor(MA[0]), pA[0])
@@ -547,7 +591,7 @@ class BatchedEngine(nn.Module):
             a_i = _xv(inv_R[i], inv_p[i], a[lam]) + c[i]
             sdd_i = (u[i] - (U[i] * a_i).sum(0)) / d[i]
             sdd[i - 1] = sdd_i
-            a[i] = a_i + _c(self.S[i]) * sdd_i
+            a[i] = a_i + _c(S_all[i]) * sdd_i
 
         W_a = _xv(R0, p0, a0) + g6 if self.floating_base else torch.zeros_like(g6)
         sdd_out = torch.stack(sdd) if sdd else torch.zeros_like(state.s)
@@ -574,13 +618,17 @@ class BatchedEngine(nn.Module):
     def _normalize_quat(q):
         return q / torch.sqrt(torch.clamp((q * q).sum(0), min=1e-12))
 
-    def step(self, state: BatchedState, tau: torch.Tensor | None = None) -> BatchedState:
-        """One semi-implicit Euler step with soft contacts."""
+    def step(
+        self, state: BatchedState, tau: torch.Tensor | None = None, pr=None
+    ) -> BatchedState:
+        """One semi-implicit Euler step with soft contacts. ``pr`` overrides
+        model arrays by name (see :meth:`params`) for this step only."""
         tau = tau if tau is not None else torch.zeros_like(state.s)
+        pr = self.params(pr)
 
-        W_R, W_p, W_v = self.fk(state)
-        f_links, md = self.soft_contact_forces(W_R, W_p, W_v, state.m)
-        W_a, sdd = self.aba(state, W_R, W_p, W_v, f_links, tau)
+        W_R, W_p, W_v = self.fk(state, pr)
+        f_links, md = self.soft_contact_forces(W_R, W_p, W_v, state.m, pr)
+        W_a, sdd = self.aba(state, W_R, W_p, W_v, f_links, tau, pr)
 
         dt = self.dt
         v_new = state.v + dt * W_a
@@ -603,10 +651,11 @@ class BatchedEngine(nn.Module):
             m=state.m + dt * md,
         )
 
-    def rollout(self, state: BatchedState, n_steps: int, policy=None) -> BatchedState:
+    def rollout(self, state: BatchedState, n_steps: int, policy=None, pr=None) -> BatchedState:
         """``n_steps`` of :meth:`step`; ``policy(state) -> (n, B)`` torques,
-        by default the PD policy ``-60·s - 0.5·ṡ``."""
+        by default the PD policy ``-60·s - 0.5·ṡ``; ``pr`` as in :meth:`step`."""
         policy = policy or (lambda st: -60.0 * st.s - 0.5 * st.sd)
+        pr = self.params(pr)
         for _ in range(n_steps):
-            state = self.step(state, policy(state))
+            state = self.step(state, policy(state), pr)
         return state

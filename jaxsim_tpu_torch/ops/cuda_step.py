@@ -1,0 +1,123 @@
+"""One engine step per CUDA kernel launch (K2 and K3).
+
+Counterparts of ``jaxsim_tpu/ops/pallas_step.py``:
+
+* :func:`step_pd` of ``build_pallas_step`` (``_step_kernel``, K2) under its
+  default closure, the PD policy ``tau = -kp·s - kd·ṡ``. CUDA expresses no
+  other closure: a Python ``policy`` on a CUDA state raises.
+* :func:`step_tau` of ``build_pallas_step_tau`` (``_step_tau_kernel``, K3):
+  torques as an input, and ``pr``, the model arrays by name, at call time.
+  The arrays are packed into the kernel's parameter buffer on every call,
+  so a changed ``M`` needs no rebuild.
+* :func:`rollout_per_step` of ``pallas_rollout``: one K2 launch a step.
+
+Both kernels are ``jaxsim_tpu_torch/csrc/step.cu``. Each wrapper takes its
+plain version (:func:`step_pd_reference`, :func:`step_tau_reference`, which
+call the twin) for a CPU state and its kernel for a CUDA state; a failed
+build or launch raises.
+"""
+
+from __future__ import annotations
+
+from . import cuda_build
+from .batched_engine import BatchedEngine, BatchedState
+from .cuda_build import CSRC, F32, I32, PTR, BuildJob, KernelBuild, packed_params
+
+# Launches of each CUDA kernel made by the wrappers below, in this process.
+STEP_PD_KERNEL_LAUNCHES = 0
+STEP_TAU_KERNEL_LAUNCHES = 0
+
+SOURCE = CSRC / "step.cu"
+SIGNATURES = {
+    "jx_step_pd": [PTR] * 13 + [I32] + [F32] * 10 + [PTR],
+    "jx_step_tau": [PTR] * 14 + [I32] + [F32] * 8 + [PTR],
+}
+
+
+def job(engine: BatchedEngine) -> BuildJob:
+    return BuildJob(engine, SOURCE, SIGNATURES)
+
+
+def build(engine: BatchedEngine) -> KernelBuild:
+    return cuda_build.build(job(engine))
+
+
+def step_pd_reference(
+    engine: BatchedEngine, state: BatchedState, kp: float = 60.0, kd: float = 0.5
+) -> BatchedState:
+    """The plain version of K2: the twin's step under the PD policy."""
+    return engine.step(state, -kp * state.s - kd * state.sd)
+
+
+def step_tau_reference(
+    engine: BatchedEngine, state: BatchedState, tau, pr=None
+) -> BatchedState:
+    """The plain version of K3: the twin's step with ``tau`` and ``pr``."""
+    return engine.step(state, tau, pr)
+
+
+def step_pd(
+    engine: BatchedEngine, state: BatchedState, kp: float = 60.0, kd: float = 0.5
+) -> BatchedState:
+    """One step under ``tau = -kp·s - kd·ṡ``: one K2 launch for a CUDA state,
+    the plain version for a CPU state."""
+    global STEP_PD_KERNEL_LAUNCHES
+    if cuda_build.is_cpu(state, "step"):
+        return step_pd_reference(engine, state, kp, kd)
+    B = cuda_build.check_cuda_call(engine, state)
+    out = cuda_build.empty_state_like(state)
+    cuda_build.launch(
+        build(engine), "jx_step_pd", packed_params(engine), state.p.device,
+        *cuda_build.state_pointers(state), *cuda_build.state_pointers(out),
+        B, *cuda_build.engine_scalars(engine), float(kp), float(kd),
+    )  # fmt: skip
+    STEP_PD_KERNEL_LAUNCHES += 1
+    return out
+
+
+def step_tau(
+    engine: BatchedEngine, state: BatchedState, tau, pr=None
+) -> BatchedState:
+    """One step with torques ``tau (n_joints, B)`` and the model arrays
+    overridden by ``pr`` (see :meth:`BatchedEngine.params`): one K3 launch
+    for a CUDA state, the plain version for a CPU state."""
+    global STEP_TAU_KERNEL_LAUNCHES
+    if cuda_build.is_cpu(state, "step"):
+        return step_tau_reference(engine, state, tau, pr)
+    B = cuda_build.check_cuda_call(engine, state)
+    cuda_build.check_tensor("tau", tau, (engine.n_joints, B), engine.S.device)
+    for name, t in (pr or {}).items():
+        cuda_build.check_tensor(f"pr[{name!r}]", t, t.shape, engine.S.device)
+    params = packed_params(engine, pr)
+    out = cuda_build.empty_state_like(state)
+    cuda_build.launch(
+        build(engine), "jx_step_tau", params, state.p.device,
+        *cuda_build.state_pointers(state), tau.data_ptr(), *cuda_build.state_pointers(out),
+        B, *cuda_build.engine_scalars(engine),
+    )  # fmt: skip
+    STEP_TAU_KERNEL_LAUNCHES += 1
+    return out
+
+
+def rollout_per_step(
+    engine: BatchedEngine,
+    state: BatchedState,
+    n_steps: int,
+    kp: float = 60.0,
+    kd: float = 0.5,
+    policy=None,
+) -> BatchedState:
+    """``n_steps`` chained steps, one K2 launch each (the JAX
+    ``pallas_rollout``). A Python ``policy(state) -> tau`` runs only on a CPU
+    state, through the twin; on a CUDA state it raises."""
+    if policy is not None:
+        if not cuda_build.is_cpu(state, "rollout"):
+            raise ValueError(
+                "a Python policy closure cannot run inside the CUDA kernel: the"
+                " per-step kernel takes the PD gains kp, kd (or use"
+                " cuda_step.step_tau with torques computed outside)"
+            )
+        return engine.rollout(state, n_steps, policy=policy)
+    for _ in range(n_steps):
+        state = step_pd(engine, state, kp, kd)
+    return state

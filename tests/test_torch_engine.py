@@ -111,7 +111,7 @@ def _case(name):
             )
         )
     jeng = JaxEngine.build(model)
-    teng = bridge.engine_from_numpy(*bridge.reference_engine_arrays(jeng))
+    teng = bridge.engine_from_numpy(*bridge.reference_engine_arrays(jeng), device="cpu")
     rng = np.random.default_rng(7)
     arrays = {
         k: a.astype(np.float32)
@@ -150,7 +150,7 @@ def _close(got, ref, tol, what):
 def _check_fk(name):
     jeng, teng, arrays, _, _ = _case(name)
     ref = _reference(name)["fk"]
-    got = teng.fk(bridge.state_from_numpy(arrays))
+    got = teng.fk(bridge.state_from_numpy(arrays, device="cpu"))
     for name, r, g in zip(("W_R", "W_p", "W_v"), ref, got):
         for i in range(jeng.n_links):
             _close(g[i], r[i], TIER_K, f"{name}[{i}]")
@@ -179,8 +179,8 @@ def _contact_regimes(teng, W_R, W_p, W_v, m):
 def _check_contacts(name):
     jeng, teng, arrays, _, _ = _case(name)
     ref_f, ref_md = _reference(name)["contacts"]
-    W = teng.fk(bridge.state_from_numpy(arrays))
-    got_f, got_md = teng.soft_contact_forces(*W, bridge.state_from_numpy(arrays).m)
+    W = teng.fk(bridge.state_from_numpy(arrays, device="cpu"))
+    got_f, got_md = teng.soft_contact_forces(*W, bridge.state_from_numpy(arrays, device="cpu").m)
     for i in range(jeng.n_links):
         assert (got_f[i] is None) == (ref_f[i] is None), i
         if ref_f[i] is not None:
@@ -194,7 +194,7 @@ def _check_contacts(name):
 def _check_aba(name):
     jeng, teng, arrays, tau, f_ext = _case(name)
     ref = _reference(name)["aba"]
-    tst = bridge.state_from_numpy(arrays)
+    tst = bridge.state_from_numpy(arrays, device="cpu")
     got = teng.aba(tst, *teng.fk(tst), [torch.from_numpy(f) for f in f_ext], torch.from_numpy(tau))
     _close(got[0], ref[0], TIER_D, "W_a")
     _close(got[1], ref[1], TIER_D, "sdd")
@@ -203,7 +203,7 @@ def _check_aba(name):
 def _check_step(name):
     jeng, teng, arrays, tau, _ = _case(name)
     ref = bridge.reference_state_arrays(_reference(name)["step"])
-    got = bridge.state_to_numpy(teng.step(bridge.state_from_numpy(arrays), torch.from_numpy(tau)))
+    got = bridge.state_to_numpy(teng.step(bridge.state_from_numpy(arrays, device="cpu"), torch.from_numpy(tau)))
     for k in bridge.STATE_FIELDS:
         _close(got[k], ref[k], tier_t(1), k)
 
@@ -236,7 +236,7 @@ def test_humanoid_step_parts():
 
 def _rollout_matches(jeng, teng, arrays, n_steps):
     ref = bridge.reference_state_arrays(jax.jit(lambda st: jeng.rollout(st, n_steps))(_jstate(arrays)))
-    got = bridge.state_to_numpy(teng.rollout(bridge.state_from_numpy(arrays), n_steps))
+    got = bridge.state_to_numpy(teng.rollout(bridge.state_from_numpy(arrays, device="cpu"), n_steps))
     for k in bridge.STATE_FIELDS:
         _close(got[k], ref[k], tier_t(n_steps), k)
 
@@ -259,7 +259,7 @@ def test_humanoid_rollout_100_steps():
         )
     )
     jeng = JaxEngine.build(model)
-    teng = bridge.engine_from_numpy(*bridge.reference_engine_arrays(jeng))
+    teng = bridge.engine_from_numpy(*bridge.reference_engine_arrays(jeng), device="cpu")
     rng = np.random.default_rng(3)
     B = 8
     p = np.concatenate([0.01 * rng.standard_normal((2, B)), 0.9 + 0.01 * rng.standard_normal((1, B))])
@@ -272,6 +272,8 @@ def test_humanoid_rollout_100_steps():
 def test_float64_twin_runs(name):
     """The float64 option for fault triage: same model, twice the width."""
     jeng, _, arrays, tau, _ = _case(name)
-    teng = bridge.engine_from_numpy(*bridge.reference_engine_arrays(jeng), dtype=torch.float64)
-    out = teng.step(bridge.state_from_numpy(arrays, dtype=torch.float64), torch.from_numpy(tau).double())
+    teng = bridge.engine_from_numpy(
+        *bridge.reference_engine_arrays(jeng), device="cpu", dtype=torch.float64
+    )
+    out = teng.step(bridge.state_from_numpy(arrays, device="cpu", dtype=torch.float64), torch.from_numpy(tau).double())
     assert all(t.dtype == torch.float64 and torch.isfinite(t).all() for t in out.fields())

@@ -69,7 +69,7 @@ def _both(urdf: str, contact_args: dict | None = None):
             contact_params=js.contact.estimate_good_contact_parameters(jm, **contact_args)
         )
         tm = tm.replace(contact_params=estimate_good_contact_parameters(tm, **contact_args))
-    return JaxEngine.build(jm), BatchedEngine.build(tm)
+    return JaxEngine.build(jm), BatchedEngine.build(tm, device="cpu")
 
 
 def _assert_same_engine(jeng, teng, scalar_rtol):
@@ -110,7 +110,7 @@ def test_humanoid_bench_contact_parameters():
     assert (teng.n_links, teng.n_joints, teng.n_points) == (24, 23, 48)
     _assert_same_engine(jeng, teng, scalar_rtol=1e-6)
     # The bridge builds the same engine from the JAX engine's arrays.
-    beng = bridge.engine_from_numpy(*bridge.reference_engine_arrays(jeng))
+    beng = bridge.engine_from_numpy(*bridge.reference_engine_arrays(jeng), device="cpu")
     for name, t in teng.params().items():
         assert torch.equal(getattr(beng, name), t), name
 
@@ -132,4 +132,4 @@ def test_unsupported_configurations_raise():
     )
     for key, value in (("integrator", "rk4"), ("contact_model", "rigid"), ("terrain_kind", "fourier")):
         with pytest.raises(ValueError, match=key):
-            bridge.engine_from_numpy({**static, key: value}, params)
+            bridge.engine_from_numpy({**static, key: value}, params, device="cpu")

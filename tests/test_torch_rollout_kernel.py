@@ -18,7 +18,7 @@ import torch
 
 from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, bridge, models
 from jaxsim_tpu_torch.api.contact import estimate_good_contact_parameters
-from jaxsim_tpu_torch.ops import cuda_rollout
+from jaxsim_tpu_torch.ops import cuda_build, cuda_rollout
 
 torch.set_num_threads(1)
 
@@ -71,13 +71,13 @@ def test_cpu_rollout_matches_pallas_rollout_in_interpret_mode():
     from jaxsim_tpu.ops import pallas_step as ps
 
     jeng = _jax_engine(models.build_pendulum_urdf(1))
-    teng = bridge.engine_from_numpy(*bridge.reference_engine_arrays(jeng))
+    teng = bridge.engine_from_numpy(*bridge.reference_engine_arrays(jeng), device="cpu")
     arrays = _pendulum_state(teng, 128, np.random.default_rng(0))
     policy = lambda st: -KP * st.s - KD * st.sd  # noqa: E731
     with pltpu.force_tpu_interpret_mode():
         ref = ps.untile_state(ps.build_pallas_rollout(jeng, 3, policy)(ps.tile_state(_jax_state(arrays))))
     before = cuda_rollout.ROLLOUT_KERNEL_LAUNCHES
-    got = cuda_rollout.rollout(teng, bridge.state_from_numpy(arrays), 3, kp=KP, kd=KD)
+    got = cuda_rollout.rollout(teng, bridge.state_from_numpy(arrays, device="cpu"), 3, kp=KP, kd=KD)
     assert cuda_rollout.ROLLOUT_KERNEL_LAUNCHES == before  # the plain path
     got, ref = bridge.state_to_numpy(got), bridge.reference_state_arrays(ref)
     for k in bridge.STATE_FIELDS:
@@ -94,7 +94,7 @@ def test_cpu_rollout_matches_engine_rollout(name, monkeypatch):
 
     urdf = models.build_pendulum_urdf(2) if name == "pendulum2" else models.build_sphere_urdf()
     jeng = _jax_engine(urdf)
-    teng = bridge.engine_from_numpy(*bridge.reference_engine_arrays(jeng))
+    teng = bridge.engine_from_numpy(*bridge.reference_engine_arrays(jeng), device="cpu")
     rng = np.random.default_rng(1)
     if name == "pendulum2":
         arrays = _pendulum_state(teng, 32, rng)
@@ -103,7 +103,7 @@ def test_cpu_rollout_matches_engine_rollout(name, monkeypatch):
         arrays["v"] = (0.5 * rng.standard_normal((6, 32))).astype(np.float32)
     policy = lambda st: -KP * st.s - KD * st.sd  # noqa: E731
     ref = jax.jit(lambda st: jeng.rollout(st, 20, policy=policy))(_jax_state(arrays))
-    got = cuda_rollout.rollout(teng, bridge.state_from_numpy(arrays), 20, kp=KP, kd=KD)
+    got = cuda_rollout.rollout(teng, bridge.state_from_numpy(arrays, device="cpu"), 20, kp=KP, kd=KD)
     got, ref = bridge.state_to_numpy(got), bridge.reference_state_arrays(ref)
     for k in bridge.STATE_FIELDS:
         np.testing.assert_allclose(got[k], ref[k], rtol=1e-3, atol=1e-3, err_msg=k)
@@ -113,7 +113,7 @@ def test_kernel_inputs_for_the_humanoid():
     """What the wrapper hands the kernel: the topology header and the packed
     model arrays (7956 B for the humanoid, as the JAX kernel's inputs)."""
     eng = _humanoid()
-    header = cuda_rollout.topology_header(eng)
+    header = cuda_build.topology_header(eng)
     for line in ("#define JX_NL 24", "#define JX_NJ 23", "#define JX_NC 48", "#define JX_FLOATING 1"):
         assert line in header
     assert f"JX_LAM[24] = {{{', '.join(map(str, eng.lam))}}}" in header
