@@ -15,7 +15,14 @@ plain PyTorch version on the card:
   call-time model arrays (``M`` scaled by 1.2);
 * K5 (``env_rollout.cu``) in every state field, the reward sums, the resets
   and the steps: truncation only (the MLP policy with 8 candidates), real
-  terminations (the linear policy), and respawns with reset noise.
+  terminations (the linear policy), and respawns with reset noise;
+* K4 (``step_vjp.cu``, the fused step VJP, with and without the model
+  arrays' cotangents) in every cotangent field per env, for seeded random
+  output cotangents one state field at a time and all six at once, on the
+  pendulum and the humanoid (``VJP_CASES``), with the contact branches of
+  the start states counted; its partials' sum against ``torch.sum``; and the
+  PD gains' gradient through a 10-step ``fused_diff_rollout`` against the
+  plain twin under autograd.
 
 Then it runs the main paths, each with every launch counter set to 0 just
 before it and read just after:
@@ -27,7 +34,15 @@ before it and read just after:
   8 candidates × 1024 envs, a tanh MLP with H = 16 and per-candidate
   weights, 500 steps a generation, episodes of 400, healthy height
   (0.6, 1.2) m, torques clipped at 100; three generations, one K5 launch each;
-* ``BatchedEnv.step``: 20 steps at 8192 envs, one K3 launch each.
+* ``BatchedEnv.step``: 20 steps at 8192 envs, one K3 launch each;
+* the policy gradient, bench.py's gradient path uncut: the gains of
+  ``tau = -g0·s - g1·ṡ`` through 100 fused differentiable steps at 8192
+  envs, ``mean(ṡ²) + mean(p_z)``, ``.backward()``: K3 forward, K4 backward;
+* the hardware-parameter gradient: the same with respect to ``M`` and
+  ``cpoint``, K4 with the model arrays' cotangents;
+* APG training, ``examples/train_apg.py``'s configuration uncut: the garpez
+  chain, 1024 envs, a tanh MLP with H = 32 through 30-step windows, Adam,
+  the running state advanced with gradients off; three windows.
 
 It prints each phase's seconds, the card's name and power limit, a JSON line
 with each kernel's numbers (device ms per launch, the plain version's ms for
@@ -42,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -54,7 +70,7 @@ TIMED_CALLS = 5
 # The plain twin takes 50-110 ms a humanoid step on the card (thousands of
 # small launches); its time is taken over fewer steps than the kernel's
 # launch and scaled to the same work, linearly in the steps.
-PLAIN_TIMED_STEPS = dict(rollout=100, step_pd=10, step_tau=10, env_rollout=20)
+PLAIN_TIMED_STEPS = dict(rollout=100, step_pd=10, step_tau=10, env_rollout=20, step_vjp=3)
 PER_STEP_LAUNCHES = 100  # K2 main path
 ENV_STEPS = 20  # BatchedEnv.step main path
 # ES main path: examples/train_es_mlp.py uncut.
@@ -75,6 +91,24 @@ CASES = (
     ("humanoid23 joints moving", 10, "max"),
     ("humanoid23 joints moving", 100, "p99.9"),
 )
+# K4 vs plain: (start state, statistic over envs) for every output cotangent
+# (``vjp_cotangents``); each env's largest |Δ| of a cotangent field over
+# max(1, max |plain field|) is held to TOL. With the joints moving, a few
+# humanoid envs sit near a contact's stick/slip boundary, where one float32
+# rounding can send kernel and plain down different branches: that start is
+# held at the 99.9th percentile over envs.
+VJP_CASES = (
+    ("pendulum1", "max"),
+    ("humanoid23 main-path start", "max"),
+    ("humanoid23 joints moving", "p99.9"),
+)
+# The model arrays' batch-summed cotangents: the tolerance of the JAX
+# package's own test of them (tests/test_batched_engine.py:779-785).
+PARAMS_RTOL, PARAMS_ATOL = 5e-3, 5e-4
+# Gradient main paths: bench.py's gradient path uncut (BASELINE config 4).
+GRAD = dict(steps=100, gains=(60.0, 0.5), timed=3, check_steps=10, check_rtol=1e-3)
+# APG main path: examples/train_apg.py uncut, three windows.
+APG = dict(batch=1024, horizon=30, hidden=32, windows=3, lr=3e-3, target=(0.4, -0.6, 0.3, -0.2))
 # m, the healthy range of the K5 real-terminations case: from the joints-
 # moving start, under the stable policy of that case, most envs sink below
 # 0.87 m within 100 steps, so episodes end by height. A policy that leaves
@@ -99,12 +133,19 @@ REPLACES = dict(
     step_pd="jaxsim_tpu/ops/pallas_step.py:86",
     step_tau="jaxsim_tpu/ops/pallas_step.py:178",
     env_rollout="jaxsim_tpu/ops/pallas_step.py:787",
+    step_vjp="jaxsim_tpu/ops/pallas_step.py:262",
+    step_vjp_params_grad="jaxsim_tpu/ops/pallas_step.py:262",
+    # The partials' sum replaces the kernel's accumulation across grid steps.
+    param_sum="jaxsim_tpu/ops/pallas_step.py:306",
 )
 SOURCES = dict(
     rollout="jaxsim_tpu_torch/csrc/rollout.cu",
     step_pd="jaxsim_tpu_torch/csrc/step.cu",
     step_tau="jaxsim_tpu_torch/csrc/step.cu",
     env_rollout="jaxsim_tpu_torch/csrc/env_rollout.cu",
+    step_vjp="jaxsim_tpu_torch/csrc/step_vjp.cu",
+    step_vjp_params_grad="jaxsim_tpu_torch/csrc/step_vjp.cu",
+    param_sum="jaxsim_tpu_torch/csrc/step_vjp.cu",
 )
 
 
@@ -207,23 +248,27 @@ def start_states(pend, hum) -> dict:
 
 
 def counters() -> dict[str, int]:
-    from jaxsim_tpu_torch.ops import cuda_env_rollout, cuda_rollout, cuda_step
+    from jaxsim_tpu_torch.ops import cuda_env_rollout, cuda_rollout, cuda_step, cuda_step_vjp
 
     return dict(
         rollout=cuda_rollout.ROLLOUT_KERNEL_LAUNCHES,
         step_pd=cuda_step.STEP_PD_KERNEL_LAUNCHES,
         step_tau=cuda_step.STEP_TAU_KERNEL_LAUNCHES,
         env_rollout=cuda_env_rollout.ENV_ROLLOUT_KERNEL_LAUNCHES,
+        step_vjp=cuda_step_vjp.STEP_VJP_KERNEL_LAUNCHES,
+        param_sum=cuda_step_vjp.PARAM_SUM_KERNEL_LAUNCHES,
     )
 
 
 def zero_counters() -> None:
-    from jaxsim_tpu_torch.ops import cuda_env_rollout, cuda_rollout, cuda_step
+    from jaxsim_tpu_torch.ops import cuda_env_rollout, cuda_rollout, cuda_step, cuda_step_vjp
 
     cuda_rollout.ROLLOUT_KERNEL_LAUNCHES = 0
     cuda_step.STEP_PD_KERNEL_LAUNCHES = 0
     cuda_step.STEP_TAU_KERNEL_LAUNCHES = 0
     cuda_env_rollout.ENV_ROLLOUT_KERNEL_LAUNCHES = 0
+    cuda_step_vjp.STEP_VJP_KERNEL_LAUNCHES = 0
+    cuda_step_vjp.PARAM_SUM_KERNEL_LAUNCHES = 0
 
 
 def main_path(name: str, expect: dict[str, int], drive):
@@ -254,6 +299,25 @@ def device_ms(fn, repeats: int) -> list[float]:
     return times
 
 
+def profiled_ms(fn, kernel: str, repeats: int) -> float:
+    """Mean device milliseconds of the CUDA kernels whose name holds
+    ``kernel`` over ``repeats`` calls of ``fn``, read by ``torch.profiler``."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    times = [
+        e.time_range.elapsed_us() for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name
+    ]  # fmt: skip
+    if len(times) != repeats:
+        raise RuntimeError(f"the profiler saw {len(times)} launches of {kernel}, expected {repeats}")
+    return statistics.mean(times) / 1e3
+
+
 def wall_ms(fn) -> float:
     import torch
 
@@ -274,6 +338,13 @@ def state_bytes(engine, B: int) -> int:
     return 4 * B * (2 * engine.n_joints + 3 + 4 + 6 + 3 * engine.m_rows)
 
 
+def cpu_head(state):
+    """Envs 0..COUNT_ENVS of a state (or of a cotangent of one), on the CPU."""
+    from jaxsim_tpu_torch.ops import flop_count
+
+    return flop_count.head(type(state)(*(t.cpu() for t in state.fields())), COUNT_ENVS + 1)
+
+
 def ops_per_env_step(engine, step_state, env_state, policy_weights, **options) -> dict[str, float]:
     """Floating-point operations one env-step needs (see
     ``jaxsim_tpu_torch.ops.flop_count``), counted on a CPU copy of the engine
@@ -284,10 +355,7 @@ def ops_per_env_step(engine, step_state, env_state, policy_weights, **options) -
     humanoid's, which keeps only the algebra's own zeros."""
     from jaxsim_tpu_torch.ops import cuda_env_rollout, cuda_step, flop_count
 
-    def cpu(state):
-        return flop_count.head(type(state)(*(t.cpu() for t in state.fields())), COUNT_ENVS + 1)
-
-    step_state, env_state = cpu(step_state), cpu(env_state)
+    step_state, env_state = cpu_head(step_state), cpu_head(env_state)
     generic = flop_count.generic_arrays(engine)
     return dict(
         step=flop_count.least_step_ops(engine, lambda st: cuda_step.step_pd_reference(engine, st), step_state),
@@ -319,6 +387,87 @@ def es_population(theta_mu, gen, n: int, d: int):
     return eps, {k: t.reshape(P, *s).contiguous() for k, t, s in zip(("W1", "b1", "W2", "b2"), parts, shapes)}
 
 
+def garpez_engine(device):
+    from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, models
+
+    return BatchedEngine.build(JaxSimModel.build_from_model_description(models.build_garpez_urdf()), device=device)
+
+
+def contact_branches(engine, state) -> tuple[int, int, int]:
+    """Contact points of ``state`` (over all envs) out of contact, sticking
+    and slipping, by the twin's contact law on flat ground."""
+    import torch
+
+    if not engine.n_points:
+        return 0, 0, 0
+    eps = torch.finfo(torch.float32).eps
+    W_R, W_p, W_v = engine.fk(state)
+    par = engine.contact_parent
+    R, p, v = (torch.stack([W[i] for i in par], -2) for W in (W_R, W_p, W_v))  # (..., nC, B)
+    pc = (R * engine.cpoint.transpose(0, 1)[None, :, :, None]).sum(1) + p
+    pd = v[:3] + torch.linalg.cross(v[3:], pc, dim=0)
+    delta = torch.clamp(-pc[2], min=0.0)
+    dp, dq = (delta + eps) ** engine.hc_p, (delta + eps) ** engine.hc_q
+    fn = torch.clamp(engine.K * dp * delta + engine.D * dq * torch.where(delta > 0, -pd[2], 0.0), min=0.0)
+    m = state.m.transpose(0, 1)
+    f_t = -(engine.K * dp * m[:2] + engine.D * dq * pd[:2])
+    out = delta <= 0
+    stick = ~out & ((f_t * f_t).sum(0) <= (engine.mu * fn) ** 2)
+    return int(out.sum()), int(stick.sum()), int((~out & ~stick).sum())
+
+
+def vjp_cotangents(state, gen) -> dict:
+    """Seeded N(0, 1) output cotangents of one step: each state field alone
+    (the others 0), then all six."""
+    import torch
+
+    from jaxsim_tpu_torch import BatchedState
+
+    full = [torch.randn(t.shape, generator=gen, device=t.device) for t in state.fields()]
+    out = {
+        name: BatchedState(*(f if j == i else torch.zeros_like(f) for j, f in enumerate(full)))
+        for i, name in enumerate("s sd p q v m".split())
+        if full[i].numel()
+    }
+    out["all six"] = BatchedState(*full)
+    return out
+
+
+def vjp_diff(kern, plain) -> tuple[dict, float]:
+    """Per env, each cotangent field's largest |Δ| over max(1, max |plain
+    field|); and the largest |Δ| unscaled."""
+    import torch
+
+    scaled, raw = {}, 0.0
+    for name, a, b in zip("s sd p q v m tau".split(), [*kern[0].fields(), kern[1]], [*plain[0].fields(), plain[1]]):
+        if not b.numel():
+            continue
+        if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+            raise RuntimeError(f"non-finite cotangent of {name}")
+        d = (a - b).abs().reshape(-1, b.shape[-1]).amax(0)
+        raw = max(raw, float(d.max()))
+        scaled[name] = d / max(1.0, float(b.abs().max()))
+    return scaled, raw
+
+
+def pd_gains(state, gains):
+    return -gains[0] * state.s - gains[1] * state.sd
+
+
+def grad_loss(state):
+    """bench.py's gradient-path loss."""
+    return (state.sd**2).mean() + state.p[2].mean()
+
+
+def apg_policy(state, params, target):
+    """examples/train_apg.py's policy: a tanh MLP on [s - s*, ṡ], 5·tanh out."""
+    import torch
+
+    obs = torch.cat([state.s - target[:, None], state.sd])
+    h = torch.tanh(params["W1"] @ obs + params["b1"][:, None])
+    return 5.0 * torch.tanh(params["W2"] @ h + params["b2"][:, None])
+
+
 def main() -> int:
     import torch
 
@@ -329,8 +478,11 @@ def main() -> int:
     print(_run(["nvcc", "--version"]).splitlines()[-1], flush=True)
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
 
+    from jaxsim_tpu_torch import BatchedState
     from jaxsim_tpu_torch.envs import BatchedEnv
-    from jaxsim_tpu_torch.ops import cuda_build, cuda_env_rollout, cuda_rollout, cuda_step
+    from jaxsim_tpu_torch.ops import (
+        cuda_build, cuda_env_rollout, cuda_rollout, cuda_step, cuda_step_vjp, diff_step, flop_count,
+    )  # fmt: skip
     from jaxsim_tpu_torch.ops.policies import obs_dim
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -341,6 +493,7 @@ def main() -> int:
 
     hum = humanoid_engine(device)
     pend = pendulum_engine(device)
+    garp = garpez_engine(device)
     n, d = hum.n_joints, obs_dim(hum.n_joints)
     gen = torch.Generator(device).manual_seed(1)
     # The real-terminations case's linear policy: the PD gains written as a
@@ -357,7 +510,9 @@ def main() -> int:
     # ----- build: every library at once -----
     with phase("build"):
         jobs = [cuda_rollout.job(pend), cuda_rollout.job(hum), cuda_step.job(pend), cuda_step.job(hum),
-                *(cuda_env_rollout.job(hum, p) for p in pols.values())]  # fmt: skip
+                *(cuda_env_rollout.job(hum, p) for p in pols.values()),
+                cuda_step_vjp.job(hum), cuda_step_vjp.job(hum, params_grad=True), cuda_step_vjp.job(pend),
+                cuda_step.job(garp), cuda_step_vjp.job(garp)]  # fmt: skip
         builds = cuda_build.build_many(jobs)
     print(f"nvcc seconds {[round(b.seconds, 2) for b in builds]}")
     for b in builds:
@@ -437,6 +592,83 @@ def main() -> int:
         print(f"env_rollout: respawned p[0] - start p[0] std {spread:.6g} (asked 0.02)")
         if not 0.018 <= spread <= 0.022:
             raise RuntimeError("reset noise off its standard deviation")
+
+    # ----- K4 vs plain -----
+    vjp_gen = torch.Generator(device).manual_seed(3)
+
+    def leaves(res):
+        return [*res[0].fields(), res[1], *(res[2].values() if len(res) > 2 else ())]
+
+    with phase("K4 vs plain"):
+        branches = [0, 0, 0]
+        for name, stat in VJP_CASES:
+            engine, state = starts[name]
+            tau = (-60.0 * state.s - 0.5 * state.sd).contiguous()
+            counts = contact_branches(engine, state)
+            branches = [a + b for a, b in zip(branches, counts)]
+            print(f"step_vjp {name}: contact points out of contact, sticking, slipping {counts}", flush=True)
+            for ct_name, ct in vjp_cotangents(state, vjp_gen).items():
+                kern = cuda_step_vjp.step_vjp(engine, state, tau, ct)
+                plain = cuda_step_vjp.step_vjp_reference(engine, state, tau, ct)
+                sync()
+                scaled, raw = vjp_diff(kern, plain)
+                gate(f"step_vjp vs plain, {name} B={state.p.shape[-1]}, ct of {ct_name}, |Δ|/max(1, max|plain|)",
+                     scaled, stat)  # fmt: skip
+                if stat == "max":
+                    max_errs["step_vjp"].append(raw)
+        if not all(branches):
+            raise RuntimeError(f"the K4 start states leave a contact branch without a point: {branches}")
+
+        # With the model arrays' cotangents (batch sums), run twice: the sums
+        # are in a fixed order, so the two runs agree to the bit.
+        for name in ("humanoid23 main-path start", "humanoid23 joints moving"):
+            stat, state = dict(VJP_CASES)[name], starts[name][1]
+            tau = (-60.0 * state.s - 0.5 * state.sd).contiguous()
+            ct = vjp_cotangents(state, vjp_gen)["all six"]
+            kern = cuda_step_vjp.step_vjp(hum, state, tau, ct, params_grad=True)
+            again = cuda_step_vjp.step_vjp(hum, state, tau, ct, params_grad=True)
+            plain = cuda_step_vjp.step_vjp_reference(hum, state, tau, ct, params_grad=True)
+            sync()
+            scaled, raw = vjp_diff(kern, plain)
+            gate(f"step_vjp params_grad vs plain, {name}, ct of all six, |Δ|/max(1, max|plain|)", scaled, stat)
+            for k in hum.PARAM_NAMES:
+                a, b = kern[2][k], plain[2][k]
+                err, big = float((a - b).abs().max()), float(b.abs().max())
+                worst = float(((a - b).abs() - PARAMS_RTOL * b.abs()).max()) / max(1.0, big)
+                print(f"step_vjp params_grad {name}: ct {k} max|Δ| {err:.6g}, max|plain| {big:.6g}, "
+                      f"(|Δ| - {PARAMS_RTOL}·|plain|) / max(1, max|plain|) {worst:.6g}")  # fmt: skip
+                if not (bool(torch.isfinite(a).all()) and worst <= PARAMS_ATOL):
+                    raise RuntimeError(f"step_vjp params_grad: ct {k} disagrees with plain")
+                if stat == "max":
+                    max_errs["step_vjp_params_grad"].append(max(raw, err))
+            if not all(torch.equal(x, y) for x, y in zip(leaves(kern), leaves(again))):
+                raise RuntimeError("two runs of step_vjp with params_grad differ")
+        print("step_vjp params_grad: two runs agree to the bit", flush=True)
+
+        partials = torch.randn(BATCH // cuda_step_vjp.BLOCK, cuda_build.packed_params(hum).numel(),
+                               generator=vjp_gen, device=device)  # fmt: skip
+        kern, plain = cuda_step_vjp.sum_partials(hum, partials), cuda_step_vjp.sum_partials_reference(partials)
+        sync()
+        err = float((kern - plain).abs().max())
+        print(f"param_sum vs plain, {tuple(partials.shape)}: max|Δ| {err:.6g}, max|plain| {float(plain.abs().max()):.6g}")
+        if not err <= 1e-4 * max(1.0, float(plain.abs().max())):
+            raise RuntimeError("param_sum disagrees with plain")
+        max_errs["param_sum"].append(err)
+
+    with phase("rollout gradient vs plain"):
+        steps = GRAD["check_steps"]
+        gains = torch.tensor(GRAD["gains"], device=device, requires_grad=True)
+        kern = torch.autograd.grad(grad_loss(diff_step.fused_diff_rollout(hum, steps)(state0, pd_gains, gains)), gains)[0]
+        st = state0
+        for _ in range(steps):
+            st = hum.step(st, pd_gains(st, gains))
+        plain = torch.autograd.grad(grad_loss(st), gains)[0]
+        sync()
+        rel = float(((kern - plain).abs() / plain.abs()).max())
+        print(f"gains gradient through {steps} steps at B={BATCH}: fused {kern.tolist()}, plain {plain.tolist()},"
+              f" max relative |Δ| {rel:.6g}")  # fmt: skip
+        if not rel <= GRAD["check_rtol"]:
+            raise RuntimeError(f"the fused rollout's gradient disagrees with plain beyond {GRAD['check_rtol']}")
 
     # ----- main paths -----
     results = {}
@@ -543,6 +775,107 @@ def main() -> int:
         if tuple(obs.shape) != (d, BATCH) or int(state.steps.max()) > 1 + ENV_STEPS:
             raise RuntimeError("BatchedEnv.step: wrong shapes or step counts")
 
+    def timed_gradients(once, n: int):
+        """``once()`` for a warm-up, then ``n`` times, each ended by a
+        synchronize: ``[(wall s, result), ...]`` of the timed calls."""
+        once()
+        sync()
+        runs = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            res = once()
+            sync()
+            runs.append((time.perf_counter() - t0, res))
+        return runs
+
+    def report_gradient(name, runs):
+        wall = [r[0] for r in runs]
+        rate = BATCH * GRAD["steps"] / statistics.median(wall)
+        print(f"{name}: B={BATCH}, {GRAD['steps']} steps, wall s {wall}, gradient env_steps_per_s (median wall) {rate:.6g}")
+        return rate
+
+    grad_launches = (1 + GRAD["timed"]) * GRAD["steps"]
+    with phase("main path: policy gradient (K3, K4)"):
+        pg_rollout = diff_step.fused_diff_rollout(hum, GRAD["steps"])
+
+        def policy_gradient():
+            gains = torch.tensor(GRAD["gains"], device=device, requires_grad=True)
+            out = pg_rollout(state0, pd_gains, gains)
+            loss = grad_loss(out)
+            loss.backward()
+            return out, loss.detach(), gains.grad
+
+        runs, launches = main_path("policy gradient", dict(step_tau=grad_launches, step_vjp=grad_launches),
+                                   lambda: timed_gradients(policy_gradient, GRAD["timed"]))  # fmt: skip
+        results["step_vjp"] = dict(launches=launches["step_vjp"])
+        report_gradient("policy gradient", runs)
+        grad_final, loss, g = runs[-1][1]
+        print(f"policy gradient: loss {float(loss):.6g}, d loss / d gains {g.tolist()}", flush=True)
+        if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()) and all_finite(grad_final)):
+            raise RuntimeError("policy gradient: non-finite or all-zero gradient")
+
+    with phase("main path: hardware-parameter gradient (K3, K4 params_grad)"):
+        hw_rollout = diff_step.fused_diff_rollout(hum, GRAD["steps"], params_grad=True)
+        fixed_gains = torch.tensor(GRAD["gains"], device=device)
+
+        def hardware_gradient():
+            hw = {k: getattr(hum, k).clone().requires_grad_() for k in ("M", "cpoint")}
+            loss = grad_loss(hw_rollout(state0, pd_gains, fixed_gains, pr=hw))
+            loss.backward()
+            return loss.detach(), {k: t.grad for k, t in hw.items()}
+
+        runs, launches = main_path(
+            "hardware-parameter gradient",
+            dict(step_tau=grad_launches, step_vjp=grad_launches, param_sum=grad_launches),
+            lambda: timed_gradients(hardware_gradient, GRAD["timed"]),
+        )
+        results["step_vjp_params_grad"] = dict(launches=launches["step_vjp"])
+        results["param_sum"] = dict(launches=launches["param_sum"])
+        report_gradient("hardware-parameter gradient", runs)
+        loss, g = runs[-1][1]
+        print(f"hardware-parameter gradient: loss {float(loss):.6g}, "
+              + ", ".join(f"max|d loss / d {k}| {float(t.abs().max()):.6g}" for k, t in g.items()), flush=True)  # fmt: skip
+        if not (all(bool(torch.isfinite(t).all()) for t in g.values()) and any(bool((t != 0).any()) for t in g.values())):
+            raise RuntimeError("hardware-parameter gradient: non-finite or all-zero gradients")
+
+    with phase("main path: APG training (K3, K4)"):
+        ng, H = garp.n_joints, APG["hidden"]
+        target = torch.tensor(APG["target"][:ng], device=device)
+        apg_gen = torch.Generator(device).manual_seed(4)
+        weights = dict(
+            W1=0.3 * torch.randn(H, 2 * ng, generator=apg_gen, device=device),
+            b1=torch.zeros(H, device=device),
+            W2=0.05 * torch.randn(ng, H, generator=apg_gen, device=device),
+            b2=torch.zeros(ng, device=device),
+        )
+        for t in weights.values():
+            t.requires_grad_()
+        opt = torch.optim.Adam(weights.values(), lr=APG["lr"])
+        apg_rollout = diff_step.fused_diff_rollout(garp, APG["horizon"])
+        apg_start = garp.init_state(APG["batch"], generator=apg_gen)
+        apg_start.s = 0.2 * torch.randn(apg_start.s.shape, generator=apg_gen, device=device)
+
+        def train():
+            state, losses = apg_start, []
+            for _ in range(APG["windows"]):
+                opt.zero_grad()
+                out = apg_rollout(state, apg_policy, weights, target)
+                loss = ((out.s - target[:, None]) ** 2).mean() + 0.02 * (out.sd**2).mean()
+                loss.backward()
+                opt.step()
+                # SHAC truncation: the running state advances under the
+                # updated policy with gradients off.
+                with torch.no_grad():
+                    state = apg_rollout(state, apg_policy, weights, target)
+                losses.append(float(loss.detach()))
+            return state, losses
+
+        windows = APG["windows"] * APG["horizon"]
+        (apg_final, losses), _ = main_path("APG", dict(step_tau=2 * windows, step_vjp=windows), train)
+        print(f"APG: garpez B={APG['batch']}, windows of {APG['horizon']} steps, losses {losses}", flush=True)
+        if not (all(map(math.isfinite, losses)) and all_finite(apg_final)):
+            raise RuntimeError("APG: non-finite loss or state")
+
     # ----- kernel and plain times at the main paths' shapes -----
     with phase("timing"):
         tau0 = (-60.0 * state0.s - 0.5 * state0.sd).contiguous()
@@ -561,7 +894,37 @@ def main() -> int:
                 hum, state0, PLAIN_TIMED_STEPS["env_rollout"], **ES_OPTIONS, **mlp))
             * ES["steps"] / PLAIN_TIMED_STEPS["env_rollout"],
         )  # fmt: skip
+        # K4 at the gradient main paths' shapes, and the partials' sum.
+        ct0 = vjp_cotangents(state0, vjp_gen)["all six"]
+        n_vjp = PLAIN_TIMED_STEPS["step_vjp"]
+        vjp_calls = dict(
+            step_vjp=lambda: cuda_step_vjp.step_vjp(hum, state0, tau0, ct0),
+            step_vjp_params_grad=lambda: cuda_step_vjp.step_vjp(hum, state0, tau0, ct0, params_grad=True),
+            param_sum=lambda: cuda_step_vjp.sum_partials(hum, partials),
+        )
+        for name, call in vjp_calls.items():
+            call()
+            sync()
+            results[name]["ms"] = statistics.median(device_ms(call, 20))
+        kernel_only = dict(
+            step_tau=profiled_ms(lambda: cuda_step.step_tau(hum, state0, tau0), "step_tau_kernel", 10),
+            step_vjp=profiled_ms(vjp_calls["step_vjp"], "step_vjp_kernel", 10),
+            step_vjp_params_grad=profiled_ms(vjp_calls["step_vjp_params_grad"], "step_vjp_kernel", 10),
+            param_sum=profiled_ms(vjp_calls["param_sum"], "param_sum_kernel", 10),
+        )
+        print(f"kernel-only device ms a launch (torch.profiler, mean of 10): {json.dumps(kernel_only)}")
+        print(f"device ms a launch (CUDA events around the wrapper, median of 20): "
+              f"{json.dumps({k: results[k]['ms'] for k in kernel_only})}")  # fmt: skip
+        plain_ms.update(
+            step_vjp=wall_ms(lambda: [cuda_step_vjp.step_vjp_reference(hum, state0, tau0, ct0) for _ in range(n_vjp)])
+            / n_vjp,
+            step_vjp_params_grad=wall_ms(lambda: [cuda_step_vjp.step_vjp_reference(
+                hum, state0, tau0, ct0, params_grad=True) for _ in range(n_vjp)]) / n_vjp,
+            param_sum=wall_ms(lambda: [cuda_step_vjp.sum_partials_reference(partials) for _ in range(20)]) / 20,
+        )  # fmt: skip
+        library_ms = dict(param_sum=statistics.median(device_ms(lambda: torch.sum(partials, 0), 20)))
         print(f"plain ms for each kernel's launch (timed over {json.dumps(PLAIN_TIMED_STEPS)} steps): {json.dumps(plain_ms)}")
+        print(f"library ms (one torch call, CUDA events, median of 20): {json.dumps(library_ms)}")
 
     # ----- bounds -----
     with phase("bounds"):
@@ -570,13 +933,29 @@ def main() -> int:
         flops = ops_per_env_step(cpu_hum, flagship_final, gens[-1]["final"], one, **ES_OPTIONS)
         print(f"float32 operations an env-step needs (twin under TorchDispatchMode, mean over {COUNT_ENVS} envs of"
               f" the flagship's and the last ES generation's final states): {json.dumps(flops)}")  # fmt: skip
+        # K4's: the plain version's forward and transposed step, at the
+        # policy-gradient main path's final state, its PD torques and the
+        # timed random cotangent.
+        vjp_state = cpu_head(grad_final)
+        vjp_args = (vjp_state, -60.0 * vjp_state.s - 0.5 * vjp_state.sd, cpu_head(ct0))
+        flops.update(
+            vjp=flop_count.least_vjp_ops(cpu_hum, *vjp_args, COUNT_ENVS),
+            vjp_params_grad=flop_count.least_vjp_ops(cpu_hum, *vjp_args, COUNT_ENVS, params_grad=True),
+        )
+        print(f"float32 operations an env's step VJP needs (the same count, over {COUNT_ENVS} envs of the policy"
+              f" gradient's final state): {flops['vjp']}, with the model arrays' cotangents {flops['vjp_params_grad']}")
         sb, pb = state_bytes(hum, BATCH), 4 * cuda_build.packed_params(hum).numel()
+        n_blocks, n_params = partials.shape
+        vjp_bytes = 3 * sb + pb + 8 * n * BATCH  # state, tau, ct in; ct_state, ct_tau out
         work = dict(
             rollout=(flops["step"] * BATCH * HORIZON, 2 * sb + pb),
             step_pd=(flops["step"] * BATCH, 2 * sb + pb),
             step_tau=(flops["step"] * BATCH, 2 * sb + pb + 4 * n * BATCH),
             env_rollout=(flops["env_step"] * BATCH * ES["steps"],
                          2 * sb + pb + 12 * BATCH + 4 * pols["mlp"].packed().numel()),
+            step_vjp=(flops["vjp"] * BATCH, vjp_bytes),
+            step_vjp_params_grad=(flops["vjp_params_grad"] * BATCH, vjp_bytes + 4 * n_blocks * n_params),
+            param_sum=((n_blocks - 1) * n_params, 4 * (n_blocks + 1) * n_params),
         )  # fmt: skip
 
     kernels = []
@@ -586,7 +965,7 @@ def main() -> int:
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=results[name]["launches"], max_abs_err=max(max_errs[name]),
             ms=results[name]["ms"], plain_ms=plain_ms[name], bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=None,
+            library_ms=library_ms.get(name),
         ))  # fmt: skip
         print(f"{name}: {results[name]['ms']:.6g} ms a launch, bound {bound_ms:.6g} ms ({bound_by}), "
               f"{100 * bound_ms / results[name]['ms']:.3g} % of the bound")  # fmt: skip

@@ -9,8 +9,10 @@ whole horizon in one hand-written CUDA kernel
 (:mod:`jaxsim_tpu_torch.ops.cuda_rollout`); one step per launch
 (:mod:`jaxsim_tpu_torch.ops.cuda_step`); and RL policy evaluation,
 :class:`~jaxsim_tpu_torch.envs.BatchedEnv` over the auto-resetting env
-rollout kernel (:mod:`jaxsim_tpu_torch.ops.cuda_env_rollout`). Entry points
-run on the CUDA card unless the caller names another device.
+rollout kernel (:mod:`jaxsim_tpu_torch.ops.cuda_env_rollout`); and gradients
+through the physics (:mod:`jaxsim_tpu_torch.ops.diff_step`), whose backward
+is the fused step VJP kernel (:mod:`jaxsim_tpu_torch.ops.cuda_step_vjp`).
+Entry points run on the CUDA card unless the caller names another device.
 """
 
 from __future__ import annotations

@@ -111,7 +111,41 @@ def state_from_numpy(
 
 
 def state_to_numpy(state: BatchedState) -> dict[str, np.ndarray]:
+    """The leaves of a state, or of a cotangent of one (a state-shaped
+    :class:`BatchedState`, which :func:`state_from_numpy` also builds)."""
     return {k: getattr(state, k).detach().cpu().numpy() for k in STATE_FIELDS}
+
+
+def reference_params_arrays(pr) -> dict[str, np.ndarray]:
+    """The :data:`BatchedEngine.PARAM_NAMES` entries of a ``jaxsim_tpu``
+    model-array dict (``params()``, an override ``pr``, or the cotangent of
+    one from ``jax.vjp``/``jax.grad``) as NumPy arrays; a joint-free
+    model's ``(0,)`` axis array comes back as ``(0, 3)``."""
+    out = {k: np.asarray(pr[k]) for k in BatchedEngine.PARAM_NAMES if k in pr}
+    if "axis" in out:
+        out["axis"] = out["axis"].reshape(-1, 3)
+    return out
+
+
+def params_from_numpy(
+    arrays: dict[str, np.ndarray],
+    *,
+    device: torch.device | str | None = None,
+    dtype: torch.dtype = torch.float32,
+) -> dict[str, torch.Tensor]:
+    """A ``pr`` dict of model arrays by name (see
+    :meth:`BatchedEngine.params`) from NumPy arrays, on ``device`` (by
+    default the CUDA card)."""
+    unknown = set(arrays) - set(BatchedEngine.PARAM_NAMES)
+    if unknown:
+        raise ValueError(f"unknown model arrays: {sorted(unknown)}")
+    device = resolve_device(device)
+    return {k: torch.tensor(np.asarray(a), dtype=dtype, device=device) for k, a in arrays.items()}
+
+
+def params_to_numpy(pr: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Model arrays (or their cotangents) by name as NumPy arrays."""
+    return {k: t.detach().cpu().numpy() for k, t in pr.items()}
 
 
 def reference_env_fields(env) -> dict:

@@ -5,6 +5,8 @@ from . import (
     cuda_env_rollout,
     cuda_rollout,
     cuda_step,
+    cuda_step_vjp,
+    diff_step,
     philox,
     policies,
 )

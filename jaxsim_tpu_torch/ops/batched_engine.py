@@ -53,6 +53,12 @@ def _cross(a, b):
     )
 
 
+def _maximum(x, floor: float):
+    """max(x, floor) with JAX's derivative at a tie, half to each side, as
+    ``jnp.maximum`` has it (``torch.clamp`` passes all of it to ``x``)."""
+    return torch.maximum(x, x.new_tensor(floor))
+
+
 def _c(a):
     """Model constant → broadcastable against one trailing batch axis."""
     return a.unsqueeze(-1)
@@ -131,7 +137,7 @@ def _chol6_factor(M):
         s = M[i, i]
         for k in range(i):
             s = s - L[i][k] * L[i][k]
-        L[i][i] = torch.sqrt(torch.clamp(s, min=1e-12))
+        L[i][i] = torch.sqrt(_maximum(s, 1e-12))
         inv_d = 1.0 / L[i][i]
         for j in range(i + 1, 6):
             s = M[j, i]
@@ -472,17 +478,17 @@ class BatchedEngine(nn.Module):
         mc = m.transpose(0, 1)  # (3,nC,B)
         zb = torch.zeros_like(pd[0])
         if flat:
-            delta = torch.clamp(-pc[2], min=0.0)
+            delta = _maximum(-pc[2], 0.0)
             delta_dot = torch.where(delta > 0, -pd[2], zb)
         else:
             ndotp = ax * pc[0] + ay * pc[1] + az * pc[2]
             ndotv = ax * pd[0] + ay * pd[1] + az * pd[2]
-            delta = torch.clamp(off - ndotp, min=0.0)
+            delta = _maximum(off - ndotp, 0.0)
             delta_dot = torch.where(delta > 0, -ndotv, zb)
 
         dp = torch.pow(delta + eps, self.hc_p)
         dq = torch.pow(delta + eps, self.hc_q)
-        fn_mag = torch.clamp((K * dp) * delta + (D * dq) * delta_dot, min=0.0)
+        fn_mag = _maximum((K * dp) * delta + (D * dq) * delta_dot, 0.0)
 
         if flat:
             v_t = torch.stack([pd[0], pd[1], zb])
@@ -500,7 +506,7 @@ class BatchedEngine(nn.Module):
         f_t_sq = (f_t * f_t).sum(0)
         no_contact = delta <= 0
         sticking = no_contact | (f_t_sq <= (mu * fn_mag) ** 2)
-        norm = torch.sqrt(torch.clamp(f_t_sq, min=eps**2))
+        norm = torch.sqrt(_maximum(f_t_sq, eps**2))
         scale = torch.minimum(mu * fn_mag, norm) / norm
         f_t = torch.where(sticking, f_t, f_t * scale)
         f_t = torch.where(no_contact, torch.zeros_like(f_t), f_t)
@@ -616,7 +622,7 @@ class BatchedEngine(nn.Module):
 
     @staticmethod
     def _normalize_quat(q):
-        return q / torch.sqrt(torch.clamp((q * q).sum(0), min=1e-12))
+        return q / torch.sqrt(_maximum((q * q).sum(0), 1e-12))
 
     def step(
         self, state: BatchedState, tau: torch.Tensor | None = None, pr=None

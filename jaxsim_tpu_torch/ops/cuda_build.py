@@ -271,14 +271,16 @@ def state_pointers(state: BatchedState) -> list[int]:
     return [t.data_ptr() for t in state.fields()]
 
 
-def launch(kernel: KernelBuild, fn: str, params: torch.Tensor, device, *args) -> None:
+def launch(kernel: KernelBuild, fn: str, params: torch.Tensor | None, device, *args) -> None:
     """Call entry point ``fn`` on the current stream of ``device``, after
-    checking the packed model arrays against the kernel's layout; raises on
-    a launch error."""
-    if kernel.lib.jx_param_count() != params.numel():
-        raise RuntimeError("packed model arrays disagree with the kernel's layout")
+    checking the packed model arrays against the kernel's layout (``None``
+    for an entry point that takes none); raises on a launch error."""
+    if params is not None:
+        if kernel.lib.jx_param_count() != params.numel():
+            raise RuntimeError("packed model arrays disagree with the kernel's layout")
+        args = (params.data_ptr(), *args)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(kernel.lib, fn)(params.data_ptr(), *args, stream)
+        rc = getattr(kernel.lib, fn)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: {kernel.lib.jx_error_string(rc).decode()}")

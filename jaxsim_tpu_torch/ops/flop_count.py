@@ -174,6 +174,41 @@ def least_step_ops(engine: BatchedEngine, fn, state: BatchedState, n: int | None
     return ops - twice
 
 
+def least_vjp_ops(
+    engine: BatchedEngine, state: BatchedState, tau, ct: BatchedState, n: int | None = None, params_grad=False
+) -> float:
+    """Operations per env of one step's VJP at ``(state, tau)`` for the
+    output cotangent ``ct`` (K4's work: the step and its transpose), counted
+    on its plain version as :func:`least_step_ops` counts the step: ABA pass
+    2 in its least algebra, forward and transposed, and without the twin's
+    second pass over the joint transforms, forward and transposed, which the
+    kernel does not make."""
+    from .cuda_step_vjp import step_vjp_reference
+
+    n = state.p.shape[-1] - 1 if n is None else n
+    tensors = [*state.fields(), tau, *ct.fields()]
+
+    def per_env(fn):
+        return (count_flops(fn, *(t[..., : n + 1] for t in tensors)) - count_flops(fn, *(t[..., :1] for t in tensors))) / n
+
+    def vjp(*x):
+        return step_vjp_reference(engine, BatchedState(*x[:6]), x[6], BatchedState(*x[7:]), params_grad=params_grad)
+
+    gen = torch.Generator().manual_seed(0)
+
+    def transforms_vjp(s, *_):
+        with torch.enable_grad():
+            s = s.detach().requires_grad_()
+            outs = [t for pair in zip(*engine._relative_transforms(s, engine.params())) for t in pair]
+            cts = [torch.randn(t.shape, generator=gen, dtype=t.dtype) for t in outs]
+            return torch.autograd.grad(outs, s, cts)
+
+    with mock.patch.object(batched_engine, "_articulated", articulated_least), \
+            mock.patch.object(batched_engine, "_to_parent", to_parent_least):  # fmt: skip
+        ops = per_env(vjp)
+    return ops - per_env(transforms_vjp)
+
+
 def generic_arrays(engine: BatchedEngine, seed: int = 0) -> dict[str, torch.Tensor]:
     """Model arrays of ``engine``'s shapes and dtype with no zero or unit
     entry by construction: motion subspaces, inertias (symmetric), joint axes
