@@ -12,15 +12,18 @@ plain PyTorch version on the card:
 * K1 (``rollout.cu``), K2 and K3 (``step.cu``), in every state field, on the
   fixed-base pendulum and on the 23-DoF humanoid at 8192 envs, from the main
   path's start and with the joints moving (``CASES``); K3 also under
-  call-time model arrays (``M`` scaled by 1.2);
+  call-time model arrays (``M`` scaled by 1.2), and on the garpez chain
+  through one APG window from the APG main path's start;
 * K5 (``env_rollout.cu``) in every state field, the reward sums, the resets
   and the steps: truncation only (the MLP policy with 8 candidates), real
   terminations (the linear policy), and respawns with reset noise;
 * K4 (``step_vjp.cu``, the fused step VJP, with and without the model
   arrays' cotangents) in every cotangent field per env, for seeded random
   output cotangents one state field at a time and all six at once, on the
-  pendulum and the humanoid (``VJP_CASES``), with the contact branches of
-  the start states counted; its partials' sum against ``torch.sum``; and the
+  pendulum, the humanoid and garpez at the APG main path's start
+  (``VJP_CASES``), with the contact branches of the start states counted;
+  the model arrays' cotangents entry by entry; its partials' sum against
+  ``torch.sum``; and the
   PD gains' gradient through a 10-step ``fused_diff_rollout`` against the
   plain twin under autograd.
 
@@ -96,14 +99,21 @@ CASES = (
 # max(1, max |plain field|) is held to TOL. With the joints moving, a few
 # humanoid envs sit near a contact's stick/slip boundary, where one float32
 # rounding can send kernel and plain down different branches: that start is
-# held at the 99.9th percentile over envs.
+# held at the 99.9th percentile over envs. Garpez is held where the APG main
+# path starts, under the APG policy's torques.
 VJP_CASES = (
     ("pendulum1", "max"),
     ("humanoid23 main-path start", "max"),
     ("humanoid23 joints moving", "p99.9"),
+    ("garpez APG start", "max"),
 )
 # The model arrays' batch-summed cotangents: the tolerance of the JAX
-# package's own test of them (tests/test_batched_engine.py:779-785).
+# package's own test of them (tests/test_batched_engine.py:779-785), each
+# entry within PARAMS_RTOL·|plain| + PARAMS_ATOL·max(1, max |plain array|);
+# and each entry above that absolute part within PARAMS_RTOL·|plain|, since
+# an absolute part scaled by the array's largest entry passes a dropped term
+# that reaches only its small entries (a seeded fault that left entries of
+# S's cotangent 2.4 % off reached 6 % of the first limit).
 PARAMS_RTOL, PARAMS_ATOL = 5e-3, 5e-4
 # Gradient main paths: bench.py's gradient path uncut (BASELINE config 4).
 GRAD = dict(steps=100, gains=(60.0, 0.5), timed=3, check_steps=10, check_rtol=1e-3)
@@ -450,6 +460,34 @@ def vjp_diff(kern, plain) -> tuple[dict, float]:
     return scaled, raw
 
 
+def params_gate(label: str, kern: dict, plain: dict) -> dict[str, float]:
+    """Holds each model array's batch-summed cotangent entry by entry within
+    PARAMS_RTOL·|plain| + PARAMS_ATOL·max(1, max |plain|), and the entries
+    above that absolute part within PARAMS_RTOL·|plain|. Prints per array the
+    largest |Δ| over the first limit and the largest relative error |Δ|/|plain|
+    above the absolute part; returns each array's larger share of its limit
+    (≤ 1 passes)."""
+    import torch
+
+    ratios = {}
+    for k, b in plain.items():
+        a = kern[k]
+        if not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"{label}: non-finite ct {k}")
+        atol = PARAMS_ATOL * max(1.0, float(b.abs().max()))
+        d = (a - b).abs()
+        share = float((d / (PARAMS_RTOL * b.abs() + atol)).max())
+        big = b.abs() > atol
+        rel = float((d[big] / b.abs()[big]).max()) if bool(big.any()) else 0.0
+        ratios[k] = max(share, rel / PARAMS_RTOL)
+        print(f"{label}: ct {k} max|Δ| {float(d.max()):.6g}, max|plain| {float(b.abs().max()):.6g}, "
+              f"max |Δ|/limit {share:.6g}, max |Δ|/|plain| where |plain| > atol {rel:.6g}")  # fmt: skip
+    bad = {k: r for k, r in ratios.items() if not r <= 1.0}
+    if bad:
+        raise RuntimeError(f"{label}: model-array cotangents beyond rtol {PARAMS_RTOL}, atol {PARAMS_ATOL}: {bad}")
+    return ratios
+
+
 def pd_gains(state, gains):
     return -gains[0] * state.s - gains[1] * state.sd
 
@@ -457,6 +495,27 @@ def pd_gains(state, gains):
 def grad_loss(state):
     """bench.py's gradient-path loss."""
     return (state.sd**2).mean() + state.p[2].mean()
+
+
+def apg_setup(garp) -> dict:
+    """The APG main path's seeded MLP weights (requiring grad), joint target
+    and start state."""
+    import torch
+
+    device = garp.S.device
+    ng, H = garp.n_joints, APG["hidden"]
+    gen = torch.Generator(device).manual_seed(4)
+    weights = dict(
+        W1=0.3 * torch.randn(H, 2 * ng, generator=gen, device=device),
+        b1=torch.zeros(H, device=device),
+        W2=0.05 * torch.randn(ng, H, generator=gen, device=device),
+        b2=torch.zeros(ng, device=device),
+    )
+    for t in weights.values():
+        t.requires_grad_()
+    start = garp.init_state(APG["batch"], generator=gen)
+    start.s = 0.2 * torch.randn(start.s.shape, generator=gen, device=device)
+    return dict(weights=weights, target=torch.tensor(APG["target"][:ng], device=device), start=start)
 
 
 def apg_policy(state, params, target):
@@ -506,6 +565,15 @@ def main() -> int:
     theta_mu = 0.1 * torch.randn(sum(es_sizes(n, d)), generator=gen, device=device)
     _, mlp = es_population(theta_mu, gen, n, d)
     pols = {k: cuda_env_rollout.make_policy(hum, **w) for k, w in (("linear", lin), ("mlp", mlp))}
+    apg = apg_setup(garp)
+
+    def case_tau(name, state):
+        """The torques the main path gives a step at ``state``: the APG
+        policy's on garpez, the PD policy's elsewhere."""
+        if name.startswith("garpez"):
+            with torch.no_grad():
+                return apg_policy(state, apg["weights"], apg["target"]).contiguous()
+        return (-60.0 * state.s - 0.5 * state.sd).contiguous()
 
     # ----- build: every library at once -----
     with phase("build"):
@@ -528,6 +596,7 @@ def main() -> int:
     max_errs = {k: [] for k in SOURCES}
     with phase("K1 K2 K3 vs plain"):
         starts = start_states(pend, hum)
+        starts["garpez APG start"] = (garp, apg["start"])
         state0 = starts["humanoid23 main-path start"][1]
         for name, n_steps, stat in CASES:
             engine, state = starts[name]
@@ -561,6 +630,15 @@ def main() -> int:
         print(f"step_tau: M x1.2 moves the state by {moved:.6g} after 10 steps")
         if not moved > 1e-4:
             raise RuntimeError("K3 ignored the call-time model arrays")
+
+        # K3 on garpez through one APG window under the APG policy.
+        kern = plain = apg["start"]
+        for _ in range(APG["horizon"]):
+            kern = cuda_step.step_tau(garp, kern, case_tau("garpez", kern))
+            plain = cuda_step.step_tau_reference(garp, plain, case_tau("garpez", plain))
+        sync()
+        label = f"step_tau vs plain, garpez APG start B={APG['batch']} {APG['horizon']} steps, APG policy"
+        max_errs["step_tau"].append(compare_states(label, kern, plain, "max"))
 
     # ----- K5 vs plain -----
     def env_case(label, state, n_steps, stat, resets_share, **kw):
@@ -603,7 +681,7 @@ def main() -> int:
         branches = [0, 0, 0]
         for name, stat in VJP_CASES:
             engine, state = starts[name]
-            tau = (-60.0 * state.s - 0.5 * state.sd).contiguous()
+            tau = case_tau(name, state)
             counts = contact_branches(engine, state)
             branches = [a + b for a, b in zip(branches, counts)]
             print(f"step_vjp {name}: contact points out of contact, sticking, slipping {counts}", flush=True)
@@ -631,16 +709,10 @@ def main() -> int:
             sync()
             scaled, raw = vjp_diff(kern, plain)
             gate(f"step_vjp params_grad vs plain, {name}, ct of all six, |Δ|/max(1, max|plain|)", scaled, stat)
-            for k in hum.PARAM_NAMES:
-                a, b = kern[2][k], plain[2][k]
-                err, big = float((a - b).abs().max()), float(b.abs().max())
-                worst = float(((a - b).abs() - PARAMS_RTOL * b.abs()).max()) / max(1.0, big)
-                print(f"step_vjp params_grad {name}: ct {k} max|Δ| {err:.6g}, max|plain| {big:.6g}, "
-                      f"(|Δ| - {PARAMS_RTOL}·|plain|) / max(1, max|plain|) {worst:.6g}")  # fmt: skip
-                if not (bool(torch.isfinite(a).all()) and worst <= PARAMS_ATOL):
-                    raise RuntimeError(f"step_vjp params_grad: ct {k} disagrees with plain")
-                if stat == "max":
-                    max_errs["step_vjp_params_grad"].append(max(raw, err))
+            params_gate(f"step_vjp params_grad {name}", kern[2], plain[2])
+            if stat == "max":
+                err = max(float((kern[2][k] - plain[2][k]).abs().max()) for k in hum.PARAM_NAMES)
+                max_errs["step_vjp_params_grad"].append(max(raw, err))
             if not all(torch.equal(x, y) for x, y in zip(leaves(kern), leaves(again))):
                 raise RuntimeError("two runs of step_vjp with params_grad differ")
         print("step_vjp params_grad: two runs agree to the bit", flush=True)
@@ -839,24 +911,12 @@ def main() -> int:
             raise RuntimeError("hardware-parameter gradient: non-finite or all-zero gradients")
 
     with phase("main path: APG training (K3, K4)"):
-        ng, H = garp.n_joints, APG["hidden"]
-        target = torch.tensor(APG["target"][:ng], device=device)
-        apg_gen = torch.Generator(device).manual_seed(4)
-        weights = dict(
-            W1=0.3 * torch.randn(H, 2 * ng, generator=apg_gen, device=device),
-            b1=torch.zeros(H, device=device),
-            W2=0.05 * torch.randn(ng, H, generator=apg_gen, device=device),
-            b2=torch.zeros(ng, device=device),
-        )
-        for t in weights.values():
-            t.requires_grad_()
+        weights, target = apg["weights"], apg["target"]
         opt = torch.optim.Adam(weights.values(), lr=APG["lr"])
         apg_rollout = diff_step.fused_diff_rollout(garp, APG["horizon"])
-        apg_start = garp.init_state(APG["batch"], generator=apg_gen)
-        apg_start.s = 0.2 * torch.randn(apg_start.s.shape, generator=apg_gen, device=device)
 
         def train():
-            state, losses = apg_start, []
+            state, losses = apg["start"], []
             for _ in range(APG["windows"]):
                 opt.zero_grad()
                 out = apg_rollout(state, apg_policy, weights, target)

@@ -1,33 +1,29 @@
 """Differentiable engine steps and rollouts: gradients through the physics.
 
-Counterparts of ``jaxsim_tpu/ops/pallas_step.py``'s differentiable tiers, as
-``torch.autograd.Function``s over flat tensors (the six state leaves, the
+Counterparts of ``jaxsim_tpu/ops/pallas_step.py``'s fused differentiable
+tier (``build_fused_diff_pallas_step`` / ``_rollout``), as a
+``torch.autograd.Function`` over flat tensors (the six state leaves, the
 torques ``tau`` and the model arrays in ``BatchedEngine.PARAM_NAMES`` order):
-
-* :func:`fused_diff_step` / :func:`fused_diff_rollout`
-  (``build_fused_diff_pallas_step`` / ``_rollout``): forward K3
-  (:func:`cuda_step.step_tau`), backward K4 (:func:`cuda_step_vjp.step_vjp`).
-  Without ``params_grad`` the model arrays are the engine's and constant;
-  with it, gradients also flow to ``pr``, the model arrays by name.
-* :func:`diff_step` / :func:`diff_rollout` (``build_diff_pallas_step`` /
-  ``_rollout``), the fallback tier: forward K3, backward the twin's step
-  under autograd on the saved inputs; gradients flow to ``pr``. With
-  ``checkpoint_chunk`` a chunk of steps is one node that saves only its input
-  state and recomputes the chunk with the twin in the backward.
+forward K3 (:func:`cuda_step.step_tau`), backward K4
+(:func:`cuda_step_vjp.step_vjp`). Without ``params_grad`` the model arrays
+are the engine's and constant; with it, gradients also flow to ``pr``, the
+model arrays by name, merged over the engine's own.
 
 A rollout calls ``policy_fn(state, *policy_args) -> tau`` between steps, in
-torch ops, so gradients reach the policy's tensors. ``pr`` is merged over the
-engine's own arrays. For a CPU state every forward and backward is the plain
-version; for a CUDA state the fused tier runs K3 and K4 and nothing else, and
-a failed build or launch raises.
+torch ops, so gradients reach the policy's tensors. For a CPU state every
+forward and backward is the plain version; for a CUDA state K3 and K4 run and
+nothing else, and a failed build or launch raises.
 
-Autograd saves each step's inputs: the fused rollout of the humanoid at
-8192 envs keeps about 7.4 MB of state and torques a step.
+Autograd saves each step's inputs: the humanoid at 8192 envs keeps about
+7.4 MB of state and torques a step. With ``checkpoint_chunk`` it keeps only
+each chunk's start state, and the backward runs the chunk's K3 steps again
+before their K4 steps.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import cuda_step, cuda_step_vjp
 from .batched_engine import BatchedEngine, BatchedState
@@ -46,13 +42,12 @@ def _as_pr(params) -> dict[str, torch.Tensor] | None:
 
 
 class _Step(torch.autograd.Function):
-    """One K3 step as an autograd node; its backward is ``vjp`` (K4's
-    wrapper, or the twin's VJP), with the model arrays' cotangents when the
-    node takes them as inputs."""
+    """One K3 step as an autograd node whose backward is K4, with the model
+    arrays' cotangents when the node takes them as inputs."""
 
     @staticmethod
-    def forward(ctx, engine, vjp, *flat):
-        ctx.engine, ctx.vjp = engine, vjp
+    def forward(ctx, engine, *flat):
+        ctx.engine = engine
         ctx.save_for_backward(*flat)
         state, tau, params = BatchedState(*flat[:6]), flat[6], flat[7:]
         return cuda_step.step_tau(engine, state, tau, _as_pr(params)).fields()
@@ -62,108 +57,52 @@ class _Step(torch.autograd.Function):
         flat = ctx.saved_tensors
         state, tau, params = BatchedState(*flat[:6]), flat[6], flat[7:]
         ct = BatchedState(*(torch.zeros_like(x) if c is None else c.contiguous() for c, x in zip(ct, flat)))
-        res = ctx.vjp(ctx.engine, state, tau, ct, _as_pr(params), bool(params))
+        res = cuda_step_vjp.step_vjp(ctx.engine, state, tau, ct, _as_pr(params), bool(params))
         grads = (*res[0].fields(), res[1])
         if params:
             grads += tuple(res[2][k] for k in PARAM_NAMES)
-        return (None, None, *grads)
+        return (None, *grads)
 
 
-def _step(engine, vjp, state: BatchedState, tau, params=()) -> BatchedState:
-    return BatchedState(*_Step.apply(engine, vjp, *state.fields(), tau.contiguous(), *params))
+def _step(engine, state: BatchedState, tau, params=()) -> BatchedState:
+    return BatchedState(*_Step.apply(engine, *state.fields(), tau.contiguous(), *params))
 
 
 def fused_diff_step(engine: BatchedEngine, params_grad: bool = False):
     """``(state, tau) -> state`` (with ``params_grad``: ``(state, tau,
     pr=None) -> state``), forward K3 and backward K4."""
     cuda_step_vjp.check_scope(engine)
-    vjp = cuda_step_vjp.step_vjp
     if not params_grad:
-        return lambda state, tau: _step(engine, vjp, state, tau)
-    return lambda state, tau, pr=None: _step(engine, vjp, state, tau, _model_arrays(engine, pr))
+        return lambda state, tau: _step(engine, state, tau)
+    return lambda state, tau, pr=None: _step(engine, state, tau, _model_arrays(engine, pr))
 
 
-def fused_diff_rollout(engine: BatchedEngine, n_steps: int, params_grad: bool = False):
+def fused_diff_rollout(
+    engine: BatchedEngine, n_steps: int, params_grad: bool = False, checkpoint_chunk: int | None = None
+):
     """``(state, policy_fn, *policy_args, pr=None) -> state``: ``n_steps``
     fused differentiable steps with ``tau = policy_fn(state, *policy_args)``
-    between them; ``pr`` (with ``params_grad`` only) is differentiable."""
+    between them; ``pr`` (with ``params_grad`` only) is differentiable. With
+    ``checkpoint_chunk``, chunks of that many steps (and one of the
+    remainder) each keep only their start state for the backward."""
     cuda_step_vjp.check_scope(engine)
-    vjp = cuda_step_vjp.step_vjp
+    if checkpoint_chunk is not None and checkpoint_chunk < 1:
+        raise ValueError(f"checkpoint_chunk must be a positive step count, not {checkpoint_chunk}")
+
+    def steps(state, n, policy_fn, policy_args, params):
+        for _ in range(n):
+            state = _step(engine, state, policy_fn(state, *policy_args), params)
+        return state
 
     def rollout(state: BatchedState, policy_fn, *policy_args, pr=None) -> BatchedState:
         if pr is not None and not params_grad:
             raise ValueError("pr is differentiated only by a rollout built with params_grad=True")
         params = _model_arrays(engine, pr) if params_grad else ()
-        for _ in range(n_steps):
-            state = _step(engine, vjp, state, policy_fn(state, *policy_args), params)
-        return state
-
-    return rollout
-
-
-def diff_step(engine: BatchedEngine):
-    """``(state, tau, pr=None) -> state``: forward K3, backward the twin's
-    step under autograd; gradients flow to the state, ``tau`` and ``pr``."""
-    cuda_step_vjp.check_scope(engine)
-    vjp = cuda_step_vjp.step_vjp_reference
-    return lambda state, tau, pr=None: _step(engine, vjp, state, tau, _model_arrays(engine, pr))
-
-
-class _Chunk(torch.autograd.Function):
-    """``length`` K3 steps under the policy as one autograd node that saves
-    only its inputs (the chunk's start state, the policy's tensors, the
-    model arrays) and recomputes the chunk with the twin in its backward."""
-
-    @staticmethod
-    def forward(ctx, engine, policy_fn, length, n_args, *flat):
-        ctx.engine, ctx.policy_fn, ctx.length, ctx.n_args = engine, policy_fn, length, n_args
-        ctx.save_for_backward(*flat)
-        state, args, pr = _unflatten_chunk(flat, n_args)
-        for _ in range(length):
-            state = cuda_step.step_tau(engine, state, policy_fn(state, *args).contiguous(), pr)
-        return state.fields()
-
-    @staticmethod
-    def backward(ctx, *ct):
-        flat = ctx.saved_tensors
-        wanted = ctx.needs_input_grad[4:]
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(w) for t, w in zip(flat, wanted)]
-            state, args, pr = _unflatten_chunk(inputs, ctx.n_args)
-            for _ in range(ctx.length):
-                state = ctx.engine.step(state, ctx.policy_fn(state, *args), pr)
-            outs = [(o, c) for o, c in zip(state.fields(), ct) if c is not None and o.requires_grad]
-            sources = [t for t in inputs if t.requires_grad]
-            grads = iter(
-                torch.autograd.grad([o for o, _ in outs], sources, [c for _, c in outs], allow_unused=True)
-                if outs and sources
-                else [None] * len(sources)
-            )
-        return (None, None, None, None, *(next(grads) if t.requires_grad else None for t in inputs))
-
-
-def _unflatten_chunk(flat, n_args):
-    return BatchedState(*flat[:6]), flat[6 : 6 + n_args], dict(zip(PARAM_NAMES, flat[6 + n_args :]))
-
-
-def diff_rollout(engine: BatchedEngine, n_steps: int, checkpoint_chunk: int | None = None):
-    """``(state, policy_fn, *policy_args, pr=None) -> state``: ``n_steps`` K3
-    steps whose backward is the twin's. With ``checkpoint_chunk``, chunks of
-    that many steps (and one of the remainder) each save only their start
-    state; ``policy_args`` are then tensors."""
-    cuda_step_vjp.check_scope(engine)
-    vjp = cuda_step_vjp.step_vjp_reference
-
-    def rollout(state: BatchedState, policy_fn, *policy_args, pr=None) -> BatchedState:
-        params = _model_arrays(engine, pr)
         if checkpoint_chunk is None:
-            for _ in range(n_steps):
-                state = _step(engine, vjp, state, policy_fn(state, *policy_args), params)
-            return state
+            return steps(state, n_steps, policy_fn, policy_args, params)
         n_chunks, rem = divmod(n_steps, checkpoint_chunk)
         for length in [checkpoint_chunk] * n_chunks + ([rem] if rem else []):
-            out = _Chunk.apply(engine, policy_fn, length, len(policy_args), *state.fields(), *policy_args, *params)
-            state = BatchedState(*out)
+            state = checkpoint(steps, state, length, policy_fn, policy_args, params, use_reentrant=False)
         return state
 
     return rollout

@@ -279,16 +279,19 @@ def _rollout_grad(name, rollout):
 ROLLOUTS = {
     "fused": lambda eng: diff_step.fused_diff_rollout(eng, ROLLOUT_STEPS),
     "fused_params_grad": lambda eng: diff_step.fused_diff_rollout(eng, ROLLOUT_STEPS, params_grad=True),
-    "diff": lambda eng: diff_step.diff_rollout(eng, ROLLOUT_STEPS),
-    "diff_chunk2": lambda eng: diff_step.diff_rollout(eng, ROLLOUT_STEPS, checkpoint_chunk=2),
-    "diff_chunk3": lambda eng: diff_step.diff_rollout(eng, ROLLOUT_STEPS, checkpoint_chunk=3),
+    "fused_chunk2": lambda eng: diff_step.fused_diff_rollout(eng, ROLLOUT_STEPS, checkpoint_chunk=2),
+    "fused_chunk3": lambda eng: diff_step.fused_diff_rollout(eng, ROLLOUT_STEPS, checkpoint_chunk=3),
+    "fused_params_grad_chunk1": lambda eng: diff_step.fused_diff_rollout(
+        eng, ROLLOUT_STEPS, params_grad=True, checkpoint_chunk=1
+    ),
 }
 
 
 @pytest.mark.parametrize("tier", sorted(ROLLOUTS))
 def test_rollout_gains_gradient_matches_jax(tier):
     """The gains' gradient through 4 steps of each differentiable rollout
-    (chunks of 2, and of 3 with a remainder) against ``jax.grad``."""
+    (checkpointed in chunks of 2, of 3 with a remainder, and of 1) against
+    ``jax.grad``."""
     ref = _jax_rollout_grad("tiny_floating", ROLLOUT_STEPS)
     got = _rollout_grad("tiny_floating", ROLLOUTS[tier])
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-7)
@@ -326,6 +329,32 @@ def test_params_grad_rollout_matches_jax_grad_of_pr():
         atol = SUMMED["atol_scale"] * max(1.0, float(np.abs(r).max()))
         np.testing.assert_allclose(g.numpy(), r, rtol=SUMMED["rtol"], atol=atol, err_msg=k)
         assert np.abs(r).max() > 0, k
+
+
+def test_checkpointed_rollout_runs_each_chunk_forward_again(monkeypatch):
+    """With ``checkpoint_chunk`` the backward runs each chunk's forward steps
+    again (the step twice a step in all) and the step VJP once a step, and
+    the gradient is the unchunked rollout's."""
+    eng, state = _pendulum()
+    calls = dict.fromkeys(("step_tau", "step_vjp"), 0)
+    for mod, name in ((cuda_step, "step_tau"), (cuda_step_vjp, "step_vjp")):
+
+        def counted(*args, _f=getattr(mod, name), _name=name, **kwargs):
+            calls[_name] += 1
+            return _f(*args, **kwargs)
+
+        monkeypatch.setattr(mod, name, counted)
+    grads = []
+    for chunk, want in ((None, (5, 5)), (2, (10, 5))):
+        calls.update(step_tau=0, step_vjp=0)
+        gains = torch.tensor(GAINS, requires_grad=True)
+        out = diff_step.fused_diff_rollout(eng, 5, checkpoint_chunk=chunk)(state, _gains_policy, gains)
+        (out.sd**2).sum().backward()
+        assert (calls["step_tau"], calls["step_vjp"]) == want, chunk
+        grads.append(gains.grad)
+    assert torch.equal(grads[0], grads[1]) and float(grads[0].abs().max()) > 0
+    with pytest.raises(ValueError, match="checkpoint_chunk"):
+        diff_step.fused_diff_rollout(eng, 5, checkpoint_chunk=0)
 
 
 # ----- the wrappers -----
@@ -442,3 +471,16 @@ def test_fused_diff_step_launches_k3_and_k4_once(cuda):
     after = cuda_step.STEP_TAU_KERNEL_LAUNCHES, cuda_step_vjp.STEP_VJP_KERNEL_LAUNCHES
     assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
     assert bool(torch.isfinite(tau.grad).all()) and float(tau.grad.abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_checkpointed_rollout_launches_k3_twice_and_k4_once_a_step(cuda):
+    eng, state, _, _ = _card_case("garpez", cuda, 256)
+    gains = torch.tensor(GAINS, device=cuda, requires_grad=True)
+    before = cuda_step.STEP_TAU_KERNEL_LAUNCHES, cuda_step_vjp.STEP_VJP_KERNEL_LAUNCHES
+    out = diff_step.fused_diff_rollout(eng, 5, checkpoint_chunk=2)(state, _gains_policy, gains)
+    (out.sd**2).sum().backward()
+    torch.cuda.synchronize()
+    after = cuda_step.STEP_TAU_KERNEL_LAUNCHES, cuda_step_vjp.STEP_VJP_KERNEL_LAUNCHES
+    assert (after[0] - before[0], after[1] - before[1]) == (10, 5)
+    assert bool(torch.isfinite(gains.grad).all()) and float(gains.grad.abs().max()) > 0
