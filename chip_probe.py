@@ -4,7 +4,7 @@ pattern and the spread that float32 rounding leaves, on one NVIDIA GPU.
 
 Usage, from the root of a checkout, on a machine with a CUDA card:
 
-    python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations]
+    python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations] [rr]
 
 With no argument it runs the first three. Probes of the flagship humanoid
 (soft contacts, flat ground, PD policy):
@@ -35,7 +35,13 @@ With no argument it runs the first three. Probes of the flagship humanoid
   linear policy with ``W, b = 0.2·N(0, 1)``, healthy height (0.6, 1.2) m,
   100 steps, from the joints-moving start at 8192 envs), run by the kernel,
   the float32 plain version and the float64 plain version: for each pair,
-  the share of envs whose resets, and whose step counts, agree.
+  the share of envs whose resets, and whose step counts, agree;
+* rr: K1's relaxed-rigid build on the humanoid (``chip_smoke.py``'s
+  relaxed-rigid model) from the relaxed-rigid main path's start: device ms a
+  step at 8192 envs for each PCG budget in ``RR_ITERATIONS`` (a step makes
+  iterations + 2 M⁻¹Jᵀ passes), with the least-squares ms a pass and the
+  intercept; then at each batch size in ``RR_BATCHES`` with the humanoid's
+  own budget. Each build's ptxas registers and frame are printed.
 
 It prints the card's name and power limit, then JSON lines keyed by probe,
 and exits non-zero when no CUDA device is visible.
@@ -60,6 +66,9 @@ LAUNCH_STEPS = (1, 2, 10, 100)
 LAUNCH_BATCHES = (1024, 8192)
 LAUNCH_REPEATS = 15
 TERMINATION_STEPS = 100
+RR_ITERATIONS = (1, 2, 4, 8, 16)
+RR_BATCHES = (8192, 32768, 65536)
+RR_STEPS = 100
 
 
 def _summary(a, b) -> dict[str, list[float]]:
@@ -233,12 +242,45 @@ def terminations_probe(hum, gen) -> None:
     print(json.dumps({"terminations": {"B": state.p.shape[-1], "steps": TERMINATION_STEPS, **out}}), flush=True)
 
 
+def rr_probe(hum, gen) -> None:
+    from chip_smoke import rr_humanoid_engine
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_rollout
+
+    engines = {}
+    for n in RR_ITERATIONS:
+        engines[n] = rr_humanoid_engine(hum.S.device)
+        engines[n].rr_iterations = n
+    own = rr_humanoid_engine(hum.S.device)
+    builds = cuda_build.build_many([cuda_rollout.job(e) for e in (*engines.values(), own)])
+    for n, b in zip((*RR_ITERATIONS, "own"), builds):
+        ptxas = [ln.strip() for ln in b.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln]
+        print(json.dumps({"rr_build": {"iterations": n, "ptxas": ptxas}}), flush=True)
+    rows = []
+    for n, eng in engines.items():
+        state = eng.init_state(PROFILE_BATCH, generator=gen)
+        cuda_rollout.rollout(eng, state, RR_STEPS)  # warm-up
+        ms = device_ms(lambda: cuda_rollout.rollout(eng, state, RR_STEPS), REPEATS) / RR_STEPS
+        rows.append((n + 2, ms))
+        print(json.dumps({"rr_iterations": {"B": PROFILE_BATCH, "iterations": n, "passes": n + 2, "ms_per_step": ms}}),
+              flush=True)  # fmt: skip
+    mx, my = statistics.mean(r[0] for r in rows), statistics.mean(r[1] for r in rows)
+    slope = sum((x - mx) * (y - my) for x, y in rows) / sum((x - mx) ** 2 for x, _ in rows)
+    print(json.dumps({"rr_fit": {"ms_per_pass": slope, "ms_intercept": my - slope * mx}}), flush=True)
+    for B in RR_BATCHES:
+        state = own.init_state(B, generator=gen)
+        cuda_rollout.rollout(own, state, RR_STEPS)  # warm-up
+        ms = device_ms(lambda: cuda_rollout.rollout(own, state, RR_STEPS), REPEATS)
+        print(json.dumps({"rr_sweep": {"B": B, "iterations": own._rr_n_iter, "ms": ms,
+                                       "env_steps_per_s": B * RR_STEPS / (ms * 1e-3)}}), flush=True)  # fmt: skip
+
+
 PROBES = {
     "sweep": sweep_probe,
     "profile": profile_probe,
     "k1": k1_probe,
     "launch": launch_probe,
     "terminations": terminations_probe,
+    "rr": rr_probe,
 }
 
 

@@ -11,7 +11,10 @@ plain PyTorch version on the card:
 
 * K1 (``rollout.cu``), K2 and K3 (``step.cu``), in every state field, on the
   fixed-base pendulum and on the 23-DoF humanoid at 8192 envs, from the main
-  path's start and with the joints moving (``CASES``); K3 also under
+  path's start and with the joints moving (``CASES``); K1's relaxed-rigid
+  build likewise on the humanoid and on garpez tilted low (``RR_CASES``),
+  ``m`` (the solved point forces) relative to its size, with the active
+  contact points of each case counted; K3 also under
   call-time model arrays (``M`` scaled by 1.2), and on the garpez chain
   through one APG window from the APG main path's start;
 * K5 (``env_rollout.cu``) in every state field, the reward sums, the resets
@@ -25,7 +28,11 @@ plain PyTorch version on the card:
   the model arrays' cotangents entry by entry; its partials' sum against
   ``torch.sum``; and the
   PD gains' gradient through a 10-step ``fused_diff_rollout`` against the
-  plain twin under autograd.
+  plain twin under autograd;
+* K6 and K7 (``fma_probe.cu``), each FMA-rate probe variant against its
+  plain version at a small T, in units in the last place, at a multiplier
+  and increment that move every chain at every iteration; and the FMA
+  instructions in each probe's timed loop, read from its SASS.
 
 Then it runs the main paths, each with every launch counter set to 0 just
 before it and read just after:
@@ -45,7 +52,16 @@ before it and read just after:
   ``cpoint``, K4 with the model arrays' cotangents;
 * APG training, ``examples/train_apg.py``'s configuration uncut: the garpez
   chain, 1024 envs, a tanh MLP with H = 32 through 30-step windows, Adam,
-  the running state advanced with gradients off; three windows.
+  the running state advanced with gradients off; three windows;
+* the relaxed-rigid rollout, bench.py's ``relaxed_rigid`` uncut: the humanoid
+  with ``RelaxedRigidContacts()`` and its default parameters, flat ground,
+  semi-implicit Euler, the PD policy, 8192 envs, four chained 400-step K1
+  launches (8 PCG iterations a step);
+* the FMA-rate probes: K6's float32 peak, which is K7's float32 rate (one
+  sweep, its launches counted as both), and K7's two bf16 rates, each the
+  best of a sweep over chains per thread and blocks per SM, with its share
+  of the data-sheet peak; the bounds then give every operations-bound
+  kernel's share of the measured peak beside its share of the data sheet's.
 
 It prints each phase's seconds, the card's name and power limit, a JSON line
 with each kernel's numbers (device ms per launch, the plain version's ms for
@@ -73,7 +89,7 @@ TIMED_CALLS = 5
 # The plain twin takes 50-110 ms a humanoid step on the card (thousands of
 # small launches); its time is taken over fewer steps than the kernel's
 # launch and scaled to the same work, linearly in the steps.
-PLAIN_TIMED_STEPS = dict(rollout=100, step_pd=10, step_tau=10, env_rollout=20, step_vjp=3)
+PLAIN_TIMED_STEPS = dict(rollout=100, step_pd=10, step_tau=10, env_rollout=20, step_vjp=3, rollout_relaxed_rigid=20)
 PER_STEP_LAUNCHES = 100  # K2 main path
 ENV_STEPS = 20  # BatchedEnv.step main path
 # ES main path: examples/train_es_mlp.py uncut.
@@ -115,6 +131,42 @@ VJP_CASES = (
 # that reaches only its small entries (a seeded fault that left entries of
 # S's cotangent 2.4 % off reached 6 % of the first limit).
 PARAMS_RTOL, PARAMS_ATOL = 5e-3, 5e-4
+# K1's relaxed-rigid build vs plain: (start state, steps, statistic over
+# envs, held against float64), as CASES; m holds the solved point forces in
+# newtons and is held relative to max(1, max |plain m|). With the joints
+# moving, float32 rounding alone carries relaxed-rigid envs apart: a point
+# at δ ≈ 0 switches its constraint on in one version and not in the other,
+# and 8 CG iterations pass on the difference. Two such starts: ṡ =
+# 0.5·N(0, 1) rad/s from the standing pose, and CASES' start (joints
+# displaced 0.3·N(0, 1) rad as well). On an H100 the float32 and float64
+# twins differ at the first by 2.1e-2 in ṡ after 10 steps (max over 8192
+# envs) and by 5.9e-2 at p99.9 after 100 steps (this script prints both).
+# Those cases hold the kernel against the float64 twin, each field within
+# max(TOL, 2 × the float32 twin's own distance to it) at the case's
+# statistic. Garpez starts tilted low (base
+# 0.015 m up, turned 0.2 rad about x, joints 0.05·N(0, 1) rad) so that two
+# corners penetrate from step 0, under tau = -20·s - 0.1·ṡ, the set-up of the
+# JAX package's relaxed-rigid garpez test (tests/test_batched_engine.py:991-1013).
+RR_CASES = (
+    ("humanoid23 relaxed-rigid main-path start", 100, "max", False),
+    ("humanoid23 relaxed-rigid joints moving", 10, "max", True),
+    ("humanoid23 relaxed-rigid joints moving", 100, "p99.9", True),
+    ("humanoid23 relaxed-rigid joints displaced and moving", 10, "max", True),
+    ("humanoid23 relaxed-rigid joints displaced and moving", 100, "p99.9", True),
+    ("garpez relaxed-rigid tilted low", 100, "max", False),
+)
+RR_JOINT_SPEED = 0.5  # rad/s, the moving start's ṡ scale
+RR_GARPEZ = dict(batch=1024, base=(0.0, 0.0, 0.015), quat=(0.995, 0.0998, 0.0, 0.0), joints=0.05, gains=(20.0, 0.1))
+# Relaxed-rigid main path: bench.py's relaxed_rigid (bench.py:338-361) uncut.
+RR_HORIZON = 400  # steps per K1 launch
+RR_TIMED_CALLS = 3
+RR_ITERATIONS = 8  # _rr_n_iter of the humanoid's 48 points
+# K6/K7 vs plain: T of the comparison, and the limit in units in the last
+# place (the plain version rounds each fused step twice, through float64,
+# the kernel once; the two differ only at a tie after the first rounding).
+# The comparison runs at fma_probe.GATE_K and GATE_E, where the plain
+# output moves with every trip of the kernel's loop.
+PROBE_GATE_T, PROBE_ULPS = 64, 1
 # Gradient main paths: bench.py's gradient path uncut (BASELINE config 4).
 GRAD = dict(steps=100, gains=(60.0, 0.5), timed=3, check_steps=10, check_rtol=1e-3)
 # APG main path: examples/train_apg.py uncut, three windows.
@@ -147,6 +199,11 @@ REPLACES = dict(
     step_vjp_params_grad="jaxsim_tpu/ops/pallas_step.py:262",
     # The partials' sum replaces the kernel's accumulation across grid steps.
     param_sum="jaxsim_tpu/ops/pallas_step.py:306",
+    rollout_relaxed_rigid="jaxsim_tpu/ops/pallas_step.py:664",
+    fma_probe="bench.py:716",
+    bf16_probe_f32="scripts/bf16_probe.py:36",
+    bf16_probe_bf16="scripts/bf16_probe.py:36",
+    bf16_probe_bf16_store="scripts/bf16_probe.py:36",
 )
 SOURCES = dict(
     rollout="jaxsim_tpu_torch/csrc/rollout.cu",
@@ -156,6 +213,11 @@ SOURCES = dict(
     step_vjp="jaxsim_tpu_torch/csrc/step_vjp.cu",
     step_vjp_params_grad="jaxsim_tpu_torch/csrc/step_vjp.cu",
     param_sum="jaxsim_tpu_torch/csrc/step_vjp.cu",
+    rollout_relaxed_rigid="jaxsim_tpu_torch/csrc/rollout.cu",
+    fma_probe="jaxsim_tpu_torch/csrc/fma_probe.cu",
+    bf16_probe_f32="jaxsim_tpu_torch/csrc/fma_probe.cu",
+    bf16_probe_bf16="jaxsim_tpu_torch/csrc/fma_probe.cu",
+    bf16_probe_bf16_store="jaxsim_tpu_torch/csrc/fma_probe.cu",
 )
 
 
@@ -185,6 +247,24 @@ def humanoid_engine(device):
     return BatchedEngine.build(model.replace(contact_params=params), device=device)
 
 
+def rr_humanoid_engine(device):
+    """bench.py's relaxed-rigid model: the humanoid with
+    ``RelaxedRigidContacts()`` and the default parameters (μ = 0.005)."""
+    from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, models
+    from jaxsim_tpu_torch.ops.contacts.relaxed_rigid import RelaxedRigidContacts
+
+    model = JaxSimModel.build_from_model_description(models.build_humanoid_urdf(), contact_model=RelaxedRigidContacts())
+    return BatchedEngine.build(model, device=device)
+
+
+def rr_garpez_engine(device):
+    from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, models
+    from jaxsim_tpu_torch.ops.contacts.relaxed_rigid import RelaxedRigidContacts
+
+    model = JaxSimModel.build_from_model_description(models.build_garpez_urdf(), contact_model=RelaxedRigidContacts())
+    return BatchedEngine.build(model, device=device)
+
+
 def pendulum_engine(device):
     from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, models
 
@@ -208,18 +288,26 @@ def all_finite(state) -> bool:
     return all(bool(torch.isfinite(t).all()) for t in state.fields())
 
 
-def gate(name: str, diff: dict, stat: str) -> float:
-    """Fails when ``stat`` (max or p99.9 over envs) of any entry's per-env
-    |Δ| exceeds TOL; returns the largest max |Δ| over the entries."""
+def over_envs(diff: dict, stat: str) -> dict[str, float]:
+    """``stat`` (max or p99.9) over envs of each entry's per-env |Δ|."""
     import torch
 
-    err = {k: float(d.max()) for k, d in diff.items()}
-    p999 = {k: float(torch.quantile(d.double(), 0.999)) for k, d in diff.items()}
+    if stat == "max":
+        return {k: float(d.max()) for k, d in diff.items()}
+    return {k: float(torch.quantile(d.double(), 0.999)) for k, d in diff.items()}
+
+
+def gate(name: str, diff: dict, stat: str, limits: dict | None = None) -> float:
+    """Fails when ``stat`` (max or p99.9 over envs) of any entry's per-env
+    |Δ| exceeds its limit (TOL unless ``limits`` names one); returns the
+    largest max |Δ| over the entries."""
+    err, p999 = over_envs(diff, "max"), over_envs(diff, "p99.9")
     print(f"{name}: max |Δ| {json.dumps(err)}, p99.9 over envs {json.dumps(p999)}", flush=True)
     gated = err if stat == "max" else p999
-    bad = {k: e for k, e in gated.items() if not e <= TOL}
+    limits = limits or {}
+    bad = {k: e for k, e in gated.items() if not e <= limits.get(k, TOL)}
     if bad:
-        raise RuntimeError(f"{name}: kernel disagrees with plain beyond {TOL} ({stat}): {bad}")
+        raise RuntimeError(f"{name}: kernel disagrees with plain beyond {limits or TOL} ({stat}): {bad}")
     return max(err.values())
 
 
@@ -258,7 +346,7 @@ def start_states(pend, hum) -> dict:
 
 
 def counters() -> dict[str, int]:
-    from jaxsim_tpu_torch.ops import cuda_env_rollout, cuda_rollout, cuda_step, cuda_step_vjp
+    from jaxsim_tpu_torch.ops import cuda_env_rollout, cuda_rollout, cuda_step, cuda_step_vjp, fma_probe
 
     return dict(
         rollout=cuda_rollout.ROLLOUT_KERNEL_LAUNCHES,
@@ -267,18 +355,24 @@ def counters() -> dict[str, int]:
         env_rollout=cuda_env_rollout.ENV_ROLLOUT_KERNEL_LAUNCHES,
         step_vjp=cuda_step_vjp.STEP_VJP_KERNEL_LAUNCHES,
         param_sum=cuda_step_vjp.PARAM_SUM_KERNEL_LAUNCHES,
+        rollout_relaxed_rigid=cuda_rollout.ROLLOUT_RR_KERNEL_LAUNCHES,
+        fma_probe=fma_probe.FMA_PROBE_LAUNCHES,
+        **{f"bf16_probe_{v}": n for v, n in fma_probe.BF16_PROBE_LAUNCHES.items()},
     )
 
 
 def zero_counters() -> None:
-    from jaxsim_tpu_torch.ops import cuda_env_rollout, cuda_rollout, cuda_step, cuda_step_vjp
+    from jaxsim_tpu_torch.ops import cuda_env_rollout, cuda_rollout, cuda_step, cuda_step_vjp, fma_probe
 
     cuda_rollout.ROLLOUT_KERNEL_LAUNCHES = 0
+    cuda_rollout.ROLLOUT_RR_KERNEL_LAUNCHES = 0
     cuda_step.STEP_PD_KERNEL_LAUNCHES = 0
     cuda_step.STEP_TAU_KERNEL_LAUNCHES = 0
     cuda_env_rollout.ENV_ROLLOUT_KERNEL_LAUNCHES = 0
     cuda_step_vjp.STEP_VJP_KERNEL_LAUNCHES = 0
     cuda_step_vjp.PARAM_SUM_KERNEL_LAUNCHES = 0
+    fma_probe.FMA_PROBE_LAUNCHES = 0
+    fma_probe.BF16_PROBE_LAUNCHES.update(dict.fromkeys(fma_probe.VARIANTS, 0))
 
 
 def main_path(name: str, expect: dict[str, int], drive):
@@ -338,9 +432,9 @@ def wall_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS) -> tuple[float, str]:
     """The least time (ms) the card could take for the work, and what binds."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -488,6 +582,132 @@ def params_gate(label: str, kern: dict, plain: dict) -> dict[str, float]:
     return ratios
 
 
+def rr_start_states(hum_rr, garp_rr, gen) -> dict:
+    """K1-rr's cases' start states by name: (engine, state, PD gains). The
+    humanoid's is the relaxed-rigid main path's start."""
+    import torch
+
+    g = RR_GARPEZ
+    device = hum_rr.S.device
+    start = hum_rr.init_state(BATCH, generator=gen)
+    moving = dataclasses.replace(start, sd=RR_JOINT_SPEED * torch.randn(start.sd.shape, generator=gen, device=device))
+    tilted = garp_rr.init_state(g["batch"], base_position=g["base"])
+    tilted.q = torch.tensor(g["quat"], device=device)[:, None].repeat(1, g["batch"])
+    tilted.s = g["joints"] * torch.randn(tilted.s.shape, generator=gen, device=device)
+    return {
+        RR_CASES[0][0]: (hum_rr, start, (60.0, 0.5)),
+        RR_CASES[1][0]: (hum_rr, moving, (60.0, 0.5)),
+        RR_CASES[3][0]: (hum_rr, moving_joints(start, gen), (60.0, 0.5)),
+        RR_CASES[5][0]: (garp_rr, tilted, g["gains"]),
+    }
+
+
+def rr_active_points(engine, state) -> int:
+    """Contact points of ``state``, over all envs, in contact (δ > 0, the
+    relaxed-rigid solve's switch), by the twin's geometry."""
+    W_R, W_p, W_v = engine.fk(state)
+    return int(engine._point_geometry(W_R, W_p, W_v, engine.params())["active"].sum())
+
+
+def rr_diff(a, b) -> dict:
+    """:func:`per_env_abs_diff`, m's over max(1, max |m| of ``b``)."""
+    diff = per_env_abs_diff(a, b)
+    diff["m"] = diff["m"] / max(1.0, float(b.m.abs().max()))
+    return diff
+
+
+def rr_gates(starts) -> list[float]:
+    """K1's relaxed-rigid build against the plain twin in each of RR_CASES:
+    every state field's per-env |Δ|, m's over max(1, max |plain m|), at the
+    case's statistic over envs; against the float64 twin where the case says
+    so (RR_CASES). Fails a case whose plain trajectory has no active contact
+    point. Returns the largest unscaled |Δ| of each case held at its max
+    against the float32 twin."""
+    import copy
+
+    import torch
+
+    from jaxsim_tpu_torch import BatchedState
+    from jaxsim_tpu_torch.ops import cuda_rollout
+
+    errs = []
+    for name in dict.fromkeys(case[0] for case in RR_CASES):
+        engine, state, (kp, kd) = starts[name]
+        cases = [case[1:] for case in RR_CASES if case[0] == name]
+        twins = {"float32": (engine, state)}
+        if any(against64 for *_, against64 in cases):
+            twins["float64"] = (copy.deepcopy(engine).double(), BatchedState(*(t.double() for t in state.fields())))
+        plain, active = {k: {} for k in twins}, []
+        with torch.no_grad():
+            for kind, (eng, st) in twins.items():
+                for t in range(1, max(n for n, *_ in cases) + 1):
+                    if kind == "float32":
+                        active.append(rr_active_points(eng, st))
+                    st = eng.step(st, -kp * st.s - kd * st.sd)
+                    plain[kind][t] = BatchedState(*(x.float() for x in st.fields()))
+        B = state.p.shape[-1]
+        for n, stat, against64 in cases:
+            label = f"rollout_relaxed_rigid vs plain, {name} B={B} {n} steps"
+            print(f"{label}: active contact points summed over the steps {sum(active[:n])}, "
+                  f"at the first step {active[0]}, at the last {active[n - 1]}", flush=True)  # fmt: skip
+            if not sum(active[:n]):
+                raise RuntimeError(f"{label}: no contact point is active, so the gate proves nothing about the solve")
+            kern = cuda_rollout.rollout(engine, state, n, kp, kd)
+            torch.cuda.synchronize()
+            if not all(all_finite(x) for x in (kern, *(p[n] for p in plain.values()))):
+                raise RuntimeError(f"{label}: non-finite state")
+            print(f"{label}: max |plain m| {float(plain['float32'][n].m.abs().max()):.6g} N, m over max(1, that)")
+            if not against64:
+                gate(label, rr_diff(kern, plain["float32"][n]), stat)
+                if stat == "max":
+                    errs.append(max(float(d.max()) for d in per_env_abs_diff(kern, plain["float32"][n]).values()))
+            else:
+                d32 = over_envs(rr_diff(kern, plain["float32"][n]), stat)
+                print(f"{label}: against the float32 twin (not gated), {stat} over envs {json.dumps(d32)}")
+                spread = over_envs(rr_diff(plain["float32"][n], plain["float64"][n]), stat)
+                print(f"{label}: float32 twin vs float64 twin, {stat} over envs {json.dumps(spread)}")
+                gate(f"{label}, against the float64 twin", rr_diff(kern, plain["float64"][n]), stat,
+                     limits={k: max(TOL, 2 * e) for k, e in spread.items()})  # fmt: skip
+    return errs
+
+
+def probe_gates(device) -> dict[str, float]:
+    """Each variant of K7 (K6 is its float32 one) against the plain version
+    at PROBE_GATE_T and the gate's k and e, for every compiled chain count,
+    at the sweep's largest grid: at most PROBE_ULPS apart. Fails unless the
+    plain output moves in every element with the last trip of the loop.
+    Returns each probe's largest |Δ|."""
+    import torch
+
+    from jaxsim_tpu_torch.ops import fma_probe as fp
+
+    n = torch.cuda.get_device_properties(device).multi_processor_count * max(fp.BLOCKS_PER_SM) * fp.THREADS
+    k, e = fp.GATE_K, fp.GATE_E
+    errs = {}
+    for variant in fp.VARIANTS:
+        name = "fma_probe = bf16_probe_f32" if variant == "f32" else f"bf16_probe_{variant}"
+        ulps, err = 0, 0.0
+        for chains in fp.CHAINS:
+            x = fp.make_input(variant, n, device, seed=chains)
+            if not fp.moves_every_trip(variant, x, PROBE_GATE_T, chains, k, e):
+                raise RuntimeError(f"{name}: the plain output does not move with every trip, so the gate is blind")
+            if variant == "f32":
+                kern = fp.fma_probe(x, PROBE_GATE_T, chains, k, e)
+            else:
+                kern = fp.bf16_probe(variant, x, PROBE_GATE_T, chains, k, e)
+            plain = fp.probe_reference(variant, x, PROBE_GATE_T, chains, k, e)
+            torch.cuda.synchronize()
+            ulps = max(ulps, int(fp.ulp_distance(kern, plain).max()))
+            err = max(err, float((kern.float() - plain.float()).abs().max()))
+        print(f"{name} vs plain, {n} threads, T={PROBE_GATE_T}, k={k} e={e}, chains {fp.CHAINS}: max {ulps} ulp, "
+              f"max|Δ| {err:.6g}")  # fmt: skip
+        if ulps > PROBE_ULPS:
+            raise RuntimeError(f"{name}: kernel and plain {ulps} ulp apart, beyond {PROBE_ULPS}")
+        errs[f"bf16_probe_{variant}"] = err
+    errs["fma_probe"] = errs["bf16_probe_f32"]
+    return errs
+
+
 def pd_gains(state, gains):
     return -gains[0] * state.s - gains[1] * state.sd
 
@@ -540,7 +760,7 @@ def main() -> int:
     from jaxsim_tpu_torch import BatchedState
     from jaxsim_tpu_torch.envs import BatchedEnv
     from jaxsim_tpu_torch.ops import (
-        cuda_build, cuda_env_rollout, cuda_rollout, cuda_step, cuda_step_vjp, diff_step, flop_count,
+        cuda_build, cuda_env_rollout, cuda_rollout, cuda_step, cuda_step_vjp, diff_step, flop_count, fma_probe,
     )  # fmt: skip
     from jaxsim_tpu_torch.ops.policies import obs_dim
 
@@ -553,6 +773,7 @@ def main() -> int:
     hum = humanoid_engine(device)
     pend = pendulum_engine(device)
     garp = garpez_engine(device)
+    hum_rr, garp_rr = rr_humanoid_engine(device), rr_garpez_engine(device)
     n, d = hum.n_joints, obs_dim(hum.n_joints)
     gen = torch.Generator(device).manual_seed(1)
     # The real-terminations case's linear policy: the PD gains written as a
@@ -580,13 +801,18 @@ def main() -> int:
         jobs = [cuda_rollout.job(pend), cuda_rollout.job(hum), cuda_step.job(pend), cuda_step.job(hum),
                 *(cuda_env_rollout.job(hum, p) for p in pols.values()),
                 cuda_step_vjp.job(hum), cuda_step_vjp.job(hum, params_grad=True), cuda_step_vjp.job(pend),
-                cuda_step.job(garp), cuda_step_vjp.job(garp)]  # fmt: skip
+                cuda_step.job(garp), cuda_step_vjp.job(garp),
+                cuda_rollout.job(hum_rr), cuda_rollout.job(garp_rr), fma_probe.job()]  # fmt: skip
         builds = cuda_build.build_many(jobs)
     print(f"nvcc seconds {[round(b.seconds, 2) for b in builds]}")
     for b in builds:
         print(f"ptxas {b.path.parent.name}: " + " | ".join(
             ln.strip() for ln in b.ptxas_log.splitlines() if "registers" in ln or "spill" in ln or "stack frame" in ln
         ), flush=True)  # fmt: skip
+
+    sass = fma_probe.check_sass(builds[-1])
+    print("probe SASS, FMA instructions (in the timed loop / in all) by (variant, chains): "
+          + ", ".join(f"{k[0]} {k[1]}: {v['op']} {v['in_loop']}/{v['total']}" for k, v in sorted(sass.items())))  # fmt: skip
 
     # ----- K1, K2, K3 vs plain: one plain trajectory gates all three -----
     # The plain versions of K1 (rollout_reference), K2 (step_pd_reference,
@@ -639,6 +865,17 @@ def main() -> int:
         sync()
         label = f"step_tau vs plain, garpez APG start B={APG['batch']} {APG['horizon']} steps, APG policy"
         max_errs["step_tau"].append(compare_states(label, kern, plain, "max"))
+
+    # ----- K1's relaxed-rigid build vs plain -----
+    with phase("K1 relaxed-rigid vs plain"):
+        rr_starts = rr_start_states(hum_rr, garp_rr, torch.Generator(device).manual_seed(6))
+        max_errs["rollout_relaxed_rigid"] = rr_gates(rr_starts)
+        rr_start = rr_starts[RR_CASES[0][0]][1]
+
+    # ----- K6, K7 vs plain -----
+    with phase("K6 K7 vs plain"):
+        for name, err in probe_gates(device).items():
+            max_errs[name] = [err]
 
     # ----- K5 vs plain -----
     def env_case(label, state, n_steps, stat, resets_share, **kw):
@@ -936,6 +1173,68 @@ def main() -> int:
         if not (all(map(math.isfinite, losses)) and all_finite(apg_final)):
             raise RuntimeError("APG: non-finite loss or state")
 
+    with phase("main path: relaxed-rigid rollout (K1)"):
+        if hum_rr._rr_n_iter != RR_ITERATIONS:
+            raise RuntimeError(f"the relaxed-rigid humanoid runs {hum_rr._rr_n_iter} PCG iterations, not {RR_ITERATIONS}")
+
+        def rr_rollout():
+            out = cuda_rollout.rollout(hum_rr, rr_start, RR_HORIZON)  # warm-up
+            sync()
+            times = []
+            for _ in range(RR_TIMED_CALLS):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                out = cuda_rollout.rollout(hum_rr, out, RR_HORIZON)
+                end.record()
+                sync()
+                times.append((time.perf_counter() - t0, start.elapsed_time(end)))
+            return out, times
+
+        (rr_final, times), launches = main_path(
+            "relaxed-rigid rollout", dict(rollout_relaxed_rigid=1 + RR_TIMED_CALLS), rr_rollout
+        )
+        wall = [t[0] for t in times]
+        results["rollout_relaxed_rigid"] = dict(launches=launches["rollout_relaxed_rigid"],
+                                                ms=statistics.median(t[1] for t in times))  # fmt: skip
+        print(f"K1 relaxed-rigid: {BATCH}x{RR_HORIZON} steps per call, {hum_rr._rr_n_iter} PCG iterations a step, "
+              f"wall s {wall}, device ms {[t[1] for t in times]}")  # fmt: skip
+        print(f"K1 relaxed-rigid env_steps_per_s (median wall): {BATCH * RR_HORIZON / statistics.median(wall):.6g}",
+              flush=True)  # fmt: skip
+        if not all_finite(rr_final):
+            raise RuntimeError("relaxed-rigid rollout: non-finite final state")
+        z = rr_final.p[2]
+        z_min, z_max = float(z.min()), float(z.max())
+        print(f"relaxed-rigid base height after {(1 + RR_TIMED_CALLS) * RR_HORIZON} steps: min {z_min:.4f} m, "
+              f"max {z_max:.4f} m, share of envs above 0.5 m {float((z > 0.5).float().mean()):.4f}; "
+              f"max |m| {float(rr_final.m.abs().max()):.6g} N")  # fmt: skip
+        if not HEIGHT_BAND[0] <= z_min <= z_max <= HEIGHT_BAND[1]:
+            raise RuntimeError(f"relaxed-rigid base height outside {HEIGHT_BAND} m")
+
+    probe_names = ("fma_probe", *(f"bf16_probe_{v}" for v in fma_probe.VARIANTS))
+    with phase("main path: FMA-rate probes (K6, K7)"):
+        def probes():
+            # K6 is K7's float32 chain: one sweep, counted as both.
+            rates = {f"bf16_probe_{v}": fma_probe.measure(v, device) for v in fma_probe.VARIANTS}
+            rates["fma_probe"] = rates["bf16_probe_f32"]
+            return rates
+
+        rates, launches = main_path("FMA-rate probes", dict.fromkeys(probe_names, fma_probe.sweep_launches()), probes)
+        for name, r in rates.items():
+            peak = fma_probe.PEAK_FLOPS[r["variant"]]
+            results[name] = dict(launches=launches[name], ms=r["ms"])
+            if name == "fma_probe":
+                continue
+            print(f"{name}: {r['rate'] / 1e12:.6g} TFLOP/s, {100 * r['rate'] / peak:.4g} % of the data sheet's "
+                  f"{peak / 1e12:g} ({r['variant']}), at {r['chains']} chains a thread and {r['blocks_per_sm']} blocks "
+                  f"of {fma_probe.THREADS} an SM; T={fma_probe.T_LONG} {r['ms']:.6g} ms, T={fma_probe.T_SHORT} "
+                  f"{r['ms_short']:.6g} ms")  # fmt: skip
+            print(f"{name} sweep (chains, blocks/SM, TFLOP/s): "
+                  + ", ".join(f"({c['chains']}, {c['blocks_per_sm']}, {c['rate'] / 1e12:.4g})" for c in r["sweep"]))
+            if not r["rate"] <= 1.05 * peak:
+                raise RuntimeError(f"{name} above 105 % of the data-sheet peak: the compiler removed work")
+        measured_peak = dict(f32=rates["fma_probe"]["rate"], bf16=rates["bf16_probe_bf16"]["rate"])
+
     # ----- kernel and plain times at the main paths' shapes -----
     with phase("timing"):
         tau0 = (-60.0 * state0.s - 0.5 * state0.sd).contiguous()
@@ -982,6 +1281,17 @@ def main() -> int:
                 hum, state0, tau0, ct0, params_grad=True) for _ in range(n_vjp)]) / n_vjp,
             param_sum=wall_ms(lambda: [cuda_step_vjp.sum_partials_reference(partials) for _ in range(20)]) / 20,
         )  # fmt: skip
+        plain_ms["rollout_relaxed_rigid"] = wall_ms(lambda: cuda_rollout.rollout_reference(
+            hum_rr, rr_start, PLAIN_TIMED_STEPS["rollout_relaxed_rigid"])) * RR_HORIZON / PLAIN_TIMED_STEPS[
+            "rollout_relaxed_rigid"]  # fmt: skip
+        # The probes' plain versions at their best configuration, over 256
+        # iterations, scaled to T_LONG (K6's are K7 float32's).
+        for v in fma_probe.VARIANTS:
+            r = rates[f"bf16_probe_{v}"]
+            x = fma_probe.make_input(v, r["n_threads"], device)
+            plain_ms[f"bf16_probe_{v}"] = wall_ms(lambda: fma_probe.probe_reference(v, x, 256, r["chains"])) * (
+                fma_probe.T_LONG / 256)  # fmt: skip
+        plain_ms["fma_probe"] = plain_ms["bf16_probe_f32"]
         library_ms = dict(param_sum=statistics.median(device_ms(lambda: torch.sum(partials, 0), 20)))
         print(f"plain ms for each kernel's launch (timed over {json.dumps(PLAIN_TIMED_STEPS)} steps): {json.dumps(plain_ms)}")
         print(f"library ms (one torch call, CUDA events, median of 20): {json.dumps(library_ms)}")
@@ -1004,6 +1314,12 @@ def main() -> int:
         )
         print(f"float32 operations an env's step VJP needs (the same count, over {COUNT_ENVS} envs of the policy"
               f" gradient's final state): {flops['vjp']}, with the model arrays' cotangents {flops['vjp_params_grad']}")
+        cpu_hum_rr = rr_humanoid_engine("cpu")
+        flops["rr_step"] = flop_count.least_step_ops(
+            cpu_hum_rr, lambda st: cuda_rollout.rollout_reference(cpu_hum_rr, st, 1), cpu_head(rr_final)
+        )
+        print(f"float32 operations a relaxed-rigid env-step needs (the same count, over {COUNT_ENVS} envs of the "
+              f"relaxed-rigid main path's final state): {flops['rr_step']}")  # fmt: skip
         sb, pb = state_bytes(hum, BATCH), 4 * cuda_build.packed_params(hum).numel()
         n_blocks, n_params = partials.shape
         vjp_bytes = 3 * sb + pb + 8 * n * BATCH  # state, tau, ct in; ct_state, ct_tau out
@@ -1016,19 +1332,35 @@ def main() -> int:
             step_vjp=(flops["vjp"] * BATCH, vjp_bytes),
             step_vjp_params_grad=(flops["vjp_params_grad"] * BATCH, vjp_bytes + 4 * n_blocks * n_params),
             param_sum=((n_blocks - 1) * n_params, 4 * (n_blocks + 1) * n_params),
+            rollout_relaxed_rigid=(flops["rr_step"] * BATCH * RR_HORIZON,
+                                   2 * sb + 4 * cuda_build.packed_params(hum_rr).numel()),
         )  # fmt: skip
+        peaks = {}
+        for name in probe_names:
+            r = rates[name]
+            item = 4 if r["variant"] == "f32" else 2 * fma_probe.lanes(r["variant"])
+            work[name] = (fma_probe.operations(r["variant"], r["n_threads"], r["chains"], fma_probe.T_LONG),
+                          2 * item * r["n_threads"])  # fmt: skip
+            peaks[name] = fma_probe.PEAK_FLOPS[r["variant"]]
 
     kernels = []
     for name in SOURCES:
-        bound_ms, bound_by = bound(*work[name])
+        peak = peaks.get(name, PEAK_FLOPS)
+        bound_ms, bound_by = bound(*work[name], peak)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=results[name]["launches"], max_abs_err=max(max_errs[name]),
             ms=results[name]["ms"], plain_ms=plain_ms[name], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms.get(name),
         ))  # fmt: skip
-        print(f"{name}: {results[name]['ms']:.6g} ms a launch, bound {bound_ms:.6g} ms ({bound_by}), "
-              f"{100 * bound_ms / results[name]['ms']:.3g} % of the bound")  # fmt: skip
+        line = (f"{name}: {results[name]['ms']:.6g} ms a launch, bound {bound_ms:.6g} ms ({bound_by}), "
+                f"{100 * bound_ms / results[name]['ms']:.3g} % of the bound")  # fmt: skip
+        if bound_by == "operations":
+            kind = "bf16" if peak != PEAK_FLOPS else "f32"
+            measured_ms = work[name][0] / measured_peak[kind] * 1e3
+            line += (f"; share of the data sheet's {peak / 1e12:g} TFLOP/s {100 * bound_ms / results[name]['ms']:.3g} %, "
+                     f"of the measured {measured_peak[kind] / 1e12:.4g} {100 * measured_ms / results[name]['ms']:.3g} %")
+        print(line)
     print(f"total: {time.perf_counter() - t_start:.2f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

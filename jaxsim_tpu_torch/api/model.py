@@ -3,9 +3,10 @@
 Counterpart of ``JaxSimModel.build_from_model_description`` and
 ``JaxSimModel.build`` in ``jaxsim_tpu/api/model.py``, reduced to what
 :meth:`~jaxsim_tpu_torch.ops.batched_engine.BatchedEngine.build` reads: the
-kin-dyn parameters, the soft contact parameters, the time step and gravity,
-on flat ground with the semi-implicit Euler integrator. The functional API
-(``js.model.step`` and the rest) is not ported yet.
+kin-dyn parameters, the contact model (soft or relaxed-rigid) and its
+parameters, the time step and gravity, on flat ground with the
+semi-implicit Euler integrator. The functional API (``js.model.step`` and
+the rest) is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import numpy as np
 
 from jaxsim_tpu_torch.api.kin_dyn_parameters import FROZEN_DTYPE, KinDynParameters
 from jaxsim_tpu_torch.ops.contacts.common import STANDARD_GRAVITY
-from jaxsim_tpu_torch.ops.contacts.soft import SoftContactsParams
+from jaxsim_tpu_torch.ops.contacts.relaxed_rigid import RelaxedRigidContacts, RelaxedRigidContactsParams
+from jaxsim_tpu_torch.ops.contacts.soft import SoftContacts, SoftContactsParams
 from jaxsim_tpu_torch.parsers import build_model_description
 
 
@@ -27,7 +29,8 @@ class JaxSimModel:
 
     model_name: str
     kin_dyn_parameters: KinDynParameters
-    contact_params: SoftContactsParams | None = None
+    contact_params: SoftContactsParams | RelaxedRigidContactsParams | None = None
+    contact_model: SoftContacts | RelaxedRigidContacts = SoftContacts()
     # Negative: the z component of the gravity acceleration.
     gravity: float = -STANDARD_GRAVITY
     time_step: np.float32 = FROZEN_DTYPE(1e-3)
@@ -39,20 +42,25 @@ class JaxSimModel:
         *,
         model_name: str | None = None,
         time_step: float | None = None,
-        contact_params: SoftContactsParams | None = None,
+        contact_model: SoftContacts | RelaxedRigidContacts | None = None,
+        contact_params: SoftContactsParams | RelaxedRigidContactsParams | None = None,
         gravity: float = STANDARD_GRAVITY,
     ) -> "JaxSimModel":
-        """Parse a URDF (path or string) and build a model."""
+        """Parse a URDF (path or string) and build a model. Without
+        ``contact_params`` the contact model's defaults are taken: the soft
+        model's are estimated from the model, the relaxed-rigid model's are
+        its parameters' own (μ = 0.005)."""
         description = build_model_description(model_description)
         model = JaxSimModel(
             model_name=model_name if model_name is not None else description.name,
             kin_dyn_parameters=KinDynParameters.build(description),
             gravity=-float(gravity),
             time_step=FROZEN_DTYPE(time_step if time_step is not None else 1e-3),
+            contact_model=contact_model if contact_model is not None else SoftContacts(),
             _fixed_base=bool(description.fixed_base),
         )
         if contact_params is None:
-            contact_params = SoftContactsParams.build_default_from_jaxsim_model(model)
+            contact_params = model.contact_model._parameters_class.build_default_from_jaxsim_model(model)
         return model.replace(contact_params=contact_params)
 
     def replace(self, **kwargs) -> "JaxSimModel":

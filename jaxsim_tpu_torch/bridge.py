@@ -34,6 +34,19 @@ STATIC_FIELDS = (
     "floating_base",
     "terrain_normal",
     "terrain_offset",
+    "contact_model",
+)
+# A relaxed-rigid engine's static fields besides those.
+RR_FIELDS = (
+    "rr_d_min",
+    "rr_d_max",
+    "rr_width",
+    "rr_midpoint",
+    "rr_power",
+    "rr_stiff",
+    "rr_damp",
+    "rr_reg",
+    "rr_iterations",
 )
 
 STATE_FIELDS = ("s", "sd", "p", "q", "v", "m")
@@ -49,9 +62,7 @@ ENV_FIELDS = (
 POLICY_WEIGHTS = ("W", "b", "W1", "b1", "W2", "b2")
 
 # Static fields whose value the port's engine does not implement otherwise.
-_REQUIRED = dict(
-    terrain_kind="plane", integrator="sie", contact_model="soft", constraint_parents=()
-)
+_REQUIRED = dict(terrain_kind="plane", integrator="sie", constraint_parents=())
 
 
 def reference_engine_arrays(engine) -> tuple[dict, dict[str, np.ndarray]]:
@@ -78,16 +89,27 @@ def engine_from_numpy(
     dtype: torch.dtype = torch.float32,
 ) -> BatchedEngine:
     """The port's engine from the JAX engine's static fields and ``params()``,
-    on ``device`` (by default the CUDA card)."""
+    on ``device`` (by default the CUDA card): soft or relaxed-rigid contacts,
+    plane terrain, semi-implicit Euler."""
     for key, want in _REQUIRED.items():
         got = static.get(key, want)
         if (tuple(got) if isinstance(want, tuple) else got) != want:
             raise ValueError(f"the port's engine requires {key}={want!r}, got {got!r}")
-    # The JAX engine stores a joint-free model's axis array as (0,).
+    if static["contact_model"] not in BatchedEngine.CONTACT_MODELS:
+        raise ValueError(
+            f"the port's engine requires contact_model in {BatchedEngine.CONTACT_MODELS}, got {static['contact_model']!r}"
+        )
+    relaxed = static["contact_model"] == "relaxed_rigid"
+    # The JAX engine stores a joint-free model's axis array as (0,), and a
+    # point-free relaxed-rigid model's rrMinv as (0, 3, 3).
     params = {**params, "axis": np.reshape(params["axis"], (static["n_joints"], 3))}
+    if relaxed and not static["n_points"]:
+        params["rrMinv"] = np.zeros((1, 3, 3))
+    names = BatchedEngine.RR_PARAM_NAMES if relaxed else BatchedEngine.PARAM_NAMES
     return BatchedEngine(
         **{k: static[k] for k in STATIC_FIELDS},
-        **{k: params[k] for k in BatchedEngine.PARAM_NAMES},
+        **({k: static[k] for k in RR_FIELDS} if relaxed else {}),
+        **{k: params[k] for k in names},
         device=device,
         dtype=dtype,
     )
@@ -117,11 +139,11 @@ def state_to_numpy(state: BatchedState) -> dict[str, np.ndarray]:
 
 
 def reference_params_arrays(pr) -> dict[str, np.ndarray]:
-    """The :data:`BatchedEngine.PARAM_NAMES` entries of a ``jaxsim_tpu``
+    """The :data:`BatchedEngine.RR_PARAM_NAMES` entries of a ``jaxsim_tpu``
     model-array dict (``params()``, an override ``pr``, or the cotangent of
     one from ``jax.vjp``/``jax.grad``) as NumPy arrays; a joint-free
     model's ``(0,)`` axis array comes back as ``(0, 3)``."""
-    out = {k: np.asarray(pr[k]) for k in BatchedEngine.PARAM_NAMES if k in pr}
+    out = {k: np.asarray(pr[k]) for k in BatchedEngine.RR_PARAM_NAMES if k in pr}
     if "axis" in out:
         out["axis"] = out["axis"].reshape(-1, 3)
     return out
@@ -136,7 +158,7 @@ def params_from_numpy(
     """A ``pr`` dict of model arrays by name (see
     :meth:`BatchedEngine.params`) from NumPy arrays, on ``device`` (by
     default the CUDA card)."""
-    unknown = set(arrays) - set(BatchedEngine.PARAM_NAMES)
+    unknown = set(arrays) - set(BatchedEngine.RR_PARAM_NAMES)
     if unknown:
         raise ValueError(f"unknown model arrays: {sorted(unknown)}")
     device = resolve_device(device)

@@ -1,8 +1,9 @@
 """Batch-minor simulation engine in plain PyTorch (the CPU twin).
 
-Counterpart of ``jaxsim_tpu/ops/batched_engine.py`` for the flagship path:
-Hunt/Crossley soft contacts on plane terrain, the three-pass ABA with the 6×6
-base Cholesky, and semi-implicit Euler. Every tensor keeps the env batch in
+Counterpart of ``jaxsim_tpu/ops/batched_engine.py`` on plane terrain with
+semi-implicit Euler: Hunt/Crossley soft contacts, or relaxed-rigid contacts
+(a matrix-free Jacobi-preconditioned CG on the articulated factorization),
+and the three-pass ABA with the 6×6 base Cholesky. Every tensor keeps the env batch in
 the TRAILING axis, ``(..., B)``, as the JAX engine does; that is also the
 coalesced layout of the one-thread-per-env CUDA kernel in
 :mod:`jaxsim_tpu_torch.ops.cuda_rollout`, which is held against this module.
@@ -10,7 +11,7 @@ coalesced layout of the one-thread-per-env CUDA kernel in
 The static tree topology is unrolled as Python loops over the parent array,
 and small matrix algebra is written as broadcast multiply-and-sum over the
 leading axes, so no product goes through a matrix library (and none through
-TF32 on a GPU). The JAX engine's other contact models, terrains and
+TF32 on a GPU). The JAX engine's other contact models (rigid), terrains and
 integrators are not ported yet; the bridge refuses them with ``ValueError``.
 """
 
@@ -21,6 +22,9 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+
+from .contacts.relaxed_rigid import RelaxedRigidContacts
+from .contacts.soft import SoftContacts
 
 # ----------------------------------------------------------------------
 # Trailing-batch algebra helpers. Operands are (n, m, *b) / (n, *b); a model
@@ -223,7 +227,7 @@ class BatchedState:
     p: torch.Tensor  # (3, B) base position
     q: torch.Tensor  # (4, B) base quaternion (wxyz)
     v: torch.Tensor  # (6, B) base inertial velocity
-    m: torch.Tensor  # (nC, 3, B) tangential deformation
+    m: torch.Tensor  # (nC, 3, B) tangential deformation (soft); solved point forces (relaxed-rigid)
 
     def fields(self) -> tuple[torch.Tensor, ...]:
         return (self.s, self.sd, self.p, self.q, self.v, self.m)
@@ -231,10 +235,16 @@ class BatchedState:
 
 class BatchedEngine(nn.Module):
     """Static topology + scalar parameters as attributes; the numeric model
-    arrays (``S``, ``M``, ``axis``, ``lamH``, ``sucH``, ``cpoint``) as
-    buffers, so ``.to(device)`` moves them."""
+    arrays (``S``, ``M``, ``axis``, ``lamH``, ``sucH``, ``cpoint``, and for
+    relaxed-rigid contacts ``rrMinv``) as buffers, so ``.to(device)`` moves
+    them. An instance's ``PARAM_NAMES`` lists its own arrays."""
 
     PARAM_NAMES = ("S", "M", "axis", "lamH", "sucH", "cpoint")
+    # A relaxed-rigid engine's: rrMinv is the per-point inverse of the
+    # parent link's 3×3 linear mass block (the regularizer and the Jacobi
+    # preconditioner of the contact solve).
+    RR_PARAM_NAMES = PARAM_NAMES + ("rrMinv",)
+    CONTACT_MODELS = ("soft", "relaxed_rigid")
 
     def __init__(
         self,
@@ -261,12 +271,39 @@ class BatchedEngine(nn.Module):
         cpoint,
         terrain_normal: tuple[float, float, float] = (0.0, 0.0, 1.0),
         terrain_offset: float = 0.0,
+        contact_model: str = "soft",
+        rr_d_min: float = 0.9,
+        rr_d_max: float = 0.95,
+        rr_width: float = 0.001,
+        rr_midpoint: float = 0.5,
+        rr_power: float = 2.0,
+        rr_stiff: float = 0.0,
+        rr_damp: float = 0.0,
+        rr_reg: float = 1e-6,
+        rr_iterations: int = 0,
+        rrMinv=None,
         dtype: torch.dtype = torch.float32,
         device: torch.device | str | None = None,
     ):
-        """``device`` defaults to the CUDA card (see :func:`resolve_device`)."""
+        """``device`` defaults to the CUDA card (see :func:`resolve_device`).
+        ``contact_model`` is ``"soft"`` (K, D, hc_p, hc_q are Hunt/Crossley's)
+        or ``"relaxed_rigid"`` (the ``rr_*`` scalars, ``rrMinv``, and μ;
+        ``rr_iterations`` fixes the PCG's iterations, 0 for the automatic
+        budget :attr:`_rr_n_iter`)."""
         super().__init__()
         device = resolve_device(device)
+        if contact_model not in self.CONTACT_MODELS:
+            raise ValueError(f"contact_model must be one of {self.CONTACT_MODELS}, got {contact_model!r}")
+        self.contact_model = contact_model
+        self.rr_d_min = float(rr_d_min)
+        self.rr_d_max = float(rr_d_max)
+        self.rr_width = float(rr_width)
+        self.rr_midpoint = float(rr_midpoint)
+        self.rr_power = float(rr_power)
+        self.rr_stiff = float(rr_stiff)
+        self.rr_damp = float(rr_damp)
+        self.rr_reg = float(rr_reg)
+        self.rr_iterations = int(rr_iterations)
         self.n_links = int(n_links)
         self.n_joints = int(n_joints)
         self.n_points = int(n_points)
@@ -287,7 +324,7 @@ class BatchedEngine(nn.Module):
         self.terrain_normal = tuple(float(x) for x in terrain_normal)
         self.terrain_offset = float(terrain_offset)
 
-        arrays = dict(S=S, M=M, axis=axis, lamH=lamH, sucH=sucH, cpoint=cpoint)
+        arrays = dict(S=S, M=M, axis=axis, lamH=lamH, sucH=sucH, cpoint=cpoint, rrMinv=rrMinv)
         shapes = dict(
             S=(self.n_links, 6),
             M=(self.n_links, 6, 6),
@@ -295,7 +332,12 @@ class BatchedEngine(nn.Module):
             lamH=(1 + self.n_joints, 4, 4),
             sucH=(1 + self.n_joints, 4, 4),
             cpoint=(self.m_rows, 3),
+            rrMinv=(self.m_rows, 3, 3),
         )
+        if contact_model == "relaxed_rigid":
+            self.PARAM_NAMES = self.RR_PARAM_NAMES
+            if rrMinv is None:
+                raise ValueError("a relaxed-rigid engine needs rrMinv")
         if len(self.lam) != self.n_links or len(self.joint_types) != 1 + self.n_joints:
             raise ValueError("topology sizes disagree with n_links/n_joints")
         if len(self.contact_parent) != self.n_points:
@@ -310,31 +352,63 @@ class BatchedEngine(nn.Module):
     def build(
         model, *, dtype: torch.dtype = torch.float32, device=None
     ) -> "BatchedEngine":
-        """Lower a :class:`~jaxsim_tpu_torch.api.model.JaxSimModel` (soft
-        contacts, flat ground, semi-implicit Euler: the only configuration
-        the port's model expresses) to engine arrays, on ``device`` (by
-        default the CUDA card; see :func:`resolve_device`)."""
+        """Lower a :class:`~jaxsim_tpu_torch.api.model.JaxSimModel` (soft or
+        relaxed-rigid contacts, flat ground, semi-implicit Euler: the
+        configurations the port's model expresses) to engine arrays, on
+        ``device`` (by default the CUDA card; see :func:`resolve_device`),
+        as ``jaxsim_tpu/ops/batched_engine.py::BatchedEngine.build`` does."""
         kdp = model.kin_dyn_parameters
         cp = kdp.contact_parameters
         idx = cp.indices_of_enabled_collidable_points
         pars = model.contact_params
+        M_links = kdp.link_parameters.spatial_inertia()
+        if isinstance(model.contact_model, RelaxedRigidContacts):
+            xi_max = float(pars.d_max)
+            Omega = float(pars.time_constant)
+            zeta = float(pars.damping_coefficient)
+            stiff = 1.0 / (xi_max * Omega * zeta) ** 2
+            damp = 2.0 / (xi_max * Omega)
+            if float(pars.K) < 0:
+                stiff = -float(pars.K) / xi_max**2
+            if float(pars.D) < 0:
+                damp = -float(pars.D) / xi_max
+            contact = dict(
+                contact_model="relaxed_rigid",
+                # K and D are unused by the relaxed-rigid solve.
+                K=0.0,
+                D=0.0,
+                hc_p=0.0,
+                hc_q=0.0,
+                rr_d_min=float(pars.d_min),
+                rr_d_max=xi_max,
+                rr_width=float(pars.width),
+                rr_midpoint=float(pars.midpoint),
+                rr_power=float(pars.power),
+                rr_stiff=stiff,
+                rr_damp=damp,
+                rr_reg=float(model.contact_model.regularization),
+                rrMinv=np.stack([np.linalg.inv(np.asarray(M_links[int(cp.body[i])])[0:3, 0:3]) for i in idx])
+                if len(idx)
+                else np.zeros((1, 3, 3)),
+            )
+        elif isinstance(model.contact_model, SoftContacts):
+            contact = dict(K=float(pars.K), D=float(pars.D), hc_p=float(pars.p), hc_q=float(pars.q))
+        else:
+            raise ValueError(f"the port implements soft and relaxed-rigid contacts, not {model.contact_model!r}")
         return BatchedEngine(
+            **contact,
             n_links=kdp.number_of_links(),
             n_joints=kdp.number_of_joints(),
             n_points=len(idx),
             lam=kdp.parent_array_static,
             joint_types=kdp.joint_model.joint_types,
             contact_parent=tuple(int(cp.body[i]) for i in idx),
-            K=float(pars.K),
-            D=float(pars.D),
             mu=float(pars.mu),
-            hc_p=float(pars.p),
-            hc_q=float(pars.q),
             gravity_z=float(model.gravity),
             dt=float(model.time_step),
             floating_base=model.floating_base(),
             S=kdp.motion_subspaces,
-            M=kdp.link_parameters.spatial_inertia(),
+            M=M_links,
             axis=kdp.joint_model.joint_axis,
             lamH=kdp.joint_model.lambda_H_pre,
             sucH=kdp.joint_model.suc_H_i,
@@ -529,11 +603,192 @@ class BatchedEngine(nn.Module):
             f_links[parent] = f6[:, c] if f_links[parent] is None else f_links[parent] + f6[:, c]
         return f_links, md.transpose(0, 1)
 
+    # ----- relaxed-rigid contacts -----
+
+    @property
+    def _rr_n_iter(self) -> int:
+        """PCG iterations of the relaxed-rigid solve: ``rr_iterations`` when
+        set, else the JAX engine's warm-started budget on plane terrain."""
+        if self.rr_iterations:
+            return int(self.rr_iterations)
+        if not self.n_points:
+            return 0
+        return min(self.n_points // 4 + 6, 8)
+
+    def _minv_apply(self, fact, f_loc, pr):
+        """Zero-velocity articulated substitution passes: link-frame spatial
+        forces ``f_loc`` (list, None allowed) → link-frame accelerations and
+        joint accelerations, the generalized M⁻¹ Jᵀ action, reusing the
+        factorization :meth:`aba` returns with ``return_aux``."""
+        nL = self.n_links
+        S_all = pr["S"]
+        zeros6 = torch.zeros_like(fact["a"][0])
+        pA = [-f if f is not None else zeros6 for f in f_loc]
+        u = [None] * nL
+        for i in range(nL - 1, 0, -1):
+            lam = self.lam[i]
+            u[i] = -(_c(S_all[i]) * pA[i]).sum(0)
+            pa = pA[i] + fact["U"][i] * (u[i] / fact["d"][i])
+            if lam != 0 or self.floating_base:
+                pA[lam] = pA[lam] + _xtf(fact["inv_R"][i], fact["inv_p"][i], pa)
+
+        a = [None] * nL
+        a[0] = -_chol6_substitute(fact["L0"], pA[0]) if self.floating_base else zeros6
+        sdd = []
+        for i in range(1, nL):
+            a_i = _xv(fact["inv_R"][i], fact["inv_p"][i], a[self.lam[i]])
+            sdd_i = (u[i] - (fact["U"][i] * a_i).sum(0)) / fact["d"][i]
+            sdd.append(sdd_i)
+            a[i] = a_i + _c(S_all[i]) * sdd_i
+        return a, torch.stack(sdd) if sdd else zeros6[:0]
+
+    def _point_geometry(self, W_R, W_p, W_v, pr):
+        """The contact points' parent rotations ``Rp (3,3,nC,B)``, body-frame
+        offsets ``Lp (3,nC,1)``, world positions ``pc`` and velocities ``pd``
+        (3,nC,B), the parents' angular velocities ``omega``, the penetration
+        ``delta`` and the activity ``active = (delta > 0)`` (nC,B), and the
+        plane's unit normal ``n`` (three floats), vectorized over the points."""
+        ax, ay, az = self.terrain_normal
+        parents = self.contact_parent
+        Rp = torch.stack([W_R[i] for i in parents], 2)
+        pp = torch.stack([W_p[i] for i in parents], 1)
+        vp = torch.stack([W_v[i] for i in parents], 1)
+        Lp = pr["cpoint"].transpose(0, 1)[:, :, None]
+        pc = _mv(Rp, Lp) + pp
+        omega = vp[3:6]
+        pd = vp[0:3] + _cross(omega, pc)
+        if self.flat:
+            delta = _maximum(-pc[2], 0.0)
+        else:
+            delta = _maximum(self.terrain_offset - (ax * pc[0] + ay * pc[1] + az * pc[2]), 0.0)
+        active = (delta > 0).to(pc.dtype)
+        return dict(Rp=Rp, Lp=Lp, pc=pc, pd=pd, omega=omega, delta=delta, active=active, n=(ax, ay, az))
+
+    def _rr_scatter(self, Rp, Lp, y):
+        """Point forces ``y (3,nC,B)`` in world axes → link-frame wrenches of
+        the parent links (list, None for a link without points), summed in
+        contact-index order."""
+        Rty = _mtv(Rp, y)
+        f6 = torch.cat([Rty, _cross(Lp, Rty)])
+        f_loc = [None] * self.n_links
+        for c, parent in enumerate(self.contact_parent):
+            f_loc[parent] = f6[:, c] if f_loc[parent] is None else f_loc[parent] + f6[:, c]
+        return f_loc
+
+    def _rr_gather(self, Rp, Lp, a):
+        """Link-frame accelerations ``a`` (list of (6,B)) → the contact
+        points' world accelerations Rp (a_lin + ω̇ × Lp), (3,nC,B)."""
+        ac = torch.stack([a[i] for i in self.contact_parent], 1)
+        return _mv(Rp, ac[0:3] + _cross(ac[3:6], Lp))
+
+    def relaxed_rigid_contact_forces(self, state: BatchedState, W_R, W_p, W_v, tau, pr=None):
+        """Relaxed-rigid (MJX-style soft-constraint) contact solve on plane
+        terrain, as ``jaxsim_tpu/ops/batched_engine.py::relaxed_rigid_contact_forces``
+        computes it with ``return_accelerations``.
+
+        The SPD system ``A x = −b``, ``A = J M⁻¹ Jᵀ + diag(r) + reg·I``, is
+        solved matrix-free with ``_rr_n_iter`` iterations of scalar-Jacobi
+        preconditioned CG, warm-started from the previous step's forces in
+        ``state.m`` (a point without them starts from the Jacobi estimate
+        −b/diag). Each ``A y`` scatters the point forces to link wrenches,
+        runs :meth:`_minv_apply` on the free ABA's factorization and
+        gathers the point accelerations. Returns the contact-coupled
+        accelerations ``(W_a, sdd)``, the free ones plus M⁻¹ Jᵀ x, and the
+        solved point forces ``xs (nC,3,B)``."""
+        pr = self.params(pr)
+        mu, reg = self.mu, self.rr_reg
+        width, mid, power = self.rr_width, self.rr_midpoint, self.rr_power
+        xi_min, xi_max = self.rr_d_min, self.rr_d_max
+
+        # Free dynamics (gravity and torques, no contacts) and factorization.
+        _, sdd_free, fact = self.aba(state, W_R, W_p, W_v, [None] * self.n_links, tau, pr, return_aux=True)
+        a_free = fact["a"]
+
+        g = self._point_geometry(W_R, W_p, W_v, pr)
+        Rp, Lp, pd, omega, delta, active = (g[k] for k in ("Rp", "Lp", "pd", "omega", "delta", "active"))
+
+        # Impedance ξ per component of pos = −δ n̂ (elementwise sigmoid), the
+        # reference acceleration and the μ²-scaled regularizer's coefficient.
+        xi, aref, coeff = [], [], []
+        for j in range(3):
+            pos_j = -delta * g["n"][j]
+            x_j = delta * abs(g["n"][j]) / width
+            ya = (1.0 / mid ** (power - 1.0)) * torch.pow(x_j, power)
+            yb = 1.0 - (1.0 / (1.0 - mid) ** (power - 1.0)) * torch.pow(_maximum(1.0 - x_j, 0.0), power)
+            y_j = torch.where(x_j < mid, ya, yb)
+            xi_j = torch.clamp(xi_min + y_j * (xi_max - xi_min), xi_min, xi_max)
+            xi_j = torch.where(x_j > 1.0, torch.full_like(xi_j, xi_max), xi_j)
+            xi.append(xi_j)
+            aref.append(-(self.rr_damp * pd[j] + self.rr_stiff * xi_j * pos_j))
+            coeff.append((2.0 * mu * mu * (1.0 - xi_j) / (xi_j + 1e-12)) * (1.0 + mu * mu))
+
+        # Free point acceleration p̈ = R(a_lin + ω̇ × Lp) + g + ω × ṗ.
+        acc = self._rr_gather(Rp, Lp, a_free)
+        wxpd = _cross(omega, pd)
+        pdd = torch.stack([acc[0] + wxpd[0], acc[1] + wxpd[1], acc[2] + self.gravity_z + wxpd[2]])
+
+        # The μ²-scaled regularizer plus the impedance floor (1−ξ)/ξ · M⁻¹_jj,
+        # the right-hand side and the Jacobi preconditioner, per component.
+        Minv = pr["rrMinv"][..., None]
+        b, prec, rdiag = [], [], []
+        for j in range(3):
+            r_j = active * (
+                sum(coeff[i] * Minv[:, i, j] for i in range(3))
+                + ((1.0 - xi[j]) / (xi[j] + 1e-12)) * Minv[:, j, j]
+            )
+            rdiag.append(r_j)
+            b.append(active * (pdd[j] - aref[j]))
+            prec.append(active * Minv[:, j, j] + r_j + reg)
+        neg_b = -torch.stack(b, 1)  # (nC,3,B), the JAX solve's layout
+        prec = torch.stack(prec, 1)
+        rdiag = torch.stack(rdiag, 1)
+        act = active[:, None]
+
+        def A_apply(y):
+            """A y = G y + (r + reg) y for y (nC,3,B)."""
+            f_loc = self._rr_scatter(Rp, Lp, (act * y).transpose(0, 1))
+            a_c, _ = self._minv_apply(fact, f_loc, pr)
+            return act * self._rr_gather(Rp, Lp, a_c).transpose(0, 1) + (rdiag + reg) * y
+
+        # Warm start from the previous step's forces (masked to the active
+        # points); a point without them starts from the Jacobi estimate.
+        m_carried = act * state.m
+        has_warm = (m_carried * m_carried).sum(1, keepdim=True) > 0.0
+        x = torch.where(has_warm, m_carried, neg_b / prec)
+
+        # Preconditioned CG on A x = −b, a fixed number of iterations.
+        r = neg_b - A_apply(x)
+        z = r / prec
+        p, rz = z, (r * z).sum((0, 1))
+        for _ in range(self._rr_n_iter):
+            Ap = A_apply(p)
+            alpha = rz / ((p * Ap).sum((0, 1)) + 1e-20)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = r / prec
+            rz_n = (r * z).sum((0, 1))
+            beta = rz_n / (rz + 1e-20)
+            p, rz = z + beta * p, rz_n
+
+        # The contact-coupled accelerations: free ones plus M⁻¹ Jᵀ x.
+        a_cont, sdd_cont = self._minv_apply(fact, self._rr_scatter(Rp, Lp, x.transpose(0, 1)), pr)
+        if self.floating_base:
+            zb = torch.zeros_like(state.p[0])
+            g6 = torch.stack([zb, zb, zb + self.gravity_z, zb, zb, zb])
+            W_a = _xv(W_R[0], W_p[0], a_free[0] + a_cont[0]) + g6
+        else:
+            W_a = torch.zeros_like(state.v)
+        return W_a, sdd_free + sdd_cont, x
+
     # ----- dynamics -----
 
-    def aba(self, state: BatchedState, W_R, W_p, W_v, f_ext, tau, pr=None):
+    def aba(self, state: BatchedState, W_R, W_p, W_v, f_ext, tau, pr=None, return_aux: bool = False):
         """Articulated-Body Algorithm, trailing batch, unrolled tree.
-        ``f_ext``: per-link world 6D forces, (6,B) or None."""
+        ``f_ext``: per-link world 6D forces, (6,B) or None. With
+        ``return_aux`` a third value holds the link-frame accelerations ``a``
+        and the configuration-only factorization (``U``, ``d``, the
+        child→parent pairs ``inv_R``/``inv_p``, the base Cholesky factor
+        ``L0``) that :meth:`_minv_apply` reuses."""
         nL = self.n_links
         pr = self.params(pr)
         S_all, M_all = pr["S"], pr["M"]
@@ -584,8 +839,10 @@ class BatchedEngine(nn.Module):
             if lam != 0 or self.floating_base:
                 MA[lam], pA[lam] = _to_parent(MA[lam], pA[lam], inv_R[i], inv_p[i], Ma, pa)
 
+        L0 = None
         if self.floating_base:
-            a0 = -_chol6_substitute(_chol6_factor(MA[0]), pA[0])
+            L0 = _chol6_factor(MA[0])
+            a0 = -_chol6_substitute(L0, pA[0])
         else:
             a0 = -_xv(R0_inv, p0_inv, g6)
 
@@ -601,6 +858,8 @@ class BatchedEngine(nn.Module):
 
         W_a = _xv(R0, p0, a0) + g6 if self.floating_base else torch.zeros_like(g6)
         sdd_out = torch.stack(sdd) if sdd else torch.zeros_like(state.s)
+        if return_aux:
+            return W_a, sdd_out, dict(a=a, U=U, d=d, inv_R=inv_R, inv_p=inv_p, L0=L0)
         return W_a, sdd_out
 
     # ----- the step -----
@@ -627,14 +886,30 @@ class BatchedEngine(nn.Module):
     def step(
         self, state: BatchedState, tau: torch.Tensor | None = None, pr=None
     ) -> BatchedState:
-        """One semi-implicit Euler step with soft contacts. ``pr`` overrides
-        model arrays by name (see :meth:`params`) for this step only."""
+        """One semi-implicit Euler step with the engine's contact model.
+        ``pr`` overrides model arrays by name (see :meth:`params`) for this
+        step only.
+
+        A relaxed-rigid step refuses inputs that require grad: the JAX
+        engine differentiates its contact solve implicitly (one more PCG on
+        the same operator), and autograd through the unrolled iterations
+        would give another gradient."""
         tau = tau if tau is not None else torch.zeros_like(state.s)
         pr = self.params(pr)
 
         W_R, W_p, W_v = self.fk(state, pr)
-        f_links, md = self.soft_contact_forces(W_R, W_p, W_v, state.m, pr)
-        W_a, sdd = self.aba(state, W_R, W_p, W_v, f_links, tau, pr)
+        if self.contact_model == "relaxed_rigid" and self.n_points > 0:
+            inputs = [*state.fields(), tau, *pr.values()]
+            if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+                raise NotImplementedError(
+                    "the relaxed-rigid step has no backward yet: its implicit PCG backward is not ported"
+                )
+            W_a, sdd, xs = self.relaxed_rigid_contact_forces(state, W_R, W_p, W_v, tau, pr)
+            # Carry the solved forces in m for the next step's warm start.
+            md = (xs - state.m) / self.dt
+        else:
+            f_links, md = self.soft_contact_forces(W_R, W_p, W_v, state.m, pr)
+            W_a, sdd = self.aba(state, W_R, W_p, W_v, f_links, tau, pr)
 
         dt = self.dt
         v_new = state.v + dt * W_a

@@ -1,1 +1,2 @@
-from .soft import SoftContactsParams
+from .relaxed_rigid import RelaxedRigidContacts, RelaxedRigidContactsParams
+from .soft import SoftContacts, SoftContactsParams

@@ -43,6 +43,15 @@ class SoftContactsParams(common.ContactsParams):
         return cls(K=_F32(K), D=_F32(D), mu=_F32(mu), p=_F32(p), q=_F32(q))
 
 
+@dataclasses.dataclass(frozen=True)
+class SoftContacts:
+    """The Hunt/Crossley soft contact model (a model's default)."""
+
+    @property
+    def _parameters_class(self) -> type[SoftContactsParams]:
+        return SoftContactsParams
+
+
 def _stability_clamped_defaults(model, K, D, max_penetration):
     """Clamp K, D so the semi-implicit Euler integration of the contact
     dynamics is stable at the model's time step. For every link owning

@@ -1,9 +1,11 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Every kernel source in ``jaxsim_tpu_torch/csrc/`` (``rollout.cu``,
-``step.cu``, ``env_rollout.cu``) includes the shared step body
-``step_env.cuh`` and a generated header, ``jx_topology.h``, that makes one
-model topology's sizes and tables compile-time constants. :func:`build_many`
+Every engine kernel source in ``jaxsim_tpu_torch/csrc/`` (``rollout.cu``,
+``step.cu``, ``env_rollout.cu``, ``step_vjp.cu``) includes the shared step
+body ``step_env.cuh`` and a generated header, ``jx_topology.h``, that makes
+one model topology's sizes and tables, its contact model and its PCG
+iterations compile-time constants; ``fma_probe.cu`` takes no engine and no
+header. :func:`build_many`
 compiles each (source, topology, build-time defines) once with ``nvcc`` for
 ``sm_90a``, all of them at the same time, into
 ``build/jaxsim_tpu_torch_kernels/<key>/`` of the source checkout, and loads it
@@ -61,10 +63,11 @@ class KernelBuild:
 @dataclasses.dataclass(frozen=True)
 class BuildJob:
     """One library to build: a source of ``csrc/``, the engine whose topology
-    it is specialised to, extra ``#define``s, and the ``argtypes`` of its
-    entry points (every entry point returns a CUDA error code)."""
+    it is specialised to (None for a source that includes no generated
+    header), extra ``#define``s, and the ``argtypes`` of its entry points
+    (every entry point returns a CUDA error code)."""
 
-    engine: BatchedEngine
+    engine: BatchedEngine | None
     source: pathlib.Path
     signatures: dict[str, list]
     defines: tuple[tuple[str, int], ...] = ()
@@ -77,8 +80,12 @@ _BUILDS: dict[tuple[pathlib.Path, str], KernelBuild] = {}
 _PACKED: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
-def topology_header(engine: BatchedEngine, defines=()) -> str:
-    """The generated header that specializes a kernel to one topology."""
+def topology_header(engine: BatchedEngine | None, defines=()) -> str:
+    """The generated header that specializes a kernel to one topology and
+    contact model (``JX_CONTACT``: 0 soft, 1 relaxed-rigid, with
+    ``JX_RR_ITERS`` PCG iterations); empty without an engine."""
+    if engine is None:
+        return ""
 
     def arr(name, values):
         values = list(values) or [0]
@@ -92,6 +99,8 @@ def topology_header(engine: BatchedEngine, defines=()) -> str:
         f"#define JX_NJ {engine.n_joints}\n"
         f"#define JX_NC {engine.n_points}\n"
         f"#define JX_FLOATING {int(engine.floating_base)}\n"
+        f"#define JX_CONTACT {engine.CONTACT_MODELS.index(engine.contact_model)}\n"
+        f"#define JX_RR_ITERS {engine._rr_n_iter if engine.contact_model == 'relaxed_rigid' else 0}\n"
         + "".join(f"#define {name} {int(value)}\n" for name, value in defines)
         + arr("JX_LAM", engine.lam)
         + arr("JX_JTYPE", engine.joint_types)
@@ -127,11 +136,10 @@ def build_key(source: pathlib.Path, header: str) -> str:
     return hashlib.sha256("\0".join(parts).encode()).hexdigest()[:16]
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+def cuda_tool(name: str) -> str:
+    """A CUDA toolkit program (``nvcc``, ``cuobjdump``): on the path, else
+    under ``$CUDA_HOME/bin`` (``/usr/local/cuda`` by default)."""
+    return shutil.which(name) or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name)
 
 
 def _load(so: pathlib.Path, signatures: dict[str, list]) -> ctypes.CDLL:
@@ -158,9 +166,10 @@ def build_many(jobs: list[BuildJob]) -> list[KernelBuild]:
             continue
         out_dir = so.parent
         out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / GENERATED_HEADER).write_text(header)
+        if job.engine is not None:
+            (out_dir / GENERATED_HEADER).write_text(header)
         tmp = out_dir / f"lib{job.source.stem}.{os.getpid()}.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(out_dir), "-o", str(tmp), str(job.source)]
+        cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-I", str(out_dir), "-o", str(tmp), str(job.source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         pending[key] = (proc, cmd, tmp, so, time.perf_counter())
 
@@ -211,10 +220,29 @@ def packed_params(engine: BatchedEngine, pr: dict[str, torch.Tensor] | None = No
 
 
 def engine_scalars(engine: BatchedEngine) -> tuple[float, ...]:
-    """``K, D, K/D, mu, hc_p, hc_q, gz, dt``: the head of the kernels' ``Scalars``."""
+    """``K, D, K/D, mu, hc_p, hc_q, gz, dt``: the head of the kernels' ``Scalars``
+    (K/D is 0 for a relaxed-rigid engine, whose K and D are 0)."""
     return (
-        engine.K, engine.D, engine.K / engine.D, engine.mu,
+        engine.K, engine.D, engine.K / engine.D if engine.D else 0.0, engine.mu,
         engine.hc_p, engine.hc_q, engine.gravity_z, engine.dt,
+    )  # fmt: skip
+
+
+def rr_scalars(engine: BatchedEngine) -> tuple[float, ...]:
+    """The relaxed-rigid tail of ``Scalars`` (zeros for a soft engine):
+    the sigmoid's ``1/mid^(power-1)`` and ``1/(1-mid)^(power-1)``, ``mid``,
+    ``power``, ``width``, ``d_min``, ``d_max``, ``d_max - d_min``, the
+    stiffness and damping of the reference acceleration, ``2·mu²``,
+    ``1 + mu²`` and the regularization. The constants the JAX engine folds
+    in double at trace time are folded here in double too, and rounded to
+    float32 once, by the call."""
+    if engine.contact_model != "relaxed_rigid":
+        return (0.0,) * 13
+    mid, power, mu = engine.rr_midpoint, engine.rr_power, engine.mu
+    return (
+        1.0 / mid ** (power - 1.0), 1.0 / (1.0 - mid) ** (power - 1.0), mid, power, engine.rr_width,
+        engine.rr_d_min, engine.rr_d_max, engine.rr_d_max - engine.rr_d_min, engine.rr_stiff, engine.rr_damp,
+        2.0 * mu * mu, 1.0 + mu * mu, engine.rr_reg,
     )  # fmt: skip
 
 
@@ -229,10 +257,14 @@ def is_cpu(state: BatchedState, what: str) -> bool:
     return False
 
 
-def check_cuda_call(engine: BatchedEngine, state: BatchedState) -> int:
-    """What every kernel takes: a flat-ground float32 engine, and a state on
-    the engine's device, float32, contiguous, of the engine's shapes.
-    Returns the batch size."""
+def check_cuda_call(engine: BatchedEngine, state: BatchedState, contact_models=("soft",)) -> int:
+    """What every kernel takes: a flat-ground float32 engine with one of the
+    kernel's ``contact_models``, and a state on the engine's device, float32,
+    contiguous, of the engine's shapes. Returns the batch size."""
+    if engine.contact_model not in contact_models:
+        raise ValueError(
+            f"this kernel implements {' and '.join(contact_models)} contacts, not {engine.contact_model}"
+        )
     if not engine.flat:
         raise ValueError("the CUDA kernels implement flat ground only")
     if engine.S.dtype != torch.float32:

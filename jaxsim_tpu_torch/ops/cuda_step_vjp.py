@@ -50,7 +50,7 @@ def build(engine: BatchedEngine, params_grad: bool = False) -> KernelBuild:
 def check_scope(engine: BatchedEngine) -> None:
     """K4 and its plain version differentiate the soft-contact, flat-ground,
     semi-implicit Euler step; anything else raises."""
-    if not engine.flat:
+    if not engine.flat or engine.contact_model != "soft":
         raise ValueError(
             "the step VJP covers soft contacts on flat ground with semi-implicit"
             " Euler; other terrains, contact models and integrators come with"

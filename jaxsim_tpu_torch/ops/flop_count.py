@@ -22,8 +22,11 @@ pass in its least algebra: the twin forms each link's articulated inertia
 ``Xᵀ Mₐ X``; :func:`articulated_least` and :func:`to_parent_least` form the
 21 distinct entries once and use the (R, p) form. It takes out the twin's
 second pass over the joint transforms, which the kernels do not make. Left
-in: the contact model's candidate results, computed for every point and then
-selected (three ṁ and the slip scaling).
+in: the soft contact model's candidate results, computed for every point and
+then selected (three ṁ and the slip scaling). A relaxed-rigid step is counted
+the same way; its contact solve's work depends on the data through the
+points out of contact, whose activity 0 makes their share of each M⁻¹Jᵀ pass
+a product with 0.
 """
 
 from __future__ import annotations
