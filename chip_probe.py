@@ -4,7 +4,7 @@ pattern and the spread that float32 rounding leaves, on one NVIDIA GPU.
 
 Usage, from the root of a checkout, on a machine with a CUDA card:
 
-    python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations] [rr]
+    python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations] [rr] [rr_faults] [param_sum] [profiler]
 
 With no argument it runs the first three. Probes of the flagship humanoid
 (soft contacts, flat ground, PD policy):
@@ -25,7 +25,8 @@ With no argument it runs the first three. Probes of the flagship humanoid
   after a warm-up); it uses only what every version of the port has, so a
   copy of this script in an older checkout times that checkout's kernel;
 * launch: one K1 launch against its steps (``LAUNCH_STEPS``) at two batch
-  sizes (``LAUNCH_BATCHES``), and one K2 and one K3 launch beside it, each
+  sizes (``LAUNCH_BATCHES``), and one K2, one K3 and one launch of K4's
+  partials' sum beside it, and ``torch.sum`` of the same partials, each
   read three ways: CUDA events around the wrapper call (median of
   ``LAUNCH_REPEATS``), the kernel's own device time from ``torch.profiler``
   (mean over ``LAUNCH_REPEATS`` launches), and the wrapper's host time. The
@@ -36,12 +37,24 @@ With no argument it runs the first three. Probes of the flagship humanoid
   100 steps, from the joints-moving start at 8192 envs), run by the kernel,
   the float32 plain version and the float64 plain version: for each pair,
   the share of envs whose resets, and whose step counts, agree;
-* rr: K1's relaxed-rigid build on the humanoid (``chip_smoke.py``'s
-  relaxed-rigid model) from the relaxed-rigid main path's start: device ms a
-  step at 8192 envs for each PCG budget in ``RR_ITERATIONS`` (a step makes
+* rr: K1's relaxed-rigid kernel on the humanoid (``chip_smoke.py``'s
+  relaxed-rigid model) from the relaxed-rigid main path's start: for each
+  count of lanes an env in ``RR_LANES`` (1 is one thread an env), device ms
+  a step at 8192 envs for each PCG budget in ``RR_ITERATIONS`` (a step makes
   iterations + 2 M⁻¹Jᵀ passes), with the least-squares ms a pass and the
-  intercept; then at each batch size in ``RR_BATCHES`` with the humanoid's
-  own budget. Each build's ptxas registers and frame are printed.
+  intercept; then, with the wrapper's lanes, at each batch size in
+  ``RR_BATCHES`` with the humanoid's own budget. Each build's ptxas
+  registers and frame and its launch geometry are printed, and at the
+  humanoid's budget the local loads and stores in its SASS;
+* param_sum: K4's partials' sum at each of ``SUM_PARAMS`` entries a warp,
+  kernel-only and event µs beside ``torch.sum``'s;
+* profiler: how many of ``LAUNCH_REPEATS`` short launches (K2 at 1024
+  envs, K4's partials' sum, ``torch.sum``) ``torch.profiler`` records in
+  each of ``PROFILER_WINDOWS`` windows, with and without idle host time
+  at the window's ends;
+* rr_faults: ``RR_FAULTS`` seeded into copies of ``csrc/`` under ``build/``,
+  each held with the sound kernel to ``chip_smoke.py``'s RR_CASES limits:
+  per case the worst field's statistic over its limit (> 1 is refused).
 
 It prints the card's name and power limit, then JSON lines keyed by probe,
 and exits non-zero when no CUDA device is visible.
@@ -49,6 +62,7 @@ and exits non-zero when no CUDA device is visible.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -66,9 +80,31 @@ LAUNCH_STEPS = (1, 2, 10, 100)
 LAUNCH_BATCHES = (1024, 8192)
 LAUNCH_REPEATS = 15
 TERMINATION_STEPS = 100
-RR_ITERATIONS = (1, 2, 4, 8, 16)
+RR_ITERATIONS = (1, 4, 8, 16)
+SUM_PARAMS = (4, 2, 8, 16)  # the partials' sum's entries a warp; the first is step_vjp.cu's
+RR_LANES = (1, 4, 8)
+PROFILER_WINDOWS = 20
+PROFILER_PADS_S = (0.0, 0.02)
 RR_BATCHES = (8192, 32768, 65536)
 RR_STEPS = 100
+# Seeded faults of the relaxed-rigid step, each one edit of rr_step.cuh
+# (the text, its replacement): the impedance floor dropped from the
+# regularizer, the warm start forced cold, one PCG iteration fewer.
+RR_FAULTS = {
+    "impedance floor dropped": (
+        """((coeff[0] * Mi[j] + coeff[1] * Mi[3 + j] + coeff[2] * Mi[6 + j]) +
+                               ((1.0f - xi[j]) / (xi[j] + 1e-12f)) * Mi[j * 4])""",
+        "(coeff[0] * Mi[j] + coeff[1] * Mi[3 + j] + coeff[2] * Mi[6 + j])",
+    ),
+    "warm start forced cold": (
+        "x[k * 3 + j] = warm > 0.0f ? a_k * m[k * 3 + j] : neg_b / prec;",
+        "x[k * 3 + j] = neg_b / prec;",
+    ),
+    "one PCG iteration fewer": (
+        "for (int it = -1; it <= JX_RR_ITERS; ++it) {\n    const bool first = it < 0, last = it == JX_RR_ITERS;",
+        "for (int it = -1; it <= JX_RR_ITERS - 1; ++it) {\n    const bool first = it < 0, last = it == JX_RR_ITERS - 1;",
+    ),
+}
 
 
 def _summary(a, b) -> dict[str, list[float]]:
@@ -161,20 +197,9 @@ def k1_probe(hum, gen) -> float:
 def _profiled_us(fn, kernel: str) -> float:
     """Mean device microseconds of the CUDA kernels named ``kernel`` over
     ``LAUNCH_REPEATS`` calls of ``fn``, read by ``torch.profiler``."""
-    import torch
+    from chip_smoke import profiled_ms
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(LAUNCH_REPEATS):
-            fn()
-        torch.cuda.synchronize()
-    times = [
-        e.time_range.elapsed_us() for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name
-    ]  # fmt: skip
-    if len(times) != LAUNCH_REPEATS:
-        raise RuntimeError(f"the profiler saw {len(times)} launches of {kernel}, expected {LAUNCH_REPEATS}")
-    return statistics.mean(times)
+    return profiled_ms(fn, kernel, LAUNCH_REPEATS) * 1e3
 
 
 def _host_ms(fn) -> float:
@@ -193,7 +218,9 @@ def _host_ms(fn) -> float:
 
 
 def launch_probe(hum, gen) -> None:
-    from jaxsim_tpu_torch.ops import cuda_rollout, cuda_step
+    import torch
+
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_rollout, cuda_step, cuda_step_vjp
 
     for B in LAUNCH_BATCHES:
         state = hum.init_state(B, base_position=(0.0, 0.0, 0.9), generator=gen)
@@ -202,6 +229,12 @@ def launch_probe(hum, gen) -> None:
                  for n in LAUNCH_STEPS}  # fmt: skip
         calls["k2"] = (lambda: cuda_step.step_pd(hum, state), "step_pd_kernel")
         calls["k3"] = (lambda: cuda_step.step_tau(hum, state, tau), "step_tau_kernel")
+        # K4's partials' sum at this B's blocks, and torch.sum of the same
+        # (whose one kernel is every kernel the profiler sees).
+        partials = torch.randn(-(-B // cuda_step_vjp.BLOCK), cuda_build.packed_params(hum).numel(),
+                               generator=gen, device=gen.device)  # fmt: skip
+        calls["param_sum"] = (lambda: cuda_step_vjp.sum_partials(hum, partials), "param_sum_kernel")
+        calls["torch_sum"] = (lambda: torch.sum(partials, 0), "")
         for fn, _ in calls.values():
             fn()  # warm-up (and build)
         for name, (fn, kernel) in calls.items():
@@ -251,27 +284,150 @@ def rr_probe(hum, gen) -> None:
         engines[n] = rr_humanoid_engine(hum.S.device)
         engines[n].rr_iterations = n
     own = rr_humanoid_engine(hum.S.device)
-    builds = cuda_build.build_many([cuda_rollout.job(e) for e in (*engines.values(), own)])
-    for n, b in zip((*RR_ITERATIONS, "own"), builds):
+    keys = [(lanes, n) for lanes in RR_LANES for n in RR_ITERATIONS]
+    builds = dict(zip(keys, cuda_build.build_many([cuda_rollout.job(engines[n], lanes) for lanes, n in keys])))
+    for (lanes, n), b in builds.items():
         ptxas = [ln.strip() for ln in b.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln]
-        print(json.dumps({"rr_build": {"iterations": n, "ptxas": ptxas}}), flush=True)
-    rows = []
-    for n, eng in engines.items():
-        state = eng.init_state(PROFILE_BATCH, generator=gen)
-        cuda_rollout.rollout(eng, state, RR_STEPS)  # warm-up
-        ms = device_ms(lambda: cuda_rollout.rollout(eng, state, RR_STEPS), REPEATS) / RR_STEPS
-        rows.append((n + 2, ms))
-        print(json.dumps({"rr_iterations": {"B": PROFILE_BATCH, "iterations": n, "passes": n + 2, "ms_per_step": ms}}),
+        print(json.dumps({"rr_build": {"lanes": lanes, "iterations": n, "ptxas": ptxas,
+                                       "geometry": cuda_rollout.rr_geometry(b)}}), flush=True)  # fmt: skip
+        if n == own._rr_n_iter:
+            print(json.dumps({"rr_sass": {"lanes": lanes, "local_loads_and_stores": cuda_rollout.rr_local_memory(b)}}),
+                  flush=True)  # fmt: skip
+    for lanes in RR_LANES:
+        rows = []
+        for n, eng in engines.items():
+            kernel = builds[(lanes, n)]
+            state = eng.init_state(PROFILE_BATCH, generator=gen)
+            cuda_rollout.launch(kernel, eng, state, RR_STEPS, 60.0, 0.5)  # warm-up
+            ms = device_ms(lambda: cuda_rollout.launch(kernel, eng, state, RR_STEPS, 60.0, 0.5), REPEATS) / RR_STEPS
+            rows.append((n + 2, ms))
+            print(json.dumps({"rr_iterations": {"B": PROFILE_BATCH, "lanes": lanes, "iterations": n, "passes": n + 2,
+                                                "ms_per_step": ms}}), flush=True)  # fmt: skip
+        mx, my = statistics.mean(r[0] for r in rows), statistics.mean(r[1] for r in rows)
+        slope = sum((x - mx) * (y - my) for x, y in rows) / sum((x - mx) ** 2 for x, _ in rows)
+        print(json.dumps({"rr_fit": {"lanes": lanes, "ms_per_pass": slope, "ms_intercept": my - slope * mx}}),
               flush=True)  # fmt: skip
-    mx, my = statistics.mean(r[0] for r in rows), statistics.mean(r[1] for r in rows)
-    slope = sum((x - mx) * (y - my) for x, y in rows) / sum((x - mx) ** 2 for x, _ in rows)
-    print(json.dumps({"rr_fit": {"ms_per_pass": slope, "ms_intercept": my - slope * mx}}), flush=True)
     for B in RR_BATCHES:
         state = own.init_state(B, generator=gen)
         cuda_rollout.rollout(own, state, RR_STEPS)  # warm-up
         ms = device_ms(lambda: cuda_rollout.rollout(own, state, RR_STEPS), REPEATS)
-        print(json.dumps({"rr_sweep": {"B": B, "iterations": own._rr_n_iter, "ms": ms,
+        print(json.dumps({"rr_sweep": {"B": B, "lanes": cuda_rollout.RR_LANES, "iterations": own._rr_n_iter, "ms": ms,
                                        "env_steps_per_s": B * RR_STEPS / (ms * 1e-3)}}), flush=True)  # fmt: skip
+
+
+def rr_faults_probe(hum, gen) -> None:
+    """Each of RR_FAULTS seeded into a copy of ``csrc/`` under ``build/``,
+    built beside the sound source, and every variant held to
+    ``chip_smoke.py``'s RR_CASES limits: per case, the worst field's
+    statistic over its limit (> 1 is refused)."""
+    import shutil
+
+    import torch
+
+    from chip_smoke import rr_garpez_engine, rr_gates, rr_humanoid_engine, rr_start_states
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_rollout
+
+    device = hum.S.device
+    hum_rr, garp_rr = rr_humanoid_engine(device), rr_garpez_engine(device)
+    sources = {"control": cuda_rollout.RR_SOURCE}
+    for name, (old, new) in RR_FAULTS.items():
+        copy = cuda_build.BUILD_DIR.parent / "rr_faults" / name
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(cuda_build.CSRC, copy)
+        text = (copy / "rr_step.cuh").read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"fault {name}: the text to replace is not in rr_step.cuh once")
+        (copy / "rr_step.cuh").write_text(text.replace(old, new))
+        sources[name] = copy / "rollout_rr.cu"
+    jobs = {(name, id(eng)): dataclasses.replace(cuda_rollout.job(eng), source=src)
+            for name, src in sources.items() for eng in (hum_rr, garp_rr)}  # fmt: skip
+    kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+
+    def variant(name):
+        return lambda eng, st, n, kp, kd: cuda_rollout.launch(kernels[(name, id(eng))], eng, st, n, kp, kd)
+
+    starts = rr_start_states(hum_rr, garp_rr, torch.Generator(device).manual_seed(6))
+    _, ratios = rr_gates(starts, {name: variant(name) for name in sources})
+    print(json.dumps({"rr_faults": ratios}), flush=True)
+
+
+def param_sum_probe(hum, gen) -> None:
+    """K4's partials' sum built with each entry count a warp in
+    ``SUM_PARAMS`` (copies of ``csrc/`` under ``build/``, the constant
+    edited), on the partials of 8192 envs (256 blocks × the humanoid's
+    1,989 entries): kernel-only µs (``torch.profiler``, mean of
+    ``LAUNCH_REPEATS``) and CUDA-event µs of the wrapper's path (median),
+    beside ``torch.sum``'s; each variant equal over two runs and within
+    1e-6 relative of ``torch.sum``."""
+    import shutil
+
+    import torch
+
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_step_vjp
+
+    old = f"constexpr int SUM_PARAMS = {SUM_PARAMS[0]};"
+    jobs = {}
+    for n in SUM_PARAMS:
+        copy = cuda_build.BUILD_DIR.parent / "param_sum" / str(n)
+        shutil.rmtree(copy, ignore_errors=True)
+        shutil.copytree(cuda_build.CSRC, copy)
+        text = (copy / "step_vjp.cu").read_text()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{old} is not in step_vjp.cu once")
+        (copy / "step_vjp.cu").write_text(text.replace(old, f"constexpr int SUM_PARAMS = {n};"))
+        jobs[n] = dataclasses.replace(cuda_step_vjp.job(hum, params_grad=True), source=copy / "step_vjp.cu")
+    kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+    partials = torch.randn(PROFILE_BATCH // cuda_step_vjp.BLOCK, cuda_build.packed_params(hum).numel(),
+                           generator=gen, device=gen.device)  # fmt: skip
+    ref = torch.sum(partials, 0)
+
+    def variant(kernel):
+        def run():
+            out = torch.empty(partials.shape[1], device=partials.device)
+            cuda_build.launch(kernel, "jx_param_sum", None, partials.device, partials.data_ptr(),
+                              partials.shape[0], out.data_ptr())  # fmt: skip
+            return out
+        return run
+
+    calls = {f"param_sum_{n}": (variant(k), "param_sum_kernel") for n, k in kernels.items()}
+    calls["torch_sum"] = (lambda: torch.sum(partials, 0), "")
+    for name, (fn, kernel) in calls.items():
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{name}: two runs differ")
+        torch.testing.assert_close(a, ref, rtol=1e-6, atol=1e-6 * float(ref.abs().max()))
+        print(json.dumps({"param_sum": {"call": name, "kernel_us": _profiled_us(fn, kernel),
+                                        "event_us": 1e3 * device_ms(fn, LAUNCH_REPEATS)}}), flush=True)  # fmt: skip
+
+
+def profiler_probe(hum, gen) -> None:
+    """How many launches ``torch.profiler`` records of short kernels: per
+    call, ``PROFILER_WINDOWS`` windows of ``LAUNCH_REPEATS`` calls at each
+    idle pad in ``PROFILER_PADS_S`` (``chip_smoke.profiled_window``), the
+    count seen in each and the start µs of the first kernel seen."""
+    import torch
+
+    from chip_smoke import profiled_window
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_step, cuda_step_vjp
+
+    state = hum.init_state(LAUNCH_BATCHES[0], base_position=(0.0, 0.0, 0.9), generator=gen)
+    partials = torch.randn(PROFILE_BATCH // cuda_step_vjp.BLOCK, cuda_build.packed_params(hum).numel(),
+                           generator=gen, device=gen.device)  # fmt: skip
+    calls = {
+        "k2": (lambda: cuda_step.step_pd(hum, state), "step_pd_kernel"),
+        "param_sum": (lambda: cuda_step_vjp.sum_partials(hum, partials), "param_sum_kernel"),
+        "torch_sum": (lambda: torch.sum(partials, 0), ""),
+    }
+    for fn, _ in calls.values():
+        fn()  # warm-up (and build)
+    for pad in PROFILER_PADS_S:
+        for name, (fn, kernel) in calls.items():
+            windows = [profiled_window(fn, kernel, LAUNCH_REPEATS, pad) for _ in range(PROFILER_WINDOWS)]
+            print(json.dumps({"profiler": {
+                "call": name, "pad_s": pad, "launches": LAUNCH_REPEATS, "seen": [len(w) for w in windows],
+                "first_start_us": [min((t0 for t0, _ in w), default=None) for w in windows],
+            }}), flush=True)  # fmt: skip
 
 
 PROBES = {
@@ -281,6 +437,9 @@ PROBES = {
     "launch": launch_probe,
     "terminations": terminations_probe,
     "rr": rr_probe,
+    "rr_faults": rr_faults_probe,
+    "param_sum": param_sum_probe,
+    "profiler": profiler_probe,
 }
 
 

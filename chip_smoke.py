@@ -12,7 +12,8 @@ plain PyTorch version on the card:
 * K1 (``rollout.cu``), K2 and K3 (``step.cu``), in every state field, on the
   fixed-base pendulum and on the 23-DoF humanoid at 8192 envs, from the main
   path's start and with the joints moving (``CASES``); K1's relaxed-rigid
-  build likewise on the humanoid and on garpez tilted low (``RR_CASES``),
+  kernel (``rollout_rr.cu``) likewise on the humanoid and on garpez tilted
+  low (``RR_CASES``),
   ``m`` (the solved point forces) relative to its size, with the active
   contact points of each case counted; K3 also under
   call-time model arrays (``M`` scaled by 1.2), and on the garpez chain
@@ -26,7 +27,7 @@ plain PyTorch version on the card:
   pendulum, the humanoid and garpez at the APG main path's start
   (``VJP_CASES``), with the contact branches of the start states counted;
   the model arrays' cotangents entry by entry; its partials' sum against
-  ``torch.sum``; and the
+  ``torch.sum``, and two runs of it to the bit; and the
   PD gains' gradient through a 10-step ``fused_diff_rollout`` against the
   plain twin under autograd;
 * K6 and K7 (``fma_probe.cu``), each FMA-rate probe variant against its
@@ -63,7 +64,12 @@ before it and read just after:
   of the data-sheet peak; the bounds then give every operations-bound
   kernel's share of the measured peak beside its share of the data sheet's.
 
-It prints each phase's seconds, the card's name and power limit, a JSON line
+It prints each build's ptxas line; the relaxed-rigid kernel's launch
+geometry (threads, envs and shared memory a block, envs an SM) and the
+local loads and stores in its SASS, in all and in the M⁻¹Jᵀ pass; the
+kernel-only times of K3, K4, the partials' sum and ``torch.sum`` beside it
+(``torch.profiler``). It prints each phase's seconds, the card's name and
+power limit, a JSON line
 with each kernel's numbers (device ms per launch, the plain version's ms for
 the same work, the bound the card's peaks set, the launches of the main
 path) and last ``{"ok": true, "device": {...}}``. Any failure raises, and the
@@ -86,6 +92,11 @@ DEVICE = "cuda:0"
 BATCH = 8192
 HORIZON = 1000  # steps per K1 main-path call
 TIMED_CALLS = 5
+# torch.profiler at times leaves out the records of some short launches
+# of a window (``chip_probe.py profiler`` counts them); a kernel-only time
+# is read from a window that saw every launch.
+PROFILER_PAD_S = 0.02
+PROFILER_TRIES = 5
 # The plain twin takes 50-110 ms a humanoid step on the card (thousands of
 # small launches); its time is taken over fewer steps than the kernel's
 # launch and scaled to the same work, linearly in the steps.
@@ -213,7 +224,7 @@ SOURCES = dict(
     step_vjp="jaxsim_tpu_torch/csrc/step_vjp.cu",
     step_vjp_params_grad="jaxsim_tpu_torch/csrc/step_vjp.cu",
     param_sum="jaxsim_tpu_torch/csrc/step_vjp.cu",
-    rollout_relaxed_rigid="jaxsim_tpu_torch/csrc/rollout.cu",
+    rollout_relaxed_rigid="jaxsim_tpu_torch/csrc/rollout_rr.cu",
     fma_probe="jaxsim_tpu_torch/csrc/fma_probe.cu",
     bf16_probe_f32="jaxsim_tpu_torch/csrc/fma_probe.cu",
     bf16_probe_bf16="jaxsim_tpu_torch/csrc/fma_probe.cu",
@@ -403,23 +414,39 @@ def device_ms(fn, repeats: int) -> list[float]:
     return times
 
 
-def profiled_ms(fn, kernel: str, repeats: int) -> float:
-    """Mean device milliseconds of the CUDA kernels whose name holds
-    ``kernel`` over ``repeats`` calls of ``fn``, read by ``torch.profiler``."""
+def profiled_window(fn, kernel: str, repeats: int, pad_s: float = PROFILER_PAD_S) -> list[tuple[float, float]]:
+    """One ``torch.profiler`` window around ``repeats`` calls of ``fn``, with
+    ``pad_s`` idle host seconds inside it before the first call and after
+    the last: (start µs from the window's start, device µs) of each CUDA
+    kernel whose name holds ``kernel``."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        time.sleep(pad_s)
         for _ in range(repeats):
             fn()
         torch.cuda.synchronize()
-    times = [
-        e.time_range.elapsed_us() for e in prof.events()
+        time.sleep(pad_s)
+    return [
+        (e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name
     ]  # fmt: skip
-    if len(times) != repeats:
-        raise RuntimeError(f"the profiler saw {len(times)} launches of {kernel}, expected {repeats}")
-    return statistics.mean(times) / 1e3
+
+
+def profiled_ms(fn, kernel: str, repeats: int) -> float:
+    """Mean device milliseconds of the CUDA kernels whose name holds
+    ``kernel`` over ``repeats`` calls of ``fn``, read by ``torch.profiler``
+    from the first of ``PROFILER_TRIES`` windows that saw every launch."""
+    for _ in range(PROFILER_TRIES):
+        seen = profiled_window(fn, kernel, repeats)
+        if len(seen) > repeats:
+            raise RuntimeError(f"the profiler saw {len(seen)} launches of {kernel!r}, expected {repeats}")
+        if len(seen) == repeats:
+            return statistics.mean(t for _, t in seen) / 1e3
+        print(f"the profiler saw {len(seen)} of {repeats} launches of {kernel!r}; another window", flush=True)
+    raise RuntimeError(f"the profiler missed launches of {kernel!r} in {PROFILER_TRIES} windows")
 
 
 def wall_ms(fn) -> float:
@@ -616,13 +643,18 @@ def rr_diff(a, b) -> dict:
     return diff
 
 
-def rr_gates(starts) -> list[float]:
-    """K1's relaxed-rigid build against the plain twin in each of RR_CASES:
+def rr_gates(starts, variants=None) -> tuple[list[float], dict[str, dict[str, float]]]:
+    """K1's relaxed-rigid kernel against the plain twin in each of RR_CASES:
     every state field's per-env |Δ|, m's over max(1, max |plain m|), at the
     case's statistic over envs; against the float64 twin where the case says
     so (RR_CASES). Fails a case whose plain trajectory has no active contact
-    point. Returns the largest unscaled |Δ| of each case held at its max
-    against the float32 twin."""
+    point. ``variants`` maps a name to a rollout function (by default the
+    wrapper, ``cuda_rollout.rollout``, which is gated: a breach raises);
+    a map of other variants (seeded faults) is held to the same limits
+    without raising. Returns the largest unscaled |Δ| of each case held at
+    its max against the float32 twin (the default variant's), and for each
+    variant and case its worst field's statistic over its limit (> 1 is
+    refused)."""
     import copy
 
     import torch
@@ -630,7 +662,9 @@ def rr_gates(starts) -> list[float]:
     from jaxsim_tpu_torch import BatchedState
     from jaxsim_tpu_torch.ops import cuda_rollout
 
-    errs = []
+    gated = variants is None
+    variants = variants or {"kernel": cuda_rollout.rollout}
+    errs, ratios = [], {name: {} for name in variants}
     for name in dict.fromkeys(case[0] for case in RR_CASES):
         engine, state, (kp, kd) = starts[name]
         cases = [case[1:] for case in RR_CASES if case[0] == name]
@@ -647,28 +681,43 @@ def rr_gates(starts) -> list[float]:
                     plain[kind][t] = BatchedState(*(x.float() for x in st.fields()))
         B = state.p.shape[-1]
         for n, stat, against64 in cases:
-            label = f"rollout_relaxed_rigid vs plain, {name} B={B} {n} steps"
-            print(f"{label}: active contact points summed over the steps {sum(active[:n])}, "
-                  f"at the first step {active[0]}, at the last {active[n - 1]}", flush=True)  # fmt: skip
+            case = f"{name} B={B} {n} steps"
+            print(f"rollout_relaxed_rigid vs plain, {case}: active contact points summed over the steps "
+                  f"{sum(active[:n])}, at the first step {active[0]}, at the last {active[n - 1]}", flush=True)  # fmt: skip
             if not sum(active[:n]):
-                raise RuntimeError(f"{label}: no contact point is active, so the gate proves nothing about the solve")
-            kern = cuda_rollout.rollout(engine, state, n, kp, kd)
-            torch.cuda.synchronize()
-            if not all(all_finite(x) for x in (kern, *(p[n] for p in plain.values()))):
-                raise RuntimeError(f"{label}: non-finite state")
-            print(f"{label}: max |plain m| {float(plain['float32'][n].m.abs().max()):.6g} N, m over max(1, that)")
-            if not against64:
-                gate(label, rr_diff(kern, plain["float32"][n]), stat)
-                if stat == "max":
-                    errs.append(max(float(d.max()) for d in per_env_abs_diff(kern, plain["float32"][n]).values()))
-            else:
-                d32 = over_envs(rr_diff(kern, plain["float32"][n]), stat)
-                print(f"{label}: against the float32 twin (not gated), {stat} over envs {json.dumps(d32)}")
+                raise RuntimeError(f"{case}: no contact point is active, so the gate proves nothing about the solve")
+            print(f"{case}: max |plain m| {float(plain['float32'][n].m.abs().max()):.6g} N, m over max(1, that)")
+            if against64:
                 spread = over_envs(rr_diff(plain["float32"][n], plain["float64"][n]), stat)
-                print(f"{label}: float32 twin vs float64 twin, {stat} over envs {json.dumps(spread)}")
-                gate(f"{label}, against the float64 twin", rr_diff(kern, plain["float64"][n]), stat,
-                     limits={k: max(TOL, 2 * e) for k, e in spread.items()})  # fmt: skip
-    return errs
+                print(f"{case}: float32 twin vs float64 twin, {stat} over envs {json.dumps(spread)}")
+                limits, ref = {k: max(TOL, 2 * e) for k, e in spread.items()}, plain["float64"][n]
+            else:
+                limits, ref = {}, plain["float32"][n]
+            for vname, run in variants.items():
+                label = f"rollout_relaxed_rigid {vname} vs plain, {case}"
+                kern = run(engine, state, n, kp, kd)
+                torch.cuda.synchronize()
+                if not all(all_finite(p[n]) for p in plain.values()):
+                    raise RuntimeError(f"{label}: non-finite plain state")
+                if not all_finite(kern):
+                    if gated:
+                        raise RuntimeError(f"{label}: non-finite state")
+                    ratios[vname][f"{case}, {stat}"] = math.inf
+                    print(f"{label}: non-finite state, refused", flush=True)
+                    continue
+                if against64:
+                    d32 = over_envs(rr_diff(kern, plain["float32"][n]), stat)
+                    print(f"{label}: against the float32 twin (not gated), {stat} over envs {json.dumps(d32)}")
+                    label += ", against the float64 twin"
+                diff = rr_diff(kern, ref)
+                ratio = max(e / limits.get(k, TOL) for k, e in over_envs(diff, stat).items())
+                ratios[vname][f"{case}, {stat}"] = ratio
+                print(f"{label}: worst field's {stat} over its limit {ratio:.6g}", flush=True)
+                if gated:
+                    gate(label, diff, stat, limits)
+                    if stat == "max" and not against64:
+                        errs.append(max(float(d.max()) for d in per_env_abs_diff(kern, ref).values()))
+    return errs, ratios
 
 
 def probe_gates(device) -> dict[str, float]:
@@ -810,6 +859,16 @@ def main() -> int:
             ln.strip() for ln in b.ptxas_log.splitlines() if "registers" in ln or "spill" in ln or "stack frame" in ln
         ), flush=True)  # fmt: skip
 
+    rr_build = builds[-3]
+    geo = cuda_rollout.rr_geometry(rr_build)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    print(f"rollout_relaxed_rigid ({cuda_rollout.RR_LANES} lanes an env): {geo['threads']} threads and {geo['envs']}"
+          f" envs a block, {geo['smem_bytes']} B of dynamic shared memory a block, {geo['blocks_per_sm']} blocks an"
+          f" SM (occupancy calculator), so {geo['blocks_per_sm'] * geo['envs']} envs an SM; {BATCH} envs make"
+          f" {-(-BATCH // geo['envs'])} blocks over {sms} SMs")  # fmt: skip
+    print(f"rollout_relaxed_rigid SASS, local loads and stores (LDL, STL): {json.dumps(cuda_rollout.rr_local_memory(rr_build))}",
+          flush=True)  # fmt: skip
+
     sass = fma_probe.check_sass(builds[-1])
     print("probe SASS, FMA instructions (in the timed loop / in all) by (variant, chains): "
           + ", ".join(f"{k[0]} {k[1]}: {v['op']} {v['in_loop']}/{v['total']}" for k, v in sorted(sass.items())))  # fmt: skip
@@ -869,7 +928,7 @@ def main() -> int:
     # ----- K1's relaxed-rigid build vs plain -----
     with phase("K1 relaxed-rigid vs plain"):
         rr_starts = rr_start_states(hum_rr, garp_rr, torch.Generator(device).manual_seed(6))
-        max_errs["rollout_relaxed_rigid"] = rr_gates(rr_starts)
+        max_errs["rollout_relaxed_rigid"], _ = rr_gates(rr_starts)
         rr_start = rr_starts[RR_CASES[0][0]][1]
 
     # ----- K6, K7 vs plain -----
@@ -957,7 +1016,10 @@ def main() -> int:
         partials = torch.randn(BATCH // cuda_step_vjp.BLOCK, cuda_build.packed_params(hum).numel(),
                                generator=vjp_gen, device=device)  # fmt: skip
         kern, plain = cuda_step_vjp.sum_partials(hum, partials), cuda_step_vjp.sum_partials_reference(partials)
+        again = cuda_step_vjp.sum_partials(hum, partials)
         sync()
+        if not torch.equal(kern, again):
+            raise RuntimeError("two runs of param_sum differ")
         err = float((kern - plain).abs().max())
         print(f"param_sum vs plain, {tuple(partials.shape)}: max|Δ| {err:.6g}, max|plain| {float(plain.abs().max()):.6g}")
         if not err <= 1e-4 * max(1.0, float(plain.abs().max())):
@@ -1271,6 +1333,8 @@ def main() -> int:
             step_vjp_params_grad=profiled_ms(vjp_calls["step_vjp_params_grad"], "step_vjp_kernel", 10),
             param_sum=profiled_ms(vjp_calls["param_sum"], "param_sum_kernel", 10),
         )
+        library_kernel_only = dict(param_sum=profiled_ms(lambda: torch.sum(partials, 0), "", 10))
+        print(f"library kernel-only device ms a launch (torch.profiler, mean of 10): {json.dumps(library_kernel_only)}")
         print(f"kernel-only device ms a launch (torch.profiler, mean of 10): {json.dumps(kernel_only)}")
         print(f"device ms a launch (CUDA events around the wrapper, median of 20): "
               f"{json.dumps({k: results[k]['ms'] for k in kernel_only})}")  # fmt: skip

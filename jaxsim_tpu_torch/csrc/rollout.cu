@@ -1,15 +1,14 @@
-// Whole-horizon rollout of the batched engine: one CUDA thread per env.
+// Whole-horizon rollout of the batched engine with soft contacts: one CUDA
+// thread per env.
 //
 // Replaces jaxsim_tpu/ops/pallas_step.py::_rollout_kernel (built by
-// build_pallas_rollout) for two bodies, chosen at build time by JX_CONTACT:
-// Hunt/Crossley soft contacts, or relaxed-rigid contacts (the matrix-free
-// PCG of JX_RR_ITERS iterations, warm-started from the forces the state's m
-// carries); each on flat ground, with the three-pass articulated-body
-// algorithm and the 6x6 base Cholesky, semi-implicit Euler, and the PD policy
-// tau = -kp*s - kd*sd. Each env advances n_steps inside one launch; the state
-// crosses device memory once on the way in and once on the way out. The step
-// itself is step_env (step_env.cuh), shared with the one-step and env-rollout
-// kernels.
+// build_pallas_rollout) for Hunt/Crossley soft contacts on flat ground, with
+// the three-pass articulated-body algorithm and the 6x6 base Cholesky,
+// semi-implicit Euler, and the PD policy tau = -kp*s - kd*sd. Each env
+// advances n_steps inside one launch; the state crosses device memory once on
+// the way in and once on the way out. The step itself is step_env
+// (step_env.cuh), shared with the one-step and env-rollout kernels. The
+// relaxed-rigid rollout is rollout_rr.cu.
 //
 // What bounds it on the card: per-thread latency and local-memory traffic,
 // not HBM. The humanoid's state is 6.6 MB for 8192 envs and is read and
@@ -22,13 +21,11 @@
 //
 // One thread per env leaves the card mostly idle at the flagship batch
 // (8192 threads = 256 warps over 132 SMs); spreading one env over a warp is
-// the first target of later performance work. The relaxed-rigid body does
-// one free ABA and 1 + JX_RR_ITERS + 1 substitution passes (M^-1 J^T
-// applications) a step, each with a scatter over the points and a gather,
-// and keeps the factorization and the PCG's vectors (about 1.3 k floats for
-// the humanoid) in its Work frame besides the soft body's.
+// the first target of later performance work.
 
 #include "step_env.cuh"
+
+static_assert(!RELAXED, "rollout.cu is the soft-contact rollout; relaxed-rigid engines build rollout_rr.cu");
 
 namespace {
 
@@ -82,14 +79,8 @@ int jx_rollout(const float* params, const float* s, const float* sd, const float
                const float* q, const float* v, const float* m, float* s_out, float* sd_out,
                float* p_out, float* q_out, float* v_out, float* m_out, int B, int n_steps,
                float K, float D, float k_over_d, float mu, float hc_p, float hc_q, float gz,
-               float dt, float kp, float kd, float rr_ca, float rr_cb, float rr_mid,
-               float rr_power, float rr_width, float rr_dmin, float rr_dmax, float rr_span,
-               float rr_stiff, float rr_damp, float rr_c2mu2, float rr_c1mu2, float rr_reg,
-               void* stream) {
-  const Scalars sc{K,        D,       k_over_d, mu,       hc_p,     hc_q,    gz,
-                   dt,       kp,      kd,       rr_ca,    rr_cb,    rr_mid,  rr_power,
-                   rr_width, rr_dmin, rr_dmax,  rr_span,  rr_stiff, rr_damp, rr_c2mu2,
-                   rr_c1mu2, rr_reg};
+               float dt, float kp, float kd, void* stream) {
+  const Scalars sc{K, D, k_over_d, mu, hc_p, hc_q, gz, dt, kp, kd};
   const int blocks = (B + BLOCK - 1) / BLOCK;
   rollout_kernel<<<blocks, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       params, s, sd, p, q, v, m, s_out, sd_out, p_out, q_out, v_out, m_out, B, n_steps, sc);

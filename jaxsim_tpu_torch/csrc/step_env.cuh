@@ -3,15 +3,13 @@
 //
 // It is the arithmetic of jaxsim_tpu/ops/batched_engine.py::BatchedEngine.step
 // on flat ground with the three-pass articulated-body algorithm, the 6x6 base
-// Cholesky and the SIE update, for one of two contact models fixed at build
-// time by JX_CONTACT: Hunt/Crossley soft contacts (0), or relaxed-rigid
-// contacts (1), a matrix-free Jacobi-preconditioned CG of JX_RR_ITERS
-// iterations on the free ABA's factorization (relaxed_rigid below). It is
+// Cholesky and the SIE update, with Hunt/Crossley soft contacts. It is
 // written after jaxsim_tpu_torch/ops/batched_engine.py (the plain version)
 // line by line. The kernels that include it (rollout.cu, step.cu,
 // env_rollout.cu, step_vjp.cu) differ in what surrounds the step: how many
 // steps a launch takes, where the torques come from, and what happens between
-// steps; only rollout.cu is built for relaxed-rigid engines.
+// steps. The relaxed-rigid step (rr_step.cuh, built by rollout_rr.cu) takes
+// its algebra, its Scalars and the packed layout from here.
 //
 // Conventions of every including kernel:
 //  * jx_topology.h (generated per model topology by
@@ -329,250 +327,10 @@ struct Work {
   float f[NL][6];                         // world contact wrenches per link
   float v[NL][6], c[NL][6], pA[NL][6], MA[NL][36], a[NL][6];
   float U[NL][6], d[NL], u[NL];
-#if JX_CONTACT == 1
-  float L0[36];                            // the free ABA's base Cholesky factor
-  float fm[NL][6], am[NL][6], um[NL];      // M^-1 J^T passes: -f, accelerations, u
-  float x[NCM * 3], r[NCM * 3], pp[NCM * 3], Ap[NCM * 3];  // PCG iterate, residual, direction, A p
-  float prec[NCM * 3], rreg[NCM * 3], act[NCM];  // Jacobi diagonal, r + reg, activity
-#endif
 };
 
-#if JX_CONTACT == 1
-// ----- relaxed-rigid contacts: the PCG's pieces -----
-//
-// Point-major vectors of NC*3 entries, as the plain version's (nC, 3, B).
-// The per-point geometry is not stored: a point's rotation is its parent's
-// world rotation (Work::WR) and its offset is in the shared parameters.
-
-// pow(x, power) as the plain version's torch.pow computes it: power 2 as
-// x*x (torch.pow and XLA both square there; powf need not round so).
-__device__ __forceinline__ float rr_pow(float x, float power) {
-  return power == 2.0f ? x * x : powf(x, power);
-}
-
-// The zero-velocity articulated substitution passes on the free ABA's
-// factorization (U, d, iR, ip, L0): the link forces held negated in w.fm to
-// the link-frame accelerations w.am and, when sddc is given, the joint
-// accelerations: the generalized M^-1 J^T action.
-__device__ void minv_apply(const float* P, Work& w, float* sddc) {
-#pragma unroll 1
-  for (int i = NL - 1; i > 0; --i) {
-    const int lam = JX_LAM[i];
-    const float* S = P + OFF_S + i * 6;
-    float sp = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) sp += S[k] * w.fm[i][k];
-    const float u = -sp;
-    w.um[i] = u;
-    const float ud = u / w.d[i];
-    if (lam != 0 || FLOATING) {
-      float pa[6], t[6];
-#pragma unroll
-      for (int k = 0; k < 6; ++k) pa[k] = w.fm[i][k] + w.U[i][k] * ud;
-      xtf(w.iR[i], w.ip[i], pa, t);
-#pragma unroll
-      for (int k = 0; k < 6; ++k) w.fm[lam][k] += t[k];
-    }
-  }
-  if (FLOATING) {
-    float x[6];
-    chol6_substitute(w.L0, w.fm[0], x);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.am[0][k] = -x[k];
-  } else {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.am[0][k] = 0.0f;
-  }
-#pragma unroll 1
-  for (int i = 1; i < NL; ++i) {
-    const float* S = P + OFF_S + i * 6;
-    float a_i[6];
-    xv(w.iR[i], w.ip[i], w.am[JX_LAM[i]], a_i);
-    float ua = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) ua += w.U[i][k] * a_i[k];
-    const float sddi = (w.um[i] - ua) / w.d[i];
-    if (sddc != nullptr) sddc[i - 1] = sddi;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.am[i][k] = a_i[k] + S[k] * sddi;
-  }
-}
-
-// Point forces y (world axes), masked by the activity when `masked`, to the
-// parents' link-frame wrenches, negated into w.fm, in contact-index order.
-__device__ void rr_scatter(const float* P, Work& w, const float* y, bool masked) {
-#pragma unroll 1
-  for (int i = 0; i < NL; ++i)
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.fm[i][k] = 0.0f;
-#pragma unroll 1
-  for (int c = 0; c < NC; ++c) {
-    const int par = JX_CPARENT[c];
-    const float* Lp = P + OFF_CP + c * 3;
-    float yc[3], f[3], t[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) yc[k] = masked ? w.act[c] * y[c * 3 + k] : y[c * 3 + k];
-    mtv3(w.WR[par], yc, f);
-    cross3(Lp, f, t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      w.fm[par][k] -= f[k];
-      w.fm[par][k + 3] -= t[k];
-    }
-  }
-}
-
-// The world acceleration of point c from link-frame accelerations a:
-// Rp (a_lin + a_ang x Lp).
-__device__ __forceinline__ void rr_gather(const float* P, const Work& w, const float (*a)[6], int c,
-                                          float* acc) {
-  const int par = JX_CPARENT[c];
-  const float* Lp = P + OFF_CP + c * 3;
-  float t[3], u[3];
-  cross3(a[par] + 3, Lp, t);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) u[k] = a[par][k] + t[k];
-  mv3(w.WR[par], u, acc);
-}
-
-// out = A y = J M^-1 J^T (act y) masked by act, plus (r + reg) y.
-__device__ void rr_apply(const float* P, Work& w, const float* y, float* out) {
-  rr_scatter(P, w, y, true);
-  minv_apply(P, w, nullptr);
-#pragma unroll 1
-  for (int c = 0; c < NC; ++c) {
-    float acc[3];
-    rr_gather(P, w, w.am, c, acc);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) out[c * 3 + j] = w.act[c] * acc[j] + w.rreg[c * 3 + j] * y[c * 3 + j];
-  }
-}
-
-// The relaxed-rigid contact solve, after the free ABA (w.a holds the free
-// link accelerations, w.U/d/iR/ip/L0 the factorization, sdd the free joint
-// accelerations): the impedance, the reference acceleration, the
-// regularizer with its impedance floor and the Jacobi preconditioner per
-// point; the warm start from m (the previous step's forces, masked to the
-// active points; the Jacobi estimate for a point without them); JX_RR_ITERS
-// PCG iterations on A x = -b; then the accelerations a_free + M^-1 J^T x
-// into W_a and sdd, and m <- the solved forces, written as m + dt (x - m)/dt
-// with each operation rounded alone, as the plain version computes it.
-__device__ void relaxed_rigid(const float* P, const Scalars& sc, Work& w, float* m, float* sdd,
-                              float* W_a) {
-  const float nh[3] = {0.0f, 0.0f, 1.0f};  // flat ground's normal
-#pragma unroll 1
-  for (int c = 0; c < NC; ++c) {
-    const int par = JX_CPARENT[c];
-    const float* Lp = P + OFF_CP + c * 3;
-    const float* Rp = w.WR[par];
-    const float* om = w.Wv[par] + 3;
-    float pc[3], pd[3], t[3];
-    mv3(Rp, Lp, t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) pc[k] = t[k] + w.Wp[par][k];
-    cross3(om, pc, t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) pd[k] = w.Wv[par][k] + t[k];
-    const float delta = fmaxf(-pc[2], 0.0f);
-    const float act = delta > 0.0f ? 1.0f : 0.0f;
-    w.act[c] = act;
-
-    // Free point acceleration R(a_lin + w' x Lp) + g + w x pd.
-    float acc[3], wxpd[3];
-    rr_gather(P, w, w.a, c, acc);
-    cross3(om, pd, wxpd);
-    const float pdd[3] = {acc[0] + wxpd[0], acc[1] + wxpd[1], (acc[2] + sc.gz) + wxpd[2]};
-
-    float xi[3], aref[3], coeff[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float pos = -delta * nh[j];
-      const float x = delta * fabsf(nh[j]) / sc.rr_width;
-      const float ya = sc.rr_ca * rr_pow(x, sc.rr_power);
-      const float yb = 1.0f - sc.rr_cb * rr_pow(fmaxf(1.0f - x, 0.0f), sc.rr_power);
-      const float y = x < sc.rr_mid ? ya : yb;
-      float xj = fminf(fmaxf(sc.rr_dmin + y * sc.rr_span, sc.rr_dmin), sc.rr_dmax);
-      xj = x > 1.0f ? sc.rr_dmax : xj;
-      xi[j] = xj;
-      aref[j] = -(sc.rr_damp * pd[j] + sc.rr_stiff * xj * pos);
-      coeff[j] = (sc.rr_c2mu2 * (1.0f - xj) / (xj + 1e-12f)) * sc.rr_c1mu2;
-    }
-    const float* Mi = P + OFF_RRMINV + c * 9;
-    const float* mc = m + c * 3;
-    float warm = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float mj = act * mc[j];
-      warm += mj * mj;
-    }
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float rj = act * ((coeff[0] * Mi[j] + coeff[1] * Mi[3 + j] + coeff[2] * Mi[6 + j]) +
-                              ((1.0f - xi[j]) / (xi[j] + 1e-12f)) * Mi[j * 4]);
-      const float prec = act * Mi[j * 4] + rj + sc.rr_reg;
-      const float neg_b = -(act * (pdd[j] - aref[j]));
-      w.rreg[c * 3 + j] = rj + sc.rr_reg;
-      w.prec[c * 3 + j] = prec;
-      w.r[c * 3 + j] = neg_b;
-      w.x[c * 3 + j] = warm > 0.0f ? act * mc[j] : neg_b / prec;
-    }
-  }
-
-  // Preconditioned CG on A x = -b, warm-started.
-  rr_apply(P, w, w.x, w.Ap);
-  float rz = 0.0f;
-#pragma unroll 1
-  for (int k = 0; k < NC * 3; ++k) {
-    w.r[k] = w.r[k] - w.Ap[k];
-    const float z = w.r[k] / w.prec[k];
-    w.pp[k] = z;
-    rz += w.r[k] * z;
-  }
-#pragma unroll 1
-  for (int it = 0; it < JX_RR_ITERS; ++it) {
-    rr_apply(P, w, w.pp, w.Ap);
-    float pAp = 0.0f;
-#pragma unroll 1
-    for (int k = 0; k < NC * 3; ++k) pAp += w.pp[k] * w.Ap[k];
-    const float alpha = rz / (pAp + 1e-20f);
-    float rz_n = 0.0f;
-#pragma unroll 1
-    for (int k = 0; k < NC * 3; ++k) {
-      w.x[k] = w.x[k] + alpha * w.pp[k];
-      w.r[k] = w.r[k] - alpha * w.Ap[k];
-      rz_n += w.r[k] * (w.r[k] / w.prec[k]);
-    }
-    const float beta = rz_n / (rz + 1e-20f);
-#pragma unroll 1
-    for (int k = 0; k < NC * 3; ++k) w.pp[k] = w.r[k] / w.prec[k] + beta * w.pp[k];
-    rz = rz_n;
-  }
-
-  // The contact-coupled accelerations: the free ones plus M^-1 J^T x.
-  rr_scatter(P, w, w.x, false);
-  float sddc[NJA];
-  minv_apply(P, w, sddc);
-#pragma unroll 1
-  for (int k = 0; k < NJ; ++k) sdd[k] = sdd[k] + sddc[k];
-  if (FLOATING) {
-    float a0[6];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) a0[k] = w.a[0][k] + w.am[0][k];
-    xv(w.WR[0], w.Wp[0], a0, W_a);
-    W_a[2] += sc.gz;
-  }
-  const float dt = sc.dt;
-#pragma unroll 1
-  for (int k = 0; k < NC * 3; ++k) {
-    const float md = __fdiv_rn(__fsub_rn(w.x[k], m[k]), dt);
-    m[k] = __fadd_rn(m[k], __fmul_rn(dt, md));
-  }
-}
-#endif  // JX_CONTACT == 1
-
-// One semi-implicit Euler step of one env, in place. With soft contacts the
-// contact wrenches enter ABA pass 1; with relaxed-rigid contacts the ABA runs
-// free of them and relaxed_rigid() adds their effect. `tau(i)` gives the
+// One semi-implicit Euler step of one env, in place; the soft contact
+// wrenches enter ABA pass 1. `tau(i)` gives the
 // torque of joint i (0-based); it is called in ABA pass 2, before any state
 // leaf changes, so a policy that reads s and sd sees the state before the step.
 template <class Tau>
@@ -633,7 +391,6 @@ __device__ void step_env(const float* P, const Scalars& sc, Work& w, float* s, f
   }
 
   // ----- Hunt/Crossley soft contacts on flat ground (m updated in place) -----
-#if JX_CONTACT == 0
 #pragma unroll 1
   for (int i = 0; i < NL; ++i)
 #pragma unroll
@@ -700,7 +457,6 @@ __device__ void step_env(const float* P, const Scalars& sc, Work& w, float* s, f
       w.f[par][k + 3] += f_ang[k];
     }
   }
-#endif
 
   // ----- articulated-body algorithm -----
   const float* R0 = w.WR[0];
@@ -731,7 +487,7 @@ __device__ void step_env(const float* P, const Scalars& sc, Work& w, float* s, f
     for (int k = 0; k < 36; ++k) w.MA[0][k] = M0[k];
     float fb[6];
     vxstar_Mv(w.v[0], w.MA[0], w.pA[0]);
-    if (!RELAXED && JX_HASF[0]) {
+    if (JX_HASF[0]) {
       xtf(R0, p0, w.f[0], fb);
 #pragma unroll
       for (int k = 0; k < 6; ++k) w.pA[0][k] -= fb[k];
@@ -753,7 +509,7 @@ __device__ void step_env(const float* P, const Scalars& sc, Work& w, float* s, f
 #pragma unroll
     for (int k = 0; k < 36; ++k) w.MA[i][k] = Mi[k];
     vxstar_Mv(w.v[i], w.MA[i], w.pA[i]);
-    if (!RELAXED && JX_HASF[i]) {
+    if (JX_HASF[i]) {
       xtf(w.WR[i], w.Wp[i], w.f[i], t);
 #pragma unroll
       for (int k = 0; k < 6; ++k) w.pA[i][k] -= t[k];
@@ -816,16 +572,10 @@ __device__ void step_env(const float* P, const Scalars& sc, Work& w, float* s, f
     }
   }
 
-  // Pass 3: accelerations, root to leaves. A relaxed-rigid step keeps the
-  // base factor for the contact solve.
+  // Pass 3: accelerations, root to leaves.
   if (FLOATING) {
     float x[6];
-#if JX_CONTACT == 1
-    chol6_factor(w.MA[0], w.L0);
-    chol6_substitute(w.L0, w.pA[0], x);
-#else
     chol6_solve(w.MA[0], w.pA[0], x);
-#endif
 #pragma unroll
     for (int k = 0; k < 6; ++k) w.a[0][k] = -x[k];
   } else {
@@ -861,10 +611,6 @@ __device__ void step_env(const float* P, const Scalars& sc, Work& w, float* s, f
 #pragma unroll
     for (int k = 0; k < 6; ++k) W_a[k] = 0.0f;
   }
-#if JX_CONTACT == 1
-  // The contacts couple the free dynamics above: W_a, sdd and m anew.
-  if (NC > 0) relaxed_rigid(P, sc, w, m, sdd, W_a);
-#endif
 
   // ----- semi-implicit Euler -----
   const float dt = sc.dt;

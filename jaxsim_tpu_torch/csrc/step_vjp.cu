@@ -866,14 +866,42 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
-// out[k] = sum over the blocks of partials[blk][k], in block order, one
-// thread a model-array entry: neighbouring threads read neighbouring words.
-__global__ void param_sum_kernel(const float* __restrict__ partials, int n_blocks, float* __restrict__ out) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= N_PARAMS) return;
-  float acc = 0.0f;
-  for (int blk = 0; blk < n_blocks; ++blk) acc += partials[blk * N_PARAMS + k];
-  out[k] = acc;
+// out[k] = the sum over the blocks of partials[blk][k], in a fixed order: a
+// warp takes SUM_PARAMS neighbouring entries, SUM_GROUP lanes each (lane l:
+// entry l % SUM_PARAMS, blocks l / SUM_PARAMS + SUM_GROUP t), so a load of
+// the warp reads SUM_GROUP rows of SUM_PARAMS neighbouring words. A lane adds
+// its blocks into four accumulators by t % 4, then (a0 + a1) + (a2 + a3), and
+// a fixed xor shuffle tree adds the group's lanes: no atomics, two runs agree
+// to the bit. One warp a block: the humanoid's 1,989 entries make 498 blocks,
+// more than the card's 132 SMs. Of 2, 4, 8 and 16 entries a warp, 4 was the
+// fastest on an H100 (chip_probe.py param_sum).
+constexpr int SUM_PARAMS = 4;
+constexpr int SUM_GROUP = 32 / SUM_PARAMS;
+
+__global__ void __launch_bounds__(32) param_sum_kernel(const float* __restrict__ partials, int n_blocks,
+                                                       float* __restrict__ out) {
+  const int k = blockIdx.x * SUM_PARAMS + threadIdx.x % SUM_PARAMS;
+  int blk = threadIdx.x / SUM_PARAMS;
+  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+  if (k < N_PARAMS) {
+    constexpr int S = SUM_GROUP;
+    // Unrolled so that a lane's loads of the humanoid's 256 blocks are all
+    // in flight before its first add.
+#pragma unroll 16
+    for (; blk + 3 * S < n_blocks; blk += 4 * S) {
+      a0 += partials[blk * N_PARAMS + k];
+      a1 += partials[(blk + S) * N_PARAMS + k];
+      a2 += partials[(blk + 2 * S) * N_PARAMS + k];
+      a3 += partials[(blk + 3 * S) * N_PARAMS + k];
+    }
+    if (blk < n_blocks) a0 += partials[blk * N_PARAMS + k];
+    if (blk + S < n_blocks) a1 += partials[(blk + S) * N_PARAMS + k];
+    if (blk + 2 * S < n_blocks) a2 += partials[(blk + 2 * S) * N_PARAMS + k];
+  }
+  float x = (a0 + a1) + (a2 + a3);
+#pragma unroll
+  for (int off = SUM_PARAMS; off < 32; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  if (threadIdx.x < SUM_PARAMS && k < N_PARAMS) out[k] = x;
 }
 
 }  // namespace
@@ -898,8 +926,7 @@ int jx_step_vjp(const float* params, const float* s, const float* sd, const floa
 }
 
 int jx_param_sum(const float* partials, int n_blocks, float* out, void* stream) {
-  constexpr int threads = 256;
-  param_sum_kernel<<<(N_PARAMS + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  param_sum_kernel<<<(N_PARAMS + SUM_PARAMS - 1) / SUM_PARAMS, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       partials, n_blocks, out);
   return static_cast<int>(cudaGetLastError());
 }

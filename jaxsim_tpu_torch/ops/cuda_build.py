@@ -1,19 +1,23 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Every engine kernel source in ``jaxsim_tpu_torch/csrc/`` (``rollout.cu``,
-``step.cu``, ``env_rollout.cu``, ``step_vjp.cu``) includes the shared step
+``step.cu``, ``env_rollout.cu``, ``step_vjp.cu``; ``rollout_rr.cu``, whose
+relaxed-rigid step ``rr_step.cuh`` builds on it) includes the shared step
 body ``step_env.cuh`` and a generated header, ``jx_topology.h``, that makes
 one model topology's sizes and tables, its contact model and its PCG
-iterations compile-time constants; ``fma_probe.cu`` takes no engine and no
-header. :func:`build_many`
+iterations compile-time constants, and for the relaxed-rigid kernel the
+lanes an env, the point slots and the tree's level schedule
+(:func:`rr_tables`); ``fma_probe.cu`` takes no engine and no header.
+:func:`build_many`
 compiles each (source, topology, build-time defines) once with ``nvcc`` for
 ``sm_90a``, all of them at the same time, into
 ``build/jaxsim_tpu_torch_kernels/<key>/`` of the source checkout, and loads it
 through its plain C interface with ``ctypes``. The key hashes the generated
 header, the flags and the text of every file the source includes, so a
 changed ``step_env.cuh`` builds a new library. A loaded library is kept for
-the process by (source, generated header): a launch reads no file. A failed
-build or launch raises; nothing falls back.
+the process by (source, generated header), and :func:`build` keeps it by
+engine and job too, so a launch neither reads a file nor generates a header.
+A failed build or launch raises; nothing falls back.
 
 The CUDA sources are not installed as package data: the kernels build from a
 source checkout.
@@ -39,9 +43,11 @@ from .batched_engine import BatchedEngine, BatchedState
 _PACKAGE = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "jaxsim_tpu_torch_kernels"
+# -lineinfo maps the SASS to source lines (cuda_rollout.rr_local_memory)
+# and leaves the code as it is.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )  # fmt: skip
 GENERATED_HEADER = "jx_topology.h"
 
@@ -58,6 +64,7 @@ class KernelBuild:
     path: pathlib.Path
     seconds: float  # wall time of the nvcc call; 0 when loaded from disk
     ptxas_log: str  # what -Xptxas -v reported (registers, stack, spills)
+    param_count: int  # floats of packed model arrays the library's layout takes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +82,14 @@ class BuildJob:
 
 # Loaded libraries by (source, generated header), for the whole process.
 _BUILDS: dict[tuple[pathlib.Path, str], KernelBuild] = {}
+# The same by engine, then (source, defines, PCG iterations): what build()
+# reads on every launch. The iterations are the one header input that an
+# engine lets its user change after it is built (rr_iterations).
+_ENGINE_BUILDS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+_NO_ENGINE_BUILDS: dict[tuple, KernelBuild] = {}
+# Dynamic shared memory a block may take on sm_90 (227 KB).
+MAX_SMEM_BYTES = 232_448
+RR_MAX_ENVS = 64  # envs a block of the relaxed-rigid kernel, at most
 # Each engine's own model arrays packed for the kernels, with the tensors'
 # (pointer, version) they were packed from.
 _PACKED: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
@@ -92,6 +107,7 @@ def topology_header(engine: BatchedEngine | None, defines=()) -> str:
         return f"__constant__ int {name}[{len(values)}] = {{{', '.join(map(str, values))}}};\n"
 
     has_f = [int(i in engine.contact_parent) for i in range(engine.n_links)]
+    lanes = dict(defines).get("JX_RR_LANES")
     return (
         "// Generated by jaxsim_tpu_torch/ops/cuda_build.py; do not edit.\n"
         "#pragma once\n"
@@ -106,7 +122,80 @@ def topology_header(engine: BatchedEngine | None, defines=()) -> str:
         + arr("JX_JTYPE", engine.joint_types)
         + arr("JX_CPARENT", engine.contact_parent)
         + arr("JX_HASF", has_f)
+        + ("" if lanes is None else rr_header(engine, lanes))
     )
+
+
+def rr_tables(engine: BatchedEngine, lanes: int) -> dict:
+    """What the relaxed-rigid kernel (``rr_step.cuh``) takes from the
+    topology for ``lanes`` lanes an env:
+
+    * ``slot_point``: the point slots, lane ``g``'s ``k``-th at ``g + lanes·k``;
+      each contact parent's points in contact-index order (parents in order of
+      first appearance), padded with -1 to a multiple of ``lanes``, so the
+      ``lanes`` slots of group ``k`` share one parent, ``group_link[k]``, whose
+      row among the parents is ``group_par[k]``; ``par_link``: the parents;
+    * the level schedule of links 1..nL-1 by depth (``lev_off``,
+      ``lev_link``) and each link's children in descending index order
+      (``ch_off``, ``ch``);
+    * ``slot``: floats of an env's slot in shared memory, ``envs``: envs a
+      block, the most up to ``RR_MAX_ENVS`` whose slots and model arrays fit
+      in a block's shared memory, and ``smem_bytes``."""
+    if engine.contact_model != "relaxed_rigid":
+        raise ValueError(f"the relaxed-rigid kernel takes a relaxed-rigid engine, not {engine.contact_model}")
+    if 32 % lanes:
+        raise ValueError(f"lanes an env must divide a warp's 32, got {lanes}")
+    if not engine.n_points:
+        raise ValueError("the relaxed-rigid kernel needs contact points")
+    nL, lam = engine.n_links, list(engine.lam)
+    parents = list(dict.fromkeys(engine.contact_parent))
+    slots = []
+    for par in parents:
+        pts = [c for c, p in enumerate(engine.contact_parent) if p == par]
+        slots += pts + [-1] * (-len(pts) % lanes)
+    own = len(slots) // lanes
+    groups = [slots[lanes * k] for k in range(own)]
+    group_link = [engine.contact_parent[c] for c in groups]
+    depth = [0] * nL
+    for i in range(1, nL):
+        depth[i] = depth[lam[i]] + 1
+    n_lev = max(depth, default=0)
+    lev_link = sorted(range(1, nL), key=lambda i: (depth[i], i))
+    lev_off = [sum(1 for i in range(1, nL) if depth[i] <= d) for d in range(n_lev + 1)]
+    children = [sorted((c for c in range(1, nL) if lam[c] == i), reverse=True) for i in range(nL)]
+    ch_off = [sum(len(ch) for ch in children[:i]) for i in range(nL + 1)]
+    slot = 26 * nL + 36 + 24 * len(parents)
+    n_params = sum(t.numel() for t in engine.params().values())
+    envs = RR_MAX_ENVS
+    while (slot * (envs + 1) + n_params) * 4 > MAX_SMEM_BYTES and envs > 1 and (envs // 2) * lanes % 32 == 0:
+        envs //= 2
+    smem = (slot * (envs + 1) + n_params) * 4
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"a relaxed-rigid block of {envs} envs needs {smem} B of shared memory")
+    return dict(
+        slot_point=[slots[g + lanes * k] for k in range(own) for g in range(lanes)],
+        group_link=group_link, group_par=[parents.index(p) for p in group_link], par_link=parents,
+        own=own, n_lev=n_lev, lev_off=lev_off, lev_link=lev_link, ch_off=ch_off,
+        ch=[c for ch in children for c in ch], slot=slot, envs=envs, smem_bytes=smem,
+    )  # fmt: skip
+
+
+def rr_header(engine: BatchedEngine, lanes: int) -> str:
+    """The relaxed-rigid kernel's part of the generated header (:func:`rr_tables`)."""
+    t = rr_tables(engine, lanes)
+
+    def arr(name, values):
+        values = list(values) or [0]
+        return f"__constant__ int {name}[{len(values)}] = {{{', '.join(map(str, values))}}};\n"
+
+    return (
+        f"#define JX_RR_OWN {t['own']}\n#define JX_RR_NPAR {len(t['par_link'])}\n"
+        f"#define JX_RR_NLEV {t['n_lev']}\n#define JX_RR_ENVS {t['envs']}\n#define JX_RR_SLOT {t['slot']}\n"
+        + arr("JX_RR_SLOT_POINT", t["slot_point"]) + arr("JX_RR_GROUP_LINK", t["group_link"])
+        + arr("JX_RR_GROUP_PAR", t["group_par"]) + arr("JX_RR_PAR_LINK", t["par_link"])
+        + arr("JX_RR_LEV_OFF", t["lev_off"]) + arr("JX_RR_LEV_LINK", t["lev_link"])
+        + arr("JX_RR_CH_OFF", t["ch_off"]) + arr("JX_RR_CH", t["ch"])
+    )  # fmt: skip
 
 
 def included_files(source: pathlib.Path) -> list[pathlib.Path]:
@@ -189,17 +278,26 @@ def build_many(jobs: list[BuildJob]) -> list[KernelBuild]:
         if handle not in _BUILDS:
             so = BUILD_DIR / keyed[handle] / f"lib{job.source.stem}.so"
             log = so.parent / "ptxas.log"
+            lib = _load(so, job.signatures)
             _BUILDS[handle] = KernelBuild(
-                lib=_load(so, job.signatures),
+                lib=lib,
                 path=so,
                 seconds=seconds.get(keyed[handle], 0.0),
                 ptxas_log=log.read_text() if log.exists() else "",
+                param_count=lib.jx_param_count(),
             )
     return [_BUILDS[handle] for handle in handles]
 
 
 def build(job: BuildJob) -> KernelBuild:
-    return build_many([job])[0]
+    """:func:`build_many` of one job, kept by engine and job after the first
+    call, so a wrapper's launch regenerates no header."""
+    key = (job.source, job.defines, job.engine._rr_n_iter if job.engine is not None else 0)
+    cache = _NO_ENGINE_BUILDS if job.engine is None else _ENGINE_BUILDS.setdefault(job.engine, {})
+    kernel = cache.get(key)
+    if kernel is None:
+        kernel = cache[key] = build_many([job])[0]
+    return kernel
 
 
 # ----- what the wrappers share -----
@@ -303,16 +401,22 @@ def state_pointers(state: BatchedState) -> list[int]:
     return [t.data_ptr() for t in state.fields()]
 
 
-def launch(kernel: KernelBuild, fn: str, params: torch.Tensor | None, device, *args) -> None:
+def launch(kernel: KernelBuild, fn: str, params: torch.Tensor | None, device: torch.device, *args) -> None:
     """Call entry point ``fn`` on the current stream of ``device``, after
     checking the packed model arrays against the kernel's layout (``None``
-    for an entry point that takes none); raises on a launch error."""
+    for an entry point that takes none); raises on a launch error. The
+    device context is switched only when ``device`` is not the current one."""
     if params is not None:
-        if kernel.lib.jx_param_count() != params.numel():
+        if kernel.param_count != params.numel():
             raise RuntimeError("packed model arrays disagree with the kernel's layout")
         args = (params.data_ptr(), *args)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(kernel.lib, fn)(*args, stream)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        # The raw handle of the current stream, without building a Stream.
+        rc = getattr(kernel.lib, fn)(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(device):
+            rc = getattr(kernel.lib, fn)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn} launch failed: {kernel.lib.jx_error_string(rc).decode()}")

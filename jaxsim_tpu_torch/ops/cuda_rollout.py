@@ -3,8 +3,11 @@
 Counterpart of ``jaxsim_tpu/ops/pallas_step.py::build_pallas_rollout`` and its
 ``_rollout_kernel``, for two bodies: soft or relaxed-rigid contacts, each on
 flat ground with semi-implicit Euler and the PD policy ``tau = -kp·s - kd·ṡ``,
-without per-env options. The kernel is ``jaxsim_tpu_torch/csrc/rollout.cu``,
-built per topology and contact model; see the note at its top.
+without per-env options. The soft kernel is
+``jaxsim_tpu_torch/csrc/rollout.cu`` (one thread an env), the relaxed-rigid
+one ``jaxsim_tpu_torch/csrc/rollout_rr.cu`` (``RR_LANES`` lanes an env, the
+contact solve's working set in shared memory), each built per topology; see
+the notes at their tops.
 
 :func:`rollout` dispatches on the device of the state: a CPU state goes to
 :func:`rollout_reference`, the plain version (a loop over
@@ -14,6 +17,11 @@ raises; nothing falls back.
 """
 
 from __future__ import annotations
+
+import ctypes
+import pathlib
+import re
+import subprocess
 
 from . import cuda_build
 from .batched_engine import BatchedEngine, BatchedState
@@ -25,11 +33,20 @@ ROLLOUT_KERNEL_LAUNCHES = 0
 ROLLOUT_RR_KERNEL_LAUNCHES = 0
 
 SOURCE = CSRC / "rollout.cu"
-SIGNATURES = {"jx_rollout": [PTR] * 13 + [I32, I32] + [F32] * 23 + [PTR]}
+SIGNATURES = {"jx_rollout": [PTR] * 13 + [I32, I32] + [F32] * 10 + [PTR]}
+RR_SOURCE = CSRC / "rollout_rr.cu"
+RR_SIGNATURES = {"jx_rollout_rr": [PTR] * 13 + [I32, I32] + [F32] * 23 + [PTR], "jx_rr_geometry": [PTR]}
+# Lanes of a warp that carry one env in the relaxed-rigid kernel (a
+# build-time constant; PERF.md §6 has the times of 1, 4 and 8).
+RR_LANES = 8
 CONTACT_MODELS = ("soft", "relaxed_rigid")
 
 
-def job(engine: BatchedEngine) -> BuildJob:
+def job(engine: BatchedEngine, lanes: int = RR_LANES) -> BuildJob:
+    """The library for ``engine``: the soft rollout, or the relaxed-rigid one
+    with ``lanes`` lanes an env."""
+    if engine.contact_model == "relaxed_rigid":
+        return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, (("JX_RR_LANES", int(lanes)),))
     return BuildJob(engine, SOURCE, SIGNATURES)
 
 
@@ -38,11 +55,72 @@ def build(engine: BatchedEngine) -> KernelBuild:
     return cuda_build.build(job(engine))
 
 
+def rr_geometry(kernel: KernelBuild) -> dict[str, int]:
+    """The relaxed-rigid kernel's launch: threads and envs a block, the
+    dynamic shared memory a block takes in bytes, and the blocks an SM holds
+    at once (CUDA's occupancy calculator)."""
+    out = (ctypes.c_int * 4)()
+    rc = kernel.lib.jx_rr_geometry(ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"jx_rr_geometry failed: {kernel.lib.jx_error_string(rc).decode()}")
+    return dict(threads=out[0], envs=out[1], smem_bytes=out[2], blocks_per_sm=out[3])
+
+
+def rr_local_memory(kernel: KernelBuild) -> dict[str, int]:
+    """The local loads and stores (``LDL``, ``STL``) in the relaxed-rigid
+    kernel's SASS (``nvdisasm -g`` of the library's cubin, which the
+    ``-lineinfo`` build maps to source lines): in all, in the M⁻¹Jᵀ pass
+    (``rr_scatter``, ``rr_minv``, ``rr_gather`` of ``rr_step.cuh``), and in
+    the CG loop around it."""
+    header = (CSRC / "rr_step.cuh").read_text().splitlines()
+
+    def line_of(text: str) -> int:
+        return next(n for n, ln in enumerate(header, 1) if text in ln)
+
+    windows = dict(
+        passes=(line_of("void rr_scatter("), line_of("float rr_prec(")),
+        cg_loop=(line_of("for (int it = -1; it <= JX_RR_ITERS; ++it)"), line_of("// m <- the solved forces")),
+    )
+    out_dir = kernel.path.parent / "cubin"
+    out_dir.mkdir(exist_ok=True)
+    subprocess.run([cuda_build.cuda_tool("cuobjdump"), "-xelf", "all", str(kernel.path)], cwd=out_dir,
+                   check=True, capture_output=True)  # fmt: skip
+    counts = dict.fromkeys(("all", *windows), 0)
+    for cubin in sorted(out_dir.glob("*.cubin")):
+        sass = subprocess.run([cuda_build.cuda_tool("nvdisasm"), "-g", "-c", str(cubin)],
+                              check=True, capture_output=True, text=True).stdout  # fmt: skip
+        here = None
+        for ln in sass.splitlines():
+            loc = re.search(r'//## File "([^"]+)", line (\d+)', ln)
+            if loc:
+                here = (pathlib.Path(loc.group(1)).name, int(loc.group(2)))
+            elif re.search(r"\b(LDL|STL)(\.\w+)*\b", ln):
+                counts["all"] += 1
+                for name, (lo, hi) in windows.items():
+                    if here and here[0] == "rr_step.cuh" and lo <= here[1] < hi:
+                        counts[name] += 1
+    return counts
+
+
 def rollout_reference(
     engine: BatchedEngine, state: BatchedState, n_steps: int, kp: float = 60.0, kd: float = 0.5
 ) -> BatchedState:
     """The plain version: ``n_steps`` of the twin's step under the PD policy."""
     return engine.rollout(state, n_steps, policy=lambda st: -kp * st.s - kd * st.sd)
+
+
+def launch(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, n_steps: int, kp: float, kd: float):
+    """One launch of ``kernel`` (the engine's rollout library, or a variant
+    of it built from another source) on a checked CUDA state; counts nothing."""
+    relaxed = engine.contact_model == "relaxed_rigid"
+    out = cuda_build.empty_state_like(state)
+    cuda_build.launch(
+        kernel, "jx_rollout_rr" if relaxed else "jx_rollout", packed_params(engine), state.p.device,
+        *cuda_build.state_pointers(state), *cuda_build.state_pointers(out),
+        state.p.shape[-1], int(n_steps), *cuda_build.engine_scalars(engine), float(kp), float(kd),
+        *(cuda_build.rr_scalars(engine) if relaxed else ()),
+    )  # fmt: skip
+    return out
 
 
 def rollout(
@@ -53,15 +131,8 @@ def rollout(
     global ROLLOUT_KERNEL_LAUNCHES, ROLLOUT_RR_KERNEL_LAUNCHES
     if cuda_build.is_cpu(state, "rollout"):
         return rollout_reference(engine, state, n_steps, kp, kd)
-    B = cuda_build.check_cuda_call(engine, state, CONTACT_MODELS)
-    kernel = build(engine)
-    out = cuda_build.empty_state_like(state)
-    cuda_build.launch(
-        kernel, "jx_rollout", packed_params(engine), state.p.device,
-        *cuda_build.state_pointers(state), *cuda_build.state_pointers(out),
-        B, int(n_steps), *cuda_build.engine_scalars(engine), float(kp), float(kd),
-        *cuda_build.rr_scalars(engine),
-    )  # fmt: skip
+    cuda_build.check_cuda_call(engine, state, CONTACT_MODELS)
+    out = launch(build(engine), engine, state, n_steps, kp, kd)
     if engine.contact_model == "relaxed_rigid":
         ROLLOUT_RR_KERNEL_LAUNCHES += 1
     else:

@@ -11,7 +11,8 @@ The kernel is ``jaxsim_tpu_torch/csrc/step_vjp.cu``, built per topology and
 per ``params_grad`` (a build-time define, so two libraries a topology). With
 ``params_grad`` it writes one partial sum a 32-env block; a second small
 kernel of the same file, :func:`sum_partials`, adds the partials in a fixed
-order, so two runs agree to the bit.
+order (each entry over a group of lanes, then a shuffle tree), so two runs
+agree to the bit.
 
 :func:`step_vjp` takes its plain version, :func:`step_vjp_reference`
 (``torch.autograd.grad`` through the twin's step), for a CPU state and the
@@ -100,13 +101,11 @@ def sum_partials(engine: BatchedEngine, partials: torch.Tensor) -> torch.Tensor:
     global PARAM_SUM_KERNEL_LAUNCHES
     if partials.device.type == "cpu":
         return sum_partials_reference(partials)
-    n = packed_params(engine).numel()
+    kernel = build(engine, True)
+    n = kernel.param_count
     cuda_build.check_tensor("partials", partials, (partials.shape[0], n), engine.S.device)
     out = torch.empty(n, dtype=partials.dtype, device=partials.device)
-    cuda_build.launch(
-        build(engine, True), "jx_param_sum", None, partials.device,
-        partials.data_ptr(), partials.shape[0], out.data_ptr(),
-    )  # fmt: skip
+    cuda_build.launch(kernel, "jx_param_sum", None, partials.device, partials.data_ptr(), partials.shape[0], out.data_ptr())
     PARAM_SUM_KERNEL_LAUNCHES += 1
     return out
 

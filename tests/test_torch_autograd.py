@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from jaxsim_tpu_torch import bridge, models
-from jaxsim_tpu_torch.ops import cuda_step, cuda_step_vjp, diff_step
+from jaxsim_tpu_torch.ops import cuda_build, cuda_step, cuda_step_vjp, diff_step
 from jaxsim_tpu_torch.models.builders import _joint, _link, _sphere_collision, _sphere_inertia
 from jaxsim_tpu_torch.ops.batched_engine import BatchedEngine, BatchedState
 
@@ -484,3 +484,21 @@ def test_checkpointed_rollout_launches_k3_twice_and_k4_once_a_step(cuda):
     after = cuda_step.STEP_TAU_KERNEL_LAUNCHES, cuda_step_vjp.STEP_VJP_KERNEL_LAUNCHES
     assert (after[0] - before[0], after[1] - before[1]) == (10, 5)
     assert bool(torch.isfinite(gains.grad).all()) and float(gains.grad.abs().max()) > 0
+
+
+@pytest.mark.gpu
+def test_sum_partials_is_reproducible_and_matches_torch_sum(cuda):
+    """K4's partials' sum over 256 blocks (the humanoid's at B = 8192) of
+    garpez's model arrays: one launch a call, two runs equal to the bit, and
+    within 1e-6 relative of ``torch.sum`` (the scale: the largest sum)."""
+    eng, *_ = _card_case("garpez", cuda, 32)
+    n = cuda_build.packed_params(eng).numel()
+    gen = torch.Generator(cuda).manual_seed(0)
+    partials = torch.randn(256, n, generator=gen, device=cuda)
+    before = cuda_step_vjp.PARAM_SUM_KERNEL_LAUNCHES
+    got, again = cuda_step_vjp.sum_partials(eng, partials), cuda_step_vjp.sum_partials(eng, partials)
+    torch.cuda.synchronize()
+    assert cuda_step_vjp.PARAM_SUM_KERNEL_LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    ref = torch.sum(partials, 0)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6 * float(ref.abs().max()))

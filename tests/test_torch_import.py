@@ -58,6 +58,8 @@ def test_kernel_builds_from_the_checkout():
     for module in (cuda_rollout, cuda_step, cuda_env_rollout):
         assert module.SOURCE.is_file()
         assert cuda_build.CSRC / "step_env.cuh" in cuda_build.included_files(module.SOURCE)
+    rr = cuda_build.included_files(cuda_rollout.RR_SOURCE)
+    assert cuda_build.CSRC / "rr_step.cuh" in rr and cuda_build.CSRC / "step_env.cuh" in rr
     assert cuda_build.BUILD_DIR == REPO / "build" / "jaxsim_tpu_torch_kernels"
     assert "build/" in (REPO / ".gitignore").read_text().splitlines()
 

@@ -7,10 +7,10 @@ contact-coupled accelerations (``relaxed_rigid_contact_forces``), and the
 twin's relaxed-rigid step, on the same NumPy inputs as the JAX engine's:
 in float32 at the JAX package's own tolerances for these set-ups
 (``tests/test_batched_engine.py:938-1037``) and in float64 to 1e-9. Then
-what the kernels' wrappers take: K1's relaxed-rigid build, and K2-K5
-refusing a relaxed-rigid engine. Tests marked ``gpu`` hold K1's
-relaxed-rigid build against the twin on the card and skip without one; they
-import no JAX:
+what the kernels' wrappers take: K1's relaxed-rigid kernel (``rollout_rr.cu``: its generated
+header, slots and level schedule, and what it refuses), and K2-K5 refusing a
+relaxed-rigid engine. Tests marked ``gpu`` hold K1's relaxed-rigid kernel
+against the twin on the card and skip without one; they import no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_relaxed_rigid.py
 """
@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import re
 
 import numpy as np
 import pytest
@@ -332,6 +333,77 @@ def test_kernel_inputs_for_the_relaxed_rigid_humanoid():
     assert cuda_build.engine_scalars(eng)[2] == 0.0  # K/D of an engine with D = 0
 
 
+def _header_tables(header: str) -> tuple[dict[str, int], dict[str, list[int]]]:
+    defines = {k: int(v) for k, v in re.findall(r"^#define (\w+) (-?\d+)$", header, re.M)}
+    arrays = {k: [int(x) for x in v.split(", ")] for k, v in re.findall(r"__constant__ int (\w+)\[\d+\] = \{([^}]*)\};", header)}
+    return defines, arrays
+
+
+@pytest.mark.parametrize("lanes", [1, 4, 8])
+@pytest.mark.parametrize("name", ["humanoid23", "garpez", "box"])
+def test_relaxed_rigid_kernel_header(name, lanes):
+    """The generated header of the relaxed-rigid kernel names the contact
+    model, the PCG's iterations and the slot; every contact point has one
+    slot, a group of ``lanes`` slots one parent; the level schedule holds
+    each link once, a parent on an earlier level than its children, and each
+    link's children in descending order; the slots and the model arrays of a
+    block fit in its shared memory, the humanoid's 64 envs in one block."""
+    eng = BatchedEngine.build(
+        JaxSimModel.build_from_model_description(URDFS[name](), contact_model=RelaxedRigidContacts()), device="cpu"
+    )
+    job = cuda_rollout.job(eng, lanes)
+    assert job.source == cuda_rollout.RR_SOURCE and dict(job.defines) == {"JX_RR_LANES": lanes}
+    defines, arrays = _header_tables(cuda_build.topology_header(eng, job.defines))
+    n_par = len(set(eng.contact_parent))
+    assert defines["JX_CONTACT"] == 1 and defines["JX_RR_ITERS"] == eng._rr_n_iter == 8
+    assert defines["JX_RR_LANES"] == lanes and defines["JX_RR_NPAR"] == n_par
+    assert defines["JX_RR_SLOT"] == 26 * eng.n_links + 36 + 24 * n_par
+    own, slots = defines["JX_RR_OWN"], arrays["JX_RR_SLOT_POINT"]
+    assert len(slots) == lanes * own and sorted(c for c in slots if c >= 0) == list(range(eng.n_points))
+    for k in range(own):
+        group = [slots[g + lanes * k] for g in range(lanes)]
+        assert {eng.contact_parent[c] for c in group if c >= 0} == {arrays["JX_RR_GROUP_LINK"][k]}
+        assert arrays["JX_RR_PAR_LINK"][arrays["JX_RR_GROUP_PAR"][k]] == arrays["JX_RR_GROUP_LINK"][k]
+    lev_off, lev_link = arrays["JX_RR_LEV_OFF"], arrays["JX_RR_LEV_LINK"]
+    assert len(lev_off) == defines["JX_RR_NLEV"] + 1 and lev_off[-1] == eng.n_links - 1
+    level = {i: lev for lev in range(defines["JX_RR_NLEV"]) for i in lev_link[lev_off[lev] : lev_off[lev + 1]]}
+    assert sorted(level) == list(range(1, eng.n_links))
+    assert all(eng.lam[i] == 0 or level[eng.lam[i]] < level[i] for i in level)
+    ch_off, ch = arrays["JX_RR_CH_OFF"], arrays["JX_RR_CH"]
+    for i in range(eng.n_links):
+        kids = ch[ch_off[i] : ch_off[i + 1]]
+        assert kids == sorted((c for c in range(1, eng.n_links) if eng.lam[c] == i), reverse=True)
+    tables = cuda_build.rr_tables(eng, lanes)
+    assert tables["envs"] == defines["JX_RR_ENVS"] and tables["envs"] * lanes % 32 == 0
+    n_params = cuda_build.packed_params(eng).numel()
+    assert tables["smem_bytes"] == 4 * (defines["JX_RR_SLOT"] * (tables["envs"] + 1) + n_params)
+    assert tables["smem_bytes"] <= cuda_build.MAX_SMEM_BYTES
+    if name == "humanoid23":
+        assert tables["envs"] == 64 and own * lanes == 48 and defines["JX_RR_NLEV"] == 7
+
+
+def test_relaxed_rigid_kernel_refuses(monkeypatch):
+    """The relaxed-rigid kernel takes relaxed-rigid, flat-ground, float32
+    engines with contact points: a soft engine has no relaxed-rigid header,
+    and the wrapper raises on a tilted plane or a float64 engine before any
+    build; the lanes an env divide a warp."""
+    monkeypatch.setattr(cuda_build, "is_cpu", lambda state, what: False)
+    soft = BatchedEngine.build(JaxSimModel.build_from_model_description(models.build_box_urdf()), device="cpu")
+    with pytest.raises(ValueError, match="relaxed-rigid engine"):
+        cuda_build.rr_tables(soft, cuda_rollout.RR_LANES)
+    assert cuda_rollout.job(soft).source == cuda_rollout.SOURCE
+    eng = _port_engine(_jax_engine("box"))
+    with pytest.raises(ValueError, match="divide"):
+        cuda_build.rr_tables(eng, 3)
+    tilted = _port_engine(_jax_engine("box"))
+    tilted.terrain_offset = 0.1
+    with pytest.raises(ValueError, match="flat ground"):
+        cuda_rollout.rollout(tilted, tilted.init_state(4), 1)
+    wide = _port_engine(_jax_engine("box"), torch.float64)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_rollout.rollout(wide, wide.init_state(4), 1)
+
+
 WRAPPERS = dict(
     step_pd=lambda eng, st: cuda_step.step_pd(eng, st),
     step_tau=lambda eng, st: cuda_step.step_tau(eng, st, torch.zeros_like(st.s)),
@@ -418,7 +490,7 @@ def cuda():
 
 @pytest.mark.gpu
 def test_kernel_matches_plain_relaxed_rigid(cuda):
-    """K1's relaxed-rigid build against the twin: the humanoid from rest at
+    """K1's relaxed-rigid kernel, through the wrapper, against the twin: the humanoid from rest at
     B = 8192 over 50 steps, and garpez tilted low at B = 1024 over 100, in
     every field (m relative to its largest) within 1e-3, with active points."""
     garpez = BatchedEngine.build(
@@ -442,6 +514,36 @@ def test_kernel_matches_plain_relaxed_rigid(cuda):
         assert int(eng._point_geometry(*eng.fk(plain), eng.params())["active"].sum()) > 0
         for k, a, b in zip(bridge.STATE_FIELDS, kern.fields(), plain.fields()):
             assert torch.isfinite(a).all() and torch.isfinite(b).all(), k
+            scale = max(1.0, float(b.abs().max())) if k == "m" else 1.0
+            assert float((a - b).abs().max()) <= 1e-3 * scale, (k, float((a - b).abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 4, 8])
+@pytest.mark.parametrize("name", ["box", "garpez"])
+def test_kernel_matches_plain_small_batch(cuda, name, lanes):
+    """The relaxed-rigid kernel at 1, 4 and 8 lanes an env against the twin:
+    the box dropped low and moving (no torques) and garpez tilted low under
+    its PD law, 100 steps at a small B (not a multiple of a block's envs),
+    every field within 1e-3 (m relative to its largest), with points active."""
+    eng = BatchedEngine.build(
+        JaxSimModel.build_from_model_description(URDFS[name](), contact_model=RelaxedRigidContacts()), device=cuda
+    )
+    B = 100
+    arrays = _box_arrays(B) if name == "box" else _garpez_arrays(eng.n_joints, B)
+    arrays = {k: a.astype(np.float32) for k, a in arrays.items()}
+    st = bridge.state_from_numpy(arrays, device=cuda)
+    kp, kd = (0.0, 0.0) if name == "box" else (20.0, 0.1)
+    kernel = cuda_build.build(cuda_rollout.job(eng, lanes))
+    kern = cuda_rollout.launch(kernel, eng, st, 100, kp, kd)
+    again = cuda_rollout.launch(kernel, eng, st, 100, kp, kd)
+    torch.cuda.synchronize()
+    plain = cuda_rollout.rollout_reference(eng, st, 100, kp, kd)
+    assert int(eng._point_geometry(*eng.fk(plain), eng.params())["active"].sum()) > 0
+    for k, a, a2, b in zip(bridge.STATE_FIELDS, kern.fields(), again.fields(), plain.fields()):
+        assert torch.equal(a, a2), k
+        assert torch.isfinite(a).all() and torch.isfinite(b).all(), k
+        if a.numel():  # the box has no joints
             scale = max(1.0, float(b.abs().max())) if k == "m" else 1.0
             assert float((a - b).abs().max()) <= 1e-3 * scale, (k, float((a - b).abs().max()))
 
