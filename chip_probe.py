@@ -4,7 +4,8 @@ pattern and the spread that float32 rounding leaves, on one NVIDIA GPU.
 
 Usage, from the root of a checkout, on a machine with a CUDA card:
 
-    python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations] [rr] [rr_faults] [param_sum] [profiler]
+    python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations] [rr] [rr_faults] [param_sum]
+        [profiler] [vjp] [vjp_faults]
 
 With no argument it runs the first three. Probes of the flagship humanoid
 (soft contacts, flat ground, PD policy):
@@ -46,7 +47,7 @@ With no argument it runs the first three. Probes of the flagship humanoid
   ``RR_BATCHES`` with the humanoid's own budget. Each build's ptxas
   registers and frame and its launch geometry are printed, and at the
   humanoid's budget the local loads and stores in its SASS;
-* param_sum: K4's partials' sum at each of ``SUM_PARAMS`` entries a warp,
+* param_sum: K4's partials' sum at each of ``SUM_WARPS`` warps a block,
   kernel-only and event µs beside ``torch.sum``'s;
 * profiler: how many of ``LAUNCH_REPEATS`` short launches (K2 at 1024
   envs, K4's partials' sum, ``torch.sum``) ``torch.profiler`` records in
@@ -54,7 +55,20 @@ With no argument it runs the first three. Probes of the flagship humanoid
   at the window's ends;
 * rr_faults: ``RR_FAULTS`` seeded into copies of ``csrc/`` under ``build/``,
   each held with the sound kernel to ``chip_smoke.py``'s RR_CASES limits:
-  per case the worst field's statistic over its limit (> 1 is refused).
+  per case the worst field's statistic over its limit (> 1 is refused);
+* vjp: K4 (the fused step VJP) at each count of lanes an env in
+  ``VJP_LANES``, plain and with the model arrays' cotangents, on the
+  humanoid at 8192 envs (the gradient main paths' start and PD torques) and
+  on garpez at 1024 (the APG start and policy), for one seeded output
+  cotangent: each build's ptxas line, launch geometry (envs and shared
+  memory a block, blocks an SM) and local loads and stores in its SASS (in
+  all, the forward recompute, the reverse sweep); kernel-only ms
+  (``torch.profiler``, mean of ``LAUNCH_REPEATS``) and CUDA-event ms of a
+  launch (median); and the worst cotangent's |Δ| over max(1, max |plain|)
+  and the model arrays' share of ``chip_smoke.py``'s limit;
+* vjp_faults: ``VJP_FAULTS`` seeded into copies of ``csrc/`` under
+  ``build/``, each held with the sound kernel to ``chip_smoke.py``'s K4
+  limits (``vjp_gates``): per case the worst statistic over its limit.
 
 It prints the card's name and power limit, then JSON lines keyed by probe,
 and exits non-zero when no CUDA device is visible.
@@ -81,11 +95,13 @@ LAUNCH_BATCHES = (1024, 8192)
 LAUNCH_REPEATS = 15
 TERMINATION_STEPS = 100
 RR_ITERATIONS = (1, 4, 8, 16)
-SUM_PARAMS = (4, 2, 8, 16)  # the partials' sum's entries a warp; the first is step_vjp.cu's
+SUM_WARPS = (16, 32, 8)  # the partials' sum's warps a block; the first is step_vjp.cu's
 RR_LANES = (1, 4, 8)
 PROFILER_WINDOWS = 20
 PROFILER_PADS_S = (0.0, 0.02)
 RR_BATCHES = (8192, 32768, 65536)
+VJP_LANES = (4, 8, 16, 1)  # K4's lanes an env; the first is the wrapper's
+VJP_BATCH = dict(humanoid23=8192, garpez=1024)
 RR_STEPS = 100
 # Seeded faults of the relaxed-rigid step, each one edit of rr_step.cuh
 # (the text, its replacement): the impedance floor dropped from the
@@ -105,6 +121,41 @@ RR_FAULTS = {
         "for (int it = -1; it <= JX_RR_ITERS - 1; ++it) {\n    const bool first = it < 0, last = it == JX_RR_ITERS - 1;",
     ),
 }
+
+
+# Seeded faults of K4, each one edit (the file of csrc/, the text, its
+# replacement): the Coriolis term's adjoint (c = v x vJ) dropped, the slip
+# scaling's adjoint dropped, the model arrays' sum over the block's envs
+# started a lane too low (so it adds a neighbouring link's contribution),
+# and the points' group sum run one lane past the env (so it adds the next
+# env's).
+VJP_FAULTS = {
+    "Coriolis dropped": ("step_vjp.cu", "        vx_vjp(v, vJ, gc, gv, bvJ);\n", ""),
+    "slip scaling dropped": ("step_vjp.cu", "bft[j] += scale * bfs[j];", "bft[j] += bfs[j];"),
+    "env sum takes a neighbouring link": (
+        "step_vjp.cu", "for (int o = G; o < LN_THREADS; o <<= 1)", "for (int o = G / 2; o < LN_THREADS; o <<= 1)"
+    ),
+    "group sum crosses into the next env": (
+        "soft_step_lanes.cuh", "for (int off = 1; off < G; off <<= 1)", "for (int off = 1; off <= G; off <<= 1)"
+    ),
+}
+
+
+def _seeded_copy(kind: str, name: str, file: str, old: str, new: str):
+    """A copy of ``csrc/`` under ``build/<kind>/<name>`` with ``old``
+    replaced by ``new`` in ``file`` (which must hold it once)."""
+    import shutil
+
+    from jaxsim_tpu_torch.ops import cuda_build
+
+    copy = cuda_build.BUILD_DIR.parent / kind / name
+    shutil.rmtree(copy, ignore_errors=True)
+    shutil.copytree(cuda_build.CSRC, copy)
+    text = (copy / file).read_text()
+    if text.count(old) != 1:
+        raise RuntimeError(f"{name}: the text to replace is not in {file} once")
+    (copy / file).write_text(text.replace(old, new))
+    return copy
 
 
 def _summary(a, b) -> dict[str, list[float]]:
@@ -231,7 +282,7 @@ def launch_probe(hum, gen) -> None:
         calls["k3"] = (lambda: cuda_step.step_tau(hum, state, tau), "step_tau_kernel")
         # K4's partials' sum at this B's blocks, and torch.sum of the same
         # (whose one kernel is every kernel the profiler sees).
-        partials = torch.randn(-(-B // cuda_step_vjp.BLOCK), cuda_build.packed_params(hum).numel(),
+        partials = torch.randn(-(-B // cuda_step_vjp.envs_per_block(hum, True)), cuda_build.packed_params(hum).numel(),
                                generator=gen, device=gen.device)  # fmt: skip
         calls["param_sum"] = (lambda: cuda_step_vjp.sum_partials(hum, partials), "param_sum_kernel")
         calls["torch_sum"] = (lambda: torch.sum(partials, 0), "")
@@ -320,65 +371,140 @@ def rr_faults_probe(hum, gen) -> None:
     built beside the sound source, and every variant held to
     ``chip_smoke.py``'s RR_CASES limits: per case, the worst field's
     statistic over its limit (> 1 is refused)."""
-    import shutil
-
     import torch
 
-    from chip_smoke import rr_garpez_engine, rr_gates, rr_humanoid_engine, rr_start_states
+    from chip_smoke import rr_garpez_engine, rr_gates, rr_humanoid_engine, rr_start_states, rr_touchdown_engine
     from jaxsim_tpu_torch.ops import cuda_build, cuda_rollout
 
     device = hum.S.device
-    hum_rr, garp_rr = rr_humanoid_engine(device), rr_garpez_engine(device)
+    hum_rr, garp_rr, hum_td = rr_humanoid_engine(device), rr_garpez_engine(device), rr_touchdown_engine(device)
     sources = {"control": cuda_rollout.RR_SOURCE}
     for name, (old, new) in RR_FAULTS.items():
-        copy = cuda_build.BUILD_DIR.parent / "rr_faults" / name
-        shutil.rmtree(copy, ignore_errors=True)
-        shutil.copytree(cuda_build.CSRC, copy)
-        text = (copy / "rr_step.cuh").read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"fault {name}: the text to replace is not in rr_step.cuh once")
-        (copy / "rr_step.cuh").write_text(text.replace(old, new))
-        sources[name] = copy / "rollout_rr.cu"
+        sources[name] = _seeded_copy("rr_faults", name, "rr_step.cuh", old, new) / "rollout_rr.cu"
     jobs = {(name, id(eng)): dataclasses.replace(cuda_rollout.job(eng), source=src)
-            for name, src in sources.items() for eng in (hum_rr, garp_rr)}  # fmt: skip
+            for name, src in sources.items() for eng in (hum_rr, garp_rr, hum_td)}  # fmt: skip
     kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
 
     def variant(name):
         return lambda eng, st, n, kp, kd: cuda_rollout.launch(kernels[(name, id(eng))], eng, st, n, kp, kd)
 
-    starts = rr_start_states(hum_rr, garp_rr, torch.Generator(device).manual_seed(6))
+    starts = rr_start_states(hum_rr, garp_rr, hum_td, torch.Generator(device).manual_seed(6))
     _, ratios = rr_gates(starts, {name: variant(name) for name in sources})
     print(json.dumps({"rr_faults": ratios}), flush=True)
 
 
+def _vjp_cases(hum):
+    """K4's probe cases by name: (engine, state, torques)."""
+    import torch
+
+    from chip_smoke import apg_policy, apg_setup, garpez_engine
+
+    garp = garpez_engine(hum.S.device)
+    apg = apg_setup(garp)
+    state = hum.init_state(VJP_BATCH["humanoid23"], base_position=(0.0, 0.0, 0.9),
+                           generator=torch.Generator(hum.S.device).manual_seed(0))  # fmt: skip
+    with torch.no_grad():
+        garp_tau = apg_policy(apg["start"], apg["weights"], apg["target"]).contiguous()
+    return dict(
+        humanoid23=(hum, state, (-60.0 * state.s - 0.5 * state.sd).contiguous()),
+        garpez=(garp, apg["start"], garp_tau),
+    )
+
+
+def vjp_probe(hum, gen) -> None:
+    """K4 at each count of lanes in VJP_LANES, plain and with params_grad,
+    on the humanoid and on garpez (``_vjp_cases``): ptxas, geometry, SASS
+    local accesses, kernel-only and event ms, and its distance to plain."""
+    import torch
+
+    from chip_smoke import params_shares, profiled_ms, vjp_cotangents, vjp_diff
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_step_vjp
+
+    cases = _vjp_cases(hum)
+    keys = [(name, lanes, pg) for name in cases for lanes in VJP_LANES for pg in (False, True)]
+    jobs = [cuda_step_vjp.job(cases[name][0], pg, lanes) for name, lanes, pg in keys]
+    builds = dict(zip(keys, cuda_build.build_many(jobs)))
+    for (name, lanes, pg), kernel in builds.items():
+        engine, state, tau = cases[name]
+        ct = vjp_cotangents(state, gen)["all six"]
+
+        def run():
+            return cuda_step_vjp.launch(kernel, engine, state, tau, ct, None, pg, lanes)
+
+        got = run()
+        plain = cuda_step_vjp.step_vjp_reference(engine, state, tau, ct, params_grad=pg)
+        torch.cuda.synchronize()
+        scaled, _ = vjp_diff(got, plain)
+        err = {"cotangents": max(float(d.max()) for d in scaled.values())}
+        if pg:
+            sums = cuda_step_vjp.unpack_params(engine, got[2].sum(0))
+            err["params_share"] = max(params_shares(sums, plain[2]).values())
+        print(json.dumps({"vjp": {
+            "model": name, "B": state.p.shape[-1], "lanes": lanes, "params_grad": pg,
+            "ptxas": [ln.strip() for ln in kernel.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln],
+            "geometry": cuda_step_vjp.geometry(kernel), "local_loads_and_stores": cuda_step_vjp.local_memory(kernel),
+            "kernel_ms": profiled_ms(run, "step_vjp_kernel", LAUNCH_REPEATS),
+            "event_ms": device_ms(run, LAUNCH_REPEATS), "vs_plain": err,
+        }}), flush=True)  # fmt: skip
+
+
+def vjp_faults_probe(hum, gen) -> None:
+    """Each of VJP_FAULTS seeded into a copy of ``csrc/`` under ``build/``,
+    built beside the sound source for each K4 case's engine, plain and with
+    params_grad, and every variant held to ``chip_smoke.py``'s K4 limits
+    (``vjp_gates``): per case, the worst statistic over its limit (> 1 is
+    refused)."""
+    import torch
+
+    from chip_smoke import apg_setup, garpez_engine, pendulum_engine, vjp_gates, vjp_starts
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_step_vjp
+
+    device = hum.S.device
+    garp = garpez_engine(device)
+    starts, case_tau = vjp_starts(pendulum_engine(device), hum, garp, apg_setup(garp))
+
+    sources = {"control": cuda_step_vjp.SOURCE}
+    for name, (file, old, new) in VJP_FAULTS.items():
+        sources[name] = _seeded_copy("vjp_faults", name, file, old, new) / "step_vjp.cu"
+    engines = list({id(e): e for e, _ in starts.values()}.values())
+    jobs = {(name, id(eng), pg): dataclasses.replace(cuda_step_vjp.job(eng, pg), source=src)
+            for name, src in sources.items() for eng in engines for pg in (False, True)}  # fmt: skip
+    kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+
+    def variant(name):
+        def run(engine, state, tau, ct, params_grad=False):
+            out, ct_tau, partials = cuda_step_vjp.launch(
+                kernels[(name, id(engine), params_grad)], engine, state, tau, ct, None, params_grad)
+            if not params_grad:
+                return out, ct_tau
+            return out, ct_tau, cuda_step_vjp.unpack_params(engine, partials.sum(0))
+        return run
+
+    _, ratios = vjp_gates(starts, case_tau, torch.Generator(device).manual_seed(3),
+                          {name: variant(name) for name in sources})  # fmt: skip
+    print(json.dumps({"vjp_faults": ratios}), flush=True)
+
+
 def param_sum_probe(hum, gen) -> None:
-    """K4's partials' sum built with each entry count a warp in
-    ``SUM_PARAMS`` (copies of ``csrc/`` under ``build/``, the constant
-    edited), on the partials of 8192 envs (256 blocks × the humanoid's
+    """K4's partials' sum built with each warp count a block in
+    ``SUM_WARPS`` (copies of ``csrc/`` under ``build/``, the constant
+    edited), on the partials of 8192 envs (a row a block of the humanoid's
     1,989 entries): kernel-only µs (``torch.profiler``, mean of
     ``LAUNCH_REPEATS``) and CUDA-event µs of the wrapper's path (median),
     beside ``torch.sum``'s; each variant equal over two runs and within
     1e-6 relative of ``torch.sum``."""
-    import shutil
-
     import torch
 
     from jaxsim_tpu_torch.ops import cuda_build, cuda_step_vjp
 
-    old = f"constexpr int SUM_PARAMS = {SUM_PARAMS[0]};"
+    old = f"constexpr int SUM_WARPS = {SUM_WARPS[0]};"
     jobs = {}
-    for n in SUM_PARAMS:
-        copy = cuda_build.BUILD_DIR.parent / "param_sum" / str(n)
-        shutil.rmtree(copy, ignore_errors=True)
-        shutil.copytree(cuda_build.CSRC, copy)
-        text = (copy / "step_vjp.cu").read_text()
-        if text.count(old) != 1:
-            raise RuntimeError(f"{old} is not in step_vjp.cu once")
-        (copy / "step_vjp.cu").write_text(text.replace(old, f"constexpr int SUM_PARAMS = {n};"))
+    for n in SUM_WARPS:
+        copy = _seeded_copy("param_sum", str(n), "step_vjp.cu", old, f"constexpr int SUM_WARPS = {n};")
         jobs[n] = dataclasses.replace(cuda_step_vjp.job(hum, params_grad=True), source=copy / "step_vjp.cu")
     kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
-    partials = torch.randn(PROFILE_BATCH // cuda_step_vjp.BLOCK, cuda_build.packed_params(hum).numel(),
-                           generator=gen, device=gen.device)  # fmt: skip
+    partials = torch.randn(-(-PROFILE_BATCH // cuda_step_vjp.envs_per_block(hum, True)),
+                           cuda_build.packed_params(hum).numel(), generator=gen, device=gen.device)  # fmt: skip
     ref = torch.sum(partials, 0)
 
     def variant(kernel):
@@ -412,8 +538,8 @@ def profiler_probe(hum, gen) -> None:
     from jaxsim_tpu_torch.ops import cuda_build, cuda_step, cuda_step_vjp
 
     state = hum.init_state(LAUNCH_BATCHES[0], base_position=(0.0, 0.0, 0.9), generator=gen)
-    partials = torch.randn(PROFILE_BATCH // cuda_step_vjp.BLOCK, cuda_build.packed_params(hum).numel(),
-                           generator=gen, device=gen.device)  # fmt: skip
+    partials = torch.randn(-(-PROFILE_BATCH // cuda_step_vjp.envs_per_block(hum, True)),
+                           cuda_build.packed_params(hum).numel(), generator=gen, device=gen.device)  # fmt: skip
     calls = {
         "k2": (lambda: cuda_step.step_pd(hum, state), "step_pd_kernel"),
         "param_sum": (lambda: cuda_step_vjp.sum_partials(hum, partials), "param_sum_kernel"),
@@ -440,6 +566,8 @@ PROBES = {
     "rr_faults": rr_faults_probe,
     "param_sum": param_sum_probe,
     "profiler": profiler_probe,
+    "vjp": vjp_probe,
+    "vjp_faults": vjp_faults_probe,
 }
 
 

@@ -12,8 +12,8 @@ plain PyTorch version on the card:
 * K1 (``rollout.cu``), K2 and K3 (``step.cu``), in every state field, on the
   fixed-base pendulum and on the 23-DoF humanoid at 8192 envs, from the main
   path's start and with the joints moving (``CASES``); K1's relaxed-rigid
-  kernel (``rollout_rr.cu``) likewise on the humanoid and on garpez tilted
-  low (``RR_CASES``),
+  kernel (``rollout_rr.cu``) likewise on the humanoid, on garpez tilted
+  low, and on the humanoid's touchdown with 3 PCG iterations (``RR_CASES``),
   ``m`` (the solved point forces) relative to its size, with the active
   contact points of each case counted; K3 also under
   call-time model arrays (``M`` scaled by 1.2), and on the garpez chain
@@ -24,9 +24,10 @@ plain PyTorch version on the card:
 * K4 (``step_vjp.cu``, the fused step VJP, with and without the model
   arrays' cotangents) in every cotangent field per env, for seeded random
   output cotangents one state field at a time and all six at once, on the
-  pendulum, the humanoid and garpez at the APG main path's start
-  (``VJP_CASES``), with the contact branches of the start states counted;
-  the model arrays' cotangents entry by entry; its partials' sum against
+  pendulum, the humanoid, garpez at the APG main path's start and garpez
+  tilted low with points in contact (``VJP_CASES``), with the contact
+  branches of the start states counted; the model arrays' cotangents entry
+  by entry (``VJP_PARAMS_CASES``); its partials' sum against
   ``torch.sum``, and two runs of it to the bit; and the
   PD gains' gradient through a 10-step ``fused_diff_rollout`` against the
   plain twin under autograd;
@@ -64,9 +65,10 @@ before it and read just after:
   of the data-sheet peak; the bounds then give every operations-bound
   kernel's share of the measured peak beside its share of the data sheet's.
 
-It prints each build's ptxas line; the relaxed-rigid kernel's launch
-geometry (threads, envs and shared memory a block, envs an SM) and the
-local loads and stores in its SASS, in all and in the M⁻¹Jᵀ pass; the
+It prints each build's ptxas line; K4's and the relaxed-rigid kernel's
+launch geometry (threads, envs and shared memory a block, blocks or envs an
+SM) and the local loads and stores in their SASS (K4's in the forward and
+the reverse sweep, K1-rr's in the M⁻¹Jᵀ pass); the
 kernel-only times of K3, K4, the partials' sum and ``torch.sum`` beside it
 (``torch.profiler``). It prints each phase's seconds, the card's name and
 power limit, a JSON line
@@ -127,13 +129,18 @@ CASES = (
 # humanoid envs sit near a contact's stick/slip boundary, where one float32
 # rounding can send kernel and plain down different branches: that start is
 # held at the 99.9th percentile over envs. Garpez is held where the APG main
-# path starts, under the APG policy's torques.
+# path starts, under the APG policy's torques, and in contact: RR_GARPEZ's
+# tilted-low start (two corners penetrating) as soft contacts, under the same
+# torques. With the model arrays' cotangents K4 is held in VJP_PARAMS_CASES,
+# for the six output cotangents together.
 VJP_CASES = (
     ("pendulum1", "max"),
     ("humanoid23 main-path start", "max"),
     ("humanoid23 joints moving", "p99.9"),
     ("garpez APG start", "max"),
+    ("garpez tilted low, in contact", "max"),
 )
+VJP_PARAMS_CASES = ("humanoid23 main-path start", "humanoid23 joints moving", "garpez tilted low, in contact")
 # The model arrays' batch-summed cotangents: the tolerance of the JAX
 # package's own test of them (tests/test_batched_engine.py:779-785), each
 # entry within PARAMS_RTOL·|plain| + PARAMS_ATOL·max(1, max |plain array|);
@@ -158,6 +165,14 @@ PARAMS_RTOL, PARAMS_ATOL = 5e-3, 5e-4
 # 0.015 m up, turned 0.2 rad about x, joints 0.05·N(0, 1) rad) so that two
 # corners penetrate from step 0, under tau = -20·s - 0.1·ṡ, the set-up of the
 # JAX package's relaxed-rigid garpez test (tests/test_batched_engine.py:991-1013).
+# The touchdown case drops the humanoid from RR_TOUCHDOWN's base height (3 cm
+# above the standing pose), so its feet strike the ground from a cold start
+# about 75 steps in. At the main path's 8 PCG iterations the solve has
+# converged below float32's own spread there (the float64 twin at 7 against
+# 8 iterations: 0.03 of this case's limit on the CPU), so no case at 8 can
+# see one iteration fewer; this one runs the same kernel source built with 3
+# iterations, where each iteration still moves the state (2 against 3: 282
+# times the limit, in ṡ).
 RR_CASES = (
     ("humanoid23 relaxed-rigid main-path start", 100, "max", False),
     ("humanoid23 relaxed-rigid joints moving", 10, "max", True),
@@ -165,7 +180,9 @@ RR_CASES = (
     ("humanoid23 relaxed-rigid joints displaced and moving", 10, "max", True),
     ("humanoid23 relaxed-rigid joints displaced and moving", 100, "p99.9", True),
     ("garpez relaxed-rigid tilted low", 100, "max", False),
+    ("humanoid23 relaxed-rigid touchdown, 3 PCG iterations", 100, "max", True),
 )
+RR_TOUCHDOWN = dict(batch=1024, base=(0.0, 0.0, 0.93), iterations=3)
 RR_JOINT_SPEED = 0.5  # rad/s, the moving start's ṡ scale
 RR_GARPEZ = dict(batch=1024, base=(0.0, 0.0, 0.015), quat=(0.995, 0.0998, 0.0, 0.0), joints=0.05, gains=(20.0, 0.1))
 # Relaxed-rigid main path: bench.py's relaxed_rigid (bench.py:338-361) uncut.
@@ -581,52 +598,155 @@ def vjp_diff(kern, plain) -> tuple[dict, float]:
     return scaled, raw
 
 
-def params_gate(label: str, kern: dict, plain: dict) -> dict[str, float]:
-    """Holds each model array's batch-summed cotangent entry by entry within
+def params_shares(kern: dict, plain: dict, label: str | None = None) -> dict[str, float]:
+    """Each model array's batch-summed cotangent entry by entry against
     PARAMS_RTOL·|plain| + PARAMS_ATOL·max(1, max |plain|), and the entries
-    above that absolute part within PARAMS_RTOL·|plain|. Prints per array the
-    largest |Δ| over the first limit and the largest relative error |Δ|/|plain|
-    above the absolute part; returns each array's larger share of its limit
-    (≤ 1 passes)."""
+    above that absolute part against PARAMS_RTOL·|plain|: each array's larger
+    share of its limit (≤ 1 passes; non-finite is inf). With ``label`` it
+    prints per array the largest |Δ| over the first limit and the largest
+    relative error |Δ|/|plain| above the absolute part."""
     import torch
 
     ratios = {}
     for k, b in plain.items():
         a = kern[k]
         if not bool(torch.isfinite(a).all()):
-            raise RuntimeError(f"{label}: non-finite ct {k}")
+            ratios[k] = math.inf
+            continue
         atol = PARAMS_ATOL * max(1.0, float(b.abs().max()))
         d = (a - b).abs()
         share = float((d / (PARAMS_RTOL * b.abs() + atol)).max())
         big = b.abs() > atol
         rel = float((d[big] / b.abs()[big]).max()) if bool(big.any()) else 0.0
         ratios[k] = max(share, rel / PARAMS_RTOL)
-        print(f"{label}: ct {k} max|Δ| {float(d.max()):.6g}, max|plain| {float(b.abs().max()):.6g}, "
-              f"max |Δ|/limit {share:.6g}, max |Δ|/|plain| where |plain| > atol {rel:.6g}")  # fmt: skip
+        if label:
+            print(f"{label}: ct {k} max|Δ| {float(d.max()):.6g}, max|plain| {float(b.abs().max()):.6g}, "
+                  f"max |Δ|/limit {share:.6g}, max |Δ|/|plain| where |plain| > atol {rel:.6g}")  # fmt: skip
+    return ratios
+
+
+def params_gate(label: str, kern: dict, plain: dict) -> dict[str, float]:
+    """:func:`params_shares`, printed; fails unless every array's is ≤ 1."""
+    ratios = params_shares(kern, plain, label)
     bad = {k: r for k, r in ratios.items() if not r <= 1.0}
     if bad:
         raise RuntimeError(f"{label}: model-array cotangents beyond rtol {PARAMS_RTOL}, atol {PARAMS_ATOL}: {bad}")
     return ratios
 
 
-def rr_start_states(hum_rr, garp_rr, gen) -> dict:
-    """K1-rr's cases' start states by name: (engine, state, PD gains). The
-    humanoid's is the relaxed-rigid main path's start."""
+def vjp_gates(starts, case_tau, gen, variants=None) -> tuple[dict[str, list[float]], dict[str, dict[str, float]]]:
+    """K4 against its plain version: in each of VJP_CASES for each seeded
+    output cotangent (``vjp_cotangents``), and with the model arrays'
+    cotangents in each of VJP_PARAMS_CASES for the six together, every
+    cotangent field's per-env |Δ| over max(1, max |plain field|) at the
+    case's statistic over envs, held to TOL, and the model arrays' by
+    ``params_shares``. ``variants`` maps a name to a function ``(engine,
+    state, tau, ct, params_grad=...)`` returning as ``step_vjp`` (by default
+    the wrapper, which is gated: a breach raises, and with params_grad two
+    runs must agree to the bit); other variants (seeded faults) are held to
+    the same limits without raising. Fails when the cases leave a contact
+    branch without a point, or the in-contact case has no point in contact.
+    Returns the largest unscaled |Δ| of each case held at its max (the
+    default variant's, by kernel name), and for each variant and case its
+    worst statistic over its limit (> 1 is refused)."""
+    import torch
+
+    from jaxsim_tpu_torch.ops import cuda_step_vjp
+
+    gated = variants is None
+    variants = variants or {"kernel": cuda_step_vjp.step_vjp}
+    errs, ratios = {"step_vjp": [], "step_vjp_params_grad": []}, {name: {} for name in variants}
+    branches = [0, 0, 0]
+    cases = [(name, stat, False) for name, stat in VJP_CASES]
+    cases += [(name, dict(VJP_CASES)[name], True) for name in VJP_PARAMS_CASES]
+    for name, stat, pg in cases:
+        engine, state = starts[name]
+        tau = case_tau(name, state)
+        cts = vjp_cotangents(state, gen)
+        if pg:
+            cts = {"all six": cts["all six"]}
+        else:
+            counts = contact_branches(engine, state)
+            branches = [a + b for a, b in zip(branches, counts)]
+            print(f"step_vjp {name}: contact points out of contact, sticking, slipping {counts}", flush=True)
+            if "in contact" in name and not counts[1] + counts[2]:
+                raise RuntimeError(f"{name}: no point in contact, so the case holds nothing of the contacts")
+        kind = "step_vjp_params_grad" if pg else "step_vjp"
+        for ct_name, ct in cts.items():
+            plain = cuda_step_vjp.step_vjp_reference(engine, state, tau, ct, params_grad=pg)
+            for vname, run in variants.items():
+                kern = run(engine, state, tau, ct, params_grad=pg)
+                torch.cuda.synchronize()
+                label = (f"{kind} {vname} vs plain, {name} B={state.p.shape[-1]}, ct of {ct_name}, "
+                         "|Δ|/max(1, max|plain|)")  # fmt: skip
+                case = f"{name}, ct of {ct_name}" + (", params_grad" if pg else "")
+                if not gated and not all(bool(torch.isfinite(t).all()) for t in [*kern[0].fields(), kern[1]]):
+                    ratios[vname][case] = math.inf
+                    print(f"{label}: non-finite, refused", flush=True)
+                    continue
+                scaled, raw = vjp_diff(kern, plain)
+                ratio = max(over_envs(scaled, stat).values()) / TOL
+                if pg:
+                    ratio = max(ratio, *params_shares(kern[2], plain[2]).values())
+                ratios[vname][case] = ratio
+                if not gated:
+                    print(f"{label}: worst statistic over its limit {ratio:.6g}", flush=True)
+                    continue
+                gate(label, scaled, stat)
+                if pg:
+                    params_gate(f"{kind} {name}", kern[2], plain[2])
+                    raw = max(raw, *(float((kern[2][k] - plain[2][k]).abs().max()) for k in plain[2]))
+                    again = run(engine, state, tau, ct, params_grad=pg)
+                    if not all(torch.equal(x, y) for x, y in zip(vjp_leaves(kern), vjp_leaves(again))):
+                        raise RuntimeError(f"two runs of step_vjp with params_grad differ, {name}")
+                if stat == "max":
+                    errs[kind].append(raw)
+    if not all(branches):
+        raise RuntimeError(f"the K4 start states leave a contact branch without a point: {branches}")
+    return errs, ratios
+
+
+def vjp_leaves(res) -> list:
+    """A step VJP's cotangents as one list: the state's, tau's, the model arrays'."""
+    return [*res[0].fields(), res[1], *(res[2].values() if len(res) > 2 else ())]
+
+
+def garpez_tilted(engine, gen):
+    """Garpez tilted low (RR_GARPEZ): two corners penetrate from step 0."""
     import torch
 
     g = RR_GARPEZ
+    tilted = engine.init_state(g["batch"], base_position=g["base"])
+    tilted.q = torch.tensor(g["quat"], device=engine.S.device)[:, None].repeat(1, g["batch"])
+    tilted.s = g["joints"] * torch.randn(tilted.s.shape, generator=gen, device=engine.S.device)
+    return tilted
+
+
+def rr_touchdown_engine(device):
+    """The relaxed-rigid humanoid with RR_TOUCHDOWN's PCG iterations."""
+    engine = rr_humanoid_engine(device)
+    engine.rr_iterations = RR_TOUCHDOWN["iterations"]
+    return engine
+
+
+def rr_start_states(hum_rr, garp_rr, hum_td, gen) -> dict:
+    """K1-rr's cases' start states by name: (engine, state, PD gains). The
+    humanoid's is the relaxed-rigid main path's start; ``hum_td`` is
+    :func:`rr_touchdown_engine`'s."""
+    import torch
+
     device = hum_rr.S.device
     start = hum_rr.init_state(BATCH, generator=gen)
     moving = dataclasses.replace(start, sd=RR_JOINT_SPEED * torch.randn(start.sd.shape, generator=gen, device=device))
-    tilted = garp_rr.init_state(g["batch"], base_position=g["base"])
-    tilted.q = torch.tensor(g["quat"], device=device)[:, None].repeat(1, g["batch"])
-    tilted.s = g["joints"] * torch.randn(tilted.s.shape, generator=gen, device=device)
+    tilted = garpez_tilted(garp_rr, gen)
     return {
         RR_CASES[0][0]: (hum_rr, start, (60.0, 0.5)),
         RR_CASES[1][0]: (hum_rr, moving, (60.0, 0.5)),
         RR_CASES[3][0]: (hum_rr, moving_joints(start, gen), (60.0, 0.5)),
-        RR_CASES[5][0]: (garp_rr, tilted, g["gains"]),
-    }
+        RR_CASES[5][0]: (garp_rr, tilted, RR_GARPEZ["gains"]),
+        RR_CASES[6][0]: (hum_td, hum_td.init_state(RR_TOUCHDOWN["batch"], base_position=RR_TOUCHDOWN["base"],
+                                                   generator=gen), (60.0, 0.5)),
+    }  # fmt: skip
 
 
 def rr_active_points(engine, state) -> int:
@@ -796,6 +916,26 @@ def apg_policy(state, params, target):
     return 5.0 * torch.tanh(params["W2"] @ h + params["b2"][:, None])
 
 
+def vjp_starts(pend, hum, garp, apg) -> tuple[dict, object]:
+    """K4's cases' start states by name, (engine, state): ``start_states``'
+    and garpez's (the APG start and, seeded, tilted low in contact); and
+    ``case_tau(name, state)``, the torques the main path gives a step at
+    ``state``: the APG policy's on garpez, the PD policy's elsewhere."""
+    import torch
+
+    starts = start_states(pend, hum)
+    starts["garpez APG start"] = (garp, apg["start"])
+    starts["garpez tilted low, in contact"] = (garp, garpez_tilted(garp, torch.Generator(hum.S.device).manual_seed(7)))
+
+    def case_tau(name, state):
+        if name.startswith("garpez"):
+            with torch.no_grad():
+                return apg_policy(state, apg["weights"], apg["target"]).contiguous()
+        return (-60.0 * state.s - 0.5 * state.sd).contiguous()
+
+    return starts, case_tau
+
+
 def main() -> int:
     import torch
 
@@ -822,7 +962,7 @@ def main() -> int:
     hum = humanoid_engine(device)
     pend = pendulum_engine(device)
     garp = garpez_engine(device)
-    hum_rr, garp_rr = rr_humanoid_engine(device), rr_garpez_engine(device)
+    hum_rr, garp_rr, hum_td = rr_humanoid_engine(device), rr_garpez_engine(device), rr_touchdown_engine(device)
     n, d = hum.n_joints, obs_dim(hum.n_joints)
     gen = torch.Generator(device).manual_seed(1)
     # The real-terminations case's linear policy: the PD gains written as a
@@ -837,29 +977,32 @@ def main() -> int:
     pols = {k: cuda_env_rollout.make_policy(hum, **w) for k, w in (("linear", lin), ("mlp", mlp))}
     apg = apg_setup(garp)
 
-    def case_tau(name, state):
-        """The torques the main path gives a step at ``state``: the APG
-        policy's on garpez, the PD policy's elsewhere."""
-        if name.startswith("garpez"):
-            with torch.no_grad():
-                return apg_policy(state, apg["weights"], apg["target"]).contiguous()
-        return (-60.0 * state.s - 0.5 * state.sd).contiguous()
+    starts, case_tau = vjp_starts(pend, hum, garp, apg)
 
     # ----- build: every library at once -----
     with phase("build"):
-        jobs = [cuda_rollout.job(pend), cuda_rollout.job(hum), cuda_step.job(pend), cuda_step.job(hum),
-                *(cuda_env_rollout.job(hum, p) for p in pols.values()),
-                cuda_step_vjp.job(hum), cuda_step_vjp.job(hum, params_grad=True), cuda_step_vjp.job(pend),
-                cuda_step.job(garp), cuda_step_vjp.job(garp),
-                cuda_rollout.job(hum_rr), cuda_rollout.job(garp_rr), fma_probe.job()]  # fmt: skip
-        builds = cuda_build.build_many(jobs)
-    print(f"nvcc seconds {[round(b.seconds, 2) for b in builds]}")
-    for b in builds:
+        jobs = dict(
+            rollout_pend=cuda_rollout.job(pend), rollout=cuda_rollout.job(hum), step_pend=cuda_step.job(pend),
+            step=cuda_step.job(hum), **{f"env_rollout_{k}": cuda_env_rollout.job(hum, p) for k, p in pols.items()},
+            vjp=cuda_step_vjp.job(hum), vjp_params_grad=cuda_step_vjp.job(hum, params_grad=True),
+            vjp_pend=cuda_step_vjp.job(pend), step_garp=cuda_step.job(garp), vjp_garp=cuda_step_vjp.job(garp),
+            vjp_garp_params_grad=cuda_step_vjp.job(garp, params_grad=True), rr_touchdown=cuda_rollout.job(hum_td),
+            rr=cuda_rollout.job(hum_rr), rr_garp=cuda_rollout.job(garp_rr), fma_probe=fma_probe.job(),
+        )  # fmt: skip
+        builds = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+    print(f"nvcc seconds {json.dumps({k: round(b.seconds, 2) for k, b in builds.items()})}")
+    for b in builds.values():
         print(f"ptxas {b.path.parent.name}: " + " | ".join(
             ln.strip() for ln in b.ptxas_log.splitlines() if "registers" in ln or "spill" in ln or "stack frame" in ln
         ), flush=True)  # fmt: skip
 
-    rr_build = builds[-3]
+    for b, pg in ((builds["vjp"], False), (builds["vjp_params_grad"], True)):
+        geo = cuda_step_vjp.geometry(b)
+        print(f"step_vjp{' params_grad' if pg else ''} ({cuda_step_vjp.LANES} lanes an env): {geo['threads']} threads"
+              f" and {geo['envs']} envs a block, {geo['smem_bytes']} B of dynamic shared memory a block,"
+              f" {geo['blocks_per_sm']} blocks an SM (occupancy calculator); SASS local loads and stores (LDL, STL)"
+              f" {json.dumps(cuda_step_vjp.local_memory(b))}", flush=True)  # fmt: skip
+    rr_build = builds["rr"]
     geo = cuda_rollout.rr_geometry(rr_build)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     print(f"rollout_relaxed_rigid ({cuda_rollout.RR_LANES} lanes an env): {geo['threads']} threads and {geo['envs']}"
@@ -869,7 +1012,7 @@ def main() -> int:
     print(f"rollout_relaxed_rigid SASS, local loads and stores (LDL, STL): {json.dumps(cuda_rollout.rr_local_memory(rr_build))}",
           flush=True)  # fmt: skip
 
-    sass = fma_probe.check_sass(builds[-1])
+    sass = fma_probe.check_sass(builds["fma_probe"])
     print("probe SASS, FMA instructions (in the timed loop / in all) by (variant, chains): "
           + ", ".join(f"{k[0]} {k[1]}: {v['op']} {v['in_loop']}/{v['total']}" for k, v in sorted(sass.items())))  # fmt: skip
 
@@ -880,8 +1023,6 @@ def main() -> int:
     # all three kernels.
     max_errs = {k: [] for k in SOURCES}
     with phase("K1 K2 K3 vs plain"):
-        starts = start_states(pend, hum)
-        starts["garpez APG start"] = (garp, apg["start"])
         state0 = starts["humanoid23 main-path start"][1]
         for name, n_steps, stat in CASES:
             engine, state = starts[name]
@@ -927,7 +1068,7 @@ def main() -> int:
 
     # ----- K1's relaxed-rigid build vs plain -----
     with phase("K1 relaxed-rigid vs plain"):
-        rr_starts = rr_start_states(hum_rr, garp_rr, torch.Generator(device).manual_seed(6))
+        rr_starts = rr_start_states(hum_rr, garp_rr, hum_td, torch.Generator(device).manual_seed(6))
         max_errs["rollout_relaxed_rigid"], _ = rr_gates(rr_starts)
         rr_start = rr_starts[RR_CASES[0][0]][1]
 
@@ -970,51 +1111,14 @@ def main() -> int:
     # ----- K4 vs plain -----
     vjp_gen = torch.Generator(device).manual_seed(3)
 
-    def leaves(res):
-        return [*res[0].fields(), res[1], *(res[2].values() if len(res) > 2 else ())]
-
     with phase("K4 vs plain"):
-        branches = [0, 0, 0]
-        for name, stat in VJP_CASES:
-            engine, state = starts[name]
-            tau = case_tau(name, state)
-            counts = contact_branches(engine, state)
-            branches = [a + b for a, b in zip(branches, counts)]
-            print(f"step_vjp {name}: contact points out of contact, sticking, slipping {counts}", flush=True)
-            for ct_name, ct in vjp_cotangents(state, vjp_gen).items():
-                kern = cuda_step_vjp.step_vjp(engine, state, tau, ct)
-                plain = cuda_step_vjp.step_vjp_reference(engine, state, tau, ct)
-                sync()
-                scaled, raw = vjp_diff(kern, plain)
-                gate(f"step_vjp vs plain, {name} B={state.p.shape[-1]}, ct of {ct_name}, |Δ|/max(1, max|plain|)",
-                     scaled, stat)  # fmt: skip
-                if stat == "max":
-                    max_errs["step_vjp"].append(raw)
-        if not all(branches):
-            raise RuntimeError(f"the K4 start states leave a contact branch without a point: {branches}")
-
-        # With the model arrays' cotangents (batch sums), run twice: the sums
-        # are in a fixed order, so the two runs agree to the bit.
-        for name in ("humanoid23 main-path start", "humanoid23 joints moving"):
-            stat, state = dict(VJP_CASES)[name], starts[name][1]
-            tau = (-60.0 * state.s - 0.5 * state.sd).contiguous()
-            ct = vjp_cotangents(state, vjp_gen)["all six"]
-            kern = cuda_step_vjp.step_vjp(hum, state, tau, ct, params_grad=True)
-            again = cuda_step_vjp.step_vjp(hum, state, tau, ct, params_grad=True)
-            plain = cuda_step_vjp.step_vjp_reference(hum, state, tau, ct, params_grad=True)
-            sync()
-            scaled, raw = vjp_diff(kern, plain)
-            gate(f"step_vjp params_grad vs plain, {name}, ct of all six, |Δ|/max(1, max|plain|)", scaled, stat)
-            params_gate(f"step_vjp params_grad {name}", kern[2], plain[2])
-            if stat == "max":
-                err = max(float((kern[2][k] - plain[2][k]).abs().max()) for k in hum.PARAM_NAMES)
-                max_errs["step_vjp_params_grad"].append(max(raw, err))
-            if not all(torch.equal(x, y) for x, y in zip(leaves(kern), leaves(again))):
-                raise RuntimeError("two runs of step_vjp with params_grad differ")
+        errs, _ = vjp_gates(starts, case_tau, vjp_gen)
+        for name, e in errs.items():
+            max_errs[name] += e
         print("step_vjp params_grad: two runs agree to the bit", flush=True)
 
-        partials = torch.randn(BATCH // cuda_step_vjp.BLOCK, cuda_build.packed_params(hum).numel(),
-                               generator=vjp_gen, device=device)  # fmt: skip
+        partials = torch.randn(-(-BATCH // cuda_step_vjp.envs_per_block(hum, True)),
+                               cuda_build.packed_params(hum).numel(), generator=vjp_gen, device=device)  # fmt: skip
         kern, plain = cuda_step_vjp.sum_partials(hum, partials), cuda_step_vjp.sum_partials_reference(partials)
         again = cuda_step_vjp.sum_partials(hum, partials)
         sync()
@@ -1394,7 +1498,7 @@ def main() -> int:
             env_rollout=(flops["env_step"] * BATCH * ES["steps"],
                          2 * sb + pb + 12 * BATCH + 4 * pols["mlp"].packed().numel()),
             step_vjp=(flops["vjp"] * BATCH, vjp_bytes),
-            step_vjp_params_grad=(flops["vjp_params_grad"] * BATCH, vjp_bytes + 4 * n_blocks * n_params),
+            step_vjp_params_grad=(flops["vjp_params_grad"] * BATCH, vjp_bytes + 4 * n_params),
             param_sum=((n_blocks - 1) * n_params, 4 * (n_blocks + 1) * n_params),
             rollout_relaxed_rigid=(flops["rr_step"] * BATCH * RR_HORIZON,
                                    2 * sb + 4 * cuda_build.packed_params(hum_rr).numel()),
@@ -1425,6 +1529,14 @@ def main() -> int:
             line += (f"; share of the data sheet's {peak / 1e12:g} TFLOP/s {100 * bound_ms / results[name]['ms']:.3g} %, "
                      f"of the measured {measured_peak[kind] / 1e12:.4g} {100 * measured_ms / results[name]['ms']:.3g} %")
         print(line)
+    # K4's per-block partials are this design's own traffic: the function
+    # (step_vjp_params_grad's bound) writes the batch sums once.
+    pair_ms = results["step_vjp_params_grad"]["ms"] + results["param_sum"]["ms"]
+    pair_bound, _ = bound(*work["step_vjp_params_grad"])
+    print(f"model arrays' partials: {n_blocks} rows of {n_params} floats, {8 * n_blocks * n_params} B written and"
+          f" read back ({8 * n_blocks * n_params / PEAK_BYTES * 1e3:.6g} ms at the memory rate), outside"
+          f" step_vjp_params_grad's bound; it and param_sum together {pair_ms:.6g} ms a launch,"
+          f" {100 * pair_bound / pair_ms:.3g} % of its bound")  # fmt: skip
     print(f"total: {time.perf_counter() - t_start:.2f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

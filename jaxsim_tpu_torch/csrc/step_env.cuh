@@ -321,6 +321,67 @@ __device__ void relative_transform(const float* P, int j, float th, float* R, fl
   for (int k = 0; k < 3; ++k) p[k] = pa[k] + t[k];
 }
 
+// The Hunt/Crossley law of one point on flat ground, from its world position
+// pc and velocity pd and its m row: the linear force f_lin, m's rate md, and
+// the intermediates and branch flags that K4's reverse sweep (step_vjp.cu)
+// reads, so that the backward takes the branch the forward took.
+struct HcLaw {
+  float delta, delta_dot, Kdp, Ddq, arg, fn, mu_fn, f_t_sq, norm, mn, scale;
+  float v_t[3], m_t[3], f_t[3], f_s[3], f_lin[3], md[3];
+  bool no_contact, sticking;
+};
+
+__device__ __forceinline__ HcLaw hc_law(const Scalars& sc, const float* pc, const float* pd, const float* mc) {
+  HcLaw h;
+  h.delta = fmaxf(0.0f, -pc[2]);
+  h.delta_dot = h.delta > 0.0f ? -pd[2] : 0.0f;
+  const float dp = powf(h.delta + FLT_EPSILON, sc.hc_p);
+  const float dq = powf(h.delta + FLT_EPSILON, sc.hc_q);
+  h.Kdp = sc.K * dp, h.Ddq = sc.D * dq;
+  h.arg = h.Kdp * h.delta + h.Ddq * h.delta_dot;
+  h.fn = fmaxf(0.0f, h.arg);
+  const float m_n[3] = {0.0f, 0.0f, mc[2]};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    h.v_t[k] = k < 2 ? pd[k] : 0.0f;
+    h.m_t[k] = k < 2 ? mc[k] : 0.0f;
+    h.f_t[k] = -(h.Kdp * h.m_t[k] + h.Ddq * h.v_t[k]);
+  }
+  h.f_t_sq = h.f_t[0] * h.f_t[0] + h.f_t[1] * h.f_t[1] + h.f_t[2] * h.f_t[2];
+  h.no_contact = h.delta <= 0.0f;
+  h.mu_fn = sc.mu * h.fn;
+  h.sticking = h.no_contact || h.f_t_sq <= h.mu_fn * h.mu_fn;
+  // f_s: f_t scaled into the friction cone where the point slips, 0 where it
+  // is out of contact; scale is 1 where it sticks.
+  h.norm = 1.0f, h.mn = 0.0f, h.scale = 1.0f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) h.f_s[k] = h.f_t[k];
+  if (!h.sticking) {
+    h.norm = sqrtf(fmaxf(h.f_t_sq, FLT_EPSILON * FLT_EPSILON));
+    h.mn = fminf(h.mu_fn, h.norm);
+    h.scale = h.mn / h.norm;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) h.f_s[k] = h.f_t[k] * h.scale;
+  }
+  if (h.no_contact) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      h.f_s[k] = 0.0f;
+      h.md[k] = -sc.k_over_d * mc[k];
+    }
+  } else if (h.sticking) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) h.md[k] = h.v_t[k] - sc.k_over_d * m_n[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) h.md[k] = -(h.f_s[k] + h.Kdp * h.m_t[k]) / h.Ddq;
+  }
+  h.f_lin[0] = h.f_s[0];
+  h.f_lin[1] = h.f_s[1];
+  h.f_lin[2] = h.f_s[2] + h.fn;
+  return h;
+}
+
 struct Work {
   float WR[NL][9], Wp[NL][3], Wv[NL][6];  // world poses and velocities
   float iR[NL][9], ip[NL][3];             // child -> parent transforms
@@ -408,47 +469,11 @@ __device__ void step_env(const float* P, const Scalars& sc, Work& w, float* s, f
     for (int k = 0; k < 3; ++k) pd[k] = w.Wv[par][k] + t[k];
 
     float* mc = m + ci * 3;
-    const float delta = fmaxf(0.0f, -pc[2]);
-    const float delta_dot = delta > 0.0f ? -pd[2] : 0.0f;
-    const float dp = powf(delta + FLT_EPSILON, sc.hc_p);
-    const float dq = powf(delta + FLT_EPSILON, sc.hc_q);
-    const float Kdp = sc.K * dp, Ddq = sc.D * dq;
-    const float fn = fmaxf(0.0f, Kdp * delta + Ddq * delta_dot);
+    const HcLaw h = hc_law(sc, pc, pd, mc);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) mc[k] = mc[k] + sc.dt * h.md[k];
 
-    const float v_t[3] = {pd[0], pd[1], 0.0f};
-    const float m_n[3] = {0.0f, 0.0f, mc[2]};
-    const float m_t[3] = {mc[0], mc[1], 0.0f};
-    float f_t[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) f_t[k] = -(Kdp * m_t[k] + Ddq * v_t[k]);
-    const float f_t_sq = f_t[0] * f_t[0] + f_t[1] * f_t[1] + f_t[2] * f_t[2];
-    const bool no_contact = delta <= 0.0f;
-    const float mu_fn = sc.mu * fn;
-    const bool sticking = no_contact || f_t_sq <= mu_fn * mu_fn;
-    if (!sticking) {
-      const float norm = sqrtf(fmaxf(f_t_sq, FLT_EPSILON * FLT_EPSILON));
-      const float scale = fminf(mu_fn, norm) / norm;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) f_t[k] = f_t[k] * scale;
-    }
-    float md[3];
-    if (no_contact) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        f_t[k] = 0.0f;
-        md[k] = -sc.k_over_d * mc[k];
-      }
-    } else if (sticking) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) md[k] = v_t[k] - sc.k_over_d * m_n[k];
-    } else {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) md[k] = -(f_t[k] + Kdp * m_t[k]) / Ddq;
-    }
-#pragma unroll
-    for (int k = 0; k < 3; ++k) mc[k] = mc[k] + sc.dt * md[k];
-
-    const float f_lin[3] = {f_t[0], f_t[1], f_t[2] + fn};
+    const float* f_lin = h.f_lin;
     float f_ang[3];
     cross3(pc, f_lin, f_ang);
 #pragma unroll

@@ -1,13 +1,14 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Every engine kernel source in ``jaxsim_tpu_torch/csrc/`` (``rollout.cu``,
-``step.cu``, ``env_rollout.cu``, ``step_vjp.cu``; ``rollout_rr.cu``, whose
-relaxed-rigid step ``rr_step.cuh`` builds on it) includes the shared step
-body ``step_env.cuh`` and a generated header, ``jx_topology.h``, that makes
-one model topology's sizes and tables, its contact model and its PCG
-iterations compile-time constants, and for the relaxed-rigid kernel the
-lanes an env, the point slots and the tree's level schedule
-(:func:`rr_tables`); ``fma_probe.cu`` takes no engine and no header.
+``step.cu``, ``env_rollout.cu``; ``step_vjp.cu``, whose step is the
+lane-spread ``soft_step_lanes.cuh``; ``rollout_rr.cu``, whose relaxed-rigid
+step is ``rr_step.cuh``) includes the shared step body ``step_env.cuh`` and a
+generated header, ``jx_topology.h``, that makes one model topology's sizes
+and tables, its contact model and its PCG iterations compile-time
+constants, and for the kernels that put an env on several lanes the lanes
+an env, the point slots and the tree's level schedule (:func:`rr_tables`,
+:func:`lane_tables`); ``fma_probe.cu`` takes no engine and no header.
 :func:`build_many`
 compiles each (source, topology, build-time defines) once with ``nvcc`` for
 ``sm_90a``, all of them at the same time, into
@@ -108,6 +109,7 @@ def topology_header(engine: BatchedEngine | None, defines=()) -> str:
 
     has_f = [int(i in engine.contact_parent) for i in range(engine.n_links)]
     lanes = dict(defines).get("JX_RR_LANES")
+    ln_lanes = dict(defines).get("JX_LN_LANES")
     return (
         "// Generated by jaxsim_tpu_torch/ops/cuda_build.py; do not edit.\n"
         "#pragma once\n"
@@ -123,12 +125,13 @@ def topology_header(engine: BatchedEngine | None, defines=()) -> str:
         + arr("JX_CPARENT", engine.contact_parent)
         + arr("JX_HASF", has_f)
         + ("" if lanes is None else rr_header(engine, lanes))
+        + ("" if ln_lanes is None else lane_header(engine, ln_lanes, bool(dict(defines).get("JX_PARAMS_GRAD"))))
     )
 
 
-def rr_tables(engine: BatchedEngine, lanes: int) -> dict:
-    """What the relaxed-rigid kernel (``rr_step.cuh``) takes from the
-    topology for ``lanes`` lanes an env:
+def _lane_schedule(engine: BatchedEngine, lanes: int) -> dict:
+    """What a kernel that puts an env on ``lanes`` lanes of a warp takes from
+    the topology:
 
     * ``slot_point``: the point slots, lane ``g``'s ``k``-th at ``g + lanes·k``;
       each contact parent's points in contact-index order (parents in order of
@@ -137,16 +140,9 @@ def rr_tables(engine: BatchedEngine, lanes: int) -> dict:
       row among the parents is ``group_par[k]``; ``par_link``: the parents;
     * the level schedule of links 1..nL-1 by depth (``lev_off``,
       ``lev_link``) and each link's children in descending index order
-      (``ch_off``, ``ch``);
-    * ``slot``: floats of an env's slot in shared memory, ``envs``: envs a
-      block, the most up to ``RR_MAX_ENVS`` whose slots and model arrays fit
-      in a block's shared memory, and ``smem_bytes``."""
-    if engine.contact_model != "relaxed_rigid":
-        raise ValueError(f"the relaxed-rigid kernel takes a relaxed-rigid engine, not {engine.contact_model}")
+      (``ch_off``, ``ch``)."""
     if 32 % lanes:
         raise ValueError(f"lanes an env must divide a warp's 32, got {lanes}")
-    if not engine.n_points:
-        raise ValueError("the relaxed-rigid kernel needs contact points")
     nL, lam = engine.n_links, list(engine.lam)
     parents = list(dict.fromkeys(engine.contact_parent))
     slots = []
@@ -154,48 +150,104 @@ def rr_tables(engine: BatchedEngine, lanes: int) -> dict:
         pts = [c for c, p in enumerate(engine.contact_parent) if p == par]
         slots += pts + [-1] * (-len(pts) % lanes)
     own = len(slots) // lanes
-    groups = [slots[lanes * k] for k in range(own)]
-    group_link = [engine.contact_parent[c] for c in groups]
+    group_link = [engine.contact_parent[slots[lanes * k]] for k in range(own)]
     depth = [0] * nL
     for i in range(1, nL):
         depth[i] = depth[lam[i]] + 1
     n_lev = max(depth, default=0)
-    lev_link = sorted(range(1, nL), key=lambda i: (depth[i], i))
-    lev_off = [sum(1 for i in range(1, nL) if depth[i] <= d) for d in range(n_lev + 1)]
     children = [sorted((c for c in range(1, nL) if lam[c] == i), reverse=True) for i in range(nL)]
-    ch_off = [sum(len(ch) for ch in children[:i]) for i in range(nL + 1)]
-    slot = 26 * nL + 36 + 24 * len(parents)
-    n_params = sum(t.numel() for t in engine.params().values())
+    return dict(
+        slot_point=slots,
+        group_link=group_link, group_par=[parents.index(p) for p in group_link], par_link=parents,
+        own=own, n_lev=n_lev, lev_link=sorted(range(1, nL), key=lambda i: (depth[i], i)),
+        lev_off=[sum(1 for i in range(1, nL) if depth[i] <= d) for d in range(n_lev + 1)],
+        ch_off=[sum(len(ch) for ch in children[:i]) for i in range(nL + 1)], ch=[c for ch in children for c in ch],
+    )  # fmt: skip
+
+
+def _schedule_header(prefix: str, t: dict) -> str:
+    """The generated header's defines and tables of a :func:`_lane_schedule`."""
+
+    def arr(name, values):
+        values = list(values) or [0]
+        return f"__constant__ int {prefix}_{name}[{len(values)}] = {{{', '.join(map(str, values))}}};\n"
+
+    return (
+        f"#define {prefix}_OWN {t['own']}\n#define {prefix}_NPAR {len(t['par_link'])}\n"
+        f"#define {prefix}_NLEV {t['n_lev']}\n#define {prefix}_ENVS {t['envs']}\n#define {prefix}_SLOT {t['slot']}\n"
+        + arr("SLOT_POINT", t["slot_point"]) + arr("GROUP_LINK", t["group_link"])
+        + arr("GROUP_PAR", t["group_par"]) + arr("PAR_LINK", t["par_link"])
+        + arr("LEV_OFF", t["lev_off"]) + arr("LEV_LINK", t["lev_link"])
+        + arr("CH_OFF", t["ch_off"]) + arr("CH", t["ch"])
+    )  # fmt: skip
+
+
+def rr_tables(engine: BatchedEngine, lanes: int) -> dict:
+    """What the relaxed-rigid kernel (``rr_step.cuh``) takes from the
+    topology for ``lanes`` lanes an env: :func:`_lane_schedule`'s point slots
+    and level schedule; ``slot``: floats of an env's slot in shared memory,
+    ``envs``: envs a block, the most up to ``RR_MAX_ENVS`` whose slots and
+    model arrays fit in a block's shared memory, and ``smem_bytes``."""
+    if engine.contact_model != "relaxed_rigid":
+        raise ValueError(f"the relaxed-rigid kernel takes a relaxed-rigid engine, not {engine.contact_model}")
+    if not engine.n_points:
+        raise ValueError("the relaxed-rigid kernel needs contact points")
+    t = _lane_schedule(engine, lanes)
+    slot = 26 * engine.n_links + 36 + 24 * len(t["par_link"])
+    n_params = sum(x.numel() for x in engine.params().values())
     envs = RR_MAX_ENVS
     while (slot * (envs + 1) + n_params) * 4 > MAX_SMEM_BYTES and envs > 1 and (envs // 2) * lanes % 32 == 0:
         envs //= 2
     smem = (slot * (envs + 1) + n_params) * 4
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"a relaxed-rigid block of {envs} envs needs {smem} B of shared memory")
-    return dict(
-        slot_point=[slots[g + lanes * k] for k in range(own) for g in range(lanes)],
-        group_link=group_link, group_par=[parents.index(p) for p in group_link], par_link=parents,
-        own=own, n_lev=n_lev, lev_off=lev_off, lev_link=lev_link, ch_off=ch_off,
-        ch=[c for ch in children for c in ch], slot=slot, envs=envs, smem_bytes=smem,
-    )  # fmt: skip
+    return dict(t, slot=slot, envs=envs, smem_bytes=smem)
 
 
 def rr_header(engine: BatchedEngine, lanes: int) -> str:
     """The relaxed-rigid kernel's part of the generated header (:func:`rr_tables`)."""
-    t = rr_tables(engine, lanes)
+    return _schedule_header("JX_RR", rr_tables(engine, lanes))
 
-    def arr(name, values):
-        values = list(values) or [0]
-        return f"__constant__ int {name}[{len(values)}] = {{{', '.join(map(str, values))}}};\n"
 
-    return (
-        f"#define JX_RR_OWN {t['own']}\n#define JX_RR_NPAR {len(t['par_link'])}\n"
-        f"#define JX_RR_NLEV {t['n_lev']}\n#define JX_RR_ENVS {t['envs']}\n#define JX_RR_SLOT {t['slot']}\n"
-        + arr("JX_RR_SLOT_POINT", t["slot_point"]) + arr("JX_RR_GROUP_LINK", t["group_link"])
-        + arr("JX_RR_GROUP_PAR", t["group_par"]) + arr("JX_RR_PAR_LINK", t["par_link"])
-        + arr("JX_RR_LEV_OFF", t["lev_off"]) + arr("JX_RR_LEV_LINK", t["lev_link"])
-        + arr("JX_RR_CH_OFF", t["ch_off"]) + arr("JX_RR_CH", t["ch"])
-    )  # fmt: skip
+# Floats of the lane-spread soft step's slot (soft_step_lanes.cuh): a link's
+# rows, a contact parent's, and the base's.
+LN_LINK_FLOATS, LN_PAR_FLOATS, LN_BASE_FLOATS = 106, 30, 43
+
+
+def lane_tables(engine: BatchedEngine, lanes: int, params_grad: bool = False) -> dict:
+    """What the lane-spread soft step (``soft_step_lanes.cuh``, K4's
+    ``step_vjp.cu``) takes from the topology for ``lanes`` lanes an env:
+    :func:`_lane_schedule`'s point slots and level schedule; ``slot``: floats
+    of an env's slot; ``envs``: envs a block, which is one warp (32 /
+    ``lanes``, halved while the slots and, with ``params_grad``, the block's
+    row of model-array cotangents do not fit in its shared memory); ``stride``:
+    the odd stride of a slot's fields (the block's envs minor); and
+    ``smem_bytes``."""
+    if engine.contact_model != "soft":
+        raise ValueError(f"the lane-spread soft step takes a soft engine, not {engine.contact_model}")
+    t = _lane_schedule(engine, lanes)
+    slot = LN_LINK_FLOATS * engine.n_links + LN_PAR_FLOATS * len(t["par_link"]) + LN_BASE_FLOATS
+    n_params = sum(x.numel() for x in engine.params().values()) if params_grad else 0
+    envs = 32 // lanes
+
+    def smem(envs):
+        return 4 * (slot * (envs + 1 - envs % 2) + n_params)
+
+    while smem(envs) > MAX_SMEM_BYTES and envs > 1:
+        envs //= 2
+    if smem(envs) > MAX_SMEM_BYTES:
+        raise ValueError(f"one env of the lane-spread step needs {smem(envs)} B of shared memory")
+    par_row = [t["par_link"].index(i) if i in t["par_link"] else -1 for i in range(engine.n_links)]
+    return dict(t, par_row=par_row, slot=slot, envs=envs, stride=envs + 1 - envs % 2, smem_bytes=smem(envs))
+
+
+def lane_header(engine: BatchedEngine, lanes: int, params_grad: bool) -> str:
+    """The lane-spread soft step's part of the generated header
+    (:func:`lane_tables`): the schedule, and each link's row among the
+    contact parents (-1 for a link without points)."""
+    t = lane_tables(engine, lanes, params_grad)
+    rows = ", ".join(map(str, t["par_row"]))
+    return _schedule_header("JX_LN", t) + f"__constant__ int JX_LN_PAR_ROW[{engine.n_links}] = {{{rows}}};\n"
 
 
 def included_files(source: pathlib.Path) -> list[pathlib.Path]:
@@ -399,6 +451,43 @@ def empty_state_like(state: BatchedState) -> BatchedState:
 
 def state_pointers(state: BatchedState) -> list[int]:
     return [t.data_ptr() for t in state.fields()]
+
+
+def geometry(kernel: KernelBuild, fn: str) -> dict[str, int]:
+    """A kernel's launch from its geometry entry point ``fn``: threads and
+    envs a block, the dynamic shared memory a block takes in bytes, and the
+    blocks an SM holds at once (CUDA's occupancy calculator)."""
+    out = (ctypes.c_int * 4)()
+    rc = getattr(kernel.lib, fn)(ctypes.cast(out, ctypes.c_void_p))
+    if rc != 0:
+        raise RuntimeError(f"{fn} failed: {kernel.lib.jx_error_string(rc).decode()}")
+    return dict(threads=out[0], envs=out[1], smem_bytes=out[2], blocks_per_sm=out[3])
+
+
+def local_memory(kernel: KernelBuild, windows: dict[str, tuple[str, int, int]]) -> dict[str, int]:
+    """The local loads and stores (``LDL``, ``STL``) in a library's SASS
+    (``nvdisasm -g`` of its cubin, which the ``-lineinfo`` build maps to
+    source lines): in all, and in each window ``(file name, first line, line
+    past the last)``."""
+    out_dir = kernel.path.parent / "cubin"
+    out_dir.mkdir(exist_ok=True)
+    subprocess.run([cuda_tool("cuobjdump"), "-xelf", "all", str(kernel.path)], cwd=out_dir,
+                   check=True, capture_output=True)  # fmt: skip
+    counts = dict.fromkeys(("all", *windows), 0)
+    for cubin in sorted(out_dir.glob("*.cubin")):
+        sass = subprocess.run([cuda_tool("nvdisasm"), "-g", "-c", str(cubin)],
+                              check=True, capture_output=True, text=True).stdout  # fmt: skip
+        here = None
+        for ln in sass.splitlines():
+            loc = re.search(r'//## File "([^"]+)", line (\d+)', ln)
+            if loc:
+                here = (pathlib.Path(loc.group(1)).name, int(loc.group(2)))
+            elif re.search(r"\b(LDL|STL)(\.\w+)*\b", ln):
+                counts["all"] += 1
+                for name, (file, lo, hi) in windows.items():
+                    if here and here[0] == file and lo <= here[1] < hi:
+                        counts[name] += 1
+    return counts
 
 
 def launch(kernel: KernelBuild, fn: str, params: torch.Tensor | None, device: torch.device, *args) -> None:

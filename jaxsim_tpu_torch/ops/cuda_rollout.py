@@ -18,11 +18,6 @@ raises; nothing falls back.
 
 from __future__ import annotations
 
-import ctypes
-import pathlib
-import re
-import subprocess
-
 from . import cuda_build
 from .batched_engine import BatchedEngine, BatchedState
 from .cuda_build import CSRC, F32, I32, PTR, BuildJob, KernelBuild, packed_params
@@ -59,47 +54,23 @@ def rr_geometry(kernel: KernelBuild) -> dict[str, int]:
     """The relaxed-rigid kernel's launch: threads and envs a block, the
     dynamic shared memory a block takes in bytes, and the blocks an SM holds
     at once (CUDA's occupancy calculator)."""
-    out = (ctypes.c_int * 4)()
-    rc = kernel.lib.jx_rr_geometry(ctypes.cast(out, ctypes.c_void_p))
-    if rc != 0:
-        raise RuntimeError(f"jx_rr_geometry failed: {kernel.lib.jx_error_string(rc).decode()}")
-    return dict(threads=out[0], envs=out[1], smem_bytes=out[2], blocks_per_sm=out[3])
+    return cuda_build.geometry(kernel, "jx_rr_geometry")
 
 
 def rr_local_memory(kernel: KernelBuild) -> dict[str, int]:
     """The local loads and stores (``LDL``, ``STL``) in the relaxed-rigid
-    kernel's SASS (``nvdisasm -g`` of the library's cubin, which the
-    ``-lineinfo`` build maps to source lines): in all, in the M⁻¹Jᵀ pass
-    (``rr_scatter``, ``rr_minv``, ``rr_gather`` of ``rr_step.cuh``), and in
-    the CG loop around it."""
+    kernel's SASS: in all, in the M⁻¹Jᵀ pass (``rr_scatter``, ``rr_minv``,
+    ``rr_gather`` of ``rr_step.cuh``), and in the CG loop around it."""
     header = (CSRC / "rr_step.cuh").read_text().splitlines()
 
     def line_of(text: str) -> int:
         return next(n for n, ln in enumerate(header, 1) if text in ln)
 
-    windows = dict(
-        passes=(line_of("void rr_scatter("), line_of("float rr_prec(")),
-        cg_loop=(line_of("for (int it = -1; it <= JX_RR_ITERS; ++it)"), line_of("// m <- the solved forces")),
-    )
-    out_dir = kernel.path.parent / "cubin"
-    out_dir.mkdir(exist_ok=True)
-    subprocess.run([cuda_build.cuda_tool("cuobjdump"), "-xelf", "all", str(kernel.path)], cwd=out_dir,
-                   check=True, capture_output=True)  # fmt: skip
-    counts = dict.fromkeys(("all", *windows), 0)
-    for cubin in sorted(out_dir.glob("*.cubin")):
-        sass = subprocess.run([cuda_build.cuda_tool("nvdisasm"), "-g", "-c", str(cubin)],
-                              check=True, capture_output=True, text=True).stdout  # fmt: skip
-        here = None
-        for ln in sass.splitlines():
-            loc = re.search(r'//## File "([^"]+)", line (\d+)', ln)
-            if loc:
-                here = (pathlib.Path(loc.group(1)).name, int(loc.group(2)))
-            elif re.search(r"\b(LDL|STL)(\.\w+)*\b", ln):
-                counts["all"] += 1
-                for name, (lo, hi) in windows.items():
-                    if here and here[0] == "rr_step.cuh" and lo <= here[1] < hi:
-                        counts[name] += 1
-    return counts
+    return cuda_build.local_memory(kernel, dict(
+        passes=("rr_step.cuh", line_of("void rr_scatter("), line_of("float rr_prec(")),
+        cg_loop=("rr_step.cuh", line_of("for (int it = -1; it <= JX_RR_ITERS; ++it)"),
+                 line_of("// m <- the solved forces")),
+    ))  # fmt: skip
 
 
 def rollout_reference(

@@ -8,11 +8,13 @@ and returns the cotangents of the input state and of ``tau``; with
 (``BatchedEngine.PARAM_NAMES``), summed over the batch.
 
 The kernel is ``jaxsim_tpu_torch/csrc/step_vjp.cu``, built per topology and
-per ``params_grad`` (a build-time define, so two libraries a topology). With
-``params_grad`` it writes one partial sum a 32-env block; a second small
-kernel of the same file, :func:`sum_partials`, adds the partials in a fixed
-order (each entry over a group of lanes, then a shuffle tree), so two runs
-agree to the bit.
+per ``params_grad`` (a build-time define, so two libraries a topology): each
+env on ``LANES`` lanes of a warp, its tape in shared memory, a block one warp
+of :func:`envs_per_block` envs. With ``params_grad`` each block sums its
+envs' model-array cotangents in shared memory and writes one partial row; a
+second small kernel of the same file, :func:`sum_partials`, adds the
+partials in a fixed order (each entry by a block's warps, then in warp
+order), so two runs agree to the bit.
 
 :func:`step_vjp` takes its plain version, :func:`step_vjp_reference`
 (``torch.autograd.grad`` through the twin's step), for a CPU state and the
@@ -21,6 +23,8 @@ contacts, flat ground, semi-implicit Euler, the body K3 has.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import torch
 
@@ -36,12 +40,47 @@ SOURCE = CSRC / "step_vjp.cu"
 SIGNATURES = {
     "jx_step_vjp": [PTR] * 22 + [I32] + [F32] * 8 + [PTR],
     "jx_param_sum": [PTR, I32, PTR, PTR],
+    "jx_vjp_geometry": [PTR],
 }
-BLOCK = 32  # envs a block of the kernel, one partial sum each
+_ENVS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+# Lanes of a warp that carry one env (a build-time constant; PERF.md §6 has
+# the times of the counts tried).
+LANES = 4
 
 
-def job(engine: BatchedEngine, params_grad: bool = False) -> BuildJob:
-    return BuildJob(engine, SOURCE, SIGNATURES, (("JX_PARAMS_GRAD", int(params_grad)),))
+def job(engine: BatchedEngine, params_grad: bool = False, lanes: int = LANES) -> BuildJob:
+    return BuildJob(engine, SOURCE, SIGNATURES, (("JX_PARAMS_GRAD", int(params_grad)), ("JX_LN_LANES", int(lanes))))
+
+
+def envs_per_block(engine: BatchedEngine, params_grad: bool = False, lanes: int = LANES) -> int:
+    """Envs a block of the kernel takes: the rows of ``partials`` are the
+    batch over this, rounded up. Kept by engine after the first call."""
+    cache = _ENVS.setdefault(engine, {})
+    if (params_grad, lanes) not in cache:
+        cache[(params_grad, lanes)] = cuda_build.lane_tables(engine, lanes, params_grad)["envs"]
+    return cache[(params_grad, lanes)]
+
+
+def geometry(kernel: KernelBuild) -> dict[str, int]:
+    """The kernel's launch: threads and envs a block, the dynamic shared
+    memory a block takes in bytes, and the blocks an SM holds at once (CUDA's
+    occupancy calculator)."""
+    return cuda_build.geometry(kernel, "jx_vjp_geometry")
+
+
+def local_memory(kernel: KernelBuild) -> dict[str, int]:
+    """The local loads and stores in the kernel's SASS: in all, in the
+    forward recompute (``soft_step_lanes.cuh``) and in the reverse sweep
+    (``step_vjp_lanes`` and the transposes it calls in ``step_vjp.cu``)."""
+    text = SOURCE.read_text().splitlines()
+
+    def line_of(pattern: str) -> int:
+        return next(n for n, ln in enumerate(text, 1) if pattern in ln)
+
+    return cuda_build.local_memory(kernel, dict(
+        forward=("soft_step_lanes.cuh", 1, 10**6),
+        reverse=("step_vjp.cu", line_of("// ----- transposes of the small algebra"), line_of("// ----- kernels -----")),
+    ))  # fmt: skip
 
 
 def build(engine: BatchedEngine, params_grad: bool = False) -> KernelBuild:
@@ -110,6 +149,28 @@ def sum_partials(engine: BatchedEngine, partials: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def launch(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, tau, ct: BatchedState, pr=None,
+           params_grad: bool = False, lanes: int = LANES):
+    """One launch of ``kernel`` (the engine's K4 library, or a variant of it
+    built from another source or lane count) on checked CUDA tensors; counts
+    nothing. Returns ``(ct_state, ct_tau, partials)``, ``partials`` None
+    without ``params_grad``."""
+    params = packed_params(engine, pr)
+    out = cuda_build.empty_state_like(state)
+    ct_tau = torch.empty_like(tau)
+    B = state.p.shape[-1]
+    n_blocks = -(-B // envs_per_block(engine, params_grad, lanes))
+    partials = torch.empty(n_blocks, params.numel(), device=tau.device) if params_grad else None
+    cuda_build.launch(
+        kernel, "jx_step_vjp", params, state.p.device,
+        *cuda_build.state_pointers(state), tau.data_ptr(), *cuda_build.state_pointers(ct),
+        *cuda_build.state_pointers(out), ct_tau.data_ptr(),
+        None if partials is None else partials.data_ptr(),
+        B, *cuda_build.engine_scalars(engine),
+    )  # fmt: skip
+    return out, ct_tau, partials
+
+
 def step_vjp(
     engine: BatchedEngine, state: BatchedState, tau, ct: BatchedState, pr=None, params_grad: bool = False
 ):
@@ -128,18 +189,7 @@ def step_vjp(
         cuda_build.check_tensor(f"ct.{name}", t, like.shape, engine.S.device)
     for name, t in (pr or {}).items():
         cuda_build.check_tensor(f"pr[{name!r}]", t, t.shape, engine.S.device)
-    params = packed_params(engine, pr)
-    out = cuda_build.empty_state_like(state)
-    ct_tau = torch.empty_like(tau)
-    n_blocks = (B + BLOCK - 1) // BLOCK
-    partials = torch.empty(n_blocks, params.numel(), device=tau.device) if params_grad else None
-    cuda_build.launch(
-        build(engine, params_grad), "jx_step_vjp", params, state.p.device,
-        *cuda_build.state_pointers(state), tau.data_ptr(), *cuda_build.state_pointers(ct),
-        *cuda_build.state_pointers(out), ct_tau.data_ptr(),
-        None if partials is None else partials.data_ptr(),
-        B, *cuda_build.engine_scalars(engine),
-    )  # fmt: skip
+    out, ct_tau, partials = launch(build(engine, params_grad), engine, state, tau, ct, pr, params_grad)
     STEP_VJP_KERNEL_LAUNCHES += 1
     if params_grad:
         return out, ct_tau, unpack_params(engine, sum_partials(engine, partials))

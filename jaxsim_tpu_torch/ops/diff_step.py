@@ -3,11 +3,12 @@
 Counterparts of ``jaxsim_tpu/ops/pallas_step.py``'s fused differentiable
 tier (``build_fused_diff_pallas_step`` / ``_rollout``), as a
 ``torch.autograd.Function`` over flat tensors (the six state leaves, the
-torques ``tau`` and the model arrays in ``BatchedEngine.PARAM_NAMES`` order):
+torques ``tau`` and the model arrays in the engine's ``PARAM_NAMES`` order):
 forward K3 (:func:`cuda_step.step_tau`), backward K4
 (:func:`cuda_step_vjp.step_vjp`). Without ``params_grad`` the model arrays
 are the engine's and constant; with it, gradients also flow to ``pr``, the
-model arrays by name, merged over the engine's own.
+model arrays by name (the engine's own ``PARAM_NAMES``: a relaxed-rigid
+engine's add ``rrMinv``), merged over the engine's own.
 
 A rollout calls ``policy_fn(state, *policy_args) -> tau`` between steps, in
 torch ops, so gradients reach the policy's tensors. For a CPU state every
@@ -28,17 +29,16 @@ from torch.utils.checkpoint import checkpoint
 from . import cuda_step, cuda_step_vjp
 from .batched_engine import BatchedEngine, BatchedState
 
-PARAM_NAMES = BatchedEngine.PARAM_NAMES
-
 
 def _model_arrays(engine: BatchedEngine, pr) -> tuple[torch.Tensor, ...]:
-    """``pr`` merged over the engine's own arrays, in ``PARAM_NAMES`` order."""
+    """``pr`` merged over the engine's own arrays, in the engine's
+    ``PARAM_NAMES`` order."""
     arrays = engine.params(pr)
-    return tuple(arrays[k].contiguous() for k in PARAM_NAMES)
+    return tuple(arrays[k].contiguous() for k in engine.PARAM_NAMES)
 
 
-def _as_pr(params) -> dict[str, torch.Tensor] | None:
-    return dict(zip(PARAM_NAMES, params)) if params else None
+def _as_pr(engine: BatchedEngine, params) -> dict[str, torch.Tensor] | None:
+    return dict(zip(engine.PARAM_NAMES, params)) if params else None
 
 
 class _Step(torch.autograd.Function):
@@ -50,17 +50,17 @@ class _Step(torch.autograd.Function):
         ctx.engine = engine
         ctx.save_for_backward(*flat)
         state, tau, params = BatchedState(*flat[:6]), flat[6], flat[7:]
-        return cuda_step.step_tau(engine, state, tau, _as_pr(params)).fields()
+        return cuda_step.step_tau(engine, state, tau, _as_pr(engine, params)).fields()
 
     @staticmethod
     def backward(ctx, *ct):
         flat = ctx.saved_tensors
         state, tau, params = BatchedState(*flat[:6]), flat[6], flat[7:]
         ct = BatchedState(*(torch.zeros_like(x) if c is None else c.contiguous() for c, x in zip(ct, flat)))
-        res = cuda_step_vjp.step_vjp(ctx.engine, state, tau, ct, _as_pr(params), bool(params))
+        res = cuda_step_vjp.step_vjp(ctx.engine, state, tau, ct, _as_pr(ctx.engine, params), bool(params))
         grads = (*res[0].fields(), res[1])
         if params:
-            grads += tuple(res[2][k] for k in PARAM_NAMES)
+            grads += tuple(res[2][k] for k in ctx.engine.PARAM_NAMES)
         return (None, *grads)
 
 

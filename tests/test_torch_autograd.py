@@ -369,6 +369,39 @@ def _pendulum(B=4):
     return eng, state
 
 
+def test_model_arrays_take_the_engines_names():
+    """``diff_step`` reads the model arrays' names from the engine: a
+    relaxed-rigid engine's carry ``rrMinv`` (its own ``PARAM_NAMES``), a
+    soft engine's the six soft arrays, and the soft path's gradients with
+    respect to all of them are the twin's under autograd."""
+    from jaxsim_tpu_torch import JaxSimModel
+    from jaxsim_tpu_torch.ops.contacts.relaxed_rigid import RelaxedRigidContacts
+
+    rr = BatchedEngine.build(
+        JaxSimModel.build_from_model_description(models.build_garpez_urdf(), contact_model=RelaxedRigidContacts()),
+        device="cpu",
+    )
+    arrays = diff_step._model_arrays(rr, {"rrMinv": 2.0 * rr.rrMinv})
+    assert rr.PARAM_NAMES[-1] == "rrMinv" and len(arrays) == len(rr.PARAM_NAMES) == 7
+    assert torch.equal(arrays[-1], 2.0 * rr.rrMinv)
+    assert list(diff_step._as_pr(rr, arrays)) == list(rr.PARAM_NAMES)
+
+    eng, state = _pendulum()
+    assert eng.PARAM_NAMES == BatchedEngine.PARAM_NAMES
+    pr = {k: t.clone().requires_grad_() for k, t in eng.params().items()}
+    gains = torch.tensor(GAINS)
+    out = diff_step.fused_diff_rollout(eng, 3, params_grad=True)(state, _gains_policy, gains, pr=pr)
+    got = torch.autograd.grad(out.p[2].sum() + (out.sd**2).sum(), list(pr.values()))
+    twin = {k: t.clone().requires_grad_() for k, t in eng.params().items()}
+    st = state
+    for _ in range(3):
+        st = eng.step(st, _gains_policy(st, gains), twin)
+    ref = torch.autograd.grad(st.p[2].sum() + (st.sd**2).sum(), list(twin.values()), allow_unused=True)
+    for k, g, r in zip(pr, got, ref):
+        torch.testing.assert_close(g, torch.zeros_like(g) if r is None else r, rtol=1e-5, atol=1e-6, msg=k)
+    assert any(float(g.abs().max()) > 0 for g in got)
+
+
 def test_step_vjp_on_a_cpu_state_runs_the_plain_version():
     eng, state = _pendulum()
     tau = torch.ones_like(state.s)
@@ -429,11 +462,21 @@ def cuda():
 def _card_case(name, device, B):
     from jaxsim_tpu_torch import JaxSimModel
 
-    urdf = {"pendulum1": models.build_pendulum_urdf(1), "garpez": models.build_garpez_urdf()}[name]
+    urdf = {"pendulum1": models.build_pendulum_urdf(1), "garpez": models.build_garpez_urdf()}[name.split()[0]]
     eng = BatchedEngine.build(JaxSimModel.build_from_model_description(urdf), device=device)
     rng = np.random.default_rng(11)
     z = (0.0, 0.0) if name == "pendulum1" else (-0.01, 0.02)
     arrays = _random_arrays(eng.n_joints, eng.m_rows, B, z, rng)
+    if name == "garpez in contact":
+        # chip_smoke.py's tilted-low start: two corners penetrate from step 0.
+        arrays.update(
+            p=np.tile([[0.0], [0.0], [0.015]], (1, B)),
+            q=np.tile([[0.995], [0.0998], [0.0], [0.0]], (1, B)),
+            s=0.05 * rng.standard_normal((eng.n_joints, B)),
+            sd=np.zeros((eng.n_joints, B)),
+            v=np.zeros((6, B)),
+            m=np.zeros((eng.m_rows, 3, B)),
+        )
     tau = 3.0 * rng.standard_normal((eng.n_joints, B))
     ct = {k: rng.standard_normal(a.shape) for k, a in arrays.items()}
     f = functools.partial(bridge.state_from_numpy, device=device)
@@ -442,11 +485,12 @@ def _card_case(name, device, B):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("params_grad", [False, True])
-@pytest.mark.parametrize("name", ["pendulum1", "garpez"])
+@pytest.mark.parametrize("name", ["pendulum1", "garpez", "garpez in contact"])
 def test_step_vjp_kernel_matches_plain(cuda, name, params_grad):
     """K4 against its plain version at B = 256: every cotangent per env within
     1e-3·max(1, max|plain|); the batch-summed model-array cotangents at
-    rtol 5e-3, atol 5e-4·max(1, max|plain|)."""
+    rtol 5e-3, atol 5e-4·max(1, max|plain|). Garpez also from the tilted-low
+    start, points in contact."""
     eng, state, tau, ct = _card_case(name, cuda, 256)
     got = cuda_step_vjp.step_vjp(eng, state, tau, ct, params_grad=params_grad)
     ref = cuda_step_vjp.step_vjp_reference(eng, state, tau, ct, params_grad=params_grad)
@@ -488,13 +532,17 @@ def test_checkpointed_rollout_launches_k3_twice_and_k4_once_a_step(cuda):
 
 @pytest.mark.gpu
 def test_sum_partials_is_reproducible_and_matches_torch_sum(cuda):
-    """K4's partials' sum over 256 blocks (the humanoid's at B = 8192) of
-    garpez's model arrays: one launch a call, two runs equal to the bit, and
-    within 1e-6 relative of ``torch.sum`` (the scale: the largest sum)."""
+    """K4's partials' sum over the humanoid's blocks at B = 8192 (a row a
+    block of ``envs_per_block`` envs) of garpez's model arrays: one launch a
+    call, two runs equal to the bit, and within 1e-6 relative of
+    ``torch.sum`` (the scale: the largest sum)."""
+    from jaxsim_tpu_torch import JaxSimModel
+
+    hum = BatchedEngine.build(JaxSimModel.build_from_model_description(models.build_humanoid_urdf()), device="cpu")
     eng, *_ = _card_case("garpez", cuda, 32)
     n = cuda_build.packed_params(eng).numel()
     gen = torch.Generator(cuda).manual_seed(0)
-    partials = torch.randn(256, n, generator=gen, device=cuda)
+    partials = torch.randn(-(-8192 // cuda_step_vjp.envs_per_block(hum, True)), n, generator=gen, device=cuda)
     before = cuda_step_vjp.PARAM_SUM_KERNEL_LAUNCHES
     got, again = cuda_step_vjp.sum_partials(eng, partials), cuda_step_vjp.sum_partials(eng, partials)
     torch.cuda.synchronize()
