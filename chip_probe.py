@@ -5,7 +5,7 @@ pattern and the spread that float32 rounding leaves, on one NVIDIA GPU.
 Usage, from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations] [rr] [rr_faults] [param_sum]
-        [profiler] [vjp] [vjp_faults]
+        [profiler] [vjp] [vjp_faults] [lanes] [quat] [k1_faults]
 
 With no argument it runs the first three. Probes of the flagship humanoid
 (soft contacts, flat ground, PD policy):
@@ -68,7 +68,27 @@ With no argument it runs the first three. Probes of the flagship humanoid
   and the model arrays' share of ``chip_smoke.py``'s limit;
 * vjp_faults: ``VJP_FAULTS`` seeded into copies of ``csrc/`` under
   ``build/``, each held with the sound kernel to ``chip_smoke.py``'s K4
-  limits (``vjp_gates``): per case the worst statistic over its limit.
+  limits (``vjp_gates``): per case the worst statistic over its limit;
+* lanes: the soft K1 and K5 at each count of lanes an env in
+  ``LANE_COUNTS``, K1 on the flagship's shape (the humanoid, 8192 envs,
+  ``HORIZON`` steps), K5 on the ES generation's (8 candidates × 1024 envs,
+  the MLP of 16, 500 steps, ``chip_smoke.ES_OPTIONS``): each build's ptxas
+  line, launch geometry and local loads and stores in its SASS by source
+  window; kernel-only ms (``torch.profiler``, mean of ``LANE_REPEATS``) and
+  CUDA-event ms of a launch (median); and each K1 build's worst field's max
+  |Δ| against the plain twin after ``LANE_CHECK_STEPS`` steps; K1 also with
+  the child -> parent pairs recomputed from s, not read from the slot
+  (``RECOMPUTE_PAIR``);
+* quat: the plain twin with its quaternion renormalisation dropped,
+  against the sound float32 twin, beside the float32 twin's own distance
+  to the float64 one, after ``QUAT_STEPS`` steps at ``QUAT_BATCH`` envs
+  from the humanoid's joints-moving start, the humanoid spinning in the air
+  (the main-path start lifted and turned as ``chip_smoke.BOX_SPIN``), and
+  CASES' spinning box: per start and field, the max over envs of each
+  per-env |Δ| (what chose the box for CASES);
+* k1_faults: ``K1_FAULTS`` seeded into copies of ``csrc/`` under
+  ``build/``, each held with the sound kernel to ``chip_smoke.py``'s CASES
+  limits (``k1_gates``): per case the worst field's statistic over its limit.
 
 It prints the card's name and power limit, then JSON lines keyed by probe,
 and exits non-zero when no CUDA device is visible.
@@ -103,6 +123,11 @@ RR_BATCHES = (8192, 32768, 65536)
 VJP_LANES = (4, 8, 16, 1)  # K4's lanes an env; the first is the wrapper's
 VJP_BATCH = dict(humanoid23=8192, garpez=1024)
 RR_STEPS = 100
+LANE_COUNTS = (4, 8, 2, 1)  # the soft K1's and K5's lanes an env; the first is the wrappers'
+LANE_REPEATS = 3
+LANE_CHECK_STEPS = 10
+QUAT_STEPS = 100
+QUAT_BATCH = 1024
 # Seeded faults of the relaxed-rigid step, each one edit of rr_step.cuh
 # (the text, its replacement): the impedance floor dropped from the
 # regularizer, the warm start forced cold, one PCG iteration fewer.
@@ -139,6 +164,34 @@ VJP_FAULTS = {
         "soft_step_lanes.cuh", "for (int off = 1; off < G; off <<= 1)", "for (int off = 1; off <= G; off <<= 1)"
     ),
 }
+
+
+# Seeded faults of the soft K1's lane step, each one edit of
+# soft_step_lanes.cuh (the text, its replacement): m's update dropped, a
+# contact parent's point wrenches carried into the next parent's sum, the
+# quaternion not renormalised, and the ṡ of the links on the group's last
+# lane not written (s still moves with it).
+K1_FAULTS = {
+    "m's update dropped": ("x.m[c * 3 + j] = mc[j] + sc.dt * h.md[j];", "x.m[c * 3 + j] = mc[j];"),
+    "a parent's wrench summed into the next parent's": (
+        "        // The next parent's points start a sum of their own.\n#pragma unroll\n"
+        "        for (int j = 0; j < 6; ++j) acc[j] = 0.0f;\n",
+        "",
+    ),
+    "quaternion not renormalised": ("x.q[k] = qn[k] / nq;", "x.q[k] = qn[k];"),
+    "one lane's ṡ not written": ("        x.sd[i - 1] = sdn;\n", "        if (g != G - 1) x.sd[i - 1] = sdn;\n"),
+}
+
+
+# The lane step's child -> parent pairs recomputed from s where pass 2 and
+# pass 3 read them (the edit of soft_step_lanes.cuh's link_pair), for the
+# lanes probe: the slot keeps them, 12 floats a link.
+RECOMPUTE_PAIR = (
+    "  (void)P;\n  (void)si;\n  sl.ld(i * LK + LK_IR, 9, iR);\n  sl.ld(i * LK + LK_IP, 3, ip);\n",
+    "  float rR[9], rp[3], t[3];\n  relative_transform(P, i, si, rR, rp);\n  (void)sl;\n"
+    "  for (int r = 0; r < 3; ++r)\n    for (int cc = 0; cc < 3; ++cc) iR[r * 3 + cc] = rR[cc * 3 + r];\n"
+    "  mv3(iR, rp, t);\n  for (int k = 0; k < 3; ++k) ip[k] = -t[k];\n",
+)
 
 
 def _seeded_copy(kind: str, name: str, file: str, old: str, new: str):
@@ -556,6 +609,123 @@ def profiler_probe(hum, gen) -> None:
             }}), flush=True)  # fmt: skip
 
 
+def lanes_probe(hum, gen) -> None:
+    """The soft K1 and K5 at each of LANE_COUNTS lanes an env, on the
+    flagship's and the ES generation's shapes."""
+    import torch
+
+    from chip_smoke import ES, ES_OPTIONS, es_population, es_sizes, profiled_ms
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_env_rollout, cuda_rollout
+    from jaxsim_tpu_torch.ops.policies import obs_dim
+
+    n, d = hum.n_joints, obs_dim(hum.n_joints)
+    state = hum.init_state(PROFILE_BATCH, base_position=(0.0, 0.0, 0.9), generator=gen)
+    _, weights = es_population(0.1 * torch.randn(sum(es_sizes(n, d)), generator=gen, device=gen.device), gen, n, d)
+    pol = cuda_env_rollout.make_policy(hum, **weights)
+    es_state = hum.init_state(ES["candidates"] * ES["envs_per"], base_position=(0.0, 0.0, 0.9), generator=gen)
+    jobs = {("k1", lanes): cuda_rollout.job(hum, lanes) for lanes in LANE_COUNTS}
+    recompute = _seeded_copy("lanes", "pairs recomputed", "soft_step_lanes.cuh", *RECOMPUTE_PAIR)
+    jobs[("k1, iR and ip recomputed", LANE_COUNTS[0])] = dataclasses.replace(
+        cuda_rollout.job(hum, LANE_COUNTS[0]), source=recompute / "rollout.cu")
+    jobs.update({("k5", lanes): cuda_env_rollout.job(hum, pol, lanes) for lanes in LANE_COUNTS})
+    builds = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+    plain = cuda_rollout.rollout_reference(hum, state, LANE_CHECK_STEPS)
+    for (kernel_name, lanes), kernel in builds.items():
+        if kernel_name.startswith("k1"):
+            geo, local = cuda_rollout.geometry(kernel), cuda_rollout.lane_local_memory(kernel)
+
+            def run(steps=HORIZON):
+                return cuda_rollout.launch(kernel, hum, state, steps, 60.0, 0.5)
+
+            got = run(LANE_CHECK_STEPS)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in zip(got.fields(), plain.fields()))
+            extra, name = {"B": PROFILE_BATCH, "steps": HORIZON, "max_abs_err_vs_plain": err}, "rollout_kernel"
+        else:
+            geo, local = cuda_env_rollout.geometry(kernel), cuda_rollout.lane_local_memory(kernel)
+
+            def run():
+                return cuda_env_rollout.launch(kernel, hum, es_state, ES["steps"], pol, kp=60.0, kd=0.5,
+                                               reset_noise=0.0, seed=0, **ES_OPTIONS)  # fmt: skip
+
+            extra, name = {"B": es_state.p.shape[-1], "steps": ES["steps"]}, "env_rollout_kernel"
+        run()  # warm-up
+        print(json.dumps({"lanes": {
+            "kernel": kernel_name, "lanes": lanes, **extra,
+            "ptxas": [ln.strip() for ln in kernel.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln],
+            "geometry": geo, "local_loads_and_stores": local,
+            "kernel_ms": profiled_ms(run, name, LANE_REPEATS), "event_ms": device_ms(run, LANE_REPEATS),
+        }}), flush=True)  # fmt: skip
+
+
+def quat_probe(hum, gen) -> None:
+    """The plain twin without its quaternion renormalisation against the
+    sound one, beside float32's own spread (float32 against float64)."""
+    import copy
+
+    import torch
+
+    from chip_smoke import BOX_SPIN, box_engine, moving_joints, over_envs, per_env_abs_diff
+    from jaxsim_tpu_torch import BatchedState
+    from jaxsim_tpu_torch.ops.batched_engine import BatchedEngine
+
+    def spin(state):
+        v = state.v.clone()
+        v[3:6] = BOX_SPIN["rate"] / 3**0.5 * torch.randn(v[3:6].shape, generator=gen, device=v.device)
+        p = state.p + torch.tensor([[0.0], [0.0], [BOX_SPIN["height"]]], device=v.device)
+        return dataclasses.replace(state, p=p, v=v)
+
+    state0 = hum.init_state(QUAT_BATCH, base_position=(0.0, 0.0, 0.9), generator=gen)
+    box = box_engine(hum.S.device)
+    starts = {
+        "humanoid23 joints moving": (hum, moving_joints(state0, gen)),
+        "humanoid23 spinning in the air": (hum, spin(state0)),
+        "box spinning in the air": (box, spin(box.init_state(QUAT_BATCH, base_position=(0.0, 0.0, 0.0), generator=gen))),
+    }
+    normalize = BatchedEngine.__dict__["_normalize_quat"]
+    for name, (engine, state) in starts.items():
+        def run(eng, st):
+            with torch.no_grad():
+                return eng.rollout(st, QUAT_STEPS, policy=lambda x: -60.0 * x.s - 0.5 * x.sd)
+
+        sound = run(engine, state)
+        wide = run(copy.deepcopy(engine).double(), BatchedState(*(t.double() for t in state.fields())))
+        BatchedEngine._normalize_quat = staticmethod(lambda q: q)
+        try:
+            fault = run(engine, state)
+        finally:
+            BatchedEngine._normalize_quat = normalize
+        print(json.dumps({"quat": {
+            "start": name, "B": QUAT_BATCH, "steps": QUAT_STEPS,
+            "float32_vs_float64": over_envs(per_env_abs_diff(BatchedState(*(t.double() for t in sound.fields())), wide),
+                                            "max"),
+            "not_renormalised_vs_float32": over_envs(per_env_abs_diff(fault, sound), "max"),
+        }}), flush=True)  # fmt: skip
+
+
+def k1_faults_probe(hum, gen) -> None:
+    """Each of K1_FAULTS seeded into a copy of ``csrc/`` under ``build/``,
+    built beside the sound source for each engine of CASES, and every
+    variant held to ``chip_smoke.py``'s CASES limits (``k1_gates``): per
+    case, the worst field's statistic over its limit (> 1 is refused)."""
+    from chip_smoke import k1_gates, pendulum_engine, start_states
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_rollout
+
+    starts = start_states(pendulum_engine(hum.S.device), hum)
+    sources = {"control": cuda_rollout.SOURCE}
+    for name, (old, new) in K1_FAULTS.items():
+        sources[name] = _seeded_copy("k1_faults", name, "soft_step_lanes.cuh", old, new) / "rollout.cu"
+    engines = list({id(e): e for e, _ in starts.values()}.values())
+    jobs = {(name, id(eng)): dataclasses.replace(cuda_rollout.job(eng), source=src)
+            for name, src in sources.items() for eng in engines}  # fmt: skip
+    kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+
+    def variant(name):
+        return lambda eng, st, n: cuda_rollout.launch(kernels[(name, id(eng))], eng, st, n, 60.0, 0.5)
+
+    print(json.dumps({"k1_faults": k1_gates(starts, {name: variant(name) for name in sources})}), flush=True)
+
+
 PROBES = {
     "sweep": sweep_probe,
     "profile": profile_probe,
@@ -568,6 +738,9 @@ PROBES = {
     "profiler": profiler_probe,
     "vjp": vjp_probe,
     "vjp_faults": vjp_faults_probe,
+    "lanes": lanes_probe,
+    "quat": quat_probe,
+    "k1_faults": k1_faults_probe,
 }
 
 

@@ -10,8 +10,9 @@ It builds every CUDA kernel of the port from ``jaxsim_tpu_torch/csrc`` with
 plain PyTorch version on the card:
 
 * K1 (``rollout.cu``), K2 and K3 (``step.cu``), in every state field, on the
-  fixed-base pendulum and on the 23-DoF humanoid at 8192 envs, from the main
-  path's start and with the joints moving (``CASES``); K1's relaxed-rigid
+  fixed-base pendulum, on the 23-DoF humanoid at 8192 envs, from the main
+  path's start and with the joints moving, and on a box spinning in the air
+  (``CASES``); two K1 launches from the same start to the bit; K1's relaxed-rigid
   kernel (``rollout_rr.cu``) likewise on the humanoid, on garpez tilted
   low, and on the humanoid's touchdown with 3 PCG iterations (``RR_CASES``),
   ``m`` (the solved point forces) relative to its size, with the active
@@ -65,10 +66,11 @@ before it and read just after:
   of the data-sheet peak; the bounds then give every operations-bound
   kernel's share of the measured peak beside its share of the data sheet's.
 
-It prints each build's ptxas line; K4's and the relaxed-rigid kernel's
-launch geometry (threads, envs and shared memory a block, blocks or envs an
-SM) and the local loads and stores in their SASS (K4's in the forward and
-the reverse sweep, K1-rr's in the M⁻¹Jᵀ pass); the
+It prints each build's ptxas line; the soft K1's and K5's, K4's and the
+relaxed-rigid kernel's launch geometry (threads, envs and shared memory a
+block, blocks or envs an SM, waves) and the local loads and stores in their
+SASS (K1's and K5's in the lane step's passes, K4's in the forward and the
+reverse sweep, K1-rr's in the M⁻¹Jᵀ pass); the
 kernel-only times of K3, K4, the partials' sum and ``torch.sum`` beside it
 (``torch.profiler``). It prints each phase's seconds, the card's name and
 power limit, a JSON line
@@ -116,13 +118,21 @@ TOL = 1e-3
 # its max. With the joints moving, float32 rounding alone sends a few envs of
 # 8192 far apart by 100 steps (the float32 and float64 plain versions differ
 # there by up to 1.9e-2 in ṡ): that start is held at its max after 10 steps,
-# and at the 99.9th percentile over envs after 100.
+# and at the 99.9th percentile over envs after 100. The spinning box (no
+# joints) starts BOX_SPIN["height"] up, turning at BOX_SPIN["rate"] about a
+# random axis: in the air only the base's gyroscopic terms and its
+# quaternion integration act, so float32 rounding stays far below TOL while
+# a step that does not renormalise q moves q past it in 100 steps; the
+# humanoid's starts, spinning or not, see that fault below float32's own
+# spread or TOL (``chip_probe.py quat`` measures both).
 CASES = (
     ("pendulum1", 100, "max"),
     ("humanoid23 main-path start", 100, "max"),
     ("humanoid23 joints moving", 10, "max"),
     ("humanoid23 joints moving", 100, "p99.9"),
+    ("box spinning in the air", 100, "max"),
 )
+BOX_SPIN = dict(batch=1024, height=1.0, rate=10.0)  # m, rad/s
 # K4 vs plain: (start state, statistic over envs) for every output cotangent
 # (``vjp_cotangents``); each env's largest |Δ| of a cotangent field over
 # max(1, max |plain field|) is held to TOL. With the joints moving, a few
@@ -301,6 +311,13 @@ def pendulum_engine(device):
     )
 
 
+def box_engine(device):
+    """A free box with soft contacts at its 8 corners and no joints."""
+    from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, models
+
+    return BatchedEngine.build(JaxSimModel.build_from_model_description(models.build_box_urdf()), device=device)
+
+
 def per_env_abs_diff(a, b) -> dict:
     """|Δ| per field and env: the largest entry of each env's slice."""
     return {
@@ -366,10 +383,15 @@ def start_states(pend, hum) -> dict:
     pend_state = pend.init_state(1024, base_position=(0.0, 0.0, 0.0))
     pend_state.s = (0.4 + 0.1 * torch.randn(pend_state.s.shape, generator=gen, device=device)).contiguous()
     state0 = hum.init_state(BATCH, base_position=(0.0, 0.0, 0.9), generator=gen)
+    moving = moving_joints(state0, gen)
+    box = box_engine(device)
+    spin = box.init_state(BOX_SPIN["batch"], base_position=(0.0, 0.0, BOX_SPIN["height"]), generator=gen)
+    spin.v[3:6] = BOX_SPIN["rate"] / 3**0.5 * torch.randn((3, BOX_SPIN["batch"]), generator=gen, device=device)
     return {
         "pendulum1": (pend, pend_state),
         "humanoid23 main-path start": (hum, state0),
-        "humanoid23 joints moving": (hum, moving_joints(state0, gen)),
+        "humanoid23 joints moving": (hum, moving),
+        "box spinning in the air": (box, spin),
     }
 
 
@@ -756,6 +778,32 @@ def rr_active_points(engine, state) -> int:
     return int(engine._point_geometry(W_R, W_p, W_v, engine.params())["active"].sum())
 
 
+def k1_gates(starts, variants) -> dict[str, dict[str, float]]:
+    """Variants of K1's soft build (name -> a function like
+    ``cuda_rollout.rollout``: the sound kernel, seeded faults) against the
+    plain twin in each of CASES, held to CASES' limits without raising: for
+    each variant and case its worst field's statistic over TOL (> 1 is
+    refused; a non-finite state is infinitely far)."""
+    import torch
+
+    from jaxsim_tpu_torch.ops import cuda_rollout
+
+    ratios = {name: {} for name in variants}
+    for name, n_steps, stat in CASES:
+        engine, state = starts[name]
+        plain = cuda_rollout.rollout_reference(engine, state, n_steps)
+        for vname, run in variants.items():
+            kern = run(engine, state, n_steps)
+            torch.cuda.synchronize()
+            ratio = math.inf
+            if all_finite(kern):
+                ratio = max(over_envs(per_env_abs_diff(kern, plain), stat).values()) / TOL
+            ratios[vname][f"{name} {n_steps} steps, {stat}"] = ratio
+            print(f"rollout {vname} vs plain, {name} B={state.p.shape[-1]} {n_steps} steps: worst field's {stat} "
+                  f"over its limit {ratio:.6g}", flush=True)  # fmt: skip
+    return ratios
+
+
 def rr_diff(a, b) -> dict:
     """:func:`per_env_abs_diff`, m's over max(1, max |m| of ``b``)."""
     diff = per_env_abs_diff(a, b)
@@ -978,6 +1026,7 @@ def main() -> int:
     apg = apg_setup(garp)
 
     starts, case_tau = vjp_starts(pend, hum, garp, apg)
+    box = starts["box spinning in the air"][0]
 
     # ----- build: every library at once -----
     with phase("build"):
@@ -988,6 +1037,7 @@ def main() -> int:
             vjp_pend=cuda_step_vjp.job(pend), step_garp=cuda_step.job(garp), vjp_garp=cuda_step_vjp.job(garp),
             vjp_garp_params_grad=cuda_step_vjp.job(garp, params_grad=True), rr_touchdown=cuda_rollout.job(hum_td),
             rr=cuda_rollout.job(hum_rr), rr_garp=cuda_rollout.job(garp_rr), fma_probe=fma_probe.job(),
+            rollout_box=cuda_rollout.job(box), step_box=cuda_step.job(box),
         )  # fmt: skip
         builds = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
     print(f"nvcc seconds {json.dumps({k: round(b.seconds, 2) for k, b in builds.items()})}")
@@ -1002,9 +1052,25 @@ def main() -> int:
               f" and {geo['envs']} envs a block, {geo['smem_bytes']} B of dynamic shared memory a block,"
               f" {geo['blocks_per_sm']} blocks an SM (occupancy calculator); SASS local loads and stores (LDL, STL)"
               f" {json.dumps(cuda_step_vjp.local_memory(b))}", flush=True)  # fmt: skip
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    lane_kernels = dict(
+        rollout=(builds["rollout"], cuda_rollout.geometry, cuda_rollout.LANES, BATCH),
+        rollout_pendulum=(builds["rollout_pend"], cuda_rollout.geometry, cuda_rollout.LANES, 1024),
+        **{f"env_rollout {k}": (builds[f"env_rollout_{k}"], cuda_env_rollout.geometry, cuda_env_rollout.LANES, BATCH)
+           for k in pols},
+    )  # fmt: skip
+    for name, (b, geometry, lanes, B) in lane_kernels.items():
+        geo = geometry(b)
+        places = sms * geo["blocks_per_sm"] * geo["envs"]
+        print(f"{name} ({lanes} lanes an env): {geo['threads']} threads and {geo['envs']} envs a block,"
+              f" {geo['smem_bytes']} B of dynamic shared memory a block, {geo['blocks_per_sm']} blocks an SM"
+              f" (occupancy calculator), so {geo['blocks_per_sm'] * geo['envs']} envs an SM; {B} envs make"
+              f" {-(-B // geo['envs'])} blocks, {B / places:.3g} waves of {places} over {sms} SMs; ptxas "
+              + " | ".join(ln.strip() for ln in b.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln)
+              + f"; SASS local loads and stores (LDL, STL) {json.dumps(cuda_rollout.lane_local_memory(b))}",
+              flush=True)  # fmt: skip
     rr_build = builds["rr"]
     geo = cuda_rollout.rr_geometry(rr_build)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     print(f"rollout_relaxed_rigid ({cuda_rollout.RR_LANES} lanes an env): {geo['threads']} threads and {geo['envs']}"
           f" envs a block, {geo['smem_bytes']} B of dynamic shared memory a block, {geo['blocks_per_sm']} blocks an"
           f" SM (occupancy calculator), so {geo['blocks_per_sm'] * geo['envs']} envs an SM; {BATCH} envs make"
@@ -1042,8 +1108,15 @@ def main() -> int:
                 if stat == "max":
                     max_errs[kname].append(err)
 
-        # K3 under call-time model arrays.
+        # K1 twice from the same start: the same bits.
         moving = starts["humanoid23 joints moving"][1]
+        first, again = cuda_rollout.rollout(hum, moving, 100), cuda_rollout.rollout(hum, moving, 100)
+        sync()
+        if not all(torch.equal(a, b) for a, b in zip(first.fields(), again.fields())):
+            raise RuntimeError("two K1 launches from the same start differ")
+        print("rollout: two launches from the joints-moving start, 100 steps, agree to the bit", flush=True)
+
+        # K3 under call-time model arrays.
         pr = {"M": (1.2 * hum.M).contiguous()}
         scaled, unscaled, plain = moving, moving, moving
         for _ in range(10):

@@ -1,72 +1,66 @@
-// Whole-horizon rollout of the batched engine with soft contacts: one CUDA
-// thread per env.
+// Whole-horizon rollout of the batched engine with soft contacts: each env on
+// JX_LN_LANES lanes of a warp, its state and the step's working set in a
+// slot of shared memory for the whole horizon.
 //
 // Replaces jaxsim_tpu/ops/pallas_step.py::_rollout_kernel (built by
 // build_pallas_rollout) for Hunt/Crossley soft contacts on flat ground, with
 // the three-pass articulated-body algorithm and the 6x6 base Cholesky,
 // semi-implicit Euler, and the PD policy tau = -kp*s - kd*sd. Each env
 // advances n_steps inside one launch; the state crosses device memory once on
-// the way in and once on the way out. The step itself is step_env
-// (step_env.cuh), shared with the one-step and env-rollout kernels. The
+// the way in and once on the way out. The step is soft_step_lanes
+// (soft_step_lanes.cuh) on the forward-only slot (JX_LN_FORWARD), which reads
+// the state from the slot and writes the new state back there. The
 // relaxed-rigid rollout is rollout_rr.cu.
 //
-// What bounds it on the card: per-thread latency and local-memory traffic,
-// not HBM. The humanoid's state is 6.6 MB for 8192 envs and is read and
-// written once per 1000 steps, while every step walks a 24-link tree whose
-// per-link working set (rotations, velocities, articulated inertias: about
-// 2.7 k floats per env) cannot live in the 255 registers a thread may hold,
-// so it lives in local memory, cached by L1 and L2. The design's answers
-// (compile-time topology, model arrays in shared memory, trailing-batch
-// layout, IEEE float32) are listed at the top of step_env.cuh.
+// What bounds it on the card: latency, not HBM (the humanoid's state is
+// 6.6 MB for 8192 envs, read and written once a launch). One thread an env
+// (the earlier design, step_env.cuh) kept a 24-link tree's working set in a
+// 10,864-B local-memory frame, with 8192 threads as 1.94 warps an SM: each
+// thread walked a long chain of dependent local loads, and 1000 steps took
+// 241 ms on an H100.
 //
-// One thread per env leaves the card mostly idle at the flagship batch
-// (8192 threads = 256 warps over 132 SMs); spreading one env over a warp is
-// the first target of later performance work.
+// What this design does about it: the tree passes run a level at a time
+// across an env's lanes (7 levels, not 23 links, in sequence for the
+// humanoid) and the contact points across the lanes, on a working set in
+// shared memory; the slot keeps only what the forward step reads (about
+// 1.6 k floats an env for the humanoid, against K4's 2.8 k), so a block of
+// JX_LN_ENVS envs (32 for the humanoid) and the model arrays, loaded once a
+// block, fit in one SM's shared memory. A block runs every step of its envs,
+// so the grid's waves are whole horizons: 32 envs an SM put 8192 envs in two
+// waves on 132 SMs.
 
-#include "step_env.cuh"
+#include "soft_step_lanes.cuh"
 
-static_assert(!RELAXED, "rollout.cu is the soft-contact rollout; relaxed-rigid engines build rollout_rr.cu");
+static_assert(FORWARD, "rollout.cu takes the forward-only slot (JX_LN_FORWARD 1)");
 
 namespace {
 
-// The state lives in separate per-leaf arrays, not in an Env struct: for
-// sm_90a the struct gives this kernel a 10,920-B frame instead of 10,864 B
-// and 406 local loads in its SASS instead of 289.
-__global__ void __launch_bounds__(BLOCK) rollout_kernel(
-    const float* __restrict__ params, const float* __restrict__ s_in,
-    const float* __restrict__ sd_in, const float* __restrict__ p_in,
-    const float* __restrict__ q_in, const float* __restrict__ v_in,
-    const float* __restrict__ m_in, float* __restrict__ s_out, float* __restrict__ sd_out,
-    float* __restrict__ p_out, float* __restrict__ q_out, float* __restrict__ v_out,
-    float* __restrict__ m_out, int B, int n_steps, Scalars sc) {
-  __shared__ float P[N_PARAMS];
+constexpr size_t K1_SMEM_BYTES = (static_cast<size_t>(N_PARAMS) + static_cast<size_t>(SLOT) * ES) * sizeof(float);
+
+__global__ void __launch_bounds__(LN_THREADS, 1)
+    rollout_kernel(const float* __restrict__ params, StateIn in, StateOut out, int B, int n_steps, Scalars sc) {
+  extern __shared__ float smem[];
+  float* P = smem;
   load_params(params, P);
+  // Env e of the block on lanes e*G .. e*G + G-1; an env past the batch runs
+  // env B - 1's steps beside the others, so that every lane reaches every
+  // barrier and shuffle, and stores nothing.
+  const int e = threadIdx.x / G, g = threadIdx.x % G;
+  const int b0 = blockIdx.x * ENVS + e;
+  const bool valid = b0 < B;
+  const int b = valid ? b0 : B - 1;
+  const Slot sl{smem + N_PARAMS + e};
+  const EnvState<float> x = slot_state(sl);
+  load_state(in, B, b, x, g);
   __syncthreads();
 
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
-  float s[NJA], sd[NJA], p[3], q[4], v[6], m[NCM * 3];
-  for (int k = 0; k < NJ; ++k) {
-    s[k] = s_in[k * B + b];
-    sd[k] = sd_in[k * B + b];
+  const SlotPd tau{x.s, x.sd, sc.kp, sc.kd};
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    soft_step_lanes(P, sc, sl, g, x, tau, nullptr);
+    ln_sync();
   }
-  for (int k = 0; k < 3; ++k) p[k] = p_in[k * B + b];
-  for (int k = 0; k < 4; ++k) q[k] = q_in[k * B + b];
-  for (int k = 0; k < 6; ++k) v[k] = v_in[k * B + b];
-  for (int k = 0; k < NCM * 3; ++k) m[k] = m_in[k * B + b];
-
-  Work w;
-  for (int t = 0; t < n_steps; ++t) step_env(P, sc, w, s, sd, p, q, v, m, PdTau{});
-
-  for (int k = 0; k < NJ; ++k) {
-    s_out[k * B + b] = s[k];
-    sd_out[k * B + b] = sd[k];
-  }
-  for (int k = 0; k < 3; ++k) p_out[k * B + b] = p[k];
-  for (int k = 0; k < 4; ++k) q_out[k * B + b] = q[k];
-  for (int k = 0; k < 6; ++k) v_out[k * B + b] = v[k];
-  for (int k = 0; k < NCM * 3; ++k) m_out[k * B + b] = m[k];
+  if (valid) store_state(x, B, b, out, g);
 }
 
 }  // namespace
@@ -75,20 +69,36 @@ extern "C" {
 
 int jx_param_count() { return N_PARAMS; }
 
-int jx_rollout(const float* params, const float* s, const float* sd, const float* p,
-               const float* q, const float* v, const float* m, float* s_out, float* sd_out,
-               float* p_out, float* q_out, float* v_out, float* m_out, int B, int n_steps,
-               float K, float D, float k_over_d, float mu, float hc_p, float hc_q, float gz,
+int jx_rollout(const float* params, const float* s, const float* sd, const float* p, const float* q, const float* v,
+               const float* m, float* s_out, float* sd_out, float* p_out, float* q_out, float* v_out, float* m_out,
+               int B, int n_steps, float K, float D, float k_over_d, float mu, float hc_p, float hc_q, float gz,
                float dt, float kp, float kd, void* stream) {
   const Scalars sc{K, D, k_over_d, mu, hc_p, hc_q, gz, dt, kp, kd};
-  const int blocks = (B + BLOCK - 1) / BLOCK;
-  rollout_kernel<<<blocks, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      params, s, sd, p, q, v, m, s_out, sd_out, p_out, q_out, v_out, m_out, B, n_steps, sc);
+  const cudaError_t rc = cudaFuncSetAttribute(rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              static_cast<int>(K1_SMEM_BYTES));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int blocks = (B + ENVS - 1) / ENVS;
+  rollout_kernel<<<blocks, LN_THREADS, K1_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      params, StateIn{s, sd, p, q, v, m}, StateOut{s_out, sd_out, p_out, q_out, v_out, m_out}, B, n_steps, sc);
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* jx_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// The launch geometry, for the reports: threads a block, envs a block,
+// dynamic shared memory a block in bytes, and blocks an SM holds at once
+// (the occupancy calculator: registers, threads and shared memory).
+int jx_rollout_geometry(int* out) {
+  cudaError_t rc = cudaFuncSetAttribute(rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        static_cast<int>(K1_SMEM_BYTES));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  int blocks_per_sm = 0;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, rollout_kernel, LN_THREADS, K1_SMEM_BYTES);
+  out[0] = LN_THREADS;
+  out[1] = ENVS;
+  out[2] = static_cast<int>(K1_SMEM_BYTES);
+  out[3] = blocks_per_sm;
+  return static_cast<int>(rc);
 }
+
+const char* jx_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
 
 }  // extern "C"

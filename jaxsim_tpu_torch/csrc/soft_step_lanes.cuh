@@ -24,19 +24,42 @@
 // children, and MA's upper triangle (mirrored from the lower), differ from
 // step_env; two runs agree to the bit.
 //
-// The slot keeps what K4's reverse sweep reads (step_vjp.cu says which rows
-// it reuses for adjoints): per link the world pose (WR, Wp), the child ->
-// parent pair (iR, ip), the body velocity v, the articulated inertia MA and
-// bias force pA, the acceleration a, and a T row of 28 (the world velocity
-// during fk and the contacts, the pass-2 contribution to the parent after);
-// per contact parent its wrench and world velocity; and a base row. U, d, u
-// and c are recomputed where needed (a few dozen operations each). The slot
-// is field-major with the block's envs minor at an odd stride (ES), so the
-// envs of a warp reading one field fall in distinct banks.
+// The step reads its state from columns of device memory (EnvIn: K4's
+// forward recompute, which gives lane 0 the new base velocity and writes
+// nothing else), or from the env's state rows in its slot (slot_state: the
+// rollouts K1 and K5), which it overwrites with the new state, each piece by
+// the lane that owns it: a joint's s and sd by its link's lane in pass 3, a
+// point's m by its slot's lane in the contact phase, the base's p, q and v
+// by lane 0. Step t + 1 then reads what step t wrote after one ln_sync().
+//
+// The slot has one of two layouts, chosen at build time (JX_LN_FORWARD in
+// the generated header; cuda_build.lane_tables sizes both):
+//  * K4's (0) keeps what K4's reverse sweep reads (step_vjp.cu says which
+//    rows it reuses for adjoints): per link the world pose (WR, Wp), the
+//    child -> parent pair (iR, ip), the body velocity v, the articulated
+//    inertia MA and bias force pA, the acceleration a, and a T row of 28
+//    (the world velocity during fk and the contacts, the pass-2 contribution
+//    to the parent after); per contact parent its wrench and world velocity;
+//    and a base row. U, d, u and c are recomputed where needed.
+//  * The forward-only one (1) keeps per link iR, ip, v, and (U, d, u) from
+//    pass 2 for pass 3 in place of MA and pA (link 0's MA and pA, for the
+//    base's Cholesky, in the base's row); WR, Wp and Wv live on the T row
+//    until the link writes its pass-2 contribution there (a contact parent
+//    reads its pose in pass 2 before it does; link 0 writes none, so its
+//    pose stays for the base's SIE), and a after Wv on the same row in pass
+//    3; per contact parent its wrench; then the state.
+// The slot is field-major with the block's envs minor at an odd stride
+// (ES), so the envs of a warp reading one field fall in distinct banks.
 
 #pragma once
 
+#include <type_traits>
+
 #include "step_env.cuh"
+
+#ifndef JX_LN_FORWARD
+#define JX_LN_FORWARD 0
+#endif
 
 namespace {
 
@@ -46,21 +69,38 @@ constexpr int NPAR = JX_LN_NPAR;    // links with contact points
 constexpr int NLEV = JX_LN_NLEV;    // depth levels of links 1..NL-1
 constexpr int ENVS = JX_LN_ENVS;    // envs a block
 constexpr int ES = ENVS + 1 - ENVS % 2;  // slot stride: odd
-constexpr int LN_THREADS = ENVS * G;     // a block: one warp, or part of one
-constexpr unsigned LN_MASK = LN_THREADS == 32 ? 0xffffffffu : (1u << LN_THREADS) - 1u;
+constexpr int LN_THREADS = ENVS * G;     // a block: part of a warp, or whole warps
+constexpr unsigned LN_MASK = LN_THREADS >= 32 ? 0xffffffffu : (1u << LN_THREADS) - 1u;
+constexpr bool FORWARD = JX_LN_FORWARD != 0;
 static_assert(!RELAXED, "soft_step_lanes.cuh is the soft-contact step");
-static_assert(32 % G == 0 && LN_THREADS <= 32, "an env's lanes share a warp; a block is at most one warp");
+static_assert(32 % G == 0 && (LN_THREADS <= 32 || LN_THREADS % 32 == 0), "an env's lanes share a warp");
 
+#if JX_LN_FORWARD
+// A link's rows: T (28) holds WR (9), Wp (3) and Wv (6) during fk and the
+// contacts, the pass-2 contribution after, and a (6, at LK_A) in pass 3.
+constexpr int LK_T = 0, LK_WR = 0, LK_WP = 9, LK_WV = 12, LK_A = 18, LK_V = 28, LK_IR = 34, LK_IP = 43,
+              LK_UDU = 46, LK = 54;
+// A contact parent's row: its wrench.
+constexpr int PR_F = 0, PR = 6;
+// The base's rows: link 0's MA and pA.
+constexpr int BS_MA0 = 0, BS_PA0 = 36, BS = 42;
+// The state's rows, in the order of K5's observation [s, sd, q, v, p_z].
+constexpr int ST_S = 0, ST_SD = NJ, ST_Q = 2 * NJ, ST_V = 2 * NJ + 4, ST_P = 2 * NJ + 10, ST_M = 2 * NJ + 13,
+              ST = 2 * NJ + 13 + NCM * 3;
+#else
 // A link's rows.
 constexpr int LK_WR = 0, LK_WP = 9, LK_IR = 12, LK_IP = 21, LK_V = 24, LK_MA = 30, LK_PA = 66, LK_A = 72,
               LK_T = 78, LK = 106;
+constexpr int LK_WV = LK_T;  // the world velocity, on T during fk and the contacts
 // A contact parent's rows: its wrench, world velocity, and (K4) the
 // adjoints of its world pose and velocity from the contacts.
 constexpr int PR_F = 0, PR_WV = 6, PR_GWR = 12, PR_GWP = 21, PR_GWV = 24, PR = 30;
 // The base's rows (K4's adjoints of the base).
 constexpr int BS_GA0 = 0, BS_BR0I = 6, BS_BP0I = 15, BS_GWR0 = 18, BS_GWP0 = 27, BS_BV = 30, BS_BP = 36,
               BS_BQ = 39, BS = 43;
-constexpr int SL_PAR = NL * LK, SL_BASE = SL_PAR + NPAR * PR, SLOT = SL_BASE + BS;
+constexpr int ST = 0;
+#endif
+constexpr int SL_PAR = NL * LK, SL_BASE = SL_PAR + NPAR * PR, SL_ST = SL_BASE + BS, SLOT = SL_ST + ST;
 static_assert(SLOT == JX_LN_SLOT, "the generated header sizes the slot as this layout does");
 // T's pass-2 contribution: X^T Ma X's lower triangle, then X^T pa.
 constexpr int T_PA = 21;
@@ -87,17 +127,22 @@ struct Slot {
   }
 };
 
-// One row of a state leaf for one env: x[k] is entry k of env b (x = leaf + b).
+// One row of a state leaf for one env: x[k] is entry k, n floats apart
+// (a leaf's batch in device memory, or ES in a slot).
+template <class T>
 struct Col {
-  const float* x;
-  int B;
-  __device__ __forceinline__ float operator[](int k) const { return x[k * B]; }
+  T* x;
+  int n;
+  __device__ __forceinline__ T& operator[](int k) const { return x[k * n]; }
 };
 
-// One env's input state, as columns.
-struct EnvIn {
-  Col s, sd, p, q, v, m;
+// One env's state, as columns; a step overwrites a state of writable columns.
+template <class T>
+struct EnvState {
+  Col<T> s, sd, p, q, v, m;
+  static constexpr bool writes = !std::is_const<T>::value;
 };
+using EnvIn = EnvState<const float>;
 
 __device__ __forceinline__ EnvIn env_in(const StateIn& in, int B, int b) {
   return EnvIn{{in.s + b, B}, {in.sd + b, B}, {in.p + b, B}, {in.q + b, B}, {in.v + b, B}, {in.m + b, B}};
@@ -106,7 +151,7 @@ __device__ __forceinline__ EnvIn env_in(const StateIn& in, int B, int b) {
 __device__ __forceinline__ void ln_sync() { __syncwarp(LN_MASK); }
 
 // The sum of x over the env's lanes, every lane getting the same bits: an
-// xor butterfly, called by every lane of the block together.
+// xor butterfly, called by every lane of the warp together.
 __device__ __forceinline__ float lanes_sum(float x) {
 #pragma unroll
   for (int off = 1; off < G; off <<= 1) x += __shfl_xor_sync(LN_MASK, x, off);
@@ -148,7 +193,7 @@ __device__ __forceinline__ void base_inverse(Slot sl, float* R0i, float* p0i) {
   for (int k = 0; k < 3; ++k) p0i[k] = -t[k];
 }
 
-// A link's U = MA S, d = S.U and u = tau - S.pA, from its slot rows.
+// A link's U = MA S, d = S.U and u = tau - S.pA.
 __device__ __forceinline__ void link_udu(const float* MA, const float* pA, const float* S, float tau, float* U,
                                          float& d, float& u) {
   mv6(MA, S, U);
@@ -160,6 +205,15 @@ __device__ __forceinline__ void link_udu(const float* MA, const float* pA, const
   }
   d = dd;
   u = tau - sp;
+}
+
+// A link's child -> parent pair (iR, ip), as fk stored it from the joint
+// position si.
+__device__ __forceinline__ void link_pair(const float* P, Slot sl, int i, float si, float* iR, float* ip) {
+  (void)P;
+  (void)si;
+  sl.ld(i * LK + LK_IR, 9, iR);
+  sl.ld(i * LK + LK_IP, 3, ip);
 }
 
 // A point's world position and velocity from its parent's rows.
@@ -176,25 +230,72 @@ __device__ __forceinline__ void point_kinematics(const float* P, int c, const fl
 }
 
 // A contact parent's world pose and velocity (the velocity from its T row
-// during fk and the contacts, from its parent row after).
+// during fk and the contacts, from its parent row after: K4's layout only).
 __device__ __forceinline__ void parent_pose(Slot sl, int par, bool from_t, float* R, float* Wp, float* Wv) {
   sl.ld(par * LK + LK_WR, 9, R);
   sl.ld(par * LK + LK_WP, 3, Wp);
-  sl.ld(from_t ? par * LK + LK_T : SL_PAR + JX_LN_PAR_ROW[par] * PR + PR_WV, 6, Wv);
+#if JX_LN_FORWARD
+  (void)from_t;
+  sl.ld(par * LK + LK_WV, 6, Wv);
+#else
+  sl.ld(from_t ? par * LK + LK_WV : SL_PAR + JX_LN_PAR_ROW[par] * PR + PR_WV, 6, Wv);
+#endif
 }
 
 // The torques of one env, tau[k] for joint k.
 struct ColTau {
-  Col tau;
+  Col<const float> tau;
   __device__ __forceinline__ float operator()(int k) const { return tau[k]; }
 };
 
+#if JX_LN_FORWARD
+// The env's state rows in its slot, which a step overwrites.
+__device__ __forceinline__ EnvState<float> slot_state(Slot sl) {
+  float* st = sl.base + SL_ST * ES;
+  return EnvState<float>{{st + ST_S * ES, ES}, {st + ST_SD * ES, ES}, {st + ST_P * ES, ES},
+                         {st + ST_Q * ES, ES}, {st + ST_V * ES, ES}, {st + ST_M * ES, ES}};
+}
+
+// The PD policy tau = -kp*s - kd*sd of the state before the step (a slot's:
+// pass 2 reads it before pass 3 writes the new s and sd).
+struct SlotPd {
+  Col<float> s, sd;
+  float kp, kd;
+  __device__ __forceinline__ float operator()(int k) const { return -kp * s[k] - kd * sd[k]; }
+};
+
+// Env b's state from the batch's leaves into its slot rows, each lane a
+// share of the entries (lane g the entries g, g + G, ... of each leaf).
+__device__ __forceinline__ void load_state(const StateIn& in, int B, int b, const EnvState<float>& x, int g) {
+  for (int k = g; k < NJ; k += G) {
+    x.s[k] = in.s[k * B + b];
+    x.sd[k] = in.sd[k * B + b];
+  }
+  for (int k = g; k < 3; k += G) x.p[k] = in.p[k * B + b];
+  for (int k = g; k < 4; k += G) x.q[k] = in.q[k * B + b];
+  for (int k = g; k < 6; k += G) x.v[k] = in.v[k * B + b];
+  for (int k = g; k < NCM * 3; k += G) x.m[k] = in.m[k * B + b];
+}
+
+// The slot's state to env b of the batch's leaves, shared as load_state.
+__device__ __forceinline__ void store_state(const EnvState<float>& x, int B, int b, const StateOut& out, int g) {
+  for (int k = g; k < NJ; k += G) {
+    out.s[k * B + b] = x.s[k];
+    out.sd[k * B + b] = x.sd[k];
+  }
+  for (int k = g; k < 3; k += G) out.p[k * B + b] = x.p[k];
+  for (int k = g; k < 4; k += G) out.q[k * B + b] = x.q[k];
+  for (int k = g; k < 6; k += G) out.v[k * B + b] = x.v[k];
+  for (int k = g; k < NCM * 3; k += G) out.m[k * B + b] = x.m[k];
+}
+#endif
+
 // One semi-implicit Euler step of one env on lane g of its group, from the
-// state `x`: fills the slot `sl` (above) and returns, on lane 0, the new base
-// velocity in `vn`. `tau(k)` gives joint k's torque. Every lane of the block
-// calls it together.
-template <class Tau>
-__device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int g, const EnvIn& x, Tau tau,
+// state `x`: fills the slot `sl` (above); a writable state gets the new
+// state, an EnvIn gives lane 0 the new base velocity in `vn`. `tau(k)` gives
+// joint k's torque. Every lane of the block calls it together.
+template <class In, class Tau>
+__device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int g, const In& x, Tau tau,
                                 float* vn) {
   // ----- forward kinematics, with pass 1's body velocities -----
   if (g == 0) {
@@ -211,7 +312,7 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
     sl.st(LK_WP, 3, t);
 #pragma unroll
     for (int k = 0; k < 6; ++k) Wv[k] = FLOATING ? x.v[k] : 0.0f;
-    sl.st(LK_T, 6, Wv);
+    sl.st(LK_WV, 6, Wv);
     if (FLOATING) {
       float R0i[9], p0i[3];
       base_inverse(sl, R0i, p0i);
@@ -232,7 +333,7 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
       relative_transform(P, i, x.s[i - 1], rR, rp);
       sl.ld(lam * LK + LK_WR, 9, WRl);
       sl.ld(lam * LK + LK_WP, 3, Wpl);
-      sl.ld(lam * LK + LK_T, 6, Wvl);
+      sl.ld(lam * LK + LK_WV, 6, Wvl);
       mm3(WRl, rR, WR);
       mv3(WRl, rp, t);
 #pragma unroll
@@ -261,7 +362,7 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
       sl.st(i * LK + LK_WP, 3, Wp);
       sl.st(i * LK + LK_IR, 9, iR);
       sl.st(i * LK + LK_IP, 3, ip);
-      sl.st(i * LK + LK_T, 6, Wv);
+      sl.st(i * LK + LK_WV, 6, Wv);
       // v = X v_lam + vJ
       float vl[6], v[6];
       sl.ld(lam * LK + LK_V, 6, vl);
@@ -286,6 +387,10 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
         point_kinematics(P, c, R, Wp, Wv, pc, pd);
         const float mc[3] = {x.m[c * 3], x.m[c * 3 + 1], x.m[c * 3 + 2]};
         const HcLaw h = hc_law(sc, pc, pd, mc);
+        if constexpr (In::writes) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j) x.m[c * 3 + j] = mc[j] + sc.dt * h.md[j];
+        }
 #pragma unroll
         for (int j = 0; j < 3; ++j) w6[j] = h.f_lin[j];
         cross3(pc, h.f_lin, w6 + 3);
@@ -295,11 +400,14 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
       if (k == OWN - 1 || JX_LN_GROUP_LINK[k + 1] != par) {
         if (g == 0) {
           const int o = SL_PAR + JX_LN_GROUP_PAR[k] * PR;
+          sl.st(o + PR_F, 6, acc);
+#if !JX_LN_FORWARD
           float Wv[6];
           sl.ld(par * LK + LK_T, 6, Wv);
-          sl.st(o + PR_F, 6, acc);
           sl.st(o + PR_WV, 6, Wv);
+#endif
         }
+        // The next parent's points start a sum of their own.
 #pragma unroll
         for (int j = 0; j < 6; ++j) acc[j] = 0.0f;
       }
@@ -341,13 +449,27 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
           for (int k = 0; k < 6; ++k) pA[k] += ch[LK_T + T_PA + k];
         }
       }
+      const int lam = JX_LAM[i];
+#if JX_LN_FORWARD
+      if (i == 0) {
+        sl.st(SL_BASE + BS_MA0, 36, MA);
+        sl.st(SL_BASE + BS_PA0, 6, pA);
+        continue;
+      }
+#else
       sl.st(i * LK + LK_MA, 36, MA);
       sl.st(i * LK + LK_PA, 6, pA);
-      const int lam = JX_LAM[i];
       if (i == 0 || (lam == 0 && !FLOATING)) continue;
+#endif
       const float* S = P + OFF_S + i * 6;
       float U[6], d, u, c[6];
       link_udu(MA, pA, S, tau(i - 1), U, d, u);
+#if JX_LN_FORWARD
+      sl.st(i * LK + LK_UDU, 6, U);
+      sl[i * LK + LK_UDU + 6] = d;
+      sl[i * LK + LK_UDU + 7] = u;
+      if (lam == 0 && !FLOATING) continue;
+#endif
       joint_bias(S, x.sd[i - 1], v, c);
       const float inv_d = 1.0f / d;
       float Ma[36], pa[6], t[6];
@@ -360,8 +482,7 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
 #pragma unroll
       for (int k = 0; k < 6; ++k) pa[k] = pA[k] + t[k] + U[k] * ud;
       float iR[9], ip[3], X[36], MaX[36];
-      sl.ld(i * LK + LK_IR, 9, iR);
-      sl.ld(i * LK + LK_IP, 3, ip);
+      link_pair(P, sl, i, x.s[i - 1], iR, ip);
       build_X(iR, ip, X);
 #pragma unroll
       for (int r = 0; r < 6; ++r)
@@ -396,8 +517,13 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
     float a0[6];
     if (FLOATING) {
       float MA[36], pA[6], xs[6];
+#if JX_LN_FORWARD
+      sl.ld(SL_BASE + BS_MA0, 36, MA);
+      sl.ld(SL_BASE + BS_PA0, 6, pA);
+#else
       sl.ld(LK_MA, 36, MA);
       sl.ld(LK_PA, 6, pA);
+#endif
       chol6_solve(MA, pA, xs);
 #pragma unroll
       for (int k = 0; k < 6; ++k) a0[k] = -xs[k];
@@ -418,15 +544,21 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
     for (int n = JX_LN_LEV_OFF[lev] + g; n < JX_LN_LEV_OFF[lev + 1]; n += G) {
       const int i = JX_LN_LEV_LINK[n], lam = JX_LAM[i];
       const float* S = P + OFF_S + i * 6;
-      float MA[36], pA[6], U[6], d, u, v[6], c[6], iR[9], ip[3], al[6], a_i[6];
+      float U[6], d, u, v[6], c[6], iR[9], ip[3], al[6], a_i[6];
+#if JX_LN_FORWARD
+      sl.ld(i * LK + LK_UDU, 6, U);
+      d = sl[i * LK + LK_UDU + 6];
+      u = sl[i * LK + LK_UDU + 7];
+#else
+      float MA[36], pA[6];
       sl.ld(i * LK + LK_MA, 36, MA);
       sl.ld(i * LK + LK_PA, 6, pA);
       link_udu(MA, pA, S, tau(i - 1), U, d, u);
+#endif
       sl.ld(i * LK + LK_V, 6, v);
       const float sdi = x.sd[i - 1];
       joint_bias(S, sdi, v, c);
-      sl.ld(i * LK + LK_IR, 9, iR);
-      sl.ld(i * LK + LK_IP, 3, ip);
+      link_pair(P, sl, i, x.s[i - 1], iR, ip);
       sl.ld(lam * LK + LK_A, 6, al);
       xv(iR, ip, al, a_i);
       float ua = 0.0f;
@@ -439,6 +571,11 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
 #pragma unroll
       for (int k = 0; k < 6; ++k) a_i[k] += S[k] * sddi;
       sl.st(i * LK + LK_A, 6, a_i);
+      if constexpr (In::writes) {
+        const float sdn = sdi + dt * sddi;
+        x.sd[i - 1] = sdn;
+        x.s[i - 1] = x.s[i - 1] + dt * sdn;
+      }
     }
     ln_sync();
   }
@@ -457,8 +594,31 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
 #pragma unroll
       for (int k = 0; k < 6; ++k) W_a[k] = 0.0f;
     }
+    float vnew[6];
 #pragma unroll
-    for (int k = 0; k < 6; ++k) vn[k] = x.v[k] + dt * W_a[k];
+    for (int k = 0; k < 6; ++k) vnew[k] = x.v[k] + dt * W_a[k];
+    if constexpr (In::writes) {
+      // The position update uses the NEW linear velocity and the OLD p.
+      const float p[3] = {x.p[0], x.p[1], x.p[2]};
+      float wp[3];
+      cross3(vnew + 3, p, wp);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) x.p[k] = p[k] + dt * (vnew[k] + wp[k]);
+      const float ox = vnew[3], oy = vnew[4], oz = vnew[5];
+      const float qw = x.q[0], qx = x.q[1], qy = x.q[2], qz = x.q[3];
+      const float qn[4] = {qw + dt * (0.5f * (-qx * ox - qy * oy - qz * oz)),
+                           qx + dt * (0.5f * (qw * ox - qy * oz + qz * oy)),
+                           qy + dt * (0.5f * (qw * oy + qx * oz - qz * ox)),
+                           qz + dt * (0.5f * (qw * oz - qx * oy + qy * ox))};
+      const float nq = sqrtf(fmaxf(qn[0] * qn[0] + qn[1] * qn[1] + qn[2] * qn[2] + qn[3] * qn[3], 1e-12f));
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x.q[k] = qn[k] / nq;
+#pragma unroll
+      for (int k = 0; k < 6; ++k) x.v[k] = vnew[k];
+    } else {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) vn[k] = vnew[k];
+    }
   }
 }
 

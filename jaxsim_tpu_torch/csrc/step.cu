@@ -8,10 +8,11 @@
 //    the torques as an input and the model arrays as call-time inputs (the
 //    JAX `pr`), so new arrays need no rebuild: step_tau_kernel. The wrapper
 //    packs `pr` into the same buffer layout the other kernels read.
-// The step is step_env (step_env.cuh), the body of the rollout kernels.
+// The step is step_env (step_env.cuh), one thread an env.
 //
-// What bounds it on the card: the same per-thread latency as the rollout
-// kernel (rollout.cu), now paid once per launch, plus the launch itself. The
+// What bounds it on the card: per-thread latency (a 10.9-kB local-memory
+// frame of dependent loads a step, as the soft rollout had before it moved
+// to lanes), paid once per launch, plus the launch itself. The
 // state crosses device memory twice a step (13.3 MB for the humanoid at 8192
 // envs, about 4 us at 3.35 TB/s), far below the step's arithmetic latency,
 // so the design is the rollout kernel's with n_steps = 1: one thread per

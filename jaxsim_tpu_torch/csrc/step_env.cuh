@@ -5,11 +5,11 @@
 // on flat ground with the three-pass articulated-body algorithm, the 6x6 base
 // Cholesky and the SIE update, with Hunt/Crossley soft contacts. It is
 // written after jaxsim_tpu_torch/ops/batched_engine.py (the plain version)
-// line by line. The kernels that include it (rollout.cu, step.cu,
-// env_rollout.cu, step_vjp.cu) differ in what surrounds the step: how many
-// steps a launch takes, where the torques come from, and what happens between
-// steps. The relaxed-rigid step (rr_step.cuh, built by rollout_rr.cu) takes
-// its algebra, its Scalars and the packed layout from here.
+// line by line. step.cu (K2, K3) runs it; the lane-spread soft step
+// (soft_step_lanes.cuh: K1's rollout.cu, K5's env_rollout.cu, K4's
+// step_vjp.cu) and the relaxed-rigid step (rr_step.cuh, built by
+// rollout_rr.cu) take its algebra, hc_law, its Scalars and the packed layout
+// from here.
 //
 // Conventions of every including kernel:
 //  * jx_topology.h (generated per model topology by

@@ -1,8 +1,8 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Every engine kernel source in ``jaxsim_tpu_torch/csrc/`` (``rollout.cu``,
-``step.cu``, ``env_rollout.cu``; ``step_vjp.cu``, whose step is the
-lane-spread ``soft_step_lanes.cuh``; ``rollout_rr.cu``, whose relaxed-rigid
+``env_rollout.cu`` and ``step_vjp.cu``, whose step is the lane-spread
+``soft_step_lanes.cuh``; ``step.cu``; ``rollout_rr.cu``, whose relaxed-rigid
 step is ``rr_step.cuh``) includes the shared step body ``step_env.cuh`` and a
 generated header, ``jx_topology.h``, that makes one model topology's sizes
 and tables, its contact model and its PCG iterations compile-time
@@ -125,7 +125,7 @@ def topology_header(engine: BatchedEngine | None, defines=()) -> str:
         + arr("JX_CPARENT", engine.contact_parent)
         + arr("JX_HASF", has_f)
         + ("" if lanes is None else rr_header(engine, lanes))
-        + ("" if ln_lanes is None else lane_header(engine, ln_lanes, bool(dict(defines).get("JX_PARAMS_GRAD"))))
+        + ("" if ln_lanes is None else lane_header(engine, dict(defines)))
     )
 
 
@@ -209,43 +209,85 @@ def rr_header(engine: BatchedEngine, lanes: int) -> str:
     return _schedule_header("JX_RR", rr_tables(engine, lanes))
 
 
-# Floats of the lane-spread soft step's slot (soft_step_lanes.cuh): a link's
-# rows, a contact parent's, and the base's.
-LN_LINK_FLOATS, LN_PAR_FLOATS, LN_BASE_FLOATS = 106, 30, 43
+# Floats of the lane-spread soft step's slot (soft_step_lanes.cuh) in each
+# layout: a link's rows, a contact parent's and the base's, in K4's layout
+# (``forward`` False) and in the forward-only one of the rollouts K1 and K5,
+# which adds the state: 2 floats a joint, 13 for the base and 3 an m row.
+LN_FLOATS = {False: (106, 30, 43), True: (54, 6, 42)}
+# Envs a block of the forward-only layout, at most: a block runs all its
+# envs' steps, and 32 envs an SM put 8192 envs in two waves on 132 SMs.
+LN_FORWARD_MAX_ENVS = 32
 
 
-def lane_tables(engine: BatchedEngine, lanes: int, params_grad: bool = False) -> dict:
-    """What the lane-spread soft step (``soft_step_lanes.cuh``, K4's
-    ``step_vjp.cu``) takes from the topology for ``lanes`` lanes an env:
-    :func:`_lane_schedule`'s point slots and level schedule; ``slot``: floats
-    of an env's slot; ``envs``: envs a block, which is one warp (32 /
-    ``lanes``, halved while the slots and, with ``params_grad``, the block's
-    row of model-array cotangents do not fit in its shared memory); ``stride``:
-    the odd stride of a slot's fields (the block's envs minor); and
-    ``smem_bytes``."""
+def policy_weight_count(n_joints: int, policy: int, hidden: int) -> int:
+    """Floats of one candidate's weights in the env rollout (K5): none for
+    the PD policy (0), ``W | b`` for the linear one (1), ``W1 | b1 | W2 |
+    b2`` for the tanh MLP of ``hidden`` units (2)."""
+    d = 2 * n_joints + 11
+    return {0: 0, 1: n_joints * d + n_joints, 2: hidden * d + hidden + n_joints * hidden + n_joints}[policy]
+
+
+def lane_tables(
+    engine: BatchedEngine, lanes: int, params_grad: bool = False, *, forward: bool = False, policy: int = -1,
+    hidden: int = 0,
+) -> dict:
+    """What the lane-spread soft step (``soft_step_lanes.cuh``) takes from
+    the topology for ``lanes`` lanes an env: :func:`_lane_schedule`'s point
+    slots and level schedule, and the slot of shared memory an env takes
+    with the block around it.
+
+    K4 (``step_vjp.cu``, ``forward`` False) takes K4's layout and a block of
+    one warp (32 / ``lanes`` envs), with ``params_grad`` a row of the model
+    arrays' cotangents. The rollouts take the forward-only layout
+    (``forward``) and a block of ``LN_FORWARD_MAX_ENVS`` envs, with the model
+    arrays; the env rollout (K5, ``policy`` 0, 1 or 2 with ``hidden`` units)
+    also a candidate's weights, and for each env its torques and hidden
+    units. Either halves its envs while the block does not fit in its shared
+    memory.
+
+    Returns the schedule with ``slot``: floats of the step's slot an env;
+    ``env_floats``: the kernel's floats an env past it; ``block_floats``: the
+    block's floats beside the slots; ``envs``: envs a block; ``stride``: the
+    odd stride of a slot's fields (the block's envs minor); ``smem_bytes``;
+    and ``par_row``, each link's row among the contact parents (-1 for a
+    link without points)."""
     if engine.contact_model != "soft":
         raise ValueError(f"the lane-spread soft step takes a soft engine, not {engine.contact_model}")
     t = _lane_schedule(engine, lanes)
-    slot = LN_LINK_FLOATS * engine.n_links + LN_PAR_FLOATS * len(t["par_link"]) + LN_BASE_FLOATS
-    n_params = sum(x.numel() for x in engine.params().values()) if params_grad else 0
-    envs = 32 // lanes
+    link, par, base = LN_FLOATS[forward]
+    slot = link * engine.n_links + par * len(t["par_link"]) + base
+    n_params = sum(x.numel() for x in engine.params().values())
+    if forward:
+        slot += 2 * engine.n_joints + 13 + 3 * engine.m_rows
+        block_floats = n_params + (policy_weight_count(engine.n_joints, policy, hidden) if policy >= 0 else 0)
+        env_floats = engine.n_joints + (hidden if policy == 2 else 0) if policy >= 0 else 0
+        envs = LN_FORWARD_MAX_ENVS
+    else:
+        block_floats, env_floats, envs = n_params if params_grad else 0, 0, 32 // lanes
 
     def smem(envs):
-        return 4 * (slot * (envs + 1 - envs % 2) + n_params)
+        return 4 * ((slot + env_floats) * (envs + 1 - envs % 2) + block_floats)
 
     while smem(envs) > MAX_SMEM_BYTES and envs > 1:
         envs //= 2
     if smem(envs) > MAX_SMEM_BYTES:
         raise ValueError(f"one env of the lane-spread step needs {smem(envs)} B of shared memory")
     par_row = [t["par_link"].index(i) if i in t["par_link"] else -1 for i in range(engine.n_links)]
-    return dict(t, par_row=par_row, slot=slot, envs=envs, stride=envs + 1 - envs % 2, smem_bytes=smem(envs))
+    return dict(
+        t, par_row=par_row, slot=slot, env_floats=env_floats, block_floats=block_floats, envs=envs,
+        stride=envs + 1 - envs % 2, smem_bytes=smem(envs),
+    )  # fmt: skip
 
 
-def lane_header(engine: BatchedEngine, lanes: int, params_grad: bool) -> str:
+def lane_header(engine: BatchedEngine, defines: dict) -> str:
     """The lane-spread soft step's part of the generated header
-    (:func:`lane_tables`): the schedule, and each link's row among the
-    contact parents (-1 for a link without points)."""
-    t = lane_tables(engine, lanes, params_grad)
+    (:func:`lane_tables` of the job's ``defines``): the schedule, and each
+    link's row among the contact parents (-1 for a link without points)."""
+    t = lane_tables(
+        engine, defines["JX_LN_LANES"], bool(defines.get("JX_PARAMS_GRAD")),
+        forward=bool(defines.get("JX_LN_FORWARD")), policy=defines.get("JX_POLICY", -1),
+        hidden=defines.get("JX_HIDDEN", 0),
+    )  # fmt: skip
     rows = ", ".join(map(str, t["par_row"]))
     return _schedule_header("JX_LN", t) + f"__constant__ int JX_LN_PAR_ROW[{engine.n_links}] = {{{rows}}};\n"
 

@@ -4,7 +4,8 @@ Counterpart of ``jaxsim_tpu/ops/pallas_step.py::build_pallas_env_rollout``
 and its ``_env_rollout_kernel``: step, termination on the healthy height
 range or the episode length, auto-reset to the episode-start state, and
 per-env sums of the reward, the resets and the steps, all in one launch of
-``jaxsim_tpu_torch/csrc/env_rollout.cu``.
+``jaxsim_tpu_torch/csrc/env_rollout.cu`` (``LANES`` lanes an env, its state
+and the step's working set in shared memory, as the soft K1).
 
 Ported options: the policy (the PD closure with gains ``kp``, ``kd``; a
 linear policy ``W``, ``b``; a tanh MLP ``W1``, ``b1``, ``W2``, ``b2``, one
@@ -46,11 +47,12 @@ SIGNATURES = {
     "jx_weight_count": [],
     "jx_env_rollout": [PTR] * 17 + [I32, I32] + [F32] * 10
     + [I32, F32, F32, I32, F32, F32, ctypes.c_uint, I32, PTR],
+    "jx_env_geometry": [PTR],
 }
 POLICY_KINDS = {"pd": 0, "linear": 1, "mlp": 2}
-# Threads a block of the kernel (BLOCK in csrc/step_env.cuh): with several
-# candidates, each candidate's envs must fill whole blocks.
-BLOCK = 32
+# Lanes of a warp that carry one env (a build-time constant; PERF.md §6 has
+# the times of the counts tried).
+LANES = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,13 +213,71 @@ def env_rollout_reference(
     return sim, reward_sum, resets, steps
 
 
-def job(engine: BatchedEngine, policy: Policy) -> BuildJob:
-    defines = (("JX_POLICY", POLICY_KINDS[policy.kind]), ("JX_HIDDEN", max(policy.hidden, 1)))
+def job(engine: BatchedEngine, policy: Policy, lanes: int = LANES) -> BuildJob:
+    defines = (
+        ("JX_POLICY", POLICY_KINDS[policy.kind]), ("JX_HIDDEN", max(policy.hidden, 1)),
+        ("JX_LN_LANES", int(lanes)), ("JX_LN_FORWARD", 1),
+    )  # fmt: skip
     return BuildJob(engine, SOURCE, SIGNATURES, defines)
 
 
 def build(engine: BatchedEngine, policy: Policy) -> KernelBuild:
     return cuda_build.build(job(engine, policy))
+
+
+def envs_per_block(engine: BatchedEngine, policy: Policy, lanes: int = LANES) -> int:
+    """Envs a block of the kernel for ``policy`` takes (the generated
+    header's, :func:`cuda_build.lane_tables`)."""
+    kind, hidden = POLICY_KINDS[policy.kind], max(policy.hidden, 1)
+    return cuda_build.lane_tables(engine, lanes, forward=True, policy=kind, hidden=hidden)["envs"]
+
+
+def check_candidates(engine: BatchedEngine, B: int, policy: Policy, lanes: int = LANES) -> None:
+    """A batch of ``B`` envs splits evenly into the policy's candidates, and
+    with several candidates each candidate's envs fill whole blocks of the
+    kernel, so that a block loads one candidate's weights."""
+    P, envs = policy.candidates, envs_per_block(engine, policy, lanes)
+    if B % P or (P > 1 and (B // P) % envs):
+        raise ValueError(
+            f"{P} candidates need a batch of P · k · {envs} envs (whole blocks per candidate), got {B}"
+        )
+
+
+def geometry(kernel: KernelBuild) -> dict[str, int]:
+    """The kernel's launch: threads and envs a block, the dynamic shared
+    memory a block takes in bytes, and the blocks an SM holds at once (CUDA's
+    occupancy calculator)."""
+    return cuda_build.geometry(kernel, "jx_env_geometry")
+
+
+def launch(
+    kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, n_steps: int, policy: Policy, *, kp, kd,
+    episode_length, healthy_z_range, tau_limit, reset_noise, seed,
+):
+    """One launch of ``kernel`` (the engine's env-rollout library for
+    ``policy``, or a variant of it) on a checked CUDA state; counts nothing.
+    Returns as :func:`env_rollout`."""
+    weights = policy.packed() if policy.weights else None
+    if weights is not None:
+        cuda_build.check_tensor("policy weights", weights, weights.shape, engine.S.device)
+    if kernel.lib.jx_weight_count() != (weights.shape[1] if weights is not None else 0):
+        raise RuntimeError("packed policy weights disagree with the kernel's layout")
+    B, device = state.p.shape[-1], state.p.device
+    out = cuda_build.empty_state_like(state)
+    reward_sum = torch.empty(B, dtype=torch.float32, device=device)
+    resets = torch.empty(B, dtype=torch.int32, device=device)
+    steps = torch.empty(B, dtype=torch.int32, device=device)
+    cuda_build.launch(
+        kernel, "jx_env_rollout", packed_params(engine), device,
+        *cuda_build.state_pointers(state), None if weights is None else weights.data_ptr(),
+        *cuda_build.state_pointers(out), reward_sum.data_ptr(), resets.data_ptr(), steps.data_ptr(),
+        B, int(n_steps), *cuda_build.engine_scalars(engine), float(kp), float(kd),
+        int(episode_length), float(healthy_z_range[0]), float(healthy_z_range[1]),
+        int(tau_limit is not None), float(tau_limit or 0.0),
+        float(reset_noise * 3.0**0.5) if reset_noise > 0.0 else 0.0,
+        int(seed) & 0xFFFFFFFF, B // policy.candidates,
+    )  # fmt: skip
+    return out, reward_sum, resets, steps
 
 
 def env_rollout(
@@ -264,32 +324,10 @@ def env_rollout(
     )  # fmt: skip
     B = cuda_build.check_cuda_call(engine, state)
     pol = make_policy(engine, W, b, W1, b1, W2, b2)
-    P = pol.candidates
-    if B % P or (P > 1 and (B // P) % BLOCK):
-        raise ValueError(
-            f"{P} candidates need a batch of P · k · {BLOCK} envs (whole blocks per candidate), got {B}"
-        )
-    weights = pol.packed() if pol.weights else None
-    if weights is not None:
-        cuda_build.check_tensor("policy weights", weights, weights.shape, engine.S.device)
-    kernel = build(engine, pol)
-    if kernel.lib.jx_weight_count() != (weights.shape[1] if weights is not None else 0):
-        raise RuntimeError("packed policy weights disagree with the kernel's layout")
-
-    device = state.p.device
-    out = cuda_build.empty_state_like(state)
-    reward_sum = torch.empty(B, dtype=torch.float32, device=device)
-    resets = torch.empty(B, dtype=torch.int32, device=device)
-    steps = torch.empty(B, dtype=torch.int32, device=device)
-    cuda_build.launch(
-        kernel, "jx_env_rollout", packed_params(engine), device,
-        *cuda_build.state_pointers(state), None if weights is None else weights.data_ptr(),
-        *cuda_build.state_pointers(out), reward_sum.data_ptr(), resets.data_ptr(), steps.data_ptr(),
-        B, int(n_steps), *cuda_build.engine_scalars(engine), float(kp), float(kd),
-        int(episode_length), float(healthy_z_range[0]), float(healthy_z_range[1]),
-        int(tau_limit is not None), float(tau_limit or 0.0),
-        float(reset_noise * 3.0**0.5) if reset_noise > 0.0 else 0.0,
-        int(seed) & 0xFFFFFFFF, B // P,
+    check_candidates(engine, B, pol)
+    out = launch(
+        build(engine, pol), engine, state, n_steps, pol, kp=kp, kd=kd, episode_length=episode_length,
+        healthy_z_range=healthy_z_range, tau_limit=tau_limit, reset_noise=reset_noise, seed=seed,
     )  # fmt: skip
     ENV_ROLLOUT_KERNEL_LAUNCHES += 1
-    return out, reward_sum, resets, steps
+    return out

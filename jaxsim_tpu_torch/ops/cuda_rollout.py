@@ -4,8 +4,10 @@ Counterpart of ``jaxsim_tpu/ops/pallas_step.py::build_pallas_rollout`` and its
 ``_rollout_kernel``, for two bodies: soft or relaxed-rigid contacts, each on
 flat ground with semi-implicit Euler and the PD policy ``tau = -kp·s - kd·ṡ``,
 without per-env options. The soft kernel is
-``jaxsim_tpu_torch/csrc/rollout.cu`` (one thread an env), the relaxed-rigid
-one ``jaxsim_tpu_torch/csrc/rollout_rr.cu`` (``RR_LANES`` lanes an env, the
+``jaxsim_tpu_torch/csrc/rollout.cu`` (``LANES`` lanes an env, its state and
+the step's working set in shared memory: ``soft_step_lanes.cuh``'s
+forward-only slot), the relaxed-rigid one
+``jaxsim_tpu_torch/csrc/rollout_rr.cu`` (``RR_LANES`` lanes an env, the
 contact solve's working set in shared memory), each built per topology; see
 the notes at their tops.
 
@@ -28,26 +30,54 @@ ROLLOUT_KERNEL_LAUNCHES = 0
 ROLLOUT_RR_KERNEL_LAUNCHES = 0
 
 SOURCE = CSRC / "rollout.cu"
-SIGNATURES = {"jx_rollout": [PTR] * 13 + [I32, I32] + [F32] * 10 + [PTR]}
+SIGNATURES = {"jx_rollout": [PTR] * 13 + [I32, I32] + [F32] * 10 + [PTR], "jx_rollout_geometry": [PTR]}
 RR_SOURCE = CSRC / "rollout_rr.cu"
 RR_SIGNATURES = {"jx_rollout_rr": [PTR] * 13 + [I32, I32] + [F32] * 23 + [PTR], "jx_rr_geometry": [PTR]}
-# Lanes of a warp that carry one env in the relaxed-rigid kernel (a
-# build-time constant; PERF.md §6 has the times of 1, 4 and 8).
+# Lanes of a warp that carry one env in the soft and the relaxed-rigid
+# kernel (build-time constants; PERF.md §6 has the times of the counts tried).
+LANES = 4
 RR_LANES = 8
 CONTACT_MODELS = ("soft", "relaxed_rigid")
 
 
-def job(engine: BatchedEngine, lanes: int = RR_LANES) -> BuildJob:
-    """The library for ``engine``: the soft rollout, or the relaxed-rigid one
-    with ``lanes`` lanes an env."""
+def job(engine: BatchedEngine, lanes: int | None = None) -> BuildJob:
+    """The library for ``engine``: the soft rollout or the relaxed-rigid one,
+    with ``lanes`` lanes an env (``LANES`` or ``RR_LANES`` by default)."""
     if engine.contact_model == "relaxed_rigid":
-        return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, (("JX_RR_LANES", int(lanes)),))
-    return BuildJob(engine, SOURCE, SIGNATURES)
+        return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, (("JX_RR_LANES", int(lanes or RR_LANES)),))
+    return BuildJob(engine, SOURCE, SIGNATURES, (("JX_LN_LANES", int(lanes or LANES)), ("JX_LN_FORWARD", 1)))
 
 
 def build(engine: BatchedEngine) -> KernelBuild:
     """Compile (or load from ``BUILD_DIR``) the kernel for ``engine``'s topology."""
     return cuda_build.build(job(engine))
+
+
+def geometry(kernel: KernelBuild) -> dict[str, int]:
+    """The soft kernel's launch: threads and envs a block, the dynamic shared
+    memory a block takes in bytes, and the blocks an SM holds at once (CUDA's
+    occupancy calculator)."""
+    return cuda_build.geometry(kernel, "jx_rollout_geometry")
+
+
+def lane_local_memory(kernel: KernelBuild) -> dict[str, int]:
+    """The local loads and stores (``LDL``, ``STL``) in the SASS of a kernel
+    on the forward-only lane step (the soft rollout or the env rollout): in
+    all; in the step's tree passes and contact phase (``soft_step_lanes.cuh``
+    from fk to the base's SIE) and in the whole step; and in the algebra it
+    inlines (``step_env.cuh``, which the line table names for an inlined
+    function's instructions)."""
+    header = (CSRC / "soft_step_lanes.cuh").read_text().splitlines()
+
+    def line_of(text: str) -> int:
+        return next(n for n, ln in enumerate(header, 1) if text in ln)
+
+    return cuda_build.local_memory(kernel, dict(
+        passes=("soft_step_lanes.cuh", line_of("// ----- forward kinematics"),
+                line_of("// ----- the base's semi-implicit Euler")),
+        step=("soft_step_lanes.cuh", 1, 10**6),
+        algebra=("step_env.cuh", 1, 10**6),
+    ))  # fmt: skip
 
 
 def rr_geometry(kernel: KernelBuild) -> dict[str, int]:

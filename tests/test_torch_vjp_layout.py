@@ -42,9 +42,13 @@ def _engine(name: str) -> BatchedEngine:
 
 @functools.lru_cache(maxsize=None)
 def _constants() -> dict[str, int]:
-    """The integer constants of soft_step_lanes.cuh's layout."""
+    """The integer constants of K4's layout in soft_step_lanes.cuh: the
+    ``#else`` branch of ``#if JX_LN_FORWARD`` (the forward-only layout's is
+    tests/test_torch_lane_forward.py's), and T_PA after it."""
     text = (cuda_build.CSRC / "soft_step_lanes.cuh").read_text()
-    return {k: int(v) for k, v in re.findall(r"\b((?:LK|PR|BS|T)_\w+|LK|PR|BS) = (\d+)\b", text)}
+    start = text.index("#else", text.index("#if JX_LN_FORWARD\n"))
+    branch = text[start : text.index("#endif", start)] + text[text.index("constexpr int T_PA") :]
+    return {k: int(v) for k, v in re.findall(r"\b((?:LK|PR|BS|T)_\w+|LK|PR|BS) = (\d+)\b", branch)}
 
 
 def _header(name: str, lanes: int, params_grad: bool) -> tuple[dict[str, int], dict[str, list[int]]]:
@@ -65,7 +69,7 @@ def test_slot_rows_do_not_overlap(prefix, rows, size):
         assert consts[f"{prefix}_{name}"] == offset, name
         offset += width
     assert consts[size] == offset
-    assert offset == dict(LK=cuda_build.LN_LINK_FLOATS, PR=cuda_build.LN_PAR_FLOATS, BS=cuda_build.LN_BASE_FLOATS)[size]
+    assert offset == dict(zip(("LK", "PR", "BS"), cuda_build.LN_FLOATS[False]))[size]
     # T's pass-2 contribution: a symmetric 6x6's lower triangle, then 6.
     assert consts["T_PA"] == 21 and 21 + 6 <= dict(LINK_ROWS)["T"]
 
@@ -82,9 +86,8 @@ def test_header_slot_fits_a_block(name, lanes, params_grad):
     n_par = len(set(eng.contact_parent))
     assert defines["JX_LN_LANES"] == lanes and defines["JX_PARAMS_GRAD"] == int(params_grad)
     assert defines["JX_LN_NPAR"] == n_par
-    assert defines["JX_LN_SLOT"] == (
-        cuda_build.LN_LINK_FLOATS * eng.n_links + cuda_build.LN_PAR_FLOATS * n_par + cuda_build.LN_BASE_FLOATS
-    )
+    link, par, base = cuda_build.LN_FLOATS[False]
+    assert defines["JX_LN_SLOT"] == link * eng.n_links + par * n_par + base
     tables = cuda_build.lane_tables(eng, lanes, params_grad)
     envs, stride = tables["envs"], tables["stride"]
     assert envs == defines["JX_LN_ENVS"] and envs * lanes <= 32 and envs & (envs - 1) == 0
