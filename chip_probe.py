@@ -5,7 +5,7 @@ pattern and the spread that float32 rounding leaves, on one NVIDIA GPU.
 Usage, from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations] [rr] [rr_faults] [param_sum]
-        [profiler] [vjp] [vjp_faults] [lanes] [quat] [k1_faults]
+        [profiler] [vjp] [vjp_faults] [lanes] [quat] [k1_faults] [step] [step_faults] [kernels]
 
 With no argument it runs the first three. Probes of the flagship humanoid
 (soft contacts, flat ground, PD policy):
@@ -89,6 +89,31 @@ With no argument it runs the first three. Probes of the flagship humanoid
 * k1_faults: ``K1_FAULTS`` seeded into copies of ``csrc/`` under
   ``build/``, each held with the sound kernel to ``chip_smoke.py``'s CASES
   limits (``k1_gates``): per case the worst field's statistic over its limit.
+* step: K2 and K3 (``step.cu``) at each count of lanes an env in
+  ``STEP_LANES``, each envs a block from one warp's to the most that fit
+  (``cuda_step.block_envs``), the model arrays in shared memory (the
+  source) or read from device memory through L1 (``STEP_L1``, seeded into a
+  copy of ``csrc/`` under ``build/``): K2 and K3 on the humanoid at 8192 envs (the main-path start
+  and its PD torques) and K3 on garpez at 1024 (the APG start and policy),
+  each build's ptxas line, launch geometry and local loads and stores in its
+  SASS by source window; kernel-only ms (``torch.profiler``, mean of
+  ``LAUNCH_REPEATS``) and CUDA-event ms of a launch (median); and the
+  largest |Δ| against the plain version after ``LANE_CHECK_STEPS`` chained
+  steps (the humanoid from the joints-moving start, garpez from the APG
+  start under the APG policy);
+* step_faults: ``STEP_FAULTS`` seeded into copies of ``csrc/`` under
+  ``build/``, and K3 given the engine's own model arrays in place of
+  ``pr``'s, each held with the sound kernel to ``chip_smoke.py``'s K2 and K3
+  limits (``step_gates``): per case the worst field's statistic over its
+  limit.
+* kernels: each kernel of the main paths at its main path's shape (K1 at
+  8192 envs and ``HORIZON`` steps, K5 on the ES generation, K4 plain and
+  with the model arrays' cotangents, K1-rr at 8192 envs and
+  ``chip_smoke.RR_HORIZON`` steps, K2 and K3 at 8192 envs, K3 on garpez at
+  1024): kernel-only ms (``torch.profiler``) and CUDA-event ms (median),
+  through entry points that the checkouts since the lane-spread K1 and K5
+  share, so that a copy of this script times an older checkout's kernels in
+  the same call; and the SHA-256 of each library's SASS instructions.
 
 It prints the card's name and power limit, then JSON lines keyed by probe,
 and exits non-zero when no CUDA device is visible.
@@ -128,6 +153,7 @@ LANE_REPEATS = 3
 LANE_CHECK_STEPS = 10
 QUAT_STEPS = 100
 QUAT_BATCH = 1024
+STEP_LANES = (8, 4, 2)  # K2's and K3's lanes an env; the first is the wrappers'
 # Seeded faults of the relaxed-rigid step, each one edit of rr_step.cuh
 # (the text, its replacement): the impedance floor dropped from the
 # regularizer, the warm start forced cold, one PCG iteration fewer.
@@ -183,6 +209,26 @@ K1_FAULTS = {
 }
 
 
+# Seeded faults of the one-step kernels, each one edit of step.cu (the
+# text, its replacement): K3's torques read from the next env's column, the
+# store's entries of each warp's last lane dropped, and the envs past the
+# batch storing (at their own columns, which lie past the row's end).
+STEP_FAULTS = {
+    "tau from the next env's column": ("return j = SL_TAU + r, x.tau + r * B;", "return j = SL_TAU + r, x.tau + r * B + 1;"),
+    "one lane's share of the store dropped": ("    if (b0 + e < B) {\n      int j;\n      float* row",
+                                              "    if (b0 + e < B && threadIdx.x % 32 != 31) {\n      int j;\n      float* row"),
+    "envs past the batch store": ("    if (b0 + e < B) {\n      int j;\n      float* row", "    {\n      int j;\n      float* row"),
+}
+
+# The one-step kernels' model arrays read from device memory through L1 in
+# place of the block's copy in shared memory (edits of step.cu), for the
+# step probe.
+STEP_L1 = (
+    ("constexpr int SMEM_PARAMS = N_PARAMS;", "constexpr int SMEM_PARAMS = 0;"),
+    ("  const float* P = smem;\n  load_params(params, smem);\n", "  const float* P = params;\n"),
+)
+
+
 # The lane step's child -> parent pairs recomputed from s where pass 2 and
 # pass 3 read them (the edit of soft_step_lanes.cuh's link_pair), for the
 # lanes probe: the slot keeps them, 12 floats a link.
@@ -194,9 +240,10 @@ RECOMPUTE_PAIR = (
 )
 
 
-def _seeded_copy(kind: str, name: str, file: str, old: str, new: str):
+def _seeded_copy(kind: str, name: str, file: str, old: str, new: str, more=()):
     """A copy of ``csrc/`` under ``build/<kind>/<name>`` with ``old``
-    replaced by ``new`` in ``file`` (which must hold it once)."""
+    replaced by ``new`` in ``file`` (which must hold it once), and so each
+    further ``(old, new)`` of ``more``."""
     import shutil
 
     from jaxsim_tpu_torch.ops import cuda_build
@@ -205,9 +252,11 @@ def _seeded_copy(kind: str, name: str, file: str, old: str, new: str):
     shutil.rmtree(copy, ignore_errors=True)
     shutil.copytree(cuda_build.CSRC, copy)
     text = (copy / file).read_text()
-    if text.count(old) != 1:
-        raise RuntimeError(f"{name}: the text to replace is not in {file} once")
-    (copy / file).write_text(text.replace(old, new))
+    for old, new in ((old, new), *more):
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: the text to replace is not in {file} once")
+        text = text.replace(old, new)
+    (copy / file).write_text(text)
     return copy
 
 
@@ -298,12 +347,17 @@ def k1_probe(hum, gen) -> float:
     return med
 
 
-def _profiled_us(fn, kernel: str) -> float:
+def _profiled_us(fn, kernel: str) -> float | None:
     """Mean device microseconds of the CUDA kernels named ``kernel`` over
-    ``LAUNCH_REPEATS`` calls of ``fn``, read by ``torch.profiler``."""
+    ``LAUNCH_REPEATS`` calls of ``fn``, read by ``torch.profiler``; None
+    (not measured) where every window the profiler gave missed a launch."""
     from chip_smoke import profiled_ms
 
-    return profiled_ms(fn, kernel, LAUNCH_REPEATS) * 1e3
+    try:
+        return profiled_ms(fn, kernel, LAUNCH_REPEATS) * 1e3
+    except RuntimeError as err:
+        print(f"{kernel}: {err}; kernel time not measured", flush=True)
+        return None
 
 
 def _host_ms(fn) -> float:
@@ -344,7 +398,7 @@ def launch_probe(hum, gen) -> None:
         for name, (fn, kernel) in calls.items():
             print(json.dumps({"launch": {
                 "B": B, "call": name, "event_ms": device_ms(fn, LAUNCH_REPEATS),
-                "kernel_ms": _profiled_us(fn, kernel) * 1e-3, "host_ms": _host_ms(fn),
+                "kernel_ms": None if (us := _profiled_us(fn, kernel)) is None else us * 1e-3, "host_ms": _host_ms(fn),
             }}), flush=True)  # fmt: skip
 
 
@@ -726,6 +780,160 @@ def k1_faults_probe(hum, gen) -> None:
     print(json.dumps({"k1_faults": k1_gates(starts, {name: variant(name) for name in sources})}), flush=True)
 
 
+def step_probe(hum, gen) -> None:
+    """K2 and K3 at each lane count, envs a block and place of the model
+    arrays, on the humanoid and on garpez (see the module's note)."""
+    import torch
+
+    from chip_smoke import apg_setup, garpez_engine, pendulum_engine, profiled_ms, vjp_starts
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_rollout, cuda_step
+
+    garp = garpez_engine(hum.S.device)
+    starts, case_tau = vjp_starts(pendulum_engine(hum.S.device), hum, garp, apg_setup(garp))
+    garp_start = starts["garpez APG start"][1]
+    # Per model: the engine, the timed state, the checked start, and the
+    # torques of a state (K3's; K2's are the PD policy's, the humanoid's too).
+    cases = dict(
+        humanoid23=(hum, starts["humanoid23 main-path start"][1], starts["humanoid23 joints moving"][1],
+                    lambda st: case_tau("humanoid23", st), ("k2", "k3")),
+        garpez=(garp, garp_start, garp_start, lambda st: case_tau("garpez", st), ("k3",)),
+    )  # fmt: skip
+    l1 = _seeded_copy("step", "L1", "step.cu", *STEP_L1[0], STEP_L1[1:])
+    sources = {"shared": cuda_step.SOURCE, "L1": l1 / "step.cu"}
+    keys = [(name, lanes, envs, arrays) for name, (eng, *_) in cases.items() for lanes in STEP_LANES
+            for arrays in sources for envs in cuda_step.block_envs(eng, lanes)]  # fmt: skip
+    jobs = [dataclasses.replace(cuda_step.job(cases[name][0], lanes, envs), source=sources[arrays])
+            for name, lanes, envs, arrays in keys]  # fmt: skip
+    builds = dict(zip(keys, cuda_build.build_many(jobs)))
+    plains = {}
+    for name, (eng, _, check, tau_of, _) in cases.items():
+        st = check
+        for _ in range(LANE_CHECK_STEPS):
+            st = cuda_step.step_tau_reference(eng, st, tau_of(st))
+        plains[name] = st
+    for (name, lanes, envs, arrays), kernel in builds.items():
+        eng, state, check, tau_of, kinds = cases[name]
+        params, tau = cuda_build.packed_params(eng), tau_of(state)
+        steps = dict(k2=lambda st: cuda_step.launch_pd(kernel, eng, st, 60.0, 0.5),
+                     k3=lambda st: cuda_step.launch_tau(kernel, eng, st, tau_of(st), params))  # fmt: skip
+        runs = dict(k2=(lambda: cuda_step.launch_pd(kernel, eng, state, 60.0, 0.5), "step_pd_kernel"),
+                    k3=(lambda: cuda_step.launch_tau(kernel, eng, state, tau, params), "step_tau_kernel"))  # fmt: skip
+        for kind in kinds:
+            st = check
+            for _ in range(LANE_CHECK_STEPS):
+                st = steps[kind](st)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()) for a, b in zip(st.fields(), plains[name].fields()) if a.numel())
+            run, kname = runs[kind]
+            run()  # warm-up
+            print(json.dumps({"step": {
+                "kernel": kind, "model": name, "B": state.p.shape[-1], "lanes": lanes, "envs": envs,
+                "model_arrays": arrays,
+                "ptxas": [ln.strip() for ln in kernel.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln],
+                "geometry": cuda_step.geometry(kernel), "local_loads_and_stores": cuda_rollout.lane_local_memory(kernel),
+                "kernel_ms": profiled_ms(run, kname, LAUNCH_REPEATS), "event_ms": device_ms(run, LAUNCH_REPEATS),
+                "max_abs_err_vs_plain": err,
+            }}), flush=True)  # fmt: skip
+
+
+def step_faults_probe(hum, gen) -> None:
+    """Each of STEP_FAULTS seeded into a copy of ``csrc/`` under ``build/``,
+    built beside the sound source for each engine of ``step_gates``' cases,
+    and K3 launched with the engine's own model arrays in place of ``pr``'s;
+    every variant held to ``chip_smoke.py``'s K2 and K3 limits: per case,
+    the worst field's statistic over its limit (> 1 is refused)."""
+    from chip_smoke import apg_setup, garpez_engine, pendulum_engine, step_gates, vjp_starts
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_step
+
+    device = hum.S.device
+    garp = garpez_engine(device)
+    starts, case_tau = vjp_starts(pendulum_engine(device), hum, garp, apg_setup(garp))
+    sources = {"control": cuda_step.SOURCE}
+    for name, (old, new) in STEP_FAULTS.items():
+        sources[name] = _seeded_copy("step_faults", name, "step.cu", old, new) / "step.cu"
+    engines = list({id(e): e for e, _ in starts.values()}.values())
+    jobs = {(name, id(eng)): dataclasses.replace(cuda_step.job(eng), source=src)
+            for name, src in sources.items() for eng in engines}  # fmt: skip
+    kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+
+    def variant(name, own_params=False):
+        def k2(eng, st):
+            return cuda_step.launch_pd(kernels[(name, id(eng))], eng, st, 60.0, 0.5)
+
+        def k3(eng, st, tau, pr):
+            params = cuda_build.packed_params(eng, None if own_params else pr)
+            return cuda_step.launch_tau(kernels[(name, id(eng))], eng, st, tau, params)
+
+        return k2, k3
+
+    variants = {name: variant(name) for name in sources}
+    variants["model arrays from the engine, not pr"] = variant("control", own_params=True)
+    _, ratios = step_gates(starts, case_tau, variants)
+    print(json.dumps({"step_faults": ratios}), flush=True)
+
+
+def kernels_probe(hum, gen) -> None:
+    """Each kernel of the main paths at its main path's shape (see the
+    module's note), from entry points every version of the port since the
+    lane-spread K1 and K5 has, so that a copy of this script in an older
+    checkout times that checkout's kernels; and the SHA-256 of each loaded
+    library's SASS instructions (``cuobjdump -sass``), equal where the
+    machine code is."""
+    import hashlib
+    import re
+
+    import torch
+
+    from chip_smoke import (
+        ES, ES_OPTIONS, RR_CASES, RR_HORIZON, apg_setup, es_population, es_sizes, garpez_engine, pendulum_engine,
+        profiled_ms, rr_garpez_engine, rr_humanoid_engine, rr_start_states, vjp_cotangents, vjp_starts,
+    )  # fmt: skip
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_env_rollout, cuda_rollout, cuda_step, cuda_step_vjp
+    from jaxsim_tpu_torch.ops.policies import obs_dim
+
+    device = hum.S.device
+    garp = garpez_engine(device)
+    apg = apg_setup(garp)
+    starts, case_tau = vjp_starts(pendulum_engine(device), hum, garp, apg)
+    state0 = starts["humanoid23 main-path start"][1]
+    tau0 = (-60.0 * state0.s - 0.5 * state0.sd).contiguous()
+    ct0 = vjp_cotangents(state0, gen)["all six"]
+    garp_tau = case_tau("garpez", apg["start"])
+    n, d = hum.n_joints, obs_dim(hum.n_joints)
+    _, weights = es_population(0.1 * torch.randn(sum(es_sizes(n, d)), generator=gen, device=device), gen, n, d)
+    pol = cuda_env_rollout.make_policy(hum, **weights)
+    es_state = hum.init_state(ES["candidates"] * ES["envs_per"], base_position=(0.0, 0.0, 0.9), generator=gen)
+    hum_rr = rr_humanoid_engine(device)
+    rr_start = rr_start_states(hum_rr, rr_garpez_engine(device), hum_rr, torch.Generator(device).manual_seed(6))[
+        RR_CASES[0][0]][1]  # fmt: skip
+    cuda_build.build_many([cuda_rollout.job(hum), cuda_rollout.job(hum_rr), cuda_env_rollout.job(hum, pol),
+                           cuda_step_vjp.job(hum), cuda_step_vjp.job(hum, params_grad=True), cuda_step.job(hum),
+                           cuda_step.job(garp)])  # fmt: skip
+    calls = dict(
+        rollout=(lambda: cuda_rollout.rollout(hum, state0, HORIZON), "rollout_kernel", 3),
+        env_rollout=(lambda: cuda_env_rollout.env_rollout(hum, es_state, ES["steps"], **ES_OPTIONS, **weights),
+                     "env_rollout_kernel", 3),
+        step_vjp=(lambda: cuda_step_vjp.step_vjp(hum, state0, tau0, ct0), "step_vjp_kernel", LAUNCH_REPEATS),
+        step_vjp_params_grad=(lambda: cuda_step_vjp.step_vjp(hum, state0, tau0, ct0, params_grad=True),
+                              "step_vjp_kernel", LAUNCH_REPEATS),
+        rollout_relaxed_rigid=(lambda: cuda_rollout.rollout(hum_rr, rr_start, RR_HORIZON), "rollout_rr_kernel", 3),
+        step_pd=(lambda: cuda_step.step_pd(hum, state0), "step_pd_kernel", LAUNCH_REPEATS),
+        step_tau=(lambda: cuda_step.step_tau(hum, state0, tau0), "step_tau_kernel", LAUNCH_REPEATS),
+        step_tau_garpez=(lambda: cuda_step.step_tau(garp, apg["start"], garp_tau), "step_tau_kernel", LAUNCH_REPEATS),
+    )  # fmt: skip
+    for name, (fn, kernel, repeats) in calls.items():
+        fn()  # warm-up
+        print(json.dumps({"kernels": {
+            "call": name, "kernel_ms": profiled_ms(fn, kernel, repeats), "event_ms": device_ms(fn, repeats),
+        }}), flush=True)  # fmt: skip
+    for build in cuda_build._BUILDS.values():
+        sass = subprocess.run([cuda_build.cuda_tool("cuobjdump"), "-sass", str(build.path)],
+                              capture_output=True, text=True, check=True).stdout  # fmt: skip
+        code = "\n".join(ln.strip() for ln in sass.splitlines() if re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln))
+        print(json.dumps({"kernels_sass": {"library": build.path.parent.name,
+                                           "sha256": hashlib.sha256(code.encode()).hexdigest()}}), flush=True)  # fmt: skip
+
+
 PROBES = {
     "sweep": sweep_probe,
     "profile": profile_probe,
@@ -741,6 +949,9 @@ PROBES = {
     "lanes": lanes_probe,
     "quat": quat_probe,
     "k1_faults": k1_faults_probe,
+    "step": step_probe,
+    "step_faults": step_faults_probe,
+    "kernels": kernels_probe,
 }
 
 

@@ -16,9 +16,10 @@ plain PyTorch version on the card:
   kernel (``rollout_rr.cu``) likewise on the humanoid, on garpez tilted
   low, and on the humanoid's touchdown with 3 PCG iterations (``RR_CASES``),
   ``m`` (the solved point forces) relative to its size, with the active
-  contact points of each case counted; K3 also under
-  call-time model arrays (``M`` scaled by 1.2), and on the garpez chain
-  through one APG window from the APG main path's start;
+  contact points of each case counted; K2 and K3 also on a batch that is
+  not a multiple of their block (``STEP_RAGGED``), and K3 under call-time
+  model arrays (``M`` scaled by 1.2) and on the garpez chain through one APG
+  window from the APG main path's start (``step_gates``);
 * K5 (``env_rollout.cu``) in every state field, the reward sums, the resets
   and the steps: truncation only (the MLP policy with 8 candidates), real
   terminations (the linear policy), and respawns with reset noise;
@@ -66,13 +67,14 @@ before it and read just after:
   of the data-sheet peak; the bounds then give every operations-bound
   kernel's share of the measured peak beside its share of the data sheet's.
 
-It prints each build's ptxas line; the soft K1's and K5's, K4's and the
-relaxed-rigid kernel's launch geometry (threads, envs and shared memory a
-block, blocks or envs an SM, waves) and the local loads and stores in their
-SASS (K1's and K5's in the lane step's passes, K4's in the forward and the
-reverse sweep, K1-rr's in the M⁻¹Jᵀ pass); the
-kernel-only times of K3, K4, the partials' sum and ``torch.sum`` beside it
-(``torch.profiler``). It prints each phase's seconds, the card's name and
+It prints each build's ptxas line; the soft K1's, K5's, K2's and K3's
+(``step.cu``, on the humanoid and on garpez), K4's and the relaxed-rigid
+kernel's launch geometry (threads, envs and shared memory a block, blocks or
+envs an SM, waves) and the local loads and stores in their SASS (K1's, K5's
+and ``step.cu``'s in the lane step's passes, K4's in the forward and the
+reverse sweep, K1-rr's in the M⁻¹Jᵀ pass); the kernel-only times of K2, K3
+(also on garpez at the APG start), K4, the partials' sum and ``torch.sum``
+beside it (``torch.profiler``). It prints each phase's seconds, the card's name and
 power limit, a JSON line
 with each kernel's numbers (device ms per launch, the plain version's ms for
 the same work, the bound the card's peaks set, the launches of the main
@@ -133,6 +135,11 @@ CASES = (
     ("box spinning in the air", 100, "max"),
 )
 BOX_SPIN = dict(batch=1024, height=1.0, rate=10.0)  # m, rad/s
+# K2's and K3's ragged case: CASES' joints-moving humanoid without its last
+# STEP_RAGGED envs, 10 steps, held at its max, so that the last block of the
+# one-step kernels runs envs past the batch (every other case's batch is a
+# multiple of the envs a block), which must store nothing.
+STEP_RAGGED = 7
 # K4 vs plain: (start state, statistic over envs) for every output cotangent
 # (``vjp_cotangents``); each env's largest |Δ| of a cotangent field over
 # max(1, max |plain field|) is held to TOL. With the joints moving, a few
@@ -804,6 +811,88 @@ def k1_gates(starts, variants) -> dict[str, dict[str, float]]:
     return ratios
 
 
+def step_gates(starts, case_tau, variants=None, plains=None) -> tuple[dict[str, list[float]], dict[str, dict[str, float]]]:
+    """K2 and K3 against their plain versions: in each of CASES (K2 chained
+    as ``rollout_per_step`` chains it, K3 chained under the PD torques) and
+    in the ragged case (STEP_RAGGED); K3 also under call-time model arrays
+    (``M`` ×1.2 from the joints-moving start, 10 steps, which must move the
+    state by more than 1e-4) and on garpez through one APG window from the
+    APG start under the APG policy (``case_tau``). ``variants`` maps a name
+    to a pair of one-step functions ``(k2(engine, state), k3(engine, state,
+    tau, pr))``: by default the wrappers, which are gated (a breach raises);
+    other variants (seeded faults) are held to the same limits without
+    raising. ``plains`` maps (case, steps) of CASES to the plain state after
+    them, where the caller has it. Returns the largest |Δ| of each case held
+    at its max, by kernel (the default variant's), and for each variant and
+    case its worst field's statistic over its limit (> 1 is refused; a
+    non-finite state is infinitely far, and so is a K3 that ``M`` ×1.2 does
+    not move)."""
+    import torch
+
+    from jaxsim_tpu_torch import BatchedState
+    from jaxsim_tpu_torch.ops import cuda_rollout, cuda_step
+
+    gated = variants is None
+    variants = variants or {"kernel": (cuda_step.step_pd, cuda_step.step_tau)}
+    errs, ratios = {"step_pd": [], "step_tau": []}, {name: {} for name in variants}
+
+    def pd(state):
+        return (-60.0 * state.s - 0.5 * state.sd).contiguous()
+
+    def chain(step, state, n):
+        for _ in range(n):
+            state = step(state)
+        torch.cuda.synchronize()
+        return state
+
+    def check(vname, kname, label, kern, plain, stat):
+        ratio = math.inf
+        if all_finite(kern):
+            ratio = max(over_envs(per_env_abs_diff(kern, plain), stat).values()) / TOL
+        ratios[vname][f"{kname} {label}, {stat}"] = ratio
+        if gated:
+            err = compare_states(f"{kname} vs plain, {label}", kern, plain, stat)
+            if stat == "max":
+                errs[kname].append(err)
+        else:
+            print(f"{kname} {vname} vs plain, {label}: worst field's {stat} over its limit {ratio:.6g}", flush=True)
+
+    hum, moving = starts["humanoid23 joints moving"]
+    ragged = BatchedState(*(t[..., :-STEP_RAGGED].contiguous() for t in moving.fields()))
+    cases = [(name, n, stat, *starts[name]) for name, n, stat in CASES]
+    cases.append(("humanoid23 joints moving, ragged batch", 10, "max", hum, ragged))
+    for name, n, stat, engine, state in cases:
+        label = f"{name} B={state.p.shape[-1]} {n} steps"
+        plain = (plains or {}).get((name, n))
+        if plain is None:
+            plain = cuda_rollout.rollout_reference(engine, state, n)
+        for vname, (k2, k3) in variants.items():
+            check(vname, "step_pd", label, chain(lambda st: k2(engine, st), state, n), plain, stat)
+            check(vname, "step_tau", label, chain(lambda st: k3(engine, st, pd(st), None), state, n), plain, stat)
+
+    # K3 under call-time model arrays.
+    pr = {"M": (1.2 * hum.M).contiguous()}
+    plain = chain(lambda st: cuda_step.step_tau_reference(hum, st, pd(st), pr), moving, 10)
+    for vname, (_, k3) in variants.items():
+        scaled = chain(lambda st: k3(hum, st, pd(st), pr), moving, 10)
+        unscaled = chain(lambda st: k3(hum, st, pd(st), None), moving, 10)
+        check(vname, "step_tau", "pr M x1.2, 10 steps", scaled, plain, "max")
+        moved = max(float(d.max()) for d in per_env_abs_diff(scaled, unscaled).values())
+        ratios[vname]["step_tau pr M x1.2 moves the state"] = 1e-4 / moved if moved > 0 else math.inf
+        print(f"step_tau {vname}: M x1.2 moves the state by {moved:.6g} after 10 steps", flush=True)
+        if gated and not moved > 1e-4:
+            raise RuntimeError("K3 ignored the call-time model arrays")
+
+    # K3 on garpez through one APG window under the APG policy.
+    garp, start = starts["garpez APG start"]
+    plain = chain(lambda st: cuda_step.step_tau_reference(garp, st, case_tau("garpez", st)), start, APG["horizon"])
+    for vname, (_, k3) in variants.items():
+        kern = chain(lambda st: k3(garp, st, case_tau("garpez", st), None), start, APG["horizon"])
+        check(vname, "step_tau", f"garpez APG start B={APG['batch']} {APG['horizon']} steps, APG policy", kern, plain,
+              "max")  # fmt: skip
+    return errs, ratios
+
+
 def rr_diff(a, b) -> dict:
     """:func:`per_env_abs_diff`, m's over max(1, max |m| of ``b``)."""
     diff = per_env_abs_diff(a, b)
@@ -1058,6 +1147,8 @@ def main() -> int:
         rollout_pendulum=(builds["rollout_pend"], cuda_rollout.geometry, cuda_rollout.LANES, 1024),
         **{f"env_rollout {k}": (builds[f"env_rollout_{k}"], cuda_env_rollout.geometry, cuda_env_rollout.LANES, BATCH)
            for k in pols},
+        step=(builds["step"], cuda_step.geometry, cuda_step.LANES, BATCH),
+        step_garpez=(builds["step_garp"], cuda_step.geometry, cuda_step.LANES, APG["batch"]),
     )  # fmt: skip
     for name, (b, geometry, lanes, B) in lane_kernels.items():
         geo = geometry(b)
@@ -1090,23 +1181,15 @@ def main() -> int:
     max_errs = {k: [] for k in SOURCES}
     with phase("K1 K2 K3 vs plain"):
         state0 = starts["humanoid23 main-path start"][1]
+        plains = {}
         for name, n_steps, stat in CASES:
             engine, state = starts[name]
-            label = f"{name} B={state.p.shape[-1]} {n_steps} steps"
-            plain = cuda_rollout.rollout_reference(engine, state, n_steps)
-            k3 = state
-            for _ in range(n_steps):
-                k3 = cuda_step.step_tau(engine, k3, (-60.0 * k3.s - 0.5 * k3.sd).contiguous())
-            kernels = dict(
-                rollout=cuda_rollout.rollout(engine, state, n_steps),
-                step_pd=cuda_step.rollout_per_step(engine, state, n_steps),
-                step_tau=k3,
-            )
+            plain = plains[(name, n_steps)] = cuda_rollout.rollout_reference(engine, state, n_steps)
+            kern = cuda_rollout.rollout(engine, state, n_steps)
             sync()
-            for kname, kern in kernels.items():
-                err = compare_states(f"{kname} vs plain, {label}", kern, plain, stat)
-                if stat == "max":
-                    max_errs[kname].append(err)
+            err = compare_states(f"rollout vs plain, {name} B={state.p.shape[-1]} {n_steps} steps", kern, plain, stat)
+            if stat == "max":
+                max_errs["rollout"].append(err)
 
         # K1 twice from the same start: the same bits.
         moving = starts["humanoid23 joints moving"][1]
@@ -1116,28 +1199,10 @@ def main() -> int:
             raise RuntimeError("two K1 launches from the same start differ")
         print("rollout: two launches from the joints-moving start, 100 steps, agree to the bit", flush=True)
 
-        # K3 under call-time model arrays.
-        pr = {"M": (1.2 * hum.M).contiguous()}
-        scaled, unscaled, plain = moving, moving, moving
-        for _ in range(10):
-            scaled = cuda_step.step_tau(hum, scaled, (-60.0 * scaled.s - 0.5 * scaled.sd).contiguous(), pr)
-            unscaled = cuda_step.step_tau(hum, unscaled, (-60.0 * unscaled.s - 0.5 * unscaled.sd).contiguous())
-            plain = cuda_step.step_tau_reference(hum, plain, -60.0 * plain.s - 0.5 * plain.sd, pr)
-        sync()
-        max_errs["step_tau"].append(compare_states("step_tau vs plain, pr M x1.2, 10 steps", scaled, plain, "max"))
-        moved = max(float(d.max()) for d in per_env_abs_diff(scaled, unscaled).values())
-        print(f"step_tau: M x1.2 moves the state by {moved:.6g} after 10 steps")
-        if not moved > 1e-4:
-            raise RuntimeError("K3 ignored the call-time model arrays")
-
-        # K3 on garpez through one APG window under the APG policy.
-        kern = plain = apg["start"]
-        for _ in range(APG["horizon"]):
-            kern = cuda_step.step_tau(garp, kern, case_tau("garpez", kern))
-            plain = cuda_step.step_tau_reference(garp, plain, case_tau("garpez", plain))
-        sync()
-        label = f"step_tau vs plain, garpez APG start B={APG['batch']} {APG['horizon']} steps, APG policy"
-        max_errs["step_tau"].append(compare_states(label, kern, plain, "max"))
+        # K2 and K3: CASES, the ragged batch, call-time model arrays, garpez.
+        errs, _ = step_gates(starts, case_tau, plains=plains)
+        for kname, e in errs.items():
+            max_errs[kname] += e
 
     # ----- K1's relaxed-rigid build vs plain -----
     with phase("K1 relaxed-rigid vs plain"):
@@ -1504,8 +1569,11 @@ def main() -> int:
             call()
             sync()
             results[name]["ms"] = statistics.median(device_ms(call, 20))
+        garp_tau0 = case_tau("garpez", apg["start"])
         kernel_only = dict(
+            step_pd=profiled_ms(lambda: cuda_step.step_pd(hum, state0), "step_pd_kernel", 10),
             step_tau=profiled_ms(lambda: cuda_step.step_tau(hum, state0, tau0), "step_tau_kernel", 10),
+            step_tau_garpez=profiled_ms(lambda: cuda_step.step_tau(garp, apg["start"], garp_tau0), "step_tau_kernel", 10),
             step_vjp=profiled_ms(vjp_calls["step_vjp"], "step_vjp_kernel", 10),
             step_vjp_params_grad=profiled_ms(vjp_calls["step_vjp_params_grad"], "step_vjp_kernel", 10),
             param_sum=profiled_ms(vjp_calls["param_sum"], "param_sum_kernel", 10),
@@ -1513,8 +1581,11 @@ def main() -> int:
         library_kernel_only = dict(param_sum=profiled_ms(lambda: torch.sum(partials, 0), "", 10))
         print(f"library kernel-only device ms a launch (torch.profiler, mean of 10): {json.dumps(library_kernel_only)}")
         print(f"kernel-only device ms a launch (torch.profiler, mean of 10): {json.dumps(kernel_only)}")
-        print(f"device ms a launch (CUDA events around the wrapper, median of 20): "
-              f"{json.dumps({k: results[k]['ms'] for k in kernel_only})}")  # fmt: skip
+        event_ms = {k: results[k]["ms"] for k in kernel_only if k in results}
+        event_ms["step_tau_garpez"] = statistics.median(device_ms(lambda: cuda_step.step_tau(garp, apg["start"], garp_tau0), 20))
+        print(f"device ms a launch (CUDA events around the wrapper, median of 20; step_pd's over the per-step main"
+              f" path's {PER_STEP_LAUNCHES} launches; step_tau_garpez is K3 at the APG start, B={APG['batch']}):"
+              f" {json.dumps(event_ms)}")  # fmt: skip
         plain_ms.update(
             step_vjp=wall_ms(lambda: [cuda_step_vjp.step_vjp_reference(hum, state0, tau0, ct0) for _ in range(n_vjp)])
             / n_vjp,

@@ -14,7 +14,7 @@
 //
 // What bounds it on the card: latency, not HBM (the humanoid's state is
 // 6.6 MB for 8192 envs, read and written once a launch). One thread an env
-// (the earlier design, step_env.cuh) kept a 24-link tree's working set in a
+// (the earlier design) kept a 24-link tree's working set in a
 // 10,864-B local-memory frame, with 8192 threads as 1.94 warps an SM: each
 // thread walked a long chain of dependent local loads, and 1000 steps took
 // 241 ms on an H100.

@@ -16,7 +16,7 @@
 // as the twin writes it, m + dt ((x - m) / dt). IEEE float32 throughout.
 //
 // Who does what. One thread an env runs forward kinematics and the free ABA,
-// as in step_env.cuh, on the block's first warps with every lane busy (on
+// the twin's loops, on the block's first warps with every lane busy (on
 // an env's own lanes it would leave 1 - 1/JX_RR_LANES of each warp's issue
 // slots idle, and the free ABA issues more instructions than the passes), and
 // writes the factorization the contact solve reuses into the env's slot of
@@ -84,7 +84,7 @@ struct Slot {
   __device__ __forceinline__ float& operator[](int j) const { return base[j * ES]; }
 };
 
-// The free ABA's working set (local memory, as in step_env).
+// The free ABA's working set (local memory).
 struct RrWork {
   float WR[NL][9], Wp[NL][3], Wv[NL][6];
   float v[NL][6], c[NL][6], pA[NL][6], MA[NL][36], a[NL][6], u[NL];
@@ -112,13 +112,12 @@ __device__ __forceinline__ float rr_pow(float x, float power) {
 
 // ----- one thread an env: forward kinematics and the free ABA -----
 //
-// The loops of step_env.cuh's fk and ABA, written again here: these keep the
-// factorization in the slot instead of a Work frame and take no contact
-// wrenches, and a shared version would move the register allocation of the
-// soft kernels that include step_env.cuh.
+// The twin's fk and ABA loops, for one thread: these keep the factorization
+// in the slot and take no contact wrenches.
 
 // Fills w and the slot's factorization and contact-parent rows, and sdd with
-// the free joint accelerations. `tau_of` as in step_env.
+// the free joint accelerations. `tau_of(sc, s, sd, i)` gives joint i's torque
+// from the state before the step (PdTau).
 template <class Tau>
 __device__ void rr_free_step(const float* P, const Scalars& sc, RrWork& w, Slot sl, const float* s,
                              const float* sd, const float* p, const float* q, const float* v,

@@ -2,9 +2,10 @@
 // JX_LN_LANES lanes of a warp, with the step's working set in a slot of
 // shared memory.
 //
-// It is the arithmetic of step_env.cuh (fk, Hunt/Crossley soft contacts on
-// flat ground, the three-pass articulated-body algorithm with the 6x6 base
-// Cholesky, semi-implicit Euler), rearranged for lanes:
+// It is the arithmetic of the twin's step (ops/batched_engine.py) with
+// step_env.cuh's algebra (fk, Hunt/Crossley soft contacts on flat ground, the
+// three-pass articulated-body algorithm with the 6x6 base Cholesky,
+// semi-implicit Euler), as one thread an env once ran it, rearranged for lanes:
 //  * the tree passes run level by level (the generated header's schedule
 //    from JX_LAM; the humanoid's tree is 7 deep and at most 4 wide), the
 //    links of a level dealt to the env's lanes, a lane per link; a link's
@@ -14,7 +15,7 @@
 //  * in pass 2 a link writes its X^T Ma X (its lower triangle: Ma is
 //    symmetric, so MA is symmetric by construction) and X^T pa to its T row,
 //    and its parent pulls them in descending child order, the order in which
-//    step_env's leaves-to-root loop pushes them;
+//    a one-thread leaves-to-root loop over the links pushes them;
 //  * the contact points are dealt to the lanes in slots (each parent's
 //    points in contact-index order, padded to a multiple of the lanes, so a
 //    group of JX_LN_LANES slots has one parent); a fixed xor shuffle tree
@@ -22,12 +23,14 @@
 //  * the base (link 0, the Cholesky, the base's SIE) runs on lane 0.
 // Only the order of the sums within a parent's points and of a link's
 // children, and MA's upper triangle (mirrored from the lower), differ from
-// step_env; two runs agree to the bit.
+// that one-thread step; two runs agree to the bit.
 //
 // The step reads its state from columns of device memory (EnvIn: K4's
 // forward recompute, which gives lane 0 the new base velocity and writes
 // nothing else), or from the env's state rows in its slot (slot_state: the
-// rollouts K1 and K5), which it overwrites with the new state, each piece by
+// rollouts K1 and K5, and the one-step K2 and K3 of step.cu, whose block
+// loads the rows from device columns and stores them back after the step),
+// which it overwrites with the new state, each piece by
 // the lane that owns it: a joint's s and sd by its link's lane in pass 3, a
 // point's m by its slot's lane in the contact phase, the base's p, q and v
 // by lane 0. Step t + 1 then reads what step t wrote after one ln_sync().
@@ -166,7 +169,7 @@ __device__ __forceinline__ void joint_bias(const float* S, float sdi, const floa
   vx(v, vJ, c);
 }
 
-// The base's world rotation RB from its quaternion (step_env's fk).
+// The base's world rotation RB from its quaternion (the twin's fk).
 __device__ __forceinline__ void quat_rot(const float* q, float* RB) {
   const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
   const float n = qw * qw + qx * qx + qy * qy + qz * qz;

@@ -1,15 +1,15 @@
-// The step body shared by the batched engine's CUDA kernels: one semi-
-// implicit Euler step of one env, computed by one thread.
+// The algebra shared by the batched engine's CUDA kernels, for one env.
 //
 // It is the arithmetic of jaxsim_tpu/ops/batched_engine.py::BatchedEngine.step
 // on flat ground with the three-pass articulated-body algorithm, the 6x6 base
-// Cholesky and the SIE update, with Hunt/Crossley soft contacts. It is
-// written after jaxsim_tpu_torch/ops/batched_engine.py (the plain version)
-// line by line. step.cu (K2, K3) runs it; the lane-spread soft step
-// (soft_step_lanes.cuh: K1's rollout.cu, K5's env_rollout.cu, K4's
-// step_vjp.cu) and the relaxed-rigid step (rr_step.cuh, built by
-// rollout_rr.cu) take its algebra, hc_law, its Scalars and the packed layout
-// from here.
+// Cholesky and the SIE update, with Hunt/Crossley soft contacts, in pieces:
+// the small dense algebra, the joint transforms, the Cholesky solve and the
+// contact law. It is written after jaxsim_tpu_torch/ops/batched_engine.py
+// (the plain version) line by line. The lane-spread soft step
+// (soft_step_lanes.cuh: K1's rollout.cu, K2's and K3's step.cu, K5's
+// env_rollout.cu, K4's step_vjp.cu) and the relaxed-rigid step (rr_step.cuh,
+// built by rollout_rr.cu) take its algebra, hc_law, its Scalars, the state's
+// device layout and the packed layout from here.
 //
 // Conventions of every including kernel:
 //  * jx_topology.h (generated per model topology by
@@ -19,10 +19,8 @@
 //    BatchedEngine.PARAM_NAMES order, row-major, and copied into shared
 //    memory once per block: every thread of a warp reads the same address,
 //    so each read is a broadcast.
-//  * The state keeps the env batch trailing, x[k * B + b], so thread b's
-//    loads and stores are coalesced across the warp; the per-link working
-//    set (Work, about 2.7 k floats for the humanoid) lives in local memory,
-//    which is interleaved per thread and so coalesced too.
+//  * The state keeps the env batch trailing, x[k * B + b], so the loads and
+//    stores of consecutive envs are coalesced across a warp.
 //  * IEEE float32 math (sqrtf, powf, sinf, cosf, true division), no
 //    --use_fast_math, and the plain version's clamps, so a kernel tracks the
 //    plain version to float32 roundoff.
@@ -43,7 +41,6 @@ constexpr int NJA = NJ > 0 ? NJ : 1;     // array sizes must be positive
 constexpr int NCM = NC > 0 ? NC : 1;     // rows of the m state leaf
 constexpr bool FLOATING = JX_FLOATING != 0;
 constexpr bool RELAXED = JX_CONTACT == 1;  // relaxed-rigid contacts, else soft
-constexpr int BLOCK = 32;  // threads a block: one warp
 
 // Packed model arrays, in BatchedEngine.PARAM_NAMES order, row-major.
 constexpr int OFF_S = 0;                          // (NL, 6)
@@ -73,53 +70,16 @@ struct StateOut {
   float *s, *sd, *p, *q, *v, *m;
 };
 
-// One env's state, held by its thread.
-struct Env {
-  float s[NJA], sd[NJA], p[3], q[4], v[6], m[NCM * 3];
-};
-
-__device__ __forceinline__ void load_env(const StateIn& in, int B, int b, Env& e) {
-  for (int k = 0; k < NJ; ++k) {
-    e.s[k] = in.s[k * B + b];
-    e.sd[k] = in.sd[k * B + b];
-  }
-  for (int k = 0; k < 3; ++k) e.p[k] = in.p[k * B + b];
-  for (int k = 0; k < 4; ++k) e.q[k] = in.q[k * B + b];
-  for (int k = 0; k < 6; ++k) e.v[k] = in.v[k * B + b];
-  for (int k = 0; k < NCM * 3; ++k) e.m[k] = in.m[k * B + b];
-}
-
-__device__ __forceinline__ void store_env(const Env& e, int B, int b, const StateOut& out) {
-  for (int k = 0; k < NJ; ++k) {
-    out.s[k * B + b] = e.s[k];
-    out.sd[k * B + b] = e.sd[k];
-  }
-  for (int k = 0; k < 3; ++k) out.p[k * B + b] = e.p[k];
-  for (int k = 0; k < 4; ++k) out.q[k * B + b] = e.q[k];
-  for (int k = 0; k < 6; ++k) out.v[k * B + b] = e.v[k];
-  for (int k = 0; k < NCM * 3; ++k) out.m[k * B + b] = e.m[k];
-}
-
 // The packed model arrays into shared memory, by the whole block.
 __device__ __forceinline__ void load_params(const float* params, float* P) {
   for (int k = threadIdx.x; k < N_PARAMS; k += blockDim.x) P[k] = params[k];
 }
 
-// Torque sources for step_env, passed by value. They read only what step_env
-// holds already (the scalars and the state) or a pointer, so they add nothing
-// to a kernel's stack frame when step_env is compiled as a call.
-// The PD policy tau = -kp*s - kd*sd, read from the state before the step.
+// The PD policy tau = -kp*s - kd*sd, read from the state before the step (a
+// torque source of rr_step_env, passed by value).
 struct PdTau {
   __device__ float operator()(const Scalars& sc, const float* s, const float* sd, int k) const {
     return -sc.kp * s[k] - sc.kd * sd[k];
-  }
-};
-
-// Torques held by the thread, tau[k] for joint k.
-struct ArrayTau {
-  const float* tau;
-  __device__ float operator()(const Scalars&, const float*, const float*, int k) const {
-    return tau[k];
   }
 };
 
@@ -380,286 +340,6 @@ __device__ __forceinline__ HcLaw hc_law(const Scalars& sc, const float* pc, cons
   h.f_lin[1] = h.f_s[1];
   h.f_lin[2] = h.f_s[2] + h.fn;
   return h;
-}
-
-struct Work {
-  float WR[NL][9], Wp[NL][3], Wv[NL][6];  // world poses and velocities
-  float iR[NL][9], ip[NL][3];             // child -> parent transforms
-  float f[NL][6];                         // world contact wrenches per link
-  float v[NL][6], c[NL][6], pA[NL][6], MA[NL][36], a[NL][6];
-  float U[NL][6], d[NL], u[NL];
-};
-
-// One semi-implicit Euler step of one env, in place; the soft contact
-// wrenches enter ABA pass 1. `tau(i)` gives the
-// torque of joint i (0-based); it is called in ABA pass 2, before any state
-// leaf changes, so a policy that reads s and sd sees the state before the step.
-template <class Tau>
-__device__ void step_env(const float* P, const Scalars& sc, Work& w, float* s, float* sd,
-                         float* p, float* q, float* v, float* m, Tau tau_of) {
-  // ----- forward kinematics -----
-  {
-    const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
-    const float n = qw * qw + qx * qx + qy * qy + qz * qz;
-    const float s2 = 2.0f / (n == 0.0f ? 1.0f : n);
-    const float wx = s2 * qw * qx, wy = s2 * qw * qy, wz = s2 * qw * qz;
-    const float xx = s2 * qx * qx, xy = s2 * qx * qy, xz = s2 * qx * qz;
-    const float yy = s2 * qy * qy, yz = s2 * qy * qz, zz = s2 * qz * qz;
-    const float RB[9] = {1.0f - (yy + zz), xy - wz, xz + wy,
-                         xy + wz, 1.0f - (xx + zz), yz - wx,
-                         xz - wy, yz + wx, 1.0f - (xx + yy)};
-    float R0[9], p0[3], t[3];
-    h_rot(P + OFF_SUCH, R0);
-    h_pos(P + OFF_SUCH, p0);
-    mm3(RB, R0, w.WR[0]);
-    mv3(RB, p0, t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) w.Wp[0][k] = p[k] + t[k];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.Wv[0][k] = FLOATING ? v[k] : 0.0f;
-  }
-#pragma unroll 1
-  for (int i = 1; i < NL; ++i) {
-    const int lam = JX_LAM[i];
-    float rR[9], rp[3], t[3];
-    relative_transform(P, i, s[i - 1], rR, rp);
-    mm3(w.WR[lam], rR, w.WR[i]);
-    mv3(w.WR[lam], rp, t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) w.Wp[i][k] = w.Wp[lam][k] + t[k];
-    // Inverse pair for the dynamics: (rR^T, -rR^T rp).
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc) w.iR[i][r * 3 + cc] = rR[cc * 3 + r];
-    mv3(w.iR[i], rp, t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) w.ip[i][k] = -t[k];
-
-    const float* S = P + OFF_S + i * 6;
-    const float sdi = sd[i - 1];
-    const float Sl[3] = {S[0] * sdi, S[1] * sdi, S[2] * sdi};
-    const float Sa[3] = {S[3] * sdi, S[4] * sdi, S[5] * sdi};
-    float RSa[3], RSl[3], cr[3];
-    mv3(w.WR[i], Sa, RSa);
-    mv3(w.WR[i], Sl, RSl);
-    cross3(w.Wp[i], RSa, cr);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      w.Wv[i][k] = w.Wv[lam][k] + (RSl[k] + cr[k]);
-      w.Wv[i][k + 3] = w.Wv[lam][k + 3] + RSa[k];
-    }
-  }
-
-  // ----- Hunt/Crossley soft contacts on flat ground (m updated in place) -----
-#pragma unroll 1
-  for (int i = 0; i < NL; ++i)
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.f[i][k] = 0.0f;
-#pragma unroll 1
-  for (int ci = 0; ci < NC; ++ci) {
-    const int par = JX_CPARENT[ci];
-    const float* Lp = P + OFF_CP + ci * 3;
-    float pc[3], pd[3], t[3];
-    mv3(w.WR[par], Lp, t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) pc[k] = t[k] + w.Wp[par][k];
-    cross3(w.Wv[par] + 3, pc, t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) pd[k] = w.Wv[par][k] + t[k];
-
-    float* mc = m + ci * 3;
-    const HcLaw h = hc_law(sc, pc, pd, mc);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) mc[k] = mc[k] + sc.dt * h.md[k];
-
-    const float* f_lin = h.f_lin;
-    float f_ang[3];
-    cross3(pc, f_lin, f_ang);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      w.f[par][k] += f_lin[k];
-      w.f[par][k + 3] += f_ang[k];
-    }
-  }
-
-  // ----- articulated-body algorithm -----
-  const float* R0 = w.WR[0];
-  const float* p0 = w.Wp[0];
-  float R0i[9], p0i[3];
-  {
-    float t[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc) R0i[r * 3 + cc] = R0[cc * 3 + r];
-    mv3(R0i, p0, t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) p0i[k] = -t[k];
-  }
-  const float g6[6] = {0.0f, 0.0f, sc.gz, 0.0f, 0.0f, 0.0f};
-
-  // Pass 1: body velocities, bias accelerations and forces.
-  if (FLOATING) {
-    xv(R0i, p0i, v, w.v[0]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.v[0][k] = 0.0f;
-  }
-  {
-    const float* M0 = P + OFF_M;
-#pragma unroll
-    for (int k = 0; k < 36; ++k) w.MA[0][k] = M0[k];
-    float fb[6];
-    vxstar_Mv(w.v[0], w.MA[0], w.pA[0]);
-    if (JX_HASF[0]) {
-      xtf(R0, p0, w.f[0], fb);
-#pragma unroll
-      for (int k = 0; k < 6; ++k) w.pA[0][k] -= fb[k];
-    }
-  }
-#pragma unroll 1
-  for (int i = 1; i < NL; ++i) {
-    const int lam = JX_LAM[i];
-    const float* S = P + OFF_S + i * 6;
-    const float sdi = sd[i - 1];
-    float vJ[6], t[6];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) vJ[k] = S[k] * sdi;
-    xv(w.iR[i], w.ip[i], w.v[lam], t);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.v[i][k] = t[k] + vJ[k];
-    vx(w.v[i], vJ, w.c[i]);
-    const float* Mi = P + OFF_M + i * 36;
-#pragma unroll
-    for (int k = 0; k < 36; ++k) w.MA[i][k] = Mi[k];
-    vxstar_Mv(w.v[i], w.MA[i], w.pA[i]);
-    if (JX_HASF[i]) {
-      xtf(w.WR[i], w.Wp[i], w.f[i], t);
-#pragma unroll
-      for (int k = 0; k < 6; ++k) w.pA[i][k] -= t[k];
-    }
-  }
-
-  // Pass 2: articulated inertias and bias forces, leaves to root.
-#pragma unroll 1
-  for (int i = NL - 1; i > 0; --i) {
-    const int lam = JX_LAM[i];
-    const float* S = P + OFF_S + i * 6;
-    float* U = w.U[i];
-    mv6(w.MA[i], S, U);
-    float dd = 0.0f, sp = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      dd += S[k] * U[k];
-      sp += S[k] * w.pA[i][k];
-    }
-    const float tau = tau_of(sc, s, sd, i - 1);
-    w.d[i] = dd;
-    w.u[i] = tau - sp;
-    const float inv_d = 1.0f / dd;
-    float Ma[36];
-#pragma unroll
-    for (int r = 0; r < 6; ++r)
-#pragma unroll
-      for (int cc = 0; cc < 6; ++cc) Ma[r * 6 + cc] = w.MA[i][r * 6 + cc] - U[r] * U[cc] * inv_d;
-    float pa[6], t[6];
-    mv6(Ma, w.c[i], t);
-    const float ud = w.u[i] * inv_d;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) pa[k] = w.pA[i][k] + t[k] + U[k] * ud;
-    if (lam != 0 || FLOATING) {
-      float X[36], MaX[36];
-      build_X(w.iR[i], w.ip[i], X);
-#pragma unroll
-      for (int r = 0; r < 6; ++r)
-#pragma unroll
-        for (int cc = 0; cc < 6; ++cc) {
-          float acc = 0.0f;
-#pragma unroll
-          for (int k = 0; k < 6; ++k) acc += Ma[r * 6 + k] * X[k * 6 + cc];
-          MaX[r * 6 + cc] = acc;
-        }
-#pragma unroll
-      for (int r = 0; r < 6; ++r) {
-#pragma unroll
-        for (int cc = 0; cc < 6; ++cc) {
-          float acc = 0.0f;
-#pragma unroll
-          for (int k = 0; k < 6; ++k) acc += X[k * 6 + r] * MaX[k * 6 + cc];
-          w.MA[lam][r * 6 + cc] += acc;
-        }
-        float acc = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 6; ++k) acc += X[k * 6 + r] * pa[k];
-        w.pA[lam][r] += acc;
-      }
-    }
-  }
-
-  // Pass 3: accelerations, root to leaves.
-  if (FLOATING) {
-    float x[6];
-    chol6_solve(w.MA[0], w.pA[0], x);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.a[0][k] = -x[k];
-  } else {
-    float t[6];
-    xv(R0i, p0i, g6, t);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.a[0][k] = -t[k];
-  }
-  float sdd[NJA];
-#pragma unroll 1
-  for (int i = 1; i < NL; ++i) {
-    const int lam = JX_LAM[i];
-    const float* S = P + OFF_S + i * 6;
-    float a_i[6];
-    xv(w.iR[i], w.ip[i], w.a[lam], a_i);
-    float ua = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      a_i[k] += w.c[i][k];
-      ua += w.U[i][k] * a_i[k];
-    }
-    const float sddi = (w.u[i] - ua) / w.d[i];
-    sdd[i - 1] = sddi;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.a[i][k] = a_i[k] + S[k] * sddi;
-  }
-  float W_a[6];
-  if (FLOATING) {
-    xv(R0, p0, w.a[0], W_a);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) W_a[k] += g6[k];
-  } else {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) W_a[k] = 0.0f;
-  }
-
-  // ----- semi-implicit Euler -----
-  const float dt = sc.dt;
-#pragma unroll
-  for (int k = 0; k < 6; ++k) v[k] = v[k] + dt * W_a[k];
-#pragma unroll 1
-  for (int k = 0; k < NJ; ++k) {
-    sd[k] = sd[k] + dt * sdd[k];
-    s[k] = s[k] + dt * sd[k];
-  }
-  // The position update uses the NEW linear velocity and the OLD p.
-  float wp[3];
-  cross3(v + 3, p, wp);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) p[k] = p[k] + dt * (v[k] + wp[k]);
-  const float ox = v[3], oy = v[4], oz = v[5];
-  const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
-  float qn[4] = {qw + dt * (0.5f * (-qx * ox - qy * oy - qz * oz)),
-                 qx + dt * (0.5f * (qw * ox - qy * oz + qz * oy)),
-                 qy + dt * (0.5f * (qw * oy + qx * oz - qz * ox)),
-                 qz + dt * (0.5f * (qw * oz - qx * oy + qy * ox))};
-  const float nq = sqrtf(fmaxf(qn[0] * qn[0] + qn[1] * qn[1] + qn[2] * qn[2] + qn[3] * qn[3], 1e-12f));
-#pragma unroll
-  for (int k = 0; k < 4; ++k) q[k] = qn[k] / nq;
 }
 
 }  // namespace

@@ -1,9 +1,9 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 Every engine kernel source in ``jaxsim_tpu_torch/csrc/`` (``rollout.cu``,
-``env_rollout.cu`` and ``step_vjp.cu``, whose step is the lane-spread
-``soft_step_lanes.cuh``; ``step.cu``; ``rollout_rr.cu``, whose relaxed-rigid
-step is ``rr_step.cuh``) includes the shared step body ``step_env.cuh`` and a
+``env_rollout.cu``, ``step.cu`` and ``step_vjp.cu``, whose step is the
+lane-spread ``soft_step_lanes.cuh``; ``rollout_rr.cu``, whose relaxed-rigid
+step is ``rr_step.cuh``) includes the shared algebra ``step_env.cuh`` and a
 generated header, ``jx_topology.h``, that makes one model topology's sizes
 and tables, its contact model and its PCG iterations compile-time
 constants, and for the kernels that put an env on several lanes the lanes
@@ -229,7 +229,7 @@ def policy_weight_count(n_joints: int, policy: int, hidden: int) -> int:
 
 def lane_tables(
     engine: BatchedEngine, lanes: int, params_grad: bool = False, *, forward: bool = False, policy: int = -1,
-    hidden: int = 0,
+    hidden: int = 0, step_envs: int = 0,
 ) -> dict:
     """What the lane-spread soft step (``soft_step_lanes.cuh``) takes from
     the topology for ``lanes`` lanes an env: :func:`_lane_schedule`'s point
@@ -242,7 +242,9 @@ def lane_tables(
     (``forward``) and a block of ``LN_FORWARD_MAX_ENVS`` envs, with the model
     arrays; the env rollout (K5, ``policy`` 0, 1 or 2 with ``hidden`` units)
     also a candidate's weights, and for each env its torques and hidden
-    units. Either halves its envs while the block does not fit in its shared
+    units. The one-step kernels (K2, K3: ``forward`` with ``step_envs``)
+    take a block of ``step_envs`` envs, each with a row of torques, and the
+    model arrays. Each halves its envs while the block does not fit in its shared
     memory.
 
     Returns the schedule with ``slot``: floats of the step's slot an env;
@@ -259,6 +261,9 @@ def lane_tables(
     n_params = sum(x.numel() for x in engine.params().values())
     if forward:
         slot += 2 * engine.n_joints + 13 + 3 * engine.m_rows
+    if step_envs:
+        block_floats, env_floats, envs = n_params, engine.n_joints, step_envs
+    elif forward:
         block_floats = n_params + (policy_weight_count(engine.n_joints, policy, hidden) if policy >= 0 else 0)
         env_floats = engine.n_joints + (hidden if policy == 2 else 0) if policy >= 0 else 0
         envs = LN_FORWARD_MAX_ENVS
@@ -286,7 +291,7 @@ def lane_header(engine: BatchedEngine, defines: dict) -> str:
     t = lane_tables(
         engine, defines["JX_LN_LANES"], bool(defines.get("JX_PARAMS_GRAD")),
         forward=bool(defines.get("JX_LN_FORWARD")), policy=defines.get("JX_POLICY", -1),
-        hidden=defines.get("JX_HIDDEN", 0),
+        hidden=defines.get("JX_HIDDEN", 0), step_envs=defines.get("JX_STEP_ENVS", 0),
     )  # fmt: skip
     rows = ", ".join(map(str, t["par_row"]))
     return _schedule_header("JX_LN", t) + f"__constant__ int JX_LN_PAR_ROW[{engine.n_links}] = {{{rows}}};\n"
@@ -449,6 +454,9 @@ def is_cpu(state: BatchedState, what: str) -> bool:
     return False
 
 
+_STATE_NAMES = tuple(f"state.{f.name}" for f in dataclasses.fields(BatchedState))
+
+
 def check_cuda_call(engine: BatchedEngine, state: BatchedState, contact_models=("soft",)) -> int:
     """What every kernel takes: a flat-ground float32 engine with one of the
     kernel's ``contact_models``, and a state on the engine's device, float32,
@@ -459,23 +467,20 @@ def check_cuda_call(engine: BatchedEngine, state: BatchedState, contact_models=(
         )
     if not engine.flat:
         raise ValueError("the CUDA kernels implement flat ground only")
-    if engine.S.dtype != torch.float32:
-        raise ValueError(f"the kernel takes a float32 engine, got {engine.S.dtype}")
+    S = engine.S
+    if S.dtype != torch.float32:
+        raise ValueError(f"the kernel takes a float32 engine, got {S.dtype}")
     B = state.p.shape[-1]
-    want = dict(
-        s=(engine.n_joints, B),
-        sd=(engine.n_joints, B),
-        p=(3, B),
-        q=(4, B),
-        v=(6, B),
-        m=(engine.m_rows, 3, B),
-    )
-    for name, shape in want.items():
-        check_tensor(f"state.{name}", getattr(state, name), shape, engine.S.device)
+    n, device = engine.n_joints, S.device
+    shapes = ((n, B), (n, B), (3, B), (4, B), (6, B), (engine.m_rows, 3, B))
+    for name, t, shape in zip(_STATE_NAMES, state.fields(), shapes):
+        check_tensor(name, t, shape, device)
     return B
 
 
 def check_tensor(name: str, t: torch.Tensor, shape, device, dtype=torch.float32) -> None:
+    if t.device == device and t.dtype == dtype and t.shape == tuple(shape) and t.is_contiguous():
+        return  # the common case, in one test
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the engine on {device}")
     if t.dtype != dtype:

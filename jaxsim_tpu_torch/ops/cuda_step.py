@@ -11,10 +11,14 @@ Counterparts of ``jaxsim_tpu/ops/pallas_step.py``:
   so a changed ``M`` needs no rebuild.
 * :func:`rollout_per_step` of ``pallas_rollout``: one K2 launch a step.
 
-Both kernels are ``jaxsim_tpu_torch/csrc/step.cu``. Each wrapper takes its
-plain version (:func:`step_pd_reference`, :func:`step_tau_reference`, which
-call the twin) for a CPU state and its kernel for a CUDA state; a failed
-build or launch raises.
+Both kernels are ``jaxsim_tpu_torch/csrc/step.cu``: each env on ``LANES``
+lanes of a warp, ``ENVS`` envs a block, on the lane-spread soft step's
+forward-only slot (``soft_step_lanes.cuh``), the state read from device
+columns into the block's slots and written back out; see the note at the
+top of the source. Each wrapper takes its plain version
+(:func:`step_pd_reference`, :func:`step_tau_reference`, which call the twin)
+for a CPU state and its kernel for a CUDA state; a failed build or launch
+raises.
 """
 
 from __future__ import annotations
@@ -31,15 +35,47 @@ SOURCE = CSRC / "step.cu"
 SIGNATURES = {
     "jx_step_pd": [PTR] * 13 + [I32] + [F32] * 10 + [PTR],
     "jx_step_tau": [PTR] * 14 + [I32] + [F32] * 8 + [PTR],
+    "jx_step_geometry": [PTR],
 }
+# Build-time constants (PERF.md §6 has the times of the choices tried,
+# ``chip_probe.py step``): lanes of a warp that carry one env, and envs a
+# block (``cuda_build.lane_tables`` halves them until the block fits).
+LANES = 8
+ENVS = 32
 
 
-def job(engine: BatchedEngine) -> BuildJob:
-    return BuildJob(engine, SOURCE, SIGNATURES)
+def job(engine: BatchedEngine, lanes: int | None = None, envs: int | None = None) -> BuildJob:
+    """The library for ``engine``, with ``lanes`` lanes an env and ``envs``
+    envs a block (the module's constants by default)."""
+    return BuildJob(engine, SOURCE, SIGNATURES, (
+        ("JX_LN_LANES", int(lanes or LANES)), ("JX_LN_FORWARD", 1), ("JX_STEP_ENVS", int(envs or ENVS)),
+    ))  # fmt: skip
+
+
+def block_envs(engine: BatchedEngine, lanes: int) -> list[int]:
+    """The envs a block that a build may take at ``lanes`` lanes an env:
+    one warp's (32 / ``lanes``), doubled while the block fits in shared
+    memory (``cuda_build.lane_tables``), has at most 1024 threads and at
+    most 128 envs (a batch of 1024 then still makes 8 blocks)."""
+    envs, out = 32 // lanes, []
+    while envs * lanes <= 1024 and envs <= 128:
+        t = cuda_build.lane_tables(engine, lanes, forward=True, step_envs=envs)
+        if t["envs"] != envs:
+            break
+        out.append(envs)
+        envs *= 2
+    return out
 
 
 def build(engine: BatchedEngine) -> KernelBuild:
     return cuda_build.build(job(engine))
+
+
+def geometry(kernel: KernelBuild) -> dict[str, int]:
+    """The kernels' launch: threads and envs a block, the dynamic shared
+    memory a block takes in bytes, and the blocks an SM holds at once (CUDA's
+    occupancy calculator)."""
+    return cuda_build.geometry(kernel, "jx_step_geometry")
 
 
 def step_pd_reference(
@@ -56,6 +92,30 @@ def step_tau_reference(
     return engine.step(state, tau, pr)
 
 
+def launch_pd(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, kp: float, kd: float) -> BatchedState:
+    """One K2 launch of ``kernel`` (the engine's library, or a variant of it
+    built from another source) on a checked CUDA state; counts nothing."""
+    out = cuda_build.empty_state_like(state)
+    cuda_build.launch(
+        kernel, "jx_step_pd", packed_params(engine), state.p.device,
+        *cuda_build.state_pointers(state), *cuda_build.state_pointers(out),
+        state.p.shape[-1], *cuda_build.engine_scalars(engine), float(kp), float(kd),
+    )  # fmt: skip
+    return out
+
+
+def launch_tau(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, tau, params) -> BatchedState:
+    """One K3 launch of ``kernel`` on a checked CUDA state, checked torques
+    and packed model arrays ``params``; counts nothing."""
+    out = cuda_build.empty_state_like(state)
+    cuda_build.launch(
+        kernel, "jx_step_tau", params, state.p.device,
+        *cuda_build.state_pointers(state), tau.data_ptr(), *cuda_build.state_pointers(out),
+        state.p.shape[-1], *cuda_build.engine_scalars(engine),
+    )  # fmt: skip
+    return out
+
+
 def step_pd(
     engine: BatchedEngine, state: BatchedState, kp: float = 60.0, kd: float = 0.5
 ) -> BatchedState:
@@ -64,13 +124,8 @@ def step_pd(
     global STEP_PD_KERNEL_LAUNCHES
     if cuda_build.is_cpu(state, "step"):
         return step_pd_reference(engine, state, kp, kd)
-    B = cuda_build.check_cuda_call(engine, state)
-    out = cuda_build.empty_state_like(state)
-    cuda_build.launch(
-        build(engine), "jx_step_pd", packed_params(engine), state.p.device,
-        *cuda_build.state_pointers(state), *cuda_build.state_pointers(out),
-        B, *cuda_build.engine_scalars(engine), float(kp), float(kd),
-    )  # fmt: skip
+    cuda_build.check_cuda_call(engine, state)
+    out = launch_pd(build(engine), engine, state, kp, kd)
     STEP_PD_KERNEL_LAUNCHES += 1
     return out
 
@@ -88,13 +143,7 @@ def step_tau(
     cuda_build.check_tensor("tau", tau, (engine.n_joints, B), engine.S.device)
     for name, t in (pr or {}).items():
         cuda_build.check_tensor(f"pr[{name!r}]", t, t.shape, engine.S.device)
-    params = packed_params(engine, pr)
-    out = cuda_build.empty_state_like(state)
-    cuda_build.launch(
-        build(engine), "jx_step_tau", params, state.p.device,
-        *cuda_build.state_pointers(state), tau.data_ptr(), *cuda_build.state_pointers(out),
-        B, *cuda_build.engine_scalars(engine),
-    )  # fmt: skip
+    out = launch_tau(build(engine), engine, state, tau, packed_params(engine, pr))
     STEP_TAU_KERNEL_LAUNCHES += 1
     return out
 
