@@ -5,7 +5,7 @@ pattern and the spread that float32 rounding leaves, on one NVIDIA GPU.
 Usage, from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations] [rr] [rr_faults] [param_sum]
-        [profiler] [vjp] [vjp_faults] [lanes] [quat] [k1_faults] [step] [step_faults] [kernels]
+        [profiler] [vjp] [vjp_faults] [lanes] [quat] [k1_faults] [step] [step_faults] [kernels] [rk4_faults]
 
 With no argument it runs the first three. Probes of the flagship humanoid
 (soft contacts, flat ground, PD policy):
@@ -114,6 +114,13 @@ With no argument it runs the first three. Probes of the flagship humanoid
   through entry points that the checkouts since the lane-spread K1 and K5
   share, so that a copy of this script times an older checkout's kernels in
   the same call; and the SHA-256 of each library's SASS instructions.
+* rk4_faults: ``RK4_FAULTS`` seeded into copies of ``csrc/`` under
+  ``build/``, each built for the RK4 and RK4-fast engines beside the sound
+  source and held with it to ``chip_smoke.py``'s RK4 limits: the soft K1
+  builds by ``k1_gates`` (RK4_CASES), the relaxed-rigid ones by
+  ``rr_gates`` (RR_RK4_CASES); per case the worst field's statistic over
+  its limit (> 1 is refused). A fault whose source edit a build does not
+  include gives that build's own numbers.
 
 It prints the card's name and power limit, then JSON lines keyed by probe,
 and exits non-zero when no CUDA device is visible.
@@ -123,6 +130,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -220,6 +228,27 @@ STEP_FAULTS = {
     "envs past the batch store": ("    if (b0 + e < B) {\n      int j;\n      float* row", "    {\n      int j;\n      float* row"),
 }
 
+# Seeded faults of K1's RK4 and RK4-fast builds, each a list of edits of
+# csrc/ (the file, the text, its replacement): the stage weights (1, 2, 2, 2)
+# / 6 in place of (1, 2, 2, 1) / 6; the torques re-read from each stage's
+# state, not captured once at the step's start; the Baumgarte term dropped
+# from the quaternion's rate; and (K1-rr under RK4) each stage's PCG
+# warm-started from the step's start m, not the stage's.
+RK4_FAULTS = {
+    "stage weights (1, 2, 2, 2)/6": [("step_env.cuh", "acc + (stage == 3 ? k : 2.0f * k)", "acc + 2.0f * k")],
+    "torques re-read from the stage state": [
+        ("rollout.cu", "const ColTau tau{{st + ST_TAU * ES, ES}};", "const SlotPd tau{x.s, x.sd, sc.kp, sc.kd};"),
+        ("rr_step.cuh", "const SlotTauRr tau{mine};", "const PdTau tau{};"),
+    ],
+    "Baumgarte term dropped": [("step_env.cuh", "const float r = 0.5f * (nw * (1.0f - nq));", "const float r = 0.0f;")],
+    "stage PCG warm-started from the start's m": [(
+        "rr_step.cuh", "      rr_solve(P, sc, sl, g, pt, m, x);\n      if (Integrator == 2)",
+        "      float wm[OWN * 3];\n#pragma unroll\n      for (int k = 0; k < OWN * 3; ++k)\n"
+        "        wm[k] = Integrator == 1 && pt[k / 3] >= 0 ? y0m[(pt[k / 3] * 3 + k % 3) * rs] : m[k];\n"
+        "      rr_solve(P, sc, sl, g, pt, wm, x);\n      if (Integrator == 2)",
+    )],
+}
+
 # The one-step kernels' model arrays read from device memory through L1 in
 # place of the block's copy in shared memory (edits of step.cu), for the
 # step probe.
@@ -244,6 +273,12 @@ def _seeded_copy(kind: str, name: str, file: str, old: str, new: str, more=()):
     """A copy of ``csrc/`` under ``build/<kind>/<name>`` with ``old``
     replaced by ``new`` in ``file`` (which must hold it once), and so each
     further ``(old, new)`` of ``more``."""
+    return _seeded_edits(kind, name, [(file, o, n) for o, n in ((old, new), *more)])
+
+
+def _seeded_edits(kind: str, name: str, edits) -> pathlib.Path:
+    """A copy of ``csrc/`` under ``build/<kind>/<name>`` with each ``(file,
+    old, new)`` of ``edits`` made (each ``old`` once in its file)."""
     import shutil
 
     from jaxsim_tpu_torch.ops import cuda_build
@@ -251,12 +286,11 @@ def _seeded_copy(kind: str, name: str, file: str, old: str, new: str, more=()):
     copy = cuda_build.BUILD_DIR.parent / kind / name
     shutil.rmtree(copy, ignore_errors=True)
     shutil.copytree(cuda_build.CSRC, copy)
-    text = (copy / file).read_text()
-    for old, new in ((old, new), *more):
+    for file, old, new in edits:
+        text = (copy / file).read_text()
         if text.count(old) != 1:
             raise RuntimeError(f"{name}: the text to replace is not in {file} once")
-        text = text.replace(old, new)
-    (copy / file).write_text(text)
+        (copy / file).write_text(text.replace(old, new))
     return copy
 
 
@@ -777,7 +811,8 @@ def k1_faults_probe(hum, gen) -> None:
     def variant(name):
         return lambda eng, st, n: cuda_rollout.launch(kernels[(name, id(eng))], eng, st, n, 60.0, 0.5)
 
-    print(json.dumps({"k1_faults": k1_gates(starts, {name: variant(name) for name in sources})}), flush=True)
+    _, ratios = k1_gates(starts, {name: variant(name) for name in sources})
+    print(json.dumps({"k1_faults": ratios}), flush=True)
 
 
 def step_probe(hum, gen) -> None:
@@ -934,6 +969,48 @@ def kernels_probe(hum, gen) -> None:
                                            "sha256": hashlib.sha256(code.encode()).hexdigest()}}), flush=True)  # fmt: skip
 
 
+def rk4_faults_probe(hum, gen) -> None:
+    """Each of RK4_FAULTS seeded into a copy of ``csrc/`` under ``build/``,
+    built for every RK4 and RK4-fast engine of the gates beside the sound
+    source, and every variant held to ``chip_smoke.py``'s RK4 limits
+    (``k1_gates`` with RK4_CASES, ``rr_gates`` with RR_RK4_CASES): per integrator and case,
+    the worst field's statistic over its limit (> 1 is refused)."""
+    import torch
+
+    from chip_smoke import (
+        RK4_CASES, RK4_INTEGRATORS, RR_RK4_CASES, k1_gates, pendulum_engine, rr_garpez_engine, rr_gates,
+        rr_humanoid_engine, rr_start_states, start_states, with_integrator,
+    )  # fmt: skip
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_rollout
+
+    device = hum.S.device
+    starts = start_states(pendulum_engine(device), hum)
+    dirs = {"control": cuda_build.CSRC}
+    for name, edits in RK4_FAULTS.items():
+        dirs[name] = _seeded_edits("rk4_faults", name, edits)
+    ratios = {}
+    for i in RK4_INTEGRATORS:
+        engines = {id(e): with_integrator(e, i) for e, _ in starts.values()}
+        soft = {name: (engines[id(starts[name][0])], starts[name][1]) for name, *_ in RK4_CASES}
+        hum_rr, garp_rr = rr_humanoid_engine(device, i), rr_garpez_engine(device, i)
+        rr = rr_start_states(hum_rr, garp_rr, hum_rr, torch.Generator(device).manual_seed(6))
+        jobs = {}
+        for name, d in dirs.items():
+            for eng in [*engines.values(), hum_rr, garp_rr]:
+                job = cuda_rollout.job(eng)
+                jobs[(name, id(eng))] = dataclasses.replace(job, source=d / job.source.name)
+        kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+
+        def variant(name, rr_gains=False):
+            if rr_gains:
+                return lambda eng, st, n, kp, kd: cuda_rollout.launch(kernels[(name, id(eng))], eng, st, n, kp, kd)
+            return lambda eng, st, n: cuda_rollout.launch(kernels[(name, id(eng))], eng, st, n, 60.0, 0.5)
+
+        _, ratios[f"soft {i}"] = k1_gates(soft, {name: variant(name) for name in dirs}, RK4_CASES)
+        _, ratios[f"relaxed-rigid {i}"] = rr_gates(rr, {name: variant(name, True) for name in dirs}, RR_RK4_CASES)
+    print(json.dumps({"rk4_faults": ratios}), flush=True)
+
+
 PROBES = {
     "sweep": sweep_probe,
     "profile": profile_probe,
@@ -952,6 +1029,7 @@ PROBES = {
     "step": step_probe,
     "step_faults": step_faults_probe,
     "kernels": kernels_probe,
+    "rk4_faults": rk4_faults_probe,
 }
 
 

@@ -33,6 +33,11 @@ plain PyTorch version on the card:
   ``torch.sum``, and two runs of it to the bit; and the
   PD gains' gradient through a 10-step ``fused_diff_rollout`` against the
   plain twin under autograd;
+* K1's RK4 and RK4-fast builds (``rollout.cu`` and ``rollout_rr.cu`` with
+  ``JX_INTEGRATOR`` 1 and 2) in every state field: the soft one on CASES'
+  starts over shorter horizons (``RK4_CASES``), the relaxed-rigid one on
+  RR_CASES' starts over shorter horizons (``RR_RK4_CASES``), by the same
+  statistics and limits;
 * K6 and K7 (``fma_probe.cu``), each FMA-rate probe variant against its
   plain version at a small T, in units in the last place, at a multiplier
   and increment that move every chain at every iteration; and the FMA
@@ -61,6 +66,13 @@ before it and read just after:
   with ``RelaxedRigidContacts()`` and its default parameters, flat ground,
   semi-implicit Euler, the PD policy, 8192 envs, four chained 400-step K1
   launches (8 PCG iterations a step);
+* BASELINE config 5, bench.py's ``relaxed_rigid_rk4`` uncut: the relaxed-rigid
+  humanoid with RK4, flat ground, the PD policy, 8192 envs, four chained
+  200-step K1 launches (8 PCG iterations a stage);
+* the soft RK4 rollout at the flagship's settings: four chained K1 launches
+  of ``SOFT_RK4_HORIZON`` steps;
+* RK4-fast, soft and relaxed-rigid, one K1 launch each at the two RK4 main
+  paths' shapes (timing only);
 * the FMA-rate probes: K6's float32 peak, which is K7's float32 rate (one
   sweep, its launches counted as both), and K7's two bf16 rates, each the
   best of a sweep over chains per thread and blocks per SM, with its share
@@ -106,7 +118,9 @@ PROFILER_TRIES = 5
 # The plain twin takes 50-110 ms a humanoid step on the card (thousands of
 # small launches); its time is taken over fewer steps than the kernel's
 # launch and scaled to the same work, linearly in the steps.
-PLAIN_TIMED_STEPS = dict(rollout=100, step_pd=10, step_tau=10, env_rollout=20, step_vjp=3, rollout_relaxed_rigid=20)
+PLAIN_TIMED_STEPS = dict(rollout=100, step_pd=10, step_tau=10, env_rollout=20, step_vjp=3, rollout_relaxed_rigid=20,
+                         rollout_rk4=10, rollout_rk4fast=10, rollout_relaxed_rigid_rk4=5,
+                         rollout_relaxed_rigid_rk4fast=5)  # fmt: skip
 PER_STEP_LAUNCHES = 100  # K2 main path
 ENV_STEPS = 20  # BatchedEnv.step main path
 # ES main path: examples/train_es_mlp.py uncut.
@@ -200,6 +214,32 @@ RR_CASES = (
     ("humanoid23 relaxed-rigid touchdown, 3 PCG iterations", 100, "max", True),
 )
 RR_TOUCHDOWN = dict(batch=1024, base=(0.0, 0.0, 0.93), iterations=3)
+# K1's RK4 and RK4-fast builds vs plain: CASES' and RR_CASES' starts, the
+# same statistics and limits, over shorter horizons, since an RK4 step of the
+# plain twin is four of its derivatives (a soft humanoid step about 0.3 s on
+# the card, a relaxed-rigid one about 0.9 s). The touchdown start is left
+# out: its feet strike about 75 steps in, and a relaxed-rigid RK4 twin there
+# would take minutes.
+RK4_CASES = (
+    ("pendulum1", 100, "max"),
+    ("humanoid23 main-path start", 25, "max"),
+    ("humanoid23 joints moving", 10, "max"),
+    ("humanoid23 joints moving", 25, "p99.9"),
+    ("box spinning in the air", 100, "max"),
+)
+RR_RK4_CASES = (
+    ("humanoid23 relaxed-rigid main-path start", 20, "max", False),
+    ("humanoid23 relaxed-rigid joints moving", 10, "max", True),
+    ("humanoid23 relaxed-rigid joints displaced and moving", 10, "max", True),
+    ("garpez relaxed-rigid tilted low", 25, "max", False),
+)
+RK4_INTEGRATORS = ("rk4", "rk4fast")
+# BASELINE config 5: bench.py's relaxed_rigid_rk4 (bench.py:363-382) uncut.
+RR_RK4_HORIZON = 200  # steps per K1 launch
+RK4_TIMED_CALLS = 3
+# The soft RK4 main path: the flagship's settings, steps a K1 launch chosen
+# so that a launch takes under 1 s.
+SOFT_RK4_HORIZON = 2000
 RR_JOINT_SPEED = 0.5  # rad/s, the moving start's ṡ scale
 RR_GARPEZ = dict(batch=1024, base=(0.0, 0.0, 0.015), quat=(0.995, 0.0998, 0.0, 0.0), joints=0.05, gains=(20.0, 0.1))
 # Relaxed-rigid main path: bench.py's relaxed_rigid (bench.py:338-361) uncut.
@@ -245,6 +285,10 @@ REPLACES = dict(
     # The partials' sum replaces the kernel's accumulation across grid steps.
     param_sum="jaxsim_tpu/ops/pallas_step.py:306",
     rollout_relaxed_rigid="jaxsim_tpu/ops/pallas_step.py:664",
+    rollout_rk4="jaxsim_tpu/ops/pallas_step.py:664",
+    rollout_rk4fast="jaxsim_tpu/ops/pallas_step.py:664",
+    rollout_relaxed_rigid_rk4="jaxsim_tpu/ops/pallas_step.py:664",
+    rollout_relaxed_rigid_rk4fast="jaxsim_tpu/ops/pallas_step.py:664",
     fma_probe="bench.py:716",
     bf16_probe_f32="scripts/bf16_probe.py:36",
     bf16_probe_bf16="scripts/bf16_probe.py:36",
@@ -259,6 +303,10 @@ SOURCES = dict(
     step_vjp_params_grad="jaxsim_tpu_torch/csrc/step_vjp.cu",
     param_sum="jaxsim_tpu_torch/csrc/step_vjp.cu",
     rollout_relaxed_rigid="jaxsim_tpu_torch/csrc/rollout_rr.cu",
+    rollout_rk4="jaxsim_tpu_torch/csrc/rollout.cu",
+    rollout_rk4fast="jaxsim_tpu_torch/csrc/rollout.cu",
+    rollout_relaxed_rigid_rk4="jaxsim_tpu_torch/csrc/rollout_rr.cu",
+    rollout_relaxed_rigid_rk4fast="jaxsim_tpu_torch/csrc/rollout_rr.cu",
     fma_probe="jaxsim_tpu_torch/csrc/fma_probe.cu",
     bf16_probe_f32="jaxsim_tpu_torch/csrc/fma_probe.cu",
     bf16_probe_bf16="jaxsim_tpu_torch/csrc/fma_probe.cu",
@@ -277,12 +325,30 @@ def phase(name: str):
     print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def humanoid_engine(device):
+def integrator_type(integrator: str):
+    """The port's IntegratorType member of an engine's integrator name."""
+    from jaxsim_tpu_torch.api.model import IntegratorType
+
+    return dict(sie=IntegratorType.SemiImplicitEuler, rk4=IntegratorType.RungeKutta4,
+                rk4fast=IntegratorType.RungeKutta4Fast)[integrator]  # fmt: skip
+
+
+def with_integrator(engine, integrator: str):
+    """A copy of ``engine`` with another integrator (its arrays copied)."""
+    import copy
+
+    out = copy.deepcopy(engine)
+    out.integrator = integrator
+    return out
+
+
+def humanoid_engine(device, integrator="sie"):
     """The flagship model, lowered as bench.py lowers it."""
     from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, models
     from jaxsim_tpu_torch.api.contact import estimate_good_contact_parameters
 
-    model = JaxSimModel.build_from_model_description(models.build_humanoid_urdf())
+    model = JaxSimModel.build_from_model_description(models.build_humanoid_urdf(),
+                                                     integrator=integrator_type(integrator))  # fmt: skip
     params = estimate_good_contact_parameters(
         model,
         number_of_active_collidable_points_steady_state=8,
@@ -292,21 +358,24 @@ def humanoid_engine(device):
     return BatchedEngine.build(model.replace(contact_params=params), device=device)
 
 
-def rr_humanoid_engine(device):
+def rr_humanoid_engine(device, integrator="sie"):
     """bench.py's relaxed-rigid model: the humanoid with
-    ``RelaxedRigidContacts()`` and the default parameters (μ = 0.005)."""
+    ``RelaxedRigidContacts()`` and the default parameters (μ = 0.005); with
+    ``integrator="rk4"`` BASELINE config 5 (bench.py's relaxed_rigid_rk4)."""
     from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, models
     from jaxsim_tpu_torch.ops.contacts.relaxed_rigid import RelaxedRigidContacts
 
-    model = JaxSimModel.build_from_model_description(models.build_humanoid_urdf(), contact_model=RelaxedRigidContacts())
+    model = JaxSimModel.build_from_model_description(models.build_humanoid_urdf(), contact_model=RelaxedRigidContacts(),
+                                                     integrator=integrator_type(integrator))  # fmt: skip
     return BatchedEngine.build(model, device=device)
 
 
-def rr_garpez_engine(device):
+def rr_garpez_engine(device, integrator="sie"):
     from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, models
     from jaxsim_tpu_torch.ops.contacts.relaxed_rigid import RelaxedRigidContacts
 
-    model = JaxSimModel.build_from_model_description(models.build_garpez_urdf(), contact_model=RelaxedRigidContacts())
+    model = JaxSimModel.build_from_model_description(models.build_garpez_urdf(), contact_model=RelaxedRigidContacts(),
+                                                     integrator=integrator_type(integrator))  # fmt: skip
     return BatchedEngine.build(model, device=device)
 
 
@@ -493,6 +562,28 @@ def profiled_ms(fn, kernel: str, repeats: int) -> float:
             return statistics.mean(t for _, t in seen) / 1e3
         print(f"the profiler saw {len(seen)} of {repeats} launches of {kernel!r}; another window", flush=True)
     raise RuntimeError(f"the profiler missed launches of {kernel!r} in {PROFILER_TRIES} windows")
+
+
+def chained(engine, start, horizon: int, calls: int):
+    """K1 from ``start``: a warm-up launch, then ``calls`` chained launches
+    of ``horizon`` steps, each timed by wall clock and CUDA events and ended
+    by a synchronize: the last state and ``[(wall s, device ms), ...]``."""
+    import torch
+
+    from jaxsim_tpu_torch.ops import cuda_rollout
+
+    out = cuda_rollout.rollout(engine, start, horizon)  # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start_ev.record()
+        out = cuda_rollout.rollout(engine, out, horizon)
+        end_ev.record()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0, start_ev.elapsed_time(end_ev)))
+    return out, times
 
 
 def wall_ms(fn) -> float:
@@ -785,30 +876,55 @@ def rr_active_points(engine, state) -> int:
     return int(engine._point_geometry(W_R, W_p, W_v, engine.params())["active"].sum())
 
 
-def k1_gates(starts, variants) -> dict[str, dict[str, float]]:
-    """Variants of K1's soft build (name -> a function like
-    ``cuda_rollout.rollout``: the sound kernel, seeded faults) against the
-    plain twin in each of CASES, held to CASES' limits without raising: for
-    each variant and case its worst field's statistic over TOL (> 1 is
-    refused; a non-finite state is infinitely far)."""
+def kernel_suffix(engine) -> str:
+    """The suffix of a K1 build's name in the kernels line: its integrator's."""
+    return "" if engine.integrator == "sie" else f"_{engine.integrator}"
+
+
+def k1_gates(starts, variants=None, cases=None) -> tuple[list[float], dict[str, dict[str, float]]]:
+    """K1's soft build against the plain twin in each of ``cases`` (CASES by
+    default, RK4_CASES for the starts of RK4 or RK4-fast engines; ``starts`` maps
+    a case's name to (engine, state)), every field at the case's statistic
+    over envs held to TOL, the plain trajectory of a start run once.
+    ``variants`` maps a name to a function like ``cuda_rollout.rollout``: by
+    default the wrapper, which is gated (a breach raises); other variants
+    (seeded faults) are held to the same limits without raising. Returns the
+    largest |Δ| of each case held at its max (the default variant's), and
+    for each variant and case its worst field's statistic over its limit
+    (> 1 is refused; a non-finite state is infinitely far)."""
     import torch
 
     from jaxsim_tpu_torch.ops import cuda_rollout
 
-    ratios = {name: {} for name in variants}
-    for name, n_steps, stat in CASES:
+    gated = variants is None
+    variants = variants or {"kernel": cuda_rollout.rollout}
+    cases = cases or CASES
+    errs, ratios = [], {name: {} for name in variants}
+    for name in dict.fromkeys(case[0] for case in cases):
         engine, state = starts[name]
-        plain = cuda_rollout.rollout_reference(engine, state, n_steps)
-        for vname, run in variants.items():
-            kern = run(engine, state, n_steps)
-            torch.cuda.synchronize()
-            ratio = math.inf
-            if all_finite(kern):
-                ratio = max(over_envs(per_env_abs_diff(kern, plain), stat).values()) / TOL
-            ratios[vname][f"{name} {n_steps} steps, {stat}"] = ratio
-            print(f"rollout {vname} vs plain, {name} B={state.p.shape[-1]} {n_steps} steps: worst field's {stat} "
-                  f"over its limit {ratio:.6g}", flush=True)  # fmt: skip
-    return ratios
+        steps = [(n, stat) for case, n, stat in cases if case == name]
+        plain, st = {}, state
+        with torch.no_grad():
+            for t in range(1, max(n for n, _ in steps) + 1):
+                st = cuda_rollout.rollout_reference(engine, st, 1)
+                if t in dict(steps):
+                    plain[t] = st
+        for n, stat in steps:
+            label = f"rollout{kernel_suffix(engine)} {{}} vs plain, {name} B={state.p.shape[-1]} {n} steps"
+            for vname, run in variants.items():
+                kern = run(engine, state, n)
+                torch.cuda.synchronize()
+                if gated:
+                    err = compare_states(label.format(vname), kern, plain[n], stat)
+                    if stat == "max":
+                        errs.append(err)
+                ratio = math.inf
+                if all_finite(kern):
+                    ratio = max(over_envs(per_env_abs_diff(kern, plain[n]), stat).values()) / TOL
+                ratios[vname][f"{name} {n} steps, {stat}"] = ratio
+                if not gated:
+                    print(f"{label.format(vname)}: worst field's {stat} over its limit {ratio:.6g}", flush=True)
+    return errs, ratios
 
 
 def step_gates(starts, case_tau, variants=None, plains=None) -> tuple[dict[str, list[float]], dict[str, dict[str, float]]]:
@@ -900,8 +1016,9 @@ def rr_diff(a, b) -> dict:
     return diff
 
 
-def rr_gates(starts, variants=None) -> tuple[list[float], dict[str, dict[str, float]]]:
-    """K1's relaxed-rigid kernel against the plain twin in each of RR_CASES:
+def rr_gates(starts, variants=None, cases=None) -> tuple[list[float], dict[str, dict[str, float]]]:
+    """K1's relaxed-rigid kernel against the plain twin in each of ``cases``
+    (RR_CASES by default, RR_RK4_CASES for an RK4 engine's starts):
     every state field's per-env |Δ|, m's over max(1, max |plain m|), at the
     case's statistic over envs; against the float64 twin where the case says
     so (RR_CASES). Fails a case whose plain trajectory has no active contact
@@ -922,9 +1039,10 @@ def rr_gates(starts, variants=None) -> tuple[list[float], dict[str, dict[str, fl
     gated = variants is None
     variants = variants or {"kernel": cuda_rollout.rollout}
     errs, ratios = [], {name: {} for name in variants}
-    for name in dict.fromkeys(case[0] for case in RR_CASES):
+    all_cases = cases or RR_CASES
+    for name in dict.fromkeys(case[0] for case in all_cases):
         engine, state, (kp, kd) = starts[name]
-        cases = [case[1:] for case in RR_CASES if case[0] == name]
+        cases = [case[1:] for case in all_cases if case[0] == name]
         twins = {"float32": (engine, state)}
         if any(against64 for *_, against64 in cases):
             twins["float64"] = (copy.deepcopy(engine).double(), BatchedState(*(t.double() for t in state.fields())))
@@ -938,8 +1056,8 @@ def rr_gates(starts, variants=None) -> tuple[list[float], dict[str, dict[str, fl
                     plain[kind][t] = BatchedState(*(x.float() for x in st.fields()))
         B = state.p.shape[-1]
         for n, stat, against64 in cases:
-            case = f"{name} B={B} {n} steps"
-            print(f"rollout_relaxed_rigid vs plain, {case}: active contact points summed over the steps "
+            case = f"{name} B={B} {n} steps" + ("" if engine.integrator == "sie" else f", {engine.integrator}")
+            print(f"rollout_relaxed_rigid{kernel_suffix(engine)} vs plain, {case}: active contact points summed over the steps "
                   f"{sum(active[:n])}, at the first step {active[0]}, at the last {active[n - 1]}", flush=True)  # fmt: skip
             if not sum(active[:n]):
                 raise RuntimeError(f"{case}: no contact point is active, so the gate proves nothing about the solve")
@@ -951,7 +1069,7 @@ def rr_gates(starts, variants=None) -> tuple[list[float], dict[str, dict[str, fl
             else:
                 limits, ref = {}, plain["float32"][n]
             for vname, run in variants.items():
-                label = f"rollout_relaxed_rigid {vname} vs plain, {case}"
+                label = f"rollout_relaxed_rigid{kernel_suffix(engine)} {vname} vs plain, {case}"
                 kern = run(engine, state, n, kp, kd)
                 torch.cuda.synchronize()
                 if not all(all_finite(p[n]) for p in plain.values()):
@@ -1116,6 +1234,16 @@ def main() -> int:
 
     starts, case_tau = vjp_starts(pend, hum, garp, apg)
     box = starts["box spinning in the air"][0]
+    # RK4 and RK4-fast: the humanoids through the model's integrator (the main
+    # paths' engines), the pendulum and the box as copies; CASES' and
+    # RR_CASES' starts.
+    hum_rk4 = {i: humanoid_engine(device, i) for i in RK4_INTEGRATORS}
+    hum_rr_rk4 = {i: rr_humanoid_engine(device, i) for i in RK4_INTEGRATORS}
+    garp_rr_rk4 = {i: rr_garpez_engine(device, i) for i in RK4_INTEGRATORS}
+    rk4_engines = {i: {id(pend): with_integrator(pend, i), id(hum): hum_rk4[i], id(box): with_integrator(box, i)}
+                   for i in RK4_INTEGRATORS}  # fmt: skip
+    rk4_starts = {i: {name: (rk4_engines[i][id(starts[name][0])], starts[name][1]) for name, *_ in RK4_CASES}
+                  for i in RK4_INTEGRATORS}  # fmt: skip
 
     # ----- build: every library at once -----
     with phase("build"):
@@ -1127,6 +1255,9 @@ def main() -> int:
             vjp_garp_params_grad=cuda_step_vjp.job(garp, params_grad=True), rr_touchdown=cuda_rollout.job(hum_td),
             rr=cuda_rollout.job(hum_rr), rr_garp=cuda_rollout.job(garp_rr), fma_probe=fma_probe.job(),
             rollout_box=cuda_rollout.job(box), step_box=cuda_step.job(box),
+            **{f"rollout_{i}_{e.n_links}": cuda_rollout.job(e) for i in RK4_INTEGRATORS for e in rk4_engines[i].values()},
+            **{f"rr_{i}": cuda_rollout.job(hum_rr_rk4[i]) for i in RK4_INTEGRATORS},
+            **{f"rr_garp_{i}": cuda_rollout.job(garp_rr_rk4[i]) for i in RK4_INTEGRATORS},
         )  # fmt: skip
         builds = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
     print(f"nvcc seconds {json.dumps({k: round(b.seconds, 2) for k, b in builds.items()})}")
@@ -1144,6 +1275,8 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     lane_kernels = dict(
         rollout=(builds["rollout"], cuda_rollout.geometry, cuda_rollout.LANES, BATCH),
+        **{f"rollout_{i}": (builds[f"rollout_{i}_{hum.n_links}"], cuda_rollout.geometry, cuda_rollout.LANES, BATCH)
+           for i in RK4_INTEGRATORS},
         rollout_pendulum=(builds["rollout_pend"], cuda_rollout.geometry, cuda_rollout.LANES, 1024),
         **{f"env_rollout {k}": (builds[f"env_rollout_{k}"], cuda_env_rollout.geometry, cuda_env_rollout.LANES, BATCH)
            for k in pols},
@@ -1160,14 +1293,16 @@ def main() -> int:
               + " | ".join(ln.strip() for ln in b.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln)
               + f"; SASS local loads and stores (LDL, STL) {json.dumps(cuda_rollout.lane_local_memory(b))}",
               flush=True)  # fmt: skip
-    rr_build = builds["rr"]
-    geo = cuda_rollout.rr_geometry(rr_build)
-    print(f"rollout_relaxed_rigid ({cuda_rollout.RR_LANES} lanes an env): {geo['threads']} threads and {geo['envs']}"
-          f" envs a block, {geo['smem_bytes']} B of dynamic shared memory a block, {geo['blocks_per_sm']} blocks an"
-          f" SM (occupancy calculator), so {geo['blocks_per_sm'] * geo['envs']} envs an SM; {BATCH} envs make"
-          f" {-(-BATCH // geo['envs'])} blocks over {sms} SMs")  # fmt: skip
-    print(f"rollout_relaxed_rigid SASS, local loads and stores (LDL, STL): {json.dumps(cuda_rollout.rr_local_memory(rr_build))}",
-          flush=True)  # fmt: skip
+    for name, rr_build in (("rollout_relaxed_rigid", builds["rr"]),
+                           *((f"rollout_relaxed_rigid_{i}", builds[f"rr_{i}"]) for i in RK4_INTEGRATORS)):  # fmt: skip
+        geo = cuda_rollout.rr_geometry(rr_build)
+        print(f"{name} ({cuda_rollout.RR_LANES} lanes an env): {geo['threads']} threads and {geo['envs']}"
+              f" envs a block, {geo['smem_bytes']} B of dynamic shared memory a block, {geo['blocks_per_sm']} blocks an"
+              f" SM (occupancy calculator), so {geo['blocks_per_sm'] * geo['envs']} envs an SM; {BATCH} envs make"
+              f" {-(-BATCH // geo['envs'])} blocks over {sms} SMs; ptxas "
+              + " | ".join(ln.strip() for ln in rr_build.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln)
+              + f"; SASS local loads and stores (LDL, STL): {json.dumps(cuda_rollout.rr_local_memory(rr_build))}",
+              flush=True)  # fmt: skip
 
     sass = fma_probe.check_sass(builds["fma_probe"])
     print("probe SASS, FMA instructions (in the timed loop / in all) by (variant, chains): "
@@ -1209,6 +1344,13 @@ def main() -> int:
         rr_starts = rr_start_states(hum_rr, garp_rr, hum_td, torch.Generator(device).manual_seed(6))
         max_errs["rollout_relaxed_rigid"], _ = rr_gates(rr_starts)
         rr_start = rr_starts[RR_CASES[0][0]][1]
+
+    # ----- K1's RK4 and RK4-fast builds vs plain -----
+    with phase("K1 RK4 and RK4-fast vs plain"):
+        for i in RK4_INTEGRATORS:
+            max_errs[f"rollout_{i}"], _ = k1_gates(rk4_starts[i], cases=RK4_CASES)
+            rr_rk4_starts = rr_start_states(hum_rr_rk4[i], garp_rr_rk4[i], hum_rr_rk4[i], torch.Generator(device).manual_seed(6))
+            max_errs[f"rollout_relaxed_rigid_{i}"], _ = rr_gates(rr_rk4_starts, cases=RR_RK4_CASES)
 
     # ----- K6, K7 vs plain -----
     with phase("K6 K7 vs plain"):
@@ -1286,21 +1428,8 @@ def main() -> int:
     # ----- main paths -----
     results = {}
     with phase("main path: flagship rollout (K1)"):
-        def flagship():
-            out = cuda_rollout.rollout(hum, state0, HORIZON)  # warm-up
-            sync()
-            times = []
-            for _ in range(TIMED_CALLS):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                t0 = time.perf_counter()
-                start.record()
-                out = cuda_rollout.rollout(hum, out, HORIZON)
-                end.record()
-                sync()
-                times.append((time.perf_counter() - t0, start.elapsed_time(end)))
-            return out, times
-
-        (out, times), launches = main_path("flagship", dict(rollout=1 + TIMED_CALLS), flagship)
+        (out, times), launches = main_path("flagship", dict(rollout=1 + TIMED_CALLS),
+                                           lambda: chained(hum, state0, HORIZON, TIMED_CALLS))  # fmt: skip
         wall = [t[0] for t in times]
         results["rollout"] = dict(launches=launches["rollout"], ms=statistics.median(t[1] for t in times))
         print(f"K1: {BATCH}x{HORIZON} steps per call, wall s {wall}, device ms {[t[1] for t in times]}")
@@ -1481,23 +1610,8 @@ def main() -> int:
         if hum_rr._rr_n_iter != RR_ITERATIONS:
             raise RuntimeError(f"the relaxed-rigid humanoid runs {hum_rr._rr_n_iter} PCG iterations, not {RR_ITERATIONS}")
 
-        def rr_rollout():
-            out = cuda_rollout.rollout(hum_rr, rr_start, RR_HORIZON)  # warm-up
-            sync()
-            times = []
-            for _ in range(RR_TIMED_CALLS):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                t0 = time.perf_counter()
-                start.record()
-                out = cuda_rollout.rollout(hum_rr, out, RR_HORIZON)
-                end.record()
-                sync()
-                times.append((time.perf_counter() - t0, start.elapsed_time(end)))
-            return out, times
-
-        (rr_final, times), launches = main_path(
-            "relaxed-rigid rollout", dict(rollout_relaxed_rigid=1 + RR_TIMED_CALLS), rr_rollout
-        )
+        (rr_final, times), launches = main_path("relaxed-rigid rollout", dict(rollout_relaxed_rigid=1 + RR_TIMED_CALLS),
+                                                lambda: chained(hum_rr, rr_start, RR_HORIZON, RR_TIMED_CALLS))  # fmt: skip
         wall = [t[0] for t in times]
         results["rollout_relaxed_rigid"] = dict(launches=launches["rollout_relaxed_rigid"],
                                                 ms=statistics.median(t[1] for t in times))  # fmt: skip
@@ -1514,6 +1628,58 @@ def main() -> int:
               f"max |m| {float(rr_final.m.abs().max()):.6g} N")  # fmt: skip
         if not HEIGHT_BAND[0] <= z_min <= z_max <= HEIGHT_BAND[1]:
             raise RuntimeError(f"relaxed-rigid base height outside {HEIGHT_BAND} m")
+
+    rk4_finals = {}
+    with phase("main path: BASELINE config 5, relaxed-rigid RK4 rollout (K1)"):
+        cfg5 = hum_rr_rk4["rk4"]
+        if cfg5._rr_n_iter != RR_ITERATIONS:
+            raise RuntimeError(f"config 5 runs {cfg5._rr_n_iter} PCG iterations a stage, not {RR_ITERATIONS}")
+        (out, times), launches = main_path("BASELINE config 5", dict(rollout_relaxed_rigid=1 + RK4_TIMED_CALLS),
+                                           lambda: chained(cfg5, rr_start, RR_RK4_HORIZON, RK4_TIMED_CALLS))  # fmt: skip
+        wall = [t[0] for t in times]
+        results["rollout_relaxed_rigid_rk4"] = dict(launches=launches["rollout_relaxed_rigid"],
+                                                    ms=statistics.median(t[1] for t in times))  # fmt: skip
+        print(f"config 5 (relaxed-rigid, RK4): {BATCH}x{RR_RK4_HORIZON} steps per call, {cfg5._rr_n_iter} PCG"
+              f" iterations a stage, wall s {wall}, device ms {[t[1] for t in times]}")  # fmt: skip
+        print(f"config 5 env_steps_per_s (median wall): {BATCH * RR_RK4_HORIZON / statistics.median(wall):.6g}",
+              flush=True)  # fmt: skip
+        rk4_finals["rollout_relaxed_rigid_rk4"] = out
+
+    with phase("main path: soft RK4 rollout (K1)"):
+        (out, times), launches = main_path("soft RK4 rollout", dict(rollout=1 + RK4_TIMED_CALLS),
+                                           lambda: chained(hum_rk4["rk4"], state0, SOFT_RK4_HORIZON, RK4_TIMED_CALLS))  # fmt: skip
+        wall = [t[0] for t in times]
+        results["rollout_rk4"] = dict(launches=launches["rollout"], ms=statistics.median(t[1] for t in times))
+        print(f"soft RK4: {BATCH}x{SOFT_RK4_HORIZON} steps per call, wall s {wall}, device ms {[t[1] for t in times]}")
+        print(f"soft RK4 env_steps_per_s (median wall): {BATCH * SOFT_RK4_HORIZON / statistics.median(wall):.6g}",
+              flush=True)  # fmt: skip
+        rk4_finals["rollout_rk4"] = out
+
+    with phase("main path: RK4-fast timing (K1)"):
+        for name, engine, start, horizon, counter in (
+            ("rollout_rk4fast", hum_rk4["rk4fast"], state0, SOFT_RK4_HORIZON, "rollout"),
+            ("rollout_relaxed_rigid_rk4fast", hum_rr_rk4["rk4fast"], rr_start, RR_RK4_HORIZON, "rollout_relaxed_rigid"),
+        ):  # fmt: skip
+            def once():
+                holder = {}
+                ms = device_ms(lambda: holder.update(out=cuda_rollout.rollout(engine, start, horizon)), 1)[0]
+                return holder["out"], ms
+
+            (out, ms), launches = main_path(f"{name} timing", {counter: 1}, once)
+            results[name] = dict(launches=launches[counter], ms=ms)
+            print(f"{name}: {BATCH}x{horizon} steps, one launch, device ms {ms:.6g}, env_steps_per_s "
+                  f"{BATCH * horizon / (ms * 1e-3):.6g}", flush=True)  # fmt: skip
+            rk4_finals[name] = out
+
+    for name, out in rk4_finals.items():
+        if not all_finite(out):
+            raise RuntimeError(f"{name}: non-finite final state")
+        z = out.p[2]
+        z_min, z_max = float(z.min()), float(z.max())
+        print(f"{name} base height after its main path: min {z_min:.4f} m, max {z_max:.4f} m, share of envs above"
+              f" 0.5 m {float((z > 0.5).float().mean()):.4f}; max |m| {float(out.m.abs().max()):.6g}")  # fmt: skip
+        if not HEIGHT_BAND[0] <= z_min <= z_max <= HEIGHT_BAND[1]:
+            raise RuntimeError(f"{name}: base height outside {HEIGHT_BAND} m")
 
     probe_names = ("fma_probe", *(f"bf16_probe_{v}" for v in fma_probe.VARIANTS))
     with phase("main path: FMA-rate probes (K6, K7)"):
@@ -1596,6 +1762,11 @@ def main() -> int:
         plain_ms["rollout_relaxed_rigid"] = wall_ms(lambda: cuda_rollout.rollout_reference(
             hum_rr, rr_start, PLAIN_TIMED_STEPS["rollout_relaxed_rigid"])) * RR_HORIZON / PLAIN_TIMED_STEPS[
             "rollout_relaxed_rigid"]  # fmt: skip
+        for i in RK4_INTEGRATORS:
+            for name, engine, start, horizon in ((f"rollout_{i}", hum_rk4[i], state0, SOFT_RK4_HORIZON),
+                                                 (f"rollout_relaxed_rigid_{i}", hum_rr_rk4[i], rr_start, RR_RK4_HORIZON)):
+                n_plain = PLAIN_TIMED_STEPS[name]
+                plain_ms[name] = wall_ms(lambda: cuda_rollout.rollout_reference(engine, start, n_plain)) * horizon / n_plain
         # The probes' plain versions at their best configuration, over 256
         # iterations, scaled to T_LONG (K6's are K7 float32's).
         for v in fma_probe.VARIANTS:
@@ -1632,6 +1803,15 @@ def main() -> int:
         )
         print(f"float32 operations a relaxed-rigid env-step needs (the same count, over {COUNT_ENVS} envs of the "
               f"relaxed-rigid main path's final state): {flops['rr_step']}")  # fmt: skip
+        for i in RK4_INTEGRATORS:
+            for kind, make in (("step", humanoid_engine), ("rr_step", rr_humanoid_engine)):
+                cpu = make("cpu", i)
+                final = rk4_finals[f"rollout_{i}" if kind == "step" else f"rollout_relaxed_rigid_{i}"]
+                flops[f"{kind}_{i}"] = flop_count.least_step_ops(
+                    cpu, lambda st: cuda_rollout.rollout_reference(cpu, st, 1), cpu_head(final))
+        print(f"float32 operations an RK4 and an RK4-fast env-step need, soft and relaxed-rigid (the same count, over"
+              f" {COUNT_ENVS} envs of each RK4 main path's final state): "
+              + json.dumps({k: v for k, v in flops.items() if k.endswith(RK4_INTEGRATORS)}))  # fmt: skip
         sb, pb = state_bytes(hum, BATCH), 4 * cuda_build.packed_params(hum).numel()
         n_blocks, n_params = partials.shape
         vjp_bytes = 3 * sb + pb + 8 * n * BATCH  # state, tau, ct in; ct_state, ct_tau out
@@ -1646,6 +1826,12 @@ def main() -> int:
             param_sum=((n_blocks - 1) * n_params, 4 * (n_blocks + 1) * n_params),
             rollout_relaxed_rigid=(flops["rr_step"] * BATCH * RR_HORIZON,
                                    2 * sb + 4 * cuda_build.packed_params(hum_rr).numel()),
+            # The RK4 builds' start states and stage sums in device memory are
+            # the design's own traffic, outside the bound.
+            **{f"rollout_{i}": (flops[f"step_{i}"] * BATCH * SOFT_RK4_HORIZON, 2 * sb + pb) for i in RK4_INTEGRATORS},
+            **{f"rollout_relaxed_rigid_{i}": (flops[f"rr_step_{i}"] * BATCH * RR_RK4_HORIZON,
+                                              2 * sb + 4 * cuda_build.packed_params(hum_rr).numel())
+               for i in RK4_INTEGRATORS},
         )  # fmt: skip
         peaks = {}
         for name in probe_names:

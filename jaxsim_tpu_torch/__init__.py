@@ -5,7 +5,7 @@ The port mirrors the JAX package's module paths, so the counterpart of
 It imports ``torch`` and NumPy and never ``jax``. It covers the flagship
 rollout: URDF → model → :class:`~jaxsim_tpu_torch.ops.batched_engine.BatchedEngine`
 (Hunt/Crossley soft or relaxed-rigid contacts, plane terrain, semi-implicit
-Euler), with the whole horizon in one hand-written CUDA kernel
+Euler, RK4 or RK4-fast), with the whole horizon in one hand-written CUDA kernel
 (:mod:`jaxsim_tpu_torch.ops.cuda_rollout`, soft and relaxed-rigid bodies);
 one step per launch
 (:mod:`jaxsim_tpu_torch.ops.cuda_step`); and RL policy evaluation,

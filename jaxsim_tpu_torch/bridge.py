@@ -35,6 +35,7 @@ STATIC_FIELDS = (
     "terrain_normal",
     "terrain_offset",
     "contact_model",
+    "integrator",
 )
 # A relaxed-rigid engine's static fields besides those.
 RR_FIELDS = (
@@ -61,8 +62,9 @@ ENV_FIELDS = (
 )
 POLICY_WEIGHTS = ("W", "b", "W1", "b1", "W2", "b2")
 
-# Static fields whose value the port's engine does not implement otherwise.
-_REQUIRED = dict(terrain_kind="plane", integrator="sie", constraint_parents=())
+# Static fields whose value the port's engine does not implement otherwise:
+# each must be one of its tuple's values.
+_REQUIRED = dict(terrain_kind=("plane",), integrator=BatchedEngine.INTEGRATORS, constraint_parents=((),))
 
 
 def reference_engine_arrays(engine) -> tuple[dict, dict[str, np.ndarray]]:
@@ -90,11 +92,11 @@ def engine_from_numpy(
 ) -> BatchedEngine:
     """The port's engine from the JAX engine's static fields and ``params()``,
     on ``device`` (by default the CUDA card): soft or relaxed-rigid contacts,
-    plane terrain, semi-implicit Euler."""
-    for key, want in _REQUIRED.items():
-        got = static.get(key, want)
-        if (tuple(got) if isinstance(want, tuple) else got) != want:
-            raise ValueError(f"the port's engine requires {key}={want!r}, got {got!r}")
+    plane terrain, semi-implicit Euler, RK4 or RK4-fast."""
+    for key, allowed in _REQUIRED.items():
+        got = static.get(key, allowed[0])
+        if (tuple(got) if isinstance(got, (list, tuple)) else got) not in allowed:
+            raise ValueError(f"the port's engine requires {key} in {allowed!r}, got {got!r}")
     if static["contact_model"] not in BatchedEngine.CONTACT_MODELS:
         raise ValueError(
             f"the port's engine requires contact_model in {BatchedEngine.CONTACT_MODELS}, got {static['contact_model']!r}"

@@ -48,6 +48,7 @@
 #endif
 
 static_assert(FORWARD, "env_rollout.cu takes the forward-only slot (JX_LN_FORWARD 1)");
+static_assert(INTEGRATOR == 0, "env_rollout.cu implements semi-implicit Euler (JX_INTEGRATOR 0)");
 
 namespace {
 

@@ -4,12 +4,14 @@
 //
 // Replaces jaxsim_tpu/ops/pallas_step.py::_rollout_kernel (built by
 // build_pallas_rollout) for Hunt/Crossley soft contacts on flat ground, with
-// the three-pass articulated-body algorithm and the 6x6 base Cholesky,
-// semi-implicit Euler, and the PD policy tau = -kp*s - kd*sd. Each env
-// advances n_steps inside one launch; the state crosses device memory once on
-// the way in and once on the way out. The step is soft_step_lanes
-// (soft_step_lanes.cuh) on the forward-only slot (JX_LN_FORWARD), which reads
-// the state from the slot and writes the new state back there. The
+// the three-pass articulated-body algorithm and the 6x6 base Cholesky, the
+// engine's integrator (JX_INTEGRATOR: semi-implicit Euler, RK4, or RK4-fast,
+// whose contact forces and m's rate are frozen at the step's start), and the
+// PD policy tau = -kp*s - kd*sd. Each env advances n_steps inside one launch;
+// the state crosses device memory once on the way in and once on the way
+// out. The step is soft_step_lanes (soft_step_lanes.cuh) on the forward-only
+// slot (JX_LN_FORWARD), which reads the state from the slot and writes the
+// new state back there, or under RK4 the stage state's rate. The
 // relaxed-rigid rollout is rollout_rr.cu.
 //
 // What bounds it on the card: latency, not HBM (the humanoid's state is
@@ -28,6 +30,17 @@
 // block, fit in one SM's shared memory. A block runs every step of its envs,
 // so the grid's waves are whole horizons: 32 envs an SM put 8192 envs in two
 // waves on 132 SMs.
+//
+// RK4 (the twin's _rk4_step): four rates of the step a step, from one torque
+// per joint that the env's lanes write into the slot's torque row at the
+// step's start (the policy is evaluated once a step, at the start, as the
+// JAX rollout kernel evaluates it). The step's start state y0 and the
+// accumulator k1 + 2 k2 + 2 k3 + k4 do not fit beside 32 slots in a block's
+// shared memory (two more copies of the humanoid's 203-float state), so they
+// live in device memory (Rk4Scratch, about 6.6 MB each for 8192 envs, which
+// stay in L2); each lane reads and writes only its own entries. Between the
+// rates, each lane forms its entries' next stage state y0 + c dt k in the
+// slot's state rows, which the next rate reads.
 
 #include "soft_step_lanes.cuh"
 
@@ -37,8 +50,47 @@ namespace {
 
 constexpr size_t K1_SMEM_BYTES = (static_cast<size_t>(N_PARAMS) + static_cast<size_t>(SLOT) * ES) * sizeof(float);
 
-__global__ void __launch_bounds__(LN_THREADS, 1)
-    rollout_kernel(const float* __restrict__ params, StateIn in, StateOut out, int B, int n_steps, Scalars sc) {
+// n_steps RK4 (INTEGRATOR 1) or RK4-fast (2) steps of the env on lanes g of
+// the slot `sl`, whose state rows hold the state; y0 and acc are the env's
+// columns of the scratch rows (entry e at [e * stride]).
+__device__ __forceinline__ void rk4_steps(const float* P, const Scalars& sc, Slot sl, int g, const EnvState<float>& x,
+                                          float* y0, float* acc, int stride, int n_steps) {
+  float* st = sl.base + SL_ST * ES;  // the state's entry e at st[e * ES]
+  const ColTau tau{{st + ST_TAU * ES, ES}};
+  const float dt = sc.dt;
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    if (g == 0) quat_normalize(x.q);
+    ln_sync();
+    for (int e = g; e < ST_N; e += G) y0[e * stride] = st[e * ES];
+    for (int k = g; k < NJ; k += G) st[(ST_TAU + k) * ES] = -sc.kp * x.s[k] - sc.kd * x.sd[k];
+    ln_sync();
+#pragma unroll 1
+    for (int stage = 0; stage < 4; ++stage) {
+      if (INTEGRATOR == 2 && stage > 0) {
+        soft_step_lanes<STEP_RATE_FROZEN>(P, sc, sl, g, x, tau, nullptr);
+      } else {
+        soft_step_lanes<STEP_RATE>(P, sc, sl, g, x, tau, nullptr);
+      }
+      ln_sync();
+      for (int e = g; e < ST_N; e += G) {
+        float a = stage == 0 ? 0.0f : acc[e * stride];
+        const float y = rk4_entry(stage, dt, st[e * ES], y0[e * stride], a);
+        acc[e * stride] = a;
+        // RK4-fast: m's rows keep the rate of the step's start through the
+        // stages (a frozen rate reads no stage state).
+        if (INTEGRATOR != 2 || e < ST_M || stage == 3) st[e * ES] = y;
+      }
+      ln_sync();
+    }
+    if (g == 0) quat_normalize(x.q);
+    ln_sync();
+  }
+}
+
+__global__ void __launch_bounds__(LN_THREADS, 1) rollout_kernel(const float* __restrict__ params, StateIn in,
+                                                                 StateOut out, int B, int n_steps, Scalars sc,
+                                                                 Rk4Scratch rk) {
   extern __shared__ float smem[];
   float* P = smem;
   load_params(params, P);
@@ -54,11 +106,15 @@ __global__ void __launch_bounds__(LN_THREADS, 1)
   load_state(in, B, b, x, g);
   __syncthreads();
 
-  const SlotPd tau{x.s, x.sd, sc.kp, sc.kd};
+  if constexpr (INTEGRATOR == 0) {
+    const SlotPd tau{x.s, x.sd, sc.kp, sc.kd};
 #pragma unroll 1
-  for (int t = 0; t < n_steps; ++t) {
-    soft_step_lanes(P, sc, sl, g, x, tau, nullptr);
-    ln_sync();
+    for (int t = 0; t < n_steps; ++t) {
+      soft_step_lanes(P, sc, sl, g, x, tau, nullptr);
+      ln_sync();
+    }
+  } else {
+    rk4_steps(P, sc, sl, g, x, rk.y0 + b0, rk.acc + b0, rk.stride, n_steps);
   }
   if (valid) store_state(x, B, b, out, g);
 }
@@ -72,14 +128,15 @@ int jx_param_count() { return N_PARAMS; }
 int jx_rollout(const float* params, const float* s, const float* sd, const float* p, const float* q, const float* v,
                const float* m, float* s_out, float* sd_out, float* p_out, float* q_out, float* v_out, float* m_out,
                int B, int n_steps, float K, float D, float k_over_d, float mu, float hc_p, float hc_q, float gz,
-               float dt, float kp, float kd, void* stream) {
+               float dt, float kp, float kd, float* rk4_y0, float* rk4_acc, int rk4_stride, void* stream) {
   const Scalars sc{K, D, k_over_d, mu, hc_p, hc_q, gz, dt, kp, kd};
   const cudaError_t rc = cudaFuncSetAttribute(rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                               static_cast<int>(K1_SMEM_BYTES));
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const int blocks = (B + ENVS - 1) / ENVS;
   rollout_kernel<<<blocks, LN_THREADS, K1_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      params, StateIn{s, sd, p, q, v, m}, StateOut{s_out, sd_out, p_out, q_out, v_out, m_out}, B, n_steps, sc);
+      params, StateIn{s, sd, p, q, v, m}, StateOut{s_out, sd_out, p_out, q_out, v_out, m_out}, B, n_steps, sc,
+      Rk4Scratch{rk4_y0, rk4_acc, rk4_stride});
   return static_cast<int>(cudaGetLastError());
 }
 

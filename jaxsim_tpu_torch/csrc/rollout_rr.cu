@@ -6,10 +6,15 @@
 // build_pallas_rollout) for relaxed-rigid engines: flat ground, the
 // three-pass articulated-body algorithm with the 6x6 base Cholesky, the
 // matrix-free PCG of JX_RR_ITERS iterations warm-started from the forces the
-// state's m carries, semi-implicit Euler, and the PD policy
-// tau = -kp*s - kd*sd. Each env advances n_steps inside one launch. The step
-// is rr_step_env (rr_step.cuh), written for the relaxed-rigid variants of the
-// one-step and env-rollout kernels to include too.
+// state's m carries, the engine's integrator (JX_INTEGRATOR: semi-implicit
+// Euler, RK4, or RK4-fast with the contact forces frozen at the step's
+// start), and the PD policy tau = -kp*s - kd*sd, evaluated once a step at its
+// start. Each env advances n_steps inside one launch. The step is
+// rr_step_env, or rr_rk4_step (rr_step.cuh), written for the relaxed-rigid
+// variants of the one-step and env-rollout kernels to include too. An RK4
+// step is four such solves (RK4-fast: one solve and four ABAs with the
+// frozen forces); its start state and accumulator live in device memory
+// (Rk4Scratch).
 //
 // What bounds it on the card: latency, not HBM (the state crosses device
 // memory once each way a launch; the least operations of a humanoid step take
@@ -39,7 +44,7 @@
 namespace {
 
 __global__ void __launch_bounds__(RR_THREADS, 1) rollout_rr_kernel(
-    const float* __restrict__ params, StateIn in, StateOut out, int B, int n_steps, Scalars sc) {
+    const float* __restrict__ params, StateIn in, StateOut out, int B, int n_steps, Scalars sc, Rk4Scratch rk) {
   extern __shared__ float smem[];
   float* P = smem;
   load_params(params, P);
@@ -77,8 +82,14 @@ __global__ void __launch_bounds__(RR_THREADS, 1) rollout_rr_kernel(
   }
 
   RrWork w;
+  if constexpr (INTEGRATOR == 0) {
 #pragma unroll 1
-  for (int t = 0; t < n_steps; ++t) rr_step_env(P, sc, w, smem + N_PARAMS, pt, s, sd, p, q, v, m, PdTau{});
+    for (int t = 0; t < n_steps; ++t) rr_step_env(P, sc, w, smem + N_PARAMS, pt, s, sd, p, q, v, m, PdTau{});
+  } else {
+#pragma unroll 1
+    for (int t = 0; t < n_steps; ++t)
+      rr_rk4_step<INTEGRATOR>(P, sc, w, smem + N_PARAMS, pt, s, sd, p, q, v, m, rk, b_aba, b_pcg);
+  }
 
   if (b_pcg < B) {
 #pragma unroll
@@ -109,7 +120,8 @@ int jx_rollout_rr(const float* params, const float* s, const float* sd, const fl
                   float* v_out, float* m_out, int B, int n_steps, float K, float D, float k_over_d, float mu,
                   float hc_p, float hc_q, float gz, float dt, float kp, float kd, float rr_ca, float rr_cb,
                   float rr_mid, float rr_power, float rr_width, float rr_dmin, float rr_dmax, float rr_span,
-                  float rr_stiff, float rr_damp, float rr_c2mu2, float rr_c1mu2, float rr_reg, void* stream) {
+                  float rr_stiff, float rr_damp, float rr_c2mu2, float rr_c1mu2, float rr_reg, float* rk4_y0,
+                  float* rk4_acc, int rk4_stride, void* stream) {
   const Scalars sc{K,        D,       k_over_d, mu,       hc_p,     hc_q,    gz,
                    dt,       kp,      kd,       rr_ca,    rr_cb,    rr_mid,  rr_power,
                    rr_width, rr_dmin, rr_dmax,  rr_span,  rr_stiff, rr_damp, rr_c2mu2,
@@ -120,7 +132,7 @@ int jx_rollout_rr(const float* params, const float* s, const float* sd, const fl
   const int blocks = (B + ENVS - 1) / ENVS;
   rollout_rr_kernel<<<blocks, RR_THREADS, RR_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       params, StateIn{s, sd, p, q, v, m}, StateOut{s_out, sd_out, p_out, q_out, v_out, m_out}, B, n_steps,
-      sc);
+      sc, Rk4Scratch{rk4_y0, rk4_acc, rk4_stride});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -45,6 +45,21 @@
 // a parent's points, depends on the lanes: with one lane it is the
 // sequential order. Two runs agree to the bit.
 //
+// RK4 and RK4-fast (JX_INTEGRATOR 1 and 2; rr_rk4_step), as the twin's
+// _rk4_step: q normalised, the torques captured once into the slot's torque
+// row, then four stages. Under RK4 each stage is the step above in its rate
+// form: the free ABA and the PCG, warm-started from the stage's m, give the
+// stage's accelerations and m' = (x - m) / dt; the ABA thread forms the rates
+// of s, sd, p, q (with the Baumgarte term) and v, and each thread its
+// entries' next stage state y0 + c dt k and the accumulator, which live in
+// device memory (Rk4Scratch: the slot has no room for two more states
+// beside 64 envs, and the ABA thread's working set already spills). Under
+// RK4-fast one PCG at the step's start gives the forces, which the lanes
+// freeze as the parents' world wrenches (in the PAR_A rows, free after the
+// solve), and m' = (x - m) / dt; then each of the four stages is one ABA on
+// the ABA thread with those wrenches as external forces (rr_free_step's
+// Frozen form), as the twin runs its aba with the frozen f_links.
+//
 // The slot: field-major, the block's envs minor with an odd stride, so the
 // envs of a warp reading one field fall in distinct banks.
 
@@ -74,7 +89,10 @@ constexpr int SL_UM = SL_IP + NL * 3;    // (NL) a pass's u; the joint accelerat
 constexpr int SL_F = SL_UM + NL;         // (NL, 6) forces up the tree, accelerations down it
 constexpr int SL_L0 = SL_F + NL * 6;     // (36) the base Cholesky factor
 constexpr int SL_PAR = SL_L0 + 36;       // (NPAR, 24) contact parents: WR, Wp, Wv, free a
-constexpr int SLOT = SL_PAR + NPAR * 24;
+constexpr int SL_TAU = SL_PAR + NPAR * 24;  // (NJ) an RK4 step's torques
+constexpr int SLOT = SL_TAU + (INTEGRATOR != 0 ? NJ : 0);
+// A parent's row; under RK4-fast PAR_A holds the frozen world wrench after
+// the step's solve.
 constexpr int PAR_WR = 0, PAR_WP = 9, PAR_WV = 12, PAR_A = 18;
 static_assert(SLOT == JX_RR_SLOT, "the generated header sizes the slot as this layout does");
 constexpr size_t RR_SMEM_BYTES = (static_cast<size_t>(SLOT) * ES + N_PARAMS) * sizeof(float);
@@ -117,8 +135,10 @@ __device__ __forceinline__ float rr_pow(float x, float power) {
 
 // Fills w and the slot's factorization and contact-parent rows, and sdd with
 // the free joint accelerations. `tau_of(sc, s, sd, i)` gives joint i's torque
-// from the state before the step (PdTau).
-template <class Tau>
+// from the state before the step (PdTau). Frozen (RK4-fast's stages): the
+// parents' PAR_A rows hold world wrenches that act as external forces, and
+// the parents' rows are left as they are.
+template <bool Frozen = false, class Tau>
 __device__ void rr_free_step(const float* P, const Scalars& sc, RrWork& w, Slot sl, const float* s,
                              const float* sd, const float* p, const float* q, const float* v,
                              float* sdd, Tau tau_of) {
@@ -227,6 +247,19 @@ __device__ void rr_free_step(const float* P, const Scalars& sc, RrWork& w, Slot 
     for (int k = 0; k < 36; ++k) w.MA[i][k] = Mi[k];
     vxstar_Mv(w.v[i], w.MA[i], w.pA[i]);
   }
+  if constexpr (Frozen) {
+    // The frozen wrenches f enter as the twin's aba takes f_ext:
+    // pA -= X^T f at the link's world pose.
+#pragma unroll 1
+    for (int n = 0; n < NPAR; ++n) {
+      const int i = JX_RR_PAR_LINK[n];
+      float f[6], t[6];
+      load_vec(sl, SL_PAR + n * 24 + PAR_A, 6, f);
+      xtf(w.WR[i], w.Wp[i], f, t);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) w.pA[i][k] -= t[k];
+    }
+  }
 
   // Pass 2: articulated inertias and bias forces, leaves to root.
 #pragma unroll 1
@@ -328,6 +361,7 @@ __device__ void rr_free_step(const float* P, const Scalars& sc, RrWork& w, Slot 
   }
 
   // The contact parents' rows, for the lanes.
+  if (Frozen) return;
 #pragma unroll 1
   for (int n = 0; n < NPAR; ++n) {
     const int i = JX_RR_PAR_LINK[n];
@@ -501,29 +535,19 @@ __device__ __forceinline__ float rr_prec(const float* P, const Scalars& sc, int 
 
 // ----- the step -----
 
-// One semi-implicit Euler step of a block's ENVS envs, in place, in three
-// phases apart by block barriers: thread t < ENVS runs env t's free ABA (the
-// first ENVS / 32 warps, every lane busy) and, after the contact solve, its
-// SIE update, and holds its s, sd, p, q and v; the contact solve runs on
-// all the block's threads, env threadIdx.x / G on lane g = threadIdx.x % G,
-// each lane holding the m rows of its point slots `pt` (-1 for a padding
-// slot). `slots` is the block's first slot.
-template <class Tau>
-__device__ void rr_step_env(const float* P, const Scalars& sc, RrWork& w, float* slots, const int* pt,
-                            float* s, float* sd, float* p, float* q, float* v, float* m, Tau tau_of) {
-  const bool aba = threadIdx.x < ENVS;
-  const Slot mine{slots + (aba ? threadIdx.x : 0)};
-  float sdd[NJA];
-  if (aba) rr_free_step(P, sc, w, mine, s, sd, p, q, v, sdd, tau_of);
-  __syncthreads();
-
-  const int g = threadIdx.x % G;
-  const Slot sl{slots + threadIdx.x / G};
-
+// The contact solve on the env's lanes (lane g of the env's slot `sl`, its
+// point slots `pt`, -1 for a padding slot), after the free ABA has filled
+// the slot: per point slot the activity, the regularizer r_j, the residual of
+// the start -b and the warm start from `m` (the lane's m rows); the PCG; and
+// the M^-1 J^T pass of the solved forces, which leaves the contact
+// accelerations in the F rows (link-frame, by link) and the UM rows (joint
+// accelerations). The lane's solved forces go to `x`.
+__device__ __forceinline__ void rr_solve(const float* P, const Scalars& sc, Slot sl, int g, const int* pt,
+                                         const float* m, float* x) {
   // Per point slot: the activity, the regularizer r_j, the residual of the
   // start -b and the warm start.
   const float nh[3] = {0.0f, 0.0f, 1.0f};  // flat ground's normal
-  float act[OWN], rj[OWN * 3], x[OWN * 3], r[OWN * 3], pp[OWN * 3], Ap[OWN * 3];
+  float act[OWN], rj[OWN * 3], r[OWN * 3], pp[OWN * 3], Ap[OWN * 3];
 #pragma unroll
   for (int k = 0; k < OWN; ++k) {
     const int c = pt[k];
@@ -653,6 +677,67 @@ __device__ void rr_step_env(const float* P, const Scalars& sc, RrWork& w, float*
     rz = rz_n;
   }
 
+  // ----- the solve's end
+}
+
+// Under RK4-fast: the lanes' solved forces x as the parents' world wrenches
+// [x ; pc x x], summed as rr_scatter sums (a group's slots by the xor tree,
+// a parent's groups in order), into the parents' PAR_A rows.
+__device__ __forceinline__ void rr_wrenches(const float* P, Slot sl, int g, const int* pt, const float* x) {
+  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < OWN; ++k) {
+    float w6[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    const int c = pt[k];
+    const int o = SL_PAR + JX_RR_GROUP_PAR[k] * 24;
+    if (c >= 0) {
+      float Rp[9], Wp[3], pc[3], t[3];
+#pragma unroll
+      for (int j = 0; j < 9; ++j) Rp[j] = sl[o + PAR_WR + j];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) Wp[j] = sl[o + PAR_WP + j];
+      mv3(Rp, P + OFF_CP + c * 3, t);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        pc[j] = t[j] + Wp[j];
+        w6[j] = x[k * 3 + j];
+      }
+      cross3(pc, w6, w6 + 3);
+    }
+#pragma unroll
+    for (int j = 0; j < 6; ++j) acc[j] += lanes_sum(w6[j]);
+    if (k == OWN - 1 || JX_RR_GROUP_LINK[k + 1] != JX_RR_GROUP_LINK[k]) {
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        if (g == 0) sl[o + PAR_A + j] = acc[j];
+        acc[j] = 0.0f;
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// One semi-implicit Euler step of a block's ENVS envs, in place, in three
+// phases apart by block barriers: thread t < ENVS runs env t's free ABA (the
+// first ENVS / 32 warps, every lane busy) and, after the contact solve, its
+// SIE update, and holds its s, sd, p, q and v; the contact solve runs on
+// all the block's threads, env threadIdx.x / G on lane g = threadIdx.x % G,
+// each lane holding the m rows of its point slots `pt` (-1 for a padding
+// slot). `slots` is the block's first slot.
+template <class Tau>
+__device__ void rr_step_env(const float* P, const Scalars& sc, RrWork& w, float* slots, const int* pt,
+                            float* s, float* sd, float* p, float* q, float* v, float* m, Tau tau_of) {
+  const bool aba = threadIdx.x < ENVS;
+  const Slot mine{slots + (aba ? threadIdx.x : 0)};
+  float sdd[NJA];
+  if (aba) rr_free_step(P, sc, w, mine, s, sd, p, q, v, sdd, tau_of);
+  __syncthreads();
+
+  const int g = threadIdx.x % G;
+  const Slot sl{slots + threadIdx.x / G};
+  float x[OWN * 3];
+  rr_solve(P, sc, sl, g, pt, m, x);
+
   // m <- the solved forces, written as m + dt (x - m)/dt with each operation
   // rounded alone, as the plain version computes it.
   const float dt = sc.dt;
@@ -700,6 +785,144 @@ __device__ void rr_step_env(const float* P, const Scalars& sc, RrWork& w, float*
   const float nq = sqrtf(fmaxf(qn[0] * qn[0] + qn[1] * qn[1] + qn[2] * qn[2] + qn[3] * qn[3], 1e-12f));
 #pragma unroll
   for (int k = 0; k < 4; ++k) q[k] = qn[k] / nq;
+}
+
+// An RK4 step's torques: joint k's from the slot's torque row, which the
+// step wrote once at its start.
+struct SlotTauRr {
+  Slot sl;
+  __device__ float operator()(const Scalars&, const float*, const float*, int k) const { return sl[SL_TAU + k]; }
+};
+
+// One RK4 (Integrator 1) or RK4-fast (2) step of a block's ENVS envs, in
+// place, the threads' roles as in rr_step_env (see the note at the top).
+// `rk` holds the step's start state y0 and the accumulator: the ABA thread's
+// rows s, sd, p, q, v first (env b_aba's column), then the m rows by point
+// (env b_pcg's column).
+template <int Integrator>
+__device__ void rr_rk4_step(const float* P, const Scalars& sc, RrWork& w, float* slots, const int* pt, float* s,
+                            float* sd, float* p, float* q, float* v, float* m, const Rk4Scratch& rk, int b_aba,
+                            int b_pcg) {
+  constexpr int NB = 2 * NJ + 13;  // the ABA thread's rows: s, sd, p, q, v
+  constexpr int R_SD = NJ, R_P = 2 * NJ, R_Q = 2 * NJ + 3, R_V = 2 * NJ + 7;
+  const bool aba = threadIdx.x < ENVS;
+  const Slot mine{slots + (aba ? threadIdx.x : 0)};
+  const int g = threadIdx.x % G;
+  const Slot sl{slots + threadIdx.x / G};
+  const float dt = sc.dt;
+  const int rs = rk.stride;
+  float* const y0a = rk.y0 + b_aba;
+  float* const acca = rk.acc + b_aba;
+  float* const y0m = rk.y0 + NB * rs + b_pcg;
+  float* const accm = rk.acc + NB * rs + b_pcg;
+  const SlotTauRr tau{mine};
+
+  // The step's start: q normalised, the torques, y0.
+  if (aba) {
+    quat_normalize(q);
+#pragma unroll 1
+    for (int k = 0; k < NJ; ++k) {
+      mine[SL_TAU + k] = -sc.kp * s[k] - sc.kd * sd[k];
+      y0a[k * rs] = s[k];
+      y0a[(R_SD + k) * rs] = sd[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) y0a[(R_P + k) * rs] = p[k];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) y0a[(R_Q + k) * rs] = q[k];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) y0a[(R_V + k) * rs] = v[k];
+  }
+  if (Integrator == 1) {
+#pragma unroll
+    for (int k = 0; k < OWN; ++k)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        if (pt[k] >= 0) y0m[(pt[k] * 3 + j) * rs] = m[k * 3 + j];
+  }
+
+#pragma unroll 1
+  for (int stage = 0; stage < 4; ++stage) {
+    float sdd[NJA];
+    const bool solve = Integrator == 1 || stage == 0;
+    if (solve) {
+      if (aba) rr_free_step(P, sc, w, mine, s, sd, p, q, v, sdd, tau);
+      __syncthreads();
+      float x[OWN * 3];
+      rr_solve(P, sc, sl, g, pt, m, x);
+      if (Integrator == 2) rr_wrenches(P, sl, g, pt, x);
+#pragma unroll
+      for (int k = 0; k < OWN; ++k)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int e = k * 3 + j;
+          if (pt[k] < 0) continue;
+          // m's rate steers m to the solved forces.
+          const float md = (x[e] - m[e]) / dt;
+          if (Integrator == 1) {
+            const int row = (pt[k] * 3 + j) * rs;
+            float a = stage == 0 ? 0.0f : accm[row];
+            m[e] = rk4_entry(stage, dt, md, y0m[row], a);
+            accm[row] = a;
+          } else {
+            // RK4-fast: the rate is frozen for the four stages.
+            float a = 0.0f, y = 0.0f;
+#pragma unroll
+            for (int st = 0; st < 4; ++st) y = rk4_entry(st, dt, md, m[e], a);
+            m[e] = y;
+          }
+        }
+      __syncthreads();
+    }
+    if (!aba) continue;
+
+    // The ABA thread: the stage's accelerations, then the rates of s, sd,
+    // p, q and v and their next values.
+    float a0[6];
+    if (Integrator == 1) {
+#pragma unroll 1
+      for (int k = 0; k < NJ; ++k) sdd[k] = sdd[k] + mine[SL_UM + k + 1];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) a0[k] = w.a[0][k] + mine[SL_F + k];
+    } else {
+      rr_free_step<true>(P, sc, w, mine, s, sd, p, q, v, sdd, tau);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) a0[k] = w.a[0][k];
+    }
+    float W_a[6];
+    if (FLOATING) {
+      xv(w.WR[0], w.Wp[0], a0, W_a);
+      W_a[2] += sc.gz;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) W_a[k] = 0.0f;
+    }
+    float pd[3], qd[4];
+    cross3(v + 3, p, pd);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) pd[k] = v[k] + pd[k];
+    quat_rate(q, v + 3, qd);
+#pragma unroll 1
+    for (int k = 0; k < NJ; ++k) {
+      float a = stage == 0 ? 0.0f : acca[k * rs];
+      const float ks = sd[k];
+      s[k] = rk4_entry(stage, dt, ks, y0a[k * rs], a);
+      acca[k * rs] = a;
+      a = stage == 0 ? 0.0f : acca[(R_SD + k) * rs];
+      sd[k] = rk4_entry(stage, dt, sdd[k], y0a[(R_SD + k) * rs], a);
+      acca[(R_SD + k) * rs] = a;
+    }
+#pragma unroll
+    for (int k = 0; k < 13; ++k) {
+      const int row = (R_P + k) * rs;
+      float a = stage == 0 ? 0.0f : acca[row];
+      float* y = k < 3 ? p + k : k < 7 ? q + (k - 3) : v + (k - 7);
+      const float rate = k < 3 ? pd[k] : k < 7 ? qd[k - 3] : W_a[k - 7];
+      *y = rk4_entry(stage, dt, rate, y0a[row], a);
+      acca[row] = a;
+    }
+    if (stage == 3) quat_normalize(q);
+  }
 }
 
 }  // namespace

@@ -35,6 +35,15 @@
 // point's m by its slot's lane in the contact phase, the base's p, q and v
 // by lane 0. Step t + 1 then reads what step t wrote after one ln_sync().
 //
+// The RK4 rollouts (rollout.cu with JX_INTEGRATOR 1 and 2) take the step's
+// rate form (STEP_RATE): the same passes from a stage's state, which write
+// the state's rate in its place, piece by piece as above: s' = sd, sd' the
+// joint accelerations, m' the contact law's, p' = v + w x p, q' with the
+// Baumgarte term, v' the base's world acceleration. STEP_RATE_FROZEN skips
+// the contact phase and leaves m as it is: pass 2 then takes the parents'
+// wrenches that the last STEP_RATE wrote (RK4-fast's, frozen at the step's
+// start).
+//
 // The slot has one of two layouts, chosen at build time (JX_LN_FORWARD in
 // the generated header; cuda_build.lane_tables sizes both):
 //  * K4's (0) keeps what K4's reverse sweep reads (step_vjp.cu says which
@@ -87,9 +96,10 @@ constexpr int LK_T = 0, LK_WR = 0, LK_WP = 9, LK_WV = 12, LK_A = 18, LK_V = 28, 
 constexpr int PR_F = 0, PR = 6;
 // The base's rows: link 0's MA and pA.
 constexpr int BS_MA0 = 0, BS_PA0 = 36, BS = 42;
-// The state's rows, in the order of K5's observation [s, sd, q, v, p_z].
+// The state's rows, in the order of K5's observation [s, sd, q, v, p_z]
+// (ST_N entries), then for an RK4 rollout the step's torques.
 constexpr int ST_S = 0, ST_SD = NJ, ST_Q = 2 * NJ, ST_V = 2 * NJ + 4, ST_P = 2 * NJ + 10, ST_M = 2 * NJ + 13,
-              ST = 2 * NJ + 13 + NCM * 3;
+              ST_N = 2 * NJ + 13 + NCM * 3, ST_TAU = ST_N, ST = ST_N + (INTEGRATOR != 0 ? NJ : 0);
 #else
 // A link's rows.
 constexpr int LK_WR = 0, LK_WP = 9, LK_IR = 12, LK_IP = 21, LK_V = 24, LK_MA = 30, LK_PA = 66, LK_A = 72,
@@ -293,13 +303,19 @@ __device__ __forceinline__ void store_state(const EnvState<float>& x, int B, int
 }
 #endif
 
-// One semi-implicit Euler step of one env on lane g of its group, from the
-// state `x`: fills the slot `sl` (above); a writable state gets the new
-// state, an EnvIn gives lane 0 the new base velocity in `vn`. `tau(k)` gives
-// joint k's torque. Every lane of the block calls it together.
-template <class In, class Tau>
+// The step's forms (above): the semi-implicit Euler step, and the rate of
+// the state with the contact phase or with the contacts frozen.
+constexpr int STEP_SIE = 0, STEP_RATE = 1, STEP_RATE_FROZEN = 2;
+
+// One semi-implicit Euler step (Mode STEP_SIE) of one env on lane g of its
+// group, from the state `x`: fills the slot `sl` (above); a writable state
+// gets the new state, an EnvIn gives lane 0 the new base velocity in `vn`.
+// With Mode STEP_RATE or STEP_RATE_FROZEN a writable state gets its rate.
+// `tau(k)` gives joint k's torque. Every lane of the block calls it together.
+template <int Mode = STEP_SIE, class In, class Tau>
 __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int g, const In& x, Tau tau,
                                 float* vn) {
+  static_assert(Mode == STEP_SIE || (In::writes && FORWARD), "the rate form writes a slot's state");
   // ----- forward kinematics, with pass 1's body velocities -----
   if (g == 0) {
     const float q[4] = {x.q[0], x.q[1], x.q[2], x.q[3]};
@@ -378,7 +394,7 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
   }
 
   // ----- soft contacts: the parents' wrenches, m's update -----
-  {
+  if constexpr (Mode != STEP_RATE_FROZEN) {
     float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll 1
     for (int k = 0; k < OWN; ++k) {
@@ -390,7 +406,10 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
         point_kinematics(P, c, R, Wp, Wv, pc, pd);
         const float mc[3] = {x.m[c * 3], x.m[c * 3 + 1], x.m[c * 3 + 2]};
         const HcLaw h = hc_law(sc, pc, pd, mc);
-        if constexpr (In::writes) {
+        if constexpr (Mode != STEP_SIE) {
+#pragma unroll
+          for (int j = 0; j < 3; ++j) x.m[c * 3 + j] = h.md[j];
+        } else if constexpr (In::writes) {
 #pragma unroll
           for (int j = 0; j < 3; ++j) x.m[c * 3 + j] = mc[j] + sc.dt * h.md[j];
         }
@@ -574,7 +593,10 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
 #pragma unroll
       for (int k = 0; k < 6; ++k) a_i[k] += S[k] * sddi;
       sl.st(i * LK + LK_A, 6, a_i);
-      if constexpr (In::writes) {
+      if constexpr (Mode != STEP_SIE) {
+        x.s[i - 1] = sdi;
+        x.sd[i - 1] = sddi;
+      } else if constexpr (In::writes) {
         const float sdn = sdi + dt * sddi;
         x.sd[i - 1] = sdn;
         x.s[i - 1] = x.s[i - 1] + dt * sdn;
@@ -583,7 +605,7 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
     ln_sync();
   }
 
-  // ----- the base's semi-implicit Euler -----
+  // ----- the base's semi-implicit Euler (its rates in the rate form) -----
   if (g == 0) {
     float W_a[6];
     if (FLOATING) {
@@ -596,6 +618,22 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
     } else {
 #pragma unroll
       for (int k = 0; k < 6; ++k) W_a[k] = 0.0f;
+    }
+    if constexpr (Mode != STEP_SIE) {
+      // p' = v + w x p, q' with the Baumgarte term, v' = W_a, all at the
+      // stage's v.
+      const float p[3] = {x.p[0], x.p[1], x.p[2]}, q[4] = {x.q[0], x.q[1], x.q[2], x.q[3]};
+      const float v6[6] = {x.v[0], x.v[1], x.v[2], x.v[3], x.v[4], x.v[5]};
+      float wp[3], qd[4];
+      cross3(v6 + 3, p, wp);
+      quat_rate(q, v6 + 3, qd);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) x.p[k] = v6[k] + wp[k];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x.q[k] = qd[k];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) x.v[k] = W_a[k];
+      return;
     }
     float vnew[6];
 #pragma unroll

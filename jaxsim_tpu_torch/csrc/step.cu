@@ -38,6 +38,7 @@
 #include "soft_step_lanes.cuh"
 
 static_assert(FORWARD, "step.cu takes the forward-only slot (JX_LN_FORWARD 1)");
+static_assert(INTEGRATOR == 0, "step.cu implements semi-implicit Euler (JX_INTEGRATOR 0)");
 
 namespace {
 

@@ -4,7 +4,9 @@
 // on flat ground with the three-pass articulated-body algorithm, the 6x6 base
 // Cholesky and the SIE update, with Hunt/Crossley soft contacts, in pieces:
 // the small dense algebra, the joint transforms, the Cholesky solve and the
-// contact law. It is written after jaxsim_tpu_torch/ops/batched_engine.py
+// contact law; and what the rollouts' RK4 steps (JX_INTEGRATOR 1 and 2) add:
+// the quaternion's rate with its Baumgarte term, and an entry's stage and
+// accumulator update. It is written after jaxsim_tpu_torch/ops/batched_engine.py
 // (the plain version) line by line. The lane-spread soft step
 // (soft_step_lanes.cuh: K1's rollout.cu, K2's and K3's step.cu, K5's
 // env_rollout.cu, K4's step_vjp.cu) and the relaxed-rigid step (rr_step.cuh,
@@ -30,7 +32,11 @@
 #include <cuda_runtime.h>
 #include <cfloat>
 
-#include "jx_topology.h"  // JX_NL, JX_NJ, JX_NC, JX_FLOATING, JX_CONTACT, JX_RR_ITERS, JX_LAM, ...
+#include "jx_topology.h"  // JX_NL, JX_NJ, JX_NC, JX_FLOATING, JX_CONTACT, JX_RR_ITERS, JX_INTEGRATOR, JX_LAM, ...
+
+#ifndef JX_INTEGRATOR
+#define JX_INTEGRATOR 0
+#endif
 
 namespace {
 
@@ -41,6 +47,10 @@ constexpr int NJA = NJ > 0 ? NJ : 1;     // array sizes must be positive
 constexpr int NCM = NC > 0 ? NC : 1;     // rows of the m state leaf
 constexpr bool FLOATING = JX_FLOATING != 0;
 constexpr bool RELAXED = JX_CONTACT == 1;  // relaxed-rigid contacts, else soft
+// 0 semi-implicit Euler; 1 RK4; 2 RK4-fast (RK4 with the contact forces and
+// m's rate frozen at the step's start).
+constexpr int INTEGRATOR = JX_INTEGRATOR;
+static_assert(INTEGRATOR >= 0 && INTEGRATOR <= 2, "JX_INTEGRATOR is 0, 1 or 2");
 
 // Packed model arrays, in BatchedEngine.PARAM_NAMES order, row-major.
 constexpr int OFF_S = 0;                          // (NL, 6)
@@ -68,6 +78,16 @@ struct StateIn {
 };
 struct StateOut {
   float *s, *sd, *p, *q, *v, *m;
+};
+
+// An RK4 rollout's rows in device memory: the step's start state y0 and the
+// accumulator k1 + 2 k2 + 2 k3 + k4, entry e of env b at [e * stride + b].
+// The stride is at least the launch's envs, so that an env past the batch
+// (which runs env B - 1's steps) has columns of its own.
+struct Rk4Scratch {
+  float* y0;
+  float* acc;
+  int stride;
 };
 
 // The packed model arrays into shared memory, by the whole block.
@@ -340,6 +360,43 @@ __device__ __forceinline__ HcLaw hc_law(const Scalars& sc, const float* pc, cons
   h.f_lin[1] = h.f_s[1];
   h.f_lin[2] = h.f_s[2] + h.fn;
   return h;
+}
+
+// ----- the RK4 step's pieces (the twin's _rk4_step and derivatives) -----
+
+// One entry of an RK4 step after stage `stage` (0..3) gave its rate k: the
+// accumulator (k1, then + 2 k2, + 2 k3, + k4: the twin's k1 + 2 k2 + 2 k3 + k4
+// in its order of sums) and the entry's next value, the next stage's state
+// y0 + c dt k (c = 1/2, 1/2, 1), or after the last stage the new state
+// y0 + dt (acc / 6).
+__device__ __forceinline__ float rk4_entry(int stage, float dt, float k, float y0, float& acc) {
+  acc = stage == 0 ? k : acc + (stage == 3 ? k : 2.0f * k);
+  if (stage < 3) return y0 + (stage < 2 ? 0.5f * dt : dt) * k;
+  return y0 + dt * (acc / 6.0f);
+}
+
+// The base quaternion's rate in the RK4 derivative: 1/2 [0, w] (x) q with
+// inertial-fixed w, plus the Baumgarte norm stabilization 1/2 K |w| (1 - |q|) q
+// with K = 1.
+__device__ __forceinline__ void quat_rate(const float* q, const float* w, float* qd) {
+  const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
+  const float ox = w[0], oy = w[1], oz = w[2];
+  const float nw = sqrtf(fmaxf(ox * ox + oy * oy + oz * oz, 1e-14f));
+  const float nq = sqrtf(fmaxf(qw * qw + qx * qx + qy * qy + qz * qz, 1e-14f));
+  const float r = 0.5f * (nw * (1.0f - nq));
+  qd[0] = 0.5f * (-qx * ox - qy * oy - qz * oz) + r * qw;
+  qd[1] = 0.5f * (qw * ox - qy * oz + qz * oy) + r * qx;
+  qd[2] = 0.5f * (qw * oy + qx * oz - qz * ox) + r * qy;
+  qd[3] = 0.5f * (qw * oz - qx * oy + qy * ox) + r * qz;
+}
+
+// q <- q / |q| (the RK4 step's, at its start and its end); `q` indexes four
+// entries (an array, or a column of a slot).
+template <class Q>
+__device__ __forceinline__ void quat_normalize(const Q& q) {
+  const float n = sqrtf(fmaxf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3], 1e-12f));
+#pragma unroll
+  for (int k = 0; k < 4; ++k) q[k] = q[k] / n;
 }
 
 }  // namespace

@@ -59,6 +59,7 @@ namespace {
 
 constexpr bool PARAMS_GRAD = JX_PARAMS_GRAD != 0;
 static_assert(!FORWARD && LN_THREADS <= 32, "K4 takes the full slot, and a block of at most one warp");
+static_assert(INTEGRATOR == 0, "step_vjp.cu implements semi-implicit Euler (JX_INTEGRATOR 0)");
 constexpr size_t VJP_SMEM_BYTES = (static_cast<size_t>(SLOT) * ES + (PARAMS_GRAD ? N_PARAMS : 0)) * sizeof(float);
 
 __device__ __forceinline__ void add3(float* a, const float* b) {

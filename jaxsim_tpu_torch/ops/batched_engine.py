@@ -1,9 +1,11 @@
 """Batch-minor simulation engine in plain PyTorch (the CPU twin).
 
-Counterpart of ``jaxsim_tpu/ops/batched_engine.py`` on plane terrain with
-semi-implicit Euler: Hunt/Crossley soft contacts, or relaxed-rigid contacts
-(a matrix-free Jacobi-preconditioned CG on the articulated factorization),
-and the three-pass ABA with the 6×6 base Cholesky. Every tensor keeps the env batch in
+Counterpart of ``jaxsim_tpu/ops/batched_engine.py`` on plane terrain:
+Hunt/Crossley soft contacts, or relaxed-rigid contacts (a matrix-free
+Jacobi-preconditioned CG on the articulated factorization), the three-pass
+ABA with the 6×6 base Cholesky, and the JAX engine's three fixed-step
+integrators (semi-implicit Euler, RK4, and RK4-fast, whose contact forces
+are frozen at the step's start). Every tensor keeps the env batch in
 the TRAILING axis, ``(..., B)``, as the JAX engine does; that is also the
 coalesced layout of the one-thread-per-env CUDA kernel in
 :mod:`jaxsim_tpu_torch.ops.cuda_rollout`, which is held against this module.
@@ -11,8 +13,8 @@ coalesced layout of the one-thread-per-env CUDA kernel in
 The static tree topology is unrolled as Python loops over the parent array,
 and small matrix algebra is written as broadcast multiply-and-sum over the
 leading axes, so no product goes through a matrix library (and none through
-TF32 on a GPU). The JAX engine's other contact models (rigid), terrains and
-integrators are not ported yet; the bridge refuses them with ``ValueError``.
+TF32 on a GPU). The JAX engine's other contact models (rigid) and terrains
+are not ported yet; the bridge refuses them with ``ValueError``.
 """
 
 from __future__ import annotations
@@ -245,6 +247,9 @@ class BatchedEngine(nn.Module):
     # preconditioner of the contact solve).
     RR_PARAM_NAMES = PARAM_NAMES + ("rrMinv",)
     CONTACT_MODELS = ("soft", "relaxed_rigid")
+    # Fixed-step integrators: semi-implicit Euler, RK4, and RK4 with the
+    # contact forces and ṁ frozen at the step's start.
+    INTEGRATORS = ("sie", "rk4", "rk4fast")
 
     def __init__(
         self,
@@ -282,6 +287,7 @@ class BatchedEngine(nn.Module):
         rr_reg: float = 1e-6,
         rr_iterations: int = 0,
         rrMinv=None,
+        integrator: str = "sie",
         dtype: torch.dtype = torch.float32,
         device: torch.device | str | None = None,
     ):
@@ -289,12 +295,16 @@ class BatchedEngine(nn.Module):
         ``contact_model`` is ``"soft"`` (K, D, hc_p, hc_q are Hunt/Crossley's)
         or ``"relaxed_rigid"`` (the ``rr_*`` scalars, ``rrMinv``, and μ;
         ``rr_iterations`` fixes the PCG's iterations, 0 for the automatic
-        budget :attr:`_rr_n_iter`)."""
+        budget :attr:`_rr_n_iter`). ``integrator`` is one of
+        :attr:`INTEGRATORS`."""
         super().__init__()
         device = resolve_device(device)
         if contact_model not in self.CONTACT_MODELS:
             raise ValueError(f"contact_model must be one of {self.CONTACT_MODELS}, got {contact_model!r}")
+        if integrator not in self.INTEGRATORS:
+            raise ValueError(f"integrator must be one of {self.INTEGRATORS}, got {integrator!r}")
         self.contact_model = contact_model
+        self.integrator = integrator
         self.rr_d_min = float(rr_d_min)
         self.rr_d_max = float(rr_d_max)
         self.rr_width = float(rr_width)
@@ -353,7 +363,7 @@ class BatchedEngine(nn.Module):
         model, *, dtype: torch.dtype = torch.float32, device=None
     ) -> "BatchedEngine":
         """Lower a :class:`~jaxsim_tpu_torch.api.model.JaxSimModel` (soft or
-        relaxed-rigid contacts, flat ground, semi-implicit Euler: the
+        relaxed-rigid contacts, flat ground, any of its integrators: the
         configurations the port's model expresses) to engine arrays, on
         ``device`` (by default the CUDA card; see :func:`resolve_device`),
         as ``jaxsim_tpu/ops/batched_engine.py::BatchedEngine.build`` does."""
@@ -395,8 +405,16 @@ class BatchedEngine(nn.Module):
             contact = dict(K=float(pars.K), D=float(pars.D), hc_p=float(pars.p), hc_q=float(pars.q))
         else:
             raise ValueError(f"the port implements soft and relaxed-rigid contacts, not {model.contact_model!r}")
+        from jaxsim_tpu_torch.api.model import IntegratorType
+
+        integrator = {
+            IntegratorType.SemiImplicitEuler: "sie",
+            IntegratorType.RungeKutta4: "rk4",
+            IntegratorType.RungeKutta4Fast: "rk4fast",
+        }[model.integrator]
         return BatchedEngine(
             **contact,
+            integrator=integrator,
             n_links=kdp.number_of_links(),
             n_joints=kdp.number_of_joints(),
             n_points=len(idx),
@@ -681,7 +699,7 @@ class BatchedEngine(nn.Module):
         ac = torch.stack([a[i] for i in self.contact_parent], 1)
         return _mv(Rp, ac[0:3] + _cross(ac[3:6], Lp))
 
-    def relaxed_rigid_contact_forces(self, state: BatchedState, W_R, W_p, W_v, tau, pr=None):
+    def relaxed_rigid_contact_forces(self, state: BatchedState, W_R, W_p, W_v, tau, pr=None, return_wrenches=False):
         """Relaxed-rigid (MJX-style soft-constraint) contact solve on plane
         terrain, as ``jaxsim_tpu/ops/batched_engine.py::relaxed_rigid_contact_forces``
         computes it with ``return_accelerations``.
@@ -694,7 +712,10 @@ class BatchedEngine(nn.Module):
         runs :meth:`_minv_apply` on the free ABA's factorization and
         gathers the point accelerations. Returns the contact-coupled
         accelerations ``(W_a, sdd)``, the free ones plus M⁻¹ Jᵀ x, and the
-        solved point forces ``xs (nC,3,B)``."""
+        solved point forces ``xs (nC,3,B)``; with ``return_wrenches``, in
+        place of the accelerations, the per-link world 6D contact forces
+        (list, None for a link without points) that :meth:`aba` takes as
+        ``f_ext``, and ``xs``: the JAX engine's frozen forces of RK4-fast."""
         pr = self.params(pr)
         mu, reg = self.mu, self.rr_reg
         width, mid, power = self.rr_width, self.rr_midpoint, self.rr_power
@@ -769,6 +790,16 @@ class BatchedEngine(nn.Module):
             rz_n = (r * z).sum((0, 1))
             beta = rz_n / (rz + 1e-20)
             p, rz = z + beta * p, rz_n
+
+        if return_wrenches:
+            # World wrenches [x ; pc × x] summed into the parent links in
+            # contact-index order, as the JAX engine forms them.
+            xw = x.transpose(0, 1)
+            f6 = torch.cat([xw, _cross(g["pc"], xw)])
+            f_links = [None] * self.n_links
+            for c, parent in enumerate(self.contact_parent):
+                f_links[parent] = f6[:, c] if f_links[parent] is None else f_links[parent] + f6[:, c]
+            return f_links, x
 
         # The contact-coupled accelerations: free ones plus M⁻¹ Jᵀ x.
         a_cont, sdd_cont = self._minv_apply(fact, self._rr_scatter(Rp, Lp, x.transpose(0, 1)), pr)
@@ -865,12 +896,14 @@ class BatchedEngine(nn.Module):
     # ----- the step -----
 
     @staticmethod
-    def _quat_derivative(q, omega):
-        """q̇ = ½ [0, ω] ⊗ q with inertial-fixed ω (no norm stabilization,
-        as the JAX engine's SIE step calls it)."""
+    def _quat_derivative(q, omega, K: float = 0.0):
+        """q̇ = ½ [0, ω] ⊗ q with inertial-fixed ω and, for ``K`` > 0, the
+        Baumgarte norm stabilization ½ K ‖ω‖ (1 − ‖q‖) q, as the JAX engine's
+        ``_quat_derivative`` (its SIE step takes K = 0, its RK4 derivative
+        K = 1)."""
         qw, qx, qy, qz = q[0], q[1], q[2], q[3]
         ox, oy, oz = omega[0], omega[1], omega[2]
-        return 0.5 * torch.stack(
+        qd = 0.5 * torch.stack(
             [
                 -qx * ox - qy * oy - qz * oz,
                 qw * ox - qy * oz + qz * oy,
@@ -878,32 +911,104 @@ class BatchedEngine(nn.Module):
                 qw * oz - qx * oy + qy * ox,
             ]
         )
+        if K:
+            nw = torch.sqrt(_maximum(ox * ox + oy * oy + oz * oz, 1e-14))
+            nq = torch.sqrt(_maximum((q * q).sum(0), 1e-14))
+            qd = qd + (0.5 * K) * (nw * (1.0 - nq)) * q
+        return qd
 
     @staticmethod
     def _normalize_quat(q):
         return q / torch.sqrt(_maximum((q * q).sum(0), 1e-12))
 
-    def step(
-        self, state: BatchedState, tau: torch.Tensor | None = None, pr=None
-    ) -> BatchedState:
-        """One semi-implicit Euler step with the engine's contact model.
-        ``pr`` overrides model arrays by name (see :meth:`params`) for this
-        step only.
-
-        A relaxed-rigid step refuses inputs that require grad: the JAX
+    def _refuse_autograd(self, state: BatchedState, tau, pr) -> None:
+        """A relaxed-rigid step refuses inputs that require grad: the JAX
         engine differentiates its contact solve implicitly (one more PCG on
         the same operator), and autograd through the unrolled iterations
         would give another gradient."""
-        tau = tau if tau is not None else torch.zeros_like(state.s)
-        pr = self.params(pr)
-
-        W_R, W_p, W_v = self.fk(state, pr)
         if self.contact_model == "relaxed_rigid" and self.n_points > 0:
             inputs = [*state.fields(), tau, *pr.values()]
             if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
                 raise NotImplementedError(
                     "the relaxed-rigid step has no backward yet: its implicit PCG backward is not ported"
                 )
+
+    def _contact_forces(self, state: BatchedState, W_R, W_p, W_v, tau, pr):
+        """The contact model's per-link world 6D forces and ṁ at ``state``
+        (what RK4-fast freezes): for relaxed-rigid contacts ṁ steers m to
+        the solved forces, so the next solve warm-starts from them."""
+        if self.contact_model == "relaxed_rigid" and self.n_points > 0:
+            f_links, xs = self.relaxed_rigid_contact_forces(state, W_R, W_p, W_v, tau, pr, return_wrenches=True)
+            return f_links, (xs - state.m) / self.dt
+        return self.soft_contact_forces(W_R, W_p, W_v, state.m, pr)
+
+    def derivatives(self, state: BatchedState, tau=None, pr=None, frozen_contacts=None) -> BatchedState:
+        """The continuous-time state derivative ẏ as a :class:`BatchedState`
+        of the leaves' rates, as the JAX engine's ``derivatives``:
+        ``frozen_contacts`` optionally gives precomputed ``(f_links, ṁ)``
+        (RK4-fast's stages); the quaternion's rate carries the Baumgarte
+        term with K = 1."""
+        pr = self.params(pr)
+        tau = tau if tau is not None else torch.zeros_like(state.s)
+        W_R, W_p, W_v = self.fk(state, pr)
+        if frozen_contacts is not None:
+            f_links, md = frozen_contacts
+            W_a, sdd = self.aba(state, W_R, W_p, W_v, f_links, tau, pr)
+        elif self.contact_model == "relaxed_rigid" and self.n_points > 0:
+            W_a, sdd, xs = self.relaxed_rigid_contact_forces(state, W_R, W_p, W_v, tau, pr)
+            # Carry the solved forces in m for the next solve's warm start.
+            md = (xs - state.m) / self.dt
+        else:
+            f_links, md = self.soft_contact_forces(W_R, W_p, W_v, state.m, pr)
+            W_a, sdd = self.aba(state, W_R, W_p, W_v, f_links, tau, pr)
+        omega = state.v[3:6]
+        pd = state.v[0:3] + _cross(omega, state.p)
+        qd = self._quat_derivative(state.q, omega, K=1.0)
+        return BatchedState(s=state.sd, sd=sdd, p=pd, q=qd, v=W_a, m=md)
+
+    def _rk4_step(self, state: BatchedState, tau, pr) -> BatchedState:
+        """Classic RK4 from one ``tau``: q normalised first, four
+        :meth:`derivatives`, ``(k1 + 2 k2 + 2 k3 + k4) / 6``, q normalised
+        last; with ``integrator == "rk4fast"`` the contact forces and ṁ are
+        evaluated once, at the normalised start, and frozen for the stages,
+        as the JAX engine's ``_rk4_step``."""
+        dt = self.dt
+        state = dataclasses.replace(state, q=self._normalize_quat(state.q))
+        frozen = None
+        if self.integrator == "rk4fast" and self.n_points > 0:
+            frozen = self._contact_forces(state, *self.fk(state, pr), tau, pr)
+
+        def f(st):
+            return self.derivatives(st, tau, pr, frozen_contacts=frozen)
+
+        def axpy(c, k):
+            return BatchedState(*(y + c * d for y, d in zip(state.fields(), k.fields())))
+
+        k1 = f(state)
+        k2 = f(axpy(0.5 * dt, k1))
+        k3 = f(axpy(0.5 * dt, k2))
+        k4 = f(axpy(dt, k3))
+        comb = BatchedState(
+            *((a + 2.0 * b + 2.0 * c + d) / 6.0 for a, b, c, d in zip(k1.fields(), k2.fields(), k3.fields(), k4.fields()))
+        )
+        new = axpy(dt, comb)
+        return dataclasses.replace(new, q=self._normalize_quat(new.q))
+
+    def step(
+        self, state: BatchedState, tau: torch.Tensor | None = None, pr=None
+    ) -> BatchedState:
+        """One step of the engine's integrator (semi-implicit Euler, RK4 or
+        RK4-fast) with its contact model. ``pr`` overrides model arrays by
+        name (see :meth:`params`) for this step only. A relaxed-rigid step
+        refuses inputs that require grad (:meth:`_refuse_autograd`)."""
+        tau = tau if tau is not None else torch.zeros_like(state.s)
+        pr = self.params(pr)
+        self._refuse_autograd(state, tau, pr)
+        if self.integrator in ("rk4", "rk4fast"):
+            return self._rk4_step(state, tau, pr)
+
+        W_R, W_p, W_v = self.fk(state, pr)
+        if self.contact_model == "relaxed_rigid" and self.n_points > 0:
             W_a, sdd, xs = self.relaxed_rigid_contact_forces(state, W_R, W_p, W_v, tau, pr)
             # Carry the solved forces in m for the next step's warm start.
             md = (xs - state.m) / self.dt

@@ -5,8 +5,8 @@ Every engine kernel source in ``jaxsim_tpu_torch/csrc/`` (``rollout.cu``,
 lane-spread ``soft_step_lanes.cuh``; ``rollout_rr.cu``, whose relaxed-rigid
 step is ``rr_step.cuh``) includes the shared algebra ``step_env.cuh`` and a
 generated header, ``jx_topology.h``, that makes one model topology's sizes
-and tables, its contact model and its PCG iterations compile-time
-constants, and for the kernels that put an env on several lanes the lanes
+and tables, its contact model, its PCG iterations and its integrator
+compile-time constants, and for the kernels that put an env on several lanes the lanes
 an env, the point slots and the tree's level schedule (:func:`rr_tables`,
 :func:`lane_tables`); ``fma_probe.cu`` takes no engine and no header.
 :func:`build_many`
@@ -83,9 +83,9 @@ class BuildJob:
 
 # Loaded libraries by (source, generated header), for the whole process.
 _BUILDS: dict[tuple[pathlib.Path, str], KernelBuild] = {}
-# The same by engine, then (source, defines, PCG iterations): what build()
-# reads on every launch. The iterations are the one header input that an
-# engine lets its user change after it is built (rr_iterations).
+# The same by engine, then (source, defines, PCG iterations, integrator):
+# what build() reads on every launch. The iterations and the integrator are
+# the header inputs that an engine lets its user change after it is built.
 _ENGINE_BUILDS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 _NO_ENGINE_BUILDS: dict[tuple, KernelBuild] = {}
 # Dynamic shared memory a block may take on sm_90 (227 KB).
@@ -97,9 +97,10 @@ _PACKED: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
 def topology_header(engine: BatchedEngine | None, defines=()) -> str:
-    """The generated header that specializes a kernel to one topology and
+    """The generated header that specializes a kernel to one topology,
     contact model (``JX_CONTACT``: 0 soft, 1 relaxed-rigid, with
-    ``JX_RR_ITERS`` PCG iterations); empty without an engine."""
+    ``JX_RR_ITERS`` PCG iterations) and integrator (``JX_INTEGRATOR``: 0
+    semi-implicit Euler, 1 RK4, 2 RK4-fast); empty without an engine."""
     if engine is None:
         return ""
 
@@ -119,6 +120,7 @@ def topology_header(engine: BatchedEngine | None, defines=()) -> str:
         f"#define JX_FLOATING {int(engine.floating_base)}\n"
         f"#define JX_CONTACT {engine.CONTACT_MODELS.index(engine.contact_model)}\n"
         f"#define JX_RR_ITERS {engine._rr_n_iter if engine.contact_model == 'relaxed_rigid' else 0}\n"
+        f"#define JX_INTEGRATOR {engine.INTEGRATORS.index(engine.integrator)}\n"
         + "".join(f"#define {name} {int(value)}\n" for name, value in defines)
         + arr("JX_LAM", engine.lam)
         + arr("JX_JTYPE", engine.joint_types)
@@ -185,7 +187,8 @@ def _schedule_header(prefix: str, t: dict) -> str:
 def rr_tables(engine: BatchedEngine, lanes: int) -> dict:
     """What the relaxed-rigid kernel (``rr_step.cuh``) takes from the
     topology for ``lanes`` lanes an env: :func:`_lane_schedule`'s point slots
-    and level schedule; ``slot``: floats of an env's slot in shared memory,
+    and level schedule; ``slot``: floats of an env's slot in shared memory
+    (with an RK4 engine's row of the step's torques, captured once a step),
     ``envs``: envs a block, the most up to ``RR_MAX_ENVS`` whose slots and
     model arrays fit in a block's shared memory, and ``smem_bytes``."""
     if engine.contact_model != "relaxed_rigid":
@@ -193,7 +196,7 @@ def rr_tables(engine: BatchedEngine, lanes: int) -> dict:
     if not engine.n_points:
         raise ValueError("the relaxed-rigid kernel needs contact points")
     t = _lane_schedule(engine, lanes)
-    slot = 26 * engine.n_links + 36 + 24 * len(t["par_link"])
+    slot = 26 * engine.n_links + 36 + 24 * len(t["par_link"]) + (engine.n_joints if engine.integrator != "sie" else 0)
     n_params = sum(x.numel() for x in engine.params().values())
     envs = RR_MAX_ENVS
     while (slot * (envs + 1) + n_params) * 4 > MAX_SMEM_BYTES and envs > 1 and (envs // 2) * lanes % 32 == 0:
@@ -242,7 +245,8 @@ def lane_tables(
     (``forward``) and a block of ``LN_FORWARD_MAX_ENVS`` envs, with the model
     arrays; the env rollout (K5, ``policy`` 0, 1 or 2 with ``hidden`` units)
     also a candidate's weights, and for each env its torques and hidden
-    units. The one-step kernels (K2, K3: ``forward`` with ``step_envs``)
+    units; the rollout K1 of an RK4 engine a row of the step's torques,
+    captured once a step. The one-step kernels (K2, K3: ``forward`` with ``step_envs``)
     take a block of ``step_envs`` envs, each with a row of torques, and the
     model arrays. Each halves its envs while the block does not fit in its shared
     memory.
@@ -261,6 +265,8 @@ def lane_tables(
     n_params = sum(x.numel() for x in engine.params().values())
     if forward:
         slot += 2 * engine.n_joints + 13 + 3 * engine.m_rows
+        if policy < 0 and not step_envs and engine.integrator != "sie":
+            slot += engine.n_joints
     if step_envs:
         block_floats, env_floats, envs = n_params, engine.n_joints, step_envs
     elif forward:
@@ -391,7 +397,7 @@ def build_many(jobs: list[BuildJob]) -> list[KernelBuild]:
 def build(job: BuildJob) -> KernelBuild:
     """:func:`build_many` of one job, kept by engine and job after the first
     call, so a wrapper's launch regenerates no header."""
-    key = (job.source, job.defines, job.engine._rr_n_iter if job.engine is not None else 0)
+    key = (job.source, job.defines, *((job.engine._rr_n_iter, job.engine.integrator) if job.engine is not None else ()))
     cache = _NO_ENGINE_BUILDS if job.engine is None else _ENGINE_BUILDS.setdefault(job.engine, {})
     kernel = cache.get(key)
     if kernel is None:
@@ -457,13 +463,22 @@ def is_cpu(state: BatchedState, what: str) -> bool:
 _STATE_NAMES = tuple(f"state.{f.name}" for f in dataclasses.fields(BatchedState))
 
 
-def check_cuda_call(engine: BatchedEngine, state: BatchedState, contact_models=("soft",)) -> int:
+_INTEGRATOR_NAMES = dict(sie="semi-implicit Euler", rk4="RK4", rk4fast="RK4-fast")
+
+
+def check_cuda_call(engine: BatchedEngine, state: BatchedState, contact_models=("soft",), integrators=("sie",)) -> int:
     """What every kernel takes: a flat-ground float32 engine with one of the
-    kernel's ``contact_models``, and a state on the engine's device, float32,
-    contiguous, of the engine's shapes. Returns the batch size."""
+    kernel's ``contact_models`` and ``integrators``, and a state on the
+    engine's device, float32, contiguous, of the engine's shapes. Returns the
+    batch size."""
     if engine.contact_model not in contact_models:
         raise ValueError(
             f"this kernel implements {' and '.join(contact_models)} contacts, not {engine.contact_model}"
+        )
+    if engine.integrator not in integrators:
+        raise ValueError(
+            f"this kernel implements {', '.join(_INTEGRATOR_NAMES[i] for i in integrators)}, "
+            f"not {_INTEGRATOR_NAMES[engine.integrator]}"
         )
     if not engine.flat:
         raise ValueError("the CUDA kernels implement flat ground only")

@@ -2,14 +2,17 @@
 
 Counterpart of ``jaxsim_tpu/ops/pallas_step.py::build_pallas_rollout`` and its
 ``_rollout_kernel``, for two bodies: soft or relaxed-rigid contacts, each on
-flat ground with semi-implicit Euler and the PD policy ``tau = -kp·s - kd·ṡ``,
-without per-env options. The soft kernel is
+flat ground with the engine's integrator (semi-implicit Euler, RK4 or
+RK4-fast) and the PD policy ``tau = -kp·s - kd·ṡ``, evaluated once a step at
+its start, without per-env options. The soft kernel is
 ``jaxsim_tpu_torch/csrc/rollout.cu`` (``LANES`` lanes an env, its state and
 the step's working set in shared memory: ``soft_step_lanes.cuh``'s
 forward-only slot), the relaxed-rigid one
 ``jaxsim_tpu_torch/csrc/rollout_rr.cu`` (``RR_LANES`` lanes an env, the
-contact solve's working set in shared memory), each built per topology; see
-the notes at their tops.
+contact solve's working set in shared memory), each built per topology and
+integrator; see the notes at their tops. An RK4 build takes two scratch
+arrays in device memory (the step's start state and the stages' sum), which
+:func:`launch` allocates.
 
 :func:`rollout` dispatches on the device of the state: a CPU state goes to
 :func:`rollout_reference`, the plain version (a loop over
@@ -19,6 +22,8 @@ raises; nothing falls back.
 """
 
 from __future__ import annotations
+
+import torch
 
 from . import cuda_build
 from .batched_engine import BatchedEngine, BatchedState
@@ -30,19 +35,25 @@ ROLLOUT_KERNEL_LAUNCHES = 0
 ROLLOUT_RR_KERNEL_LAUNCHES = 0
 
 SOURCE = CSRC / "rollout.cu"
-SIGNATURES = {"jx_rollout": [PTR] * 13 + [I32, I32] + [F32] * 10 + [PTR], "jx_rollout_geometry": [PTR]}
+# The entry points' arguments: the model arrays, the state in and out, B and
+# the steps, the scalars, the RK4 scratch (two pointers and their stride:
+# null and 0 for a semi-implicit Euler build), the stream.
+SIGNATURES = {"jx_rollout": [PTR] * 13 + [I32, I32] + [F32] * 10 + [PTR, PTR, I32, PTR], "jx_rollout_geometry": [PTR]}
 RR_SOURCE = CSRC / "rollout_rr.cu"
-RR_SIGNATURES = {"jx_rollout_rr": [PTR] * 13 + [I32, I32] + [F32] * 23 + [PTR], "jx_rr_geometry": [PTR]}
+RR_SIGNATURES = {"jx_rollout_rr": [PTR] * 13 + [I32, I32] + [F32] * 23 + [PTR, PTR, I32, PTR], "jx_rr_geometry": [PTR]}
 # Lanes of a warp that carry one env in the soft and the relaxed-rigid
 # kernel (build-time constants; PERF.md §6 has the times of the counts tried).
 LANES = 4
 RR_LANES = 8
 CONTACT_MODELS = ("soft", "relaxed_rigid")
+INTEGRATORS = ("sie", "rk4", "rk4fast")
 
 
 def job(engine: BatchedEngine, lanes: int | None = None) -> BuildJob:
     """The library for ``engine``: the soft rollout or the relaxed-rigid one,
-    with ``lanes`` lanes an env (``LANES`` or ``RR_LANES`` by default)."""
+    with ``lanes`` lanes an env (``LANES`` or ``RR_LANES`` by default); the
+    generated header names the engine's integrator, so each integrator
+    builds a library of its own."""
     if engine.contact_model == "relaxed_rigid":
         return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, (("JX_RR_LANES", int(lanes or RR_LANES)),))
     return BuildJob(engine, SOURCE, SIGNATURES, (("JX_LN_LANES", int(lanes or LANES)), ("JX_LN_FORWARD", 1)))
@@ -99,15 +110,28 @@ def rr_local_memory(kernel: KernelBuild) -> dict[str, int]:
     return cuda_build.local_memory(kernel, dict(
         passes=("rr_step.cuh", line_of("void rr_scatter("), line_of("float rr_prec(")),
         cg_loop=("rr_step.cuh", line_of("for (int it = -1; it <= JX_RR_ITERS; ++it)"),
-                 line_of("// m <- the solved forces")),
+                 line_of("// ----- the solve's end")),
     ))  # fmt: skip
 
 
 def rollout_reference(
     engine: BatchedEngine, state: BatchedState, n_steps: int, kp: float = 60.0, kd: float = 0.5
 ) -> BatchedState:
-    """The plain version: ``n_steps`` of the twin's step under the PD policy."""
+    """The plain version: ``n_steps`` of the twin's step (its integrator's)
+    under the PD policy."""
     return engine.rollout(state, n_steps, policy=lambda st: -kp * st.s - kd * st.sd)
+
+
+def rk4_scratch(engine: BatchedEngine, B: int) -> tuple[torch.Tensor | None, int]:
+    """An RK4 launch's scratch in device memory, the step's start state and
+    the stages' sum, each with a column for every env of the launch's
+    blocks (``B`` and the last block's envs past it), and its stride; None
+    and 0 for a semi-implicit Euler engine."""
+    if engine.integrator == "sie":
+        return None, 0
+    stride = B + (cuda_build.RR_MAX_ENVS if engine.contact_model == "relaxed_rigid" else cuda_build.LN_FORWARD_MAX_ENVS)
+    rows = 2 * engine.n_joints + 13 + 3 * engine.m_rows
+    return torch.empty((2, rows, stride), dtype=engine.S.dtype, device=engine.S.device), stride
 
 
 def launch(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, n_steps: int, kp: float, kd: float):
@@ -115,11 +139,14 @@ def launch(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, n_st
     of it built from another source) on a checked CUDA state; counts nothing."""
     relaxed = engine.contact_model == "relaxed_rigid"
     out = cuda_build.empty_state_like(state)
+    B = state.p.shape[-1]
+    scratch, stride = rk4_scratch(engine, B)
+    y0, acc = (0, 0) if scratch is None else (scratch[0].data_ptr(), scratch[1].data_ptr())
     cuda_build.launch(
         kernel, "jx_rollout_rr" if relaxed else "jx_rollout", packed_params(engine), state.p.device,
         *cuda_build.state_pointers(state), *cuda_build.state_pointers(out),
-        state.p.shape[-1], int(n_steps), *cuda_build.engine_scalars(engine), float(kp), float(kd),
-        *(cuda_build.rr_scalars(engine) if relaxed else ()),
+        B, int(n_steps), *cuda_build.engine_scalars(engine), float(kp), float(kd),
+        *(cuda_build.rr_scalars(engine) if relaxed else ()), y0, acc, stride,
     )  # fmt: skip
     return out
 
@@ -127,12 +154,13 @@ def launch(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, n_st
 def rollout(
     engine: BatchedEngine, state: BatchedState, n_steps: int, kp: float = 60.0, kd: float = 0.5
 ) -> BatchedState:
-    """Advance every env ``n_steps`` under ``tau = -kp·s - kd·ṡ``: in one CUDA
-    kernel launch for a CUDA state, with the plain version for a CPU state."""
+    """Advance every env ``n_steps`` under ``tau = -kp·s - kd·ṡ`` with the
+    engine's integrator: in one CUDA kernel launch for a CUDA state, with the
+    plain version for a CPU state."""
     global ROLLOUT_KERNEL_LAUNCHES, ROLLOUT_RR_KERNEL_LAUNCHES
     if cuda_build.is_cpu(state, "rollout"):
         return rollout_reference(engine, state, n_steps, kp, kd)
-    cuda_build.check_cuda_call(engine, state, CONTACT_MODELS)
+    cuda_build.check_cuda_call(engine, state, CONTACT_MODELS, INTEGRATORS)
     out = launch(build(engine), engine, state, n_steps, kp, kd)
     if engine.contact_model == "relaxed_rigid":
         ROLLOUT_RR_KERNEL_LAUNCHES += 1

@@ -88,8 +88,10 @@ def build(engine: BatchedEngine, params_grad: bool = False) -> KernelBuild:
 
 
 def check_scope(engine: BatchedEngine) -> None:
-    """K4 and its plain version differentiate the soft-contact, flat-ground,
-    semi-implicit Euler step; anything else raises."""
+    """K4 and its plain version differentiate the soft-contact, flat-ground
+    step; anything else raises. (The plain version differentiates any of the
+    twin's integrators; K4 itself takes semi-implicit Euler only, and its
+    wrapper refuses the others.)"""
     if not engine.flat or engine.contact_model != "soft":
         raise ValueError(
             "the step VJP covers soft contacts on flat ground with semi-implicit"

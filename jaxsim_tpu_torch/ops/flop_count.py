@@ -26,7 +26,10 @@ in: the soft contact model's candidate results, computed for every point and
 then selected (three ṁ and the slip scaling). A relaxed-rigid step is counted
 the same way; its contact solve's work depends on the data through the
 points out of contact, whose activity 0 makes their share of each M⁻¹Jᵀ pass
-a product with 0.
+a product with 0. An RK4 step is four of the twin's derivatives and their
+sums, an RK4-fast step the same with the contact forces evaluated once; each
+derivative's ABA reuses its forward kinematics' joint transforms, and
+RK4-fast's contact evaluation the first stage's forward kinematics.
 """
 
 from __future__ import annotations
@@ -167,14 +170,28 @@ def least_step_ops(engine: BatchedEngine, fn, state: BatchedState, n: int | None
     """Operations per env of ``fn(state)``, a function that makes one twin
     step per env with the model arrays ``pr`` (with whatever surrounds the
     step), counted with ABA pass 2 in its least algebra
-    (:func:`articulated_least`, :func:`to_parent_least`) and without the
-    twin's second pass over the joint transforms, which the kernels do not
-    make."""
+    (:func:`articulated_least`, :func:`to_parent_least`) and without what
+    the twin computes twice and the kernels once: each ABA's pass over the
+    joint transforms, which its forward kinematics made, and RK4-fast's
+    forward kinematics at the step's start, which its first stage makes."""
+    calls = collections.Counter()
+
+    def counted(name, f):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return f(*args, **kwargs)
+
+        return call
+
     with mock.patch.object(batched_engine, "_articulated", articulated_least), \
-            mock.patch.object(batched_engine, "_to_parent", to_parent_least):  # fmt: skip
+            mock.patch.object(batched_engine, "_to_parent", to_parent_least), \
+            mock.patch.object(engine, "aba", counted("aba", engine.aba)):  # fmt: skip
         ops = ops_per_env(fn, state, n)
-    twice = ops_per_env(lambda st: engine._relative_transforms(st.s, engine.params(pr)), state, n)
-    return ops - twice
+    transforms = ops_per_env(lambda st: engine._relative_transforms(st.s, engine.params(pr)), state, n)
+    ops -= calls["aba"] // 2 * transforms  # ops_per_env runs fn twice
+    if engine.integrator == "rk4fast" and engine.n_points:
+        ops -= ops_per_env(lambda st: engine.fk(st, pr), state, n)
+    return ops
 
 
 def least_vjp_ops(

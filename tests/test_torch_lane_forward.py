@@ -17,7 +17,9 @@ array filled with NaN before each block (a field read before it is written
 shows). The binary runs as a subprocess with a hard timeout, so a barrier
 that deadlocks fails the test instead of hanging the suite, and its output
 is held against the plain versions (``rollout_reference``,
-``env_rollout_reference``) at ``chip_smoke.TOL``. To run these alone:
+``env_rollout_reference``) at ``chip_smoke.TOL``; K1 also built for RK4 and
+RK4-fast engines (``JX_INTEGRATOR`` 1 and 2), whose torques the body captures
+once a step. To run these alone:
 
     python -m pytest -q tests/test_torch_lane_forward.py            # pendulum, garpez
     python -m pytest -q -m slow tests/test_torch_lane_forward.py    # the humanoid
@@ -35,6 +37,7 @@ import pytest
 import torch
 
 from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, bridge, models
+from jaxsim_tpu_torch.api.model import IntegratorType
 from jaxsim_tpu_torch.ops import cuda_build, cuda_env_rollout, cuda_rollout
 
 URDFS = dict(
@@ -55,9 +58,14 @@ PAR_ROWS = (("F", 6),)
 BASE_ROWS = (("MA0", 36), ("PA0", 6))
 
 
+INTEGRATORS = dict(sie=IntegratorType.SemiImplicitEuler, rk4=IntegratorType.RungeKutta4,
+                   rk4fast=IntegratorType.RungeKutta4Fast)  # fmt: skip
+
+
 @functools.lru_cache(maxsize=None)
-def _engine(name: str) -> BatchedEngine:
-    return BatchedEngine.build(JaxSimModel.build_from_model_description(URDFS[name]()), device="cpu")
+def _engine(name: str, integrator: str = "sie") -> BatchedEngine:
+    model = JaxSimModel.build_from_model_description(URDFS[name](), integrator=INTEGRATORS[integrator])
+    return BatchedEngine.build(model, device="cpu")
 
 
 def _forward_constants() -> dict[str, int]:
@@ -262,6 +270,11 @@ int main(int argc, char** argv) {
                   static_cast<unsigned>(std::strtoul(argv[a + 6], nullptr, 10)), std::atoi(argv[a + 7])};
   std::vector<float> reward(B);
   std::vector<int> resets(B), steps(B);
+#else
+  // K1's RK4 scratch (unread by a semi-implicit Euler build): the state's
+  // entries for every env of the blocks, NaN until written.
+  const int rk4_stride = (B + ENVS - 1) / ENVS * ENVS;
+  std::vector<float> rk4_y0(size_t(ST_N) * rk4_stride, std::numeric_limits<float>::quiet_NaN()), rk4_acc(rk4_y0);
 #endif
   for (int blk = 0; blk < (B + ENVS - 1) / ENVS; ++blk) {
     for (float& x : smem) x = std::numeric_limits<float>::quiet_NaN();
@@ -269,7 +282,7 @@ int main(int argc, char** argv) {
 #if JX_KERNEL == 5
       env_rollout_kernel(params, weights, state_in, sout, reward.data(), resets.data(), steps.data(), B, n_steps, sc, o);
 #else
-      rollout_kernel(params, state_in, sout, B, n_steps, sc);
+      rollout_kernel(params, state_in, sout, B, n_steps, sc, Rk4Scratch{rk4_y0.data(), rk4_acc.data(), rk4_stride});
 #endif
     });
   }
@@ -350,14 +363,15 @@ def _assert_close(got: dict, want) -> None:
         assert err <= TOL, (name, err)
 
 
-def _rollout_case(tmp_path, name, lanes, B, n_steps):
-    eng = _engine(name)
+def _rollout_case(tmp_path, name, lanes, B, n_steps, integrator="sie", gains=(60.0, 0.5)):
+    eng = _engine(name, integrator)
     state = _state(name, B, seed=lanes)
     binary = _build(tmp_path, eng, cuda_rollout.job(eng, lanes), 1)
-    kp, kd = 60.0, 0.5
+    kp, kd = gains
     flat = _run(tmp_path, binary, eng, state, n_steps, (*cuda_build.engine_scalars(eng), kp, kd))
     got, _ = _fields(flat, state)
     _assert_close(got, cuda_rollout.rollout_reference(eng, state, n_steps, kp, kd))
+    return eng, state, got
 
 
 def _env_case(tmp_path, name, lanes, candidates, n_steps):
@@ -417,3 +431,41 @@ def test_humanoid_bodies_match_plain(tmp_path, kernel):
         _rollout_case(tmp_path, "humanoid23", cuda_rollout.LANES, B=3, n_steps=20)
     else:
         _env_case(tmp_path, "humanoid23", cuda_env_rollout.LANES, candidates=1, n_steps=20)
+
+
+@pytest.mark.parametrize("integrator", ("rk4", "rk4fast"))
+@pytest.mark.parametrize("name", ("pendulum1", "garpez"))
+def test_rk4_rollout_body_matches_plain(tmp_path, name, integrator):
+    """K1's RK4 and RK4-fast bodies at the wrapper's lanes, 20 steps of a
+    few envs (one block, the rest of it running the last env), against the
+    plain rollout."""
+    _rollout_case(tmp_path, name, cuda_rollout.LANES, B=5, n_steps=20, integrator=integrator)
+
+
+STIFF_GAINS = (2000.0, 20.0)
+
+
+@pytest.mark.parametrize("integrator", ("rk4", "rk4fast"))
+def test_rk4_body_captures_the_torques_once(tmp_path, integrator, monkeypatch):
+    """The pendulum under stiff PD gains (``STIFF_GAINS``), 20 steps: a
+    rollout whose RK4 stages evaluate the policy at the stage's state, not
+    once at the step's start, lies more than 10 TOL from the plain rollout;
+    the body holds the plain rollout to TOL, so it reads the torques the
+    step captured."""
+    eng, state, got = _rollout_case(tmp_path, "pendulum1", cuda_rollout.LANES, B=5, n_steps=20,
+                                    integrator=integrator, gains=STIFF_GAINS)  # fmt: skip
+    kp, kd = STIFF_GAINS
+    derivatives = eng.derivatives
+    monkeypatch.setattr(eng, "derivatives", lambda st, tau, pr=None, frozen_contacts=None: derivatives(
+        st, -kp * st.s - kd * st.sd, pr, frozen_contacts))  # fmt: skip
+    staged = cuda_rollout.rollout_reference(eng, state, 20, kp, kd)
+    assert max(float(np.abs(got[k] - t.numpy()).max()) for k, t in zip(bridge.STATE_FIELDS, staged.fields())
+               if t.numel()) > 10 * TOL  # fmt: skip
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("integrator", ("rk4", "rk4fast"))
+def test_humanoid_rk4_body_matches_plain(tmp_path, integrator):
+    """The humanoid's RK4 and RK4-fast K1 bodies at the wrapper's lanes, 10
+    steps of 3 envs."""
+    _rollout_case(tmp_path, "humanoid23", cuda_rollout.LANES, B=3, n_steps=10, integrator=integrator)
