@@ -6,6 +6,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations] [rr] [rr_faults] [param_sum]
         [profiler] [vjp] [vjp_faults] [lanes] [quat] [k1_faults] [step] [step_faults] [kernels] [rk4_faults]
+        [rr_step] [rr_step_faults]
 
 With no argument it runs the first three. Probes of the flagship humanoid
 (soft contacts, flat ground, PD policy):
@@ -121,6 +122,21 @@ With no argument it runs the first three. Probes of the flagship humanoid
   ``rr_gates`` (RR_RK4_CASES); per case the worst field's statistic over
   its limit (> 1 is refused). A fault whose source edit a build does not
   include gives that build's own numbers.
+* rr_step: K3-rr (``step_rr.cu``) at each envs a block in ``RR_STEP_ENVS``
+  (the most that fit up to it), on the relaxed-rigid humanoid at 8192 envs
+  (the relaxed-rigid main path's start and its PD torques) and on garpez
+  tilted low at 1024 (``chip_smoke.RR_GARPEZ``): each build's ptxas line
+  (registers, stack, spills), launch geometry and local loads and stores in
+  its SASS; kernel-only ms (``torch.profiler``, mean of ``LAUNCH_REPEATS``)
+  and CUDA-event ms of a launch (median); and the worst field's largest
+  |Δ| (m's relative) against the plain twin after ``LANE_CHECK_STEPS``
+  chained steps.
+* rr_step_faults: ``RR_STEP_FAULTS`` seeded into copies of ``csrc/`` under
+  ``build/``, each built beside the sound source for every engine of the
+  gates, and held with it to ``chip_smoke.py``'s limits: K2-rr and K3-rr
+  (chained) by ``rr_gates`` on RR_CASES, K5-rr by ``rr_env_gates`` on
+  RR_ENV_CASES; per case the worst statistic over its limit (> 1 is
+  refused).
 
 It prints the card's name and power limit, then JSON lines keyed by probe,
 and exits non-zero when no CUDA device is visible.
@@ -162,6 +178,7 @@ LANE_CHECK_STEPS = 10
 QUAT_STEPS = 100
 QUAT_BATCH = 1024
 STEP_LANES = (8, 4, 2)  # K2's and K3's lanes an env; the first is the wrappers'
+RR_STEP_ENVS = (64, 32, 16)  # K3-rr's envs a block tried; the first is the wrappers'
 # Seeded faults of the relaxed-rigid step, each one edit of rr_step.cuh
 # (the text, its replacement): the impedance floor dropped from the
 # regularizer, the warm start forced cold, one PCG iteration fewer.
@@ -247,6 +264,27 @@ RK4_FAULTS = {
         "        wm[k] = Integrator == 1 && pt[k / 3] >= 0 ? y0m[(pt[k / 3] * 3 + k % 3) * rs] : m[k];\n"
         "      rr_solve(P, sc, sl, g, pt, wm, x);\n      if (Integrator == 2)",
     )],
+}
+
+# Seeded faults of the relaxed-rigid one-step kernels and env rollout, each a
+# list of edits of csrc/ (the file, the text, its replacement): K3-rr reading
+# the next env's torques; K2-rr not storing m (K3-rr still does); K5-rr not
+# re-reading m on a respawn; K5-rr's reward summed from the state after the
+# respawn.
+RR_STEP_FAULTS = {
+    "K3 reads env b + 1's torques": [
+        ("step_rr.cu", "__ldg(tau_in + k * B + b);", "__ldg(tau_in + k * B + b + 1);")],
+    "K2's m not stored": [
+        ("step_rr.cu", "if (b_pcg < B) rr_store_m(", "if (b_pcg < B && TAU) rr_store_m(")],
+    "K5 does not restore m on a respawn": [
+        ("env_rollout_rr.cu", "    if (sl[SL_DONE] != 0.0f) rr_load_m(in.m, B, bp, pt, m);\n", "")],
+    "K5's reward from the state after the respawn": [
+        ("env_rollout_rr.cu",
+         "      const float upright = z > 2.0f ? 2.0f : z;  // jnp.minimum: a NaN passes through\n"
+         "      reward_sum = __fadd_rn(reward_sum, __fsub_rn(upright, __fmul_rn(0.001f, ctrl)));\n", ""),
+        ("env_rollout_rr.cu", "      mine[SL_DONE] = done ? 1.0f : 0.0f;",
+         "      reward_sum = __fadd_rn(reward_sum, __fsub_rn(p[2] > 2.0f ? 2.0f : p[2], __fmul_rn(0.001f, ctrl)));\n"
+         "      mine[SL_DONE] = done ? 1.0f : 0.0f;")],
 }
 
 # The one-step kernels' model arrays read from device memory through L1 in
@@ -1011,6 +1049,135 @@ def rk4_faults_probe(hum, gen) -> None:
     print(json.dumps({"rk4_faults": ratios}), flush=True)
 
 
+def rr_step_probe(hum, gen) -> None:
+    """K3-rr at each envs a block of RR_STEP_ENVS on the relaxed-rigid
+    humanoid and garpez (see the module's note)."""
+    import torch
+
+    from chip_smoke import RR_CASES, profiled_ms, rr_diff, rr_garpez_engine, rr_humanoid_engine, rr_start_states
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_rollout, cuda_step
+
+    device = hum.S.device
+    hum_rr, garp_rr = rr_humanoid_engine(device), rr_garpez_engine(device)
+    starts = rr_start_states(hum_rr, garp_rr, hum_rr, torch.Generator(device).manual_seed(6))
+    cases = dict(humanoid23=starts[RR_CASES[0][0]], garpez=starts[RR_CASES[5][0]])
+    keys = [(name, envs) for name in cases for envs in RR_STEP_ENVS]
+    builds = dict(zip(keys, cuda_build.build_many([cuda_step.job(cases[name][0], envs=envs) for name, envs in keys])))
+    plains = {}
+    for name, (eng, st, (kp, kd)) in cases.items():
+        for _ in range(LANE_CHECK_STEPS):
+            st = cuda_step.step_tau_reference(eng, st, -kp * st.s - kd * st.sd)
+        plains[name] = st
+    for (name, envs), kernel in builds.items():
+        eng, state, (kp, kd) = cases[name]
+        params, tau = cuda_build.packed_params(eng), (-kp * state.s - kd * state.sd).contiguous()
+        st = state
+        for _ in range(LANE_CHECK_STEPS):
+            st = cuda_step.launch_tau(kernel, eng, st, (-kp * st.s - kd * st.sd).contiguous(), params)
+        torch.cuda.synchronize()
+        err = max(float(d.max()) for d in rr_diff(st, plains[name]).values())
+
+        def run():
+            return cuda_step.launch_tau(kernel, eng, state, tau, params)
+
+        run()  # warm-up
+        print(json.dumps({"rr_step": {
+            "kernel": "k3", "model": name, "B": state.p.shape[-1], "envs_asked": envs,
+            "ptxas": [ln.strip() for ln in kernel.ptxas_log.splitlines()
+                      if "registers" in ln or "stack frame" in ln or "spill" in ln],
+            "geometry": cuda_step.geometry(kernel), "local_loads_and_stores": cuda_rollout.rr_local_memory(kernel),
+            "kernel_ms": profiled_ms(run, "step_tau_rr_kernel", LAUNCH_REPEATS), "event_ms": device_ms(run, LAUNCH_REPEATS),
+            "max_abs_err_vs_plain_m_relative": err,
+        }}), flush=True)  # fmt: skip
+
+
+def rr_step_faults_probe(hum, gen) -> None:
+    """Each of RR_STEP_FAULTS seeded into a copy of ``csrc/`` under
+    ``build/``, built beside the sound source for every engine of the gates,
+    and every variant held to ``chip_smoke.py``'s limits: K2-rr and K3-rr
+    chained by ``rr_gates`` (RR_CASES), K5-rr by ``rr_env_gates``
+    (RR_ENV_CASES, from ``chip_smoke.rr_env_cases``); per case the worst
+    statistic over its limit (> 1 is refused)."""
+    import torch
+
+    from chip_smoke import (
+        es_population, es_sizes, rr_env_cases, rr_env_gates, rr_garpez_engine, rr_gates, rr_humanoid_engine,
+        rr_start_states, rr_touchdown_engine,
+    )  # fmt: skip
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_env_rollout, cuda_step
+    from jaxsim_tpu_torch.ops.policies import obs_dim
+
+    device = hum.S.device
+    hum_rr, garp_rr, hum_td = rr_humanoid_engine(device), rr_garpez_engine(device), rr_touchdown_engine(device)
+    dirs = {"control": cuda_build.CSRC}
+    for name, edits in RR_STEP_FAULTS.items():
+        dirs[name] = _seeded_edits("rr_step_faults", name, edits)
+    touched = {name: {file for file, _, _ in edits} for name, edits in RR_STEP_FAULTS.items()}
+
+    # K2-rr and K3-rr, chained, on RR_CASES.
+    step_names = [name for name in dirs if name == "control" or "step_rr.cu" in touched[name]]
+    jobs = {(name, id(eng)): dataclasses.replace(cuda_step.job(eng), source=dirs[name] / "step_rr.cu")
+            for name in step_names for eng in (hum_rr, garp_rr, hum_td)}  # fmt: skip
+    kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+
+    def k2(name):
+        def run(eng, st, n, kp, kd):
+            for _ in range(n):
+                st = cuda_step.launch_pd(kernels[(name, id(eng))], eng, st, kp, kd)
+            return st
+
+        return run
+
+    def k3(name):
+        def run(eng, st, n, kp, kd):
+            params = cuda_build.packed_params(eng)
+            for _ in range(n):
+                st = cuda_step.launch_tau(kernels[(name, id(eng))], eng, st, (-kp * st.s - kd * st.sd).contiguous(),
+                                          params)  # fmt: skip
+            return st
+
+        return run
+
+    starts = rr_start_states(hum_rr, garp_rr, hum_td, torch.Generator(device).manual_seed(6))
+    variants = {f"{name}, {kind}": make(name) for name in step_names for kind, make in (("K2", k2), ("K3", k3))}
+    _, ratios = rr_gates(starts, variants, held_at_max=[name for name in variants if name.endswith("K3")])
+    print(json.dumps({"rr_step_faults": ratios}), flush=True)
+
+    # K5-rr on RR_ENV_CASES (chip_smoke.rr_env_cases, with ES weights of the
+    # probe's own seed).
+    n, d = hum_rr.n_joints, obs_dim(hum_rr.n_joints)
+    gen1 = torch.Generator(device).manual_seed(1)
+    _, mlp = es_population(0.1 * torch.randn(sum(es_sizes(n, d)), generator=gen1, device=device), gen1, n, d)
+    cases = rr_env_cases(hum_rr, garp_rr, starts, mlp)
+    env_names = [name for name in dirs if name == "control" or "env_rollout_rr.cu" in touched[name]]
+    weight_names = ("W", "b", "W1", "b1", "W2", "b2")
+    # env_rollout's defaults of the options a case may leave out.
+    defaults = dict(kp=60.0, kd=0.5, episode_length=1000, healthy_z_range=(0.4, 2.0), tau_limit=None,
+                    reset_noise=0.0, seed=0)  # fmt: skip
+
+    def split(eng, opts):
+        pol = cuda_env_rollout.make_policy(eng, **{k: v for k, v in opts.items() if k in weight_names})
+        return pol, {**defaults, **{k: v for k, v in opts.items() if k not in weight_names}}
+
+    env_jobs = {}
+    for name in env_names:
+        for _, eng, _, _, opts in cases:
+            pol = split(eng, opts)[0]
+            env_jobs[(name, id(eng), pol.kind)] = dataclasses.replace(
+                cuda_env_rollout.job(eng, pol), source=dirs[name] / "env_rollout_rr.cu")
+    env_kernels = dict(zip(env_jobs, cuda_build.build_many(list(env_jobs.values()))))
+
+    def k5(name):
+        def run(eng, st, steps, **opts):
+            pol, rest = split(eng, opts)
+            return cuda_env_rollout.launch(env_kernels[(name, id(eng), pol.kind)], eng, st, steps, pol, **rest)
+
+        return run
+
+    _, env_ratios = rr_env_gates(cases, {name: k5(name) for name in env_names})
+    print(json.dumps({"rr_env_faults": env_ratios}), flush=True)
+
+
 PROBES = {
     "sweep": sweep_probe,
     "profile": profile_probe,
@@ -1030,6 +1197,8 @@ PROBES = {
     "step_faults": step_faults_probe,
     "kernels": kernels_probe,
     "rk4_faults": rk4_faults_probe,
+    "rr_step": rr_step_probe,
+    "rr_step_faults": rr_step_faults_probe,
 }
 
 

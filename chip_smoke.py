@@ -14,15 +14,21 @@ plain PyTorch version on the card:
   path's start and with the joints moving, and on a box spinning in the air
   (``CASES``); two K1 launches from the same start to the bit; K1's relaxed-rigid
   kernel (``rollout_rr.cu``) likewise on the humanoid, on garpez tilted
-  low, and on the humanoid's touchdown with 3 PCG iterations (``RR_CASES``),
-  ``m`` (the solved point forces) relative to its size, with the active
-  contact points of each case counted; K2 and K3 also on a batch that is
+  low (also on a ragged batch), and on the humanoid's touchdown with 3 PCG
+  iterations (``RR_CASES``), ``m`` (the solved point forces) relative to its
+  size, with the active contact points of each case counted, and beside it
+  on each case the relaxed-rigid K2 and K3 (``step_rr.cu``) chained one
+  launch a step, against the same plain trajectories, K3-rr also under
+  call-time ``M`` and ``rrMinv`` (``RR_PR``); K2 and K3 also on a batch that is
   not a multiple of their block (``STEP_RAGGED``), and K3 under call-time
   model arrays (``M`` scaled by 1.2) and on the garpez chain through one APG
   window from the APG main path's start (``step_gates``);
 * K5 (``env_rollout.cu``) in every state field, the reward sums, the resets
   and the steps: truncation only (the MLP policy with 8 candidates), real
-  terminations (the linear policy), and respawns with reset noise;
+  terminations (the linear policy), and respawns with reset noise; and the
+  relaxed-rigid K5 (``env_rollout_rr.cu``) on ``RR_ENV_CASES``: the ES main
+  path's shapes, the touchdown under the linear policy, and garpez with a
+  seeded ``m`` that a respawn must restore;
 * K4 (``step_vjp.cu``, the fused step VJP, with and without the model
   arrays' cotangents) in every cotangent field per env, for seeded random
   output cotangents one state field at a time and all six at once, on the
@@ -54,6 +60,10 @@ before it and read just after:
   weights, 500 steps a generation, episodes of 400, healthy height
   (0.6, 1.2) m, torques clipped at 100; three generations, one K5 launch each;
 * ``BatchedEnv.step``: 20 steps at 8192 envs, one K3 launch each;
+* the relaxed-rigid per-step rollout, ES generations and ``BatchedEnv.step``:
+  the same three paths on the relaxed-rigid humanoid (bench.py's
+  ``relaxed_rigid`` model) from the relaxed-rigid main path's start, on
+  K2-rr, K5-rr and K3-rr;
 * the policy gradient, bench.py's gradient path uncut: the gains of
   ``tau = -g0·s - g1·ṡ`` through 100 fused differentiable steps at 8192
   envs, ``mean(ṡ²) + mean(p_z)``, ``.backward()``: K3 forward, K4 backward;
@@ -81,11 +91,12 @@ before it and read just after:
 
 It prints each build's ptxas line; the soft K1's, K5's, K2's and K3's
 (``step.cu``, on the humanoid and on garpez), K4's and the relaxed-rigid
-kernel's launch geometry (threads, envs and shared memory a block, blocks or
+kernels' (K1-rr, K2-rr and K3-rr, K5-rr) launch geometry (threads, envs and shared memory a block, blocks or
 envs an SM, waves) and the local loads and stores in their SASS (K1's, K5's
 and ``step.cu``'s in the lane step's passes, K4's in the forward and the
-reverse sweep, K1-rr's in the M⁻¹Jᵀ pass); the kernel-only times of K2, K3
-(also on garpez at the APG start), K4, the partials' sum and ``torch.sum``
+reverse sweep, the relaxed-rigid kernels' in the M⁻¹Jᵀ pass); the
+kernel-only times of K2, K3 (also on garpez at the APG start), K2-rr, K3-rr,
+K4, the partials' sum and ``torch.sum``
 beside it (``torch.profiler``). It prints each phase's seconds, the card's name and
 power limit, a JSON line
 with each kernel's numbers (device ms per launch, the plain version's ms for
@@ -120,7 +131,8 @@ PROFILER_TRIES = 5
 # launch and scaled to the same work, linearly in the steps.
 PLAIN_TIMED_STEPS = dict(rollout=100, step_pd=10, step_tau=10, env_rollout=20, step_vjp=3, rollout_relaxed_rigid=20,
                          rollout_rk4=10, rollout_rk4fast=10, rollout_relaxed_rigid_rk4=5,
-                         rollout_relaxed_rigid_rk4fast=5)  # fmt: skip
+                         rollout_relaxed_rigid_rk4fast=5, step_pd_relaxed_rigid=3, step_tau_relaxed_rigid=3,
+                         env_rollout_relaxed_rigid=5)  # fmt: skip
 PER_STEP_LAUNCHES = 100  # K2 main path
 ENV_STEPS = 20  # BatchedEnv.step main path
 # ES main path: examples/train_es_mlp.py uncut.
@@ -203,7 +215,21 @@ PARAMS_RTOL, PARAMS_ATOL = 5e-3, 5e-4
 # 8 iterations: 0.03 of this case's limit on the CPU), so no case at 8 can
 # see one iteration fewer; this one runs the same kernel source built with 3
 # iterations, where each iteration still moves the state (2 against 3: 282
-# times the limit, in ṡ).
+# times the limit, in ṡ). The ragged case is garpez's start without its last
+# STEP_RAGGED envs, so that the last block of every relaxed-rigid kernel runs
+# envs past the batch, which must store nothing. The relaxed-rigid one-step
+# kernels K2-rr and K3-rr are held beside K1-rr on the cases of a
+# semi-implicit Euler engine, chained one launch a step (K3's torques the PD
+# law's of the state between launches), against the same plain trajectories:
+# K2-rr on every case, K3-rr on every start at the cases held at their max.
+# K3-rr's torques are rounded as the plain twin's are, not as the kernels' PD
+# law, so its 100-step trajectories from the moving starts are a third float32
+# rounding path: on the H100 it lay at 2.28 times the float32 twin's p99.9
+# distance to the float64 twin in v after 100 steps from the displaced and
+# moving start, where K1-rr and K2-rr lay at 1.83 (the limit is 2), and as
+# far from the float32 twin as K1-rr (0.061 against 0.058 in v). A fault of
+# its own torque path moves every start's 10-step state by tens of times the
+# limit (chip_probe.py rr_step_faults).
 RR_CASES = (
     ("humanoid23 relaxed-rigid main-path start", 100, "max", False),
     ("humanoid23 relaxed-rigid joints moving", 10, "max", True),
@@ -212,6 +238,7 @@ RR_CASES = (
     ("humanoid23 relaxed-rigid joints displaced and moving", 100, "p99.9", True),
     ("garpez relaxed-rigid tilted low", 100, "max", False),
     ("humanoid23 relaxed-rigid touchdown, 3 PCG iterations", 100, "max", True),
+    ("garpez relaxed-rigid tilted low, ragged batch", 10, "max", False),
 )
 RR_TOUCHDOWN = dict(batch=1024, base=(0.0, 0.0, 0.93), iterations=3)
 # K1's RK4 and RK4-fast builds vs plain: CASES' and RR_CASES' starts, the
@@ -241,6 +268,30 @@ RK4_TIMED_CALLS = 3
 # so that a launch takes under 1 s.
 SOFT_RK4_HORIZON = 2000
 RR_JOINT_SPEED = 0.5  # rad/s, the moving start's ṡ scale
+# K3-rr under call-time model arrays: RR_CASES' garpez start, M scaled and
+# rrMinv (its points' inverse mass blocks) scaled back, 10 steps.
+RR_PR = dict(M=1.2, rrMinv=1 / 1.2, steps=10)
+# K5-rr vs plain (rr_env_gates): (case, steps, options), each held at the max
+# over envs, resets and steps equal in every env, every field and the reward
+# sums within TOL (m relative to max(1, max |plain m|)):
+# * the ES main path's shapes, policy and options, from the relaxed-rigid
+#   main path's start advanced 20 steps by K1-rr (m the solved forces),
+#   episodes of 4, so that 6 steps end two steps after a respawn;
+# * the touchdown start (RR_TOUCHDOWN's base, the main path's 8 iterations)
+#   under the linear policy written as the PD law, episodes of 40 over 80
+#   steps: the base falls about 8 mm in an episode, so a reward read after
+#   the respawn moves the sums ~8 TOL an episode;
+# * garpez tilted low with m seeded 2·N(0, 1) (not the solved forces) under
+#   its PD law, with reset noise, 12 steps of episodes of 4: the last step
+#   respawns, and m must be the start's.
+RR_ENV_CASES = (
+    ("humanoid23 relaxed-rigid, ES shapes, episodes of 4", 6,
+     dict(episode_length=4, healthy_z_range=(-1e6, 1e6), tau_limit=100.0)),
+    ("humanoid23 relaxed-rigid touchdown, linear PD, episodes of 40", 80,
+     dict(episode_length=40, healthy_z_range=(-1e6, 1e6))),
+    ("garpez relaxed-rigid tilted low, m seeded, reset noise, episodes of 4", 12,
+     dict(episode_length=4, healthy_z_range=(-1e6, 1e6), reset_noise=0.02, seed=9, kp=20.0, kd=0.1)),
+)  # fmt: skip
 RR_GARPEZ = dict(batch=1024, base=(0.0, 0.0, 0.015), quat=(0.995, 0.0998, 0.0, 0.0), joints=0.05, gains=(20.0, 0.1))
 # Relaxed-rigid main path: bench.py's relaxed_rigid (bench.py:338-361) uncut.
 RR_HORIZON = 400  # steps per K1 launch
@@ -289,6 +340,9 @@ REPLACES = dict(
     rollout_rk4fast="jaxsim_tpu/ops/pallas_step.py:664",
     rollout_relaxed_rigid_rk4="jaxsim_tpu/ops/pallas_step.py:664",
     rollout_relaxed_rigid_rk4fast="jaxsim_tpu/ops/pallas_step.py:664",
+    step_pd_relaxed_rigid="jaxsim_tpu/ops/pallas_step.py:86",
+    step_tau_relaxed_rigid="jaxsim_tpu/ops/pallas_step.py:178",
+    env_rollout_relaxed_rigid="jaxsim_tpu/ops/pallas_step.py:787",
     fma_probe="bench.py:716",
     bf16_probe_f32="scripts/bf16_probe.py:36",
     bf16_probe_bf16="scripts/bf16_probe.py:36",
@@ -307,6 +361,9 @@ SOURCES = dict(
     rollout_rk4fast="jaxsim_tpu_torch/csrc/rollout.cu",
     rollout_relaxed_rigid_rk4="jaxsim_tpu_torch/csrc/rollout_rr.cu",
     rollout_relaxed_rigid_rk4fast="jaxsim_tpu_torch/csrc/rollout_rr.cu",
+    step_pd_relaxed_rigid="jaxsim_tpu_torch/csrc/step_rr.cu",
+    step_tau_relaxed_rigid="jaxsim_tpu_torch/csrc/step_rr.cu",
+    env_rollout_relaxed_rigid="jaxsim_tpu_torch/csrc/env_rollout_rr.cu",
     fma_probe="jaxsim_tpu_torch/csrc/fma_probe.cu",
     bf16_probe_f32="jaxsim_tpu_torch/csrc/fma_probe.cu",
     bf16_probe_bf16="jaxsim_tpu_torch/csrc/fma_probe.cu",
@@ -482,6 +539,9 @@ def counters() -> dict[str, int]:
         step_vjp=cuda_step_vjp.STEP_VJP_KERNEL_LAUNCHES,
         param_sum=cuda_step_vjp.PARAM_SUM_KERNEL_LAUNCHES,
         rollout_relaxed_rigid=cuda_rollout.ROLLOUT_RR_KERNEL_LAUNCHES,
+        step_pd_relaxed_rigid=cuda_step.STEP_PD_RR_KERNEL_LAUNCHES,
+        step_tau_relaxed_rigid=cuda_step.STEP_TAU_RR_KERNEL_LAUNCHES,
+        env_rollout_relaxed_rigid=cuda_env_rollout.ENV_ROLLOUT_RR_KERNEL_LAUNCHES,
         fma_probe=fma_probe.FMA_PROBE_LAUNCHES,
         **{f"bf16_probe_{v}": n for v, n in fma_probe.BF16_PROBE_LAUNCHES.items()},
     )
@@ -494,7 +554,10 @@ def zero_counters() -> None:
     cuda_rollout.ROLLOUT_RR_KERNEL_LAUNCHES = 0
     cuda_step.STEP_PD_KERNEL_LAUNCHES = 0
     cuda_step.STEP_TAU_KERNEL_LAUNCHES = 0
+    cuda_step.STEP_PD_RR_KERNEL_LAUNCHES = 0
+    cuda_step.STEP_TAU_RR_KERNEL_LAUNCHES = 0
     cuda_env_rollout.ENV_ROLLOUT_KERNEL_LAUNCHES = 0
+    cuda_env_rollout.ENV_ROLLOUT_RR_KERNEL_LAUNCHES = 0
     cuda_step_vjp.STEP_VJP_KERNEL_LAUNCHES = 0
     cuda_step_vjp.PARAM_SUM_KERNEL_LAUNCHES = 0
     fma_probe.FMA_PROBE_LAUNCHES = 0
@@ -855,6 +918,8 @@ def rr_start_states(hum_rr, garp_rr, hum_td, gen) -> dict:
     :func:`rr_touchdown_engine`'s."""
     import torch
 
+    from jaxsim_tpu_torch import BatchedState
+
     device = hum_rr.S.device
     start = hum_rr.init_state(BATCH, generator=gen)
     moving = dataclasses.replace(start, sd=RR_JOINT_SPEED * torch.randn(start.sd.shape, generator=gen, device=device))
@@ -866,6 +931,8 @@ def rr_start_states(hum_rr, garp_rr, hum_td, gen) -> dict:
         RR_CASES[5][0]: (garp_rr, tilted, RR_GARPEZ["gains"]),
         RR_CASES[6][0]: (hum_td, hum_td.init_state(RR_TOUCHDOWN["batch"], base_position=RR_TOUCHDOWN["base"],
                                                    generator=gen), (60.0, 0.5)),
+        RR_CASES[7][0]: (garp_rr, BatchedState(*(t[..., :-STEP_RAGGED].contiguous() for t in tilted.fields())),
+                         RR_GARPEZ["gains"]),
     }  # fmt: skip
 
 
@@ -1016,29 +1083,48 @@ def rr_diff(a, b) -> dict:
     return diff
 
 
-def rr_gates(starts, variants=None, cases=None) -> tuple[list[float], dict[str, dict[str, float]]]:
-    """K1's relaxed-rigid kernel against the plain twin in each of ``cases``
+def rr_wrappers(engine) -> dict:
+    """:func:`rr_gates`' default variants on ``engine``, rollout functions
+    ``(engine, state, n, kp, kd)`` by kernel: K1-rr, and for a
+    semi-implicit Euler engine K2-rr and K3-rr chained one launch a step
+    (K3's torques the PD law's, computed between launches)."""
+    from jaxsim_tpu_torch.ops import cuda_rollout, cuda_step
+
+    def k3(engine, state, n, kp, kd):
+        for _ in range(n):
+            state = cuda_step.step_tau(engine, state, (-kp * state.s - kd * state.sd).contiguous())
+        return state
+
+    out = {"rollout": cuda_rollout.rollout}
+    if engine.integrator == "sie":
+        out.update(step_pd=cuda_step.rollout_per_step, step_tau=k3)
+    return out
+
+
+def rr_gates(starts, variants=None, cases=None, held_at_max=None) -> tuple[dict[str, list[float]], dict[str, dict[str, float]]]:
+    """The relaxed-rigid kernels against the plain twin in each of ``cases``
     (RR_CASES by default, RR_RK4_CASES for an RK4 engine's starts):
     every state field's per-env |Δ|, m's over max(1, max |plain m|), at the
     case's statistic over envs; against the float64 twin where the case says
     so (RR_CASES). Fails a case whose plain trajectory has no active contact
-    point. ``variants`` maps a name to a rollout function (by default the
-    wrapper, ``cuda_rollout.rollout``, which is gated: a breach raises);
-    a map of other variants (seeded faults) is held to the same limits
-    without raising. Returns the largest unscaled |Δ| of each case held at
-    its max against the float32 twin (the default variant's), and for each
-    variant and case its worst field's statistic over its limit (> 1 is
-    refused)."""
+    point. ``variants`` maps a name to a rollout function ``(engine, state,
+    n, kp, kd)``; by default the wrappers of :func:`rr_wrappers` (K1-rr, and
+    K2-rr and K3-rr chained), which are gated: a breach raises. A map of
+    other variants (seeded faults) is held to the same limits without
+    raising. The variants named in ``held_at_max`` (by default K3-rr's;
+    see RR_CASES' note) are held on the cases held at their max only.
+    Returns the largest unscaled |Δ| of each case held at its max against
+    the float32 twin, by kernel (the default variants'), and for each variant
+    and case its worst field's statistic over its limit (> 1 is refused)."""
     import copy
 
     import torch
 
     from jaxsim_tpu_torch import BatchedState
-    from jaxsim_tpu_torch.ops import cuda_rollout
 
     gated = variants is None
-    variants = variants or {"kernel": cuda_rollout.rollout}
-    errs, ratios = [], {name: {} for name in variants}
+    errs, ratios = {}, {name: {} for name in variants or {}}
+    held_at_max = set(("step_tau",) if held_at_max is None and gated else held_at_max or ())
     all_cases = cases or RR_CASES
     for name in dict.fromkeys(case[0] for case in all_cases):
         engine, state, (kp, kd) = starts[name]
@@ -1057,7 +1143,7 @@ def rr_gates(starts, variants=None, cases=None) -> tuple[list[float], dict[str, 
         B = state.p.shape[-1]
         for n, stat, against64 in cases:
             case = f"{name} B={B} {n} steps" + ("" if engine.integrator == "sie" else f", {engine.integrator}")
-            print(f"rollout_relaxed_rigid{kernel_suffix(engine)} vs plain, {case}: active contact points summed over the steps "
+            print(f"relaxed-rigid kernels vs plain, {case}: active contact points summed over the steps "
                   f"{sum(active[:n])}, at the first step {active[0]}, at the last {active[n - 1]}", flush=True)  # fmt: skip
             if not sum(active[:n]):
                 raise RuntimeError(f"{case}: no contact point is active, so the gate proves nothing about the solve")
@@ -1068,8 +1154,11 @@ def rr_gates(starts, variants=None, cases=None) -> tuple[list[float], dict[str, 
                 limits, ref = {k: max(TOL, 2 * e) for k, e in spread.items()}, plain["float64"][n]
             else:
                 limits, ref = {}, plain["float32"][n]
-            for vname, run in variants.items():
-                label = f"rollout_relaxed_rigid{kernel_suffix(engine)} {vname} vs plain, {case}"
+            for vname, run in (rr_wrappers(engine) if gated else variants).items():
+                if stat != "max" and vname in held_at_max:
+                    continue
+                kname = f"{vname}_relaxed_rigid{kernel_suffix(engine)}"
+                label = f"{kname} vs plain, {case}" if gated else f"{vname} vs plain, {case}"
                 kern = run(engine, state, n, kp, kd)
                 torch.cuda.synchronize()
                 if not all(all_finite(p[n]) for p in plain.values()):
@@ -1086,13 +1175,138 @@ def rr_gates(starts, variants=None, cases=None) -> tuple[list[float], dict[str, 
                     label += ", against the float64 twin"
                 diff = rr_diff(kern, ref)
                 ratio = max(e / limits.get(k, TOL) for k, e in over_envs(diff, stat).items())
-                ratios[vname][f"{case}, {stat}"] = ratio
+                ratios.setdefault(vname, {})[f"{case}, {stat}"] = ratio
                 print(f"{label}: worst field's {stat} over its limit {ratio:.6g}", flush=True)
                 if gated:
                     gate(label, diff, stat, limits)
                     if stat == "max" and not against64:
-                        errs.append(max(float(d.max()) for d in per_env_abs_diff(kern, ref).values()))
+                        errs.setdefault(kname, []).append(
+                            max(float(d.max()) for d in per_env_abs_diff(kern, ref).values()))
     return errs, ratios
+
+
+def rr_pr_gate(starts, variants=None) -> tuple[list[float], dict[str, dict[str, float]]]:
+    """K3-rr under call-time model arrays: RR_CASES' garpez start, ``M`` and
+    ``rrMinv`` scaled by RR_PR through ``pr``, RR_PR["steps"] steps under its
+    PD law against the plain twin with the same ``pr``, every field at its
+    max over envs (m's over max(1, max |plain m|)) held to TOL, and the state
+    moved by more than 1e-4 from K3's without ``pr``. ``variants`` maps a
+    name to a one-step function ``(engine, state, tau, pr)``: by default the
+    wrapper, ``cuda_step.step_tau``, which is gated (a breach raises); other
+    variants are held without raising. Returns the largest |Δ| (the
+    wrapper's), and for each variant its worst statistic over its limit."""
+    import torch
+
+    from jaxsim_tpu_torch.ops import cuda_step
+
+    gated = variants is None
+    variants = variants or {"kernel": cuda_step.step_tau}
+    engine, start, (kp, kd) = starts[RR_CASES[5][0]]
+    pr = {k: (RR_PR[k] * getattr(engine, k)).contiguous() for k in ("M", "rrMinv")}
+    n = RR_PR["steps"]
+
+    def chain(step, with_pr):
+        st = start
+        for _ in range(n):
+            st = step(engine, st, (-kp * st.s - kd * st.sd).contiguous(), pr if with_pr else None)
+        torch.cuda.synchronize()
+        return st
+
+    plain = chain(cuda_step.step_tau_reference, True)
+    errs, ratios = [], {}
+    for vname, k3 in variants.items():
+        label = f"step_tau_relaxed_rigid {vname} vs plain, {RR_CASES[5][0]}, pr M x{RR_PR['M']:.3g}, rrMinv x{RR_PR['rrMinv']:.3g}, {n} steps"
+        scaled, unscaled = chain(k3, True), chain(k3, False)
+        moved = max(float(d.max()) for d in per_env_abs_diff(scaled, unscaled).values())
+        ratio = math.inf
+        if all_finite(scaled):
+            ratio = max(over_envs(rr_diff(scaled, plain), "max").values()) / TOL
+        ratios[vname] = {"pr": ratio, "pr moves the state": 1e-4 / moved if moved > 0 else math.inf}
+        print(f"{label}: worst field's max over its limit {ratio:.6g}; pr moves the state by {moved:.6g}", flush=True)
+        if gated:
+            if not all_finite(scaled):
+                raise RuntimeError(f"{label}: non-finite state")
+            gate(label, rr_diff(scaled, plain), "max")
+            if not moved > 1e-4:
+                raise RuntimeError("K3-rr ignored the call-time model arrays")
+            errs.append(max(float(d.max()) for d in per_env_abs_diff(scaled, plain).values()))
+    return errs, ratios
+
+
+def rr_env_gates(cases, variants=None) -> tuple[list[float], dict[str, dict[str, float]]]:
+    """K5-rr against ``env_rollout_reference`` on each of ``cases``, a list of
+    (label, engine, state, steps, options): resets and steps equal in every
+    env, and every state field (m's over max(1, max |plain m|)) and the
+    reward sums at the max over envs within TOL. ``variants`` maps a name to
+    a function like ``cuda_env_rollout.env_rollout``: by default the
+    wrapper, which is gated (a breach raises); other variants (seeded
+    faults) are held to the same limits without raising (resets or steps
+    that differ are infinitely far). Returns the largest unscaled |Δ| of
+    each case (the wrapper's), and for each variant and case its worst
+    statistic over its limit."""
+    import torch
+
+    from jaxsim_tpu_torch.ops import cuda_env_rollout
+
+    gated = variants is None
+    variants = variants or {"kernel": cuda_env_rollout.env_rollout}
+    errs, ratios = [], {name: {} for name in variants}
+    for label, engine, state, n, opts in cases:
+        plain = cuda_env_rollout.env_rollout_reference(engine, state, n, **opts)
+        B = state.p.shape[-1]
+        print(f"env_rollout_relaxed_rigid vs plain, {label} B={B} {n} steps: envs that reset "
+              f"{int((plain[2] > 0).sum())} of {B}, resets {int(plain[2].sum())}, active contact points at the end "
+              f"{rr_active_points(engine, plain[0])}", flush=True)  # fmt: skip
+        for vname, run in variants.items():
+            kern = run(engine, state, n, **opts)
+            torch.cuda.synchronize()
+            name = f"env_rollout_relaxed_rigid {vname} vs plain, {label} B={B} {n} steps"
+            same = bool(torch.equal(kern[2], plain[2]) and torch.equal(kern[3], plain[3]))
+            finite = all_finite(kern[0]) and bool(torch.isfinite(kern[1]).all())
+            ratio = math.inf
+            if same and finite:
+                diff = {**rr_diff(kern[0], plain[0]), "reward_sum": (kern[1] - plain[1]).abs()}
+                ratio = max(over_envs(diff, "max").values()) / TOL
+            ratios[vname][label] = ratio
+            print(f"{name}: resets and steps equal in every env {same}; worst field's max over its limit "
+                  f"{ratio:.6g}", flush=True)  # fmt: skip
+            if gated:
+                if not (same and finite):
+                    raise RuntimeError(f"{name}: resets or steps differ, or a non-finite output")
+                gate(name, diff, "max")
+                raw = {**per_env_abs_diff(kern[0], plain[0]), "reward_sum": (kern[1] - plain[1]).abs()}
+                errs.append(max(float(d.max()) for d in raw.values()))
+    return errs, ratios
+
+
+def pd_as_linear(engine, kp: float = 60.0, kd: float = 0.5) -> dict:
+    """The PD law tau = -kp·s - kd·ṡ written as a linear policy's ``W``, ``b``."""
+    import torch
+
+    n, d, device = engine.n_joints, 2 * engine.n_joints + 11, engine.S.device
+    W = torch.zeros(n, d, device=device)
+    W[:, :n] = -kp * torch.eye(n, device=device)
+    W[:, n : 2 * n] = -kd * torch.eye(n, device=device)
+    return dict(W=W, b=torch.zeros(n, 1, device=device))
+
+
+def rr_env_cases(hum_rr, garp_rr, rr_starts, mlp) -> list:
+    """RR_ENV_CASES as :func:`rr_env_gates` takes them, (label, engine, state,
+    steps, options): the ES shapes' case from the relaxed-rigid main path's
+    start advanced 20 steps by K1-rr under ``mlp`` (the ES weights), the
+    touchdown under :func:`pd_as_linear`, garpez's start (``rr_starts``, from
+    :func:`rr_start_states`) with m seeded."""
+    import torch
+
+    from jaxsim_tpu_torch.ops import cuda_rollout
+
+    gen = torch.Generator(hum_rr.S.device).manual_seed(8)
+    garp = rr_starts[RR_CASES[5][0]][1]
+    garp = dataclasses.replace(garp, m=2.0 * torch.randn(garp.m.shape, generator=gen, device=garp.m.device))
+    touchdown = hum_rr.init_state(RR_TOUCHDOWN["batch"], base_position=RR_TOUCHDOWN["base"], generator=gen)
+    starts = (cuda_rollout.rollout(hum_rr, rr_starts[RR_CASES[0][0]][1], 20), touchdown, garp)
+    return [(label, eng, st, steps, {**opts, **extra}) for (label, steps, opts), eng, st, extra
+            in zip(RR_ENV_CASES, (hum_rr, hum_rr, garp_rr), starts, (mlp, pd_as_linear(hum_rr), {}))]  # fmt: skip
 
 
 def probe_gates(device) -> dict[str, float]:
@@ -1231,6 +1445,11 @@ def main() -> int:
     _, mlp = es_population(theta_mu, gen, n, d)
     pols = {k: cuda_env_rollout.make_policy(hum, **w) for k, w in (("linear", lin), ("mlp", mlp))}
     apg = apg_setup(garp)
+    # K5-rr's policies (RR_ENV_CASES): the ES main path's MLP, the PD law
+    # written as a linear policy; garpez's PD closure.
+    pols_rr = {"mlp": cuda_env_rollout.make_policy(hum_rr, **mlp),
+               "linear": cuda_env_rollout.make_policy(hum_rr, **pd_as_linear(hum_rr))}  # fmt: skip
+    pd_policy = cuda_env_rollout.make_policy(garp_rr)
 
     starts, case_tau = vjp_starts(pend, hum, garp, apg)
     box = starts["box spinning in the air"][0]
@@ -1258,6 +1477,9 @@ def main() -> int:
             **{f"rollout_{i}_{e.n_links}": cuda_rollout.job(e) for i in RK4_INTEGRATORS for e in rk4_engines[i].values()},
             **{f"rr_{i}": cuda_rollout.job(hum_rr_rk4[i]) for i in RK4_INTEGRATORS},
             **{f"rr_garp_{i}": cuda_rollout.job(garp_rr_rk4[i]) for i in RK4_INTEGRATORS},
+            step_rr=cuda_step.job(hum_rr), step_rr_garp=cuda_step.job(garp_rr), step_rr_touchdown=cuda_step.job(hum_td),
+            **{f"env_rollout_rr_{k}": cuda_env_rollout.job(hum_rr, p) for k, p in pols_rr.items()},
+            env_rollout_rr_garp=cuda_env_rollout.job(garp_rr, pd_policy),
         )  # fmt: skip
         builds = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
     print(f"nvcc seconds {json.dumps({k: round(b.seconds, 2) for k, b in builds.items()})}")
@@ -1304,6 +1526,17 @@ def main() -> int:
               + f"; SASS local loads and stores (LDL, STL): {json.dumps(cuda_rollout.rr_local_memory(rr_build))}",
               flush=True)  # fmt: skip
 
+    for name, rr_build, geometry in (("step_relaxed_rigid", builds["step_rr"], cuda_step.geometry),
+                                     *((f"env_rollout_relaxed_rigid {k}", builds[f"env_rollout_rr_{k}"],
+                                        cuda_env_rollout.geometry) for k in pols_rr)):  # fmt: skip
+        geo = geometry(rr_build)
+        print(f"{name} ({cuda_rollout.RR_LANES} lanes an env): {geo['threads']} threads and {geo['envs']}"
+              f" envs a block, {geo['smem_bytes']} B of dynamic shared memory a block, {geo['blocks_per_sm']} blocks an"
+              f" SM (occupancy calculator); {BATCH} envs make {-(-BATCH // geo['envs'])} blocks over {sms} SMs; ptxas "
+              + " | ".join(ln.strip() for ln in rr_build.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln)
+              + f"; SASS local loads and stores (LDL, STL): {json.dumps(cuda_rollout.rr_local_memory(rr_build))}",
+              flush=True)  # fmt: skip
+
     sass = fma_probe.check_sass(builds["fma_probe"])
     print("probe SASS, FMA instructions (in the timed loop / in all) by (variant, chains): "
           + ", ".join(f"{k[0]} {k[1]}: {v['op']} {v['in_loop']}/{v['total']}" for k, v in sorted(sass.items())))  # fmt: skip
@@ -1340,17 +1573,25 @@ def main() -> int:
             max_errs[kname] += e
 
     # ----- K1's relaxed-rigid build vs plain -----
-    with phase("K1 relaxed-rigid vs plain"):
+    with phase("K1 K2 K3 relaxed-rigid vs plain"):
         rr_starts = rr_start_states(hum_rr, garp_rr, hum_td, torch.Generator(device).manual_seed(6))
-        max_errs["rollout_relaxed_rigid"], _ = rr_gates(rr_starts)
+        errs, _ = rr_gates(rr_starts)
+        for kname, e in errs.items():
+            max_errs[kname] += e
+        max_errs["step_tau_relaxed_rigid"] += rr_pr_gate(rr_starts)[0]
         rr_start = rr_starts[RR_CASES[0][0]][1]
+
+    with phase("K5 relaxed-rigid vs plain"):
+        max_errs["env_rollout_relaxed_rigid"], _ = rr_env_gates(rr_env_cases(hum_rr, garp_rr, rr_starts, mlp))
 
     # ----- K1's RK4 and RK4-fast builds vs plain -----
     with phase("K1 RK4 and RK4-fast vs plain"):
         for i in RK4_INTEGRATORS:
             max_errs[f"rollout_{i}"], _ = k1_gates(rk4_starts[i], cases=RK4_CASES)
             rr_rk4_starts = rr_start_states(hum_rr_rk4[i], garp_rr_rk4[i], hum_rr_rk4[i], torch.Generator(device).manual_seed(6))
-            max_errs[f"rollout_relaxed_rigid_{i}"], _ = rr_gates(rr_rk4_starts, cases=RR_RK4_CASES)
+            errs, _ = rr_gates(rr_rk4_starts, cases=RR_RK4_CASES)
+            for kname, e in errs.items():
+                max_errs[kname] += e
 
     # ----- K6, K7 vs plain -----
     with phase("K6 K7 vs plain"):
@@ -1629,6 +1870,83 @@ def main() -> int:
         if not HEIGHT_BAND[0] <= z_min <= z_max <= HEIGHT_BAND[1]:
             raise RuntimeError(f"relaxed-rigid base height outside {HEIGHT_BAND} m")
 
+    with phase("main path: relaxed-rigid per-step rollout (K2-rr)"):
+        def rr_per_step():
+            cuda_step.rollout_per_step(hum_rr, rr_start, 1)  # warm-up
+            sync()
+            holder = {}
+            ms = device_ms(lambda: holder.update(out=cuda_step.rollout_per_step(hum_rr, rr_start, PER_STEP_LAUNCHES)),
+                           1)[0]  # fmt: skip
+            return holder["out"], ms
+
+        (out, ms), launches = main_path("relaxed-rigid per-step rollout",
+                                        dict(step_pd_relaxed_rigid=1 + PER_STEP_LAUNCHES), rr_per_step)  # fmt: skip
+        results["step_pd_relaxed_rigid"] = dict(launches=launches["step_pd_relaxed_rigid"], ms=ms / PER_STEP_LAUNCHES)
+        print(f"K2-rr: {PER_STEP_LAUNCHES} launches at B={BATCH}, device ms per launch {ms / PER_STEP_LAUNCHES:.6g}")
+        if not all_finite(out):
+            raise RuntimeError("non-finite state after the relaxed-rigid per-step rollout")
+
+    with phase("main path: relaxed-rigid ES generations (K5-rr)"):
+        def rr_es():
+            cuda_env_rollout.env_rollout(hum_rr, rr_start, ES["steps"], **ES_OPTIONS, **mlp)  # warm-up
+            sync()
+            mean, gens = theta_mu.clone(), []
+            for _ in range(ES["generations"]):
+                eps, w = es_population(mean, gen, n, d)
+                holder = {}
+                ms = device_ms(lambda: holder.update(
+                    out=cuda_env_rollout.env_rollout(hum_rr, rr_start, ES["steps"], **ES_OPTIONS, **w)), 1)[0]  # fmt: skip
+                final, reward, resets, steps = holder["out"]
+                fitness = reward.reshape(ES["candidates"], -1).mean(1)
+                gens.append(dict(ms=ms, final=final, reward=reward, resets=resets, steps=steps, fitness=fitness))
+                adv = (fitness - fitness.mean()) / (fitness.std() + 1e-8)
+                mean = mean + ES["lr"] / (ES["candidates"] * ES["sigma"]) * (adv[:, None] * eps).sum(0)
+            return gens
+
+        rr_gens, launches = main_path("relaxed-rigid ES", dict(env_rollout_relaxed_rigid=1 + ES["generations"]), rr_es)
+        results["env_rollout_relaxed_rigid"] = dict(launches=launches["env_rollout_relaxed_rigid"],
+                                                    ms=statistics.median(g["ms"] for g in rr_gens))  # fmt: skip
+        lo, hi = ES_OPTIONS["healthy_z_range"]
+        for i, g in enumerate(rr_gens):
+            per_cand = g["resets"].reshape(ES["candidates"], -1).sum(1).tolist()
+            print(f"relaxed-rigid ES generation {i}: device ms {g['ms']:.6g}, env_steps_per_s "
+                  f"{BATCH * ES['steps'] / (g['ms'] * 1e-3):.6g}, resets per candidate {per_cand}, "
+                  f"mean reward per candidate {[round(x, 4) for x in g['fitness'].tolist()]}")  # fmt: skip
+            z = g["final"].p[2]
+            if not (all_finite(g["final"]) and bool(torch.isfinite(g["reward"]).all())):
+                raise RuntimeError("relaxed-rigid ES: non-finite output")
+            if not (lo <= float(z.min()) and float(z.max()) <= hi):
+                raise RuntimeError(f"relaxed-rigid ES: final base height outside the healthy range {lo, hi}")
+            if not (int(g["steps"].max()) < ES_OPTIONS["episode_length"] and int(g["resets"].sum()) > 0):
+                raise RuntimeError("relaxed-rigid ES: episode bookkeeping out of range")
+
+    with phase("main path: relaxed-rigid BatchedEnv.step (K3-rr)"):
+        rr_env = BatchedEnv(engine=hum_rr, episode_length=ES_OPTIONS["episode_length"],
+                            healthy_z_range=ES_OPTIONS["healthy_z_range"])  # fmt: skip
+
+        def rr_env_steps():
+            state, obs = rr_env.reset(torch.Generator(device).manual_seed(2), BATCH)
+            state, obs, _, _ = rr_env.step(state, torch.zeros(n, BATCH, device=device))  # warm-up
+            sync()
+            t0 = time.perf_counter()
+            rewards = []
+            for _ in range(ENV_STEPS):
+                action = (-60.0 * state.sim.s - 0.5 * state.sim.sd).contiguous()
+                state, obs, reward, done = rr_env.step(state, action)
+                rewards.append(reward)
+            sync()
+            return state, obs, rewards, (time.perf_counter() - t0) * 1e3 / ENV_STEPS
+
+        (state, obs, rewards, step_ms), launches = main_path(
+            "relaxed-rigid BatchedEnv.step", dict(step_tau_relaxed_rigid=1 + ENV_STEPS), rr_env_steps)
+        results["step_tau_relaxed_rigid"] = dict(launches=launches["step_tau_relaxed_rigid"])
+        print(f"BatchedEnv.step relaxed-rigid: B={BATCH}, wall ms per step {step_ms:.6g}; max |m| "
+              f"{float(state.sim.m.abs().max()):.6g} N")  # fmt: skip
+        if not (bool(torch.isfinite(obs).all()) and all(bool(torch.isfinite(r).all()) for r in rewards)):
+            raise RuntimeError("relaxed-rigid BatchedEnv.step: non-finite output")
+        if tuple(obs.shape) != (d, BATCH) or int(state.steps.max()) > 1 + ENV_STEPS:
+            raise RuntimeError("relaxed-rigid BatchedEnv.step: wrong shapes or step counts")
+
     rk4_finals = {}
     with phase("main path: BASELINE config 5, relaxed-rigid RK4 rollout (K1)"):
         cfg5 = hum_rr_rk4["rk4"]
@@ -1711,6 +2029,11 @@ def main() -> int:
         cuda_step.step_tau(hum, state0, tau0)
         sync()
         results["step_tau"]["ms"] = statistics.median(device_ms(lambda: cuda_step.step_tau(hum, state0, tau0), 20))
+        tau_rr0 = (-60.0 * rr_start.s - 0.5 * rr_start.sd).contiguous()
+        cuda_step.step_tau(hum_rr, rr_start, tau_rr0)
+        sync()
+        results["step_tau_relaxed_rigid"]["ms"] = statistics.median(
+            device_ms(lambda: cuda_step.step_tau(hum_rr, rr_start, tau_rr0), 20))  # fmt: skip
         plain_ms = dict(
             rollout=wall_ms(lambda: cuda_rollout.rollout_reference(hum, state0, PLAIN_TIMED_STEPS["rollout"]))
             * HORIZON / PLAIN_TIMED_STEPS["rollout"],
@@ -1743,6 +2066,9 @@ def main() -> int:
             step_vjp=profiled_ms(vjp_calls["step_vjp"], "step_vjp_kernel", 10),
             step_vjp_params_grad=profiled_ms(vjp_calls["step_vjp_params_grad"], "step_vjp_kernel", 10),
             param_sum=profiled_ms(vjp_calls["param_sum"], "param_sum_kernel", 10),
+            step_pd_relaxed_rigid=profiled_ms(lambda: cuda_step.step_pd(hum_rr, rr_start), "step_pd_rr_kernel", 10),
+            step_tau_relaxed_rigid=profiled_ms(lambda: cuda_step.step_tau(hum_rr, rr_start, tau_rr0),
+                                               "step_tau_rr_kernel", 10),
         )
         library_kernel_only = dict(param_sum=profiled_ms(lambda: torch.sum(partials, 0), "", 10))
         print(f"library kernel-only device ms a launch (torch.profiler, mean of 10): {json.dumps(library_kernel_only)}")
@@ -1762,6 +2088,15 @@ def main() -> int:
         plain_ms["rollout_relaxed_rigid"] = wall_ms(lambda: cuda_rollout.rollout_reference(
             hum_rr, rr_start, PLAIN_TIMED_STEPS["rollout_relaxed_rigid"])) * RR_HORIZON / PLAIN_TIMED_STEPS[
             "rollout_relaxed_rigid"]  # fmt: skip
+        n_rr = PLAIN_TIMED_STEPS["step_pd_relaxed_rigid"]
+        plain_ms["step_pd_relaxed_rigid"] = wall_ms(lambda: [cuda_step.step_pd_reference(hum_rr, rr_start)
+                                                             for _ in range(n_rr)]) / n_rr  # fmt: skip
+        n_rr = PLAIN_TIMED_STEPS["step_tau_relaxed_rigid"]
+        plain_ms["step_tau_relaxed_rigid"] = wall_ms(lambda: [cuda_step.step_tau_reference(hum_rr, rr_start, tau_rr0)
+                                                              for _ in range(n_rr)]) / n_rr  # fmt: skip
+        n_rr = PLAIN_TIMED_STEPS["env_rollout_relaxed_rigid"]
+        plain_ms["env_rollout_relaxed_rigid"] = wall_ms(lambda: cuda_env_rollout.env_rollout_reference(
+            hum_rr, rr_start, n_rr, **ES_OPTIONS, **mlp)) * ES["steps"] / n_rr  # fmt: skip
         for i in RK4_INTEGRATORS:
             for name, engine, start, horizon in ((f"rollout_{i}", hum_rk4[i], state0, SOFT_RK4_HORIZON),
                                                  (f"rollout_relaxed_rigid_{i}", hum_rr_rk4[i], rr_start, RR_RK4_HORIZON)):
@@ -1801,8 +2136,12 @@ def main() -> int:
         flops["rr_step"] = flop_count.least_step_ops(
             cpu_hum_rr, lambda st: cuda_rollout.rollout_reference(cpu_hum_rr, st, 1), cpu_head(rr_final)
         )
+        flops["rr_env_step"] = flop_count.least_step_ops(cpu_hum_rr, lambda st: cuda_env_rollout.env_rollout_reference(
+            cpu_hum_rr, st, 1, **one, **ES_OPTIONS), cpu_head(rr_gens[-1]["final"]))  # fmt: skip
         print(f"float32 operations a relaxed-rigid env-step needs (the same count, over {COUNT_ENVS} envs of the "
-              f"relaxed-rigid main path's final state): {flops['rr_step']}")  # fmt: skip
+              f"relaxed-rigid main path's final state): {flops['rr_step']}; the relaxed-rigid env rollout's step, with "
+              f"its policy, reward and reset selection (over the last relaxed-rigid ES generation's final state): "
+              f"{flops['rr_env_step']}")  # fmt: skip
         for i in RK4_INTEGRATORS:
             for kind, make in (("step", humanoid_engine), ("rr_step", rr_humanoid_engine)):
                 cpu = make("cpu", i)
@@ -1826,6 +2165,12 @@ def main() -> int:
             param_sum=((n_blocks - 1) * n_params, 4 * (n_blocks + 1) * n_params),
             rollout_relaxed_rigid=(flops["rr_step"] * BATCH * RR_HORIZON,
                                    2 * sb + 4 * cuda_build.packed_params(hum_rr).numel()),
+            step_pd_relaxed_rigid=(flops["rr_step"] * BATCH, 2 * sb + 4 * cuda_build.packed_params(hum_rr).numel()),
+            step_tau_relaxed_rigid=(flops["rr_step"] * BATCH,
+                                    2 * sb + 4 * cuda_build.packed_params(hum_rr).numel() + 4 * n * BATCH),
+            env_rollout_relaxed_rigid=(flops["rr_env_step"] * BATCH * ES["steps"],
+                                       2 * sb + 4 * cuda_build.packed_params(hum_rr).numel() + 12 * BATCH
+                                       + 4 * pols_rr["mlp"].packed().numel()),
             # The RK4 builds' start states and stage sums in device memory are
             # the design's own traffic, outside the bound.
             **{f"rollout_{i}": (flops[f"step_{i}"] * BATCH * SOFT_RK4_HORIZON, 2 * sb + pb) for i in RK4_INTEGRATORS},

@@ -42,59 +42,17 @@
 // from L2 or HBM, once an episode.
 
 #include "soft_step_lanes.cuh"
-
-#ifndef JX_POLICY
-#error "JX_POLICY (0 = PD, 1 = linear, 2 = MLP) must be defined"
-#endif
+#include "env_policy.cuh"
 
 static_assert(FORWARD, "env_rollout.cu takes the forward-only slot (JX_LN_FORWARD 1)");
 static_assert(INTEGRATOR == 0, "env_rollout.cu implements semi-implicit Euler (JX_INTEGRATOR 0)");
 
 namespace {
 
-constexpr int OBS = 2 * NJ + 11;
-#if JX_POLICY == 2
-constexpr int H = JX_HIDDEN;
-constexpr int WSZ = H * OBS + H + NJ * H + NJ;  // W1 | b1 | W2 | b2
-constexpr int H_ROWS = H;
-#elif JX_POLICY == 1
-constexpr int WSZ = NJ * OBS + NJ;  // W | b
-constexpr int H_ROWS = 0;
-#else
-constexpr int WSZ = 0;
-constexpr int H_ROWS = 0;
-#endif
 // An env's rows past the step's slot: its torques, and the MLP's hidden units.
 constexpr int SL_TAU = SLOT, SL_HID = SLOT + NJ, ENV_ROWS = SLOT + NJ + H_ROWS;
 constexpr size_t K5_SMEM_BYTES =
     (static_cast<size_t>(N_PARAMS) + WSZ + static_cast<size_t>(ENV_ROWS) * ES) * sizeof(float);
-
-struct Options {
-  int episode_length;
-  float z_lo, z_hi;
-  int clip;
-  float tau_limit;
-  float noise_half;  // sqrt(3) * reset_noise; 0 turns the noise off
-  unsigned seed;
-  int envs_per_candidate;
-};
-
-// round(acc + w * x) with the product rounded first, as the plain version.
-__device__ __forceinline__ float mac(float acc, float w, float x) { return __fadd_rn(acc, __fmul_rn(w, x)); }
-
-// jnp.clip / torch.clamp: a NaN passes through.
-__device__ __forceinline__ float clip_tau(float x, const Options& o) {
-  if (!o.clip) return x;
-  return x < -o.tau_limit ? -o.tau_limit : (x > o.tau_limit ? o.tau_limit : x);
-}
-
-// Sequential multiply-adds of a dense layer's row: b + w[0] x(0) + w[1] x(1) + ...
-template <int N, class X>
-__device__ __forceinline__ float affine_row(float bias, const float* w, X x) {
-  float acc = mac(bias, w[0], x(0));
-  for (int k = 1; k < N; ++k) acc = mac(acc, w[k], x(k));
-  return acc;
-}
 
 // Entry k of the observation [s, sd, q, v, p_z]: the slot's state rows.
 struct Obs {
@@ -141,25 +99,6 @@ __device__ void policy(const float* Wt, const Scalars& sc, const Options& o, Slo
     sl[SL_TAU + a] = clip_tau(affine_row<H>(b2[a], W2 + a * H, SlotRow{sl, SL_HID}), o);
 #endif
 #endif
-}
-
-// Philox4x32-10, first output word, key (seed, env), counter (step, row, 0, 0).
-__device__ __forceinline__ unsigned philox_word0(unsigned seed, unsigned env, unsigned step, unsigned row) {
-  unsigned c0 = step, c1 = row, c2 = 0u, c3 = 0u, k0 = seed, k1 = env;
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const unsigned lo0 = c0 * 0xD2511F53u, hi0 = __umulhi(c0, 0xD2511F53u);
-    const unsigned lo1 = c2 * 0xCD9E8D57u, hi1 = __umulhi(c2, 0xCD9E8D57u);
-    const unsigned n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-  }
-  return c0;
 }
 
 __global__ void __launch_bounds__(LN_THREADS, 1)

@@ -1,0 +1,262 @@
+// Auto-resetting RL evaluation rollout in one launch, relaxed-rigid contacts:
+// each env on JX_RR_LANES lanes of a warp, the contact solve's working set in
+// its slot of shared memory, K1-rr's step and launch geometry.
+//
+// Replaces jaxsim_tpu/ops/pallas_step.py::_env_rollout_kernel (built by
+// build_pallas_env_rollout, K5) for relaxed-rigid engines on flat ground
+// without per-env domain multipliers. Each env, for n_steps, as the soft K5
+// (env_rollout.cu):
+//   1. computes its torques from the state before the step: the PD closure,
+//      a linear policy tau = W obs + b, or a one-hidden-layer tanh MLP
+//      tau = W2 tanh(W1 obs + b1) + b2 (JX_POLICY 0, 1, 2; JX_HIDDEN = H),
+//      clipped to +-tau_limit for the linear and MLP policies, into the
+//      env's torque row of the slot;
+//   2. takes one relaxed-rigid step (rr_step_env, rr_step.cuh) with those
+//      torques (SlotTauRr);
+//   3. ends the episode when the base height leaves (z_lo, z_hi) or the
+//      episode reaches episode_length steps, adds the default reward
+//      min(z, 2) - 0.001 sum(tau^2) of the transition (the new height, the
+//      step's torques), and on an end respawns at the episode-start state,
+//      re-read from the input buffers (which the outputs never alias),
+//      optionally with uniform noise on the base position from the
+//      counter-based Philox4x32-10 of ops/philox.py. The start state here
+//      includes m, the solved point forces that warm-start the next solve.
+//
+// Who does what. The threads keep K1-rr's roles between steps: thread
+// t < ENVS holds env t's s, sd, p, q and v in registers and runs its free
+// ABA, SIE update, done test, reward and respawn; lane g of env
+// threadIdx.x / G holds the m rows of its point slots. The policy runs on the
+// env's lanes, so that the ABA thread (128 registers, its ABA's working set
+// spilling already) takes no more: the ABA thread writes the observation
+// [s, sd, q, v, p_z] into the env's slot, in rows that no thread reads between
+// a step's contact solve and the next step's free ABA (the F rows and the base
+// factor L0, which the next step writes before it reads them); each hidden
+// unit's row and each torque's row is computed whole on one lane, dealt
+// round-robin, bias first, each product and sum rounded on its own, as
+// env_rollout.cu does; the hidden units sit beside the observation when
+// they fit there, else in rows of their own past the slot. The done flag of
+// the step goes to the last of those rows, where each lane reads it to
+// re-read its own point slots' start m rows on a respawn.
+//
+// Weights are call-time inputs, so new weights need no rebuild. With P
+// candidates (per-candidate weights, the JAX per_tile_weights) env b uses
+// candidate b / (B / P); the wrapper requires B / P to be a multiple of the
+// envs a block (JX_RR_ENVS, sized by cuda_build.rr_tables with the weights
+// in the block), so each block loads one candidate's weights into shared
+// memory beside the model arrays and its envs' slots.
+//
+// What bounds it on the card: K1-rr's step (see rollout_rr.cu). The policy
+// adds about 1.3 k multiply-adds on 8 lanes and the episode logic a few
+// dozen operations to a step of about 1.8 * 10^4; the respawn reads an env's
+// start state again, from L2 or HBM, once an episode.
+
+#include "rr_step.cuh"
+#include "env_policy.cuh"
+
+static_assert(INTEGRATOR == 0, "env_rollout_rr.cu implements semi-implicit Euler (JX_INTEGRATOR 0)");
+static_assert(JX_RR_TAU_ROW, "env_rollout_rr.cu writes the policy's torques into the slot's torque row");
+
+namespace {
+
+// The rows of an env's slot that no thread reads between a step's contact
+// solve and the next step's free ABA: the F rows and L0 (cuda_build's
+// rr_dead_rows).
+constexpr int DEAD = NL * 6 + 36;
+static_assert(SL_L0 == SL_F + NL * 6 && SL_PAR == SL_L0 + 36, "the F rows and L0 lie together");
+constexpr int SL_OBS = SL_F;              // (OBS) the observation of the state before the step
+constexpr int SL_DONE = SL_F + DEAD - 1;  // the step's done flag
+constexpr bool HID_DEAD = OBS + H_ROWS + 1 <= DEAD;
+constexpr int SL_HID = HID_DEAD ? SL_OBS + OBS : SLOT;  // (H) the MLP's hidden units
+constexpr int ROWS = SLOT + (HID_DEAD ? 0 : H_ROWS);
+static_assert(OBS + 1 <= DEAD, "the observation and the done flag fit the dead rows");
+static_assert(ROWS == JX_RR_ROWS, "the generated header sizes an env's rows as this layout does");
+constexpr size_t K5_SMEM_BYTES = (static_cast<size_t>(ROWS) * ES + N_PARAMS + WSZ) * sizeof(float);
+
+// Entry k of the slot's rows from j0 on.
+struct SlotRow {
+  Slot sl;
+  int j0;
+  __device__ __forceinline__ float operator()(int k) const { return sl[j0 + k]; }
+};
+
+// The linear or MLP policy's torques of the observation in the env's slot
+// `sl`, into its torque row, each row whole on one lane (row j on lane
+// j % G). Every lane of the block calls it.
+__device__ void policy(const float* Wt, const Options& o, Slot sl, int g) {
+#if JX_POLICY == 1
+  const float* W = Wt;
+  const float* bias = Wt + NJ * OBS;
+  for (int a = g; a < NJ; a += G) sl[SL_TAU + a] = clip_tau(affine_row<OBS>(bias[a], W + a * OBS, SlotRow{sl, SL_OBS}), o);
+#elif JX_POLICY == 2
+  const float* W1 = Wt;
+  const float* b1 = W1 + H * OBS;
+  const float* W2 = b1 + H;
+  const float* b2 = W2 + NJ * H;
+  for (int j = g; j < H; j += G) sl[SL_HID + j] = tanhf(affine_row<OBS>(b1[j], W1 + j * OBS, SlotRow{sl, SL_OBS}));
+  __syncwarp();
+  for (int a = g; a < NJ; a += G)
+    sl[SL_TAU + a] = clip_tau(affine_row<H>(b2[a], W2 + a * H, SlotRow{sl, SL_HID}), o);
+#else
+  (void)Wt;
+  (void)o;
+  (void)sl;
+  (void)g;
+#endif
+}
+
+__global__ void __launch_bounds__(RR_THREADS, 1)
+    env_rollout_rr_kernel(const float* __restrict__ params, const float* __restrict__ weights, StateIn in,
+                          StateOut out, float* __restrict__ reward_out, int* __restrict__ resets_out,
+                          int* __restrict__ steps_out, int B, int n_steps, Scalars sc, Options o) {
+  extern __shared__ float smem[];
+  float* P = smem;
+  float* Wt = smem + N_PARAMS;
+  float* slots = smem + N_PARAMS + WSZ;
+  load_params(params, P);
+  if (WSZ > 0) {
+    const int candidate = (blockIdx.x * ENVS) / o.envs_per_candidate;
+    const float* src = weights + static_cast<size_t>(candidate) * WSZ;
+    for (int k = threadIdx.x; k < WSZ; k += blockDim.x) Wt[k] = src[k];
+  }
+  // Thread t < ENVS holds env t's s, sd, p, q and v, lane g of env
+  // threadIdx.x / G the m rows of its point slots. The envs past B run env
+  // B - 1's steps beside the others, so that every thread reaches every
+  // barrier, and store nothing.
+  const int b_aba = blockIdx.x * ENVS + threadIdx.x, b_pcg = blockIdx.x * ENVS + threadIdx.x / G;
+  const int ba = b_aba < B ? b_aba : B - 1, bp = b_pcg < B ? b_pcg : B - 1;
+  const bool aba = threadIdx.x < ENVS;
+  const int g = threadIdx.x % G;
+  const Slot mine{slots + (aba ? threadIdx.x : 0)};
+  const Slot sl{slots + threadIdx.x / G};
+
+  int pt[OWN];
+  float m[OWN * 3];
+  rr_points(g, pt);
+  rr_load_m(in.m, B, bp, pt, m);
+  float s[NJA], sd[NJA], p[3], q[4], v[6];
+  if (aba) rr_load_body(in, B, ba, s, sd, p, q, v);
+  __syncthreads();
+
+  int steps = 0, resets = 0;
+  float reward_sum = 0.0f;
+  RrWork w;
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    // 1. The torques of the state before the step, into the torque row.
+    if (aba) {
+#if JX_POLICY == 0
+      for (int k = 0; k < NJ; ++k) mine[SL_TAU + k] = -sc.kp * s[k] - sc.kd * sd[k];
+#else
+      for (int k = 0; k < NJ; ++k) {
+        mine[SL_OBS + k] = s[k];
+        mine[SL_OBS + NJ + k] = sd[k];
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) mine[SL_OBS + 2 * NJ + k] = q[k];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) mine[SL_OBS + 2 * NJ + 4 + k] = v[k];
+      mine[SL_OBS + 2 * NJ + 10] = p[2];
+#endif
+    }
+    if (JX_POLICY != 0) {
+      __syncthreads();  // the observations are in
+      policy(Wt, o, sl, g);
+    }
+    __syncthreads();  // the torques are in
+
+    // 2. The step.
+    rr_step_env(P, sc, w, slots, pt, s, sd, p, q, v, m, SlotTauRr{mine});
+
+    // 3. The episode's end, the reward and the respawn, on the ABA thread;
+    // the lanes re-read their m rows on the flag it leaves.
+    if (aba) {
+      const int steps1 = steps + 1;
+      const float z = p[2];
+      // The JAX kernel's comparisons: a NaN height ends no episode.
+      const bool done = (z < o.z_lo) || (z > o.z_hi) || (steps1 >= o.episode_length);
+      float ctrl = 0.0f;
+      for (int k = 0; k < NJ; ++k) {
+        const float tk = mine[SL_TAU + k];
+        ctrl = k ? mac(ctrl, tk, tk) : __fmul_rn(tk, tk);
+      }
+      const float upright = z > 2.0f ? 2.0f : z;  // jnp.minimum: a NaN passes through
+      reward_sum = __fadd_rn(reward_sum, __fsub_rn(upright, __fmul_rn(0.001f, ctrl)));
+      resets += done;
+      steps = done ? 0 : steps1;
+      if (done) {
+        rr_load_body(in, B, ba, s, sd, p, q, v);
+        if (o.noise_half > 0.0f) {
+          for (int r = 0; r < 3; ++r) {
+            const unsigned bits = philox_word0(o.seed, ba, t, r);
+            const float u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
+            p[r] = __fadd_rn(p[r], __fmul_rn(o.noise_half, 2.0f * u - 1.0f));
+          }
+        }
+      }
+      mine[SL_DONE] = done ? 1.0f : 0.0f;
+    }
+    __syncthreads();
+    if (sl[SL_DONE] != 0.0f) rr_load_m(in.m, B, bp, pt, m);
+  }
+
+  if (b_pcg < B) rr_store_m(out.m, B, b_pcg, pt, m);
+  if (aba && b_aba < B) {
+    rr_store_body(out, B, b_aba, s, sd, p, q, v);
+    reward_out[b_aba] = reward_sum;
+    resets_out[b_aba] = resets;
+    steps_out[b_aba] = steps;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int jx_param_count() { return N_PARAMS; }
+
+int jx_weight_count() { return WSZ; }
+
+int jx_env_rollout_rr(const float* params, const float* s, const float* sd, const float* p, const float* q,
+                      const float* v, const float* m, const float* weights, float* s_out, float* sd_out,
+                      float* p_out, float* q_out, float* v_out, float* m_out, float* reward_out, int* resets_out,
+                      int* steps_out, int B, int n_steps, float K, float D, float k_over_d, float mu, float hc_p,
+                      float hc_q, float gz, float dt, float kp, float kd, float rr_ca, float rr_cb, float rr_mid,
+                      float rr_power, float rr_width, float rr_dmin, float rr_dmax, float rr_span, float rr_stiff,
+                      float rr_damp, float rr_c2mu2, float rr_c1mu2, float rr_reg, int episode_length, float z_lo,
+                      float z_hi, int clip, float tau_limit, float noise_half, unsigned seed, int envs_per_candidate,
+                      void* stream) {
+  const Scalars sc{K,        D,       k_over_d, mu,       hc_p,     hc_q,    gz,
+                   dt,       kp,      kd,       rr_ca,    rr_cb,    rr_mid,  rr_power,
+                   rr_width, rr_dmin, rr_dmax,  rr_span,  rr_stiff, rr_damp, rr_c2mu2,
+                   rr_c1mu2, rr_reg};
+  const Options o{episode_length, z_lo, z_hi, clip, tau_limit, noise_half, seed, envs_per_candidate};
+  const cudaError_t rc = cudaFuncSetAttribute(env_rollout_rr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              static_cast<int>(K5_SMEM_BYTES));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int blocks = (B + ENVS - 1) / ENVS;
+  env_rollout_rr_kernel<<<blocks, RR_THREADS, K5_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      params, weights, StateIn{s, sd, p, q, v, m}, StateOut{s_out, sd_out, p_out, q_out, v_out, m_out}, reward_out,
+      resets_out, steps_out, B, n_steps, sc, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch geometry, for the reports: threads a block, envs a block,
+// dynamic shared memory a block in bytes, and blocks an SM holds at once
+// (the occupancy calculator: registers, threads and shared memory).
+int jx_env_rr_geometry(int* out) {
+  cudaError_t rc = cudaFuncSetAttribute(env_rollout_rr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        static_cast<int>(K5_SMEM_BYTES));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  int blocks_per_sm = 0;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, env_rollout_rr_kernel, RR_THREADS,
+                                                     K5_SMEM_BYTES);
+  out[0] = RR_THREADS;
+  out[1] = ENVS;
+  out[2] = static_cast<int>(K5_SMEM_BYTES);
+  out[3] = blocks_per_sm;
+  return static_cast<int>(rc);
+}
+
+const char* jx_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
+
+}  // extern "C"

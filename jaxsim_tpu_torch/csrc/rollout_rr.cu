@@ -10,8 +10,9 @@
 // Euler, RK4, or RK4-fast with the contact forces frozen at the step's
 // start), and the PD policy tau = -kp*s - kd*sd, evaluated once a step at its
 // start. Each env advances n_steps inside one launch. The step is
-// rr_step_env, or rr_rk4_step (rr_step.cuh), written for the relaxed-rigid
-// variants of the one-step and env-rollout kernels to include too. An RK4
+// rr_step_env, or rr_rk4_step (rr_step.cuh), which the relaxed-rigid
+// one-step kernels (step_rr.cu) and env rollout (env_rollout_rr.cu) share;
+// so do the state's loads and stores (rr_load_body, rr_load_m, ...). An RK4
 // step is four such solves (RK4-fast: one solve and four ABAs with the
 // frozen forces); its start state and accumulator live in device memory
 // (Rk4Scratch).
@@ -60,26 +61,10 @@ __global__ void __launch_bounds__(RR_THREADS, 1) rollout_rr_kernel(
 
   int pt[OWN];
   float m[OWN * 3];
-  {
-    const int b = b_pcg < B ? b_pcg : B - 1;
-#pragma unroll
-    for (int k = 0; k < OWN; ++k) {
-      pt[k] = JX_RR_SLOT_POINT[g + G * k];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) m[k * 3 + j] = pt[k] >= 0 ? in.m[(pt[k] * 3 + j) * B + b] : 0.0f;
-    }
-  }
+  rr_points(g, pt);
+  rr_load_m(in.m, B, b_pcg < B ? b_pcg : B - 1, pt, m);
   float s[NJA], sd[NJA], p[3], q[4], v[6];
-  if (aba) {
-    const int b = b_aba < B ? b_aba : B - 1;
-    for (int k = 0; k < NJ; ++k) {
-      s[k] = in.s[k * B + b];
-      sd[k] = in.sd[k * B + b];
-    }
-    for (int k = 0; k < 3; ++k) p[k] = in.p[k * B + b];
-    for (int k = 0; k < 4; ++k) q[k] = in.q[k * B + b];
-    for (int k = 0; k < 6; ++k) v[k] = in.v[k * B + b];
-  }
+  if (aba) rr_load_body(in, B, b_aba < B ? b_aba : B - 1, s, sd, p, q, v);
 
   RrWork w;
   if constexpr (INTEGRATOR == 0) {
@@ -91,22 +76,8 @@ __global__ void __launch_bounds__(RR_THREADS, 1) rollout_rr_kernel(
       rr_rk4_step<INTEGRATOR>(P, sc, w, smem + N_PARAMS, pt, s, sd, p, q, v, m, rk, b_aba, b_pcg);
   }
 
-  if (b_pcg < B) {
-#pragma unroll
-    for (int k = 0; k < OWN; ++k)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        if (pt[k] >= 0) out.m[(pt[k] * 3 + j) * B + b_pcg] = m[k * 3 + j];
-  }
-  if (aba && b_aba < B) {
-    for (int k = 0; k < NJ; ++k) {
-      out.s[k * B + b_aba] = s[k];
-      out.sd[k * B + b_aba] = sd[k];
-    }
-    for (int k = 0; k < 3; ++k) out.p[k * B + b_aba] = p[k];
-    for (int k = 0; k < 4; ++k) out.q[k * B + b_aba] = q[k];
-    for (int k = 0; k < 6; ++k) out.v[k * B + b_aba] = v[k];
-  }
+  if (b_pcg < B) rr_store_m(out.m, B, b_pcg, pt, m);
+  if (aba && b_aba < B) rr_store_body(out, B, b_aba, s, sd, p, q, v);
 }
 
 }  // namespace

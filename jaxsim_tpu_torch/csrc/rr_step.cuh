@@ -67,6 +67,10 @@
 
 #include "step_env.cuh"
 
+#ifndef JX_RR_TAU_ROW
+#define JX_RR_TAU_ROW 0
+#endif
+
 namespace {
 
 constexpr int G = JX_RR_LANES;          // lanes an env
@@ -89,8 +93,8 @@ constexpr int SL_UM = SL_IP + NL * 3;    // (NL) a pass's u; the joint accelerat
 constexpr int SL_F = SL_UM + NL;         // (NL, 6) forces up the tree, accelerations down it
 constexpr int SL_L0 = SL_F + NL * 6;     // (36) the base Cholesky factor
 constexpr int SL_PAR = SL_L0 + 36;       // (NPAR, 24) contact parents: WR, Wp, Wv, free a
-constexpr int SL_TAU = SL_PAR + NPAR * 24;  // (NJ) an RK4 step's torques
-constexpr int SLOT = SL_TAU + (INTEGRATOR != 0 ? NJ : 0);
+constexpr int SL_TAU = SL_PAR + NPAR * 24;  // (NJ) the step's torques: RK4's, K3's, K5's (JX_RR_TAU_ROW)
+constexpr int SLOT = SL_TAU + (INTEGRATOR != 0 || JX_RR_TAU_ROW ? NJ : 0);
 // A parent's row; under RK4-fast PAR_A holds the frozen world wrench after
 // the step's solve.
 constexpr int PAR_WR = 0, PAR_WP = 9, PAR_WV = 12, PAR_A = 18;
@@ -717,6 +721,58 @@ __device__ __forceinline__ void rr_wrenches(const float* P, Slot sl, int g, cons
   __syncwarp();
 }
 
+// ----- the state between device memory and the threads -----
+//
+// The state leaves keep the batch trailing (x[row * B + b]). The ABA thread
+// of an env holds its s, sd, p, q and v in registers (consecutive ABA
+// threads, consecutive envs' columns), each lane the m rows of its point
+// slots.
+
+// Lane g's point slots: the contact point of each, -1 for a padding slot.
+__device__ __forceinline__ void rr_points(int g, int* pt) {
+#pragma unroll
+  for (int k = 0; k < OWN; ++k) pt[k] = JX_RR_SLOT_POINT[g + G * k];
+}
+
+// Env b's m rows of the lane's point slots pt (0 for a padding slot).
+__device__ __forceinline__ void rr_load_m(const float* m_in, int B, int b, const int* pt, float* m) {
+#pragma unroll
+  for (int k = 0; k < OWN; ++k)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) m[k * 3 + j] = pt[k] >= 0 ? m_in[(pt[k] * 3 + j) * B + b] : 0.0f;
+}
+
+__device__ __forceinline__ void rr_store_m(float* m_out, int B, int b, const int* pt, const float* m) {
+#pragma unroll
+  for (int k = 0; k < OWN; ++k)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      if (pt[k] >= 0) m_out[(pt[k] * 3 + j) * B + b] = m[k * 3 + j];
+}
+
+// Env b's s, sd, p, q and v, into the ABA thread's registers.
+__device__ __forceinline__ void rr_load_body(const StateIn& in, int B, int b, float* s, float* sd, float* p, float* q,
+                                             float* v) {
+  for (int k = 0; k < NJ; ++k) {
+    s[k] = in.s[k * B + b];
+    sd[k] = in.sd[k * B + b];
+  }
+  for (int k = 0; k < 3; ++k) p[k] = in.p[k * B + b];
+  for (int k = 0; k < 4; ++k) q[k] = in.q[k * B + b];
+  for (int k = 0; k < 6; ++k) v[k] = in.v[k * B + b];
+}
+
+__device__ __forceinline__ void rr_store_body(const StateOut& out, int B, int b, const float* s, const float* sd,
+                                              const float* p, const float* q, const float* v) {
+  for (int k = 0; k < NJ; ++k) {
+    out.s[k * B + b] = s[k];
+    out.sd[k * B + b] = sd[k];
+  }
+  for (int k = 0; k < 3; ++k) out.p[k * B + b] = p[k];
+  for (int k = 0; k < 4; ++k) out.q[k * B + b] = q[k];
+  for (int k = 0; k < 6; ++k) out.v[k * B + b] = v[k];
+}
+
 // One semi-implicit Euler step of a block's ENVS envs, in place, in three
 // phases apart by block barriers: thread t < ENVS runs env t's free ABA (the
 // first ENVS / 32 warps, every lane busy) and, after the contact solve, its
@@ -787,8 +843,9 @@ __device__ void rr_step_env(const float* P, const Scalars& sc, RrWork& w, float*
   for (int k = 0; k < 4; ++k) q[k] = qn[k] / nq;
 }
 
-// An RK4 step's torques: joint k's from the slot's torque row, which the
-// step wrote once at its start.
+// The step's torques from the slot's torque row: an RK4 step wrote it once at
+// its start; the one-step kernel K3 copies its input there, the env rollout
+// its policy's torques.
 struct SlotTauRr {
   Slot sl;
   __device__ float operator()(const Scalars&, const float*, const float*, int k) const { return sl[SL_TAU + k]; }

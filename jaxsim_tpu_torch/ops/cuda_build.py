@@ -126,7 +126,7 @@ def topology_header(engine: BatchedEngine | None, defines=()) -> str:
         + arr("JX_JTYPE", engine.joint_types)
         + arr("JX_CPARENT", engine.contact_parent)
         + arr("JX_HASF", has_f)
-        + ("" if lanes is None else rr_header(engine, lanes))
+        + ("" if lanes is None else rr_header(engine, dict(defines)))
         + ("" if ln_lanes is None else lane_header(engine, dict(defines)))
     )
 
@@ -184,32 +184,59 @@ def _schedule_header(prefix: str, t: dict) -> str:
     )  # fmt: skip
 
 
-def rr_tables(engine: BatchedEngine, lanes: int) -> dict:
-    """What the relaxed-rigid kernel (``rr_step.cuh``) takes from the
-    topology for ``lanes`` lanes an env: :func:`_lane_schedule`'s point slots
-    and level schedule; ``slot``: floats of an env's slot in shared memory
-    (with an RK4 engine's row of the step's torques, captured once a step),
-    ``envs``: envs a block, the most up to ``RR_MAX_ENVS`` whose slots and
-    model arrays fit in a block's shared memory, and ``smem_bytes``."""
+def rr_tables(
+    engine: BatchedEngine, lanes: int, *, tau_row: bool = False, policy: int = -1, hidden: int = 0,
+    max_envs: int = RR_MAX_ENVS,
+) -> dict:
+    """What a relaxed-rigid kernel (``rr_step.cuh``) takes from the topology
+    for ``lanes`` lanes an env: :func:`_lane_schedule`'s point slots and
+    level schedule; ``slot``: floats of an env's slot in shared memory, with
+    a row of the step's torques for an RK4 engine (captured once a step) or
+    with ``tau_row`` (the one-step kernels' and the env rollout's torques);
+    ``rows``: an env's floats, the slot and, for the env rollout's MLP
+    (``policy`` 2 with ``hidden`` units) whose hidden units do not fit beside
+    the observation in the rows a step leaves dead (:func:`rr_dead_rows`), a row
+    for them; ``block_floats``: the model arrays and the env rollout's
+    candidate weights (``policy`` 0, 1 or 2); ``envs``: envs a block, the
+    most up to ``max_envs`` whose rows and block floats fit in a block's
+    shared memory; and ``smem_bytes``."""
     if engine.contact_model != "relaxed_rigid":
         raise ValueError(f"the relaxed-rigid kernel takes a relaxed-rigid engine, not {engine.contact_model}")
     if not engine.n_points:
         raise ValueError("the relaxed-rigid kernel needs contact points")
     t = _lane_schedule(engine, lanes)
-    slot = 26 * engine.n_links + 36 + 24 * len(t["par_link"]) + (engine.n_joints if engine.integrator != "sie" else 0)
+    torques = engine.n_joints if tau_row or engine.integrator != "sie" else 0
+    slot = 26 * engine.n_links + 36 + 24 * len(t["par_link"]) + torques
     n_params = sum(x.numel() for x in engine.params().values())
-    envs = RR_MAX_ENVS
-    while (slot * (envs + 1) + n_params) * 4 > MAX_SMEM_BYTES and envs > 1 and (envs // 2) * lanes % 32 == 0:
+    obs = 2 * engine.n_joints + 11
+    rows = slot + (hidden if policy == 2 and obs + hidden + 1 > rr_dead_rows(engine) else 0)
+    block_floats = n_params + (policy_weight_count(engine.n_joints, policy, hidden) if policy >= 0 else 0)
+    envs = max_envs
+    while (rows * (envs + 1) + block_floats) * 4 > MAX_SMEM_BYTES and envs > 1 and (envs // 2) * lanes % 32 == 0:
         envs //= 2
-    smem = (slot * (envs + 1) + n_params) * 4
+    smem = (rows * (envs + 1) + block_floats) * 4
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"a relaxed-rigid block of {envs} envs needs {smem} B of shared memory")
-    return dict(t, slot=slot, envs=envs, smem_bytes=smem)
+    return dict(t, slot=slot, rows=rows, block_floats=block_floats, envs=envs, smem_bytes=smem)
 
 
-def rr_header(engine: BatchedEngine, lanes: int) -> str:
-    """The relaxed-rigid kernel's part of the generated header (:func:`rr_tables`)."""
-    return _schedule_header("JX_RR", rr_tables(engine, lanes))
+def rr_dead_rows(engine: BatchedEngine) -> int:
+    """Floats of a relaxed-rigid slot that no thread reads between a step's
+    contact solve and the next step's free ABA (its F rows and the base
+    factor L0): the env rollout's observation, hidden units and done flag
+    live there between steps."""
+    return 6 * engine.n_links + 36
+
+
+def rr_header(engine: BatchedEngine, defines: dict) -> str:
+    """The relaxed-rigid kernel's part of the generated header (:func:`rr_tables`
+    of the job's ``defines``)."""
+    t = rr_tables(
+        engine, defines["JX_RR_LANES"], tau_row=bool(defines.get("JX_RR_TAU_ROW")),
+        policy=defines.get("JX_POLICY", -1), hidden=defines.get("JX_HIDDEN", 0),
+        max_envs=defines.get("JX_RR_MAX_ENVS", RR_MAX_ENVS),
+    )  # fmt: skip
+    return _schedule_header("JX_RR", t) + f"#define JX_RR_ROWS {t['rows']}\n"
 
 
 # Floats of the lane-spread soft step's slot (soft_step_lanes.cuh) in each

@@ -4,8 +4,11 @@ Counterpart of ``jaxsim_tpu/ops/pallas_step.py::build_pallas_env_rollout``
 and its ``_env_rollout_kernel``: step, termination on the healthy height
 range or the episode length, auto-reset to the episode-start state, and
 per-env sums of the reward, the resets and the steps, all in one launch of
-``jaxsim_tpu_torch/csrc/env_rollout.cu`` (``LANES`` lanes an env, its state
-and the step's working set in shared memory, as the soft K1).
+``jaxsim_tpu_torch/csrc/env_rollout.cu`` for soft contacts (``LANES`` lanes
+an env, its state and the step's working set in shared memory, as the soft
+K1) or of ``jaxsim_tpu_torch/csrc/env_rollout_rr.cu`` for relaxed-rigid
+contacts (K1-rr's step and geometry, ``RR_LANES`` lanes an env; the respawn
+restores the start's ``m`` too), semi-implicit Euler only.
 
 Ported options: the policy (the PD closure with gains ``kp``, ``kd``; a
 linear policy ``W``, ``b``; a tanh MLP ``W1``, ``b1``, ``W2``, ``b2``, one
@@ -33,14 +36,16 @@ import dataclasses
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, cuda_rollout
 from .batched_engine import BatchedEngine, BatchedState
 from .cuda_build import CSRC, F32, I32, PTR, BuildJob, KernelBuild, packed_params
 from .philox import reset_noise as philox_reset_noise
 from .policies import default_reward, linear_policy_tau, mlp_policy_tau, obs_dim, select
 
-# Launches of the CUDA kernel made by env_rollout(), in this process.
+# Launches of the CUDA kernel made by env_rollout(), in this process: of its
+# soft build, and of its relaxed-rigid one.
 ENV_ROLLOUT_KERNEL_LAUNCHES = 0
+ENV_ROLLOUT_RR_KERNEL_LAUNCHES = 0
 
 SOURCE = CSRC / "env_rollout.cu"
 SIGNATURES = {
@@ -49,10 +54,21 @@ SIGNATURES = {
     + [I32, F32, F32, I32, F32, F32, ctypes.c_uint, I32, PTR],
     "jx_env_geometry": [PTR],
 }
+RR_SOURCE = CSRC / "env_rollout_rr.cu"
+# The relaxed-rigid entry point's arguments: the soft one's with the
+# relaxed-rigid tail of the scalars (cuda_build.rr_scalars) after kp, kd.
+RR_SIGNATURES = {
+    "jx_weight_count": [],
+    "jx_env_rollout_rr": [PTR] * 17 + [I32, I32] + [F32] * 23
+    + [I32, F32, F32, I32, F32, F32, ctypes.c_uint, I32, PTR],
+    "jx_env_rr_geometry": [PTR],
+}
 POLICY_KINDS = {"pd": 0, "linear": 1, "mlp": 2}
 # Lanes of a warp that carry one env (a build-time constant; PERF.md §6 has
-# the times of the counts tried).
+# the times of the counts tried): the soft build's, and the relaxed-rigid
+# one's (K1-rr's).
 LANES = 4
+RR_LANES = cuda_rollout.RR_LANES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,26 +229,32 @@ def env_rollout_reference(
     return sim, reward_sum, resets, steps
 
 
-def job(engine: BatchedEngine, policy: Policy, lanes: int = LANES) -> BuildJob:
-    defines = (
-        ("JX_POLICY", POLICY_KINDS[policy.kind]), ("JX_HIDDEN", max(policy.hidden, 1)),
-        ("JX_LN_LANES", int(lanes)), ("JX_LN_FORWARD", 1),
-    )  # fmt: skip
-    return BuildJob(engine, SOURCE, SIGNATURES, defines)
+def job(engine: BatchedEngine, policy: Policy, lanes: int | None = None) -> BuildJob:
+    """The library for ``engine`` and ``policy``: the soft env rollout or the
+    relaxed-rigid one, with ``lanes`` lanes an env (``LANES`` or
+    ``RR_LANES`` by default)."""
+    kind = (("JX_POLICY", POLICY_KINDS[policy.kind]), ("JX_HIDDEN", max(policy.hidden, 1)))
+    if engine.contact_model == "relaxed_rigid":
+        defines = (*kind, ("JX_RR_LANES", int(lanes or RR_LANES)), ("JX_RR_TAU_ROW", 1))
+        return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, defines)
+    return BuildJob(engine, SOURCE, SIGNATURES, (*kind, ("JX_LN_LANES", int(lanes or LANES)), ("JX_LN_FORWARD", 1)))
 
 
 def build(engine: BatchedEngine, policy: Policy) -> KernelBuild:
     return cuda_build.build(job(engine, policy))
 
 
-def envs_per_block(engine: BatchedEngine, policy: Policy, lanes: int = LANES) -> int:
+def envs_per_block(engine: BatchedEngine, policy: Policy, lanes: int | None = None) -> int:
     """Envs a block of the kernel for ``policy`` takes (the generated
-    header's, :func:`cuda_build.lane_tables`)."""
+    header's: :func:`cuda_build.lane_tables`, or :func:`cuda_build.rr_tables`
+    for a relaxed-rigid engine)."""
     kind, hidden = POLICY_KINDS[policy.kind], max(policy.hidden, 1)
-    return cuda_build.lane_tables(engine, lanes, forward=True, policy=kind, hidden=hidden)["envs"]
+    if engine.contact_model == "relaxed_rigid":
+        return cuda_build.rr_tables(engine, lanes or RR_LANES, tau_row=True, policy=kind, hidden=hidden)["envs"]
+    return cuda_build.lane_tables(engine, lanes or LANES, forward=True, policy=kind, hidden=hidden)["envs"]
 
 
-def check_candidates(engine: BatchedEngine, B: int, policy: Policy, lanes: int = LANES) -> None:
+def check_candidates(engine: BatchedEngine, B: int, policy: Policy, lanes: int | None = None) -> None:
     """A batch of ``B`` envs splits evenly into the policy's candidates, and
     with several candidates each candidate's envs fill whole blocks of the
     kernel, so that a block loads one candidate's weights."""
@@ -247,7 +269,8 @@ def geometry(kernel: KernelBuild) -> dict[str, int]:
     """The kernel's launch: threads and envs a block, the dynamic shared
     memory a block takes in bytes, and the blocks an SM holds at once (CUDA's
     occupancy calculator)."""
-    return cuda_build.geometry(kernel, "jx_env_geometry")
+    relaxed = hasattr(kernel.lib, "jx_env_rr_geometry")
+    return cuda_build.geometry(kernel, "jx_env_rr_geometry" if relaxed else "jx_env_geometry")
 
 
 def launch(
@@ -263,17 +286,18 @@ def launch(
     if kernel.lib.jx_weight_count() != (weights.shape[1] if weights is not None else 0):
         raise RuntimeError("packed policy weights disagree with the kernel's layout")
     B, device = state.p.shape[-1], state.p.device
+    relaxed = engine.contact_model == "relaxed_rigid"
     out = cuda_build.empty_state_like(state)
     reward_sum = torch.empty(B, dtype=torch.float32, device=device)
     resets = torch.empty(B, dtype=torch.int32, device=device)
     steps = torch.empty(B, dtype=torch.int32, device=device)
     cuda_build.launch(
-        kernel, "jx_env_rollout", packed_params(engine), device,
+        kernel, "jx_env_rollout_rr" if relaxed else "jx_env_rollout", packed_params(engine), device,
         *cuda_build.state_pointers(state), None if weights is None else weights.data_ptr(),
         *cuda_build.state_pointers(out), reward_sum.data_ptr(), resets.data_ptr(), steps.data_ptr(),
         B, int(n_steps), *cuda_build.engine_scalars(engine), float(kp), float(kd),
-        int(episode_length), float(healthy_z_range[0]), float(healthy_z_range[1]),
-        int(tau_limit is not None), float(tau_limit or 0.0),
+        *(cuda_build.rr_scalars(engine) if relaxed else ()),
+        int(episode_length), float(healthy_z_range[0]), float(healthy_z_range[1]), int(tau_limit is not None), float(tau_limit or 0.0),
         float(reset_noise * 3.0**0.5) if reset_noise > 0.0 else 0.0,
         int(seed) & 0xFFFFFFFF, B // policy.candidates,
     )  # fmt: skip
@@ -308,7 +332,7 @@ def env_rollout(
     ``(final_state, reward_sum (B,) float32, resets (B,) int32, steps (B,)
     int32)``. One kernel launch for a CUDA state; the plain version for a
     CPU state."""
-    global ENV_ROLLOUT_KERNEL_LAUNCHES
+    global ENV_ROLLOUT_KERNEL_LAUNCHES, ENV_ROLLOUT_RR_KERNEL_LAUNCHES
     opts = dict(
         policy=policy, reward=reward, kp=kp, kd=kd, W=W, b=b, W1=W1, b1=b1, W2=W2, b2=b2,
         episode_length=episode_length, healthy_z_range=healthy_z_range, tau_limit=tau_limit,
@@ -322,12 +346,15 @@ def env_rollout(
         state.p.device, policy=policy, reward=reward, tau_limit=tau_limit, learned=learned,
         domain=domain, terr_off=terr_off, terrain_relative=terrain_relative,
     )  # fmt: skip
-    B = cuda_build.check_cuda_call(engine, state)
+    B = cuda_build.check_cuda_call(engine, state, cuda_rollout.CONTACT_MODELS)
     pol = make_policy(engine, W, b, W1, b1, W2, b2)
     check_candidates(engine, B, pol)
     out = launch(
         build(engine, pol), engine, state, n_steps, pol, kp=kp, kd=kd, episode_length=episode_length,
         healthy_z_range=healthy_z_range, tau_limit=tau_limit, reset_noise=reset_noise, seed=seed,
     )  # fmt: skip
-    ENV_ROLLOUT_KERNEL_LAUNCHES += 1
+    if engine.contact_model == "relaxed_rigid":
+        ENV_ROLLOUT_RR_KERNEL_LAUNCHES += 1
+    else:
+        ENV_ROLLOUT_KERNEL_LAUNCHES += 1
     return out

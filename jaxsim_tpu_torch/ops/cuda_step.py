@@ -11,25 +11,31 @@ Counterparts of ``jaxsim_tpu/ops/pallas_step.py``:
   so a changed ``M`` needs no rebuild.
 * :func:`rollout_per_step` of ``pallas_rollout``: one K2 launch a step.
 
-Both kernels are ``jaxsim_tpu_torch/csrc/step.cu``: each env on ``LANES``
-lanes of a warp, ``ENVS`` envs a block, on the lane-spread soft step's
-forward-only slot (``soft_step_lanes.cuh``), the state read from device
-columns into the block's slots and written back out; see the note at the
-top of the source. Each wrapper takes its plain version
-(:func:`step_pd_reference`, :func:`step_tau_reference`, which call the twin)
-for a CPU state and its kernel for a CUDA state; a failed build or launch
-raises.
+For soft contacts both kernels are ``jaxsim_tpu_torch/csrc/step.cu``: each
+env on ``LANES`` lanes of a warp, ``ENVS`` envs a block, on the lane-spread
+soft step's forward-only slot (``soft_step_lanes.cuh``), the state read from
+device columns into the block's slots and written back out. For
+relaxed-rigid contacts they are ``jaxsim_tpu_torch/csrc/step_rr.cu``: K1-rr's
+step (``rr_step.cuh``) once, on K1-rr's geometry (``RR_LANES`` lanes an env,
+the envs a block that fit, up to 64), with a torque row in each env's slot.
+See the notes at the tops of the sources. Each wrapper takes its plain
+version (:func:`step_pd_reference`, :func:`step_tau_reference`, which call
+the twin) for a CPU state and its kernel for a CUDA state; a failed build or
+launch raises. Both take semi-implicit Euler only.
 """
 
 from __future__ import annotations
 
-from . import cuda_build
+from . import cuda_build, cuda_rollout
 from .batched_engine import BatchedEngine, BatchedState
 from .cuda_build import CSRC, F32, I32, PTR, BuildJob, KernelBuild, packed_params
 
-# Launches of each CUDA kernel made by the wrappers below, in this process.
+# Launches of each CUDA kernel made by the wrappers below, in this process:
+# of the soft build, and of the relaxed-rigid one.
 STEP_PD_KERNEL_LAUNCHES = 0
 STEP_TAU_KERNEL_LAUNCHES = 0
+STEP_PD_RR_KERNEL_LAUNCHES = 0
+STEP_TAU_RR_KERNEL_LAUNCHES = 0
 
 SOURCE = CSRC / "step.cu"
 SIGNATURES = {
@@ -42,11 +48,25 @@ SIGNATURES = {
 # block (``cuda_build.lane_tables`` halves them until the block fits).
 LANES = 8
 ENVS = 32
+RR_SOURCE = CSRC / "step_rr.cu"
+# The relaxed-rigid entry points' arguments: the soft ones' and the
+# relaxed-rigid tail of the scalars (cuda_build.rr_scalars).
+RR_SIGNATURES = {
+    "jx_step_pd_rr": [PTR] * 13 + [I32] + [F32] * 23 + [PTR],
+    "jx_step_tau_rr": [PTR] * 14 + [I32] + [F32] * 21 + [PTR],
+    "jx_step_rr_geometry": [PTR],
+}
+# Lanes an env of the relaxed-rigid build: K1-rr's.
+RR_LANES = cuda_rollout.RR_LANES
 
 
 def job(engine: BatchedEngine, lanes: int | None = None, envs: int | None = None) -> BuildJob:
     """The library for ``engine``, with ``lanes`` lanes an env and ``envs``
-    envs a block (the module's constants by default)."""
+    envs a block (the module's constants by default; for a relaxed-rigid
+    engine, the most envs up to ``envs`` that fit, 64 by default)."""
+    if engine.contact_model == "relaxed_rigid":
+        defines = (("JX_RR_LANES", int(lanes or RR_LANES)), ("JX_RR_TAU_ROW", 1))
+        return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, defines + ((("JX_RR_MAX_ENVS", int(envs)),) if envs else ()))
     return BuildJob(engine, SOURCE, SIGNATURES, (
         ("JX_LN_LANES", int(lanes or LANES)), ("JX_LN_FORWARD", 1), ("JX_STEP_ENVS", int(envs or ENVS)),
     ))  # fmt: skip
@@ -75,7 +95,8 @@ def geometry(kernel: KernelBuild) -> dict[str, int]:
     """The kernels' launch: threads and envs a block, the dynamic shared
     memory a block takes in bytes, and the blocks an SM holds at once (CUDA's
     occupancy calculator)."""
-    return cuda_build.geometry(kernel, "jx_step_geometry")
+    relaxed = hasattr(kernel.lib, "jx_step_rr_geometry")
+    return cuda_build.geometry(kernel, "jx_step_rr_geometry" if relaxed else "jx_step_geometry")
 
 
 def step_pd_reference(
@@ -95,11 +116,13 @@ def step_tau_reference(
 def launch_pd(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, kp: float, kd: float) -> BatchedState:
     """One K2 launch of ``kernel`` (the engine's library, or a variant of it
     built from another source) on a checked CUDA state; counts nothing."""
+    relaxed = engine.contact_model == "relaxed_rigid"
     out = cuda_build.empty_state_like(state)
     cuda_build.launch(
-        kernel, "jx_step_pd", packed_params(engine), state.p.device,
+        kernel, "jx_step_pd_rr" if relaxed else "jx_step_pd", packed_params(engine), state.p.device,
         *cuda_build.state_pointers(state), *cuda_build.state_pointers(out),
         state.p.shape[-1], *cuda_build.engine_scalars(engine), float(kp), float(kd),
+        *(cuda_build.rr_scalars(engine) if relaxed else ()),
     )  # fmt: skip
     return out
 
@@ -107,11 +130,12 @@ def launch_pd(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, k
 def launch_tau(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, tau, params) -> BatchedState:
     """One K3 launch of ``kernel`` on a checked CUDA state, checked torques
     and packed model arrays ``params``; counts nothing."""
+    relaxed = engine.contact_model == "relaxed_rigid"
     out = cuda_build.empty_state_like(state)
     cuda_build.launch(
-        kernel, "jx_step_tau", params, state.p.device,
+        kernel, "jx_step_tau_rr" if relaxed else "jx_step_tau", params, state.p.device,
         *cuda_build.state_pointers(state), tau.data_ptr(), *cuda_build.state_pointers(out),
-        state.p.shape[-1], *cuda_build.engine_scalars(engine),
+        state.p.shape[-1], *cuda_build.engine_scalars(engine), *(cuda_build.rr_scalars(engine) if relaxed else ()),
     )  # fmt: skip
     return out
 
@@ -121,12 +145,15 @@ def step_pd(
 ) -> BatchedState:
     """One step under ``tau = -kp·s - kd·ṡ``: one K2 launch for a CUDA state,
     the plain version for a CPU state."""
-    global STEP_PD_KERNEL_LAUNCHES
+    global STEP_PD_KERNEL_LAUNCHES, STEP_PD_RR_KERNEL_LAUNCHES
     if cuda_build.is_cpu(state, "step"):
         return step_pd_reference(engine, state, kp, kd)
-    cuda_build.check_cuda_call(engine, state)
+    cuda_build.check_cuda_call(engine, state, cuda_rollout.CONTACT_MODELS)
     out = launch_pd(build(engine), engine, state, kp, kd)
-    STEP_PD_KERNEL_LAUNCHES += 1
+    if engine.contact_model == "relaxed_rigid":
+        STEP_PD_RR_KERNEL_LAUNCHES += 1
+    else:
+        STEP_PD_KERNEL_LAUNCHES += 1
     return out
 
 
@@ -136,15 +163,18 @@ def step_tau(
     """One step with torques ``tau (n_joints, B)`` and the model arrays
     overridden by ``pr`` (see :meth:`BatchedEngine.params`): one K3 launch
     for a CUDA state, the plain version for a CPU state."""
-    global STEP_TAU_KERNEL_LAUNCHES
+    global STEP_TAU_KERNEL_LAUNCHES, STEP_TAU_RR_KERNEL_LAUNCHES
     if cuda_build.is_cpu(state, "step"):
         return step_tau_reference(engine, state, tau, pr)
-    B = cuda_build.check_cuda_call(engine, state)
+    B = cuda_build.check_cuda_call(engine, state, cuda_rollout.CONTACT_MODELS)
     cuda_build.check_tensor("tau", tau, (engine.n_joints, B), engine.S.device)
     for name, t in (pr or {}).items():
         cuda_build.check_tensor(f"pr[{name!r}]", t, t.shape, engine.S.device)
     out = launch_tau(build(engine), engine, state, tau, packed_params(engine, pr))
-    STEP_TAU_KERNEL_LAUNCHES += 1
+    if engine.contact_model == "relaxed_rigid":
+        STEP_TAU_RR_KERNEL_LAUNCHES += 1
+    else:
+        STEP_TAU_KERNEL_LAUNCHES += 1
     return out
 
 

@@ -92,6 +92,11 @@ def check_scope(engine: BatchedEngine) -> None:
     step; anything else raises. (The plain version differentiates any of the
     twin's integrators; K4 itself takes semi-implicit Euler only, and its
     wrapper refuses the others.)"""
+    if engine.contact_model == "relaxed_rigid":
+        raise ValueError(
+            "the step VJP covers soft contacts: a relaxed-rigid step has no backward until the twin's implicit PCG"
+            " backward is ported (ROADMAP Queue 1 item 2)"
+        )
     if not engine.flat or engine.contact_model != "soft":
         raise ValueError(
             "the step VJP covers soft contacts on flat ground with semi-implicit"

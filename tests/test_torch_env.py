@@ -41,6 +41,29 @@ def _tiny():
     return jeng, teng
 
 
+def _rr_garpez():
+    """(JAX engine, port engine) of garpez with relaxed-rigid contacts (the
+    JAX model's ``RelaxedRigidContacts()`` defaults, lowered by the JAX
+    package and bridged)."""
+    from tests.test_torch_relaxed_rigid import _jax_engine, _port_engine
+
+    jeng = _jax_engine("garpez")
+    return jeng, _port_engine(jeng)
+
+
+# Relaxed-rigid garpez: its base 2 mm below the plane of its four lowest
+# corners, which start in contact; a healthy range nothing leaves; and the
+# tolerances of the JAX package's relaxed-rigid garpez test over 5 float32
+# steps (tests/test_batched_engine.py:1018-1022, GARPEZ_TOL of
+# test_torch_relaxed_rigid.py; ṡ rtol 1e-2, atol 1e-2), q and v the box's
+# (BOX_TOL), m within 1e-3 of its largest force.
+RR_BASE = (0.0, 0.0, -0.002)
+RR_Z_RANGE = (-1.0, 2.0)
+RR_TOL = dict(s=dict(rtol=1e-3, atol=1e-4), sd=dict(rtol=1e-2, atol=1e-2), p=dict(rtol=1e-3, atol=1e-4),
+              q=dict(rtol=1e-3, atol=1e-5), v=dict(rtol=2e-3, atol=2e-4))  # fmt: skip
+RR_M_RTOL = 1e-3
+
+
 def _start_arrays(teng, batch=B, seed=0):
     """Episode-start states at 0.35 m, joints displaced and moving, the base
     moving: the policies' inputs are far from zero."""
@@ -146,6 +169,36 @@ def test_env_rollout_pd_with_truncation_matches_jax_loop():
     _assert_matches(got, ref)
 
 
+def test_env_rollout_relaxed_rigid_matches_jax_loop():
+    """Relaxed-rigid garpez in contact under the PD law of the JAX package's
+    garpez test (kp 20, kd 0.1), 5 steps with episodes of 3: every env
+    respawns at step 3, with the start's m (seeded, not the solved forces),
+    and steps twice more warm-started from it; at step 6 it respawns again,
+    and its m is the start's."""
+    jeng, teng = _rr_garpez()
+    rng = np.random.default_rng(5)
+    arrays = _start_arrays(teng, batch=16, seed=5)
+    arrays["p"] = np.tile(np.asarray(RR_BASE, np.float32)[:, None], (1, 16))
+    arrays["s"] = (0.05 * rng.standard_normal(arrays["s"].shape)).astype(np.float32)
+    arrays["m"] = (2.0 * rng.standard_normal(arrays["m"].shape)).astype(np.float32)
+    policy = lambda st: -20.0 * st.s - 0.1 * st.sd  # noqa: E731
+    state = bridge.state_from_numpy(arrays, device="cpu")
+    kw = dict(kp=20.0, kd=0.1, episode_length=3, healthy_z_range=RR_Z_RANGE)
+    ref = _jax_env_loop(jeng, arrays, 5, policy, 3, RR_Z_RANGE)
+    got = cuda_env_rollout.env_rollout(teng, state, 5, **kw)
+    assert int(got[2].sum()) == 16 and int(teng._point_geometry(*teng.fk(got[0]), teng.params())["active"].sum())
+    np.testing.assert_array_equal(got[2].numpy(), ref[2])
+    np.testing.assert_array_equal(got[3].numpy(), ref[3])
+    np.testing.assert_allclose(got[1].numpy(), ref[1], rtol=1e-3, atol=1e-4, err_msg="reward_sum")
+    final = bridge.state_to_numpy(got[0])
+    for k, tol in RR_TOL.items():
+        np.testing.assert_allclose(final[k], ref[0][k], err_msg=k, **tol)
+    scale = max(1.0, float(np.abs(ref[0]["m"]).max()))
+    np.testing.assert_allclose(final["m"], ref[0]["m"], rtol=0, atol=RR_M_RTOL * scale, err_msg="m")
+    again = cuda_env_rollout.env_rollout(teng, state, 6, **kw)
+    assert torch.equal(again[0].m, state.m) and int(again[2].sum()) == 32
+
+
 def test_env_rollout_linear_policy_matches_jax_loop():
     """``tau = clip(W @ obs + b)``, episodes of 3 over 5 steps."""
     jeng, teng = _tiny()
@@ -227,22 +280,27 @@ def test_env_rollout_matches_pallas_env_rollout_in_interpret_mode():
 
 @pytest.mark.parametrize(
     "case",
-    ["running", "truncation", "termination"],
+    ["running", "truncation", "termination", "relaxed_rigid"],
 )
 def test_batched_env_matches_jax_env(case):
     """``reset`` and five ``step``s of the port's BatchedEnv against the JAX
     BatchedEnv (no reset noise): shapes, obs, reward, done, steps. Episodes
     of 3 truncate at step 3; an impossible healthy range terminates every
-    step."""
+    step. The relaxed-rigid case is garpez in contact (its base at
+    ``RR_BASE``), episodes of 3 so that the respawned state, ``m`` with it,
+    is stepped again; its obs at the relaxed-rigid tolerances (``RR_TOL``
+    by the observation's rows), its reward at rtol 1e-3, atol 1e-4."""
     import jax
     import jax.numpy as jnp
 
     from jaxsim_tpu.envs import BatchedEnv as JaxEnv
 
-    jeng, teng = _tiny()
+    jeng, teng = _rr_garpez() if case == "relaxed_rigid" else _tiny()
     kwargs = dict(reset_base_position=(0.0, 0.0, 0.35), reset_noise_std=0.0, healthy_z_range=Z_RANGE)
     kwargs.update(dict(running={}, truncation=dict(episode_length=3),
-                       termination=dict(healthy_z_range=(10.0, 20.0)))[case])  # fmt: skip
+                       termination=dict(healthy_z_range=(10.0, 20.0)),
+                       relaxed_rigid=dict(episode_length=3, reset_base_position=RR_BASE,
+                                          healthy_z_range=RR_Z_RANGE))[case])  # fmt: skip
     jenv = JaxEnv(engine=jeng, action_scale=2.0, **kwargs)
     env = bridge.env_from_numpy(bridge.reference_env_fields(jenv), teng)
     batch, n = 8, teng.n_joints
@@ -253,17 +311,25 @@ def test_batched_env_matches_jax_env(case):
     rng = np.random.default_rng(4)
     jstep = jax.jit(jenv.step)
     dones = []
+    # Per observation row [s, sd, q, v, p_z], its tolerance.
+    rows = [TOL] * obs_dim(n) if case != "relaxed_rigid" else (
+        [RR_TOL["s"]] * n + [RR_TOL["sd"]] * n + [RR_TOL["q"]] * 4 + [RR_TOL["v"]] * 6 + [RR_TOL["p"]])
+    rew_tol = dict(rtol=1e-3, atol=1e-4) if case == "relaxed_rigid" else TOL
     for _ in range(5):
         action = rng.standard_normal((n, batch)).astype(np.float32)
         jstate, jobs, jrew, jdone = jstep(jstate, jnp.asarray(action))
         state, obs, rew, done = env.step(state, torch.from_numpy(action))
         np.testing.assert_array_equal(done.numpy(), np.asarray(jdone))
         np.testing.assert_array_equal(state.steps.numpy(), np.asarray(jstate.steps))
-        np.testing.assert_allclose(rew.numpy(), np.asarray(jrew), **TOL)
-        np.testing.assert_allclose(obs.numpy(), np.asarray(jobs), **TOL)
+        np.testing.assert_allclose(rew.numpy(), np.asarray(jrew), **rew_tol)
+        for row, tol in enumerate(rows):
+            np.testing.assert_allclose(obs[row].numpy(), np.asarray(jobs)[row], err_msg=f"obs row {row}", **tol)
         dones.append(done)
+    if case == "relaxed_rigid":
+        assert int(teng._point_geometry(*teng.fk(state.sim), teng.params())["active"].sum()) > 0
     dones = torch.stack(dones)
-    want = dict(running=[False] * 5, truncation=[False, False, True, False, False], termination=[True] * 5)[case]
+    want = dict(running=[False] * 5, truncation=[False, False, True, False, False], termination=[True] * 5,
+                relaxed_rigid=[False, False, True, False, False])[case]  # fmt: skip
     assert dones.all(1).tolist() == want and (dones.any(1) == dones.all(1)).all()
 
 

@@ -8,8 +8,9 @@ twin's relaxed-rigid step, on the same NumPy inputs as the JAX engine's:
 in float32 at the JAX package's own tolerances for these set-ups
 (``tests/test_batched_engine.py:938-1037``) and in float64 to 1e-9. Then
 what the kernels' wrappers take: K1's relaxed-rigid kernel (``rollout_rr.cu``: its generated
-header, slots and level schedule, and what it refuses), and K2-K5 refusing a
-relaxed-rigid engine. Tests marked ``gpu`` hold K1's relaxed-rigid kernel
+header, slots and level schedule, and what it refuses), K2, K3 and K5 taking
+a relaxed-rigid engine to their relaxed-rigid builds (RK4 refused), and K4
+refusing it. Tests marked ``gpu`` hold K1's relaxed-rigid kernel
 against the twin on the card and skip without one; they import no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_relaxed_rigid.py
@@ -412,17 +413,90 @@ WRAPPERS = dict(
 )
 
 
-@pytest.mark.parametrize("kernel", sorted(WRAPPERS))
+RR_WRAPPERS = ("step_pd", "step_tau", "env_rollout")
+RR_SOURCES = dict(step_pd="step_rr.cu", step_tau="step_rr.cu", env_rollout="env_rollout_rr.cu")
+
+
+class _Built(Exception):
+    """Raised by a stub of ``cuda_build.build`` with the job it was given."""
+
+
+def _job_built(call, eng, st, monkeypatch) -> cuda_build.BuildJob:
+    """The job a wrapper's ``call(eng, st)`` builds on a state its kernel
+    would take, without nvcc: the stub of ``cuda_build.build`` stops it there."""
+
+    def stub(job):
+        raise _Built(job)
+
+    monkeypatch.setattr(cuda_build, "is_cpu", lambda state, what: False)
+    monkeypatch.setattr(cuda_build, "build", stub)
+    with pytest.raises(_Built) as built:
+        call(eng, st)
+    return built.value.args[0]
+
+
+@pytest.mark.parametrize("kernel", ["step_vjp"])
 def test_soft_only_kernels_refuse_relaxed_rigid(kernel, monkeypatch):
-    """K2, K3, K5 and K4 implement soft contacts only: on a state their
-    kernel would take, a relaxed-rigid engine raises ValueError before any
-    build, and K1 accepts it."""
+    """K4 implements soft contacts only: on a state its kernel would take, a
+    relaxed-rigid engine raises ValueError before any build, naming the
+    twin's missing PCG backward, and so do the differentiable steps and
+    rollouts of ``diff_step`` when they are built, before their forward (K3,
+    which takes the engine) runs; K1, K2, K3 and K5 accept it."""
+    from jaxsim_tpu_torch.ops import diff_step
+
     monkeypatch.setattr(cuda_build, "is_cpu", lambda state, what: False)
     eng = _humanoid_rr()
     st = eng.init_state(4)
-    with pytest.raises(ValueError, match="soft"):
+    match = "soft contacts: a relaxed-rigid step has no backward"
+    with pytest.raises(ValueError, match=match):
         WRAPPERS[kernel](eng, st)
+    for build in (lambda: diff_step.fused_diff_step(eng), lambda: diff_step.fused_diff_rollout(eng, 2),
+                  lambda: diff_step.fused_diff_step(eng, params_grad=True)):  # fmt: skip
+        with pytest.raises(ValueError, match=match):
+            build()
     assert cuda_build.check_cuda_call(eng, st, cuda_rollout.CONTACT_MODELS) == 4
+
+
+@pytest.mark.parametrize("kernel", RR_WRAPPERS)
+def test_kernels_take_relaxed_rigid(kernel, monkeypatch):
+    """K2, K3 and K5 take a relaxed-rigid engine to their relaxed-rigid build:
+    on the humanoid's state, the wrapper builds ``step_rr.cu`` or
+    ``env_rollout_rr.cu``, whose generated header names relaxed-rigid
+    contacts, gives the slot a row of torques and blocks of 64 envs, for
+    K5 the ES main path's MLP with its candidate's weights beside them."""
+    eng = _humanoid_rr()
+    B = 64
+    st = eng.init_state(B)
+    if kernel == "env_rollout":
+        d, H = 2 * eng.n_joints + 11, 16
+        mlp = dict(W1=torch.zeros(1, H, d), b1=torch.zeros(1, H, 1), W2=torch.zeros(1, eng.n_joints, H),
+                   b2=torch.zeros(1, eng.n_joints, 1))  # fmt: skip
+        job = _job_built(lambda e, s: cuda_env_rollout.env_rollout(e, s, 1, **mlp), eng, st, monkeypatch)
+        assert dict(job.defines)["JX_POLICY"] == 2 and dict(job.defines)["JX_HIDDEN"] == H
+    else:
+        job = _job_built(WRAPPERS[kernel], eng, st, monkeypatch)
+    assert job.engine is eng and job.source.name == RR_SOURCES[kernel]
+    defines, _ = _header_tables(cuda_build.topology_header(eng, job.defines))
+    n_par = len(set(eng.contact_parent))
+    assert defines["JX_CONTACT"] == 1 and defines["JX_INTEGRATOR"] == 0 and defines["JX_RR_TAU_ROW"] == 1
+    assert defines["JX_RR_LANES"] == cuda_rollout.RR_LANES and defines["JX_RR_ENVS"] == 64
+    assert defines["JX_RR_SLOT"] == 26 * eng.n_links + 36 + 24 * n_par + eng.n_joints
+
+
+@pytest.mark.parametrize("kernel", RR_WRAPPERS)
+def test_kernels_refuse_relaxed_rigid_rk4(kernel, monkeypatch):
+    """K2, K3 and K5 implement semi-implicit Euler only: a relaxed-rigid
+    engine with RK4 or RK4-fast raises ValueError before any build."""
+    from jaxsim_tpu_torch.api.model import IntegratorType
+
+    monkeypatch.setattr(cuda_build, "is_cpu", lambda state, what: False)
+    for integrator in (IntegratorType.RungeKutta4, IntegratorType.RungeKutta4Fast):
+        model = JaxSimModel.build_from_model_description(
+            models.build_garpez_urdf(), contact_model=RelaxedRigidContacts(), integrator=integrator
+        )
+        eng = BatchedEngine.build(model, device="cpu")
+        with pytest.raises(ValueError, match="semi-implicit Euler"):
+            WRAPPERS[kernel](eng, eng.init_state(64))
 
 
 # ----- slow: the JAX fused rollout and the humanoid -----
@@ -551,6 +625,20 @@ def test_kernel_matches_plain_small_batch(cuda, name, lanes):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", sorted(WRAPPERS))
 def test_soft_only_kernels_raise_on_the_card(kernel, cuda):
+    """K4 raises on a relaxed-rigid engine on the card; K2, K3 and K5 launch
+    their relaxed-rigid kernel (counted once) and give a finite state."""
     eng = _humanoid_rr(cuda)
-    with pytest.raises(ValueError, match="soft"):
-        WRAPPERS[kernel](eng, eng.init_state(64))
+    st = eng.init_state(64)
+    if kernel == "step_vjp":
+        with pytest.raises(ValueError, match="soft"):
+            WRAPPERS[kernel](eng, st)
+        return
+    module, counter = dict(step_pd=(cuda_step, "STEP_PD_RR_KERNEL_LAUNCHES"),
+                           step_tau=(cuda_step, "STEP_TAU_RR_KERNEL_LAUNCHES"),
+                           env_rollout=(cuda_env_rollout, "ENV_ROLLOUT_RR_KERNEL_LAUNCHES"))[kernel]  # fmt: skip
+    before = getattr(module, counter)
+    out = WRAPPERS[kernel](eng, st)
+    torch.cuda.synchronize()
+    assert getattr(module, counter) == before + 1
+    state = out[0] if isinstance(out, tuple) else out
+    assert all(bool(torch.isfinite(t).all()) for t in state.fields())
