@@ -111,7 +111,8 @@ With no argument it runs the first three. Probes of the flagship humanoid
   8192 envs and ``HORIZON`` steps, K5 on the ES generation, K4 plain and
   with the model arrays' cotangents, K1-rr at 8192 envs and
   ``chip_smoke.RR_HORIZON`` steps, K2 and K3 at 8192 envs, K3 on garpez at
-  1024): kernel-only ms (``torch.profiler``) and CUDA-event ms (median),
+  1024, K2-rr and K3-rr at 8192 envs, which checkouts before the
+  relaxed-rigid K2 and K3 refuse): kernel-only ms (``torch.profiler``) and CUDA-event ms (median),
   through entry points that the checkouts since the lane-spread K1 and K5
   share, so that a copy of this script times an older checkout's kernels in
   the same call; and the SHA-256 of each library's SASS instructions.
@@ -133,8 +134,9 @@ With no argument it runs the first three. Probes of the flagship humanoid
   chained steps.
 * rr_step_faults: ``RR_STEP_FAULTS`` seeded into copies of ``csrc/`` under
   ``build/``, each built beside the sound source for every engine of the
-  gates, and held with it to ``chip_smoke.py``'s limits: K2-rr and K3-rr
-  (chained) by ``rr_gates`` on RR_CASES, K5-rr by ``rr_env_gates`` on
+  gates, and held with it to ``chip_smoke.py``'s limits: K2-rr (K1-rr's
+  ``rollout_rr.cu`` for one step) and K3-rr (``step_rr.cu``), chained, by
+  ``rr_gates`` on RR_CASES, K5-rr by ``rr_env_gates`` on
   RR_ENV_CASES; per case the worst statistic over its limit (> 1 is
   refused).
 
@@ -268,14 +270,14 @@ RK4_FAULTS = {
 
 # Seeded faults of the relaxed-rigid one-step kernels and env rollout, each a
 # list of edits of csrc/ (the file, the text, its replacement): K3-rr reading
-# the next env's torques; K2-rr not storing m (K3-rr still does); K5-rr not
-# re-reading m on a respawn; K5-rr's reward summed from the state after the
-# respawn.
+# the next env's torques; K2-rr (K1-rr launched for one step) not storing m;
+# K5-rr not re-reading m on a respawn; K5-rr's reward summed from the state
+# after the respawn.
 RR_STEP_FAULTS = {
     "K3 reads env b + 1's torques": [
         ("step_rr.cu", "__ldg(tau_in + k * B + b);", "__ldg(tau_in + k * B + b + 1);")],
     "K2's m not stored": [
-        ("step_rr.cu", "if (b_pcg < B) rr_store_m(", "if (b_pcg < B && TAU) rr_store_m(")],
+        ("rollout_rr.cu", "if (b_pcg < B) rr_store_m(", "if (b_pcg < 0) rr_store_m(")],
     "K5 does not restore m on a respawn": [
         ("env_rollout_rr.cu", "    if (sl[SL_DONE] != 0.0f) rr_load_m(in.m, B, bp, pt, m);\n", "")],
     "K5's reward from the state after the respawn": [
@@ -979,9 +981,10 @@ def kernels_probe(hum, gen) -> None:
     hum_rr = rr_humanoid_engine(device)
     rr_start = rr_start_states(hum_rr, rr_garpez_engine(device), hum_rr, torch.Generator(device).manual_seed(6))[
         RR_CASES[0][0]][1]  # fmt: skip
+    rr_tau = (-60.0 * rr_start.s - 0.5 * rr_start.sd).contiguous()
     cuda_build.build_many([cuda_rollout.job(hum), cuda_rollout.job(hum_rr), cuda_env_rollout.job(hum, pol),
                            cuda_step_vjp.job(hum), cuda_step_vjp.job(hum, params_grad=True), cuda_step.job(hum),
-                           cuda_step.job(garp)])  # fmt: skip
+                           cuda_step.job(garp), cuda_step.job(hum_rr)])  # fmt: skip
     calls = dict(
         rollout=(lambda: cuda_rollout.rollout(hum, state0, HORIZON), "rollout_kernel", 3),
         env_rollout=(lambda: cuda_env_rollout.env_rollout(hum, es_state, ES["steps"], **ES_OPTIONS, **weights),
@@ -990,6 +993,11 @@ def kernels_probe(hum, gen) -> None:
         step_vjp_params_grad=(lambda: cuda_step_vjp.step_vjp(hum, state0, tau0, ct0, params_grad=True),
                               "step_vjp_kernel", LAUNCH_REPEATS),
         rollout_relaxed_rigid=(lambda: cuda_rollout.rollout(hum_rr, rr_start, RR_HORIZON), "rollout_rr_kernel", 3),
+        # K2-rr's kernel is named "step_pd_rr_kernel" in the checkouts that
+        # gave it a source of its own, "rollout_rr_kernel" (K1-rr) after.
+        step_pd_relaxed_rigid=(lambda: cuda_step.step_pd(hum_rr, rr_start), "_rr_kernel", LAUNCH_REPEATS),
+        step_tau_relaxed_rigid=(lambda: cuda_step.step_tau(hum_rr, rr_start, rr_tau), "step_tau_rr_kernel",
+                                LAUNCH_REPEATS),
         step_pd=(lambda: cuda_step.step_pd(hum, state0), "step_pd_kernel", LAUNCH_REPEATS),
         step_tau=(lambda: cuda_step.step_tau(hum, state0, tau0), "step_tau_kernel", LAUNCH_REPEATS),
         step_tau_garpez=(lambda: cuda_step.step_tau(garp, apg["start"], garp_tau), "step_tau_kernel", LAUNCH_REPEATS),
@@ -1101,10 +1109,10 @@ def rr_step_faults_probe(hum, gen) -> None:
     import torch
 
     from chip_smoke import (
-        es_population, es_sizes, rr_env_cases, rr_env_gates, rr_garpez_engine, rr_gates, rr_humanoid_engine,
-        rr_start_states, rr_touchdown_engine,
+        es_population, es_sizes, pd_tau_as_kernels, rr_env_cases, rr_env_gates, rr_garpez_engine, rr_gates,
+        rr_humanoid_engine, rr_start_states, rr_touchdown_engine,
     )  # fmt: skip
-    from jaxsim_tpu_torch.ops import cuda_build, cuda_env_rollout, cuda_step
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_env_rollout, cuda_rollout, cuda_step
     from jaxsim_tpu_torch.ops.policies import obs_dim
 
     device = hum.S.device
@@ -1114,16 +1122,19 @@ def rr_step_faults_probe(hum, gen) -> None:
         dirs[name] = _seeded_edits("rr_step_faults", name, edits)
     touched = {name: {file for file, _, _ in edits} for name, edits in RR_STEP_FAULTS.items()}
 
-    # K2-rr and K3-rr, chained, on RR_CASES.
-    step_names = [name for name in dirs if name == "control" or "step_rr.cu" in touched[name]]
-    jobs = {(name, id(eng)): dataclasses.replace(cuda_step.job(eng), source=dirs[name] / "step_rr.cu")
-            for name in step_names for eng in (hum_rr, garp_rr, hum_td)}  # fmt: skip
+    # K2-rr (rollout_rr.cu, one step a launch) and K3-rr (step_rr.cu),
+    # chained, on RR_CASES.
+    sources = dict(K2=("rollout_rr.cu", cuda_rollout.job), K3=("step_rr.cu", cuda_step.job))
+    variant_keys = [(name, kind) for name in dirs for kind, (file, _) in sources.items()
+                    if name == "control" or file in touched[name]]  # fmt: skip
+    jobs = {(name, kind, id(eng)): dataclasses.replace(sources[kind][1](eng), source=dirs[name] / sources[kind][0])
+            for name, kind in variant_keys for eng in (hum_rr, garp_rr, hum_td)}  # fmt: skip
     kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
 
     def k2(name):
         def run(eng, st, n, kp, kd):
             for _ in range(n):
-                st = cuda_step.launch_pd(kernels[(name, id(eng))], eng, st, kp, kd)
+                st = cuda_rollout.launch(kernels[(name, "K2", id(eng))], eng, st, 1, kp, kd)
             return st
 
         return run
@@ -1132,15 +1143,15 @@ def rr_step_faults_probe(hum, gen) -> None:
         def run(eng, st, n, kp, kd):
             params = cuda_build.packed_params(eng)
             for _ in range(n):
-                st = cuda_step.launch_tau(kernels[(name, id(eng))], eng, st, (-kp * st.s - kd * st.sd).contiguous(),
+                st = cuda_step.launch_tau(kernels[(name, "K3", id(eng))], eng, st, pd_tau_as_kernels(st, kp, kd),
                                           params)  # fmt: skip
             return st
 
         return run
 
     starts = rr_start_states(hum_rr, garp_rr, hum_td, torch.Generator(device).manual_seed(6))
-    variants = {f"{name}, {kind}": make(name) for name in step_names for kind, make in (("K2", k2), ("K3", k3))}
-    _, ratios = rr_gates(starts, variants, held_at_max=[name for name in variants if name.endswith("K3")])
+    variants = {f"{name}, {kind}": dict(K2=k2, K3=k3)[kind](name) for name, kind in variant_keys}
+    _, ratios = rr_gates(starts, variants)
     print(json.dumps({"rr_step_faults": ratios}), flush=True)
 
     # K5-rr on RR_ENV_CASES (chip_smoke.rr_env_cases, with ES weights of the
@@ -1161,7 +1172,7 @@ def rr_step_faults_probe(hum, gen) -> None:
 
     env_jobs = {}
     for name in env_names:
-        for _, eng, _, _, opts in cases:
+        for _, eng, _, _, _, opts in cases:
             pol = split(eng, opts)[0]
             env_jobs[(name, id(eng), pol.kind)] = dataclasses.replace(
                 cuda_env_rollout.job(eng, pol), source=dirs[name] / "env_rollout_rr.cu")

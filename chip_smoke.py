@@ -17,8 +17,9 @@ plain PyTorch version on the card:
   low (also on a ragged batch), and on the humanoid's touchdown with 3 PCG
   iterations (``RR_CASES``), ``m`` (the solved point forces) relative to its
   size, with the active contact points of each case counted, and beside it
-  on each case the relaxed-rigid K2 and K3 (``step_rr.cu``) chained one
-  launch a step, against the same plain trajectories, K3-rr also under
+  on each case the relaxed-rigid K2 (``rollout_rr.cu`` for one step) and K3
+  (``step_rr.cu``) chained one launch a step, against the same plain
+  trajectories, K3-rr also under
   call-time ``M`` and ``rrMinv`` (``RR_PR``); K2 and K3 also on a batch that is
   not a multiple of their block (``STEP_RAGGED``), and K3 under call-time
   model arrays (``M`` scaled by 1.2) and on the garpez chain through one APG
@@ -27,8 +28,8 @@ plain PyTorch version on the card:
   and the steps: truncation only (the MLP policy with 8 candidates), real
   terminations (the linear policy), and respawns with reset noise; and the
   relaxed-rigid K5 (``env_rollout_rr.cu``) on ``RR_ENV_CASES``: the ES main
-  path's shapes, the touchdown under the linear policy, and garpez with a
-  seeded ``m`` that a respawn must restore;
+  path's shapes, the humanoid in the air under the linear policy (the reward
+  at a respawn), and garpez with a seeded ``m`` that a respawn must restore;
 * K4 (``step_vjp.cu``, the fused step VJP, with and without the model
   arrays' cotangents) in every cotangent field per env, for seeded random
   output cotangents one state field at a time and all six at once, on the
@@ -218,18 +219,15 @@ PARAMS_RTOL, PARAMS_ATOL = 5e-3, 5e-4
 # times the limit, in ṡ). The ragged case is garpez's start without its last
 # STEP_RAGGED envs, so that the last block of every relaxed-rigid kernel runs
 # envs past the batch, which must store nothing. The relaxed-rigid one-step
-# kernels K2-rr and K3-rr are held beside K1-rr on the cases of a
-# semi-implicit Euler engine, chained one launch a step (K3's torques the PD
-# law's of the state between launches), against the same plain trajectories:
-# K2-rr on every case, K3-rr on every start at the cases held at their max.
-# K3-rr's torques are rounded as the plain twin's are, not as the kernels' PD
-# law, so its 100-step trajectories from the moving starts are a third float32
-# rounding path: on the H100 it lay at 2.28 times the float32 twin's p99.9
-# distance to the float64 twin in v after 100 steps from the displaced and
-# moving start, where K1-rr and K2-rr lay at 1.83 (the limit is 2), and as
-# far from the float32 twin as K1-rr (0.061 against 0.058 in v). A fault of
-# its own torque path moves every start's 10-step state by tens of times the
-# limit (chip_probe.py rr_step_faults).
+# kernels K2-rr (K1-rr launched for one step) and K3-rr are held beside K1-rr
+# on every case of a semi-implicit Euler engine, chained one launch a step,
+# against the same plain trajectories. K3's torques, computed between
+# launches, are the PD law's rounded as the kernels' PD law is
+# (pd_tau_as_kernels), so that K3-rr takes the float32 rounding path of K1-rr
+# and is held to the same limits; rr_k3_witness counts the envs in which one
+# K3-rr step from each start equals K2-rr's to the bit. A fault of K3's own
+# torque path moves every start's 10-step state by tens of times the limit
+# (chip_probe.py rr_step_faults).
 RR_CASES = (
     ("humanoid23 relaxed-rigid main-path start", 100, "max", False),
     ("humanoid23 relaxed-rigid joints moving", 10, "max", True),
@@ -279,17 +277,21 @@ RR_PR = dict(M=1.2, rrMinv=1 / 1.2, steps=10)
 #   episodes of 4, so that 6 steps end two steps after a respawn;
 # * the touchdown start (RR_TOUCHDOWN's base, the main path's 8 iterations)
 #   under the linear policy written as the PD law, episodes of 40 over 80
-#   steps: the base falls about 8 mm in an episode, so a reward read after
-#   the respawn moves the sums ~8 TOL an episode;
+#   steps: each episode respawns before the feet strike (about 75 steps in),
+#   so no point touches the ground and the case holds the reward at a
+#   respawn, not the solve: the base falls about 8 mm in an episode, so a
+#   reward read after the respawn moves the sums ~8 TOL an episode;
 # * garpez tilted low with m seeded 2·N(0, 1) (not the solved forces) under
 #   its PD law, with reset noise, 12 steps of episodes of 4: the last step
 #   respawns, and m must be the start's.
+# The third entry says whether the case holds the contact solve: such a case
+# fails if no point of its plain trajectory's start or end is in contact.
 RR_ENV_CASES = (
-    ("humanoid23 relaxed-rigid, ES shapes, episodes of 4", 6,
+    ("humanoid23 relaxed-rigid, ES shapes, episodes of 4", 6, True,
      dict(episode_length=4, healthy_z_range=(-1e6, 1e6), tau_limit=100.0)),
-    ("humanoid23 relaxed-rigid touchdown, linear PD, episodes of 40", 80,
+    ("humanoid23 relaxed-rigid in the air, linear PD, episodes of 40: the reward at a respawn", 80, False,
      dict(episode_length=40, healthy_z_range=(-1e6, 1e6))),
-    ("garpez relaxed-rigid tilted low, m seeded, reset noise, episodes of 4", 12,
+    ("garpez relaxed-rigid tilted low, m seeded, reset noise, episodes of 4", 12, True,
      dict(episode_length=4, healthy_z_range=(-1e6, 1e6), reset_noise=0.02, seed=9, kp=20.0, kd=0.1)),
 )  # fmt: skip
 RR_GARPEZ = dict(batch=1024, base=(0.0, 0.0, 0.015), quat=(0.995, 0.0998, 0.0, 0.0), joints=0.05, gains=(20.0, 0.1))
@@ -361,7 +363,7 @@ SOURCES = dict(
     rollout_rk4fast="jaxsim_tpu_torch/csrc/rollout.cu",
     rollout_relaxed_rigid_rk4="jaxsim_tpu_torch/csrc/rollout_rr.cu",
     rollout_relaxed_rigid_rk4fast="jaxsim_tpu_torch/csrc/rollout_rr.cu",
-    step_pd_relaxed_rigid="jaxsim_tpu_torch/csrc/step_rr.cu",
+    step_pd_relaxed_rigid="jaxsim_tpu_torch/csrc/rollout_rr.cu",
     step_tau_relaxed_rigid="jaxsim_tpu_torch/csrc/step_rr.cu",
     env_rollout_relaxed_rigid="jaxsim_tpu_torch/csrc/env_rollout_rr.cu",
     fma_probe="jaxsim_tpu_torch/csrc/fma_probe.cu",
@@ -1083,16 +1085,26 @@ def rr_diff(a, b) -> dict:
     return diff
 
 
+def pd_tau_as_kernels(state, kp: float, kd: float):
+    """The PD torques ``-kp·s - kd·ṡ`` of ``state`` rounded as the kernels'
+    PD law (``PdTau``, ``step_env.cuh``) is, which nvcc contracts to
+    ``fma(-kp, s, -(kd·ṡ))``: ``kd·ṡ`` rounded to float32, ``-kp·s`` exact in
+    float64, their difference rounded to float32 once (through float64,
+    exact unless the two differ by more than 2^24 in size)."""
+    return (-kp * state.s.double() - (kd * state.sd).double()).float().contiguous()
+
+
 def rr_wrappers(engine) -> dict:
     """:func:`rr_gates`' default variants on ``engine``, rollout functions
     ``(engine, state, n, kp, kd)`` by kernel: K1-rr, and for a
     semi-implicit Euler engine K2-rr and K3-rr chained one launch a step
-    (K3's torques the PD law's, computed between launches)."""
+    (K3's torques the PD law's, computed between launches and rounded as
+    the kernels' are: :func:`pd_tau_as_kernels`)."""
     from jaxsim_tpu_torch.ops import cuda_rollout, cuda_step
 
     def k3(engine, state, n, kp, kd):
         for _ in range(n):
-            state = cuda_step.step_tau(engine, state, (-kp * state.s - kd * state.sd).contiguous())
+            state = cuda_step.step_tau(engine, state, pd_tau_as_kernels(state, kp, kd))
         return state
 
     out = {"rollout": cuda_rollout.rollout}
@@ -1101,7 +1113,31 @@ def rr_wrappers(engine) -> dict:
     return out
 
 
-def rr_gates(starts, variants=None, cases=None, held_at_max=None) -> tuple[dict[str, list[float]], dict[str, dict[str, float]]]:
+def rr_k3_witness(starts) -> None:
+    """Prints, for each of :func:`rr_start_states`' starts, the envs in
+    which one K3-rr step equals one K2-rr step to the bit in every state
+    field: K3's torques rounded as the kernels' PD law is
+    (:func:`pd_tau_as_kernels`), and as the twin's (``-kp·s - kd·ṡ`` in
+    float32). Not gated: it shows which rounding K3's gate takes."""
+    import torch
+
+    from jaxsim_tpu_torch.ops import cuda_step
+
+    for name, (engine, state, (kp, kd)) in starts.items():
+        k2 = cuda_step.step_pd(engine, state, kp, kd)
+        same = {}
+        for rounding, tau in (("as the kernels'", pd_tau_as_kernels(state, kp, kd)),
+                              ("as the twin's", (-kp * state.s - kd * state.sd).contiguous())):  # fmt: skip
+            k3 = cuda_step.step_tau(engine, state, tau)
+            equal = torch.ones(state.p.shape[-1], dtype=torch.bool, device=state.p.device)
+            for a, b in zip(k3.fields(), k2.fields()):
+                equal &= (a == b).reshape(-1, a.shape[-1]).all(0)
+            same[rounding] = int(equal.sum())
+        print(f"K3-rr vs K2-rr, one step from {name} B={state.p.shape[-1]}: envs equal to the bit, K3's torques "
+              f"rounded {json.dumps(same)}", flush=True)  # fmt: skip
+
+
+def rr_gates(starts, variants=None, cases=None) -> tuple[dict[str, list[float]], dict[str, dict[str, float]]]:
     """The relaxed-rigid kernels against the plain twin in each of ``cases``
     (RR_CASES by default, RR_RK4_CASES for an RK4 engine's starts):
     every state field's per-env |Δ|, m's over max(1, max |plain m|), at the
@@ -1111,9 +1147,7 @@ def rr_gates(starts, variants=None, cases=None, held_at_max=None) -> tuple[dict[
     n, kp, kd)``; by default the wrappers of :func:`rr_wrappers` (K1-rr, and
     K2-rr and K3-rr chained), which are gated: a breach raises. A map of
     other variants (seeded faults) is held to the same limits without
-    raising. The variants named in ``held_at_max`` (by default K3-rr's;
-    see RR_CASES' note) are held on the cases held at their max only.
-    Returns the largest unscaled |Δ| of each case held at its max against
+    raising. Returns the largest unscaled |Δ| of each case held at its max against
     the float32 twin, by kernel (the default variants'), and for each variant
     and case its worst field's statistic over its limit (> 1 is refused)."""
     import copy
@@ -1124,7 +1158,6 @@ def rr_gates(starts, variants=None, cases=None, held_at_max=None) -> tuple[dict[
 
     gated = variants is None
     errs, ratios = {}, {name: {} for name in variants or {}}
-    held_at_max = set(("step_tau",) if held_at_max is None and gated else held_at_max or ())
     all_cases = cases or RR_CASES
     for name in dict.fromkeys(case[0] for case in all_cases):
         engine, state, (kp, kd) = starts[name]
@@ -1155,8 +1188,6 @@ def rr_gates(starts, variants=None, cases=None, held_at_max=None) -> tuple[dict[
             else:
                 limits, ref = {}, plain["float32"][n]
             for vname, run in (rr_wrappers(engine) if gated else variants).items():
-                if stat != "max" and vname in held_at_max:
-                    continue
                 kname = f"{vname}_relaxed_rigid{kernel_suffix(engine)}"
                 label = f"{kname} vs plain, {case}" if gated else f"{vname} vs plain, {case}"
                 kern = run(engine, state, n, kp, kd)
@@ -1235,15 +1266,17 @@ def rr_pr_gate(starts, variants=None) -> tuple[list[float], dict[str, dict[str, 
 
 def rr_env_gates(cases, variants=None) -> tuple[list[float], dict[str, dict[str, float]]]:
     """K5-rr against ``env_rollout_reference`` on each of ``cases``, a list of
-    (label, engine, state, steps, options): resets and steps equal in every
-    env, and every state field (m's over max(1, max |plain m|)) and the
+    (label, engine, state, steps, contact, options): resets and steps equal
+    in every env, and every state field (m's over max(1, max |plain m|)) and the
     reward sums at the max over envs within TOL. ``variants`` maps a name to
     a function like ``cuda_env_rollout.env_rollout``: by default the
     wrapper, which is gated (a breach raises); other variants (seeded
     faults) are held to the same limits without raising (resets or steps
     that differ are infinitely far). Returns the largest unscaled |Δ| of
     each case (the wrapper's), and for each variant and case its worst
-    statistic over its limit."""
+    statistic over its limit. Fails a case meant to hold the contact solve
+    (``contact``) whose plain run has no active contact point at its start
+    or its end."""
     import torch
 
     from jaxsim_tpu_torch.ops import cuda_env_rollout
@@ -1251,12 +1284,15 @@ def rr_env_gates(cases, variants=None) -> tuple[list[float], dict[str, dict[str,
     gated = variants is None
     variants = variants or {"kernel": cuda_env_rollout.env_rollout}
     errs, ratios = [], {name: {} for name in variants}
-    for label, engine, state, n, opts in cases:
+    for label, engine, state, n, contact, opts in cases:
         plain = cuda_env_rollout.env_rollout_reference(engine, state, n, **opts)
         B = state.p.shape[-1]
+        active = (rr_active_points(engine, state), rr_active_points(engine, plain[0]))
         print(f"env_rollout_relaxed_rigid vs plain, {label} B={B} {n} steps: envs that reset "
-              f"{int((plain[2] > 0).sum())} of {B}, resets {int(plain[2].sum())}, active contact points at the end "
-              f"{rr_active_points(engine, plain[0])}", flush=True)  # fmt: skip
+              f"{int((plain[2] > 0).sum())} of {B}, resets {int(plain[2].sum())}, active contact points at the start "
+              f"{active[0]}, at the end {active[1]}", flush=True)  # fmt: skip
+        if contact and not sum(active):
+            raise RuntimeError(f"{label}: no contact point is active, so the case proves nothing about the solve")
         for vname, run in variants.items():
             kern = run(engine, state, n, **opts)
             torch.cuda.synchronize()
@@ -1292,9 +1328,9 @@ def pd_as_linear(engine, kp: float = 60.0, kd: float = 0.5) -> dict:
 
 def rr_env_cases(hum_rr, garp_rr, rr_starts, mlp) -> list:
     """RR_ENV_CASES as :func:`rr_env_gates` takes them, (label, engine, state,
-    steps, options): the ES shapes' case from the relaxed-rigid main path's
+    steps, contact, options): the ES shapes' case from the relaxed-rigid main path's
     start advanced 20 steps by K1-rr under ``mlp`` (the ES weights), the
-    touchdown under :func:`pd_as_linear`, garpez's start (``rr_starts``, from
+    touchdown start in the air under :func:`pd_as_linear`, garpez's start (``rr_starts``, from
     :func:`rr_start_states`) with m seeded."""
     import torch
 
@@ -1305,7 +1341,7 @@ def rr_env_cases(hum_rr, garp_rr, rr_starts, mlp) -> list:
     garp = dataclasses.replace(garp, m=2.0 * torch.randn(garp.m.shape, generator=gen, device=garp.m.device))
     touchdown = hum_rr.init_state(RR_TOUCHDOWN["batch"], base_position=RR_TOUCHDOWN["base"], generator=gen)
     starts = (cuda_rollout.rollout(hum_rr, rr_starts[RR_CASES[0][0]][1], 20), touchdown, garp)
-    return [(label, eng, st, steps, {**opts, **extra}) for (label, steps, opts), eng, st, extra
+    return [(label, eng, st, steps, contact, {**opts, **extra}) for (label, steps, contact, opts), eng, st, extra
             in zip(RR_ENV_CASES, (hum_rr, hum_rr, garp_rr), starts, (mlp, pd_as_linear(hum_rr), {}))]  # fmt: skip
 
 
@@ -1526,7 +1562,7 @@ def main() -> int:
               + f"; SASS local loads and stores (LDL, STL): {json.dumps(cuda_rollout.rr_local_memory(rr_build))}",
               flush=True)  # fmt: skip
 
-    for name, rr_build, geometry in (("step_relaxed_rigid", builds["step_rr"], cuda_step.geometry),
+    for name, rr_build, geometry in (("step_tau_relaxed_rigid", builds["step_rr"], cuda_step.geometry),
                                      *((f"env_rollout_relaxed_rigid {k}", builds[f"env_rollout_rr_{k}"],
                                         cuda_env_rollout.geometry) for k in pols_rr)):  # fmt: skip
         geo = geometry(rr_build)
@@ -1575,6 +1611,7 @@ def main() -> int:
     # ----- K1's relaxed-rigid build vs plain -----
     with phase("K1 K2 K3 relaxed-rigid vs plain"):
         rr_starts = rr_start_states(hum_rr, garp_rr, hum_td, torch.Generator(device).manual_seed(6))
+        rr_k3_witness(rr_starts)
         errs, _ = rr_gates(rr_starts)
         for kname, e in errs.items():
             max_errs[kname] += e
@@ -2066,7 +2103,7 @@ def main() -> int:
             step_vjp=profiled_ms(vjp_calls["step_vjp"], "step_vjp_kernel", 10),
             step_vjp_params_grad=profiled_ms(vjp_calls["step_vjp_params_grad"], "step_vjp_kernel", 10),
             param_sum=profiled_ms(vjp_calls["param_sum"], "param_sum_kernel", 10),
-            step_pd_relaxed_rigid=profiled_ms(lambda: cuda_step.step_pd(hum_rr, rr_start), "step_pd_rr_kernel", 10),
+            step_pd_relaxed_rigid=profiled_ms(lambda: cuda_step.step_pd(hum_rr, rr_start), "rollout_rr_kernel", 10),
             step_tau_relaxed_rigid=profiled_ms(lambda: cuda_step.step_tau(hum_rr, rr_start, tau_rr0),
                                                "step_tau_rr_kernel", 10),
         )

@@ -9,10 +9,12 @@
 // state's m carries, the engine's integrator (JX_INTEGRATOR: semi-implicit
 // Euler, RK4, or RK4-fast with the contact forces frozen at the step's
 // start), and the PD policy tau = -kp*s - kd*sd, evaluated once a step at its
-// start. Each env advances n_steps inside one launch. The step is
-// rr_step_env, or rr_rk4_step (rr_step.cuh), which the relaxed-rigid
-// one-step kernels (step_rr.cu) and env rollout (env_rollout_rr.cu) share;
-// so do the state's loads and stores (rr_load_body, rr_load_m, ...). An RK4
+// start. Each env advances n_steps inside one launch. Launched for one step
+// it is also the relaxed-rigid K2 (_step_kernel under the PD policy,
+// cuda_step.step_pd). The step is rr_step_env, or rr_rk4_step (rr_step.cuh),
+// which the relaxed-rigid K3 (step_rr.cu) and env rollout
+// (env_rollout_rr.cu) share; so do the state's loads and stores
+// (rr_load_body, rr_load_m, ...). An RK4
 // step is four such solves (RK4-fast: one solve and four ABAs with the
 // frozen forces); its start state and accumulator live in device memory
 // (Rk4Scratch).

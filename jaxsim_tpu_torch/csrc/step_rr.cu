@@ -1,26 +1,24 @@
-// One relaxed-rigid step of the batched engine per launch (K2, K3): each env
-// on JX_RR_LANES lanes of a warp, the contact solve's working set in its slot
-// of shared memory, the state in from device columns and out to device
-// columns.
+// One relaxed-rigid step of the batched engine per launch with the torques as
+// an input (K3): each env on JX_RR_LANES lanes of a warp, the contact solve's
+// working set in its slot of shared memory, the state in from device columns
+// and out to device columns.
 //
-// Replaces, for relaxed-rigid engines, two kernels of
-// jaxsim_tpu/ops/pallas_step.py:
-//  * _step_kernel (built by build_pallas_step, K2): one step under the PD
-//    policy tau = -kp*s - kd*sd, the JAX default closure and the one policy
-//    expressed here: step_pd_rr_kernel.
-//  * _step_tau_kernel (built by build_pallas_step_tau, K3): one step with
-//    the torques as an input and the model arrays as call-time inputs (the
-//    JAX `pr`, rrMinv included), so new arrays need no rebuild:
-//    step_tau_rr_kernel. The wrapper packs `pr` into the same buffer layout
-//    the other kernels read.
-// Both run step_rr_block: K1-rr's step (rr_step_env, rr_step.cuh) once, on
+// Replaces, for relaxed-rigid engines, _step_tau_kernel of
+// jaxsim_tpu/ops/pallas_step.py (built by build_pallas_step_tau, K3): one
+// step with the torques as an input and the model arrays as call-time inputs
+// (the JAX `pr`, rrMinv included), so new arrays need no rebuild. The
+// wrapper packs `pr` into the same buffer layout the other kernels read.
+// Its relaxed-rigid sibling K2 (_step_kernel, one step under the PD policy)
+// needs no source of its own: it is K1-rr (rollout_rr.cu) launched for one
+// step, on the same geometry, with the same loads and stores.
+//
+// step_tau_rr_kernel runs K1-rr's step (rr_step_env, rr_step.cuh) once, on
 // K1-rr's launch geometry, the state loaded into the threads that hold it
 // between steps (the ABA thread its s, sd, p, q, v; each lane the m rows of
-// its point slots: rr_load_body, rr_load_m) and stored back from them. K2's
-// torques are the PD policy of the state before the step (PdTau); K3's are
-// copied from their device columns into the env's torque row of the slot
-// before the step (SlotTauRr), independent loads unrolled four deep, in
-// place of one load a joint inside the free ABA's dependent chain.
+// its point slots: rr_load_body, rr_load_m) and stored back from them. The
+// torques are copied from their device columns into the env's torque row
+// of the slot before the step (SlotTauRr), independent loads unrolled four
+// deep, in place of one load a joint inside the free ABA's dependent chain.
 //
 // What bounds a one-step launch on the card: the step. A relaxed-rigid
 // humanoid step takes about 0.44 ms on an H100 inside K1-rr (one free ABA,
@@ -41,14 +39,12 @@ static_assert(JX_RR_TAU_ROW, "step_rr.cu takes K3's torques in the slot's torque
 namespace {
 
 // One step of the block's envs: thread t < ENVS holds env t's s, sd, p, q
-// and v, lane g of env threadIdx.x / G the m rows of its point slots. The
-// envs past B run env B - 1's step beside the others, so that every thread
-// reaches every barrier, and store nothing. With tau_in (K3) the torques
-// are its columns, else (K2) the PD policy.
-template <bool TAU>
-__device__ __forceinline__ void step_rr_block(const float* __restrict__ params, const StateIn& in,
-                                              const float* __restrict__ tau_in, const StateOut& out, int B,
-                                              const Scalars& sc) {
+// and v, lane g of env threadIdx.x / G the m rows of its point slots, the
+// torques tau_in's columns. The envs past B run env B - 1's step beside the
+// others, so that every thread reaches every barrier, and store nothing.
+__global__ void __launch_bounds__(RR_THREADS, 1)
+    step_tau_rr_kernel(const float* __restrict__ params, StateIn in, const float* __restrict__ tau_in,
+                       StateOut out, int B, Scalars sc) {
   extern __shared__ float smem[];
   float* P = smem;
   float* slots = smem + N_PARAMS;
@@ -66,65 +62,31 @@ __device__ __forceinline__ void step_rr_block(const float* __restrict__ params, 
   if (aba) {
     const int b = b_aba < B ? b_aba : B - 1;
     rr_load_body(in, B, b, s, sd, p, q, v);
-    if constexpr (TAU) {
 #pragma unroll 4
-      for (int k = 0; k < NJ; ++k) mine[SL_TAU + k] = __ldg(tau_in + k * B + b);
-    }
+    for (int k = 0; k < NJ; ++k) mine[SL_TAU + k] = __ldg(tau_in + k * B + b);
   }
   __syncthreads();
 
   RrWork w;
-  if constexpr (TAU) {
-    rr_step_env(P, sc, w, slots, pt, s, sd, p, q, v, m, SlotTauRr{mine});
-  } else {
-    rr_step_env(P, sc, w, slots, pt, s, sd, p, q, v, m, PdTau{});
-  }
+  rr_step_env(P, sc, w, slots, pt, s, sd, p, q, v, m, SlotTauRr{mine});
 
   if (b_pcg < B) rr_store_m(out.m, B, b_pcg, pt, m);
   if (aba && b_aba < B) rr_store_body(out, B, b_aba, s, sd, p, q, v);
-}
-
-__global__ void __launch_bounds__(RR_THREADS, 1)
-    step_pd_rr_kernel(const float* __restrict__ params, StateIn in, StateOut out, int B, Scalars sc) {
-  step_rr_block<false>(params, in, nullptr, out, B, sc);
-}
-
-__global__ void __launch_bounds__(RR_THREADS, 1)
-    step_tau_rr_kernel(const float* __restrict__ params, StateIn in, const float* __restrict__ tau_in,
-                       StateOut out, int B, Scalars sc) {
-  step_rr_block<true>(params, in, tau_in, out, B, sc);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Opts a kernel in to RR_SMEM_BYTES of dynamic shared memory, at each launch
-// as K1-rr and K5 do (soft K3 sets it once, beside its 0.08-ms launches).
+// Opts the kernel in to RR_SMEM_BYTES of dynamic shared memory, at each
+// launch as K1-rr and K5 do (soft K3 sets it once, beside its 0.08-ms
+// launches).
 static int allow_smem(const void* kernel) {
   return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(RR_SMEM_BYTES)));
 }
 
 int jx_param_count() { return N_PARAMS; }
-
-int jx_step_pd_rr(const float* params, const float* s, const float* sd, const float* p, const float* q,
-                  const float* v, const float* m, float* s_out, float* sd_out, float* p_out, float* q_out,
-                  float* v_out, float* m_out, int B, float K, float D, float k_over_d, float mu, float hc_p,
-                  float hc_q, float gz, float dt, float kp, float kd, float rr_ca, float rr_cb, float rr_mid,
-                  float rr_power, float rr_width, float rr_dmin, float rr_dmax, float rr_span, float rr_stiff,
-                  float rr_damp, float rr_c2mu2, float rr_c1mu2, float rr_reg, void* stream) {
-  const Scalars sc{K,        D,       k_over_d, mu,       hc_p,     hc_q,    gz,
-                   dt,       kp,      kd,       rr_ca,    rr_cb,    rr_mid,  rr_power,
-                   rr_width, rr_dmin, rr_dmax,  rr_span,  rr_stiff, rr_damp, rr_c2mu2,
-                   rr_c1mu2, rr_reg};
-  const int rc = allow_smem(reinterpret_cast<const void*>(step_pd_rr_kernel));
-  if (rc != 0) return rc;
-  const int blocks = (B + ENVS - 1) / ENVS;
-  step_pd_rr_kernel<<<blocks, RR_THREADS, RR_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      params, StateIn{s, sd, p, q, v, m}, StateOut{s_out, sd_out, p_out, q_out, v_out, m_out}, B, sc);
-  return static_cast<int>(cudaGetLastError());
-}
 
 int jx_step_tau_rr(const float* params, const float* s, const float* sd, const float* p, const float* q,
                    const float* v, const float* m, const float* tau, float* s_out, float* sd_out, float* p_out,
@@ -144,10 +106,9 @@ int jx_step_tau_rr(const float* params, const float* s, const float* sd, const f
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch geometry of step_tau_rr_kernel (step_pd_rr_kernel's is the
-// same), for the reports: threads a block, envs a block, dynamic shared
-// memory a block in bytes, and blocks an SM holds at once (the occupancy
-// calculator: registers, threads and shared memory).
+// The launch geometry, for the reports: threads a block, envs a block,
+// dynamic shared memory a block in bytes, and blocks an SM holds at once
+// (the occupancy calculator: registers, threads and shared memory).
 int jx_step_rr_geometry(int* out) {
   const int rc = allow_smem(reinterpret_cast<const void*>(step_tau_rr_kernel));
   if (rc != 0) return rc;

@@ -192,7 +192,7 @@ def rr_tables(
     for ``lanes`` lanes an env: :func:`_lane_schedule`'s point slots and
     level schedule; ``slot``: floats of an env's slot in shared memory, with
     a row of the step's torques for an RK4 engine (captured once a step) or
-    with ``tau_row`` (the one-step kernels' and the env rollout's torques);
+    with ``tau_row`` (K3's and the env rollout's torques);
     ``rows``: an env's floats, the slot and, for the env rollout's MLP
     (``policy`` 2 with ``hidden`` units) whose hidden units do not fit beside
     the observation in the rows a step leaves dead (:func:`rr_dead_rows`), a row

@@ -15,10 +15,12 @@ For soft contacts both kernels are ``jaxsim_tpu_torch/csrc/step.cu``: each
 env on ``LANES`` lanes of a warp, ``ENVS`` envs a block, on the lane-spread
 soft step's forward-only slot (``soft_step_lanes.cuh``), the state read from
 device columns into the block's slots and written back out. For
-relaxed-rigid contacts they are ``jaxsim_tpu_torch/csrc/step_rr.cu``: K1-rr's
-step (``rr_step.cuh``) once, on K1-rr's geometry (``RR_LANES`` lanes an env,
-the envs a block that fit, up to 64), with a torque row in each env's slot.
-See the notes at the tops of the sources. Each wrapper takes its plain
+relaxed-rigid contacts K2 is K1-rr (``cuda_rollout``'s relaxed-rigid build,
+``jaxsim_tpu_torch/csrc/rollout_rr.cu``) launched for one step, and K3 is
+``jaxsim_tpu_torch/csrc/step_rr.cu``: K1-rr's step (``rr_step.cuh``) once,
+on K1-rr's geometry (``RR_LANES`` lanes an env, the envs a block that fit,
+up to 64), with a torque row in each env's slot. See the notes at the tops
+of the sources. Each wrapper takes its plain
 version (:func:`step_pd_reference`, :func:`step_tau_reference`, which call
 the twin) for a CPU state and its kernel for a CUDA state; a failed build or
 launch raises. Both take semi-implicit Euler only.
@@ -49,13 +51,9 @@ SIGNATURES = {
 LANES = 8
 ENVS = 32
 RR_SOURCE = CSRC / "step_rr.cu"
-# The relaxed-rigid entry points' arguments: the soft ones' and the
-# relaxed-rigid tail of the scalars (cuda_build.rr_scalars).
-RR_SIGNATURES = {
-    "jx_step_pd_rr": [PTR] * 13 + [I32] + [F32] * 23 + [PTR],
-    "jx_step_tau_rr": [PTR] * 14 + [I32] + [F32] * 21 + [PTR],
-    "jx_step_rr_geometry": [PTR],
-}
+# The relaxed-rigid K3's arguments: the soft one's and the relaxed-rigid
+# tail of the scalars (cuda_build.rr_scalars).
+RR_SIGNATURES = {"jx_step_tau_rr": [PTR] * 14 + [I32] + [F32] * 21 + [PTR], "jx_step_rr_geometry": [PTR]}
 # Lanes an env of the relaxed-rigid build: K1-rr's.
 RR_LANES = cuda_rollout.RR_LANES
 
@@ -63,7 +61,8 @@ RR_LANES = cuda_rollout.RR_LANES
 def job(engine: BatchedEngine, lanes: int | None = None, envs: int | None = None) -> BuildJob:
     """The library for ``engine``, with ``lanes`` lanes an env and ``envs``
     envs a block (the module's constants by default; for a relaxed-rigid
-    engine, the most envs up to ``envs`` that fit, 64 by default)."""
+    engine, K3 alone, with the most envs up to ``envs`` that fit, 64 by
+    default)."""
     if engine.contact_model == "relaxed_rigid":
         defines = (("JX_RR_LANES", int(lanes or RR_LANES)), ("JX_RR_TAU_ROW", 1))
         return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, defines + ((("JX_RR_MAX_ENVS", int(envs)),) if envs else ()))
@@ -114,15 +113,14 @@ def step_tau_reference(
 
 
 def launch_pd(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, kp: float, kd: float) -> BatchedState:
-    """One K2 launch of ``kernel`` (the engine's library, or a variant of it
-    built from another source) on a checked CUDA state; counts nothing."""
-    relaxed = engine.contact_model == "relaxed_rigid"
+    """One soft K2 launch of ``kernel`` (the engine's library, or a variant
+    of it built from another source) on a checked CUDA state; counts
+    nothing."""
     out = cuda_build.empty_state_like(state)
     cuda_build.launch(
-        kernel, "jx_step_pd_rr" if relaxed else "jx_step_pd", packed_params(engine), state.p.device,
+        kernel, "jx_step_pd", packed_params(engine), state.p.device,
         *cuda_build.state_pointers(state), *cuda_build.state_pointers(out),
         state.p.shape[-1], *cuda_build.engine_scalars(engine), float(kp), float(kd),
-        *(cuda_build.rr_scalars(engine) if relaxed else ()),
     )  # fmt: skip
     return out
 
@@ -143,16 +141,18 @@ def launch_tau(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, 
 def step_pd(
     engine: BatchedEngine, state: BatchedState, kp: float = 60.0, kd: float = 0.5
 ) -> BatchedState:
-    """One step under ``tau = -kp·s - kd·ṡ``: one K2 launch for a CUDA state,
-    the plain version for a CPU state."""
+    """One step under ``tau = -kp·s - kd·ṡ``: one K2 launch for a CUDA state
+    (for a relaxed-rigid engine, K1-rr's for one step), the plain version for
+    a CPU state."""
     global STEP_PD_KERNEL_LAUNCHES, STEP_PD_RR_KERNEL_LAUNCHES
     if cuda_build.is_cpu(state, "step"):
         return step_pd_reference(engine, state, kp, kd)
     cuda_build.check_cuda_call(engine, state, cuda_rollout.CONTACT_MODELS)
-    out = launch_pd(build(engine), engine, state, kp, kd)
     if engine.contact_model == "relaxed_rigid":
+        out = cuda_rollout.launch(cuda_rollout.build(engine), engine, state, 1, kp, kd)
         STEP_PD_RR_KERNEL_LAUNCHES += 1
     else:
+        out = launch_pd(build(engine), engine, state, kp, kd)
         STEP_PD_KERNEL_LAUNCHES += 1
     return out
 

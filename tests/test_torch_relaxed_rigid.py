@@ -414,7 +414,7 @@ WRAPPERS = dict(
 
 
 RR_WRAPPERS = ("step_pd", "step_tau", "env_rollout")
-RR_SOURCES = dict(step_pd="step_rr.cu", step_tau="step_rr.cu", env_rollout="env_rollout_rr.cu")
+RR_SOURCES = dict(step_pd="rollout_rr.cu", step_tau="step_rr.cu", env_rollout="env_rollout_rr.cu")
 
 
 class _Built(Exception):
@@ -460,10 +460,11 @@ def test_soft_only_kernels_refuse_relaxed_rigid(kernel, monkeypatch):
 @pytest.mark.parametrize("kernel", RR_WRAPPERS)
 def test_kernels_take_relaxed_rigid(kernel, monkeypatch):
     """K2, K3 and K5 take a relaxed-rigid engine to their relaxed-rigid build:
-    on the humanoid's state, the wrapper builds ``step_rr.cu`` or
-    ``env_rollout_rr.cu``, whose generated header names relaxed-rigid
-    contacts, gives the slot a row of torques and blocks of 64 envs, for
-    K5 the ES main path's MLP with its candidate's weights beside them."""
+    on the humanoid's state, the wrapper builds K1-rr's ``rollout_rr.cu``
+    (K2, launched for one step), ``step_rr.cu`` or ``env_rollout_rr.cu``,
+    whose generated header names relaxed-rigid contacts and blocks of 64
+    envs, and for K3 and K5 gives the slot a row of torques, for K5 the ES
+    main path's MLP with its candidate's weights beside them."""
     eng = _humanoid_rr()
     B = 64
     st = eng.init_state(B)
@@ -478,9 +479,10 @@ def test_kernels_take_relaxed_rigid(kernel, monkeypatch):
     assert job.engine is eng and job.source.name == RR_SOURCES[kernel]
     defines, _ = _header_tables(cuda_build.topology_header(eng, job.defines))
     n_par = len(set(eng.contact_parent))
-    assert defines["JX_CONTACT"] == 1 and defines["JX_INTEGRATOR"] == 0 and defines["JX_RR_TAU_ROW"] == 1
+    tau_row = kernel != "step_pd"
+    assert defines["JX_CONTACT"] == 1 and defines["JX_INTEGRATOR"] == 0 and defines.get("JX_RR_TAU_ROW", 0) == tau_row
     assert defines["JX_RR_LANES"] == cuda_rollout.RR_LANES and defines["JX_RR_ENVS"] == 64
-    assert defines["JX_RR_SLOT"] == 26 * eng.n_links + 36 + 24 * n_par + eng.n_joints
+    assert defines["JX_RR_SLOT"] == 26 * eng.n_links + 36 + 24 * n_par + tau_row * eng.n_joints
 
 
 @pytest.mark.parametrize("kernel", RR_WRAPPERS)

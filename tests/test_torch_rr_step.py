@@ -1,7 +1,8 @@
-"""The relaxed-rigid one-step kernels K2-rr and K3-rr (``csrc/step_rr.cu``) and
-the relaxed-rigid env rollout K5-rr (``csrc/env_rollout_rr.cu``), on the CPU.
+"""The relaxed-rigid one-step kernels K2-rr (K1-rr, ``csrc/rollout_rr.cu``,
+launched for one step) and K3-rr (``csrc/step_rr.cu``) and the relaxed-rigid
+env rollout K5-rr (``csrc/env_rollout_rr.cu``), on the CPU.
 
-The layout: the generated header of each wrapper's relaxed-rigid build
+The layout: the generated header of K3's and K5's relaxed-rigid builds
 names the contact model, gives each env's slot a torque row, and sizes a
 block that fits an H100's 227 KB: the humanoid's 64 envs, also with the ES
 main path's MLP and its candidate's weights, whose envs a block divide the
@@ -11,9 +12,9 @@ The kernels' logic: each kernel source up to its ``extern "C"`` block is
 compiled with g++ (``-std=c++20``) against
 ``test_torch_lane_forward.CUDA_SHIM`` (one ``std::thread`` a CUDA thread, a
 block at a time, shared memory filled with NaN before each block) and a
-harness: for ``step_rr.cu`` (both entry kernels in one binary) it chains
-steps on the host, computing K3's torques from the state between steps as
-``-kp·s - kd·ṡ``, the state one buffer of the leaves in order with a
+harness: for ``rollout_rr.cu`` (K2: one step a launch) and ``step_rr.cu``
+(K3) it chains steps on the host, computing K3's torques from the state
+between steps as ``-kp·s - kd·ṡ``, the state one buffer of the leaves in order with a
 block's envs of NaN past its end, so that a store by an env past the batch
 lands on the next row and shows; for ``env_rollout_rr.cu`` it runs one
 launch. The blocks are 8 envs (two warps: the ABA threads of a block's
@@ -51,7 +52,7 @@ import pytest
 import torch
 
 from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, bridge, models
-from jaxsim_tpu_torch.ops import cuda_build, cuda_env_rollout, cuda_step
+from jaxsim_tpu_torch.ops import cuda_build, cuda_env_rollout, cuda_rollout, cuda_step
 from jaxsim_tpu_torch.ops.contacts.relaxed_rigid import RelaxedRigidContacts
 from tests.test_torch_lane_forward import CUDA_SHIM, TIMEOUT_S, TOL
 
@@ -66,8 +67,9 @@ ES_ENVS_PER_CANDIDATE = 1024  # chip_smoke.ES["envs_per"]
 # The CUDA names the relaxed-rigid step uses past the soft kernels'.
 SHIM = CUDA_SHIM + "inline float __fdiv_rn(float a, float b) { return a / b; }\n"
 
-# argv = in.bin out.bin B n_steps kernel (2: K2, 3: K3, 5: K5), then the
-# Scalars' 23 floats in C99 hex (kp, kd the 9th and 10th: K2's and K5's
+# The harness is compiled with JX_KERNEL 2 (K2: rollout_rr.cu's body), 3 (K3:
+# step_rr.cu's) or 5 (K5: env_rollout_rr.cu's). argv = in.bin out.bin B
+# n_steps, then the Scalars' 23 floats in C99 hex (kp, kd the 9th and 10th: K2's and K5's
 # gains, and the gains of K3's torques) and (K5) the Options' entries. in.bin
 # holds the packed model arrays, the state leaves s, sd, p, q, v, m and (K5)
 # the weights; out.bin gets the state leaves after n_steps and (K5) each
@@ -86,7 +88,7 @@ int main(int argc, char** argv) {
   int a = 1;
   const char* in_path = argv[a++];
   const char* out_path = argv[a++];
-  const int B = std::atoi(argv[a++]), n_steps = std::atoi(argv[a++]), kernel = std::atoi(argv[a++]);
+  const int B = std::atoi(argv[a++]), n_steps = std::atoi(argv[a++]);
   float f[23];
   for (float& x : f) x = std::strtof(argv[a++], nullptr);
   Scalars sc{f[0],  f[1],  f[2],  f[3],  f[4],  f[5],  f[6],  f[7],  f[8],  f[9],  f[10], f[11],
@@ -112,7 +114,6 @@ int main(int argc, char** argv) {
   const Options o{std::atoi(argv[a]), std::strtof(argv[a + 1], nullptr), std::strtof(argv[a + 2], nullptr),
                   std::atoi(argv[a + 3]), std::strtof(argv[a + 4], nullptr), std::strtof(argv[a + 5], nullptr),
                   static_cast<unsigned>(std::strtoul(argv[a + 6], nullptr, 10)), std::atoi(argv[a + 7])};
-  (void)kernel;
   std::vector<float> nxt(total + ENVS, nan), reward(B);
   std::vector<int> resets(B), steps(B);
   const float* ci[6];
@@ -151,13 +152,13 @@ int main(int argc, char** argv) {
     for (int blk = 0; blk < blocks; ++blk) {
       for (float& x : smem) x = nan;
       shim::run_block(blk, RR_THREADS, [&] {
-        if (kernel == 2) {
-          step_pd_rr_kernel(params, si, so, B, sc);
-        } else {
-          Scalars s3 = sc;
-          s3.kp = s3.kd = 0.0f;
-          step_tau_rr_kernel(params, si, tau.data(), so, B, s3);
-        }
+#if JX_KERNEL == 2
+        rollout_rr_kernel(params, si, so, B, 1, sc, Rk4Scratch{nullptr, nullptr, 0});
+#else
+        Scalars s3 = sc;
+        s3.kp = s3.kd = 0.0f;
+        step_tau_rr_kernel(params, si, tau.data(), so, B, s3);
+#endif
       });
     }
     cur.swap(nxt);
@@ -195,10 +196,13 @@ def _with_envs(job: cuda_build.BuildJob, envs: int) -> cuda_build.BuildJob:
 
 def _build(tmp_path, engine, job, kernel: int):
     """The kernel source of ``job`` up to its ``extern "C"`` block and the
-    harness, compiled with g++ for ``engine``'s generated header."""
+    harness, compiled with g++ for ``engine``'s generated header in a
+    directory of ``tmp_path`` of its own."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
+    tmp_path = tmp_path / f"k{kernel}"
+    tmp_path.mkdir()
     text = job.source.read_text()
     (tmp_path / "body.cu").write_text(text[: text.index('extern "C" {')])
     (tmp_path / "cuda_runtime.h").write_text(SHIM)
@@ -213,12 +217,12 @@ def _build(tmp_path, engine, job, kernel: int):
     return binary
 
 
-def _run(tmp_path, binary, engine, state, n_steps, kernel, params, gains, options=(), weights=None) -> np.ndarray:
+def _run(tmp_path, binary, engine, state, n_steps, params, gains, options=(), weights=None) -> np.ndarray:
     arrays = [params, *state.fields(), *(() if weights is None else (weights,))]
     np.concatenate([a.detach().numpy().astype(np.float32).ravel() for a in arrays]).tofile(tmp_path / "in.bin")
     scalars = (*cuda_build.engine_scalars(engine), *gains, *cuda_build.rr_scalars(engine))
     args = [str(binary), str(tmp_path / "in.bin"), str(tmp_path / "out.bin"), str(state.p.shape[-1]), str(n_steps),
-            str(kernel), *(float(np.float32(x)).hex() for x in scalars), *map(str, options)]  # fmt: skip
+            *(float(np.float32(x)).hex() for x in scalars), *map(str, options)]  # fmt: skip
     subprocess.run(args, check=True, capture_output=True, timeout=TIMEOUT_S)
     return np.fromfile(tmp_path / "out.bin", dtype=np.float32)
 
@@ -269,8 +273,8 @@ def _step_case(tmp_path, name: str, B: int):
     """K2, K3 and K3 under ``pr`` over N_STEPS chained steps of B envs (envs
     past the batch in the last block), against the plain versions."""
     eng = _engine(name)
-    job = _with_envs(cuda_step.job(eng), ENVS)
-    binary = _build(tmp_path, eng, job, 2)  # both kernels
+    k2_binary = _build(tmp_path, eng, _with_envs(cuda_rollout.job(eng), ENVS), 2)
+    k3_binary = _build(tmp_path, eng, _with_envs(cuda_step.job(eng), ENVS), 3)
     state, gains = _start(name, B, seed=40), GAINS[name]
     kp, kd = gains
     pr = {"M": 1.2 * eng.M, "rrMinv": eng.rrMinv / 1.2}
@@ -280,9 +284,9 @@ def _step_case(tmp_path, name: str, B: int):
         plain_pr = cuda_step.step_tau_reference(eng, plain_pr, -kp * plain_pr.s - kd * plain_pr.sd, pr)
     assert int(eng._point_geometry(*eng.fk(plain), eng.params())["active"].sum()) > 0
     own, scaled = cuda_build.packed_params(eng), cuda_build.packed_params(eng, pr)
-    k2, _ = _fields(_run(tmp_path, binary, eng, state, N_STEPS, 2, own, gains), state)
-    k3, _ = _fields(_run(tmp_path, binary, eng, state, N_STEPS, 3, own, gains), state)
-    k3_pr, _ = _fields(_run(tmp_path, binary, eng, state, N_STEPS, 3, scaled, gains), state)
+    k2, _ = _fields(_run(tmp_path, k2_binary, eng, state, N_STEPS, own, gains), state)
+    k3, _ = _fields(_run(tmp_path, k3_binary, eng, state, N_STEPS, own, gains), state)
+    k3_pr, _ = _fields(_run(tmp_path, k3_binary, eng, state, N_STEPS, scaled, gains), state)
     assert _ratio(k2, plain) <= 1.0
     assert _ratio(k3, plain) <= 1.0
     assert _ratio(k3_pr, plain_pr) <= 1.0
@@ -314,7 +318,7 @@ def _env_case(tmp_path, name: str, policy: str, candidates: int, B: int):
         options = (3, float(np.float32(-1.0)).hex(), float(np.float32(5.0)).hex(), int(tau_limit is not None),
                    float(np.float32(tau_limit or 0.0)).hex(), float(np.float32(noise * 3.0**0.5)).hex(), 3,
                    B // pol.candidates)  # fmt: skip
-        flat = _run(tmp_path, binary, eng, state, n_steps, 5, cuda_build.packed_params(eng), gains, options,
+        flat = _run(tmp_path, binary, eng, state, n_steps, cuda_build.packed_params(eng), gains, options,
                     pol.packed() if weights else None)  # fmt: skip
         got, off = _fields(flat, state)
         final, reward, resets, steps = cuda_env_rollout.env_rollout_reference(
@@ -367,7 +371,7 @@ def test_rr_step_faults_apply_once():
 
 @pytest.mark.parametrize("name", ("humanoid23", "garpez", "box"))
 def test_rr_builds_take_a_torque_row(name):
-    """The relaxed-rigid builds of K2, K3 and K5 (each policy) name the
+    """The relaxed-rigid builds of K3 and K5 (each policy) name the
     contact model, give the slot a row of torques, and fit a block in 227 KB:
     the model arrays and the candidate's weights once, each env's rows at the
     odd stride; the humanoid takes 64 envs a block (one wave of 8192 envs on
