@@ -195,8 +195,8 @@ RR_FAULTS = {
         "x[k * 3 + j] = neg_b / prec;",
     ),
     "one PCG iteration fewer": (
-        "for (int it = -1; it <= JX_RR_ITERS; ++it) {\n    const bool first = it < 0, last = it == JX_RR_ITERS;",
-        "for (int it = -1; it <= JX_RR_ITERS - 1; ++it) {\n    const bool first = it < 0, last = it == JX_RR_ITERS - 1;",
+        "for (int it = warm ? -1 : 0; it <= JX_RR_ITERS; ++it) {\n    const bool first = it < 0, last = it == JX_RR_ITERS;",
+        "for (int it = warm ? -1 : 0; it <= JX_RR_ITERS - 1; ++it) {\n    const bool first = it < 0, last = it == JX_RR_ITERS - 1;",
     ),
 }
 
@@ -217,6 +217,32 @@ VJP_FAULTS = {
         "soft_step_lanes.cuh", "for (int off = 1; off < G; off <<= 1)", "for (int off = 1; off <= G; off <<= 1)"
     ),
 }
+
+
+# Seeded faults of K4-rr, each a list of edits of step_vjp_rr.cu (the file,
+# the text, its replacement): the backward PCG warm-started from the
+# forward's solution in place of zero; the operator's term <-lambda, A(theta)
+# x> dropped (its gather and its regularizer's share); rrMinv's cotangent
+# dropped; lambda's sign flipped.
+RR_VJP_FAULTS = {
+    "backward PCG warm-started": [(
+        "step_vjp_rr.cu",
+        "    r[k] = pt[k / 3] >= 0 ? tl[T_L + pt[k / 3] * 3 + k % 3] : 0.0f;\n    x[k] = 0.0f;\n  }\n"
+        "  rr_cg(P, sc, sl, g, pt, act, rj, r, x, false, false);",
+        "    r[k] = pt[k / 3] >= 0 ? tl[T_L + pt[k / 3] * 3 + k % 3] : 0.0f;\n  }\n"
+        "  rr_cg(P, sc, sl, g, pt, act, rj, r, x, true, false);",
+    )],
+    "operator term dropped": [
+        ("step_vjp_rr.cu", "      gather_vjp(Rp, Lp, ac, bo, g0, gR, gL);\n", ""),
+        ("step_vjp_rr.cu", "      br[j] = -lam[j] * xc[j];", "      br[j] = 0.0f;"),
+    ],
+    "rrMinv's cotangent dropped": [("step_vjp_rr.cu", "    acc.add(OFF_RRMINV + c * 9, 9, gM);\n", "")],
+    "lambda's sign flipped": [
+        ("step_vjp_rr.cu", "tl[T_L + pt[k / 3] * 3 + k % 3] = x[k];", "tl[T_L + pt[k / 3] * 3 + k % 3] = -x[k];")],
+}
+# K4-rr's envs a block for the rr_vjp probe (at most; cuda_build.rr_tables
+# halves them until the block fits).
+RR_VJP_ENVS = (16, 32, 64)
 
 
 # Seeded faults of the soft K1's lane step, each one edit of
@@ -666,6 +692,82 @@ def vjp_faults_probe(hum, gen) -> None:
     print(json.dumps({"vjp_faults": ratios}), flush=True)
 
 
+def rr_vjp_probe(hum, gen) -> None:
+    """K4-rr at each of RR_VJP_ENVS envs a block, plain and with params_grad,
+    on the relaxed-rigid humanoid at 8192 envs (the relaxed-rigid main path's
+    start, its PD torques, one seeded output cotangent): ptxas, geometry,
+    SASS local accesses by source, kernel-only and event ms, and the largest
+    cotangent |Δ| over max(1, max |plain|) (the model arrays' share of their
+    limit with params_grad)."""
+    import torch
+
+    from chip_smoke import BATCH, params_shares, profiled_ms, rr_humanoid_engine, vjp_cotangents, vjp_diff
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_step_vjp
+
+    hum_rr = rr_humanoid_engine(hum.S.device)
+    state = hum_rr.init_state(BATCH, generator=torch.Generator(hum.S.device).manual_seed(6))
+    tau = (-60.0 * state.s - 0.5 * state.sd).contiguous()
+    ct = vjp_cotangents(state, gen)["all six"]
+    keys = [(envs, pg) for envs in RR_VJP_ENVS for pg in (False, True)]
+    builds = dict(zip(keys, cuda_build.build_many([cuda_step_vjp.job(hum_rr, pg, envs=envs) for envs, pg in keys])))
+    plain = cuda_step_vjp.step_vjp_reference(hum_rr, state, tau, ct, params_grad=True)
+    for (envs, pg), kernel in builds.items():
+        def run():
+            return cuda_step_vjp.launch_rr(kernel, hum_rr, state, tau, ct, None, pg, envs=envs)
+
+        got = run()
+        torch.cuda.synchronize()
+        scaled, _ = vjp_diff(got, plain[:2])
+        err = {"cotangents": max(float(d.max()) for d in scaled.values())}
+        if pg:
+            err["params_share"] = max(params_shares(cuda_step_vjp.unpack_params(hum_rr, got[2].sum(0)), plain[2]).values())
+        print(json.dumps({"rr_vjp": {
+            "B": BATCH, "envs_at_most": envs, "params_grad": pg,
+            "ptxas": [ln.strip() for ln in kernel.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln],
+            "geometry": cuda_step_vjp.geometry(kernel), "local_loads_and_stores": cuda_step_vjp.rr_local_memory(kernel),
+            "kernel_ms": profiled_ms(run, "step_vjp_rr_kernel", LAUNCH_REPEATS),
+            "event_ms": device_ms(run, LAUNCH_REPEATS), "vs_plain": err,
+        }}), flush=True)  # fmt: skip
+
+
+def rr_vjp_faults_probe(hum, gen) -> None:
+    """Each of RR_VJP_FAULTS seeded into a copy of ``csrc/`` under
+    ``build/``, built beside the sound source for each K4-rr case's engine,
+    plain and with params_grad, and every variant held to ``chip_smoke.py``'s
+    K4-rr limits (``rr_vjp_gates``): per case, the worst ratio over its limit
+    (> 1 is refused)."""
+    import torch
+
+    from chip_smoke import (
+        rr_garpez_engine, rr_humanoid_engine, rr_start_states, rr_vjp_garpez_engine, rr_vjp_gates, rr_vjp_starts,
+    )  # fmt: skip
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_step_vjp
+
+    device = hum.S.device
+    hum_rr, garp_rr = rr_humanoid_engine(device), rr_garpez_engine(device)
+    rr_starts = rr_start_states(hum_rr, garp_rr, hum_rr, torch.Generator(device).manual_seed(6))
+    starts = rr_vjp_starts(rr_starts, rr_vjp_garpez_engine(device), torch.Generator(device).manual_seed(8))
+    sources = {"control": cuda_step_vjp.RR_SOURCE}
+    for name, edits in RR_VJP_FAULTS.items():
+        sources[name] = _seeded_edits("rr_vjp_faults", name, edits) / "step_vjp_rr.cu"
+    engines = list({id(e): e for e, _, _ in starts.values()}.values())
+    jobs = {(name, id(eng), pg): dataclasses.replace(cuda_step_vjp.job(eng, pg), source=src)
+            for name, src in sources.items() for eng in engines for pg in (False, True)}  # fmt: skip
+    kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+
+    def variant(name):
+        def run(engine, state, tau, ct, params_grad=False):
+            out, ct_tau, partials = cuda_step_vjp.launch_rr(
+                kernels[(name, id(engine), params_grad)], engine, state, tau, ct, None, params_grad)
+            if not params_grad:
+                return out, ct_tau
+            return out, ct_tau, cuda_step_vjp.unpack_params(engine, partials.sum(0))
+        return run
+
+    _, ratios = rr_vjp_gates(starts, torch.Generator(device).manual_seed(3), {name: variant(name) for name in sources})
+    print(json.dumps({"rr_vjp_faults": ratios}), flush=True)
+
+
 def param_sum_probe(hum, gen) -> None:
     """K4's partials' sum built with each warp count a block in
     ``SUM_WARPS`` (copies of ``csrc/`` under ``build/``, the constant
@@ -681,7 +783,7 @@ def param_sum_probe(hum, gen) -> None:
     old = f"constexpr int SUM_WARPS = {SUM_WARPS[0]};"
     jobs = {}
     for n in SUM_WARPS:
-        copy = _seeded_copy("param_sum", str(n), "step_vjp.cu", old, f"constexpr int SUM_WARPS = {n};")
+        copy = _seeded_copy("param_sum", str(n), "param_sum.cuh", old, f"constexpr int SUM_WARPS = {n};")
         jobs[n] = dataclasses.replace(cuda_step_vjp.job(hum, params_grad=True), source=copy / "step_vjp.cu")
     kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
     partials = torch.randn(-(-PROFILE_BATCH // cuda_step_vjp.envs_per_block(hum, True)),
@@ -1210,6 +1312,8 @@ PROBES = {
     "rk4_faults": rk4_faults_probe,
     "rr_step": rr_step_probe,
     "rr_step_faults": rr_step_faults_probe,
+    "rr_vjp": rr_vjp_probe,
+    "rr_vjp_faults": rr_vjp_faults_probe,
 }
 
 

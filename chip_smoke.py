@@ -40,6 +40,17 @@ plain PyTorch version on the card:
   ``torch.sum``, and two runs of it to the bit; and the
   PD gains' gradient through a 10-step ``fused_diff_rollout`` against the
   plain twin under autograd;
+* K4-rr (``step_vjp_rr.cu``, the relaxed-rigid step VJP with the implicit
+  PCG backward, with and without the model arrays' cotangents, rrMinv's
+  included) in every cotangent field per env and the model arrays entry by
+  entry, for seeded output cotangents on all six leaves, on ``RR_VJP_CASES``:
+  the JAX package's own case (garpez tilted low, B = 1024, 8 PCG
+  iterations, tau = 0.1·N(0, 1)), the relaxed-rigid humanoid's main-path
+  start and joints-moving start, garpez built with 3 PCG iterations, and
+  garpez's ragged batch, held against the float64 twin where float32 alone
+  breaches the limit; its row sum against ``torch.sum`` and two runs of it
+  to the bit; and the PD gains' gradient through a 10-step relaxed-rigid
+  ``fused_diff_rollout`` on garpez against the plain twin under autograd;
 * K1's RK4 and RK4-fast builds (``rollout.cu`` and ``rollout_rr.cu`` with
   ``JX_INTEGRATOR`` 1 and 2) in every state field: the soft one on CASES'
   starts over shorter horizons (``RK4_CASES``), the relaxed-rigid one on
@@ -70,6 +81,9 @@ before it and read just after:
   envs, ``mean(ṡ²) + mean(p_z)``, ``.backward()``: K3 forward, K4 backward;
 * the hardware-parameter gradient: the same with respect to ``M`` and
   ``cpoint``, K4 with the model arrays' cotangents;
+* the relaxed-rigid policy gradient and hardware-parameter gradient: the
+  same two on the relaxed-rigid humanoid (8 PCG iterations a step) from the
+  relaxed-rigid main path's start, K3-rr forward and K4-rr backward;
 * APG training, ``examples/train_apg.py``'s configuration uncut: the garpez
   chain, 1024 envs, a tanh MLP with H = 32 through 30-step windows, Adam,
   the running state advanced with gradients off; three windows;
@@ -92,12 +106,12 @@ before it and read just after:
 
 It prints each build's ptxas line; the soft K1's, K5's, K2's and K3's
 (``step.cu``, on the humanoid and on garpez), K4's and the relaxed-rigid
-kernels' (K1-rr, K2-rr and K3-rr, K5-rr) launch geometry (threads, envs and shared memory a block, blocks or
+kernels' (K1-rr, K2-rr and K3-rr, K5-rr, K4-rr) launch geometry (threads, envs and shared memory a block, blocks or
 envs an SM, waves) and the local loads and stores in their SASS (K1's, K5's
 and ``step.cu``'s in the lane step's passes, K4's in the forward and the
 reverse sweep, the relaxed-rigid kernels' in the M⁻¹Jᵀ pass); the
 kernel-only times of K2, K3 (also on garpez at the APG start), K2-rr, K3-rr,
-K4, the partials' sum and ``torch.sum``
+K4, K4-rr, the partials' sums and ``torch.sum``
 beside it (``torch.profiler``). It prints each phase's seconds, the card's name and
 power limit, a JSON line
 with each kernel's numbers (device ms per launch, the plain version's ms for
@@ -133,7 +147,7 @@ PROFILER_TRIES = 5
 PLAIN_TIMED_STEPS = dict(rollout=100, step_pd=10, step_tau=10, env_rollout=20, step_vjp=3, rollout_relaxed_rigid=20,
                          rollout_rk4=10, rollout_rk4fast=10, rollout_relaxed_rigid_rk4=5,
                          rollout_relaxed_rigid_rk4fast=5, step_pd_relaxed_rigid=3, step_tau_relaxed_rigid=3,
-                         env_rollout_relaxed_rigid=5)  # fmt: skip
+                         env_rollout_relaxed_rigid=5, step_vjp_relaxed_rigid=3)  # fmt: skip
 PER_STEP_LAUNCHES = 100  # K2 main path
 ENV_STEPS = 20  # BatchedEnv.step main path
 # ES main path: examples/train_es_mlp.py uncut.
@@ -295,6 +309,33 @@ RR_ENV_CASES = (
      dict(episode_length=4, healthy_z_range=(-1e6, 1e6), reset_noise=0.02, seed=9, kp=20.0, kd=0.1)),
 )  # fmt: skip
 RR_GARPEZ = dict(batch=1024, base=(0.0, 0.0, 0.015), quat=(0.995, 0.0998, 0.0, 0.0), joints=0.05, gains=(20.0, 0.1))
+# K4-rr vs plain (rr_vjp_gates): (start, statistic over envs), each with
+# seeded N(0, 1) output cotangents on all six leaves at once (m's share of
+# x-bar reaches lambda at 1/reg through the inactive points, whose lambda then
+# enters the backward PCG's dot products), without and with the model
+# arrays' cotangents (rrMinv's too). Each cotangent field's per-env |Δ| over
+# max(1, max |plain field|) is held to TOL at the case's statistic, the
+# model arrays by params_shares. Where float32 alone breaches that (the
+# float32 twin against the float64 one), the field is held against the
+# float64 twin within max(TOL, 2 × the float32 twin's own distance), as
+# RR_CASES are: on an H100 the float32 twin is 8-11 times the model arrays'
+# limit from the float64 one at the main path's start (S's and M's batch sums
+# cancel), and with the joints displaced as well as moving tens of times the
+# state's (that start is left out: float32 there gates nothing). The
+# cases: JAX's own (tests/test_batched_engine.py:561-590: garpez tilted low,
+# B = 1024, 8 PCG iterations, tau = 0.1·N(0, 1)); the relaxed-rigid main
+# path's start under its PD torques; the joints moving (p99.9); garpez built
+# with RR_VJP_ITERATIONS PCG iterations, where the forward's and the
+# backward's iteration counts both move the cotangents; and garpez's ragged
+# batch. A case fails if its start has no point in contact.
+RR_VJP_CASES = (
+    ("garpez relaxed-rigid tilted low", "max"),
+    ("humanoid23 relaxed-rigid main-path start", "max"),
+    ("humanoid23 relaxed-rigid joints moving", "p99.9"),
+    ("garpez relaxed-rigid tilted low, 3 PCG iterations", "max"),
+    ("garpez relaxed-rigid tilted low, ragged batch", "max"),
+)
+RR_VJP_ITERATIONS = 3
 # Relaxed-rigid main path: bench.py's relaxed_rigid (bench.py:338-361) uncut.
 RR_HORIZON = 400  # steps per K1 launch
 RR_TIMED_CALLS = 3
@@ -345,6 +386,9 @@ REPLACES = dict(
     step_pd_relaxed_rigid="jaxsim_tpu/ops/pallas_step.py:86",
     step_tau_relaxed_rigid="jaxsim_tpu/ops/pallas_step.py:178",
     env_rollout_relaxed_rigid="jaxsim_tpu/ops/pallas_step.py:787",
+    step_vjp_relaxed_rigid="jaxsim_tpu/ops/pallas_step.py:262",
+    step_vjp_relaxed_rigid_params_grad="jaxsim_tpu/ops/pallas_step.py:262",
+    param_sum_relaxed_rigid="jaxsim_tpu/ops/pallas_step.py:306",
     fma_probe="bench.py:716",
     bf16_probe_f32="scripts/bf16_probe.py:36",
     bf16_probe_bf16="scripts/bf16_probe.py:36",
@@ -357,7 +401,7 @@ SOURCES = dict(
     env_rollout="jaxsim_tpu_torch/csrc/env_rollout.cu",
     step_vjp="jaxsim_tpu_torch/csrc/step_vjp.cu",
     step_vjp_params_grad="jaxsim_tpu_torch/csrc/step_vjp.cu",
-    param_sum="jaxsim_tpu_torch/csrc/step_vjp.cu",
+    param_sum="jaxsim_tpu_torch/csrc/param_sum.cuh",
     rollout_relaxed_rigid="jaxsim_tpu_torch/csrc/rollout_rr.cu",
     rollout_rk4="jaxsim_tpu_torch/csrc/rollout.cu",
     rollout_rk4fast="jaxsim_tpu_torch/csrc/rollout.cu",
@@ -366,6 +410,9 @@ SOURCES = dict(
     step_pd_relaxed_rigid="jaxsim_tpu_torch/csrc/rollout_rr.cu",
     step_tau_relaxed_rigid="jaxsim_tpu_torch/csrc/step_rr.cu",
     env_rollout_relaxed_rigid="jaxsim_tpu_torch/csrc/env_rollout_rr.cu",
+    step_vjp_relaxed_rigid="jaxsim_tpu_torch/csrc/step_vjp_rr.cu",
+    step_vjp_relaxed_rigid_params_grad="jaxsim_tpu_torch/csrc/step_vjp_rr.cu",
+    param_sum_relaxed_rigid="jaxsim_tpu_torch/csrc/param_sum.cuh",
     fma_probe="jaxsim_tpu_torch/csrc/fma_probe.cu",
     bf16_probe_f32="jaxsim_tpu_torch/csrc/fma_probe.cu",
     bf16_probe_bf16="jaxsim_tpu_torch/csrc/fma_probe.cu",
@@ -540,6 +587,8 @@ def counters() -> dict[str, int]:
         env_rollout=cuda_env_rollout.ENV_ROLLOUT_KERNEL_LAUNCHES,
         step_vjp=cuda_step_vjp.STEP_VJP_KERNEL_LAUNCHES,
         param_sum=cuda_step_vjp.PARAM_SUM_KERNEL_LAUNCHES,
+        step_vjp_relaxed_rigid=cuda_step_vjp.STEP_VJP_RR_KERNEL_LAUNCHES,
+        param_sum_relaxed_rigid=cuda_step_vjp.PARAM_SUM_RR_KERNEL_LAUNCHES,
         rollout_relaxed_rigid=cuda_rollout.ROLLOUT_RR_KERNEL_LAUNCHES,
         step_pd_relaxed_rigid=cuda_step.STEP_PD_RR_KERNEL_LAUNCHES,
         step_tau_relaxed_rigid=cuda_step.STEP_TAU_RR_KERNEL_LAUNCHES,
@@ -562,6 +611,8 @@ def zero_counters() -> None:
     cuda_env_rollout.ENV_ROLLOUT_RR_KERNEL_LAUNCHES = 0
     cuda_step_vjp.STEP_VJP_KERNEL_LAUNCHES = 0
     cuda_step_vjp.PARAM_SUM_KERNEL_LAUNCHES = 0
+    cuda_step_vjp.STEP_VJP_RR_KERNEL_LAUNCHES = 0
+    cuda_step_vjp.PARAM_SUM_RR_KERNEL_LAUNCHES = 0
     fma_probe.FMA_PROBE_LAUNCHES = 0
     fma_probe.BF16_PROBE_LAUNCHES.update(dict.fromkeys(fma_probe.VARIANTS, 0))
 
@@ -615,16 +666,17 @@ def profiled_window(fn, kernel: str, repeats: int, pad_s: float = PROFILER_PAD_S
     ]  # fmt: skip
 
 
-def profiled_ms(fn, kernel: str, repeats: int) -> float:
-    """Mean device milliseconds of the CUDA kernels whose name holds
-    ``kernel`` over ``repeats`` calls of ``fn``, read by ``torch.profiler``
-    from the first of ``PROFILER_TRIES`` windows that saw every launch."""
+def profiled_ms(fn, kernel: str, repeats: int, per_call: int = 1) -> float:
+    """Device milliseconds a call of the CUDA kernels whose name holds
+    ``kernel``, ``per_call`` launches a call, over ``repeats`` calls of
+    ``fn``, read by ``torch.profiler`` from the first of ``PROFILER_TRIES``
+    windows that saw every launch."""
     for _ in range(PROFILER_TRIES):
         seen = profiled_window(fn, kernel, repeats)
-        if len(seen) > repeats:
-            raise RuntimeError(f"the profiler saw {len(seen)} launches of {kernel!r}, expected {repeats}")
-        if len(seen) == repeats:
-            return statistics.mean(t for _, t in seen) / 1e3
+        if len(seen) > repeats * per_call:
+            raise RuntimeError(f"the profiler saw {len(seen)} launches of {kernel!r}, expected {repeats * per_call}")
+        if len(seen) == repeats * per_call:
+            return sum(t for _, t in seen) / repeats / 1e3
         print(f"the profiler saw {len(seen)} of {repeats} launches of {kernel!r}; another window", flush=True)
     raise RuntimeError(f"the profiler missed launches of {kernel!r} in {PROFILER_TRIES} windows")
 
@@ -888,6 +940,132 @@ def vjp_gates(starts, case_tau, gen, variants=None) -> tuple[dict[str, list[floa
                     errs[kind].append(raw)
     if not all(branches):
         raise RuntimeError(f"the K4 start states leave a contact branch without a point: {branches}")
+    return errs, ratios
+
+
+def rr_vjp_garpez_engine(device):
+    """Garpez's relaxed-rigid engine with RR_VJP_ITERATIONS PCG iterations."""
+    engine = rr_garpez_engine(device)
+    engine.rr_iterations = RR_VJP_ITERATIONS
+    return engine
+
+
+def rr_vjp_starts(rr_starts, garp_rr_few, gen) -> dict:
+    """K4-rr's cases (RR_VJP_CASES) by name, (engine, state, tau), from
+    :func:`rr_start_states`' starts: the humanoid's under the main path's PD
+    torques, garpez's under 0.1·N(0, 1) torques (the JAX package's case),
+    garpez tilted low also on ``garp_rr_few`` (:func:`rr_vjp_garpez_engine`)."""
+    import torch
+
+    few = f", {RR_VJP_ITERATIONS} PCG iterations"
+    out = {}
+    for name, _ in RR_VJP_CASES:
+        engine, state, _ = rr_starts[name.replace(few, "")]
+        if name.endswith(few):
+            engine = garp_rr_few
+        if name.startswith("garpez"):
+            tau = 0.1 * torch.randn(state.s.shape, generator=gen, device=state.s.device)
+        else:
+            tau = -60.0 * state.s - 0.5 * state.sd
+        out[name] = (engine, state, tau.contiguous())
+    return out
+
+
+def vjp_ratios(kern, plain, stat: str, params_grad: bool) -> tuple[dict[str, float], float]:
+    """Each cotangent field's statistic over envs of its per-env |Δ| over
+    max(1, max |plain field|), over TOL, and with ``params_grad`` each model
+    array's :func:`params_shares` (> 1 breaches); and the largest |Δ|
+    unscaled, the model arrays' included."""
+    scaled, raw = vjp_diff(kern, plain)
+    out = {k: v / TOL for k, v in over_envs(scaled, stat).items()}
+    if params_grad:
+        out.update({f"pr.{k}": r for k, r in params_shares(kern[2], plain[2]).items()})
+        raw = max(raw, *(float((kern[2][k] - plain[2][k]).abs().max()) for k in plain[2]))
+    return out, raw
+
+
+def rr_vjp_gates(starts, gen, variants=None) -> tuple[dict[str, list[float]], dict[str, dict[str, float]]]:
+    """K4-rr against its plain version on RR_VJP_CASES (``starts`` from
+    :func:`rr_vjp_starts`), without and with the model arrays' cotangents,
+    for one seeded output cotangent on all six leaves a case: every field
+    and model array by :func:`vjp_ratios` against the float32 twin; a field
+    beyond its limit there is held against the float64 twin within
+    max(1, 2 × the float32 twin's own ratio to it). ``variants`` as in
+    :func:`vjp_gates`: by default the wrapper, gated (a breach raises, and
+    with params_grad two runs must agree to the bit); other variants (seeded
+    faults) print each case's worst ratio over its limit. Fails a case whose
+    start has no point in contact. Returns the largest unscaled |Δ| of each
+    case held at its max (the default variant's, by kernel name), and for
+    each variant and case its worst ratio over its limit (> 1 is refused)."""
+    import copy
+
+    import torch
+
+    from jaxsim_tpu_torch import BatchedState
+    from jaxsim_tpu_torch.ops import cuda_step_vjp
+
+    def wide(res):
+        out = [BatchedState(*(t.double() for t in res[0].fields())), res[1].double()]
+        return (*out, {k: t.double() for k, t in res[2].items()}) if len(res) > 2 else tuple(out)
+
+    gated = variants is None
+    variants = variants or {"kernel": cuda_step_vjp.step_vjp}
+    errs = {"step_vjp_relaxed_rigid": [], "step_vjp_relaxed_rigid_params_grad": []}
+    ratios = {name: {} for name in variants}
+    for name, stat in RR_VJP_CASES:
+        engine, state, tau = starts[name]
+        active = rr_active_points(engine, state)
+        print(f"step_vjp relaxed-rigid {name} B={state.p.shape[-1]}: {active} contact points in contact, "
+              f"{engine._rr_n_iter} PCG iterations", flush=True)  # fmt: skip
+        if not active:
+            raise RuntimeError(f"{name}: no point in contact, so the case holds nothing of the contact solve")
+        ct = vjp_cotangents(state, gen)["all six"]
+        plain = cuda_step_vjp.step_vjp_reference(engine, state, tau, ct, params_grad=True)
+        plain64 = []  # the float64 twin's, made when a field breaches
+        for pg in (False, True):
+            kind = "step_vjp_relaxed_rigid" + ("_params_grad" if pg else "")
+            want = plain if pg else plain[:2]
+            for vname, run in variants.items():
+                kern = run(engine, state, tau, ct, params_grad=pg)
+                torch.cuda.synchronize()
+                label = f"{kind} {vname} vs plain, {name} B={state.p.shape[-1]}, ct of all six"
+                case = name + (", params_grad" if pg else "")
+                if not all(bool(torch.isfinite(t).all()) for t in vjp_leaves(kern)):
+                    if gated:
+                        raise RuntimeError(f"{label}: non-finite cotangent")
+                    ratios[vname][case] = math.inf
+                    print(f"{label}: non-finite, refused", flush=True)
+                    continue
+                got, raw = vjp_ratios(kern, want, stat, pg)
+                over = sorted(k for k, r in got.items() if not r <= 1.0)
+                note = ""
+                if over:
+                    if not plain64:
+                        e64 = copy.deepcopy(engine).to(torch.float64)
+                        args = (BatchedState(*(t.double() for t in state.fields())), tau.double(),
+                                BatchedState(*(t.double() for t in ct.fields())))  # fmt: skip
+                        plain64.append(cuda_step_vjp.step_vjp_reference(e64, *args, params_grad=True))
+                    p64 = plain64[0] if pg else plain64[0][:2]
+                    k64, _ = vjp_ratios(wide(kern), p64, stat, pg)
+                    t64, _ = vjp_ratios(wide(want), p64, stat, pg)
+                    for k in over:
+                        got[k] = k64[k] / max(1.0, 2.0 * t64[k])
+                    note = "; beyond the float32 twin's limit, against the float64 twin (kernel, float32 twin): " + \
+                        json.dumps({k: [round(k64[k], 4), round(t64[k], 4)] for k in over})
+                ratio = max(got.values())
+                ratios[vname][case] = ratio
+                print(f"{label}: worst ratio over its limit {ratio:.6g} ({stat} over envs); fields "
+                      f"{json.dumps({k: round(r, 4) for k, r in got.items()})}{note}", flush=True)  # fmt: skip
+                if not gated:
+                    continue
+                if not ratio <= 1.0:
+                    raise RuntimeError(f"{label}: beyond its limits")
+                if pg:
+                    again = run(engine, state, tau, ct, params_grad=pg)
+                    if not all(torch.equal(x, y) for x, y in zip(vjp_leaves(kern), vjp_leaves(again))):
+                        raise RuntimeError(f"two runs of the relaxed-rigid step_vjp with params_grad differ, {name}")
+                if stat == "max":
+                    errs[kind].append(raw)
     return errs, ratios
 
 
@@ -1468,6 +1646,7 @@ def main() -> int:
     pend = pendulum_engine(device)
     garp = garpez_engine(device)
     hum_rr, garp_rr, hum_td = rr_humanoid_engine(device), rr_garpez_engine(device), rr_touchdown_engine(device)
+    garp_rr_few = rr_vjp_garpez_engine(device)
     n, d = hum.n_joints, obs_dim(hum.n_joints)
     gen = torch.Generator(device).manual_seed(1)
     # The real-terminations case's linear policy: the PD gains written as a
@@ -1516,6 +1695,8 @@ def main() -> int:
             step_rr=cuda_step.job(hum_rr), step_rr_garp=cuda_step.job(garp_rr), step_rr_touchdown=cuda_step.job(hum_td),
             **{f"env_rollout_rr_{k}": cuda_env_rollout.job(hum_rr, p) for k, p in pols_rr.items()},
             env_rollout_rr_garp=cuda_env_rollout.job(garp_rr, pd_policy),
+            **{f"vjp_rr{'_params_grad' * pg}_{k}": cuda_step_vjp.job(e, params_grad=pg)
+               for k, e in (("hum", hum_rr), ("garp", garp_rr), ("garp_few", garp_rr_few)) for pg in (False, True)},
         )  # fmt: skip
         builds = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
     print(f"nvcc seconds {json.dumps({k: round(b.seconds, 2) for k, b in builds.items()})}")
@@ -1571,6 +1752,18 @@ def main() -> int:
               f" SM (occupancy calculator); {BATCH} envs make {-(-BATCH // geo['envs'])} blocks over {sms} SMs; ptxas "
               + " | ".join(ln.strip() for ln in rr_build.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln)
               + f"; SASS local loads and stores (LDL, STL): {json.dumps(cuda_rollout.rr_local_memory(rr_build))}",
+              flush=True)  # fmt: skip
+
+    for pg in (False, True):
+        b = builds[f"vjp_rr{'_params_grad' * pg}_hum"]
+        geo = cuda_step_vjp.geometry(b)
+        print(f"step_vjp_relaxed_rigid{' params_grad' if pg else ''} ({cuda_step_vjp.RR_LANES} lanes an env for the"
+              f" solves, one thread an env for the transposed step): {geo['threads']} threads and {geo['envs']} envs a"
+              f" block, {geo['smem_bytes']} B of dynamic shared memory a block, {geo['blocks_per_sm']} blocks an SM"
+              f" (occupancy calculator); {BATCH} envs make {-(-BATCH // geo['envs'])} blocks over {sms} SMs; tape"
+              f" {4 * b.lib.jx_vjp_rr_tape_rows()} B an env in device memory; ptxas "
+              + " | ".join(ln.strip() for ln in b.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln)
+              + f"; SASS local loads and stores (LDL, STL): {json.dumps(cuda_step_vjp.rr_local_memory(b))}",
               flush=True)  # fmt: skip
 
     sass = fma_probe.check_sass(builds["fma_probe"])
@@ -1688,6 +1881,27 @@ def main() -> int:
             raise RuntimeError("param_sum disagrees with plain")
         max_errs["param_sum"].append(err)
 
+    # ----- K4-rr vs plain -----
+    with phase("K4-rr vs plain"):
+        rr_vjp = rr_vjp_starts(rr_starts, garp_rr_few, torch.Generator(device).manual_seed(8))
+        errs, _ = rr_vjp_gates(rr_vjp, vjp_gen)
+        for name, e in errs.items():
+            max_errs[name] += e
+        print("step_vjp relaxed-rigid params_grad: two runs agree to the bit", flush=True)
+        # K4-rr's partials: a row an env.
+        rr_partials = torch.randn(BATCH, cuda_build.packed_params(hum_rr).numel(), generator=vjp_gen, device=device)
+        kern = cuda_step_vjp.sum_partials(hum_rr, rr_partials)
+        plain, again = cuda_step_vjp.sum_partials_reference(rr_partials), cuda_step_vjp.sum_partials(hum_rr, rr_partials)
+        sync()
+        if not torch.equal(kern, again):
+            raise RuntimeError("two runs of the relaxed-rigid param_sum differ")
+        err = float((kern - plain).abs().max())
+        print(f"param_sum relaxed-rigid vs plain, {tuple(rr_partials.shape)}: max|Δ| {err:.6g}, "
+              f"max|plain| {float(plain.abs().max()):.6g}")  # fmt: skip
+        if not err <= 1e-4 * max(1.0, float(plain.abs().max())):
+            raise RuntimeError("the relaxed-rigid param_sum disagrees with plain")
+        max_errs["param_sum_relaxed_rigid"].append(err)
+
     with phase("rollout gradient vs plain"):
         steps = GRAD["check_steps"]
         gains = torch.tensor(GRAD["gains"], device=device, requires_grad=True)
@@ -1702,6 +1916,25 @@ def main() -> int:
               f" max relative |Δ| {rel:.6g}")  # fmt: skip
         if not rel <= GRAD["check_rtol"]:
             raise RuntimeError(f"the fused rollout's gradient disagrees with plain beyond {GRAD['check_rtol']}")
+
+    with phase("relaxed-rigid rollout gradient vs plain"):
+        # K3-rr forward and K4-rr backward against the twin under autograd,
+        # garpez tilted low under its PD law.
+        g_engine, g_start, g_gains = rr_starts[RR_CASES[5][0]]
+        steps = GRAD["check_steps"]
+        gains = torch.tensor(g_gains, device=device, requires_grad=True)
+        kern = torch.autograd.grad(grad_loss(diff_step.fused_diff_rollout(g_engine, steps)(g_start, pd_gains, gains)),
+                                   gains)[0]  # fmt: skip
+        st = g_start
+        for _ in range(steps):
+            st = g_engine.step(st, pd_gains(st, gains))
+        plain = torch.autograd.grad(grad_loss(st), gains)[0]
+        sync()
+        rel = float(((kern - plain).abs() / plain.abs()).max())
+        print(f"relaxed-rigid gains gradient through {steps} steps, garpez B={g_start.p.shape[-1]}: fused "
+              f"{kern.tolist()}, plain {plain.tolist()}, max relative |Δ| {rel:.6g}")  # fmt: skip
+        if not rel <= GRAD["check_rtol"]:
+            raise RuntimeError(f"the relaxed-rigid fused rollout's gradient disagrees with plain beyond {GRAD['check_rtol']}")
 
     # ----- main paths -----
     results = {}
@@ -1984,6 +2217,52 @@ def main() -> int:
         if tuple(obs.shape) != (d, BATCH) or int(state.steps.max()) > 1 + ENV_STEPS:
             raise RuntimeError("relaxed-rigid BatchedEnv.step: wrong shapes or step counts")
 
+    with phase("main path: relaxed-rigid policy gradient (K3-rr, K4-rr)"):
+        rr_pg_rollout = diff_step.fused_diff_rollout(hum_rr, GRAD["steps"])
+
+        def rr_policy_gradient():
+            gains = torch.tensor(GRAD["gains"], device=device, requires_grad=True)
+            out = rr_pg_rollout(rr_start, pd_gains, gains)
+            loss = grad_loss(out)
+            loss.backward()
+            return out, loss.detach(), gains.grad
+
+        runs, launches = main_path(
+            "relaxed-rigid policy gradient", dict(step_tau_relaxed_rigid=grad_launches, step_vjp_relaxed_rigid=grad_launches),
+            lambda: timed_gradients(rr_policy_gradient, GRAD["timed"]),
+        )  # fmt: skip
+        results["step_vjp_relaxed_rigid"] = dict(launches=launches["step_vjp_relaxed_rigid"])
+        report_gradient("relaxed-rigid policy gradient", runs)
+        rr_grad_final, loss, g = runs[-1][1]
+        print(f"relaxed-rigid policy gradient: loss {float(loss):.6g}, d loss / d gains {g.tolist()}", flush=True)
+        if not (bool(torch.isfinite(g).all()) and bool((g != 0).any()) and all_finite(rr_grad_final)):
+            raise RuntimeError("relaxed-rigid policy gradient: non-finite or all-zero gradient")
+
+    with phase("main path: relaxed-rigid hardware-parameter gradient (K3-rr, K4-rr params_grad)"):
+        rr_hw_rollout = diff_step.fused_diff_rollout(hum_rr, GRAD["steps"], params_grad=True)
+        fixed_gains = torch.tensor(GRAD["gains"], device=device)
+
+        def rr_hardware_gradient():
+            hw = {k: getattr(hum_rr, k).clone().requires_grad_() for k in ("M", "cpoint")}
+            loss = grad_loss(rr_hw_rollout(rr_start, pd_gains, fixed_gains, pr=hw))
+            loss.backward()
+            return loss.detach(), {k: t.grad for k, t in hw.items()}
+
+        runs, launches = main_path(
+            "relaxed-rigid hardware-parameter gradient",
+            dict(step_tau_relaxed_rigid=grad_launches, step_vjp_relaxed_rigid=grad_launches,
+                 param_sum_relaxed_rigid=grad_launches),
+            lambda: timed_gradients(rr_hardware_gradient, GRAD["timed"]),
+        )  # fmt: skip
+        results["step_vjp_relaxed_rigid_params_grad"] = dict(launches=launches["step_vjp_relaxed_rigid"])
+        results["param_sum_relaxed_rigid"] = dict(launches=launches["param_sum_relaxed_rigid"])
+        report_gradient("relaxed-rigid hardware-parameter gradient", runs)
+        loss, g = runs[-1][1]
+        print(f"relaxed-rigid hardware-parameter gradient: loss {float(loss):.6g}, "
+              + ", ".join(f"max|d loss / d {k}| {float(t.abs().max()):.6g}" for k, t in g.items()), flush=True)  # fmt: skip
+        if not (all(bool(torch.isfinite(t).all()) for t in g.values()) and any(bool((t != 0).any()) for t in g.values())):
+            raise RuntimeError("relaxed-rigid hardware-parameter gradient: non-finite or all-zero gradients")
+
     rk4_finals = {}
     with phase("main path: BASELINE config 5, relaxed-rigid RK4 rollout (K1)"):
         cfg5 = hum_rr_rk4["rk4"]
@@ -2095,6 +2374,18 @@ def main() -> int:
             call()
             sync()
             results[name]["ms"] = statistics.median(device_ms(call, 20))
+        # K4-rr at the relaxed-rigid gradient main paths' shapes, and its partials' sum.
+        ct_rr0 = vjp_cotangents(rr_start, vjp_gen)["all six"]
+        vjp_calls.update(
+            step_vjp_relaxed_rigid=lambda: cuda_step_vjp.step_vjp(hum_rr, rr_start, tau_rr0, ct_rr0),
+            step_vjp_relaxed_rigid_params_grad=lambda: cuda_step_vjp.step_vjp(hum_rr, rr_start, tau_rr0, ct_rr0,
+                                                                              params_grad=True),
+            param_sum_relaxed_rigid=lambda: cuda_step_vjp.sum_partials(hum_rr, rr_partials),
+        )  # fmt: skip
+        for name in ("step_vjp_relaxed_rigid", "step_vjp_relaxed_rigid_params_grad", "param_sum_relaxed_rigid"):
+            vjp_calls[name]()
+            sync()
+            results[name]["ms"] = statistics.median(device_ms(vjp_calls[name], 20))
         garp_tau0 = case_tau("garpez", apg["start"])
         kernel_only = dict(
             step_pd=profiled_ms(lambda: cuda_step.step_pd(hum, state0), "step_pd_kernel", 10),
@@ -2106,8 +2397,14 @@ def main() -> int:
             step_pd_relaxed_rigid=profiled_ms(lambda: cuda_step.step_pd(hum_rr, rr_start), "rollout_rr_kernel", 10),
             step_tau_relaxed_rigid=profiled_ms(lambda: cuda_step.step_tau(hum_rr, rr_start, tau_rr0),
                                                "step_tau_rr_kernel", 10),
+            step_vjp_relaxed_rigid=profiled_ms(vjp_calls["step_vjp_relaxed_rigid"], "step_vjp_rr_kernel", 10),
+            step_vjp_relaxed_rigid_params_grad=profiled_ms(vjp_calls["step_vjp_relaxed_rigid_params_grad"],
+                                                           "step_vjp_rr_kernel", 10),
+            param_sum_relaxed_rigid=profiled_ms(vjp_calls["param_sum_relaxed_rigid"], "param_sum_kernel", 10),
         )
-        library_kernel_only = dict(param_sum=profiled_ms(lambda: torch.sum(partials, 0), "", 10))
+        library_kernel_only = dict(param_sum=profiled_ms(lambda: torch.sum(partials, 0), "", 10),
+                                   # torch.sum reduces 8192 rows in two launches.
+                                   param_sum_relaxed_rigid=profiled_ms(lambda: torch.sum(rr_partials, 0), "", 10, 2))
         print(f"library kernel-only device ms a launch (torch.profiler, mean of 10): {json.dumps(library_kernel_only)}")
         print(f"kernel-only device ms a launch (torch.profiler, mean of 10): {json.dumps(kernel_only)}")
         event_ms = {k: results[k]["ms"] for k in kernel_only if k in results}
@@ -2121,7 +2418,13 @@ def main() -> int:
             step_vjp_params_grad=wall_ms(lambda: [cuda_step_vjp.step_vjp_reference(
                 hum, state0, tau0, ct0, params_grad=True) for _ in range(n_vjp)]) / n_vjp,
             param_sum=wall_ms(lambda: [cuda_step_vjp.sum_partials_reference(partials) for _ in range(20)]) / 20,
+            param_sum_relaxed_rigid=wall_ms(lambda: [cuda_step_vjp.sum_partials_reference(rr_partials)
+                                                     for _ in range(20)]) / 20,
         )  # fmt: skip
+        n_rr = PLAIN_TIMED_STEPS["step_vjp_relaxed_rigid"]
+        for name, pg in (("step_vjp_relaxed_rigid", False), ("step_vjp_relaxed_rigid_params_grad", True)):
+            plain_ms[name] = wall_ms(lambda: [cuda_step_vjp.step_vjp_reference(
+                hum_rr, rr_start, tau_rr0, ct_rr0, params_grad=pg) for _ in range(n_rr)]) / n_rr  # fmt: skip
         plain_ms["rollout_relaxed_rigid"] = wall_ms(lambda: cuda_rollout.rollout_reference(
             hum_rr, rr_start, PLAIN_TIMED_STEPS["rollout_relaxed_rigid"])) * RR_HORIZON / PLAIN_TIMED_STEPS[
             "rollout_relaxed_rigid"]  # fmt: skip
@@ -2147,7 +2450,8 @@ def main() -> int:
             plain_ms[f"bf16_probe_{v}"] = wall_ms(lambda: fma_probe.probe_reference(v, x, 256, r["chains"])) * (
                 fma_probe.T_LONG / 256)  # fmt: skip
         plain_ms["fma_probe"] = plain_ms["bf16_probe_f32"]
-        library_ms = dict(param_sum=statistics.median(device_ms(lambda: torch.sum(partials, 0), 20)))
+        library_ms = dict(param_sum=statistics.median(device_ms(lambda: torch.sum(partials, 0), 20)),
+                          param_sum_relaxed_rigid=statistics.median(device_ms(lambda: torch.sum(rr_partials, 0), 20)))
         print(f"plain ms for each kernel's launch (timed over {json.dumps(PLAIN_TIMED_STEPS)} steps): {json.dumps(plain_ms)}")
         print(f"library ms (one torch call, CUDA events, median of 20): {json.dumps(library_ms)}")
 
@@ -2179,6 +2483,18 @@ def main() -> int:
               f"relaxed-rigid main path's final state): {flops['rr_step']}; the relaxed-rigid env rollout's step, with "
               f"its policy, reward and reset selection (over the last relaxed-rigid ES generation's final state): "
               f"{flops['rr_env_step']}")  # fmt: skip
+        # K4-rr's: the plain version's forward, implicit backward and
+        # transposed step, at the relaxed-rigid policy gradient's final state,
+        # its PD torques and the timed random cotangent.
+        rr_vjp_state = cpu_head(rr_grad_final)
+        rr_vjp_args = (rr_vjp_state, -60.0 * rr_vjp_state.s - 0.5 * rr_vjp_state.sd, cpu_head(ct_rr0))
+        flops.update(
+            rr_vjp=flop_count.least_vjp_ops(cpu_hum_rr, *rr_vjp_args, COUNT_ENVS),
+            rr_vjp_params_grad=flop_count.least_vjp_ops(cpu_hum_rr, *rr_vjp_args, COUNT_ENVS, params_grad=True),
+        )
+        print(f"float32 operations a relaxed-rigid env's step VJP needs (the same count, over {COUNT_ENVS} envs of the"
+              f" relaxed-rigid policy gradient's final state): {flops['rr_vjp']}, with the model arrays' cotangents"
+              f" {flops['rr_vjp_params_grad']}")  # fmt: skip
         for i in RK4_INTEGRATORS:
             for kind, make in (("step", humanoid_engine), ("rr_step", rr_humanoid_engine)):
                 cpu = make("cpu", i)
@@ -2191,6 +2507,8 @@ def main() -> int:
         sb, pb = state_bytes(hum, BATCH), 4 * cuda_build.packed_params(hum).numel()
         n_blocks, n_params = partials.shape
         vjp_bytes = 3 * sb + pb + 8 * n * BATCH  # state, tau, ct in; ct_state, ct_tau out
+        rr_pb, rr_n_params = 4 * cuda_build.packed_params(hum_rr).numel(), rr_partials.shape[1]
+        rr_vjp_bytes = 3 * sb + rr_pb + 8 * n * BATCH
         work = dict(
             rollout=(flops["step"] * BATCH * HORIZON, 2 * sb + pb),
             step_pd=(flops["step"] * BATCH, 2 * sb + pb),
@@ -2200,6 +2518,9 @@ def main() -> int:
             step_vjp=(flops["vjp"] * BATCH, vjp_bytes),
             step_vjp_params_grad=(flops["vjp_params_grad"] * BATCH, vjp_bytes + 4 * n_params),
             param_sum=((n_blocks - 1) * n_params, 4 * (n_blocks + 1) * n_params),
+            step_vjp_relaxed_rigid=(flops["rr_vjp"] * BATCH, rr_vjp_bytes),
+            step_vjp_relaxed_rigid_params_grad=(flops["rr_vjp_params_grad"] * BATCH, rr_vjp_bytes + rr_pb),
+            param_sum_relaxed_rigid=((BATCH - 1) * rr_n_params, 4 * (BATCH + 1) * rr_n_params),
             rollout_relaxed_rigid=(flops["rr_step"] * BATCH * RR_HORIZON,
                                    2 * sb + 4 * cuda_build.packed_params(hum_rr).numel()),
             step_pd_relaxed_rigid=(flops["rr_step"] * BATCH, 2 * sb + 4 * cuda_build.packed_params(hum_rr).numel()),

@@ -539,19 +539,14 @@ __device__ __forceinline__ float rr_prec(const float* P, const Scalars& sc, int 
 
 // ----- the step -----
 
-// The contact solve on the env's lanes (lane g of the env's slot `sl`, its
-// point slots `pt`, -1 for a padding slot), after the free ABA has filled
-// the slot: per point slot the activity, the regularizer r_j, the residual of
-// the start -b and the warm start from `m` (the lane's m rows); the PCG; and
-// the M^-1 J^T pass of the solved forces, which leaves the contact
-// accelerations in the F rows (link-frame, by link) and the UM rows (joint
-// accelerations). The lane's solved forces go to `x`.
-__device__ __forceinline__ void rr_solve(const float* P, const Scalars& sc, Slot sl, int g, const int* pt,
-                                         const float* m, float* x) {
-  // Per point slot: the activity, the regularizer r_j, the residual of the
-  // start -b and the warm start.
+// The contact solve's set-up on the env's lanes (lane g of the env's slot
+// `sl`, its point slots `pt`, -1 for a padding slot), after the free ABA has
+// filled the slot: per point slot the activity `act`, the regularizer `rj`,
+// the right-hand side -b in `r` and the warm start in `x` from `m` (the
+// lane's m rows).
+__device__ __forceinline__ void rr_setup(const float* P, const Scalars& sc, Slot sl, const int* pt, const float* m,
+                                         float* act, float* rj, float* r, float* x) {
   const float nh[3] = {0.0f, 0.0f, 1.0f};  // flat ground's normal
-  float act[OWN], rj[OWN * 3], r[OWN * 3], pp[OWN * 3], Ap[OWN * 3];
 #pragma unroll
   for (int k = 0; k < OWN; ++k) {
     const int c = pt[k];
@@ -617,13 +612,37 @@ __device__ __forceinline__ void rr_solve(const float* P, const Scalars& sc, Slot
       x[k * 3 + j] = warm > 0.0f ? a_k * m[k * 3 + j] : neg_b / prec;
     }
   }
+}
 
-  // Preconditioned CG on A x = -b, warm-started: one pass for A x, one a CG
-  // iteration, and one for M^-1 J^T x, all through one copy of the pass.
+// JX_RR_ITERS iterations of the preconditioned CG on A x = r on the env's
+// lanes, as the twin's _pcg: with `warm` from x (one pass for A x first),
+// else from zero (x must hold zeros); with `final_pass` then the M^-1 J^T
+// pass of the solved forces, which leaves the contact accelerations in the
+// F rows (link-frame, by link) and the UM rows (joint accelerations). Every
+// pass goes through one copy of the pass. `r` is the residual on return.
+__device__ __forceinline__ void rr_cg(const float* P, const Scalars& sc, Slot sl, int g, const int* pt,
+                                      const float* act, const float* rj, float* r, float* x, bool warm,
+                                      bool final_pass) {
+  float pp[OWN * 3], Ap[OWN * 3];
   float rz = 0.0f;
+  if (!warm) {
+    // From zero: the residual is the right-hand side.
+    float dot = 0.0f;
+#pragma unroll
+    for (int k = 0; k < OWN; ++k)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int e = k * 3 + j;
+        const float z = r[e] / rr_prec(P, sc, pt[k], j, act[k], rj[e]);
+        pp[e] = z;
+        dot += r[e] * z;
+      }
+    rz = lanes_sum(dot);
+  }
 #pragma unroll 1
-  for (int it = -1; it <= JX_RR_ITERS; ++it) {
+  for (int it = warm ? -1 : 0; it <= JX_RR_ITERS; ++it) {
     const bool first = it < 0, last = it == JX_RR_ITERS;
+    if (last && !final_pass) break;
     if (first || last) {
 #pragma unroll
       for (int k = 0; k < OWN * 3; ++k) pp[k] = x[k];
@@ -680,8 +699,17 @@ __device__ __forceinline__ void rr_solve(const float* P, const Scalars& sc, Slot
       }
     rz = rz_n;
   }
+}
 
-  // ----- the solve's end
+// The contact solve on the env's lanes (lane g of the env's slot `sl`, its
+// point slots `pt`, -1 for a padding slot), after the free ABA has filled
+// the slot: rr_setup, then the PCG warm-started from `m` and the M^-1 J^T
+// pass of the solved forces (rr_cg). The lane's solved forces go to `x`.
+__device__ __forceinline__ void rr_solve(const float* P, const Scalars& sc, Slot sl, int g, const int* pt,
+                                         const float* m, float* x) {
+  float act[OWN], rj[OWN * 3], r[OWN * 3];
+  rr_setup(P, sc, sl, pt, m, act, rj, r, x);
+  rr_cg(P, sc, sl, g, pt, act, rj, r, x, true, true);
 }
 
 // Under RK4-fast: the lanes' solved forces x as the parents' world wrenches

@@ -65,6 +65,11 @@ def _maximum(x, floor: float):
     return torch.maximum(x, x.new_tensor(floor))
 
 
+def _minimum(x, ceiling: float):
+    """min(x, ceiling) with JAX's derivative at a tie (see :func:`_maximum`)."""
+    return torch.minimum(x, x.new_tensor(ceiling))
+
+
 def _c(a):
     """Model constant → broadcastable against one trailing batch axis."""
     return a.unsqueeze(-1)
@@ -197,6 +202,99 @@ def _vxstar_Mv(v, M):
     vl, va = v[0:3], v[3:6]
     fl, fa = Mv[0:3], Mv[3:6]
     return torch.cat([_cross(va, fl), _cross(vl, fl) + _cross(va, fa)])
+
+
+# ----------------------------------------------------------------------
+# The relaxed-rigid solve and its implicit backward
+# ----------------------------------------------------------------------
+
+
+class _RrOperator:
+    """The relaxed-rigid operator ``A y = act·J M⁻¹ Jᵀ (act·y) + (r + reg) y``
+    as a function of its inputs, a flat list of tensors cut by ``counts``
+    (name → how many): the activity ``act``, the points' parent rotations
+    ``Rp`` and offsets ``Lp``, the regularizer ``rdiag``, the motion
+    subspaces ``S`` and the free ABA's factorization (``U``, ``d``,
+    ``inv_R``, ``inv_p`` of links 1.., the base factor ``L0``'s lower
+    triangle by rows). ``a0`` shapes the substitution's zero accelerations."""
+
+    def __init__(self, engine: BatchedEngine, counts: dict[str, int], a0: torch.Tensor):
+        self.engine, self.counts, self.a0 = engine, counts, a0
+
+    def __call__(self, flat):
+        ops, k = {}, 0
+        for name, n in self.counts.items():
+            ops[name], k = list(flat[k : k + n]), k + n
+        fact = dict(a=[self.a0], U=[None, *ops["U"]], d=[None, *ops["d"]],
+                    inv_R=[None, *ops["inv_R"]], inv_p=[None, *ops["inv_p"]], L0=None)  # fmt: skip
+        if ops["L0"]:
+            it = iter(ops["L0"])
+            fact["L0"] = [[next(it) for _ in range(i + 1)] + [None] * (5 - i) for i in range(6)]
+        (act,), (Rp,), (Lp,), (rdiag,), (S,) = (ops[k] for k in ("act", "Rp", "Lp", "rdiag", "S"))
+        eng, reg = self.engine, self.engine.rr_reg
+
+        def A_apply(y):
+            """A y = G y + (r + reg) y for y (nC,3,B)."""
+            f_loc = eng._rr_scatter(Rp, Lp, (act * y).transpose(0, 1))
+            a_c, _ = eng._minv_apply(fact, f_loc, dict(S=S))
+            return act * eng._rr_gather(Rp, Lp, a_c).transpose(0, 1) + (rdiag + reg) * y
+
+        return A_apply
+
+
+def _pcg(A_apply, b, prec, n_iter: int, x0=None):
+    """``n_iter`` iterations of Jacobi-preconditioned CG on ``A x = b``, no
+    early exit, from ``x0`` or, without it, from zero (the JAX engine's
+    ``pcg_run``)."""
+    if x0 is None:
+        x, r = torch.zeros_like(b), b
+    else:
+        x, r = x0, b - A_apply(x0)
+    z = r / prec
+    p, rz = z, (r * z).sum((0, 1))
+    for _ in range(n_iter):
+        Ap = A_apply(p)
+        alpha = rz / ((p * Ap).sum((0, 1)) + 1e-20)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = r / prec
+        rz_n = (r * z).sum((0, 1))
+        beta = rz_n / (rz + 1e-20)
+        p, rz = z + beta * p, rz_n
+    return x
+
+
+class _PcgImplicit(torch.autograd.Function):
+    """``x = A(θ)⁻¹ (−b)`` by :func:`_pcg` from the warm start ``x0``, with
+    the JAX engine's implicit VJP (``pcg_implicit``, ``pcg_fwd``,
+    ``pcg_bwd``): for x̄, λ = PCG(x̄) from zero on the same operator and
+    preconditioner; −b's cotangent is λ, the operator inputs θ get
+    ∂⟨−λ, A(θ) x⟩/∂θ, and the preconditioner and the warm start get none
+    (at convergence they do not move the solution). Autograd through the
+    unrolled iterations would give another gradient and NaN on inactive
+    points (``prec`` = reg there)."""
+
+    @staticmethod
+    def forward(ctx, operator: _RrOperator, n_iter: int, neg_b, prec, x0, *ops):
+        x = _pcg(operator(ops), neg_b, prec, n_iter, x0)
+        ctx.operator, ctx.n_iter = operator, n_iter
+        ctx.save_for_backward(x, prec, *ops)
+        return x
+
+    @staticmethod
+    def backward(ctx, x_bar):
+        x, prec, *ops = ctx.saved_tensors
+        lam = _pcg(ctx.operator(ops), x_bar, prec, ctx.n_iter)
+        wanted = [k for k, t in enumerate(ops) if ctx.needs_input_grad[5 + k]]
+        grads = [None] * len(ops)
+        if wanted:
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(k in wanted) for k, t in enumerate(ops)]
+                Ax = ctx.operator(leaves)(x)
+                got = torch.autograd.grad(Ax, [leaves[k] for k in wanted], -lam, allow_unused=True)
+            for k, g in zip(wanted, got):
+                grads[k] = g
+        return (None, None, lam if ctx.needs_input_grad[2] else None, None, None, *grads)
 
 
 # ----------------------------------------------------------------------
@@ -737,7 +835,8 @@ class BatchedEngine(nn.Module):
             ya = (1.0 / mid ** (power - 1.0)) * torch.pow(x_j, power)
             yb = 1.0 - (1.0 / (1.0 - mid) ** (power - 1.0)) * torch.pow(_maximum(1.0 - x_j, 0.0), power)
             y_j = torch.where(x_j < mid, ya, yb)
-            xi_j = torch.clamp(xi_min + y_j * (xi_max - xi_min), xi_min, xi_max)
+            # jnp.clip is maximum then minimum, and so are its derivatives at a tie.
+            xi_j = _minimum(_maximum(xi_min + y_j * (xi_max - xi_min), xi_min), xi_max)
             xi_j = torch.where(x_j > 1.0, torch.full_like(xi_j, xi_max), xi_j)
             xi.append(xi_j)
             aref.append(-(self.rr_damp * pd[j] + self.rr_stiff * xi_j * pos_j))
@@ -765,31 +864,25 @@ class BatchedEngine(nn.Module):
         rdiag = torch.stack(rdiag, 1)
         act = active[:, None]
 
-        def A_apply(y):
-            """A y = G y + (r + reg) y for y (nC,3,B)."""
-            f_loc = self._rr_scatter(Rp, Lp, (act * y).transpose(0, 1))
-            a_c, _ = self._minv_apply(fact, f_loc, pr)
-            return act * self._rr_gather(Rp, Lp, a_c).transpose(0, 1) + (rdiag + reg) * y
+        # Everything the operator reads is an input of the implicit solve, as
+        # the JAX engine's ``ops`` pytree is of its ``pcg_implicit``.
+        L0 = fact["L0"]
+        ops = dict(
+            act=[act], Rp=[Rp], Lp=[Lp], rdiag=[rdiag], S=[pr["S"]],
+            U=fact["U"][1:], d=fact["d"][1:], inv_R=fact["inv_R"][1:], inv_p=fact["inv_p"][1:],
+            L0=[L0[i][j] for i in range(6) for j in range(i + 1)] if L0 is not None else [],
+        )  # fmt: skip
+        operator = _RrOperator(self, {k: len(v) for k, v in ops.items()}, a_free[0].detach())
 
         # Warm start from the previous step's forces (masked to the active
         # points); a point without them starts from the Jacobi estimate.
         m_carried = act * state.m
         has_warm = (m_carried * m_carried).sum(1, keepdim=True) > 0.0
-        x = torch.where(has_warm, m_carried, neg_b / prec)
+        x0 = torch.where(has_warm, m_carried, neg_b / prec)
 
-        # Preconditioned CG on A x = −b, a fixed number of iterations.
-        r = neg_b - A_apply(x)
-        z = r / prec
-        p, rz = z, (r * z).sum((0, 1))
-        for _ in range(self._rr_n_iter):
-            Ap = A_apply(p)
-            alpha = rz / ((p * Ap).sum((0, 1)) + 1e-20)
-            x = x + alpha * p
-            r = r - alpha * Ap
-            z = r / prec
-            rz_n = (r * z).sum((0, 1))
-            beta = rz_n / (rz + 1e-20)
-            p, rz = z + beta * p, rz_n
+        # Preconditioned CG on A x = −b, a fixed number of iterations, with
+        # its implicit backward (:class:`_PcgImplicit`).
+        x = _PcgImplicit.apply(operator, self._rr_n_iter, neg_b, prec, x0, *(t for v in ops.values() for t in v))
 
         if return_wrenches:
             # World wrenches [x ; pc × x] summed into the parent links in
@@ -921,18 +1014,6 @@ class BatchedEngine(nn.Module):
     def _normalize_quat(q):
         return q / torch.sqrt(_maximum((q * q).sum(0), 1e-12))
 
-    def _refuse_autograd(self, state: BatchedState, tau, pr) -> None:
-        """A relaxed-rigid step refuses inputs that require grad: the JAX
-        engine differentiates its contact solve implicitly (one more PCG on
-        the same operator), and autograd through the unrolled iterations
-        would give another gradient."""
-        if self.contact_model == "relaxed_rigid" and self.n_points > 0:
-            inputs = [*state.fields(), tau, *pr.values()]
-            if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-                raise NotImplementedError(
-                    "the relaxed-rigid step has no backward yet: its implicit PCG backward is not ported"
-                )
-
     def _contact_forces(self, state: BatchedState, W_R, W_p, W_v, tau, pr):
         """The contact model's per-link world 6D forces and ṁ at ``state``
         (what RK4-fast freezes): for relaxed-rigid contacts ṁ steers m to
@@ -1000,10 +1081,9 @@ class BatchedEngine(nn.Module):
         """One step of the engine's integrator (semi-implicit Euler, RK4 or
         RK4-fast) with its contact model. ``pr`` overrides model arrays by
         name (see :meth:`params`) for this step only. A relaxed-rigid step
-        refuses inputs that require grad (:meth:`_refuse_autograd`)."""
+        differentiates its contact solve implicitly (:class:`_PcgImplicit`)."""
         tau = tau if tau is not None else torch.zeros_like(state.s)
         pr = self.params(pr)
-        self._refuse_autograd(state, tau, pr)
         if self.integrator in ("rk4", "rk4fast"):
             return self._rk4_step(state, tau, pr)
 

@@ -2,8 +2,9 @@
 
 Every engine kernel source in ``jaxsim_tpu_torch/csrc/`` (``rollout.cu``,
 ``env_rollout.cu``, ``step.cu`` and ``step_vjp.cu``, whose step is the
-lane-spread ``soft_step_lanes.cuh``; ``rollout_rr.cu``, whose relaxed-rigid
-step is ``rr_step.cuh``) includes the shared algebra ``step_env.cuh`` and a
+lane-spread ``soft_step_lanes.cuh``; ``rollout_rr.cu``, ``step_rr.cu``,
+``env_rollout_rr.cu`` and ``step_vjp_rr.cu``, whose relaxed-rigid step is
+``rr_step.cuh``) includes the shared algebra ``step_env.cuh`` and a
 generated header, ``jx_topology.h``, that makes one model topology's sizes
 and tables, its contact model, its PCG iterations and its integrator
 compile-time constants, and for the kernels that put an env on several lanes the lanes

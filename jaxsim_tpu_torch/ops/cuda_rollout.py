@@ -101,7 +101,7 @@ def rr_geometry(kernel: KernelBuild) -> dict[str, int]:
 def rr_local_memory(kernel: KernelBuild) -> dict[str, int]:
     """The local loads and stores (``LDL``, ``STL``) in the relaxed-rigid
     kernel's SASS: in all, in the M⁻¹Jᵀ pass (``rr_scatter``, ``rr_minv``,
-    ``rr_gather`` of ``rr_step.cuh``), and in the CG loop around it."""
+    ``rr_gather`` of ``rr_step.cuh``), and in the CG loop around it (``rr_cg``)."""
     header = (CSRC / "rr_step.cuh").read_text().splitlines()
 
     def line_of(text: str) -> int:
@@ -109,8 +109,7 @@ def rr_local_memory(kernel: KernelBuild) -> dict[str, int]:
 
     return cuda_build.local_memory(kernel, dict(
         passes=("rr_step.cuh", line_of("void rr_scatter("), line_of("float rr_prec(")),
-        cg_loop=("rr_step.cuh", line_of("for (int it = -1; it <= JX_RR_ITERS; ++it)"),
-                 line_of("// ----- the solve's end")),
+        cg_loop=("rr_step.cuh", line_of("void rr_cg("), line_of("void rr_solve(")),
     ))  # fmt: skip
 
 

@@ -20,6 +20,16 @@ order), so two runs agree to the bit.
 (``torch.autograd.grad`` through the twin's step), for a CPU state and the
 kernel for a CUDA state; a failed build or launch raises. Scope: soft
 contacts, flat ground, semi-implicit Euler, the body K3 has.
+
+For a relaxed-rigid engine the kernel is K4-rr,
+``jaxsim_tpu_torch/csrc/step_vjp_rr.cu`` (built per topology and per
+``params_grad`` as K4): K3-rr's geometry (``RR_LANES`` lanes an env, the
+envs a block that fit, up to ``RR_ENVS``), the forward's and the implicit
+backward's PCG on the env's lanes, the transposed step on one thread an env
+with a tape in device memory; with ``params_grad`` each env writes a row of
+model-array cotangents (``rrMinv``'s included) and the same fixed-order sum
+adds the rows. It differentiates the solve as the twin's ``_PcgImplicit``
+does, which is its plain version.
 """
 
 from __future__ import annotations
@@ -28,13 +38,15 @@ import weakref
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, cuda_rollout
 from .batched_engine import BatchedEngine, BatchedState
 from .cuda_build import CSRC, F32, I32, PTR, BuildJob, KernelBuild, packed_params
 
 # Launches of each CUDA kernel made by the wrappers below, in this process.
 STEP_VJP_KERNEL_LAUNCHES = 0
+STEP_VJP_RR_KERNEL_LAUNCHES = 0
 PARAM_SUM_KERNEL_LAUNCHES = 0
+PARAM_SUM_RR_KERNEL_LAUNCHES = 0
 
 SOURCE = CSRC / "step_vjp.cu"
 SIGNATURES = {
@@ -46,10 +58,34 @@ _ENVS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 # Lanes of a warp that carry one env (a build-time constant; PERF.md §6 has
 # the times of the counts tried).
 LANES = 4
+# The contact models K4 differentiates: soft (step_vjp.cu) and relaxed-rigid
+# (step_vjp_rr.cu).
+CONTACT_MODELS = ("soft", "relaxed_rigid")
 
 
-def job(engine: BatchedEngine, params_grad: bool = False, lanes: int = LANES) -> BuildJob:
-    return BuildJob(engine, SOURCE, SIGNATURES, (("JX_PARAMS_GRAD", int(params_grad)), ("JX_LN_LANES", int(lanes))))
+RR_SOURCE = CSRC / "step_vjp_rr.cu"
+# K4-rr's arguments: K4's, the tape and its stride before the partials, and
+# the relaxed-rigid tail of the scalars (cuda_build.rr_scalars).
+RR_SIGNATURES = {
+    "jx_step_vjp_rr": [PTR] * 22 + [I32, PTR, I32] + [F32] * 21 + [PTR],
+    "jx_param_sum": [PTR, I32, PTR, PTR],
+    "jx_vjp_rr_geometry": [PTR],
+    "jx_vjp_rr_tape_rows": [],
+}
+# K4-rr's lanes an env (K3-rr's) and envs a block, at most.
+RR_LANES = cuda_rollout.RR_LANES
+RR_ENVS = 64
+
+
+def job(engine: BatchedEngine, params_grad: bool = False, lanes: int | None = None, envs: int | None = None) -> BuildJob:
+    """The library for ``engine``: K4 (``lanes`` lanes an env, ``LANES`` by
+    default), or for a relaxed-rigid engine K4-rr (``lanes``, ``RR_LANES`` by
+    default, and at most ``envs`` envs a block, ``RR_ENVS`` by default)."""
+    if engine.contact_model == "relaxed_rigid":
+        defines = (("JX_PARAMS_GRAD", int(params_grad)), ("JX_RR_LANES", int(lanes or RR_LANES)),
+                   ("JX_RR_TAU_ROW", 1), ("JX_RR_MAX_ENVS", int(envs or RR_ENVS)))  # fmt: skip
+        return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, defines)
+    return BuildJob(engine, SOURCE, SIGNATURES, (("JX_PARAMS_GRAD", int(params_grad)), ("JX_LN_LANES", int(lanes or LANES))))
 
 
 def envs_per_block(engine: BatchedEngine, params_grad: bool = False, lanes: int = LANES) -> int:
@@ -65,13 +101,15 @@ def geometry(kernel: KernelBuild) -> dict[str, int]:
     """The kernel's launch: threads and envs a block, the dynamic shared
     memory a block takes in bytes, and the blocks an SM holds at once (CUDA's
     occupancy calculator)."""
-    return cuda_build.geometry(kernel, "jx_vjp_geometry")
+    relaxed = hasattr(kernel.lib, "jx_vjp_rr_geometry")
+    return cuda_build.geometry(kernel, "jx_vjp_rr_geometry" if relaxed else "jx_vjp_geometry")
 
 
 def local_memory(kernel: KernelBuild) -> dict[str, int]:
-    """The local loads and stores in the kernel's SASS: in all, in the
-    forward recompute (``soft_step_lanes.cuh``) and in the reverse sweep
-    (``step_vjp_lanes`` and the transposes it calls in ``step_vjp.cu``)."""
+    """The local loads and stores in K4's SASS: in all, in the forward
+    recompute (``soft_step_lanes.cuh``), in the reverse sweep
+    (``step_vjp_lanes`` in ``step_vjp.cu``) and in the transposes it calls
+    (``vjp_algebra.cuh``)."""
     text = SOURCE.read_text().splitlines()
 
     def line_of(pattern: str) -> int:
@@ -79,7 +117,17 @@ def local_memory(kernel: KernelBuild) -> dict[str, int]:
 
     return cuda_build.local_memory(kernel, dict(
         forward=("soft_step_lanes.cuh", 1, 10**6),
-        reverse=("step_vjp.cu", line_of("// ----- transposes of the small algebra"), line_of("// ----- kernels -----")),
+        reverse=("step_vjp.cu", line_of("// The block's row of model-array cotangents"), line_of("// ----- kernels -----")),
+        transposes=("vjp_algebra.cuh", 1, 10**6),
+    ))  # fmt: skip
+
+
+def rr_local_memory(kernel: KernelBuild) -> dict[str, int]:
+    """The local loads and stores in K4-rr's SASS: in all, in the forward's
+    and the backward solve's passes (``rr_step.cuh``), in the transposed step
+    (``step_vjp_rr.cu``) and in the transposes it calls (``vjp_algebra.cuh``)."""
+    return cuda_build.local_memory(kernel, dict(
+        solves=("rr_step.cuh", 1, 10**6), reverse=("step_vjp_rr.cu", 1, 10**6), transposes=("vjp_algebra.cuh", 1, 10**6),
     ))  # fmt: skip
 
 
@@ -88,20 +136,14 @@ def build(engine: BatchedEngine, params_grad: bool = False) -> KernelBuild:
 
 
 def check_scope(engine: BatchedEngine) -> None:
-    """K4 and its plain version differentiate the soft-contact, flat-ground
-    step; anything else raises. (The plain version differentiates any of the
-    twin's integrators; K4 itself takes semi-implicit Euler only, and its
-    wrapper refuses the others.)"""
-    if engine.contact_model == "relaxed_rigid":
+    """K4 and its plain version differentiate the soft-contact or
+    relaxed-rigid step on flat ground; anything else raises. (The plain
+    version differentiates any of the twin's integrators; K4 itself takes
+    semi-implicit Euler only, and its wrapper refuses the others.)"""
+    if not engine.flat or engine.contact_model not in CONTACT_MODELS:
         raise ValueError(
-            "the step VJP covers soft contacts: a relaxed-rigid step has no backward until the twin's implicit PCG"
-            " backward is ported (ROADMAP Queue 1 item 2)"
-        )
-    if not engine.flat or engine.contact_model != "soft":
-        raise ValueError(
-            "the step VJP covers soft contacts on flat ground with semi-implicit"
-            " Euler; other terrains, contact models and integrators come with"
-            " their twins (ROADMAP Queue 1 item 4)"
+            "the step VJP covers soft and relaxed-rigid contacts on flat ground;"
+            " other terrains and contact models come with their twins (ROADMAP Queue 1 item 4)"
         )
 
 
@@ -141,10 +183,11 @@ def sum_partials_reference(partials: torch.Tensor) -> torch.Tensor:
 
 
 def sum_partials(engine: BatchedEngine, partials: torch.Tensor) -> torch.Tensor:
-    """The per-block partial sums ``(n_blocks, n_params)`` of K4's model-array
-    cotangents added over the blocks: one launch of the fixed-order sum for
-    a CUDA tensor, the plain version for a CPU tensor."""
-    global PARAM_SUM_KERNEL_LAUNCHES
+    """The partial sums ``(n_rows, n_params)`` of K4's model-array cotangents
+    (a row a block; K4-rr's a row an env) added over the rows: one launch of
+    the fixed-order sum for a CUDA tensor, the plain version for a CPU
+    tensor."""
+    global PARAM_SUM_KERNEL_LAUNCHES, PARAM_SUM_RR_KERNEL_LAUNCHES
     if partials.device.type == "cpu":
         return sum_partials_reference(partials)
     kernel = build(engine, True)
@@ -152,8 +195,42 @@ def sum_partials(engine: BatchedEngine, partials: torch.Tensor) -> torch.Tensor:
     cuda_build.check_tensor("partials", partials, (partials.shape[0], n), engine.S.device)
     out = torch.empty(n, dtype=partials.dtype, device=partials.device)
     cuda_build.launch(kernel, "jx_param_sum", None, partials.device, partials.data_ptr(), partials.shape[0], out.data_ptr())
-    PARAM_SUM_KERNEL_LAUNCHES += 1
+    if engine.contact_model == "relaxed_rigid":
+        PARAM_SUM_RR_KERNEL_LAUNCHES += 1
+    else:
+        PARAM_SUM_KERNEL_LAUNCHES += 1
     return out
+
+
+def rr_envs_per_block(engine: BatchedEngine, lanes: int = RR_LANES, envs: int = RR_ENVS) -> int:
+    """Envs a block of K4-rr: K3-rr's slot with its torque row, the most up
+    to ``envs`` that fit (``cuda_build.rr_tables``)."""
+    return cuda_build.rr_tables(engine, lanes, tau_row=True, max_envs=envs)["envs"]
+
+
+def launch_rr(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, tau, ct: BatchedState, pr=None,
+              params_grad: bool = False, lanes: int = RR_LANES, envs: int = RR_ENVS):
+    """One launch of ``kernel`` (the engine's K4-rr library, or a variant of
+    it built from another source, lane count or block) on checked CUDA
+    tensors; counts nothing. Returns ``(ct_state, ct_tau, partials)``,
+    ``partials`` (a row of model-array cotangents an env) None without
+    ``params_grad``."""
+    params = packed_params(engine, pr)
+    out = cuda_build.empty_state_like(state)
+    ct_tau = torch.empty_like(tau)
+    B = state.p.shape[-1]
+    per_block = rr_envs_per_block(engine, lanes, envs)
+    stride = -(-B // per_block) * per_block
+    tape = torch.empty(kernel.lib.jx_vjp_rr_tape_rows() * stride, device=tau.device)
+    partials = torch.empty(B, params.numel(), device=tau.device) if params_grad else None
+    cuda_build.launch(
+        kernel, "jx_step_vjp_rr", params, state.p.device,
+        *cuda_build.state_pointers(state), tau.data_ptr(), *cuda_build.state_pointers(ct),
+        *cuda_build.state_pointers(out), ct_tau.data_ptr(), tape.data_ptr(), stride,
+        None if partials is None else partials.data_ptr(),
+        B, *cuda_build.engine_scalars(engine), *cuda_build.rr_scalars(engine),
+    )  # fmt: skip
+    return out, ct_tau, partials
 
 
 def launch(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, tau, ct: BatchedState, pr=None,
@@ -185,19 +262,23 @@ def step_vjp(
     K4 launch (and, with ``params_grad``, one launch of the partials' sum)
     for a CUDA state, the plain version for a CPU state. Returns as
     :func:`step_vjp_reference`."""
-    global STEP_VJP_KERNEL_LAUNCHES
+    global STEP_VJP_KERNEL_LAUNCHES, STEP_VJP_RR_KERNEL_LAUNCHES
     check_scope(engine)
     engine.params(pr)  # refuses unknown or misshapen arrays on either path
     if cuda_build.is_cpu(state, "step VJP"):
         return step_vjp_reference(engine, state, tau, ct, pr, params_grad)
-    B = cuda_build.check_cuda_call(engine, state)
+    B = cuda_build.check_cuda_call(engine, state, CONTACT_MODELS)
     cuda_build.check_tensor("tau", tau, (engine.n_joints, B), engine.S.device)
     for name, t, like in zip(BatchedState.__dataclass_fields__, ct.fields(), state.fields()):
         cuda_build.check_tensor(f"ct.{name}", t, like.shape, engine.S.device)
     for name, t in (pr or {}).items():
         cuda_build.check_tensor(f"pr[{name!r}]", t, t.shape, engine.S.device)
-    out, ct_tau, partials = launch(build(engine, params_grad), engine, state, tau, ct, pr, params_grad)
-    STEP_VJP_KERNEL_LAUNCHES += 1
+    if engine.contact_model == "relaxed_rigid":
+        out, ct_tau, partials = launch_rr(build(engine, params_grad), engine, state, tau, ct, pr, params_grad)
+        STEP_VJP_RR_KERNEL_LAUNCHES += 1
+    else:
+        out, ct_tau, partials = launch(build(engine, params_grad), engine, state, tau, ct, pr, params_grad)
+        STEP_VJP_KERNEL_LAUNCHES += 1
     if params_grad:
         return out, ct_tau, unpack_params(engine, sum_partials(engine, partials))
     return out, ct_tau

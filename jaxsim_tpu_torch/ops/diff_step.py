@@ -5,7 +5,9 @@ tier (``build_fused_diff_pallas_step`` / ``_rollout``), as a
 ``torch.autograd.Function`` over flat tensors (the six state leaves, the
 torques ``tau`` and the model arrays in the engine's ``PARAM_NAMES`` order):
 forward K3 (:func:`cuda_step.step_tau`), backward K4
-(:func:`cuda_step_vjp.step_vjp`). Without ``params_grad`` the model arrays
+(:func:`cuda_step_vjp.step_vjp`); for a relaxed-rigid engine K3-rr and K4-rr,
+whose backward differentiates the contact solve implicitly, as the JAX
+engine's ``pcg_implicit``. Without ``params_grad`` the model arrays
 are the engine's and constant; with it, gradients also flow to ``pr``, the
 model arrays by name (the engine's own ``PARAM_NAMES``: a relaxed-rigid
 engine's add ``rrMinv``), merged over the engine's own.

@@ -161,7 +161,9 @@ def _assert_vjp_close(got, ref, tol, summed_tol=None):
         np.testing.assert_allclose(got[0][k], ref[0][k], err_msg=f"ct.{k}", **tol)
         assert np.isfinite(got[0][k]).all(), k
     np.testing.assert_allclose(got[1], ref[1], err_msg="ct_tau", **tol)
-    for k in BatchedEngine.PARAM_NAMES:
+    # The engine's own model arrays: a relaxed-rigid engine's add rrMinv.
+    assert list(got[2]) == list(ref[2]), (list(got[2]), list(ref[2]))
+    for k in got[2]:
         if summed_tol is None:
             np.testing.assert_allclose(got[2][k], ref[2][k], err_msg=f"ct_pr.{k}", **tol)
         else:

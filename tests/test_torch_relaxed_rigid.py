@@ -293,18 +293,29 @@ def test_box_settles_on_the_plane():
 
 
 def test_step_refuses_autograd():
-    """No backward for the relaxed-rigid solve yet: a step whose inputs
-    require grad raises instead of differentiating the unrolled PCG."""
+    """The relaxed-rigid step no longer refuses inputs that require grad: it
+    differentiates its solve implicitly (``_PcgImplicit``; held against
+    ``jax.vjp`` in ``test_torch_rr_autograd.py``). Under autograd its
+    forward is the plain step's to the bit, and the gradients with respect
+    to v, m and M are finite; v's and M's are nonzero, m's reaches only
+    the warm start and is zero, as JAX's."""
     teng = _port_engine(_jax_engine("garpez"))
-    st = bridge.state_from_numpy(_garpez_arrays(teng.n_joints), device="cpu")
-    st.v.requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        teng.step(st)
+    arrays = _garpez_random_state(teng.n_joints)
     with torch.no_grad():
-        teng.step(st)
+        plain = teng.step(bridge.state_from_numpy(arrays, device="cpu"))
+    st = bridge.state_from_numpy(arrays, device="cpu")
+    st.v.requires_grad_()
+    st.m.requires_grad_()
     pr = {"M": teng.M.clone().requires_grad_()}
-    with pytest.raises(NotImplementedError, match="backward"):
-        teng.step(bridge.state_from_numpy(_garpez_arrays(teng.n_joints), device="cpu"), pr=pr)
+    out = teng.step(st, pr=pr)
+    for a, b in zip(out.fields(), plain.fields()):
+        assert torch.equal(a.detach(), b)
+    loss = (out.sd**2).sum() + out.p[2].sum() + (out.m**2).sum()
+    g_v, g_m, g_M = torch.autograd.grad(loss, [st.v, st.m, pr["M"]])
+    for g in (g_v, g_m, g_M):
+        assert bool(torch.isfinite(g).all())
+    assert float(g_v.abs().max()) > 0 and float(g_M.abs().max()) > 0
+    assert float(g_m.abs().max()) <= 1e-6 * float((out.m.detach() ** 2).sum().sqrt() + 1.0)
 
 
 # ----- what the kernels take -----
@@ -435,26 +446,54 @@ def _job_built(call, eng, st, monkeypatch) -> cuda_build.BuildJob:
     return built.value.args[0]
 
 
+def _rr_tape_rows(eng) -> int:
+    """K4-rr's tape rows an env (``TAPE_ROWS`` of ``step_vjp_rr.cu``),
+    evaluated from the source's constants for ``eng``'s sizes."""
+    text = (cuda_build.CSRC / "step_vjp_rr.cu").read_text()
+    rows = dict(NC=eng.n_points, NL=eng.n_links)
+    for name, expr in re.findall(r"^constexpr int (T_\w+|TAPE_ROWS) = ([^;]+);", text, re.M):
+        rows[name] = eval(expr, {}, dict(rows))  # the constants are sums and products of the sizes
+    return rows["TAPE_ROWS"]
+
+
 @pytest.mark.parametrize("kernel", ["step_vjp"])
 def test_soft_only_kernels_refuse_relaxed_rigid(kernel, monkeypatch):
-    """K4 implements soft contacts only: on a state its kernel would take, a
-    relaxed-rigid engine raises ValueError before any build, naming the
-    twin's missing PCG backward, and so do the differentiable steps and
-    rollouts of ``diff_step`` when they are built, before their forward (K3,
-    which takes the engine) runs; K1, K2, K3 and K5 accept it."""
+    """K4 takes a relaxed-rigid engine to its relaxed-rigid build, K4-rr: on
+    the humanoid's state, with and without ``params_grad``, the wrapper
+    builds ``step_vjp_rr.cu``, whose generated header names relaxed-rigid
+    contacts, K3-rr's lanes, a torque row and blocks of 64 envs, and whose
+    tape takes 6 floats a point and 124 a link (about 13 KB an env for the
+    humanoid); the differentiable step and rollouts of ``diff_step`` are
+    built and their forward goes to K3-rr. A relaxed-rigid engine with RK4
+    or RK4-fast still raises ValueError before any build."""
+    from jaxsim_tpu_torch.api.model import IntegratorType
     from jaxsim_tpu_torch.ops import diff_step
 
-    monkeypatch.setattr(cuda_build, "is_cpu", lambda state, what: False)
     eng = _humanoid_rr()
-    st = eng.init_state(4)
-    match = "soft contacts: a relaxed-rigid step has no backward"
-    with pytest.raises(ValueError, match=match):
-        WRAPPERS[kernel](eng, st)
-    for build in (lambda: diff_step.fused_diff_step(eng), lambda: diff_step.fused_diff_rollout(eng, 2),
-                  lambda: diff_step.fused_diff_step(eng, params_grad=True)):  # fmt: skip
-        with pytest.raises(ValueError, match=match):
-            build()
-    assert cuda_build.check_cuda_call(eng, st, cuda_rollout.CONTACT_MODELS) == 4
+    st = eng.init_state(64)
+    tau = torch.zeros_like(st.s)
+    for pg in (False, True):
+        job = _job_built(lambda e, s: cuda_step_vjp.step_vjp(e, s, tau, s, params_grad=pg), eng, st, monkeypatch)
+        assert job.engine is eng and job.source.name == "step_vjp_rr.cu"
+        defines, _ = _header_tables(cuda_build.topology_header(eng, job.defines))
+        assert defines["JX_CONTACT"] == 1 and defines["JX_PARAMS_GRAD"] == pg and defines["JX_RR_TAU_ROW"] == 1
+        assert defines["JX_RR_LANES"] == cuda_rollout.RR_LANES and defines["JX_RR_ENVS"] == 64
+        assert defines["JX_RR_SLOT"] == 26 * eng.n_links + 36 + 24 * len(set(eng.contact_parent)) + eng.n_joints
+    assert cuda_step_vjp.rr_envs_per_block(eng) == 64
+    rows = _rr_tape_rows(eng)
+    assert rows == 6 * eng.n_points + 124 * eng.n_links and 12_000 < 4 * rows < 14_000
+    for call in (lambda e, s: diff_step.fused_diff_step(e)(s, tau),
+                 lambda e, s: diff_step.fused_diff_rollout(e, 2)(s, lambda x: tau),
+                 lambda e, s: diff_step.fused_diff_step(e, params_grad=True)(s, tau)):  # fmt: skip
+        assert _job_built(call, eng, st, monkeypatch).source.name == "step_rr.cu"
+    for integrator in (IntegratorType.RungeKutta4, IntegratorType.RungeKutta4Fast):
+        model = JaxSimModel.build_from_model_description(
+            models.build_garpez_urdf(), contact_model=RelaxedRigidContacts(), integrator=integrator
+        )
+        rk = BatchedEngine.build(model, device="cpu")
+        s = rk.init_state(64)
+        with pytest.raises(ValueError, match="semi-implicit Euler"):
+            WRAPPERS[kernel](rk, s)
 
 
 @pytest.mark.parametrize("kernel", RR_WRAPPERS)
@@ -627,20 +666,23 @@ def test_kernel_matches_plain_small_batch(cuda, name, lanes):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", sorted(WRAPPERS))
 def test_soft_only_kernels_raise_on_the_card(kernel, cuda):
-    """K4 raises on a relaxed-rigid engine on the card; K2, K3 and K5 launch
-    their relaxed-rigid kernel (counted once) and give a finite state."""
+    """K2, K3, K4 and K5 launch their relaxed-rigid kernel (counted once)
+    on the card and give finite outputs; K4-rr's cotangents within 1e-3 of
+    its plain version relative to max(1, max |plain|) from the rest start."""
     eng = _humanoid_rr(cuda)
     st = eng.init_state(64)
-    if kernel == "step_vjp":
-        with pytest.raises(ValueError, match="soft"):
-            WRAPPERS[kernel](eng, st)
-        return
     module, counter = dict(step_pd=(cuda_step, "STEP_PD_RR_KERNEL_LAUNCHES"),
                            step_tau=(cuda_step, "STEP_TAU_RR_KERNEL_LAUNCHES"),
-                           env_rollout=(cuda_env_rollout, "ENV_ROLLOUT_RR_KERNEL_LAUNCHES"))[kernel]  # fmt: skip
+                           env_rollout=(cuda_env_rollout, "ENV_ROLLOUT_RR_KERNEL_LAUNCHES"),
+                           step_vjp=(cuda_step_vjp, "STEP_VJP_RR_KERNEL_LAUNCHES"))[kernel]  # fmt: skip
     before = getattr(module, counter)
     out = WRAPPERS[kernel](eng, st)
     torch.cuda.synchronize()
     assert getattr(module, counter) == before + 1
     state = out[0] if isinstance(out, tuple) else out
     assert all(bool(torch.isfinite(t).all()) for t in state.fields())
+    if kernel == "step_vjp":
+        plain = cuda_step_vjp.step_vjp_reference(eng, st, torch.zeros_like(st.s), st)
+        for a, b in zip([*out[0].fields(), out[1]], [*plain[0].fields(), plain[1]]):
+            if b.numel():
+                assert float((a - b).abs().max()) <= 1e-3 * max(1.0, float(b.abs().max()))

@@ -296,12 +296,42 @@ def test_soft_rk4_step_vjp_matches_jax(case):
 
 
 def test_relaxed_rigid_rk4_refuses_autograd():
-    """The relaxed-rigid RK4 step keeps refusing inputs that require grad."""
-    teng = _port_engine("box_relaxed_rigid", "rk4")
-    st = bridge.state_from_numpy(_arrays("box_relaxed_rigid", teng), device="cpu")
-    st.v.requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        teng.step(st)
+    """The relaxed-rigid RK4 and RK4-fast steps differentiate under autograd
+    (no longer refused): their VJP on the box in contact, through four
+    implicit PCG backwards (RK4) or one with frozen wrenches (RK4-fast),
+    against ``jax.vjp`` of the JAX step in every state leaf, float64, for a
+    seeded output cotangent (the JAX VJPs compile for about 50 s and 20 s)."""
+    import jax
+    import jax.numpy as jnp
+
+    from jaxsim_tpu.ops.batched_engine import BatchedState as JaxState
+
+    for integrator in ("rk4", "rk4fast"):
+        jeng = _jax_engine("box_relaxed_rigid", integrator)
+        teng = _port_engine("box_relaxed_rigid", integrator, torch.float64)
+        arrays = _arrays("box_relaxed_rigid", teng)
+        rng = np.random.default_rng(7)
+        ct = {k: rng.standard_normal(a.shape) for k, a in arrays.items()}
+        _, params = bridge.reference_engine_arrays(jeng)
+        with jax.enable_x64(True):
+            pr = {k: jnp.asarray(a, jnp.float64) for k, a in params.items()}
+
+            def vjp(st, c):
+                return jax.vjp(lambda st: jeng.step(st, None, pr), st)[1](c)[0]
+
+            args = [JaxState(**{k: jnp.asarray(a) for k, a in d.items()}) for d in (arrays, ct)]
+            ref = bridge.reference_state_arrays(_compiled(vjp, *args)(*args))
+        st = bridge.state_from_numpy(arrays, device="cpu", dtype=torch.float64)
+        for t in st.fields():
+            t.requires_grad_()
+        out = teng.step(st)
+        grads = torch.autograd.grad(
+            out.fields(), list(st.fields()), [torch.from_numpy(ct[k]) for k in bridge.STATE_FIELDS], allow_unused=True
+        )
+        for k, g in zip(bridge.STATE_FIELDS, grads):
+            g = np.zeros_like(ref[k]) if g is None else g.numpy()
+            np.testing.assert_allclose(g, ref[k], err_msg=f"{integrator} {k}", **F64)
+        assert np.abs(ref["q"]).max() > 0
 
 
 # ----- the model, the bridge, K1's plain path -----
