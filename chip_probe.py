@@ -6,7 +6,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations] [rr] [rr_faults] [param_sum]
         [profiler] [vjp] [vjp_faults] [lanes] [quat] [k1_faults] [step] [step_faults] [kernels] [rk4_faults]
-        [rr_step] [rr_step_faults]
+        [rr_step] [rr_step_faults] [rr_vjp] [rr_vjp_faults] [rr_vjp_phases]
 
 With no argument it runs the first three. Probes of the flagship humanoid
 (soft contacts, flat ground, PD policy):
@@ -139,6 +139,12 @@ With no argument it runs the first three. Probes of the flagship humanoid
   ``rr_gates`` on RR_CASES, K5-rr by ``rr_env_gates`` on
   RR_ENV_CASES; per case the worst statistic over its limit (> 1 is
   refused).
+* rr_vjp: K4-rr (``step_vjp_rr.cu``) at each of ``RR_VJP_GEOMETRIES``
+  (lanes an env, envs a block at most), plain and with params_grad, on the
+  relaxed-rigid humanoid at 8192 envs and garpez tilted low at 1024;
+  rr_vjp_faults: ``RR_VJP_FAULTS`` held with ``chip_smoke.rr_vjp_gates``;
+  rr_vjp_phases: K4-rr's cycles by phase (``RR_VJP_PHASES``) and inside the
+  PCG iterations, from clock stamps seeded into a copy of the source.
 
 It prints the card's name and power limit, then JSON lines keyed by probe,
 and exits non-zero when no CUDA device is visible.
@@ -227,22 +233,42 @@ VJP_FAULTS = {
 RR_VJP_FAULTS = {
     "backward PCG warm-started": [(
         "step_vjp_rr.cu",
-        "    r[k] = pt[k / 3] >= 0 ? tl[T_L + pt[k / 3] * 3 + k % 3] : 0.0f;\n    x[k] = 0.0f;\n  }\n"
-        "  rr_cg(P, sc, sl, g, pt, act, rj, r, x, false, false);",
-        "    r[k] = pt[k / 3] >= 0 ? tl[T_L + pt[k / 3] * 3 + k % 3] : 0.0f;\n  }\n"
-        "  rr_cg(P, sc, sl, g, pt, act, rj, r, x, true, false);",
+        "  for (int k = 0; k < OWN * 3; ++k) xs[k] = 0.0f;\n  rr_cg(P, sc, sl, g, pt, act, rj, r, xs, false, false);",
+        "  for (int k = 0; k < OWN * 3; ++k) xs[k] = pt[k / 3] >= 0 ? sl[T_X + pt[k / 3] * 3 + k % 3] : 0.0f;\n"
+        "  rr_cg(P, sc, sl, g, pt, act, rj, r, xs, true, false);",
     )],
     "operator term dropped": [
-        ("step_vjp_rr.cu", "      gather_vjp(Rp, Lp, ac, bo, g0, gR, gL);\n", ""),
-        ("step_vjp_rr.cu", "      br[j] = -lam[j] * xc[j];", "      br[j] = 0.0f;"),
+        ("step_vjp_rr.cu", "        gather_vjp(Rp, Lp, ac, bo, w + 6, gR, gL);\n", ""),
+        ("step_vjp_rr.cu", "        br[j] = -lam[k * 3 + j] * xc[j];", "        br[j] = 0.0f;"),
     ],
-    "rrMinv's cotangent dropped": [("step_vjp_rr.cu", "    acc.add(OFF_RRMINV + c * 9, 9, gM);\n", "")],
+    "rrMinv's cotangent dropped": [("step_vjp_rr.cu", "      acc.add(OFF_RRMINV + ci * 9, 9, gM);\n", "")],
     "lambda's sign flipped": [
-        ("step_vjp_rr.cu", "tl[T_L + pt[k / 3] * 3 + k % 3] = x[k];", "tl[T_L + pt[k / 3] * 3 + k % 3] = -x[k];")],
+        ("step_vjp_rr.cu", "  points_vjp(P, sc, sl, g, pt, xs, acc);",
+         "  for (int k = 0; k < OWN * 3; ++k) xs[k] = -xs[k];\n  points_vjp(P, sc, sl, g, pt, xs, acc);")],
 }
-# K4-rr's envs a block for the rr_vjp probe (at most; cuda_build.rr_tables
-# halves them until the block fits).
-RR_VJP_ENVS = (16, 32, 64)
+# K4-rr's phases for the rr_vjp_phases probe: each line of step_vjp_rr.cu's
+# kernel after which warp 0 stamps its clock (a seeded copy of the source;
+# the kernel itself has no instrumentation).
+RR_VJP_PHASE_LANES = (8, 16)
+RR_VJP_PHASES = (
+    ("free ABA", "  free_aba_lanes(P, sc, sl, g, x, tau);\n"),
+    ("forward PCG", "  rr_cg(P, sc, sl, g, pt, act, rj, r, xs, true, false);\n"),
+    ("substitution", "  subst_lanes(P, sl, g, pt, act, xs);\n"),
+    ("SIE transposed, x-bar", "  x_bar_lanes(P, sc, sl, g, pt, c, out.m + b, B, valid, r);\n"),
+    ("backward PCG", "  rr_cg(P, sc, sl, g, pt, act, rj, r, xs, false, false);\n"),
+    ("points' seeds", "  points_vjp(P, sc, sl, g, pt, xs, acc);\n"),
+    ("pass 3 transposed", "  pass3_vjp(P, sc, sl, g, x, c, tau, acc);\n"),
+    ("base transposed", "  if (g == 0) base_vjp(sc, sl);\n"),
+    ("pass 2 transposed", "  pass2_vjp(P, sl, g, x, tau, ct_tau + b, B, valid, acc);\n"),
+    ("scatter transposed", "  scatter_vjp(P, sl, g, pt, acc);\n"),
+    ("pass 1 transposed", "  pass1_vjp(P, sc, sl, g, x, c, o, B, valid, acc);\n"),
+)
+
+
+# K4-rr's geometries for the rr_vjp probe: lanes an env, and envs a block at
+# most (whole warps; cuda_build.vjp_rr_tables halves them until the block
+# fits).
+RR_VJP_GEOMETRIES = ((4, 8), (4, 16), (8, 8), (8, 12), (8, 16))
 
 
 # Seeded faults of the soft K1's lane step, each one edit of
@@ -693,41 +719,142 @@ def vjp_faults_probe(hum, gen) -> None:
 
 
 def rr_vjp_probe(hum, gen) -> None:
-    """K4-rr at each of RR_VJP_ENVS envs a block, plain and with params_grad,
-    on the relaxed-rigid humanoid at 8192 envs (the relaxed-rigid main path's
-    start, its PD torques, one seeded output cotangent): ptxas, geometry,
-    SASS local accesses by source, kernel-only and event ms, and the largest
-    cotangent |Δ| over max(1, max |plain|) (the model arrays' share of their
-    limit with params_grad)."""
+    """K4-rr at each of RR_VJP_GEOMETRIES, plain and with params_grad, on the
+    relaxed-rigid humanoid at 8192 envs (the relaxed-rigid main path's start,
+    its PD torques) and on garpez tilted low at its 1,024 (0.1·N(0, 1)
+    torques), one seeded output cotangent each: ptxas, geometry, SASS local
+    accesses by source, kernel-only and event ms, and the largest cotangent
+    |Δ| over max(1, max |plain|) (the model arrays' share of their limit
+    with params_grad)."""
     import torch
 
-    from chip_smoke import BATCH, params_shares, profiled_ms, rr_humanoid_engine, vjp_cotangents, vjp_diff
+    from chip_smoke import (
+        BATCH, garpez_tilted, params_shares, profiled_ms, rr_garpez_engine, rr_humanoid_engine, vjp_cotangents, vjp_diff,
+    )  # fmt: skip
     from jaxsim_tpu_torch.ops import cuda_build, cuda_step_vjp
 
-    hum_rr = rr_humanoid_engine(hum.S.device)
-    state = hum_rr.init_state(BATCH, generator=torch.Generator(hum.S.device).manual_seed(6))
+    device = hum.S.device
+    hum_rr, garp_rr = rr_humanoid_engine(device), rr_garpez_engine(device)
+    hstate = hum_rr.init_state(BATCH, generator=torch.Generator(device).manual_seed(6))
+    gstate = garpez_tilted(garp_rr, torch.Generator(device).manual_seed(6))
+    cases = {
+        "humanoid23": (hum_rr, hstate, (-60.0 * hstate.s - 0.5 * hstate.sd).contiguous()),
+        "garpez": (garp_rr, gstate, (0.1 * torch.randn(gstate.s.shape, generator=gen, device=device)).contiguous()),
+    }
+    keys = [(model, lanes, envs, pg) for model in cases for lanes, envs in RR_VJP_GEOMETRIES for pg in (False, True)]
+    jobs = [cuda_step_vjp.job(cases[m][0], pg, lanes=lanes, envs=envs) for m, lanes, envs, pg in keys]
+    builds = dict(zip(keys, cuda_build.build_many(jobs)))
+    for model, (engine, state, tau) in cases.items():
+        ct = vjp_cotangents(state, gen)["all six"]
+        plain = cuda_step_vjp.step_vjp_reference(engine, state, tau, ct, params_grad=True)
+        for (m, lanes, envs, pg), kernel in builds.items():
+            if m != model:
+                continue
+
+            def run():
+                return cuda_step_vjp.launch_rr(kernel, engine, state, tau, ct, None, pg, lanes, envs)
+
+            got = run()
+            torch.cuda.synchronize()
+            scaled, _ = vjp_diff(got, plain[:2])
+            err = {"cotangents": max(float(d.max()) for d in scaled.values())}
+            if pg:
+                sums = cuda_step_vjp.unpack_params(engine, got[2].sum(0))
+                err["params_share"] = max(params_shares(sums, plain[2]).values())
+            print(json.dumps({"rr_vjp": {
+                "model": model, "B": state.p.shape[-1], "lanes": lanes, "envs_at_most": envs, "params_grad": pg,
+                "ptxas": [ln.strip() for ln in kernel.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln],
+                "geometry": cuda_step_vjp.geometry(kernel), "local_loads_and_stores": cuda_step_vjp.rr_local_memory(kernel),
+                "kernel_ms": profiled_ms(run, "step_vjp_rr_kernel", LAUNCH_REPEATS),
+                "event_ms": device_ms(run, LAUNCH_REPEATS), "vs_plain": err,
+            }}), flush=True)  # fmt: skip
+
+
+def rr_vjp_phases_probe(hum, gen) -> None:
+    """K4-rr's time by phase on the relaxed-rigid humanoid at 8192 envs (the
+    rr_vjp probe's start): a copy of ``step_vjp_rr.cu`` under ``build/`` in
+    which every thread stamps ``clock64()`` after a warp barrier at each of
+    RR_VJP_PHASES, and each block's first thread writes its warp's cycles a
+    phase into the torques' cotangent rows of the block's first env; per
+    phase the mean cycles over blocks and their share, beside the kernel's
+    event ms, plain and with params_grad."""
+    import torch
+
+    from chip_smoke import BATCH, rr_humanoid_engine, vjp_cotangents
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_step_vjp
+
+    device = hum.S.device
+    hum_rr = rr_humanoid_engine(device)
+    state = hum_rr.init_state(BATCH, generator=torch.Generator(device).manual_seed(6))
     tau = (-60.0 * state.s - 0.5 * state.sd).contiguous()
     ct = vjp_cotangents(state, gen)["all six"]
-    keys = [(envs, pg) for envs in RR_VJP_ENVS for pg in (False, True)]
-    builds = dict(zip(keys, cuda_build.build_many([cuda_step_vjp.job(hum_rr, pg, envs=envs) for envs, pg in keys])))
-    plain = cuda_step_vjp.step_vjp_reference(hum_rr, state, tau, ct, params_grad=True)
-    for (envs, pg), kernel in builds.items():
-        def run():
-            return cuda_step_vjp.launch_rr(kernel, hum_rr, state, tau, ct, None, pg, envs=envs)
+    n = len(RR_VJP_PHASES)
+    if n + 3 > hum_rr.n_joints:
+        raise RuntimeError("more phases than rows of the torques' cotangent")
+    edits = [("step_vjp_rr.cu", "  // 1. The forward:", "  long long jx_clk[%d];\n  jx_clk[0] = clock64();\n  // 1. The forward:" % (n + 1))]
+    for k, (_, line) in enumerate(RR_VJP_PHASES, 1):
+        edits.append(("step_vjp_rr.cu", line, line + f"  __syncwarp();\n  jx_clk[{k}] = clock64();\n"))
+    tail = "      partials[static_cast<size_t>(blockIdx.x) * N_PARAMS + k] = s;\n    }\n  }\n"
+    edits.append(("step_vjp_rr.cu", tail, tail + "  if (threadIdx.x == 0)\n    for (int k = 0; k < %d; ++k)"
+                  " ct_tau[k * B + b] = static_cast<float>(jx_clk[k + 1] - jx_clk[k]);\n" % n))  # fmt: skip
+    # Inside each PCG iteration (rr_cg, both solves): the scatter, the
+    # substitution passes and the rest, summed by the block's first thread
+    # in shared memory and written after the phases.
+    edits += [
+        ("rr_step.cuh", "__device__ __forceinline__ void rr_cg(",
+         "__device__ __forceinline__ long long& jx_pcg(int k) {\n  __shared__ long long acc[3];\n  return acc[k];\n}\n"
+         "__device__ __forceinline__ void rr_cg("),
+        ("rr_step.cuh", "    rr_scatter(P, sl, g, pt, act, pp, !last);\n    rr_minv(P, sl, g, last);\n    if (last) break;\n",
+         "    const long long jx0 = clock64();\n    rr_scatter(P, sl, g, pt, act, pp, !last);\n"
+         "    const long long jx1 = clock64();\n    rr_minv(P, sl, g, last);\n    const long long jx2 = clock64();\n"
+         "    if (threadIdx.x == 0) {\n      jx_pcg(0) += jx1 - jx0;\n      jx_pcg(1) += jx2 - jx1;\n    }\n"
+         "    if (last) break;\n"),
+        ("rr_step.cuh", "    rz = rz_n;\n  }\n}\n",
+         "    rz = rz_n;\n    if (threadIdx.x == 0) jx_pcg(2) += clock64() - jx2;\n  }\n}\n"),
+        ("rr_step.cuh", "      rz = lanes_sum(dot);\n      continue;\n",
+         "      rz = lanes_sum(dot);\n      if (threadIdx.x == 0) jx_pcg(2) += clock64() - jx2;\n      continue;\n"),
+        ("step_vjp_rr.cu", "  long long jx_clk[%d];\n" % (n + 1),
+         "  long long jx_clk[%d];\n  if (threadIdx.x == 0) jx_pcg(0) = jx_pcg(1) = jx_pcg(2) = 0;\n" % (n + 1)),
+        ("step_vjp_rr.cu", " ct_tau[k * B + b] = static_cast<float>(jx_clk[k + 1] - jx_clk[k]);\n",
+         " ct_tau[k * B + b] = static_cast<float>(jx_clk[k + 1] - jx_clk[k]);\n"
+         "  if (threadIdx.x == 0)\n    for (int k = 0; k < 3; ++k) ct_tau[(%d + k) * B + b] = static_cast<float>(jx_pcg(k));\n" % n),
+    ]
+    src = _seeded_edits("rr_vjp_phases", "stamps", _merged(edits)) / "step_vjp_rr.cu"
+    jobs = {(pg, lanes): dataclasses.replace(cuda_step_vjp.job(hum_rr, pg, lanes=lanes), source=src)
+            for pg in (False, True) for lanes in RR_VJP_PHASE_LANES}  # fmt: skip
+    kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+    for (pg, lanes), kernel in kernels.items():
+        envs = cuda_step_vjp.rr_envs_per_block(hum_rr, pg, lanes)
 
+        def run():
+            return cuda_step_vjp.launch_rr(kernel, hum_rr, state, tau, ct, None, pg, lanes)
+
+        run()
         got = run()
         torch.cuda.synchronize()
-        scaled, _ = vjp_diff(got, plain[:2])
-        err = {"cotangents": max(float(d.max()) for d in scaled.values())}
-        if pg:
-            err["params_share"] = max(params_shares(cuda_step_vjp.unpack_params(hum_rr, got[2].sum(0)), plain[2]).values())
-        print(json.dumps({"rr_vjp": {
-            "B": BATCH, "envs_at_most": envs, "params_grad": pg,
-            "ptxas": [ln.strip() for ln in kernel.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln],
-            "geometry": cuda_step_vjp.geometry(kernel), "local_loads_and_stores": cuda_step_vjp.rr_local_memory(kernel),
-            "kernel_ms": profiled_ms(run, "step_vjp_rr_kernel", LAUNCH_REPEATS),
-            "event_ms": device_ms(run, LAUNCH_REPEATS), "vs_plain": err,
+        cycles = got[1][: n + 3, ::envs].double().mean(1).tolist()
+        total = sum(cycles[:n])
+        pcg = dict(zip(("scatter", "substitution passes", "gather and vectors"), cycles[n:]))
+        print(json.dumps({"rr_vjp_phases": {
+            "B": BATCH, "params_grad": pg, "lanes": lanes, "envs_a_block": envs, "event_ms": device_ms(run, 20),
+            "cycles_a_block": round(total), "phases": {name: [round(c), round(c / total, 4)]
+                                                        for (name, _), c in zip(RR_VJP_PHASES, cycles)},
+            "pcg_iterations_both_solves": {k: [round(c), round(c / total, 4)] for k, c in pcg.items()},
         }}), flush=True)  # fmt: skip
+
+
+def _merged(edits):
+    """``edits`` with the later edits of one text applied to the earlier's
+    replacement (each ``old`` of the result still once in its file)."""
+    out = []
+    for file, old, new in edits:
+        for n, (f, o, w) in enumerate(out):
+            if f == file and old in w:
+                out[n] = (f, o, w.replace(old, new))
+                break
+        else:
+            out.append((file, old, new))
+    return out
 
 
 def rr_vjp_faults_probe(hum, gen) -> None:
@@ -1087,6 +1214,15 @@ def kernels_probe(hum, gen) -> None:
     cuda_build.build_many([cuda_rollout.job(hum), cuda_rollout.job(hum_rr), cuda_env_rollout.job(hum, pol),
                            cuda_step_vjp.job(hum), cuda_step_vjp.job(hum, params_grad=True), cuda_step.job(hum),
                            cuda_step.job(garp), cuda_step.job(hum_rr)])  # fmt: skip
+    # Built for their SASS only: K1's RK4 and RK4-fast builds, soft and
+    # relaxed-rigid, K5-rr and K4-rr.
+    from chip_smoke import RK4_INTEGRATORS, with_integrator
+
+    cuda_build.build_many([
+        *(cuda_rollout.job(with_integrator(e, i)) for e in (hum, hum_rr) for i in RK4_INTEGRATORS),
+        cuda_env_rollout.job(hum_rr, cuda_env_rollout.make_policy(hum_rr, **weights)),
+        cuda_step_vjp.job(hum_rr), cuda_step_vjp.job(hum_rr, params_grad=True),
+    ])  # fmt: skip
     calls = dict(
         rollout=(lambda: cuda_rollout.rollout(hum, state0, HORIZON), "rollout_kernel", 3),
         env_rollout=(lambda: cuda_env_rollout.env_rollout(hum, es_state, ES["steps"], **ES_OPTIONS, **weights),
@@ -1109,12 +1245,18 @@ def kernels_probe(hum, gen) -> None:
         print(json.dumps({"kernels": {
             "call": name, "kernel_ms": profiled_ms(fn, kernel, repeats), "event_ms": device_ms(fn, repeats),
         }}), flush=True)  # fmt: skip
-    for build in cuda_build._BUILDS.values():
+    for (source, header), build in cuda_build._BUILDS.items():
         sass = subprocess.run([cuda_build.cuda_tool("cuobjdump"), "-sass", str(build.path)],
                               capture_output=True, text=True, check=True).stdout  # fmt: skip
         code = "\n".join(ln.strip() for ln in sass.splitlines() if re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln))
-        print(json.dumps({"kernels_sass": {"library": build.path.parent.name,
-                                           "sha256": hashlib.sha256(code.encode()).hexdigest()}}), flush=True)  # fmt: skip
+        # A library by its source and generated header, which a parent and a
+        # change share where the topology tables are the same (the build
+        # key also hashes the sources' text).
+        print(json.dumps({"kernels_sass": {
+            "library": build.path.parent.name, "source": pathlib.Path(source).name,
+            "header_sha256": hashlib.sha256(header.encode()).hexdigest()[:16],
+            "sha256": hashlib.sha256(code.encode()).hexdigest(),
+        }}), flush=True)  # fmt: skip
 
 
 def rk4_faults_probe(hum, gen) -> None:
@@ -1314,6 +1456,7 @@ PROBES = {
     "rr_step_faults": rr_step_faults_probe,
     "rr_vjp": rr_vjp_probe,
     "rr_vjp_faults": rr_vjp_faults_probe,
+    "rr_vjp_phases": rr_vjp_phases_probe,
 }
 
 

@@ -48,8 +48,8 @@ plain PyTorch version on the card:
   iterations, tau = 0.1·N(0, 1)), the relaxed-rigid humanoid's main-path
   start and joints-moving start, garpez built with 3 PCG iterations, and
   garpez's ragged batch, held against the float64 twin where float32 alone
-  breaches the limit; its row sum against ``torch.sum`` and two runs of it
-  to the bit; and the PD gains' gradient through a 10-step relaxed-rigid
+  breaches the limit; its block rows' sum (a row a block) against
+  ``torch.sum`` and two runs of it to the bit; and the PD gains' gradient through a 10-step relaxed-rigid
   ``fused_diff_rollout`` on garpez against the plain twin under autograd;
 * K1's RK4 and RK4-fast builds (``rollout.cu`` and ``rollout_rr.cu`` with
   ``JX_INTEGRATOR`` 1 and 2) in every state field: the soft one on CASES'
@@ -666,16 +666,16 @@ def profiled_window(fn, kernel: str, repeats: int, pad_s: float = PROFILER_PAD_S
     ]  # fmt: skip
 
 
-def profiled_ms(fn, kernel: str, repeats: int, per_call: int = 1) -> float:
-    """Device milliseconds a call of the CUDA kernels whose name holds
-    ``kernel``, ``per_call`` launches a call, over ``repeats`` calls of
-    ``fn``, read by ``torch.profiler`` from the first of ``PROFILER_TRIES``
-    windows that saw every launch."""
+def profiled_ms(fn, kernel: str, repeats: int) -> float:
+    """Device milliseconds a call of the CUDA kernel whose name holds
+    ``kernel``, one launch a call, over ``repeats`` calls of ``fn``, read by
+    ``torch.profiler`` from the first of ``PROFILER_TRIES`` windows that saw
+    every launch."""
     for _ in range(PROFILER_TRIES):
         seen = profiled_window(fn, kernel, repeats)
-        if len(seen) > repeats * per_call:
-            raise RuntimeError(f"the profiler saw {len(seen)} launches of {kernel!r}, expected {repeats * per_call}")
-        if len(seen) == repeats * per_call:
+        if len(seen) > repeats:
+            raise RuntimeError(f"the profiler saw {len(seen)} launches of {kernel!r}, expected {repeats}")
+        if len(seen) == repeats:
             return sum(t for _, t in seen) / repeats / 1e3
         print(f"the profiler saw {len(seen)} of {repeats} launches of {kernel!r}; another window", flush=True)
     raise RuntimeError(f"the profiler missed launches of {kernel!r} in {PROFILER_TRIES} windows")
@@ -1757,11 +1757,12 @@ def main() -> int:
     for pg in (False, True):
         b = builds[f"vjp_rr{'_params_grad' * pg}_hum"]
         geo = cuda_step_vjp.geometry(b)
-        print(f"step_vjp_relaxed_rigid{' params_grad' if pg else ''} ({cuda_step_vjp.RR_LANES} lanes an env for the"
-              f" solves, one thread an env for the transposed step): {geo['threads']} threads and {geo['envs']} envs a"
-              f" block, {geo['smem_bytes']} B of dynamic shared memory a block, {geo['blocks_per_sm']} blocks an SM"
-              f" (occupancy calculator); {BATCH} envs make {-(-BATCH // geo['envs'])} blocks over {sms} SMs; tape"
-              f" {4 * b.lib.jx_vjp_rr_tape_rows()} B an env in device memory; ptxas "
+        rows = cuda_build.vjp_rr_tables(hum_rr, cuda_step_vjp.RR_LANES, pg, max_envs=cuda_step_vjp.RR_ENVS)["rows"]
+        print(f"step_vjp_relaxed_rigid{' params_grad' if pg else ''} ({cuda_step_vjp.RR_LANES} lanes an env, the"
+              f" transposed step's tree passes level by level on them): {geo['threads']} threads and {geo['envs']} envs"
+              f" a block, {geo['smem_bytes']} B of dynamic shared memory a block, {geo['blocks_per_sm']} blocks an SM"
+              f" (occupancy calculator); {BATCH} envs make {-(-BATCH // geo['envs'])} blocks over {sms} SMs; slot and"
+              f" tape {4 * rows} B an env in shared memory; ptxas "
               + " | ".join(ln.strip() for ln in b.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln)
               + f"; SASS local loads and stores (LDL, STL): {json.dumps(cuda_step_vjp.rr_local_memory(b))}",
               flush=True)  # fmt: skip
@@ -1888,8 +1889,9 @@ def main() -> int:
         for name, e in errs.items():
             max_errs[name] += e
         print("step_vjp relaxed-rigid params_grad: two runs agree to the bit", flush=True)
-        # K4-rr's partials: a row an env.
-        rr_partials = torch.randn(BATCH, cuda_build.packed_params(hum_rr).numel(), generator=vjp_gen, device=device)
+        # K4-rr's partials: a row a block.
+        rr_rows = -(-BATCH // cuda_step_vjp.rr_envs_per_block(hum_rr, True))
+        rr_partials = torch.randn(rr_rows, cuda_build.packed_params(hum_rr).numel(), generator=vjp_gen, device=device)
         kern = cuda_step_vjp.sum_partials(hum_rr, rr_partials)
         plain, again = cuda_step_vjp.sum_partials_reference(rr_partials), cuda_step_vjp.sum_partials(hum_rr, rr_partials)
         sync()
@@ -2403,8 +2405,7 @@ def main() -> int:
             param_sum_relaxed_rigid=profiled_ms(vjp_calls["param_sum_relaxed_rigid"], "param_sum_kernel", 10),
         )
         library_kernel_only = dict(param_sum=profiled_ms(lambda: torch.sum(partials, 0), "", 10),
-                                   # torch.sum reduces 8192 rows in two launches.
-                                   param_sum_relaxed_rigid=profiled_ms(lambda: torch.sum(rr_partials, 0), "", 10, 2))
+                                   param_sum_relaxed_rigid=profiled_ms(lambda: torch.sum(rr_partials, 0), "", 10))
         print(f"library kernel-only device ms a launch (torch.profiler, mean of 10): {json.dumps(library_kernel_only)}")
         print(f"kernel-only device ms a launch (torch.profiler, mean of 10): {json.dumps(kernel_only)}")
         event_ms = {k: results[k]["ms"] for k in kernel_only if k in results}
@@ -2507,7 +2508,7 @@ def main() -> int:
         sb, pb = state_bytes(hum, BATCH), 4 * cuda_build.packed_params(hum).numel()
         n_blocks, n_params = partials.shape
         vjp_bytes = 3 * sb + pb + 8 * n * BATCH  # state, tau, ct in; ct_state, ct_tau out
-        rr_pb, rr_n_params = 4 * cuda_build.packed_params(hum_rr).numel(), rr_partials.shape[1]
+        rr_pb, (rr_rows, rr_n_params) = 4 * cuda_build.packed_params(hum_rr).numel(), rr_partials.shape
         rr_vjp_bytes = 3 * sb + rr_pb + 8 * n * BATCH
         work = dict(
             rollout=(flops["step"] * BATCH * HORIZON, 2 * sb + pb),
@@ -2520,7 +2521,7 @@ def main() -> int:
             param_sum=((n_blocks - 1) * n_params, 4 * (n_blocks + 1) * n_params),
             step_vjp_relaxed_rigid=(flops["rr_vjp"] * BATCH, rr_vjp_bytes),
             step_vjp_relaxed_rigid_params_grad=(flops["rr_vjp_params_grad"] * BATCH, rr_vjp_bytes + rr_pb),
-            param_sum_relaxed_rigid=((BATCH - 1) * rr_n_params, 4 * (BATCH + 1) * rr_n_params),
+            param_sum_relaxed_rigid=((rr_rows - 1) * rr_n_params, 4 * (rr_rows + 1) * rr_n_params),
             rollout_relaxed_rigid=(flops["rr_step"] * BATCH * RR_HORIZON,
                                    2 * sb + 4 * cuda_build.packed_params(hum_rr).numel()),
             step_pd_relaxed_rigid=(flops["rr_step"] * BATCH, 2 * sb + 4 * cuda_build.packed_params(hum_rr).numel()),

@@ -203,6 +203,31 @@ __device__ __forceinline__ void vxstar_Mv(const float* v, const float* M, float*
   }
 }
 
+// The index of entry (r, c) of a symmetric 6x6 matrix's lower triangle,
+// row by row.
+__device__ __forceinline__ int tri(int r, int c) { return r >= c ? r * (r + 1) / 2 + c : c * (c + 1) / 2 + r; }
+
+// The motion subspace times a joint velocity, and the bias c = v x vJ.
+__device__ __forceinline__ void joint_bias(const float* S, float sdi, const float* v, float* c) {
+  float vJ[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) vJ[k] = S[k] * sdi;
+  vx(v, vJ, c);
+}
+
+// The base's world rotation RB from its quaternion (the twin's fk).
+__device__ __forceinline__ void quat_rot(const float* q, float* RB) {
+  const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
+  const float n = qw * qw + qx * qx + qy * qy + qz * qz;
+  const float s2 = 2.0f / (n == 0.0f ? 1.0f : n);
+  const float wx = s2 * qw * qx, wy = s2 * qw * qy, wz = s2 * qw * qz;
+  const float xx = s2 * qx * qx, xy = s2 * qx * qy, xz = s2 * qx * qz;
+  const float yy = s2 * qy * qy, yz = s2 * qy * qz, zz = s2 * qz * qz;
+  RB[0] = 1.0f - (yy + zz), RB[1] = xy - wz, RB[2] = xz + wy;
+  RB[3] = xy + wz, RB[4] = 1.0f - (xx + zz), RB[5] = yz - wx;
+  RB[6] = xz - wy, RB[7] = yz + wx, RB[8] = 1.0f - (xx + yy);
+}
+
 // Explicit 6x6 adjoint [[R, p^ R],[0, R]].
 __device__ __forceinline__ void build_X(const float* R, const float* p, float* X) {
   const float px[9] = {0.0f, -p[2], p[1], p[2], 0.0f, -p[0], -p[1], p[0], 0.0f};

@@ -229,9 +229,47 @@ def rr_dead_rows(engine: BatchedEngine) -> int:
     return 6 * engine.n_links + 36
 
 
+# Floats of K4-rr's tape past its slot (``step_vjp_rr.cu``): a link's, a
+# point's and the base's.
+VJP_RR_FLOATS = (84, 3, 43)
+
+
+def vjp_rr_tables(engine: BatchedEngine, lanes: int, params_grad: bool = False, *, max_envs: int) -> dict:
+    """What K4-rr (``step_vjp_rr.cu``) takes from the topology for ``lanes``
+    lanes an env: :func:`rr_tables`' schedule and slot (without a torque
+    row: K4-rr reads the torques from device memory); ``rows``: an env's
+    floats, the slot and the tape past it; ``envs``: envs a block, the most
+    up to ``max_envs``, in whole warps, whose rows, the model arrays and,
+    with ``params_grad``, a row of model-array cotangents a warp fit in a
+    block's shared memory; ``smem_bytes``; and ``par_row``, each link's row
+    among the contact parents (-1 for a link without points)."""
+    t = rr_tables(engine, lanes, max_envs=max_envs)
+    link, point, base = VJP_RR_FLOATS
+    rows = t["slot"] + link * engine.n_links + point * engine.n_points + base
+    n_params = sum(x.numel() for x in engine.params().values())
+
+    def smem(envs):
+        return 4 * (rows * (envs + 1) + n_params + (envs * lanes // 32 * n_params if params_grad else 0))
+
+    warp = 32 // lanes
+    envs = max_envs - max_envs % warp
+    while envs > warp and smem(envs) > MAX_SMEM_BYTES:
+        envs -= warp
+    if envs < warp or smem(envs) > MAX_SMEM_BYTES:
+        raise ValueError(f"a K4-rr block of {warp} envs at {lanes} lanes needs {smem(warp)} B of shared memory")
+    par_row = [t["par_link"].index(i) if i in t["par_link"] else -1 for i in range(engine.n_links)]
+    return dict(t, rows=rows, envs=envs, smem_bytes=smem(envs), par_row=par_row)
+
+
 def rr_header(engine: BatchedEngine, defines: dict) -> str:
     """The relaxed-rigid kernel's part of the generated header (:func:`rr_tables`
-    of the job's ``defines``)."""
+    of the job's ``defines``; K4-rr's, ``JX_RR_VJP``, :func:`vjp_rr_tables`)."""
+    if defines.get("JX_RR_VJP"):
+        t = vjp_rr_tables(engine, defines["JX_RR_LANES"], bool(defines.get("JX_PARAMS_GRAD")),
+                          max_envs=defines["JX_RR_MAX_ENVS"])  # fmt: skip
+        rows = ", ".join(map(str, t["par_row"]))
+        return (_schedule_header("JX_RR", t) + f"#define JX_RR_ROWS {t['rows']}\n"
+                + f"__constant__ int JX_RR_PAR_ROW[{engine.n_links}] = {{{rows}}};\n")  # fmt: skip
     t = rr_tables(
         engine, defines["JX_RR_LANES"], tau_row=bool(defines.get("JX_RR_TAU_ROW")),
         policy=defines.get("JX_POLICY", -1), hidden=defines.get("JX_HIDDEN", 0),

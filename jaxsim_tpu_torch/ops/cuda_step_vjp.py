@@ -23,13 +23,15 @@ contacts, flat ground, semi-implicit Euler, the body K3 has.
 
 For a relaxed-rigid engine the kernel is K4-rr,
 ``jaxsim_tpu_torch/csrc/step_vjp_rr.cu`` (built per topology and per
-``params_grad`` as K4): K3-rr's geometry (``RR_LANES`` lanes an env, the
-envs a block that fit, up to ``RR_ENVS``), the forward's and the implicit
-backward's PCG on the env's lanes, the transposed step on one thread an env
-with a tape in device memory; with ``params_grad`` each env writes a row of
-model-array cotangents (``rrMinv``'s included) and the same fixed-order sum
-adds the rows. It differentiates the solve as the twin's ``_PcgImplicit``
-does, which is its plain version.
+``params_grad`` as K4): each env on ``RR_LANES`` lanes of a warp, the envs
+a block that fit up to ``RR_ENVS`` (``cuda_build.vjp_rr_tables``), its
+tape in shared memory; the forward's free ABA, the transposed step's tree
+passes level by level on the env's lanes, the forward's and the implicit
+backward's PCG and the per-point work on the lanes of the points' slots;
+with ``params_grad`` each block sums its envs' model-array cotangents
+(``rrMinv``'s included) in shared memory and writes one partial row, and
+the same fixed-order sum adds the rows. It differentiates the solve as the
+twin's ``_PcgImplicit`` does, which is its plain version.
 """
 
 from __future__ import annotations
@@ -64,17 +66,17 @@ CONTACT_MODELS = ("soft", "relaxed_rigid")
 
 
 RR_SOURCE = CSRC / "step_vjp_rr.cu"
-# K4-rr's arguments: K4's, the tape and its stride before the partials, and
-# the relaxed-rigid tail of the scalars (cuda_build.rr_scalars).
+# K4-rr's arguments: K4's, and the relaxed-rigid tail of the scalars
+# (cuda_build.rr_scalars).
 RR_SIGNATURES = {
-    "jx_step_vjp_rr": [PTR] * 22 + [I32, PTR, I32] + [F32] * 21 + [PTR],
+    "jx_step_vjp_rr": [PTR] * 22 + [I32] + [F32] * 21 + [PTR],
     "jx_param_sum": [PTR, I32, PTR, PTR],
     "jx_vjp_rr_geometry": [PTR],
-    "jx_vjp_rr_tape_rows": [],
 }
-# K4-rr's lanes an env (K3-rr's) and envs a block, at most.
+# K4-rr's lanes an env (K3-rr's) and envs a block, at most (PERF.md §6 has
+# the times of the geometries tried).
 RR_LANES = cuda_rollout.RR_LANES
-RR_ENVS = 64
+RR_ENVS = 16
 
 
 def job(engine: BatchedEngine, params_grad: bool = False, lanes: int | None = None, envs: int | None = None) -> BuildJob:
@@ -83,7 +85,7 @@ def job(engine: BatchedEngine, params_grad: bool = False, lanes: int | None = No
     default, and at most ``envs`` envs a block, ``RR_ENVS`` by default)."""
     if engine.contact_model == "relaxed_rigid":
         defines = (("JX_PARAMS_GRAD", int(params_grad)), ("JX_RR_LANES", int(lanes or RR_LANES)),
-                   ("JX_RR_TAU_ROW", 1), ("JX_RR_MAX_ENVS", int(envs or RR_ENVS)))  # fmt: skip
+                   ("JX_RR_VJP", 1), ("JX_RR_MAX_ENVS", int(envs or RR_ENVS)))  # fmt: skip
         return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, defines)
     return BuildJob(engine, SOURCE, SIGNATURES, (("JX_PARAMS_GRAD", int(params_grad)), ("JX_LN_LANES", int(lanes or LANES))))
 
@@ -123,11 +125,20 @@ def local_memory(kernel: KernelBuild) -> dict[str, int]:
 
 
 def rr_local_memory(kernel: KernelBuild) -> dict[str, int]:
-    """The local loads and stores in K4-rr's SASS: in all, in the forward's
-    and the backward solve's passes (``rr_step.cuh``), in the transposed step
-    (``step_vjp_rr.cu``) and in the transposes it calls (``vjp_algebra.cuh``)."""
+    """The local loads and stores in K4-rr's SASS: in all, in the solves'
+    passes (``rr_step.cuh``), in the forward's free ABA and substitution and
+    in the transposed step (``step_vjp_rr.cu``), and in the transposes it
+    calls (``vjp_algebra.cuh``)."""
+    text = RR_SOURCE.read_text().splitlines()
+
+    def line_of(pattern: str) -> int:
+        return next(n for n, ln in enumerate(text, 1) if pattern in ln)
+
+    forward, reverse = line_of("// ----- the forward:"), line_of("// ----- the transposed step -----")
     return cuda_build.local_memory(kernel, dict(
-        solves=("rr_step.cuh", 1, 10**6), reverse=("step_vjp_rr.cu", 1, 10**6), transposes=("vjp_algebra.cuh", 1, 10**6),
+        solves=("rr_step.cuh", 1, 10**6), forward=("step_vjp_rr.cu", forward, reverse),
+        reverse=("step_vjp_rr.cu", reverse, line_of("// ----- the kernel -----")),
+        transposes=("vjp_algebra.cuh", 1, 10**6),
     ))  # fmt: skip
 
 
@@ -184,7 +195,7 @@ def sum_partials_reference(partials: torch.Tensor) -> torch.Tensor:
 
 def sum_partials(engine: BatchedEngine, partials: torch.Tensor) -> torch.Tensor:
     """The partial sums ``(n_rows, n_params)`` of K4's model-array cotangents
-    (a row a block; K4-rr's a row an env) added over the rows: one launch of
+    (a row a block) added over the rows: one launch of
     the fixed-order sum for a CUDA tensor, the plain version for a CPU
     tensor."""
     global PARAM_SUM_KERNEL_LAUNCHES, PARAM_SUM_RR_KERNEL_LAUNCHES
@@ -202,10 +213,16 @@ def sum_partials(engine: BatchedEngine, partials: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def rr_envs_per_block(engine: BatchedEngine, lanes: int = RR_LANES, envs: int = RR_ENVS) -> int:
-    """Envs a block of K4-rr: K3-rr's slot with its torque row, the most up
-    to ``envs`` that fit (``cuda_build.rr_tables``)."""
-    return cuda_build.rr_tables(engine, lanes, tau_row=True, max_envs=envs)["envs"]
+def rr_envs_per_block(engine: BatchedEngine, params_grad: bool = False, lanes: int = RR_LANES,
+                      envs: int = RR_ENVS) -> int:
+    """Envs a block of K4-rr: the most up to ``envs`` whose slots fit
+    (``cuda_build.vjp_rr_tables``); the rows of ``partials`` are the batch
+    over this, rounded up. Kept by engine after the first call."""
+    cache = _ENVS.setdefault(engine, {})
+    key = ("relaxed_rigid", params_grad, lanes, envs)
+    if key not in cache:
+        cache[key] = cuda_build.vjp_rr_tables(engine, lanes, params_grad, max_envs=envs)["envs"]
+    return cache[key]
 
 
 def launch_rr(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, tau, ct: BatchedState, pr=None,
@@ -213,20 +230,18 @@ def launch_rr(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, t
     """One launch of ``kernel`` (the engine's K4-rr library, or a variant of
     it built from another source, lane count or block) on checked CUDA
     tensors; counts nothing. Returns ``(ct_state, ct_tau, partials)``,
-    ``partials`` (a row of model-array cotangents an env) None without
+    ``partials`` (a row of model-array cotangents a block) None without
     ``params_grad``."""
     params = packed_params(engine, pr)
     out = cuda_build.empty_state_like(state)
     ct_tau = torch.empty_like(tau)
     B = state.p.shape[-1]
-    per_block = rr_envs_per_block(engine, lanes, envs)
-    stride = -(-B // per_block) * per_block
-    tape = torch.empty(kernel.lib.jx_vjp_rr_tape_rows() * stride, device=tau.device)
-    partials = torch.empty(B, params.numel(), device=tau.device) if params_grad else None
+    n_blocks = -(-B // rr_envs_per_block(engine, params_grad, lanes, envs))
+    partials = torch.empty(n_blocks, params.numel(), device=tau.device) if params_grad else None
     cuda_build.launch(
         kernel, "jx_step_vjp_rr", params, state.p.device,
         *cuda_build.state_pointers(state), tau.data_ptr(), *cuda_build.state_pointers(ct),
-        *cuda_build.state_pointers(out), ct_tau.data_ptr(), tape.data_ptr(), stride,
+        *cuda_build.state_pointers(out), ct_tau.data_ptr(),
         None if partials is None else partials.data_ptr(),
         B, *cuda_build.engine_scalars(engine), *cuda_build.rr_scalars(engine),
     )  # fmt: skip

@@ -447,13 +447,16 @@ def _job_built(call, eng, st, monkeypatch) -> cuda_build.BuildJob:
 
 
 def _rr_tape_rows(eng) -> int:
-    """K4-rr's tape rows an env (``TAPE_ROWS`` of ``step_vjp_rr.cu``),
-    evaluated from the source's constants for ``eng``'s sizes."""
+    """K4-rr's tape past the slot, an env (``ROWS - SLOT`` of
+    ``step_vjp_rr.cu``), evaluated from the source's constants for ``eng``'s
+    sizes."""
     text = (cuda_build.CSRC / "step_vjp_rr.cu").read_text()
-    rows = dict(NC=eng.n_points, NL=eng.n_links)
-    for name, expr in re.findall(r"^constexpr int (T_\w+|TAPE_ROWS) = ([^;]+);", text, re.M):
-        rows[name] = eval(expr, {}, dict(rows))  # the constants are sums and products of the sizes
-    return rows["TAPE_ROWS"]
+    rows = dict(NC=eng.n_points, NL=eng.n_links, SLOT=0)
+    for decl in re.findall(r"^constexpr int ([^;]+);", text, re.M):
+        for name, expr in re.findall(r"(\w+) = ([^,]+)", decl):
+            if re.fullmatch(r"T_\w+|RW|BASE|ROWS", name):
+                rows[name] = eval(expr, {}, dict(rows))  # the constants are sums and products of the sizes
+    return rows["ROWS"]
 
 
 @pytest.mark.parametrize("kernel", ["step_vjp"])
@@ -461,27 +464,33 @@ def test_soft_only_kernels_refuse_relaxed_rigid(kernel, monkeypatch):
     """K4 takes a relaxed-rigid engine to its relaxed-rigid build, K4-rr: on
     the humanoid's state, with and without ``params_grad``, the wrapper
     builds ``step_vjp_rr.cu``, whose generated header names relaxed-rigid
-    contacts, K3-rr's lanes, a torque row and blocks of 64 envs, and whose
-    tape takes 6 floats a point and 124 a link (about 13 KB an env for the
-    humanoid); the differentiable step and rollouts of ``diff_step`` are
-    built and their forward goes to K3-rr. A relaxed-rigid engine with RK4
-    or RK4-fast still raises ValueError before any build."""
+    contacts, K3-rr's lanes, no torque row (K4-rr reads the torques from
+    device memory), K4-rr's rows and blocks of ``RR_ENVS`` envs (12 with
+    ``params_grad``, whose warps' rows of model-array cotangents take room
+    beside the slots and the model arrays), and whose tape past K3-rr's
+    slot takes 3 floats a point, 84
+    a link and 43 for the base (about 12 KB an env in shared memory for the
+    humanoid, with the slot); the differentiable step and rollouts of
+    ``diff_step`` are built and their forward goes to K3-rr. A relaxed-rigid
+    engine with RK4 or RK4-fast still raises ValueError before any build."""
     from jaxsim_tpu_torch.api.model import IntegratorType
     from jaxsim_tpu_torch.ops import diff_step
 
     eng = _humanoid_rr()
     st = eng.init_state(64)
     tau = torch.zeros_like(st.s)
+    slot = 26 * eng.n_links + 36 + 24 * len(set(eng.contact_parent))
+    rows = _rr_tape_rows(eng)
+    assert rows == 3 * eng.n_points + 84 * eng.n_links + 43 and 12_000 < 4 * (slot + rows) < 12_100
     for pg in (False, True):
         job = _job_built(lambda e, s: cuda_step_vjp.step_vjp(e, s, tau, s, params_grad=pg), eng, st, monkeypatch)
         assert job.engine is eng and job.source.name == "step_vjp_rr.cu"
         defines, _ = _header_tables(cuda_build.topology_header(eng, job.defines))
-        assert defines["JX_CONTACT"] == 1 and defines["JX_PARAMS_GRAD"] == pg and defines["JX_RR_TAU_ROW"] == 1
-        assert defines["JX_RR_LANES"] == cuda_rollout.RR_LANES and defines["JX_RR_ENVS"] == 64
-        assert defines["JX_RR_SLOT"] == 26 * eng.n_links + 36 + 24 * len(set(eng.contact_parent)) + eng.n_joints
-    assert cuda_step_vjp.rr_envs_per_block(eng) == 64
-    rows = _rr_tape_rows(eng)
-    assert rows == 6 * eng.n_points + 124 * eng.n_links and 12_000 < 4 * rows < 14_000
+        assert defines["JX_CONTACT"] == 1 and defines["JX_PARAMS_GRAD"] == pg and "JX_RR_TAU_ROW" not in defines
+        envs = 12 if pg else cuda_step_vjp.RR_ENVS  # a row of 2,421 floats a warp leaves room for 3 warps
+        assert defines["JX_RR_LANES"] == cuda_rollout.RR_LANES and defines["JX_RR_ENVS"] == envs
+        assert defines["JX_RR_SLOT"] == slot and defines["JX_RR_ROWS"] == slot + rows
+        assert cuda_step_vjp.rr_envs_per_block(eng, pg) == envs
     for call in (lambda e, s: diff_step.fused_diff_step(e)(s, tau),
                  lambda e, s: diff_step.fused_diff_rollout(e, 2)(s, lambda x: tau),
                  lambda e, s: diff_step.fused_diff_step(e, params_grad=True)(s, tau)):  # fmt: skip

@@ -18,8 +18,13 @@ NumPy from a seed, carried across by the bridge):
   K4's interpret mode is too slow for the JAX package's own relaxed-rigid
   test of it (``tests/test_batched_engine.py:574-575``);
 * the gains' gradient through 3 steps of ``diff_step.fused_diff_rollout``
-  (its plain version on the CPU) on garpez against ``jax.grad`` through a
-  ``lax.scan`` of the JAX step, float64.
+  (its plain version on the CPU) on garpez against the chain rule through
+  the same 3 steps of the JAX step, each step's ``jax.vjp``, float64.
+
+The JAX step's output and VJP are one compiled function a model and
+precision (``_jax_step_vjp``), which the garpez float64 case and the
+rollout's chain share: in one process by ``jax.jit``'s cache, across the
+test workers by JAX's persistent compilation cache (``tests/conftest.py``).
 
 Garpez in float32 and the humanoid in float64 are ``slow`` (their JAX VJPs
 compile for about a minute and four). The humanoid with its joints moving
@@ -38,7 +43,7 @@ import torch
 
 from jaxsim_tpu_torch import bridge
 from jaxsim_tpu_torch.ops import diff_step
-from tests.test_torch_autograd import F64, _assert_vjp_close, _cast, _jax_vjp, _port_vjp
+from tests.test_torch_autograd import F64, _assert_vjp_close, _cast, _port_vjp
 from tests.test_torch_relaxed_rigid import (
     _active_points, _box_arrays, _garpez_random_state, _jax_engine, _port_engine,
 )  # fmt: skip
@@ -83,6 +88,41 @@ def _humanoid_arrays(jeng, B, seed=2):
     return arrays
 
 
+_STEP_VJPS: dict = {}
+
+
+def _jax_step_vjp(jeng):
+    """The JAX step's output and ``jax.vjp`` at (state, tau, pr) for an
+    output cotangent, jitted: one compile a model and precision (``_case``
+    keeps one JAX engine a model)."""
+    import jax
+
+    if id(jeng) not in _STEP_VJPS:
+
+        def step_vjp(st, tau, pr, cts):
+            out, back = jax.vjp(lambda a, b, c: jeng.step(a, b, c), st, tau, pr)
+            return out, back(cts)
+
+        _STEP_VJPS[id(jeng)] = jax.jit(step_vjp)
+    return _STEP_VJPS[id(jeng)]
+
+
+def _jax_vjp(jeng, arrays, tau, ct, pr, x64: bool):
+    """``jax.vjp`` of the JAX step at (state, tau, pr) for ``ct``, as NumPy."""
+    import jax
+    import jax.numpy as jnp
+
+    from jaxsim_tpu.ops.batched_engine import BatchedState as JaxState
+
+    with jax.enable_x64(x64):
+        dtype = jnp.float64 if x64 else jnp.float32
+        st = JaxState(**{k: jnp.asarray(a, dtype) for k, a in arrays.items()})
+        jpr = {k: jnp.asarray(a, dtype) for k, a in pr.items()}
+        cts = JaxState(**{k: jnp.asarray(a, dtype) for k, a in ct.items()})
+        _, (g_st, g_tau, g_pr) = _jax_step_vjp(jeng)(st, jnp.asarray(tau, dtype), jpr, cts)
+        return bridge.reference_state_arrays(g_st), np.asarray(g_tau), bridge.reference_params_arrays(g_pr)
+
+
 def _check(name, x64: bool):
     jeng, arrays, tau, ct = _case(name)
     dtype_np, dtype = (np.float64, torch.float64) if x64 else (np.float32, torch.float32)
@@ -119,8 +159,9 @@ def test_large_rr_step_vjp_matches_jax_vjp(name, x64):
 
 def test_rr_rollout_gains_gradient_matches_jax():
     """The PD gains' gradient through 3 steps of ``fused_diff_rollout`` on
-    garpez tilted low, joints displaced and moving, against ``jax.grad``
-    through a ``lax.scan`` of the JAX step, float64."""
+    garpez tilted low, joints displaced and moving, against the chain rule
+    through the same 3 JAX steps (each step's ``jax.vjp``, the policy's by
+    hand), float64."""
     import jax
     import jax.numpy as jnp
 
@@ -133,18 +174,23 @@ def test_rr_rollout_gains_gradient_matches_jax():
         return -gains[0] * st.s - gains[1] * st.sd
 
     with jax.enable_x64(True):
-        st = JaxState(**{k: jnp.asarray(a, jnp.float64) for k, a in arrays.items()})
-        _, params = bridge.reference_engine_arrays(jeng)
-        pr = {k: jnp.asarray(a, jnp.float64) for k, a in params.items()}
-
-        def loss(gains):
-            def body(s, _):
-                return jeng.step(s, policy(s, gains), pr), None
-
-            out, _ = jax.lax.scan(body, st, None, length=3)
-            return jnp.mean(out.sd**2) + jnp.mean(out.p[2]) + jnp.mean(out.m**2)
-
-        ref = np.asarray(jax.jit(jax.grad(loss))(jnp.asarray(gains0)))
+        step_vjp = _jax_step_vjp(jeng)
+        pr = {k: jnp.asarray(a, jnp.float64) for k, a in bridge.reference_params_arrays(jeng.params()).items()}
+        states = [JaxState(**{k: jnp.asarray(a, jnp.float64) for k, a in arrays.items()})]
+        zero = JaxState(**{k: jnp.zeros(a.shape, jnp.float64) for k, a in arrays.items()})
+        for _ in range(3):
+            states.append(step_vjp(states[-1], policy(states[-1], gains0), pr, zero)[0])
+        # loss = mean(ṡ²) + mean(p_z) + mean(m²) of the last state.
+        out = states[-1]
+        p_bar = jnp.zeros_like(out.p).at[2].set(1.0 / out.p.shape[-1])
+        ct = JaxState(s=zero.s, sd=2.0 * out.sd / out.sd.size, p=p_bar, q=zero.q, v=zero.v, m=2.0 * out.m / out.m.size)
+        ref = np.zeros(2)
+        for st in reversed(states[:-1]):
+            tau = policy(st, gains0)
+            _, (g_st, g_tau, _) = step_vjp(st, tau, pr, ct)
+            ref += [float(-(g_tau * st.s).sum()), float(-(g_tau * st.sd).sum())]
+            ct = JaxState(s=g_st.s - gains0[0] * g_tau, sd=g_st.sd - gains0[1] * g_tau, p=g_st.p, q=g_st.q,
+                          v=g_st.v, m=g_st.m)  # fmt: skip
 
     teng = _port_engine(jeng, torch.float64)
     gains = torch.tensor(gains0, requires_grad=True)
