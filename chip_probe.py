@@ -6,7 +6,8 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
 
     python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations] [rr] [rr_faults] [param_sum]
         [profiler] [vjp] [vjp_faults] [lanes] [quat] [k1_faults] [step] [step_faults] [kernels] [rk4_faults]
-        [rr_step] [rr_step_faults] [rr_vjp] [rr_vjp_faults] [rr_vjp_phases]
+        [rr_step] [rr_step_faults] [rr_vjp] [rr_vjp_faults] [rr_vjp_phases] [rr_envs] [rr_phases]
+        [rr_variants]
 
 With no argument it runs the first three. Probes of the flagship humanoid
 (soft contacts, flat ground, PD policy):
@@ -112,7 +113,10 @@ With no argument it runs the first three. Probes of the flagship humanoid
   with the model arrays' cotangents, K1-rr at 8192 envs and
   ``chip_smoke.RR_HORIZON`` steps, K2 and K3 at 8192 envs, K3 on garpez at
   1024, K2-rr and K3-rr at 8192 envs, which checkouts before the
-  relaxed-rigid K2 and K3 refuse): kernel-only ms (``torch.profiler``) and CUDA-event ms (median),
+  relaxed-rigid K2 and K3 refuse; BASELINE config 5 and K1-rr RK4-fast at
+  ``chip_smoke.RR_RK4_HORIZON`` steps, K5-rr on the relaxed-rigid ES
+  generation, and the relaxed-rigid ``BatchedEnv.step``'s wall ms a step):
+  kernel-only ms (``torch.profiler``) and CUDA-event ms (median),
   through entry points that the checkouts since the lane-spread K1 and K5
   share, so that a copy of this script times an older checkout's kernels in
   the same call; and the SHA-256 of each library's SASS instructions.
@@ -145,6 +149,27 @@ With no argument it runs the first three. Probes of the flagship humanoid
   rr_vjp_faults: ``RR_VJP_FAULTS`` held with ``chip_smoke.rr_vjp_gates``;
   rr_vjp_phases: K4-rr's cycles by phase (``RR_VJP_PHASES``) and inside the
   PCG iterations, from clock stamps seeded into a copy of the source.
+* rr_envs: the relaxed-rigid forward builds at each envs a block of
+  ``RR_ENVS_SWEEP`` (the most that fit up to it) on the relaxed-rigid
+  humanoid at 8192 envs from the relaxed-rigid main path's start: K1-rr
+  under semi-implicit Euler (``chip_smoke.RR_HORIZON`` steps), RK4 (BASELINE
+  config 5) and RK4-fast (``chip_smoke.RR_RK4_HORIZON`` steps), K3-rr (one
+  step, the start's PD torques) and K5-rr (the relaxed-rigid ES generation,
+  the MLP of 16): each build's ptxas line, launch geometry and local loads
+  and stores; kernel-only ms (``torch.profiler``) and CUDA-event ms
+  (median); and for K1-rr under semi-implicit Euler and RK4 the worst
+  field's largest |Δ| (m's relative) against the plain twin after
+  ``LANE_CHECK_STEPS`` steps.
+* rr_variants: the same builds from copies of ``csrc/`` with each of
+  ``RR_STEP_VARIANTS`` seeded (the free ABA inlined; a warp barrier in place
+  of the block barrier after it), beside the checkout's, with each build's
+  ptxas spill stores summed over its functions.
+* rr_phases: K1-rr's cycles a step in the free ABA, the contact solve and
+  the rest, under semi-implicit Euler, RK4 and RK4-fast, from clock stamps
+  seeded into a copy of ``csrc/`` (warp 0's, each block's, averaged over
+  blocks; ``_PH_COMMON`` and ``_PH_ABA``, one set for the one-thread free
+  ABA and one for the lane-spread one, so that a copy of this script times
+  a parent checkout too).
 
 It prints the card's name and power limit, then JSON lines keyed by probe,
 and exits non-zero when no CUDA device is visible.
@@ -187,9 +212,24 @@ QUAT_STEPS = 100
 QUAT_BATCH = 1024
 STEP_LANES = (8, 4, 2)  # K2's and K3's lanes an env; the first is the wrappers'
 RR_STEP_ENVS = (64, 32, 16)  # K3-rr's envs a block tried; the first is the wrappers'
+# The relaxed-rigid forward builds' envs a block tried by rr_envs (the most
+# that fit up to each); the first is the builds' own.
+RR_ENVS_SWEEP = (64, 32, 16)
+# Two choices of rr_step.cuh's forward step, undone in copies of csrc/ for
+# the rr_variants probe (each an edit of rr_step.cuh: the text, its
+# replacement): the free ABA inlined into the step, not a call of its own;
+# and the block barrier after the ABA a warp barrier.
+RR_STEP_VARIANTS = {
+    "ABA inlined": [("rr_step.cuh", "__device__ __noinline__ void rr_free_lanes(",
+                     "__device__ __forceinline__ void rr_free_lanes(")],
+    "warp barrier after the ABA": [("rr_step.cuh", "  __syncthreads();\n}\n\n// rr_free_body in a call of its own",
+                                    "  __syncwarp();\n}\n\n// rr_free_body in a call of its own")],
+}
 # Seeded faults of the relaxed-rigid step, each one edit of rr_step.cuh
 # (the text, its replacement): the impedance floor dropped from the
-# regularizer, the warm start forced cold, one PCG iteration fewer.
+# regularizer, the warm start forced cold, one PCG iteration fewer, and in
+# the free ABA on the lanes each link's first pulled child (its highest
+# index) left out of pass 2's sums.
 RR_FAULTS = {
     "impedance floor dropped": (
         """((coeff[0] * Mi[j] + coeff[1] * Mi[3 + j] + coeff[2] * Mi[6 + j]) +
@@ -203,6 +243,9 @@ RR_FAULTS = {
     "one PCG iteration fewer": (
         "for (int it = warm ? -1 : 0; it <= JX_RR_ITERS; ++it) {\n    const bool first = it < 0, last = it == JX_RR_ITERS;",
         "for (int it = warm ? -1 : 0; it <= JX_RR_ITERS - 1; ++it) {\n    const bool first = it < 0, last = it == JX_RR_ITERS - 1;",
+    ),
+    "a child's pulled pass-2 share dropped": (
+        "        for (int h = 0; h < pulls; ++h) {", "        for (int h = 1; h < pulls; ++h) {"
     ),
 }
 
@@ -309,7 +352,7 @@ RK4_FAULTS = {
     "stage weights (1, 2, 2, 2)/6": [("step_env.cuh", "acc + (stage == 3 ? k : 2.0f * k)", "acc + 2.0f * k")],
     "torques re-read from the stage state": [
         ("rollout.cu", "const ColTau tau{{st + ST_TAU * ES, ES}};", "const SlotPd tau{x.s, x.sd, sc.kp, sc.kd};"),
-        ("rr_step.cuh", "const SlotTauRr tau{mine};", "const PdTau tau{};"),
+        ("rr_step.cuh", "  const SlotTauRr tau{sl};\n", "  const RrPdTau tau{sc.kp, sc.kd};\n"),
     ],
     "Baumgarte term dropped": [("step_env.cuh", "const float r = 0.5f * (nw * (1.0f - nq));", "const float r = 0.0f;")],
     "stage PCG warm-started from the start's m": [(
@@ -323,22 +366,18 @@ RK4_FAULTS = {
 # Seeded faults of the relaxed-rigid one-step kernels and env rollout, each a
 # list of edits of csrc/ (the file, the text, its replacement): K3-rr reading
 # the next env's torques; K2-rr (K1-rr launched for one step) not storing m;
-# K5-rr not re-reading m on a respawn; K5-rr's reward summed from the state
-# after the respawn.
+# K5-rr not re-reading m on a respawn; K5-rr's reward taken at the height
+# the episode respawns at, on its last step.
 RR_STEP_FAULTS = {
     "K3 reads env b + 1's torques": [
-        ("step_rr.cu", "__ldg(tau_in + k * B + b);", "__ldg(tau_in + k * B + b + 1);")],
+        ("step_rr.cu", "__ldg(tau_in + (i - 1) * B + bl);", "__ldg(tau_in + (i - 1) * B + bl + 1);")],
     "K2's m not stored": [
-        ("rollout_rr.cu", "if (b_pcg < B) rr_store_m(", "if (b_pcg < 0) rr_store_m(")],
+        ("rollout_rr.cu", "    rr_store_m(out.m, B, b, pt, m);\n", "")],
     "K5 does not restore m on a respawn": [
-        ("env_rollout_rr.cu", "    if (sl[SL_DONE] != 0.0f) rr_load_m(in.m, B, bp, pt, m);\n", "")],
+        ("env_rollout_rr.cu", "      rr_load_m(in.m, B, bl, pt, m);\n", "")],
     "K5's reward from the state after the respawn": [
-        ("env_rollout_rr.cu",
-         "      const float upright = z > 2.0f ? 2.0f : z;  // jnp.minimum: a NaN passes through\n"
-         "      reward_sum = __fadd_rn(reward_sum, __fsub_rn(upright, __fmul_rn(0.001f, ctrl)));\n", ""),
-        ("env_rollout_rr.cu", "      mine[SL_DONE] = done ? 1.0f : 0.0f;",
-         "      reward_sum = __fadd_rn(reward_sum, __fsub_rn(p[2] > 2.0f ? 2.0f : p[2], __fmul_rn(0.001f, ctrl)));\n"
-         "      mine[SL_DONE] = done ? 1.0f : 0.0f;")],
+        ("env_rollout_rr.cu", "      const float upright = z > 2.0f ? 2.0f : z;",
+         "      const float zr = done ? in.p[2 * B + bl] : z;\n      const float upright = zr > 2.0f ? 2.0f : zr;")],
 }
 
 # The one-step kernels' model arrays read from device memory through L1 in
@@ -1185,12 +1224,14 @@ def kernels_probe(hum, gen) -> None:
     machine code is."""
     import hashlib
     import re
+    import time
 
     import torch
 
     from chip_smoke import (
-        ES, ES_OPTIONS, RR_CASES, RR_HORIZON, apg_setup, es_population, es_sizes, garpez_engine, pendulum_engine,
-        profiled_ms, rr_garpez_engine, rr_humanoid_engine, rr_start_states, vjp_cotangents, vjp_starts,
+        ENV_STEPS, ES, ES_OPTIONS, RK4_INTEGRATORS, RR_CASES, RR_HORIZON, RR_RK4_HORIZON, apg_setup, es_population,
+        es_sizes, garpez_engine, pendulum_engine, profiled_ms, rr_garpez_engine, rr_humanoid_engine, rr_start_states,
+        vjp_cotangents, vjp_starts, with_integrator,
     )  # fmt: skip
     from jaxsim_tpu_torch.ops import cuda_build, cuda_env_rollout, cuda_rollout, cuda_step, cuda_step_vjp
     from jaxsim_tpu_torch.ops.policies import obs_dim
@@ -1215,14 +1256,18 @@ def kernels_probe(hum, gen) -> None:
                            cuda_step_vjp.job(hum), cuda_step_vjp.job(hum, params_grad=True), cuda_step.job(hum),
                            cuda_step.job(garp), cuda_step.job(hum_rr)])  # fmt: skip
     # Built for their SASS only: K1's RK4 and RK4-fast builds, soft and
-    # relaxed-rigid, K5-rr and K4-rr.
-    from chip_smoke import RK4_INTEGRATORS, with_integrator
-
+    # relaxed-rigid, K5-rr and K4-rr (the relaxed-rigid ones timed below).
     cuda_build.build_many([
         *(cuda_rollout.job(with_integrator(e, i)) for e in (hum, hum_rr) for i in RK4_INTEGRATORS),
         cuda_env_rollout.job(hum_rr, cuda_env_rollout.make_policy(hum_rr, **weights)),
         cuda_step_vjp.job(hum_rr), cuda_step_vjp.job(hum_rr, params_grad=True),
     ])  # fmt: skip
+    rr_rk4 = {i: with_integrator(hum_rr, i) for i in RK4_INTEGRATORS}
+    rr_pol = cuda_env_rollout.make_policy(hum_rr, **weights)
+    from jaxsim_tpu_torch.envs import BatchedEnv
+
+    rr_env = BatchedEnv(engine=hum_rr, episode_length=ES_OPTIONS["episode_length"],
+                        healthy_z_range=ES_OPTIONS["healthy_z_range"])  # fmt: skip
     calls = dict(
         rollout=(lambda: cuda_rollout.rollout(hum, state0, HORIZON), "rollout_kernel", 3),
         env_rollout=(lambda: cuda_env_rollout.env_rollout(hum, es_state, ES["steps"], **ES_OPTIONS, **weights),
@@ -1239,12 +1284,30 @@ def kernels_probe(hum, gen) -> None:
         step_pd=(lambda: cuda_step.step_pd(hum, state0), "step_pd_kernel", LAUNCH_REPEATS),
         step_tau=(lambda: cuda_step.step_tau(hum, state0, tau0), "step_tau_kernel", LAUNCH_REPEATS),
         step_tau_garpez=(lambda: cuda_step.step_tau(garp, apg["start"], garp_tau), "step_tau_kernel", LAUNCH_REPEATS),
+        # BASELINE config 5 (K1-rr RK4) and K1-rr RK4-fast, each at
+        # RR_RK4_HORIZON steps; K5-rr on the relaxed-rigid ES generation.
+        rollout_rr_rk4=(lambda: cuda_rollout.rollout(rr_rk4["rk4"], rr_start, RR_RK4_HORIZON), "rollout_rr_kernel", 3),
+        rollout_rr_rk4fast=(lambda: cuda_rollout.rollout(rr_rk4["rk4fast"], rr_start, RR_RK4_HORIZON),
+                            "rollout_rr_kernel", 3),
+        env_rollout_relaxed_rigid=(lambda: cuda_env_rollout.env_rollout(hum_rr, rr_start, ES["steps"], **ES_OPTIONS,
+                                                                        **weights), "env_rollout_rr_kernel", 3),
     )  # fmt: skip
     for name, (fn, kernel, repeats) in calls.items():
         fn()  # warm-up
         print(json.dumps({"kernels": {
             "call": name, "kernel_ms": profiled_ms(fn, kernel, repeats), "event_ms": device_ms(fn, repeats),
         }}), flush=True)  # fmt: skip
+    # The relaxed-rigid BatchedEnv.step (K3-rr and the torch ops around it):
+    # wall ms a step over ENV_STEPS, synchronised, as chip_smoke.py times it.
+    env_state, _ = rr_env.reset(torch.Generator(device).manual_seed(2), rr_start.p.shape[-1])
+    env_state, _, _, _ = rr_env.step(env_state, torch.zeros_like(env_state.sim.s))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ENV_STEPS):
+        env_state, _, _, _ = rr_env.step(env_state, (-60.0 * env_state.sim.s - 0.5 * env_state.sim.sd).contiguous())
+    torch.cuda.synchronize()
+    print(json.dumps({"kernels": {"call": "batched_env_step_relaxed_rigid",
+                                  "wall_ms": (time.perf_counter() - t0) * 1e3 / ENV_STEPS}}), flush=True)  # fmt: skip
     for (source, header), build in cuda_build._BUILDS.items():
         sass = subprocess.run([cuda_build.cuda_tool("cuobjdump"), "-sass", str(build.path)],
                               capture_output=True, text=True, check=True).stdout  # fmt: skip
@@ -1433,6 +1496,191 @@ def rr_step_faults_probe(hum, gen) -> None:
     print(json.dumps({"rr_env_faults": env_ratios}), flush=True)
 
 
+def _rr_forward_rows(hum, gen, probe: str, builds: dict) -> None:
+    """K1-rr (SIE, RK4, RK4-fast), K3-rr and K5-rr on the relaxed-rigid
+    humanoid at the main path's shapes for each of ``builds`` (a key: the
+    copy of ``csrc/`` to build, None for the checkout's, and the envs a
+    block at most), a JSON line each under ``probe`` (see the module's note
+    on rr_envs)."""
+    import re
+
+    import torch
+
+    from chip_smoke import (
+        ES, ES_OPTIONS, RR_CASES, RR_HORIZON, RR_RK4_HORIZON, es_population, es_sizes, profiled_ms, rr_diff,
+        rr_garpez_engine, rr_humanoid_engine, rr_start_states, with_integrator,
+    )  # fmt: skip
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_env_rollout, cuda_rollout, cuda_step
+    from jaxsim_tpu_torch.ops.policies import obs_dim
+
+    device = hum.S.device
+    hum_rr = rr_humanoid_engine(device)
+    start = rr_start_states(hum_rr, rr_garpez_engine(device), hum_rr, torch.Generator(device).manual_seed(6))[
+        RR_CASES[0][0]][1]  # fmt: skip
+    n, d = hum_rr.n_joints, obs_dim(hum_rr.n_joints)
+    _, weights = es_population(0.1 * torch.randn(sum(es_sizes(n, d)), generator=gen, device=device), gen, n, d)
+    pol = cuda_env_rollout.make_policy(hum_rr, **weights)
+    engines = {"sie": hum_rr, "rk4": with_integrator(hum_rr, "rk4"), "rk4fast": with_integrator(hum_rr, "rk4fast")}
+
+    def with_envs(job, envs):
+        return dataclasses.replace(job, defines=(*job.defines, ("JX_RR_MAX_ENVS", envs)))
+
+    def of(job, copy, envs):
+        job = with_envs(job, envs)
+        return job if copy is None else dataclasses.replace(job, source=copy / job.source.name)
+
+    jobs = {}
+    for key, (copy, envs) in builds.items():
+        for name, eng in engines.items():
+            jobs[(f"k1_{name}", key)] = of(cuda_rollout.job(eng), copy, envs)
+        jobs[("k3", key)] = of(cuda_step.job(hum_rr), copy, envs)
+        jobs[("k5", key)] = of(cuda_env_rollout.job(hum_rr, pol), copy, envs)
+    kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+    tau = (-60.0 * start.s - 0.5 * start.sd).contiguous()
+    plains = {name: cuda_rollout.rollout_reference(eng, start, LANE_CHECK_STEPS) for name, eng in engines.items()
+              if name != "rk4fast"}  # fmt: skip
+    for (kind, key), kernel in kernels.items():
+        if kind.startswith("k1_"):
+            eng = engines[kind[3:]]
+            steps = RR_HORIZON if kind == "k1_sie" else RR_RK4_HORIZON
+
+            def run(eng=eng, kernel=kernel, steps=steps):
+                return cuda_rollout.launch(kernel, eng, start, steps, 60.0, 0.5)
+
+            name, repeats = "rollout_rr_kernel", REPEATS
+            geometry = cuda_rollout.rr_geometry(kernel)
+        elif kind == "k3":
+            params = cuda_build.packed_params(hum_rr)
+
+            def run(kernel=kernel, params=params):
+                return cuda_step.launch_tau(kernel, hum_rr, start, tau, params)
+
+            name, repeats, geometry = "step_tau_rr_kernel", LAUNCH_REPEATS, cuda_step.geometry(kernel)
+        else:
+            def run(kernel=kernel):
+                return cuda_env_rollout.launch(kernel, hum_rr, start, ES["steps"], pol, kp=60.0, kd=0.5, reset_noise=0.0,
+                                               seed=0, **ES_OPTIONS)  # fmt: skip
+
+            name, repeats, geometry = "env_rollout_rr_kernel", REPEATS, cuda_env_rollout.geometry(kernel)
+        row = {"kernel": kind, "build": key, "geometry": geometry,
+               "ptxas": [ln.strip() for ln in kernel.ptxas_log.splitlines()
+                         if "registers" in ln or "stack frame" in ln or "spill" in ln],
+               "spill_stores": sum(map(int, re.findall(r"(\d+) bytes spill stores", kernel.ptxas_log))),
+               "local_loads_and_stores": cuda_rollout.rr_local_memory(kernel)}  # fmt: skip
+        if kind[3:] in plains:
+            got = cuda_rollout.launch(kernel, engines[kind[3:]], start, LANE_CHECK_STEPS, 60.0, 0.5)
+            torch.cuda.synchronize()
+            row["max_abs_err_vs_plain_m_relative"] = max(float(x.max()) for x in rr_diff(got, plains[kind[3:]]).values())
+        run()  # warm-up
+        try:
+            row["kernel_ms"] = profiled_ms(run, name, repeats)
+        except RuntimeError as exc:  # the profiler dropped a launch in every window
+            row["kernel_ms"] = str(exc)
+        row["event_ms"] = device_ms(run, repeats)
+        print(json.dumps({probe: row}), flush=True)
+
+
+def rr_envs_probe(hum, gen) -> None:
+    """The relaxed-rigid forward builds at each envs a block of RR_ENVS_SWEEP."""
+    _rr_forward_rows(hum, gen, "rr_envs", {envs: (None, envs) for envs in RR_ENVS_SWEEP})
+
+
+def rr_variants_probe(hum, gen) -> None:
+    """The relaxed-rigid forward builds from copies of ``csrc/`` with each of
+    RR_STEP_VARIANTS seeded, beside the checkout's, 64 envs a block."""
+    from jaxsim_tpu_torch.ops import cuda_build
+
+    builds = {"as built": (None, cuda_build.RR_MAX_ENVS)}
+    for name, edits in RR_STEP_VARIANTS.items():
+        builds[name] = (_seeded_edits("rr_variants", name, edits), cuda_build.RR_MAX_ENVS)
+    _rr_forward_rows(hum, gen, "rr_variants", builds)
+
+
+# Clock stamps for the rr_phases probe, for the parent's one-thread free ABA
+# and for the lane-spread one (each edit is tried on the source it names; a
+# set applies where every one of its texts is there once): each accumulates
+# warp 0's cycles in the free ABA (jx_ph(0)) and the contact solve (jx_ph(1))
+# of every step or stage, and around the kernel's step loop (jx_ph(2)); the
+# block's first thread writes them over its env's p rows at the end.
+_PH_COMMON = [
+    ("rr_step.cuh", "struct Slot {\n",
+     "__device__ __forceinline__ long long& jx_ph(int k) {\n  __shared__ long long acc[3];\n  return acc[k];\n}\n\n"
+     "struct Slot {\n"),
+    ("rollout_rr.cu", "  if constexpr (INTEGRATOR == 0) {\n",
+     "  if (threadIdx.x == 0) jx_ph(0) = jx_ph(1) = 0;\n  const long long jxk = clock64();\n"
+     "  if constexpr (INTEGRATOR == 0) {\n"),
+    ("rollout_rr.cu", "\n}\n\n}  // namespace",
+     "\n  if (threadIdx.x == 0) {\n    jx_ph(2) = clock64() - jxk;\n"
+     "    for (int k = 0; k < 3; ++k) out.p[k * B + blockIdx.x * ENVS] = static_cast<float>(jx_ph(k));\n  }\n"
+     "}\n\n}  // namespace"),
+]
+
+
+def _ph_wrap(call: str, indent: str, k: int = 0) -> str:
+    return (f"{indent}const long long jx{k} = clock64();\n{call}"
+            f"{indent}if (threadIdx.x == 0) jx_ph({k}) += clock64() - jx{k};\n")
+
+
+_PH_ABA = {
+    "one thread an env": [
+        ("rr_step.cuh", c, _ph_wrap(c, i)) for c, i in (
+            ("  if (aba) rr_free_step(P, sc, w, mine, s, sd, p, q, v, sdd, tau_of);\n  __syncthreads();\n", "  "),
+            ("      if (aba) rr_free_step(P, sc, w, mine, s, sd, p, q, v, sdd, tau);\n      __syncthreads();\n", "      "),
+            ("      rr_free_step<true>(P, sc, w, mine, s, sd, p, q, v, sdd, tau);\n", "      "))] + [
+        ("rr_step.cuh", c, _ph_wrap(c, i, 1)) for c, i in (
+            ("  float x[OWN * 3];\n  rr_solve(P, sc, sl, g, pt, m, x);\n", "  "),
+            ("      rr_solve(P, sc, sl, g, pt, m, x);\n", "      "))],
+    "lanes": [
+        ("rr_step.cuh", c, _ph_wrap(c, i)) for c, i in (
+            ("  rr_free_lanes<false>(P, sc.gz, sl, g, st, sdd, tau_of);\n", "  "),
+            ("      if (Integrator == 2)\n        rr_free_body<false>(P, sc.gz, sl, g, st, sdd, tau);\n"
+             "      else\n        rr_free_lanes<false>(P, sc.gz, sl, g, st, sdd, tau);\n", "      "),
+            ("    if (Integrator == 2) rr_free_body<true>(P, sc.gz, sl, g, st, sdd, tau);\n", "    "))] + [
+        ("rr_step.cuh", c, _ph_wrap(c, i, 1)) for c, i in (
+            ("  float x[OWN * 3];\n  rr_solve(P, sc, sl, g, pt, m, x);\n", "  "),
+            ("      rr_solve(P, sc, sl, g, pt, m, x);\n", "      "))],
+}
+
+
+def rr_phases_probe(hum, gen) -> None:
+    """K1-rr's cycles a step by phase (the module's note) on the relaxed-rigid
+    humanoid at 8192 envs from the main path's start: a copy of ``csrc/``
+    under ``build/`` with the clock stamps of whichever free ABA the checkout
+    has, built under semi-implicit Euler, RK4 and RK4-fast; per build the mean
+    over blocks of warp 0's cycles a step in the free ABA, the contact solve
+    and the rest, and their shares, beside the launch's event ms."""
+    import torch
+
+    from chip_smoke import RR_CASES, rr_garpez_engine, rr_humanoid_engine, rr_start_states, with_integrator
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_rollout
+
+    device = hum.S.device
+    hum_rr = rr_humanoid_engine(device)
+    start = rr_start_states(hum_rr, rr_garpez_engine(device), hum_rr, torch.Generator(device).manual_seed(6))[
+        RR_CASES[0][0]][1]  # fmt: skip
+    texts = {f: (cuda_build.CSRC / f).read_text() for f in ("rr_step.cuh", "rollout_rr.cu")}
+    (design,) = [k for k, edits in _PH_ABA.items() if all(texts[f].count(o) == 1 for f, o, _ in edits)]
+    src = _seeded_edits("rr_phases", "stamps", _PH_COMMON + _PH_ABA[design]) / "rollout_rr.cu"
+    engines = {i: with_integrator(hum_rr, i) for i in ("sie", "rk4", "rk4fast")}
+    jobs = {i: dataclasses.replace(cuda_rollout.job(e), source=src) for i, e in engines.items()}
+    kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+    envs = cuda_rollout.rr_geometry(kernels["sie"])["envs"]
+    for i, kernel in kernels.items():
+        def run(i=i, kernel=kernel):
+            return cuda_rollout.launch(kernel, engines[i], start, RR_STEPS, 60.0, 0.5)
+
+        run()
+        cycles = run().p[:, ::envs].double().mean(1).tolist()
+        torch.cuda.synchronize()
+        aba, solve, total = (c / RR_STEPS for c in cycles)
+        print(json.dumps({"rr_phases": {
+            "design": design, "integrator": i, "B": start.p.shape[-1], "steps": RR_STEPS, "envs_a_block": envs,
+            "event_ms": device_ms(run, REPEATS), "cycles_a_step": round(total),
+            "free_aba": [round(aba), round(aba / total, 4)], "contact_solve": [round(solve), round(solve / total, 4)],
+            "rest": [round(total - aba - solve), round((total - aba - solve) / total, 4)],
+        }}), flush=True)  # fmt: skip
+
+
 PROBES = {
     "sweep": sweep_probe,
     "profile": profile_probe,
@@ -1457,6 +1705,9 @@ PROBES = {
     "rr_vjp": rr_vjp_probe,
     "rr_vjp_faults": rr_vjp_faults_probe,
     "rr_vjp_phases": rr_vjp_phases_probe,
+    "rr_envs": rr_envs_probe,
+    "rr_variants": rr_variants_probe,
+    "rr_phases": rr_phases_probe,
 }
 
 

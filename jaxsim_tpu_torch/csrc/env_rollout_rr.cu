@@ -22,21 +22,20 @@
 //      counter-based Philox4x32-10 of ops/philox.py. The start state here
 //      includes m, the solved point forces that warm-start the next solve.
 //
-// Who does what. The threads keep K1-rr's roles between steps: thread
-// t < ENVS holds env t's s, sd, p, q and v in registers and runs its free
-// ABA, SIE update, done test, reward and respawn; lane g of env
-// threadIdx.x / G holds the m rows of its point slots. The policy runs on the
-// env's lanes, so that the ABA thread (128 registers, its ABA's working set
-// spilling already) takes no more: the ABA thread writes the observation
-// [s, sd, q, v, p_z] into the env's slot, in rows that no thread reads between
-// a step's contact solve and the next step's free ABA (the F rows and the base
-// factor L0, which the next step writes before it reads them); each hidden
-// unit's row and each torque's row is computed whole on one lane, dealt
-// round-robin, bias first, each product and sum rounded on its own, as
-// env_rollout.cu does; the hidden units sit beside the observation when
-// they fit there, else in rows of their own past the slot. The done flag of
-// the step goes to the last of those rows, where each lane reads it to
-// re-read its own point slots' start m rows on a respawn.
+// Who does what. The lanes keep K1-rr's roles between steps: lane g of env
+// threadIdx.x / G holds s and sd of its links' joints (lane 0 also p, q and
+// v) and the m rows of its point slots; each lane writes its entries of the
+// observation [s, sd, q, v, p_z] into the env's slot, in rows that no lane
+// reads between a step's contact solve and the next step's free ABA (the F
+// rows and the base factor L0, which the next step writes before it reads
+// them); the policy runs on the env's lanes, each hidden unit's row and each
+// torque's row computed whole on one lane, dealt round-robin, bias first,
+// each product and sum rounded on its own, as env_rollout.cu does; the
+// hidden units sit beside the observation when they fit there, else in rows
+// of their own past the slot. Lane 0 runs the done test, the reward and the
+// base's respawn, and leaves the step's done flag in the last of those rows,
+// where each lane reads it to re-read its own joints' and point slots' start
+// rows on a respawn.
 //
 // Weights are call-time inputs, so new weights need no rebuild. With P
 // candidates (per-candidate weights, the JAX per_tile_weights) env b uses
@@ -118,93 +117,96 @@ __global__ void __launch_bounds__(RR_THREADS, 1)
     const float* src = weights + static_cast<size_t>(candidate) * WSZ;
     for (int k = threadIdx.x; k < WSZ; k += blockDim.x) Wt[k] = src[k];
   }
-  // Thread t < ENVS holds env t's s, sd, p, q and v, lane g of env
-  // threadIdx.x / G the m rows of its point slots. The envs past B run env
-  // B - 1's steps beside the others, so that every thread reaches every
-  // barrier, and store nothing.
-  const int b_aba = blockIdx.x * ENVS + threadIdx.x, b_pcg = blockIdx.x * ENVS + threadIdx.x / G;
-  const int ba = b_aba < B ? b_aba : B - 1, bp = b_pcg < B ? b_pcg : B - 1;
-  const bool aba = threadIdx.x < ENVS;
-  const int g = threadIdx.x % G;
-  const Slot mine{slots + (aba ? threadIdx.x : 0)};
-  const Slot sl{slots + threadIdx.x / G};
+  // Lane g of env threadIdx.x / G holds its share of the env's state and the
+  // m rows of its point slots. The envs past B run env B - 1's steps beside
+  // the others, so that every lane of a warp takes part in its shuffles, and
+  // store nothing.
+  const int e = threadIdx.x / G, g = threadIdx.x % G;
+  const int b = blockIdx.x * ENVS + e, bl = b < B ? b : B - 1;
+  const Slot sl{slots + e};
 
   int pt[OWN];
   float m[OWN * 3];
   rr_points(g, pt);
-  rr_load_m(in.m, B, bp, pt, m);
-  float s[NJA], sd[NJA], p[3], q[4], v[6];
-  if (aba) rr_load_body(in, B, ba, s, sd, p, q, v);
+  rr_load_m(in.m, B, bl, pt, m);
+  RrLane st;
+  rr_load_lane(in, B, bl, g, sl, st);
   __syncthreads();
 
   int steps = 0, resets = 0;
   float reward_sum = 0.0f;
-  RrWork w;
 #pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
     // 1. The torques of the state before the step, into the torque row.
-    if (aba) {
+#pragma unroll
+    for (int lev = 0; lev < NLEV; ++lev)
+#pragma unroll
+      for (int r = 0; r < ROUNDS; ++r) {
+        const int i = rr_link(lev, r, g), k = i - 1, j = lev * ROUNDS + r;
+        if (i < 0) continue;
 #if JX_POLICY == 0
-      for (int k = 0; k < NJ; ++k) mine[SL_TAU + k] = -sc.kp * s[k] - sc.kd * sd[k];
+        sl[SL_TAU + k] = -sc.kp * st.s[j] - sc.kd * st.sd[j];
 #else
-      for (int k = 0; k < NJ; ++k) {
-        mine[SL_OBS + k] = s[k];
-        mine[SL_OBS + NJ + k] = sd[k];
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) mine[SL_OBS + 2 * NJ + k] = q[k];
-#pragma unroll
-      for (int k = 0; k < 6; ++k) mine[SL_OBS + 2 * NJ + 4 + k] = v[k];
-      mine[SL_OBS + 2 * NJ + 10] = p[2];
+        sl[SL_OBS + k] = st.s[j];
+        sl[SL_OBS + NJ + k] = st.sd[j];
 #endif
+      }
+#if JX_POLICY != 0
+    if (g == 0) {
+#pragma unroll
+      for (int k = 0; k < 10; ++k) sl[SL_OBS + 2 * NJ + k] = sl[rr_base_at(3 + k)];  // q, v
+      sl[SL_OBS + 2 * NJ + 10] = sl[rr_base_at(2)];
     }
-    if (JX_POLICY != 0) {
-      __syncthreads();  // the observations are in
-      policy(Wt, o, sl, g);
-    }
-    __syncthreads();  // the torques are in
+    __syncwarp();  // the observation is in
+    policy(Wt, o, sl, g);
+#endif
+    __syncwarp();  // the torques are in
 
     // 2. The step.
-    rr_step_env(P, sc, w, slots, pt, s, sd, p, q, v, m, SlotTauRr{mine});
+    rr_step_env(P, sc, sl, g, st, m, SlotTauRr{sl});
 
-    // 3. The episode's end, the reward and the respawn, on the ABA thread;
-    // the lanes re-read their m rows on the flag it leaves.
-    if (aba) {
+    // 3. The episode's end, the reward and the base's respawn, on lane 0; the
+    // lanes re-read their joints' and m rows on the flag it leaves.
+    if (g == 0) {
       const int steps1 = steps + 1;
-      const float z = p[2];
+      const float z = sl[rr_base_at(2)];
       // The JAX kernel's comparisons: a NaN height ends no episode.
       const bool done = (z < o.z_lo) || (z > o.z_hi) || (steps1 >= o.episode_length);
       float ctrl = 0.0f;
       for (int k = 0; k < NJ; ++k) {
-        const float tk = mine[SL_TAU + k];
+        const float tk = sl[SL_TAU + k];
         ctrl = k ? mac(ctrl, tk, tk) : __fmul_rn(tk, tk);
       }
       const float upright = z > 2.0f ? 2.0f : z;  // jnp.minimum: a NaN passes through
       reward_sum = __fadd_rn(reward_sum, __fsub_rn(upright, __fmul_rn(0.001f, ctrl)));
       resets += done;
       steps = done ? 0 : steps1;
-      if (done) {
-        rr_load_body(in, B, ba, s, sd, p, q, v);
-        if (o.noise_half > 0.0f) {
-          for (int r = 0; r < 3; ++r) {
-            const unsigned bits = philox_word0(o.seed, ba, t, r);
-            const float u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
-            p[r] = __fadd_rn(p[r], __fmul_rn(o.noise_half, 2.0f * u - 1.0f));
-          }
+      sl[SL_DONE] = done ? 1.0f : 0.0f;
+    }
+    __syncwarp();
+    if (sl[SL_DONE] != 0.0f) {
+      rr_load_lane(in, B, bl, g, sl, st);
+      if (g == 0 && o.noise_half > 0.0f) {
+        for (int r = 0; r < 3; ++r) {
+          const unsigned bits = philox_word0(o.seed, bl, t, r);
+          const float u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
+          sl[rr_base_at(r)] = __fadd_rn(sl[rr_base_at(r)], __fmul_rn(o.noise_half, 2.0f * u - 1.0f));
         }
       }
-      mine[SL_DONE] = done ? 1.0f : 0.0f;
+      rr_step_points(g, pt);
+      rr_load_m(in.m, B, bl, pt, m);
     }
-    __syncthreads();
-    if (sl[SL_DONE] != 0.0f) rr_load_m(in.m, B, bp, pt, m);
   }
 
-  if (b_pcg < B) rr_store_m(out.m, B, b_pcg, pt, m);
-  if (aba && b_aba < B) {
-    rr_store_body(out, B, b_aba, s, sd, p, q, v);
-    reward_out[b_aba] = reward_sum;
-    resets_out[b_aba] = resets;
-    steps_out[b_aba] = steps;
+  if (b < B) {
+    rr_step_points(g, pt);
+    rr_store_m(out.m, B, b, pt, m);
+    rr_store_lane(out, B, b, g, sl, st);
+    if (g == 0) {
+      reward_out[b] = reward_sum;
+      resets_out[b] = resets;
+      steps_out[b] = steps;
+    }
   }
 }
 

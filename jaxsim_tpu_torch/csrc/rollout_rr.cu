@@ -14,7 +14,7 @@
 // cuda_step.step_pd). The step is rr_step_env, or rr_rk4_step (rr_step.cuh),
 // which the relaxed-rigid K3 (step_rr.cu) and env rollout
 // (env_rollout_rr.cu) share; so do the state's loads and stores
-// (rr_load_body, rr_load_m, ...). An RK4
+// (rr_load_lane, rr_load_m, ...). An RK4
 // step is four such solves (RK4-fast: one solve and four ABAs with the
 // frozen forces); its start state and accumulator live in device memory
 // (Rk4Scratch).
@@ -36,11 +36,13 @@
 // 3,216 B an env for the humanoid) lives in a slot of dynamic shared memory,
 // 64 envs a block (209 KB with the model arrays' 9.7 KB for the humanoid), so
 // the 8192 envs fit in one wave of 128 blocks; the point vectors live in the
-// registers of the env's lanes, and the passes run across the lanes, while
-// the free ABA runs one thread an env on the block's first warps (see
-// rr_step.cuh): 0.025 ms a pass on an H100. What stays in local memory is
-// the free ABA's working set (RrWork, once a step), now the larger part of a
-// step, and, with one lane an env, the point vectors.
+// registers of the env's lanes, and the passes run across the lanes (0.025
+// ms a pass on an H100). The free ABA runs on the same lanes, level by level,
+// what a link hands to the next level passed by warp shuffles from its lane's
+// registers (see rr_step.cuh); the state is dealt to the lanes that update
+// it. An env's step touches only its own warp; one block barrier a step,
+// after the free ABA, keeps the block's warps in one phase, which the card
+// runs faster than warps spread over the ABA's and the solve's code.
 
 #include "rr_step.cuh"
 
@@ -53,33 +55,34 @@ __global__ void __launch_bounds__(RR_THREADS, 1) rollout_rr_kernel(
   load_params(params, P);
   __syncthreads();
 
-  // Thread t < ENVS holds env t's s, sd, p, q and v (rr_step_env); lane g of
-  // env threadIdx.x / G the m rows of its point slots. The envs past B run
-  // env B - 1's step beside the others, so that every thread reaches every
-  // barrier, and store nothing.
-  const int b_aba = blockIdx.x * ENVS + threadIdx.x, b_pcg = blockIdx.x * ENVS + threadIdx.x / G;
-  const bool aba = threadIdx.x < ENVS;
-  const int g = threadIdx.x % G;
+  // Lane g of env threadIdx.x / G holds its share of the env's state
+  // (RrLane) and the m rows of its point slots. The envs past B run env
+  // B - 1's steps beside the others, so that every lane of a warp takes part
+  // in its shuffles, and store nothing.
+  const int e = threadIdx.x / G, g = threadIdx.x % G;
+  const int b = blockIdx.x * ENVS + e, bl = b < B ? b : B - 1;
+  const Slot sl{smem + N_PARAMS + e};
 
   int pt[OWN];
   float m[OWN * 3];
   rr_points(g, pt);
-  rr_load_m(in.m, B, b_pcg < B ? b_pcg : B - 1, pt, m);
-  float s[NJA], sd[NJA], p[3], q[4], v[6];
-  if (aba) rr_load_body(in, B, b_aba < B ? b_aba : B - 1, s, sd, p, q, v);
+  rr_load_m(in.m, B, bl, pt, m);
+  RrLane st;
+  rr_load_lane(in, B, bl, g, sl, st);
 
-  RrWork w;
   if constexpr (INTEGRATOR == 0) {
 #pragma unroll 1
-    for (int t = 0; t < n_steps; ++t) rr_step_env(P, sc, w, smem + N_PARAMS, pt, s, sd, p, q, v, m, PdTau{});
+    for (int t = 0; t < n_steps; ++t) rr_step_env(P, sc, sl, g, st, m, RrPdTau{sc.kp, sc.kd});
   } else {
 #pragma unroll 1
-    for (int t = 0; t < n_steps; ++t)
-      rr_rk4_step<INTEGRATOR>(P, sc, w, smem + N_PARAMS, pt, s, sd, p, q, v, m, rk, b_aba, b_pcg);
+    for (int t = 0; t < n_steps; ++t) rr_rk4_step<INTEGRATOR>(P, sc, sl, g, st, m, rk, b);
   }
 
-  if (b_pcg < B) rr_store_m(out.m, B, b_pcg, pt, m);
-  if (aba && b_aba < B) rr_store_body(out, B, b_aba, s, sd, p, q, v);
+  if (b < B) {
+    rr_step_points(g, pt);
+    rr_store_m(out.m, B, b, pt, m);
+    rr_store_lane(out, B, b, g, sl, st);
+  }
 }
 
 }  // namespace

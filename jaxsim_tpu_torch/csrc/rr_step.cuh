@@ -15,31 +15,42 @@
 // accelerations a_free + M^-1 J^T x; m <- x, rounded operation by operation
 // as the twin writes it, m + dt ((x - m) / dt). IEEE float32 throughout.
 //
-// Who does what. One thread an env runs forward kinematics and the free ABA,
-// the twin's loops, on the block's first warps with every lane busy (on
-// an env's own lanes it would leave 1 - 1/JX_RR_LANES of each warp's issue
-// slots idle, and the free ABA issues more instructions than the passes), and
-// writes the factorization the contact solve reuses into the env's slot of
-// shared memory: per link U, d and the
-// child -> parent pair (iR, ip), the base Cholesky factor L0, and for each
-// contact parent its world pose, velocity and free acceleration. Every
-// M^-1 J^T application (one for the warm start, JX_RR_ITERS in the CG, one
-// for the final forces) then runs on all the env's lanes:
-//  * scatter: the contact points are dealt to the lanes in slots (generated
-//    header: each parent's points in contact-index order, padded to a
-//    multiple of the lanes, so a group of JX_RR_LANES slots has one parent);
-//    each lane turns its point's force into a link wrench, a fixed xor
-//    shuffle tree sums the group, and the groups of a parent add in order;
-//  * the substitution passes run level by level (the header's schedule from
-//    JX_LAM: the humanoid's tree is 7 deep and at most 4 wide), the links of
-//    a level spread over the lanes; a link pulls its children's forces in
-//    descending index order, the order in which a sequential leaves-to-root
-//    loop pushes them, so the tree passes round alike whatever the lanes;
-//  * gather and the CG's vector updates: each lane its own slots, the dot
-//    products through a fixed xor shuffle tree over the lanes.
+// Who does what. Everything of an env runs on its own JX_RR_LANES lanes, so
+// a step needs warp barriers only; it takes one block barrier, after the free
+// ABA, to keep the block's warps in one phase:
+//  * forward kinematics and the free ABA (rr_free_body) run level by level
+//    (the header's schedule from JX_LAM: the humanoid's tree is 7 deep and at
+//    most 4 wide), a link a lane: link i on lane JX_RR_POS[i] % G, in round
+//    JX_RR_POS[i] / G of its level. What a link hands to the next level
+//    stays in its lane's registers and the next level pulls it by a warp
+//    shuffle: its world pose, world velocity and body velocity down the tree;
+//    up it, its share of its parent's articulated inertia and bias force,
+//    X^T Ma X (the lower triangle, mirrored) and X^T pa, pulled in descending
+//    child index, the order in which a sequential leaves-to-root loop pushes
+//    them, so the tree sums round alike whatever the lanes; then the base's
+//    Cholesky on lane 0; down it again, the accelerations. What a link
+//    keeps from one pass to the next stays in its slot rows: the body
+//    velocity in its F row and u in its UM row until the contact solve
+//    reuses them, and the factorization the solve reads (per link U, d and
+//    the child -> parent pair (iR, ip), the base Cholesky factor L0, and for
+//    each contact parent its world pose, velocity and free acceleration);
+//  * every M^-1 J^T application (one for the warm start, JX_RR_ITERS in the
+//    CG, one for the final forces) then runs on the same lanes:
+//    - scatter: the contact points are dealt to the lanes in slots (generated
+//      header: each parent's points in contact-index order, padded to a
+//      multiple of the lanes, so a group of JX_RR_LANES slots has one parent);
+//      each lane turns its point's force into a link wrench, a fixed xor
+//      shuffle tree sums the group, and the groups of a parent add in order;
+//    - the substitution passes run on the ABA's level schedule, a link
+//      pulling its children's forces in descending index order;
+//    - gather and the CG's vector updates: each lane its own slots, the dot
+//      products through a fixed xor shuffle tree over the lanes;
+//  * the state is dealt to the lanes that use it: a lane holds s and sd of
+//    its links' joints (RrLane, in local memory) and updates them, lane 0 the
+//    base's p, q and v (in link 0's slot rows, which no pass uses), each lane
+//    the m rows of its point slots.
 // A lane keeps its slots' point vectors (m, x, r, p, A p, the regularizer's
-// r_j and the activity) in registers (at 8 lanes and 128 registers a few
-// spill to local memory, outside the passes); the Jacobi diagonal and r + reg are
+// r_j and the activity) in registers; the Jacobi diagonal and r + reg are
 // recomputed from r_j, the activity and rrMinv, by the same expressions.
 // Only the order of the sums in the dot products, and in the scatter within
 // a parent's points, depends on the lanes: with one lane it is the
@@ -49,16 +60,16 @@
 // _rk4_step: q normalised, the torques captured once into the slot's torque
 // row, then four stages. Under RK4 each stage is the step above in its rate
 // form: the free ABA and the PCG, warm-started from the stage's m, give the
-// stage's accelerations and m' = (x - m) / dt; the ABA thread forms the rates
-// of s, sd, p, q (with the Baumgarte term) and v, and each thread its
-// entries' next stage state y0 + c dt k and the accumulator, which live in
-// device memory (Rk4Scratch: the slot has no room for two more states
-// beside 64 envs, and the ABA thread's working set already spills). Under
-// RK4-fast one PCG at the step's start gives the forces, which the lanes
-// freeze as the parents' world wrenches (in the PAR_A rows, free after the
-// solve), and m' = (x - m) / dt; then each of the four stages is one ABA on
-// the ABA thread with those wrenches as external forces (rr_free_step's
-// Frozen form), as the twin runs its aba with the frozen f_links.
+// stage's accelerations and m' = (x - m) / dt; each lane forms the rates of
+// its entries (lane 0 the base's: p, q with the Baumgarte term, and v) and
+// their next stage state y0 + c dt k and the accumulator, which live in
+// device memory (Rk4Scratch: the slot has no room for two more states beside
+// 64 envs). Under RK4-fast one PCG at the step's start gives the forces,
+// which the lanes freeze as the parents' world wrenches (in the PAR_A rows,
+// free after the solve), and m' = (x - m) / dt; then each of the four stages
+// is one free ABA on the lanes with those wrenches as external forces
+// (rr_free_lanes' Frozen form), as the twin runs its aba with the frozen
+// f_links.
 //
 // The slot: field-major, the block's envs minor with an odd stride, so the
 // envs of a warp reading one field fall in distinct banks.
@@ -89,8 +100,8 @@ constexpr int SL_U = 0;                  // (NL, 6)
 constexpr int SL_D = SL_U + NL * 6;      // (NL)
 constexpr int SL_IR = SL_D + NL;         // (NL, 9) child -> parent rotation
 constexpr int SL_IP = SL_IR + NL * 9;    // (NL, 3) child -> parent offset
-constexpr int SL_UM = SL_IP + NL * 3;    // (NL) a pass's u; the joint accelerations in the last
-constexpr int SL_F = SL_UM + NL;         // (NL, 6) forces up the tree, accelerations down it
+constexpr int SL_UM = SL_IP + NL * 3;    // (NL) the free ABA's u; a pass's u; the joint accelerations in the last
+constexpr int SL_F = SL_UM + NL;         // (NL, 6) ABA: body velocities; solve: forces up, accelerations down
 constexpr int SL_L0 = SL_F + NL * 6;     // (36) the base Cholesky factor
 constexpr int SL_PAR = SL_L0 + 36;       // (NPAR, 24) contact parents: WR, Wp, Wv, free a
 constexpr int SL_TAU = SL_PAR + NPAR * 24;  // (NJ) the step's torques: RK4's, K3's, K5's (JX_RR_TAU_ROW)
@@ -104,12 +115,6 @@ constexpr size_t RR_SMEM_BYTES = (static_cast<size_t>(SLOT) * ES + N_PARAMS) * s
 struct Slot {
   float* base;  // the env's first float; field j at base[j * ES]
   __device__ __forceinline__ float& operator[](int j) const { return base[j * ES]; }
-};
-
-// The free ABA's working set (local memory).
-struct RrWork {
-  float WR[NL][9], Wp[NL][3], Wv[NL][6];
-  float v[NL][6], c[NL][6], pA[NL][6], MA[NL][36], a[NL][6], u[NL];
 };
 
 __device__ __forceinline__ void load_vec(Slot sl, int off, int n, float* o) {
@@ -130,256 +135,6 @@ __device__ __forceinline__ float lanes_sum(float x) {
 // x*x (torch.pow and XLA both square there; powf need not round so).
 __device__ __forceinline__ float rr_pow(float x, float power) {
   return power == 2.0f ? x * x : powf(x, power);
-}
-
-// ----- one thread an env: forward kinematics and the free ABA -----
-//
-// The twin's fk and ABA loops, for one thread: these keep the factorization
-// in the slot and take no contact wrenches.
-
-// Fills w and the slot's factorization and contact-parent rows, and sdd with
-// the free joint accelerations. `tau_of(sc, s, sd, i)` gives joint i's torque
-// from the state before the step (PdTau). Frozen (RK4-fast's stages): the
-// parents' PAR_A rows hold world wrenches that act as external forces, and
-// the parents' rows are left as they are.
-template <bool Frozen = false, class Tau>
-__device__ void rr_free_step(const float* P, const Scalars& sc, RrWork& w, Slot sl, const float* s,
-                             const float* sd, const float* p, const float* q, const float* v,
-                             float* sdd, Tau tau_of) {
-  // ----- forward kinematics -----
-  {
-    const float qw = q[0], qx = q[1], qy = q[2], qz = q[3];
-    const float n = qw * qw + qx * qx + qy * qy + qz * qz;
-    const float s2 = 2.0f / (n == 0.0f ? 1.0f : n);
-    const float wx = s2 * qw * qx, wy = s2 * qw * qy, wz = s2 * qw * qz;
-    const float xx = s2 * qx * qx, xy = s2 * qx * qy, xz = s2 * qx * qz;
-    const float yy = s2 * qy * qy, yz = s2 * qy * qz, zz = s2 * qz * qz;
-    const float RB[9] = {1.0f - (yy + zz), xy - wz, xz + wy,
-                         xy + wz, 1.0f - (xx + zz), yz - wx,
-                         xz - wy, yz + wx, 1.0f - (xx + yy)};
-    float R0[9], p0[3], t[3];
-    h_rot(P + OFF_SUCH, R0);
-    h_pos(P + OFF_SUCH, p0);
-    mm3(RB, R0, w.WR[0]);
-    mv3(RB, p0, t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) w.Wp[0][k] = p[k] + t[k];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.Wv[0][k] = FLOATING ? v[k] : 0.0f;
-  }
-#pragma unroll 1
-  for (int i = 1; i < NL; ++i) {
-    const int lam = JX_LAM[i];
-    float rR[9], rp[3], t[3], iR[9];
-    relative_transform(P, i, s[i - 1], rR, rp);
-    mm3(w.WR[lam], rR, w.WR[i]);
-    mv3(w.WR[lam], rp, t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) w.Wp[i][k] = w.Wp[lam][k] + t[k];
-    // Inverse pair for the dynamics: (rR^T, -rR^T rp).
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc) iR[r * 3 + cc] = rR[cc * 3 + r];
-    mv3(iR, rp, t);
-#pragma unroll
-    for (int k = 0; k < 9; ++k) sl[SL_IR + i * 9 + k] = iR[k];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) sl[SL_IP + i * 3 + k] = -t[k];
-
-    const float* S = P + OFF_S + i * 6;
-    const float sdi = sd[i - 1];
-    const float Sl[3] = {S[0] * sdi, S[1] * sdi, S[2] * sdi};
-    const float Sa[3] = {S[3] * sdi, S[4] * sdi, S[5] * sdi};
-    float RSa[3], RSl[3], cr[3];
-    mv3(w.WR[i], Sa, RSa);
-    mv3(w.WR[i], Sl, RSl);
-    cross3(w.Wp[i], RSa, cr);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      w.Wv[i][k] = w.Wv[lam][k] + (RSl[k] + cr[k]);
-      w.Wv[i][k + 3] = w.Wv[lam][k + 3] + RSa[k];
-    }
-  }
-
-  // ----- the free articulated-body algorithm -----
-  const float* R0 = w.WR[0];
-  const float* p0 = w.Wp[0];
-  float R0i[9], p0i[3];
-  {
-    float t[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc) R0i[r * 3 + cc] = R0[cc * 3 + r];
-    mv3(R0i, p0, t);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) p0i[k] = -t[k];
-  }
-  const float g6[6] = {0.0f, 0.0f, sc.gz, 0.0f, 0.0f, 0.0f};
-
-  // Pass 1: body velocities, bias accelerations and forces.
-  if (FLOATING) {
-    xv(R0i, p0i, v, w.v[0]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.v[0][k] = 0.0f;
-  }
-  {
-    const float* M0 = P + OFF_M;
-#pragma unroll
-    for (int k = 0; k < 36; ++k) w.MA[0][k] = M0[k];
-    vxstar_Mv(w.v[0], w.MA[0], w.pA[0]);
-  }
-#pragma unroll 1
-  for (int i = 1; i < NL; ++i) {
-    const int lam = JX_LAM[i];
-    const float* S = P + OFF_S + i * 6;
-    const float sdi = sd[i - 1];
-    float vJ[6], t[6], iR[9], ip[3];
-    load_vec(sl, SL_IR + i * 9, 6, iR);
-    load_vec(sl, SL_IR + i * 9 + 6, 3, iR + 6);
-    load_vec(sl, SL_IP + i * 3, 3, ip);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) vJ[k] = S[k] * sdi;
-    xv(iR, ip, w.v[lam], t);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.v[i][k] = t[k] + vJ[k];
-    vx(w.v[i], vJ, w.c[i]);
-    const float* Mi = P + OFF_M + i * 36;
-#pragma unroll
-    for (int k = 0; k < 36; ++k) w.MA[i][k] = Mi[k];
-    vxstar_Mv(w.v[i], w.MA[i], w.pA[i]);
-  }
-  if constexpr (Frozen) {
-    // The frozen wrenches f enter as the twin's aba takes f_ext:
-    // pA -= X^T f at the link's world pose.
-#pragma unroll 1
-    for (int n = 0; n < NPAR; ++n) {
-      const int i = JX_RR_PAR_LINK[n];
-      float f[6], t[6];
-      load_vec(sl, SL_PAR + n * 24 + PAR_A, 6, f);
-      xtf(w.WR[i], w.Wp[i], f, t);
-#pragma unroll
-      for (int k = 0; k < 6; ++k) w.pA[i][k] -= t[k];
-    }
-  }
-
-  // Pass 2: articulated inertias and bias forces, leaves to root.
-#pragma unroll 1
-  for (int i = NL - 1; i > 0; --i) {
-    const int lam = JX_LAM[i];
-    const float* S = P + OFF_S + i * 6;
-    float U[6];
-    mv6(w.MA[i], S, U);
-    float dd = 0.0f, sp = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      dd += S[k] * U[k];
-      sp += S[k] * w.pA[i][k];
-    }
-    const float tau = tau_of(sc, s, sd, i - 1);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) sl[SL_U + i * 6 + k] = U[k];
-    sl[SL_D + i] = dd;
-    w.u[i] = tau - sp;
-    const float inv_d = 1.0f / dd;
-    float Ma[36];
-#pragma unroll
-    for (int r = 0; r < 6; ++r)
-#pragma unroll
-      for (int cc = 0; cc < 6; ++cc) Ma[r * 6 + cc] = w.MA[i][r * 6 + cc] - U[r] * U[cc] * inv_d;
-    float pa[6], t[6];
-    mv6(Ma, w.c[i], t);
-    const float ud = w.u[i] * inv_d;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) pa[k] = w.pA[i][k] + t[k] + U[k] * ud;
-    if (lam != 0 || FLOATING) {
-      float X[36], MaX[36], iR[9], ip[3];
-      load_vec(sl, SL_IR + i * 9, 6, iR);
-      load_vec(sl, SL_IR + i * 9 + 6, 3, iR + 6);
-      load_vec(sl, SL_IP + i * 3, 3, ip);
-      build_X(iR, ip, X);
-#pragma unroll
-      for (int r = 0; r < 6; ++r)
-#pragma unroll
-        for (int cc = 0; cc < 6; ++cc) {
-          float acc = 0.0f;
-#pragma unroll
-          for (int k = 0; k < 6; ++k) acc += Ma[r * 6 + k] * X[k * 6 + cc];
-          MaX[r * 6 + cc] = acc;
-        }
-#pragma unroll
-      for (int r = 0; r < 6; ++r) {
-#pragma unroll
-        for (int cc = 0; cc < 6; ++cc) {
-          float acc = 0.0f;
-#pragma unroll
-          for (int k = 0; k < 6; ++k) acc += X[k * 6 + r] * MaX[k * 6 + cc];
-          w.MA[lam][r * 6 + cc] += acc;
-        }
-        float acc = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 6; ++k) acc += X[k * 6 + r] * pa[k];
-        w.pA[lam][r] += acc;
-      }
-    }
-  }
-
-  // Pass 3: accelerations, root to leaves; the base factor stays for the
-  // contact solve.
-  if (FLOATING) {
-    float L[36], x[6];
-    chol6_factor(w.MA[0], L);
-    chol6_substitute(L, w.pA[0], x);
-#pragma unroll
-    for (int k = 0; k < 36; ++k) sl[SL_L0 + k] = L[k];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.a[0][k] = -x[k];
-  } else {
-    float t[6];
-    xv(R0i, p0i, g6, t);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.a[0][k] = -t[k];
-  }
-#pragma unroll 1
-  for (int i = 1; i < NL; ++i) {
-    const int lam = JX_LAM[i];
-    const float* S = P + OFF_S + i * 6;
-    float a_i[6], iR[9], ip[3], U[6];
-    load_vec(sl, SL_IR + i * 9, 6, iR);
-    load_vec(sl, SL_IR + i * 9 + 6, 3, iR + 6);
-    load_vec(sl, SL_IP + i * 3, 3, ip);
-    load_vec(sl, SL_U + i * 6, 6, U);
-    xv(iR, ip, w.a[lam], a_i);
-    float ua = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      a_i[k] += w.c[i][k];
-      ua += U[k] * a_i[k];
-    }
-    const float sddi = (w.u[i] - ua) / sl[SL_D + i];
-    sdd[i - 1] = sddi;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) w.a[i][k] = a_i[k] + S[k] * sddi;
-  }
-
-  // The contact parents' rows, for the lanes.
-  if (Frozen) return;
-#pragma unroll 1
-  for (int n = 0; n < NPAR; ++n) {
-    const int i = JX_RR_PAR_LINK[n];
-    const int o = SL_PAR + n * 24;
-#pragma unroll
-    for (int k = 0; k < 9; ++k) sl[o + PAR_WR + k] = w.WR[i][k];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) sl[o + PAR_WP + k] = w.Wp[i][k];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      sl[o + PAR_WV + k] = w.Wv[i][k];
-      sl[o + PAR_A + k] = w.a[i][k];
-    }
-  }
 }
 
 // ----- all lanes: the M^-1 J^T application -----
@@ -749,12 +504,11 @@ __device__ __forceinline__ void rr_wrenches(const float* P, Slot sl, int g, cons
   __syncwarp();
 }
 
-// ----- the state between device memory and the threads -----
+// ----- the state between device memory and the lanes -----
 //
-// The state leaves keep the batch trailing (x[row * B + b]). The ABA thread
-// of an env holds its s, sd, p, q and v in registers (consecutive ABA
-// threads, consecutive envs' columns), each lane the m rows of its point
-// slots.
+// The state leaves keep the batch trailing (x[row * B + b]). Each lane of an
+// env holds the m rows of its point slots, and in the forward kernels s and
+// sd of its links' joints (RrLane), lane 0 the base's p, q and v.
 
 // Lane g's point slots: the contact point of each, -1 for a padding slot.
 __device__ __forceinline__ void rr_points(int g, int* pt) {
@@ -778,47 +532,519 @@ __device__ __forceinline__ void rr_store_m(float* m_out, int B, int b, const int
       if (pt[k] >= 0) m_out[(pt[k] * 3 + j) * B + b] = m[k * 3 + j];
 }
 
-// Env b's s, sd, p, q and v, into the ABA thread's registers.
-__device__ __forceinline__ void rr_load_body(const StateIn& in, int B, int b, float* s, float* sd, float* p, float* q,
-                                             float* v) {
-  for (int k = 0; k < NJ; ++k) {
-    s[k] = in.s[k * B + b];
-    sd[k] = in.sd[k * B + b];
-  }
-  for (int k = 0; k < 3; ++k) p[k] = in.p[k * B + b];
-  for (int k = 0; k < 4; ++k) q[k] = in.q[k * B + b];
-  for (int k = 0; k < 6; ++k) v[k] = in.v[k * B + b];
+// ----- the forward kernels' step -----
+//
+// Their generated headers define JX_RR_WIDTH and the free ABA's tables;
+// K4-rr's (step_vjp_rr.cu) does not, and compiles none of what follows.
+
+#ifdef JX_RR_WIDTH
+
+constexpr int ROUNDS = (JX_RR_WIDTH + G - 1) / G;          // a level's links on one lane, at most
+constexpr int NE = NLEV * ROUNDS > 0 ? NLEV * ROUNDS : 1;  // a lane's links, at most
+
+// ----- the free ABA on the env's lanes -----
+//
+// The twin's fk and ABA loops, level by level; they keep the factorization
+// in the slot and take no contact wrenches.
+
+// A lane's share of its env's state between steps: s and sd of the joints of
+// its links (entry e = lev * ROUNDS + r: its link of round r at level lev,
+// joint i - 1). The passes index them (and the step's sdd) by level at run
+// time, which keeps them in local memory, read a few times a link and step:
+// registers stay for the contact solve's point vectors.
+struct RrLane {
+  float s[NE], sd[NE];
+};
+
+// Link 0's rows of U, d, iR, ip and u, which no pass uses (the base has no
+// joint): lane 0 keeps the base's state there between steps, p, q and v
+// (entry k of the 13 at rr_base_at(k)), and the free ABA's base
+// acceleration in the U row (SL_A0) for the update after the contact solve.
+constexpr int SL_A0 = SL_U;
+__device__ __forceinline__ int rr_base_at(int k) { return k < 9 ? SL_IR + k : k < 12 ? SL_IP + k - 9 : SL_UM; }
+
+// The base's p, q, v as x[0..2], x[3..6], x[7..12].
+__device__ __forceinline__ void rr_base_load(Slot sl, float* x) {
+#pragma unroll
+  for (int k = 0; k < 13; ++k) x[k] = sl[rr_base_at(k)];
 }
 
-__device__ __forceinline__ void rr_store_body(const StateOut& out, int B, int b, const float* s, const float* sd,
-                                              const float* p, const float* q, const float* v) {
-  for (int k = 0; k < NJ; ++k) {
-    out.s[k * B + b] = s[k];
-    out.sd[k * B + b] = sd[k];
-  }
-  for (int k = 0; k < 3; ++k) out.p[k * B + b] = p[k];
-  for (int k = 0; k < 4; ++k) out.q[k * B + b] = q[k];
-  for (int k = 0; k < 6; ++k) out.v[k * B + b] = v[k];
+__device__ __forceinline__ void rr_base_store(Slot sl, const float* x) {
+#pragma unroll
+  for (int k = 0; k < 13; ++k) sl[rr_base_at(k)] = x[k];
 }
 
-// One semi-implicit Euler step of a block's ENVS envs, in place, in three
-// phases apart by block barriers: thread t < ENVS runs env t's free ABA (the
-// first ENVS / 32 warps, every lane busy) and, after the contact solve, its
-// SIE update, and holds its s, sd, p, q and v; the contact solve runs on
-// all the block's threads, env threadIdx.x / G on lane g = threadIdx.x % G,
-// each lane holding the m rows of its point slots `pt` (-1 for a padding
-// slot). `slots` is the block's first slot.
-template <class Tau>
-__device__ void rr_step_env(const float* P, const Scalars& sc, RrWork& w, float* slots, const int* pt,
-                            float* s, float* sd, float* p, float* q, float* v, float* m, Tau tau_of) {
-  const bool aba = threadIdx.x < ENVS;
-  const Slot mine{slots + (aba ? threadIdx.x : 0)};
-  float sdd[NJA];
-  if (aba) rr_free_step(P, sc, w, mine, s, sd, p, q, v, sdd, tau_of);
+// Lane g's link of round r at level lev, or -1.
+__device__ __forceinline__ int rr_link(int lev, int r, int g) {
+  const int n = JX_RR_LEV_OFF[lev] + g + G * r;
+  return n < JX_RR_LEV_OFF[lev + 1] ? JX_RR_LEV_LINK[n] : -1;
+}
+
+// Link j's N floats, from the registers h (by round) of the lane that ran it:
+// take(k, x) for each when j >= 0; all the env's lanes take part.
+template <int N, class Take>
+__device__ __forceinline__ void rr_pull(const float (&h)[ROUNDS][N], int j, Take take) {
+  const int pos = j >= 0 ? JX_RR_POS[j] : 0, src = pos % G, rj = pos / G;
+#pragma unroll
+  for (int q = 0; q < ROUNDS; ++q)
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float x = __shfl_sync(FULL, h[q][k], src, G);
+      if (j >= 0 && q == rj) take(k, x);
+    }
+}
+
+// Row and column of entry k of a symmetric 6x6 matrix's lower triangle (tri).
+__device__ __forceinline__ int tri_row(int k) {
+  return k < 1 ? 0 : k < 3 ? 1 : k < 6 ? 2 : k < 10 ? 3 : k < 15 ? 4 : 5;
+}
+__device__ __forceinline__ int tri_col(int k) { return k - tri_row(k) * (tri_row(k) + 1) / 2; }
+
+// The base's world pose (the twin's fk), and its inverse (R^T, -R^T p).
+__device__ __forceinline__ void rr_base_pose(const float* P, const float* q, const float* p, float* WR, float* Wp) {
+  float RB[9], R0[9], p0[3], t[3];
+  quat_rot(q, RB);
+  h_rot(P + OFF_SUCH, R0);
+  h_pos(P + OFF_SUCH, p0);
+  mm3(RB, R0, WR);
+  mv3(RB, p0, t);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) Wp[k] = p[k] + t[k];
+}
+
+__device__ __forceinline__ void rr_inverse(const float* R, const float* p, float* Ri, float* pi) {
+  float t[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int cc = 0; cc < 3; ++cc) Ri[r * 3 + cc] = R[cc * 3 + r];
+  mv3(Ri, p, t);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) pi[k] = -t[k];
+}
+
+// A link's share of its parent's articulated inertia and bias force,
+// X^T Ma X (its lower triangle, row by row) and X^T pa, X = build_X(iR, ip):
+// the products with X's zero block left out, the others summed in the full
+// product's order, so each entry rounds as the full product's does.
+__device__ __forceinline__ void rr_to_parent(const float* iR, const float* ip, const float* Ma, const float* pa,
+                                             float* C) {
+  float X[36], MaX[36];
+  build_X(iR, ip, X);
+#pragma unroll
+  for (int r = 0; r < 6; ++r)
+#pragma unroll
+    for (int cc = 0; cc < 6; ++cc) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        if (k < 3 || cc >= 3) acc += Ma[r * 6 + k] * X[k * 6 + cc];
+      MaX[r * 6 + cc] = acc;
+    }
+#pragma unroll
+  for (int r = 0; r < 6; ++r) {
+#pragma unroll
+    for (int cc = 0; cc <= r; ++cc) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        if (k < 3 || r >= 3) acc += X[k * 6 + r] * MaX[k * 6 + cc];
+      C[tri(r, cc)] = acc;
+    }
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      if (k < 3 || r >= 3) acc += X[k * 6 + r] * pa[k];
+    C[21 + r] = acc;
+  }
+}
+
+// The PD closure's torque of joint k from the state before the step.
+struct RrPdTau {
+  float kp, kd;
+  __device__ float operator()(float s, float sd, int) const { return -kp * s - kd * sd; }
+};
+
+// The step's torques from the slot's torque row: an RK4 step wrote it once at
+// its start; the one-step kernel K3 copies its input there, the env rollout
+// its policy's torques.
+struct SlotTauRr {
+  Slot sl;
+  __device__ float operator()(float, float, int k) const { return sl[SL_TAU + k]; }
+};
+
+constexpr int KIN = 24;  // what a link hands its children: WR, Wp, Wv, v
+constexpr int CON = 27;  // what it hands its parent: X^T Ma X's lower triangle, X^T pa
+
+// The free step of the env of slot `sl` on its lane g: fills the slot's
+// factorization and contact-parent rows, each lane's sdd with its links'
+// free joint accelerations (by entry, as RrLane), and the slot's SL_A0 row
+// with the base's; gz is gravity's z. `tau_of(s, sd, k)` gives joint k's
+// torque. Frozen (RK4-fast's stages): the parents' PAR_A rows hold world
+// wrenches that act as external forces, and stay.
+template <bool Frozen, class Tau>
+__device__ __forceinline__ void rr_free_body(const float* P, float gz, Slot sl, int g, const RrLane& st,
+                                             float (&sdd)[NE], Tau tau_of) {
+  __syncwarp();  // the env's lanes are done with the slot's last use
+  // Forward kinematics and the body velocities, root to leaves. A link's F
+  // row takes its body velocity; its registers, what its children pull.
+  {
+    float K[ROUNDS][KIN] = {};
+    if (g == 0) {
+      float* WR = K[0];
+      float* Wp = K[0] + 9;
+      float* Wv = K[0] + 12;
+      float* v0 = K[0] + 18;
+      float x[13];
+      rr_base_load(sl, x);
+      rr_base_pose(P, x + 3, x, WR, Wp);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) Wv[k] = FLOATING ? x[7 + k] : 0.0f;
+      if (FLOATING) {
+        float Ri[9], pi[3];
+        rr_inverse(WR, Wp, Ri, pi);
+        xv(Ri, pi, x + 7, v0);
+      }
+#pragma unroll
+      for (int k = 0; k < 6; ++k) sl[SL_F + k] = v0[k];
+      if (JX_RR_PAR_OF[0] >= 0) {
+        const int o = SL_PAR + JX_RR_PAR_OF[0] * 24;
+#pragma unroll
+        for (int k = 0; k < 18; ++k) sl[o + PAR_WR + k] = K[0][k];
+      }
+    }
+#pragma unroll 1
+    for (int lev = 0; lev < NLEV; ++lev) {
+      float Kn[ROUNDS][KIN];
+#pragma unroll
+      for (int r = 0; r < ROUNDS; ++r) {
+        const int i = rr_link(lev, r, g);
+        float Kl[KIN];
+        rr_pull(K, i >= 0 ? JX_LAM[i] : -1, [&](int k, float x) { Kl[k] = x; });
+#pragma unroll
+        for (int k = 0; k < KIN; ++k) Kn[r][k] = 0.0f;
+        if (i < 0) continue;
+        const int e = lev * ROUNDS + r;
+        const float sdi = st.sd[e];
+        float* WR = Kn[r];
+        float* Wp = Kn[r] + 9;
+        float* Wv = Kn[r] + 12;
+        float* v = Kn[r] + 18;
+        float rR[9], rp[3], t[6], iR[9], ip[3];
+        relative_transform(P, i, st.s[e], rR, rp);
+        mm3(Kl, rR, WR);
+        mv3(Kl, rp, t);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) Wp[k] = Kl[9 + k] + t[k];
+        // Inverse pair for the dynamics: (rR^T, -rR^T rp).
+        rr_inverse(rR, rp, iR, ip);
+#pragma unroll
+        for (int k = 0; k < 9; ++k) sl[SL_IR + i * 9 + k] = iR[k];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) sl[SL_IP + i * 3 + k] = ip[k];
+        const float* S = P + OFF_S + i * 6;
+        const float Sl[3] = {S[0] * sdi, S[1] * sdi, S[2] * sdi};
+        const float Sa[3] = {S[3] * sdi, S[4] * sdi, S[5] * sdi};
+        float RSa[3], RSl[3], cr[3];
+        mv3(WR, Sa, RSa);
+        mv3(WR, Sl, RSl);
+        cross3(Wp, RSa, cr);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          Wv[k] = Kl[12 + k] + (RSl[k] + cr[k]);
+          Wv[k + 3] = Kl[15 + k] + RSa[k];
+        }
+        xv(iR, ip, Kl + 18, t);
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          v[k] = t[k] + S[k] * sdi;
+          sl[SL_F + i * 6 + k] = v[k];
+        }
+        if (JX_RR_PAR_OF[i] >= 0) {
+          const int o = SL_PAR + JX_RR_PAR_OF[i] * 24;
+#pragma unroll
+          for (int k = 0; k < 18; ++k) sl[o + PAR_WR + k] = Kn[r][k];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROUNDS; ++r)
+#pragma unroll
+        for (int k = 0; k < KIN; ++k) K[r][k] = Kn[r][k];
+    }
+  }
+
+  // Pass 2: articulated inertias and bias forces, leaves to root, each link
+  // pulling its children's shares; the base (lane 0) last, its Cholesky
+  // factor to the slot. A link's U and d go to the slot, its u to its UM row.
+  {
+    float C[ROUNDS][CON] = {};
+#pragma unroll 1
+    for (int lev = NLEV - 1; lev >= -1; --lev) {
+      const int pulls = lev < 0 && !FLOATING ? 0 : JX_RR_PULLS[lev + 1];
+      float Cn[ROUNDS][CON];
+#pragma unroll
+      for (int r = 0; r < ROUNDS; ++r) {
+        const int i = lev >= 0 ? rr_link(lev, r, g) : g == 0 && r == 0 ? 0 : -1;
+        float MA[36], pA[6], v[6];
+        if (i >= 0) {
+          const float* M = P + OFF_M + i * 36;
+          load_vec(sl, SL_F + i * 6, 6, v);
+#pragma unroll
+          for (int k = 0; k < 36; ++k) MA[k] = M[k];
+          vxstar_Mv(v, M, pA);
+          if (Frozen && JX_RR_PAR_OF[i] >= 0) {
+            // The frozen wrench f enters as the twin's aba takes f_ext:
+            // pA -= X^T f at the link's world pose.
+            const int o = SL_PAR + JX_RR_PAR_OF[i] * 24;
+            float WR[9], Wp[3], f[6], t[6];
+#pragma unroll
+            for (int k = 0; k < 9; ++k) WR[k] = sl[o + PAR_WR + k];
+            load_vec(sl, o + PAR_WP, 3, Wp);
+            load_vec(sl, o + PAR_A, 6, f);
+            xtf(WR, Wp, f, t);
+#pragma unroll
+            for (int k = 0; k < 6; ++k) pA[k] -= t[k];
+          }
+        }
+#pragma unroll 1
+        for (int h = 0; h < pulls; ++h) {
+          const int c0 = i >= 0 ? JX_RR_CH_OFF[i] : 0;
+          const int ch = i >= 0 && c0 + h < JX_RR_CH_OFF[i + 1] ? JX_RR_CH[c0 + h] : -1;
+          rr_pull(C, ch, [&](int k, float x) {
+            if (k < 21) {
+              const int r = tri_row(k), c = tri_col(k);
+              MA[r * 6 + c] += x;
+              if (r != c) MA[c * 6 + r] += x;
+            } else {
+              pA[k - 21] += x;
+            }
+          });
+        }
+#pragma unroll
+        for (int k = 0; k < CON; ++k) Cn[r][k] = 0.0f;
+        if (i < 0) continue;
+        if (i == 0) {
+          // The base: its acceleration, and the factor the solve reuses.
+          if (FLOATING) {
+            float L[36], x[6];
+            chol6_factor(MA, L);
+            chol6_substitute(L, pA, x);
+#pragma unroll
+            for (int k = 0; k < 36; ++k) sl[SL_L0 + k] = L[k];
+#pragma unroll
+            for (int k = 0; k < 6; ++k) sl[SL_A0 + k] = -x[k];
+          } else {
+            const float g6[6] = {0.0f, 0.0f, gz, 0.0f, 0.0f, 0.0f};
+            float x[13], WR[9], Wp[3], Ri[9], pi[3], t[6];
+            rr_base_load(sl, x);
+            rr_base_pose(P, x + 3, x, WR, Wp);
+            rr_inverse(WR, Wp, Ri, pi);
+            xv(Ri, pi, g6, t);
+#pragma unroll
+            for (int k = 0; k < 6; ++k) sl[SL_A0 + k] = -t[k];
+          }
+          continue;
+        }
+        const int e = lev * ROUNDS + r;
+        const float sdi = st.sd[e];
+        const float* S = P + OFF_S + i * 6;
+        float U[6];
+        mv6(MA, S, U);
+        float dd = 0.0f, sp = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          dd += S[k] * U[k];
+          sp += S[k] * pA[k];
+        }
+        const float tau = tau_of(st.s[e], sdi, i - 1);
+#pragma unroll
+        for (int k = 0; k < 6; ++k) sl[SL_U + i * 6 + k] = U[k];
+        sl[SL_D + i] = dd;
+        const float u = tau - sp;
+        sl[SL_UM + i] = u;
+        if (JX_LAM[i] == 0 && !FLOATING) continue;
+        const float inv_d = 1.0f / dd;
+#pragma unroll
+        for (int rr = 0; rr < 6; ++rr)
+#pragma unroll
+          for (int cc = 0; cc < 6; ++cc) MA[rr * 6 + cc] = MA[rr * 6 + cc] - U[rr] * U[cc] * inv_d;  // Ma
+        float c[6], t[6], pa[6], iR[9], ip[3];
+        joint_bias(S, sdi, v, c);
+        mv6(MA, c, t);
+        const float ud = u * inv_d;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) pa[k] = pA[k] + t[k] + U[k] * ud;
+        load_vec(sl, SL_IR + i * 9, 6, iR);
+        load_vec(sl, SL_IR + i * 9 + 6, 3, iR + 6);
+        load_vec(sl, SL_IP + i * 3, 3, ip);
+        rr_to_parent(iR, ip, MA, pa, Cn[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < ROUNDS; ++r)
+#pragma unroll
+        for (int k = 0; k < CON; ++k) C[r][k] = Cn[r][k];
+    }
+  }
+
+  // Pass 3: accelerations, root to leaves, each link pulling its parent's.
+  {
+    float A[ROUNDS][6] = {};
+    if (g == 0) {
+      load_vec(sl, SL_A0, 6, A[0]);
+      if (!Frozen && JX_RR_PAR_OF[0] >= 0) {
+#pragma unroll
+        for (int k = 0; k < 6; ++k) sl[SL_PAR + JX_RR_PAR_OF[0] * 24 + PAR_A + k] = A[0][k];
+      }
+    }
+#pragma unroll 1
+    for (int lev = 0; lev < NLEV; ++lev) {
+      float An[ROUNDS][6];
+#pragma unroll
+      for (int r = 0; r < ROUNDS; ++r) {
+        const int i = rr_link(lev, r, g);
+        float al[6];
+        rr_pull(A, i >= 0 ? JX_LAM[i] : -1, [&](int k, float x) { al[k] = x; });
+#pragma unroll
+        for (int k = 0; k < 6; ++k) An[r][k] = 0.0f;
+        if (i < 0) continue;
+        const int e = lev * ROUNDS + r;
+        const float* S = P + OFF_S + i * 6;
+        float v[6], c[6], a_i[6], iR[9], ip[3], U[6];
+        load_vec(sl, SL_F + i * 6, 6, v);
+        joint_bias(S, st.sd[e], v, c);
+        load_vec(sl, SL_IR + i * 9, 6, iR);
+        load_vec(sl, SL_IR + i * 9 + 6, 3, iR + 6);
+        load_vec(sl, SL_IP + i * 3, 3, ip);
+        load_vec(sl, SL_U + i * 6, 6, U);
+        xv(iR, ip, al, a_i);
+        float ua = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          a_i[k] += c[k];
+          ua += U[k] * a_i[k];
+        }
+        const float sddi = (sl[SL_UM + i] - ua) / sl[SL_D + i];
+        sdd[e] = sddi;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) An[r][k] = a_i[k] + S[k] * sddi;
+        if (!Frozen && JX_RR_PAR_OF[i] >= 0) {
+#pragma unroll
+          for (int k = 0; k < 6; ++k) sl[SL_PAR + JX_RR_PAR_OF[i] * 24 + PAR_A + k] = An[r][k];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROUNDS; ++r)
+#pragma unroll
+        for (int k = 0; k < 6; ++k) A[r][k] = An[r][k];
+    }
+  }
+  // The factorization and the parents' rows are in for the lanes. A block
+  // barrier, though the lanes need a warp's alone: it starts the block's
+  // warps on the contact solve together, so that they run one stretch of
+  // code (on an H100 K1-rr ran 32 % slower without it, PERF.md).
   __syncthreads();
+}
 
-  const int g = threadIdx.x % G;
-  const Slot sl{slots + threadIdx.x / G};
+// rr_free_body in a call of its own, so that the contact solve's registers
+// are not the ABA's: on an H100 the one-step K3-rr ran 23 % slower with it
+// inlined, K1-rr and K5-rr 2-3 % (PERF.md). RK4-fast, whose four frozen
+// ABAs a step outnumber its one solve, inlines the body.
+template <bool Frozen, class Tau>
+__device__ __noinline__ void rr_free_lanes(const float* P, float gz, Slot sl, int g, const RrLane& st,
+                                          float (&sdd)[NE], Tau tau_of) {
+  rr_free_body<Frozen>(P, gz, sl, g, st, sdd, tau_of);
+}
+
+// ----- the forward step: the state on the lanes, the SIE and RK4 steps -----
+
+// Env b's s, sd, p, q and v into lane g's share, and on lane 0 the base's
+// into the slot `sl`.
+__device__ __forceinline__ void rr_load_lane(const StateIn& in, int B, int b, int g, Slot sl, RrLane& st) {
+#pragma unroll
+  for (int e = 0; e < NE; ++e) st.s[e] = st.sd[e] = 0.0f;
+#pragma unroll
+  for (int lev = 0; lev < NLEV; ++lev)
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int i = rr_link(lev, r, g), e = lev * ROUNDS + r;
+      if (i < 0) continue;
+      st.s[e] = in.s[(i - 1) * B + b];
+      st.sd[e] = in.sd[(i - 1) * B + b];
+    }
+  if (g != 0) return;
+#pragma unroll
+  for (int k = 0; k < 13; ++k)
+    sl[rr_base_at(k)] = k < 3 ? in.p[k * B + b] : k < 7 ? in.q[(k - 3) * B + b] : in.v[(k - 7) * B + b];
+}
+
+__device__ __forceinline__ void rr_store_lane(const StateOut& out, int B, int b, int g, Slot sl, const RrLane& st) {
+#pragma unroll
+  for (int lev = 0; lev < NLEV; ++lev)
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int i = rr_link(lev, r, g), e = lev * ROUNDS + r;
+      if (i < 0) continue;
+      out.s[(i - 1) * B + b] = st.s[e];
+      out.sd[(i - 1) * B + b] = st.sd[e];
+    }
+  if (g != 0) return;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out.p[k * B + b] = sl[rr_base_at(k)];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out.q[k * B + b] = sl[rr_base_at(3 + k)];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) out.v[k * B + b] = sl[rr_base_at(7 + k)];
+}
+
+// Lane g's point slots (rr_points), computed from a copy of g that the
+// compiler cannot see through: at each step, so that it cannot keep the
+// slots' tables and addresses in registers across a step loop, where the
+// contact solve needs them (these three helpers cut ptxas' spills, PERF.md).
+__device__ __forceinline__ void rr_step_points(int g, int* pt) {
+  asm volatile("" : "+r"(g));
+  rr_points(g, pt);
+}
+
+// P and the slot's base address, from copies the compiler cannot see
+// through, for the same reason.
+__device__ __forceinline__ void rr_step_bases(const float*& P, Slot& sl) {
+#ifdef __CUDA_ARCH__
+  asm volatile("" : "+l"(P), "+l"(sl.base));
+#endif
+}
+
+// m's rows from a pointer at an offset the compiler cannot see to be 0
+// (blockDim.x < 2048): so indexed, the lane's m rows stay in local memory,
+// read by the solve's warm start and the update after it, and the
+// registers are left to the solve's point vectors.
+__device__ __forceinline__ float* rr_local_rows(float* m) { return m + static_cast<int>(blockDim.x >> 11); }
+
+// The base's world-frame acceleration from its link-frame one a (gravity
+// added), at the pose of the base's state x (rr_base_load).
+__device__ __forceinline__ void rr_world_a(const float* P, const Scalars& sc, const float* x, const float* a,
+                                           float* W_a) {
+  if (FLOATING) {
+    float WR[9], Wp[3];
+    rr_base_pose(P, x + 3, x, WR, Wp);
+    xv(WR, Wp, a, W_a);
+    W_a[2] += sc.gz;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) W_a[k] = 0.0f;
+  }
+}
+
+// One semi-implicit Euler step of the env of slot `sl` on its lane g, in
+// place: the free ABA (rr_free_lanes), the contact solve (rr_solve) on the
+// lane's point slots and m rows, and the update, each lane its own entries.
+template <class Tau>
+__device__ void rr_step_env(const float* P, const Scalars& sc, Slot sl, int g, RrLane& st, float* m, Tau tau_of) {
+  float sdd[NE];
+  rr_free_lanes<false>(P, sc.gz, sl, g, st, sdd, tau_of);
+  m = rr_local_rows(m);
+  int pt[OWN];
+  rr_step_points(g, pt);
+  rr_step_bases(P, sl);
   float x[OWN * 3];
   rr_solve(P, sc, sl, g, pt, m, x);
 
@@ -830,31 +1056,29 @@ __device__ void rr_step_env(const float* P, const Scalars& sc, RrWork& w, float*
     const float md = __fdiv_rn(__fsub_rn(x[k], m[k]), dt);
     m[k] = __fadd_rn(m[k], __fmul_rn(dt, md));
   }
-  __syncthreads();
-  if (!aba) return;
 
-  // The free ABA's thread: the contact-coupled accelerations, the free ones
-  // plus M^-1 J^T x, and the semi-implicit Euler update.
-#pragma unroll 1
-  for (int k = 0; k < NJ; ++k) sdd[k] = sdd[k] + mine[SL_UM + k + 1];
-  float W_a[6];
-  if (FLOATING) {
-    float a0[6];
+  // The contact-coupled accelerations, the free ones plus M^-1 J^T x (the UM
+  // rows, the base's F row), and the semi-implicit Euler update.
 #pragma unroll
-    for (int k = 0; k < 6; ++k) a0[k] = w.a[0][k] + mine[SL_F + k];
-    xv(w.WR[0], w.Wp[0], a0, W_a);
-    W_a[2] += sc.gz;
-  } else {
+  for (int lev = 0; lev < NLEV; ++lev)
 #pragma unroll
-    for (int k = 0; k < 6; ++k) W_a[k] = 0.0f;
-  }
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int i = rr_link(lev, r, g), e = lev * ROUNDS + r;
+      if (i < 0) continue;
+      st.sd[e] = st.sd[e] + dt * (sdd[e] + sl[SL_UM + i]);
+      st.s[e] = st.s[e] + dt * st.sd[e];
+    }
+  if (g != 0) return;
+  float base[13], a[6], W_a[6];
+  rr_base_load(sl, base);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) a[k] = sl[SL_A0 + k] + sl[SL_F + k];
+  rr_world_a(P, sc, base, a, W_a);
+  float* const p = base;
+  float* const q = base + 3;
+  float* const v = base + 7;
 #pragma unroll
   for (int k = 0; k < 6; ++k) v[k] = v[k] + dt * W_a[k];
-#pragma unroll 1
-  for (int k = 0; k < NJ; ++k) {
-    sd[k] = sd[k] + dt * sdd[k];
-    s[k] = s[k] + dt * sd[k];
-  }
   // The position update uses the NEW linear velocity and the OLD p.
   float wp[3];
   cross3(v + 3, p, wp);
@@ -869,56 +1093,49 @@ __device__ void rr_step_env(const float* P, const Scalars& sc, RrWork& w, float*
   const float nq = sqrtf(fmaxf(qn[0] * qn[0] + qn[1] * qn[1] + qn[2] * qn[2] + qn[3] * qn[3], 1e-12f));
 #pragma unroll
   for (int k = 0; k < 4; ++k) q[k] = qn[k] / nq;
+  rr_base_store(sl, base);
 }
 
-// The step's torques from the slot's torque row: an RK4 step wrote it once at
-// its start; the one-step kernel K3 copies its input there, the env rollout
-// its policy's torques.
-struct SlotTauRr {
-  Slot sl;
-  __device__ float operator()(const Scalars&, const float*, const float*, int k) const { return sl[SL_TAU + k]; }
-};
-
-// One RK4 (Integrator 1) or RK4-fast (2) step of a block's ENVS envs, in
-// place, the threads' roles as in rr_step_env (see the note at the top).
-// `rk` holds the step's start state y0 and the accumulator: the ABA thread's
-// rows s, sd, p, q, v first (env b_aba's column), then the m rows by point
-// (env b_pcg's column).
+// One RK4 (Integrator 1) or RK4-fast (2) step of the env of slot `sl` on its
+// lane g, in place (see the note at the top). `rk` holds the step's start
+// state y0 and the accumulator in env b's column: the rows s, sd, p, q, v
+// first, then the m rows by point; each lane reads and writes its entries'.
 template <int Integrator>
-__device__ void rr_rk4_step(const float* P, const Scalars& sc, RrWork& w, float* slots, const int* pt, float* s,
-                            float* sd, float* p, float* q, float* v, float* m, const Rk4Scratch& rk, int b_aba,
-                            int b_pcg) {
-  constexpr int NB = 2 * NJ + 13;  // the ABA thread's rows: s, sd, p, q, v
-  constexpr int R_SD = NJ, R_P = 2 * NJ, R_Q = 2 * NJ + 3, R_V = 2 * NJ + 7;
-  const bool aba = threadIdx.x < ENVS;
-  const Slot mine{slots + (aba ? threadIdx.x : 0)};
-  const int g = threadIdx.x % G;
-  const Slot sl{slots + threadIdx.x / G};
+__device__ void rr_rk4_step(const float* P, const Scalars& sc, Slot sl, int g, RrLane& st, float* m,
+                            const Rk4Scratch& rk, int b) {
+  constexpr int NB = 2 * NJ + 13;  // the rows s, sd, p, q, v
+  constexpr int R_SD = NJ, R_P = 2 * NJ;
   const float dt = sc.dt;
   const int rs = rk.stride;
-  float* const y0a = rk.y0 + b_aba;
-  float* const acca = rk.acc + b_aba;
-  float* const y0m = rk.y0 + NB * rs + b_pcg;
-  float* const accm = rk.acc + NB * rs + b_pcg;
-  const SlotTauRr tau{mine};
+  float* const y0a = rk.y0 + b;
+  float* const acca = rk.acc + b;
+  float* const y0m = rk.y0 + NB * rs + b;
+  float* const accm = rk.acc + NB * rs + b;
+  const SlotTauRr tau{sl};
+  m = rr_local_rows(m);
 
   // The step's start: q normalised, the torques, y0.
-  if (aba) {
-    quat_normalize(q);
-#pragma unroll 1
-    for (int k = 0; k < NJ; ++k) {
-      mine[SL_TAU + k] = -sc.kp * s[k] - sc.kd * sd[k];
-      y0a[k * rs] = s[k];
-      y0a[(R_SD + k) * rs] = sd[k];
+#pragma unroll
+  for (int lev = 0; lev < NLEV; ++lev)
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int i = rr_link(lev, r, g), e = lev * ROUNDS + r;
+      if (i < 0) continue;
+      sl[SL_TAU + i - 1] = -sc.kp * st.s[e] - sc.kd * st.sd[e];
+      y0a[(i - 1) * rs] = st.s[e];
+      y0a[(R_SD + i - 1) * rs] = st.sd[e];
     }
+  if (g == 0) {
+    float base[13];
+    rr_base_load(sl, base);
+    quat_normalize(base + 3);
+    rr_base_store(sl, base);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) y0a[(R_P + k) * rs] = p[k];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) y0a[(R_Q + k) * rs] = q[k];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) y0a[(R_V + k) * rs] = v[k];
+    for (int k = 0; k < 13; ++k) y0a[(R_P + k) * rs] = base[k];
   }
   if (Integrator == 1) {
+    int pt[OWN];
+    rr_step_points(g, pt);
 #pragma unroll
     for (int k = 0; k < OWN; ++k)
 #pragma unroll
@@ -928,11 +1145,15 @@ __device__ void rr_rk4_step(const float* P, const Scalars& sc, RrWork& w, float*
 
 #pragma unroll 1
   for (int stage = 0; stage < 4; ++stage) {
-    float sdd[NJA];
+    float sdd[NE];
     const bool solve = Integrator == 1 || stage == 0;
     if (solve) {
-      if (aba) rr_free_step(P, sc, w, mine, s, sd, p, q, v, sdd, tau);
-      __syncthreads();
+      int pt[OWN];
+      rr_step_points(g, pt);
+      if (Integrator == 2)
+        rr_free_body<false>(P, sc.gz, sl, g, st, sdd, tau);
+      else
+        rr_free_lanes<false>(P, sc.gz, sl, g, st, sdd, tau);
       float x[OWN * 3];
       rr_solve(P, sc, sl, g, pt, m, x);
       if (Integrator == 2) rr_wrenches(P, sl, g, pt, x);
@@ -953,61 +1174,55 @@ __device__ void rr_rk4_step(const float* P, const Scalars& sc, RrWork& w, float*
             // RK4-fast: the rate is frozen for the four stages.
             float a = 0.0f, y = 0.0f;
 #pragma unroll
-            for (int st = 0; st < 4; ++st) y = rk4_entry(st, dt, md, m[e], a);
+            for (int st4 = 0; st4 < 4; ++st4) y = rk4_entry(st4, dt, md, m[e], a);
             m[e] = y;
           }
         }
-      __syncthreads();
     }
-    if (!aba) continue;
+    // The stage's accelerations: the free ones plus the contacts' (RK4), or
+    // the free ABA under the frozen wrenches (RK4-fast).
+    if (Integrator == 2) rr_free_body<true>(P, sc.gz, sl, g, st, sdd, tau);
 
-    // The ABA thread: the stage's accelerations, then the rates of s, sd,
-    // p, q and v and their next values.
-    float a0[6];
-    if (Integrator == 1) {
-#pragma unroll 1
-      for (int k = 0; k < NJ; ++k) sdd[k] = sdd[k] + mine[SL_UM + k + 1];
+    // Each lane the rates of its entries and their next values.
 #pragma unroll
-      for (int k = 0; k < 6; ++k) a0[k] = w.a[0][k] + mine[SL_F + k];
-    } else {
-      rr_free_step<true>(P, sc, w, mine, s, sd, p, q, v, sdd, tau);
+    for (int lev = 0; lev < NLEV; ++lev)
 #pragma unroll
-      for (int k = 0; k < 6; ++k) a0[k] = w.a[0][k];
-    }
-    float W_a[6];
-    if (FLOATING) {
-      xv(w.WR[0], w.Wp[0], a0, W_a);
-      W_a[2] += sc.gz;
-    } else {
+      for (int r = 0; r < ROUNDS; ++r) {
+        const int i = rr_link(lev, r, g), e = lev * ROUNDS + r;
+        if (i < 0) continue;
+        const int k = i - 1;
+        const float sddi = Integrator == 1 ? sdd[e] + sl[SL_UM + i] : sdd[e];
+        float a = stage == 0 ? 0.0f : acca[k * rs];
+        const float ks = st.sd[e];
+        st.s[e] = rk4_entry(stage, dt, ks, y0a[k * rs], a);
+        acca[k * rs] = a;
+        a = stage == 0 ? 0.0f : acca[(R_SD + k) * rs];
+        st.sd[e] = rk4_entry(stage, dt, sddi, y0a[(R_SD + k) * rs], a);
+        acca[(R_SD + k) * rs] = a;
+      }
+    if (g != 0) continue;
+    float base[13], a[6], W_a[6], pd[3], qd[4];
+    rr_base_load(sl, base);
 #pragma unroll
-      for (int k = 0; k < 6; ++k) W_a[k] = 0.0f;
-    }
-    float pd[3], qd[4];
-    cross3(v + 3, p, pd);
+    for (int k = 0; k < 6; ++k) a[k] = Integrator == 1 ? sl[SL_A0 + k] + sl[SL_F + k] : sl[SL_A0 + k];
+    rr_world_a(P, sc, base, a, W_a);
+    cross3(base + 10, base, pd);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) pd[k] = v[k] + pd[k];
-    quat_rate(q, v + 3, qd);
-#pragma unroll 1
-    for (int k = 0; k < NJ; ++k) {
-      float a = stage == 0 ? 0.0f : acca[k * rs];
-      const float ks = sd[k];
-      s[k] = rk4_entry(stage, dt, ks, y0a[k * rs], a);
-      acca[k * rs] = a;
-      a = stage == 0 ? 0.0f : acca[(R_SD + k) * rs];
-      sd[k] = rk4_entry(stage, dt, sdd[k], y0a[(R_SD + k) * rs], a);
-      acca[(R_SD + k) * rs] = a;
-    }
+    for (int k = 0; k < 3; ++k) pd[k] = base[7 + k] + pd[k];
+    quat_rate(base + 3, base + 10, qd);
 #pragma unroll
     for (int k = 0; k < 13; ++k) {
       const int row = (R_P + k) * rs;
       float a = stage == 0 ? 0.0f : acca[row];
-      float* y = k < 3 ? p + k : k < 7 ? q + (k - 3) : v + (k - 7);
       const float rate = k < 3 ? pd[k] : k < 7 ? qd[k - 3] : W_a[k - 7];
-      *y = rk4_entry(stage, dt, rate, y0a[row], a);
+      base[k] = rk4_entry(stage, dt, rate, y0a[row], a);
       acca[row] = a;
     }
-    if (stage == 3) quat_normalize(q);
+    if (stage == 3) quat_normalize(base + 3);
+    rr_base_store(sl, base);
   }
 }
+
+#endif  // JX_RR_WIDTH
 
 }  // namespace

@@ -13,23 +13,23 @@
 // step, on the same geometry, with the same loads and stores.
 //
 // step_tau_rr_kernel runs K1-rr's step (rr_step_env, rr_step.cuh) once, on
-// K1-rr's launch geometry, the state loaded into the threads that hold it
-// between steps (the ABA thread its s, sd, p, q, v; each lane the m rows of
-// its point slots: rr_load_body, rr_load_m) and stored back from them. The
-// torques are copied from their device columns into the env's torque row
-// of the slot before the step (SlotTauRr), independent loads unrolled four
-// deep, in place of one load a joint inside the free ABA's dependent chain.
+// K1-rr's launch geometry, the state loaded into the lanes that hold it
+// between steps (each lane s and sd of its links' joints, lane 0 p, q, v, and
+// each lane the m rows of its point slots: rr_load_lane, rr_load_m) and
+// stored back from them. Each lane copies its joints' torques from their
+// device columns into the env's torque row of the slot before the step
+// (SlotTauRr), where its links' pass 2 reads them.
 //
 // What bounds a one-step launch on the card: the step. A relaxed-rigid
-// humanoid step takes about 0.44 ms on an H100 inside K1-rr (one free ABA,
-// one thread an env, and 1 + JX_RR_ITERS + 1 M^-1 J^T applications across
-// the env's lanes; see rr_step.cuh and rollout_rr.cu); the state crosses
-// device memory once each way, 6.6 MB in and out for the humanoid at 8192
+// humanoid step takes about 0.44 ms on an H100 inside K1-rr (one free ABA
+// and 1 + JX_RR_ITERS + 1 M^-1 J^T applications across the env's lanes; see
+// rr_step.cuh and rollout_rr.cu); the state crosses device memory once each
+// way, 6.6 MB in and out for the humanoid at 8192
 // envs, about 4 us at 3.35 TB/s, and the torques 0.75 MB. So a launch keeps
 // K1-rr's geometry (64 envs a block: 8192 envs in one wave of 128 blocks)
-// and moves its state as K1-rr does, one thread a column entry, coalesced
-// across a warp's envs; the soft one-step kernels' block-wide staging
-// (step.cu) would buy a few microseconds of a launch of about 0.45 ms.
+// and moves its state as K1-rr does, one lane a column entry; the soft
+// one-step kernels' block-wide staging (step.cu) would buy a few
+// microseconds of a launch of about 0.45 ms.
 
 #include "rr_step.cuh"
 
@@ -38,40 +38,43 @@ static_assert(JX_RR_TAU_ROW, "step_rr.cu takes K3's torques in the slot's torque
 
 namespace {
 
-// One step of the block's envs: thread t < ENVS holds env t's s, sd, p, q
-// and v, lane g of env threadIdx.x / G the m rows of its point slots, the
-// torques tau_in's columns. The envs past B run env B - 1's step beside the
-// others, so that every thread reaches every barrier, and store nothing.
+// One step of the block's envs: lane g of env threadIdx.x / G holds its
+// share of the env's state and the m rows of its point slots, the torques
+// tau_in's columns. The envs past B run env B - 1's step beside the others,
+// so that every lane of a warp takes part in its shuffles, and store
+// nothing.
 __global__ void __launch_bounds__(RR_THREADS, 1)
     step_tau_rr_kernel(const float* __restrict__ params, StateIn in, const float* __restrict__ tau_in,
                        StateOut out, int B, Scalars sc) {
   extern __shared__ float smem[];
   float* P = smem;
-  float* slots = smem + N_PARAMS;
   load_params(params, P);
-  const int b_aba = blockIdx.x * ENVS + threadIdx.x, b_pcg = blockIdx.x * ENVS + threadIdx.x / G;
-  const bool aba = threadIdx.x < ENVS;
-  const int g = threadIdx.x % G;
-  const Slot mine{slots + (aba ? threadIdx.x : 0)};
+  const int e = threadIdx.x / G, g = threadIdx.x % G;
+  const int b = blockIdx.x * ENVS + e, bl = b < B ? b : B - 1;
+  const Slot sl{smem + N_PARAMS + e};
 
   int pt[OWN];
   float m[OWN * 3];
   rr_points(g, pt);
-  rr_load_m(in.m, B, b_pcg < B ? b_pcg : B - 1, pt, m);
-  float s[NJA], sd[NJA], p[3], q[4], v[6];
-  if (aba) {
-    const int b = b_aba < B ? b_aba : B - 1;
-    rr_load_body(in, B, b, s, sd, p, q, v);
-#pragma unroll 4
-    for (int k = 0; k < NJ; ++k) mine[SL_TAU + k] = __ldg(tau_in + k * B + b);
-  }
+  rr_load_m(in.m, B, bl, pt, m);
+  RrLane st;
+  rr_load_lane(in, B, bl, g, sl, st);
+#pragma unroll
+  for (int lev = 0; lev < NLEV; ++lev)
+#pragma unroll
+    for (int r = 0; r < ROUNDS; ++r) {
+      const int i = rr_link(lev, r, g);
+      if (i >= 0) sl[SL_TAU + i - 1] = __ldg(tau_in + (i - 1) * B + bl);
+    }
   __syncthreads();
 
-  RrWork w;
-  rr_step_env(P, sc, w, slots, pt, s, sd, p, q, v, m, SlotTauRr{mine});
+  rr_step_env(P, sc, sl, g, st, m, SlotTauRr{sl});
 
-  if (b_pcg < B) rr_store_m(out.m, B, b_pcg, pt, m);
-  if (aba && b_aba < B) rr_store_body(out, B, b_aba, s, sd, p, q, v);
+  if (b < B) {
+    rr_step_points(g, pt);
+    rr_store_m(out.m, B, b, pt, m);
+    rr_store_lane(out, B, b, g, sl, st);
+  }
 }
 
 }  // namespace

@@ -257,8 +257,39 @@ def vjp_rr_tables(engine: BatchedEngine, lanes: int, params_grad: bool = False, 
         envs -= warp
     if envs < warp or smem(envs) > MAX_SMEM_BYTES:
         raise ValueError(f"a K4-rr block of {warp} envs at {lanes} lanes needs {smem(warp)} B of shared memory")
-    par_row = [t["par_link"].index(i) if i in t["par_link"] else -1 for i in range(engine.n_links)]
-    return dict(t, rows=rows, envs=envs, smem_bytes=smem(envs), par_row=par_row)
+    return dict(t, rows=rows, envs=envs, smem_bytes=smem(envs), par_row=rr_lane_aba(t)["par"])
+
+
+def rr_lane_aba(t: dict) -> dict:
+    """What the relaxed-rigid step's free ABA on an env's lanes
+    (``rr_step.cuh``) takes from a :func:`_lane_schedule` ``t``: ``width``,
+    the most links a level holds (at least 1); ``pos``, each link's place in
+    its level (the base's 0), so link ``i`` runs on lane ``pos[i] % lanes``
+    in round ``pos[i] // lanes``; ``pulls``, the most children a link has,
+    for the base, then for each level; and ``par``, each link's row among the
+    contact parents (-1 for a link without points)."""
+    off, links, ch_off = t["lev_off"], t["lev_link"], t["ch_off"]
+    pos = [0] * (len(ch_off) - 1)
+    for lev in range(t["n_lev"]):
+        for n in range(off[lev], off[lev + 1]):
+            pos[links[n]] = n - off[lev]
+    n_ch = [ch_off[i + 1] - ch_off[i] for i in range(len(pos))]
+    pulls = [n_ch[0]] + [max(n_ch[links[n]] for n in range(off[lev], off[lev + 1])) for lev in range(t["n_lev"])]
+    width = max([off[lev + 1] - off[lev] for lev in range(t["n_lev"])], default=1)
+    par = [t["par_link"].index(i) if i in t["par_link"] else -1 for i in range(len(pos))]
+    return dict(width=width, pos=pos, pulls=pulls, par=par)
+
+
+def _lane_aba_header(t: dict) -> str:
+    """:func:`rr_lane_aba`'s part of the forward kernels' generated header
+    (K4-rr's has none: ``rr_step.cuh`` compiles the free ABA on the lanes
+    only where ``JX_RR_WIDTH`` is defined)."""
+    a = rr_lane_aba(t)
+
+    def arr(name, values):
+        return f"__constant__ int JX_RR_{name}[{len(values)}] = {{{', '.join(map(str, values))}}};\n"
+
+    return f"#define JX_RR_WIDTH {a['width']}\n" + arr("POS", a["pos"]) + arr("PULLS", a["pulls"]) + arr("PAR_OF", a["par"])
 
 
 def rr_header(engine: BatchedEngine, defines: dict) -> str:
@@ -275,7 +306,7 @@ def rr_header(engine: BatchedEngine, defines: dict) -> str:
         policy=defines.get("JX_POLICY", -1), hidden=defines.get("JX_HIDDEN", 0),
         max_envs=defines.get("JX_RR_MAX_ENVS", RR_MAX_ENVS),
     )  # fmt: skip
-    return _schedule_header("JX_RR", t) + f"#define JX_RR_ROWS {t['rows']}\n"
+    return _schedule_header("JX_RR", t) + f"#define JX_RR_ROWS {t['rows']}\n" + _lane_aba_header(t)
 
 
 # Floats of the lane-spread soft step's slot (soft_step_lanes.cuh) in each

@@ -101,7 +101,9 @@ def rr_geometry(kernel: KernelBuild) -> dict[str, int]:
 def rr_local_memory(kernel: KernelBuild) -> dict[str, int]:
     """The local loads and stores (``LDL``, ``STL``) in the relaxed-rigid
     kernel's SASS: in all, in the M⁻¹Jᵀ pass (``rr_scatter``, ``rr_minv``,
-    ``rr_gather`` of ``rr_step.cuh``), and in the CG loop around it (``rr_cg``)."""
+    ``rr_gather`` of ``rr_step.cuh``), in the CG loop around it (``rr_cg``),
+    and in the free ABA on the lanes (``rr_free_body``; its local arrays s,
+    sd and sdd included)."""
     header = (CSRC / "rr_step.cuh").read_text().splitlines()
 
     def line_of(text: str) -> int:
@@ -110,6 +112,8 @@ def rr_local_memory(kernel: KernelBuild) -> dict[str, int]:
     return cuda_build.local_memory(kernel, dict(
         passes=("rr_step.cuh", line_of("void rr_scatter("), line_of("float rr_prec(")),
         cg_loop=("rr_step.cuh", line_of("void rr_cg("), line_of("void rr_solve(")),
+        free_aba=("rr_step.cuh", line_of("// ----- the free ABA on the env's lanes"),
+                  line_of("// ----- the forward step: the state on the lanes")),
     ))  # fmt: skip
 
 

@@ -251,6 +251,81 @@ def test_quat_derivative_baumgarte_matches_jax():
     assert np.abs(got - plain).max() > 1e-3  # the term moves q̇ off the unit sphere
 
 
+# The kernels' quaternion rate (``quat_rate`` of ``csrc/step_env.cuh``, which
+# the relaxed-rigid and soft lane steps' RK4 stages call), compiled with g++
+# for the box's header: argv = n, then n quaternions' and angular velocities'
+# 7 floats each in C99 hex; prints each rate's 4 floats in C99 hex.
+QUAT_RATE_HARNESS = r"""
+#include "cuda_runtime.h"
+#include <cstdio>
+#include <cstdlib>
+#include "step_env.cuh"
+
+int main(int argc, char** argv) {
+  const int n = std::atoi(argv[1]);
+  for (int e = 0; e < n; ++e) {
+    float x[7];
+    for (int k = 0; k < 7; ++k) x[k] = std::strtof(argv[2 + 7 * e + k], nullptr);
+    float qd[4];
+    quat_rate(x, x + 4, qd);
+    for (float y : qd) std::printf("%a\n", y);
+  }
+  return 0;
+}
+"""
+
+
+def _quat_rate(csrc, tmp_path, q: np.ndarray, omega: np.ndarray) -> np.ndarray:
+    """``quat_rate`` of ``csrc``'s ``step_env.cuh`` at each column of q (4, n)
+    and omega (3, n), float32."""
+    import shutil
+    import subprocess
+
+    from tests.test_torch_lane_forward import CUDA_SHIM, TIMEOUT_S
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    tmp_path.mkdir()
+    eng = BatchedEngine.build(JaxSimModel.build_from_model_description(models.build_box_urdf()), device="cpu")
+    (tmp_path / cuda_build.GENERATED_HEADER).write_text(cuda_build.topology_header(eng))
+    (tmp_path / "cuda_runtime.h").write_text(CUDA_SHIM)
+    (tmp_path / "harness.cpp").write_text(QUAT_RATE_HARNESS)
+    binary = tmp_path / "harness"
+    cmd = [gxx, "-std=c++20", "-O1", "-pthread", "-w", "-I", str(tmp_path), "-I", str(csrc),
+           str(tmp_path / "harness.cpp"), "-o", str(binary)]  # fmt: skip
+    subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=TIMEOUT_S)
+    x = np.concatenate([q, omega]).astype(np.float32)
+    args = [str(binary), str(x.shape[1]), *(float(v).hex() for v in x.T.ravel())]
+    out = subprocess.run(args, check=True, capture_output=True, text=True, timeout=TIMEOUT_S).stdout.split()
+    return np.array([float.fromhex(v) for v in out], np.float32).reshape(-1, 4).T
+
+
+def test_kernel_quat_rate_keeps_the_baumgarte_term(tmp_path):
+    """The kernels' ``quat_rate`` at quaternions off the unit sphere and
+    nonzero angular velocities against the twin's ``_quat_derivative`` with
+    K = 1 (the RK4 derivative's), float32; the same source with
+    ``chip_probe.RK4_FAULTS``' "Baumgarte term dropped" edit is refused:
+    the term moves the rate by far more than the limit."""
+    import shutil
+
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((4, 16))
+    q *= (1.0 + 0.1 * rng.standard_normal(16)) / np.linalg.norm(q, axis=0)
+    omega = 3.0 * rng.standard_normal((3, 16))
+    q, omega = q.astype(np.float32), omega.astype(np.float32)
+    want = BatchedEngine._quat_derivative(torch.from_numpy(q), torch.from_numpy(omega), K=1.0).numpy()
+    tol = dict(rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(_quat_rate(cuda_build.CSRC, tmp_path / "sound", q, omega), want, **tol)
+    (edit,) = _chip_probe().RK4_FAULTS["Baumgarte term dropped"]
+    file, old, new = edit
+    seeded = tmp_path / "seeded"
+    shutil.copytree(cuda_build.CSRC, seeded)
+    (seeded / file).write_text((seeded / file).read_text().replace(old, new))
+    got = _quat_rate(seeded, tmp_path / "seeded_build", q, omega)
+    assert not np.allclose(got, want, **tol)
+
+
 # ----- autograd through a soft RK4 step -----
 
 
@@ -295,43 +370,44 @@ def test_soft_rk4_step_vjp_matches_jax(case):
         np.testing.assert_allclose(g, ref[k], err_msg=k, **F64)
 
 
-def test_relaxed_rigid_rk4_refuses_autograd():
-    """The relaxed-rigid RK4 and RK4-fast steps differentiate under autograd
-    (no longer refused): their VJP on the box in contact, through four
-    implicit PCG backwards (RK4) or one with frozen wrenches (RK4-fast),
-    against ``jax.vjp`` of the JAX step in every state leaf, float64, for a
-    seeded output cotangent (the JAX VJPs compile for about 50 s and 20 s)."""
+@pytest.mark.parametrize("integrator", INTEGRATORS)
+def test_relaxed_rigid_rk4_step_vjp_matches_jax_vjp(integrator):
+    """The relaxed-rigid RK4 and RK4-fast steps' VJP under autograd, on the
+    box in contact, through four implicit PCG backwards (RK4) or one with
+    frozen wrenches (RK4-fast), against ``jax.vjp`` of the JAX step in every
+    state leaf, float64, for a seeded output cotangent (the JAX VJPs compile
+    for about 50 s and 20 s, one a case, so that two workers compile them
+    side by side)."""
     import jax
     import jax.numpy as jnp
 
     from jaxsim_tpu.ops.batched_engine import BatchedState as JaxState
 
-    for integrator in ("rk4", "rk4fast"):
-        jeng = _jax_engine("box_relaxed_rigid", integrator)
-        teng = _port_engine("box_relaxed_rigid", integrator, torch.float64)
-        arrays = _arrays("box_relaxed_rigid", teng)
-        rng = np.random.default_rng(7)
-        ct = {k: rng.standard_normal(a.shape) for k, a in arrays.items()}
-        _, params = bridge.reference_engine_arrays(jeng)
-        with jax.enable_x64(True):
-            pr = {k: jnp.asarray(a, jnp.float64) for k, a in params.items()}
+    jeng = _jax_engine("box_relaxed_rigid", integrator)
+    teng = _port_engine("box_relaxed_rigid", integrator, torch.float64)
+    arrays = _arrays("box_relaxed_rigid", teng)
+    rng = np.random.default_rng(7)
+    ct = {k: rng.standard_normal(a.shape) for k, a in arrays.items()}
+    _, params = bridge.reference_engine_arrays(jeng)
+    with jax.enable_x64(True):
+        pr = {k: jnp.asarray(a, jnp.float64) for k, a in params.items()}
 
-            def vjp(st, c):
-                return jax.vjp(lambda st: jeng.step(st, None, pr), st)[1](c)[0]
+        def vjp(st, c):
+            return jax.vjp(lambda st: jeng.step(st, None, pr), st)[1](c)[0]
 
-            args = [JaxState(**{k: jnp.asarray(a) for k, a in d.items()}) for d in (arrays, ct)]
-            ref = bridge.reference_state_arrays(_compiled(vjp, *args)(*args))
-        st = bridge.state_from_numpy(arrays, device="cpu", dtype=torch.float64)
-        for t in st.fields():
-            t.requires_grad_()
-        out = teng.step(st)
-        grads = torch.autograd.grad(
-            out.fields(), list(st.fields()), [torch.from_numpy(ct[k]) for k in bridge.STATE_FIELDS], allow_unused=True
-        )
-        for k, g in zip(bridge.STATE_FIELDS, grads):
-            g = np.zeros_like(ref[k]) if g is None else g.numpy()
-            np.testing.assert_allclose(g, ref[k], err_msg=f"{integrator} {k}", **F64)
-        assert np.abs(ref["q"]).max() > 0
+        args = [JaxState(**{k: jnp.asarray(a) for k, a in d.items()}) for d in (arrays, ct)]
+        ref = bridge.reference_state_arrays(_compiled(vjp, *args)(*args))
+    st = bridge.state_from_numpy(arrays, device="cpu", dtype=torch.float64)
+    for t in st.fields():
+        t.requires_grad_()
+    out = teng.step(st)
+    grads = torch.autograd.grad(
+        out.fields(), list(st.fields()), [torch.from_numpy(ct[k]) for k in bridge.STATE_FIELDS], allow_unused=True
+    )
+    for k, g in zip(bridge.STATE_FIELDS, grads):
+        g = np.zeros_like(ref[k]) if g is None else g.numpy()
+        np.testing.assert_allclose(g, ref[k], err_msg=f"{integrator} {k}", **F64)
+    assert np.abs(ref["q"]).max() > 0
 
 
 # ----- the model, the bridge, K1's plain path -----

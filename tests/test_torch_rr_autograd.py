@@ -143,20 +143,6 @@ def _check(name, x64: bool):
         np.testing.assert_allclose(a, b, rtol=RR_F32["rtol"], atol=atol, err_msg=label)
 
 
-@pytest.mark.parametrize(
-    "name, x64", [("box", True), ("garpez", True), ("box", False)], ids=["box-float64", "garpez-float64", "box-float32"]
-)
-def test_rr_step_vjp_matches_jax_vjp(name, x64):
-    """Every state leaf's, tau's and model array's cotangent, rrMinv's too."""
-    _check(name, x64)
-
-
-@pytest.mark.slow
-@pytest.mark.parametrize("name, x64", [("garpez", False), ("humanoid23", True)], ids=["garpez-float32", "humanoid23-float64"])
-def test_large_rr_step_vjp_matches_jax_vjp(name, x64):
-    _check(name, x64)
-
-
 def test_rr_rollout_gains_gradient_matches_jax():
     """The PD gains' gradient through 3 steps of ``fused_diff_rollout`` on
     garpez tilted low, joints displaced and moving, against the chain rule
@@ -200,3 +186,21 @@ def test_rr_rollout_gains_gradient_matches_jax():
     got = torch.autograd.grad(loss, gains)[0].numpy()
     np.testing.assert_allclose(got, ref, **F64)
     assert np.abs(got).max() > 0
+
+
+@pytest.mark.parametrize(
+    "name, x64", [("garpez", True), ("box", True), ("box", False)], ids=["garpez-float64", "box-float64", "box-float32"]
+)
+def test_rr_step_vjp_matches_jax_vjp(name, x64):
+    """Every state leaf's, tau's and model array's cotangent, rrMinv's too.
+    Garpez in float64 comes first, right after the rollout gradient's test,
+    which takes the same compiled JAX step VJP: consecutive tests tend to go
+    to one test worker, where the compile is done once, and the module's
+    longest compile starts early."""
+    _check(name, x64)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name, x64", [("garpez", False), ("humanoid23", True)], ids=["garpez-float32", "humanoid23-float64"])
+def test_large_rr_step_vjp_matches_jax_vjp(name, x64):
+    _check(name, x64)
