@@ -7,7 +7,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
     python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations] [rr] [rr_faults] [param_sum]
         [profiler] [vjp] [vjp_faults] [lanes] [quat] [k1_faults] [step] [step_faults] [kernels] [rk4_faults]
         [rr_step] [rr_step_faults] [rr_vjp] [rr_vjp_faults] [rr_vjp_phases] [rr_envs] [rr_phases]
-        [rr_variants]
+        [rr_variants] [rk4_variants]
 
 With no argument it runs the first three. Probes of the flagship humanoid
 (soft contacts, flat ground, PD policy):
@@ -115,7 +115,9 @@ With no argument it runs the first three. Probes of the flagship humanoid
   1024, K2-rr and K3-rr at 8192 envs, which checkouts before the
   relaxed-rigid K2 and K3 refuse; BASELINE config 5 and K1-rr RK4-fast at
   ``chip_smoke.RR_RK4_HORIZON`` steps, K5-rr on the relaxed-rigid ES
-  generation, and the relaxed-rigid ``BatchedEnv.step``'s wall ms a step):
+  generation, the relaxed-rigid ``BatchedEnv.step``'s wall ms a step, and
+  the soft K1's RK4 and RK4-fast builds at 8192 envs and
+  ``chip_smoke.SOFT_RK4_HORIZON`` steps):
   kernel-only ms (``torch.profiler``) and CUDA-event ms (median),
   through entry points that the checkouts since the lane-spread K1 and K5
   share, so that a copy of this script times an older checkout's kernels in
@@ -170,6 +172,14 @@ With no argument it runs the first three. Probes of the flagship humanoid
   blocks; ``_PH_COMMON`` and ``_PH_ABA``, one set for the one-thread free
   ABA and one for the lane-spread one, so that a copy of this script times
   a parent checkout too).
+* rk4_variants: the soft K1's RK4 and RK4-fast builds on the soft RK4 main
+  path's shape, as the checkout builds them (y0 and the stages' sum in the
+  env's lanes' registers) and with each of ``RK4_VARIANTS`` seeded into a
+  copy of ``csrc/`` (the two as a local array; in shared memory at 16 and
+  24 envs a block); and with clock stamps (``_RK4_PH``), each step's cycles
+  in its four rates and in the rest. A variant whose text the checkout's
+  source lacks is left out and the stamps fit the parent's source, so a
+  copy of this script in the parent's checkout times the parent's design.
 
 It prints the card's name and power limit, then JSON lines keyed by probe,
 and exits non-zero when no CUDA device is visible.
@@ -346,8 +356,9 @@ STEP_FAULTS = {
 # csrc/ (the file, the text, its replacement): the stage weights (1, 2, 2, 2)
 # / 6 in place of (1, 2, 2, 1) / 6; the torques re-read from each stage's
 # state, not captured once at the step's start; the Baumgarte term dropped
-# from the quaternion's rate; and (K1-rr under RK4) each stage's PCG
-# warm-started from the step's start m, not the stage's.
+# from the quaternion's rate; the soft build's y0, held in its lanes'
+# registers, captured at the launch's first step only; and (K1-rr under RK4)
+# each stage's PCG warm-started from the step's start m, not the stage's.
 RK4_FAULTS = {
     "stage weights (1, 2, 2, 2)/6": [("step_env.cuh", "acc + (stage == 3 ? k : 2.0f * k)", "acc + 2.0f * k")],
     "torques re-read from the stage state": [
@@ -355,6 +366,9 @@ RK4_FAULTS = {
         ("rr_step.cuh", "  const SlotTauRr tau{sl};\n", "  const RrPdTau tau{sc.kp, sc.kd};\n"),
     ],
     "Baumgarte term dropped": [("step_env.cuh", "const float r = 0.5f * (nw * (1.0f - nq));", "const float r = 0.0f;")],
+    "y0 captured once a launch": [(
+        "rollout.cu", "      if (g + G * j < ST_N) y0[j] = mine[j * G * ES];",
+        "      if (t == 0 && g + G * j < ST_N) y0[j] = mine[j * G * ES];")],
     "stage PCG warm-started from the start's m": [(
         "rr_step.cuh", "      rr_solve(P, sc, sl, g, pt, m, x);\n      if (Integrator == 2)",
         "      float wm[OWN * 3];\n#pragma unroll\n      for (int k = 0; k < OWN * 3; ++k)\n"
@@ -362,6 +376,183 @@ RK4_FAULTS = {
         "      rr_solve(P, sc, sl, g, pt, wm, x);\n      if (Integrator == 2)",
     )],
 }
+
+# y0 and the stages' sum in shared memory, a lane's j-th entry at
+# [j * LN_THREADS], with ENVS envs a block (32 leave them no room).
+_RK4_SMEM = [
+    ("rollout.cu",
+     "constexpr size_t K1_SMEM_BYTES = (static_cast<size_t>(N_PARAMS) + static_cast<size_t>(SLOT) * ES) * sizeof(float);\n",
+     "constexpr size_t K1_SMEM_BYTES =\n"
+     "    (static_cast<size_t>(N_PARAMS) + static_cast<size_t>(SLOT) * ES + 2 * RK_N * LN_THREADS) * sizeof(float);\n\n"
+     "struct RkRow {\n  float* p;\n"
+     "  __device__ __forceinline__ float& operator[](int j) const { return p[j * LN_THREADS]; }\n};\n"),
+    ("rollout.cu", "  float y0[RK_N], acc[RK_N];  // the lane's entries of y0 and of the sum\n",
+     "  extern __shared__ float smem[];\n"
+     "  const RkRow y0{smem + N_PARAMS + SLOT * ES + threadIdx.x}, acc{y0.p + RK_N * LN_THREADS};\n"),
+]
+
+
+def _rk4_smem(envs: int) -> list:
+    """_RK4_SMEM at ``envs`` envs a block."""
+    return [("soft_step_lanes.cuh", "constexpr int ENVS = JX_LN_ENVS;", f"constexpr int ENVS = {envs};"), *_RK4_SMEM]
+
+
+# Lane g's entries g RK_N .. (g + 1) RK_N - 1, a block of rows, with RK_N
+# an odd multiple of 32 / G, so that the lanes of a warp's envs reach
+# distinct banks (entry e of the block's env b at [e * ES + b], ES odd).
+_RK4_BLOCKED = [
+    ("rollout.cu", "constexpr int RK_N = (ST_N + G - 1) / G;\n",
+     "constexpr int RK_N = G == 1 ? ST_N : ((ST_N + G - 1) / G + 32 / G - 1) / (32 / G) / 2 * 2 * (32 / G) + 32 / G;\n"),
+    ("rollout.cu", "  float* const mine = st + g * ES;", "  float* const mine = st + g * RK_N * ES;"),
+    ("rollout.cu", "      if (g + G * j < ST_N) y0[j] = mine[j * G * ES];", "      if (g * RK_N + j < ST_N) y0[j] = mine[j * ES];"),
+    ("rollout.cu", "          const int e = g + G * j;", "          const int e = g * RK_N + j;"),
+    ("rollout.cu", "rk4_entry(S, dt, mine[j * G * ES], y0[j], acc[j]);", "rk4_entry(S, dt, mine[j * ES], y0[j], acc[j]);"),
+    ("rollout.cu", "S == 3) mine[j * G * ES] = y;", "S == 3) mine[j * ES] = y;"),
+]
+# Designs of the soft K1's RK4 stage update beside the checkout's (y0 and
+# the stages' sum in the registers of the env's lanes, lane g the entries
+# g, g + G, ...), each a list of edits of csrc/, for the rk4_variants probe:
+# the two as a local array of the lane (the update's loops not unrolled, so
+# that they index it at run time: local memory, through L1 and L2); in
+# registers with one update loop for every stage, whose weights and
+# division by 6 are chosen per entry at run time; in registers, a lane's
+# entries a block of rows; in shared memory at 16 and 24 envs a block.
+RK4_VARIANTS = {
+    "local array": [
+        ("rollout.cu", "#pragma unroll\n    for (int j = 0; j < RK_N; ++j)\n      if (g + G * j < ST_N)",
+         "#pragma unroll 1\n    for (int j = 0; j < RK_N; ++j)\n      if (g + G * j < ST_N)"),
+        ("rollout.cu", "#pragma unroll\n        for (int j = 0; j < RK_N; ++j) {",
+         "#pragma unroll 1\n        for (int j = 0; j < RK_N; ++j) {"),
+    ],
+    "registers, one update for every stage": [
+        ("rollout.cu", "constexpr int S = decltype(s)::value;", "const int S = stage;"),
+        ("rollout.cu", "      if (stage == 0) {\n        update(std::integral_constant<int, 0>{});\n      } else if (stage == 1) {\n"
+         "        update(std::integral_constant<int, 1>{});\n      } else if (stage == 2) {\n"
+         "        update(std::integral_constant<int, 2>{});\n      } else {\n"
+         "        update(std::integral_constant<int, 3>{});\n      }\n",
+         "      update(0);\n"),
+    ],
+    "registers, a lane's entries in a block of rows": _RK4_BLOCKED,
+    "shared memory, 16 envs a block": _rk4_smem(16),
+    "shared memory, 24 envs a block": _rk4_smem(24),
+}
+
+# The same in registers, each lane holding the entries it writes as rates
+# (its links' s and ṡ, its point slots' m, on lane 0 the base's q, v and p),
+# which no other lane reads, so that no barrier surrounds the update and the
+# lane that holds a joint writes its torque: a copy of rk4_steps over a
+# table of each lane's entries (``_rk4_owned_header``, a file of the seeded
+# copy), which the block keeps in shared memory.
+_RK4_OWNED_FN = """// n_steps RK4 steps, each lane holding the entries it writes as rates.
+#include "rk4_owned.h"  // JX_RK_OWNED_N; lane g's j-th entry at JX_RK_OWNED[j * G + g], -1 for none
+__device__ __forceinline__ void rk4_steps_owned(const float* P, const Scalars& sc, Slot sl, int g,
+                                                const EnvState<float>& x, int n_steps) {
+  constexpr int RN = JX_RK_OWNED_N;
+  __shared__ int owned[RN * G];
+  for (int k = threadIdx.x; k < RN * G; k += blockDim.x) owned[k] = JX_RK_OWNED[k];
+  __syncthreads();
+  float* st = sl.base + SL_ST * ES;
+  const ColTau tau{{st + ST_TAU * ES, ES}};
+  const float dt = sc.dt;
+  float y0[RN], acc[RN];
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    if (g == 0) quat_normalize(x.q);
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      const int e = owned[j * G + g];
+      if (e >= 0) {
+        y0[j] = st[e * ES];
+        if (e < ST_SD) st[(ST_TAU + e) * ES] = -sc.kp * x.s[e] - sc.kd * x.sd[e];
+      }
+    }
+#pragma unroll 1
+    for (int stage = 0; stage < 4; ++stage) {
+      if (INTEGRATOR == 2 && stage > 0) {
+        soft_step_lanes<STEP_RATE_FROZEN>(P, sc, sl, g, x, tau, nullptr);
+      } else {
+        soft_step_lanes<STEP_RATE>(P, sc, sl, g, x, tau, nullptr);
+      }
+      const auto update = [&](auto s) {
+        constexpr int S = decltype(s)::value;
+#pragma unroll
+        for (int j = 0; j < RN; ++j) {
+          const int e = owned[j * G + g];
+          if (e >= 0) {
+            const float y = rk4_entry(S, dt, st[e * ES], y0[j], acc[j]);
+            if (INTEGRATOR != 2 || e < ST_M || S == 3) st[e * ES] = y;
+          }
+        }
+      };
+      if (stage == 0) {
+        update(std::integral_constant<int, 0>{});
+      } else if (stage == 1) {
+        update(std::integral_constant<int, 1>{});
+      } else if (stage == 2) {
+        update(std::integral_constant<int, 2>{});
+      } else {
+        update(std::integral_constant<int, 3>{});
+      }
+    }
+    if (g == 0) quat_normalize(x.q);
+  }
+  ln_sync();
+}
+
+"""
+_RK4_OWNED = [
+    ("rollout.cu", "// n_steps RK4 (INTEGRATOR 1) or RK4-fast (2) steps of the env on lanes g of\n",
+     _RK4_OWNED_FN + "// n_steps RK4 (INTEGRATOR 1) or RK4-fast (2) steps of the env on lanes g of\n"),
+    ("rollout.cu", "    rk4_steps(P, sc, sl, g, x, n_steps);\n", "    rk4_steps_owned(P, sc, sl, g, x, n_steps);\n"),
+]
+
+
+def _rk4_owned_header(engine, lanes: int) -> str:
+    """``rk4_owned.h`` of the owned-entries variant for ``engine`` at
+    ``lanes`` lanes an env: each lane's entries of the state rows (those it
+    writes as rates, by soft_step_lanes.cuh's deal of links and point
+    slots), padded with -1 to the most a lane holds."""
+    from jaxsim_tpu_torch.ops import cuda_build
+
+    t = cuda_build._lane_schedule(engine, lanes)
+    nj, st_m = engine.n_joints, 2 * engine.n_joints + 13
+    entries = [[] for _ in range(lanes)]
+    for lev in range(t["n_lev"]):
+        for n in range(t["lev_off"][lev], t["lev_off"][lev + 1]):
+            i = t["lev_link"][n]
+            entries[(n - t["lev_off"][lev]) % lanes] += [i - 1, nj + i - 1]
+    for k, c in enumerate(t["slot_point"]):
+        if c >= 0:
+            entries[k % lanes] += [st_m + 3 * c + j for j in range(3)]
+    entries[0] += list(range(2 * nj, st_m))  # q, v, p
+    n = max(map(len, entries))
+    table = [entries[g][j] if j < len(entries[g]) else -1 for j in range(n) for g in range(lanes)]
+    return f"#define JX_RK_OWNED_N {n}\n__device__ const int JX_RK_OWNED[{n * lanes}] = {{{', '.join(map(str, table))}}};\n"
+
+
+# Clock stamps for the rk4_variants probe (edits of rollout.cu that fit its
+# parent's text too): warp 0's first thread sums the cycles of the rates
+# (each with the barrier after it) and takes those of the whole step loop,
+# and writes both over its block's first env's p rows at the end.
+_RK4_RATE = (
+    "      if (INTEGRATOR == 2 && stage > 0) {\n"
+    "        soft_step_lanes<STEP_RATE_FROZEN>(P, sc, sl, g, x, tau, nullptr);\n"
+    "      } else {\n        soft_step_lanes<STEP_RATE>(P, sc, sl, g, x, tau, nullptr);\n      }\n      ln_sync();\n"
+)
+_RK4_PH = [
+    ("rollout.cu", 'static_assert(FORWARD, "rollout.cu takes the forward-only slot (JX_LN_FORWARD 1)");\n',
+     'static_assert(FORWARD, "rollout.cu takes the forward-only slot (JX_LN_FORWARD 1)");\n\n'
+     "__device__ __forceinline__ long long& jx_ph() {\n  __shared__ long long acc;\n  return acc;\n}\n"),
+    ("rollout.cu", _RK4_RATE,
+     "      const long long jx0 = clock64();\n" + _RK4_RATE
+     + "      if (threadIdx.x == 0) jx_ph() += clock64() - jx0;\n"),
+    ("rollout.cu", "  if constexpr (INTEGRATOR == 0) {\n",
+     "  if (threadIdx.x == 0) jx_ph() = 0;\n  const long long jxk = clock64();\n  if constexpr (INTEGRATOR == 0) {\n"),
+    ("rollout.cu", "  if (valid) store_state(x, B, b, out, g);\n}\n",
+     "  if (valid) store_state(x, B, b, out, g);\n  const long long jxt = clock64() - jxk;\n  __syncthreads();\n"
+     "  if (threadIdx.x == 0) {\n    out.p[blockIdx.x * ENVS] = static_cast<float>(jxt);\n"
+     "    out.p[B + blockIdx.x * ENVS] = static_cast<float>(jx_ph());\n  }\n}\n"),
+]
 
 # Seeded faults of the relaxed-rigid one-step kernels and env rollout, each a
 # list of edits of csrc/ (the file, the text, its replacement): K3-rr reading
@@ -1229,9 +1420,9 @@ def kernels_probe(hum, gen) -> None:
     import torch
 
     from chip_smoke import (
-        ENV_STEPS, ES, ES_OPTIONS, RK4_INTEGRATORS, RR_CASES, RR_HORIZON, RR_RK4_HORIZON, apg_setup, es_population,
-        es_sizes, garpez_engine, pendulum_engine, profiled_ms, rr_garpez_engine, rr_humanoid_engine, rr_start_states,
-        vjp_cotangents, vjp_starts, with_integrator,
+        ENV_STEPS, ES, ES_OPTIONS, RK4_INTEGRATORS, RR_CASES, RR_HORIZON, RR_RK4_HORIZON, SOFT_RK4_HORIZON, apg_setup,
+        es_population, es_sizes, garpez_engine, pendulum_engine, profiled_ms, rr_garpez_engine, rr_humanoid_engine,
+        rr_start_states, vjp_cotangents, vjp_starts, with_integrator,
     )  # fmt: skip
     from jaxsim_tpu_torch.ops import cuda_build, cuda_env_rollout, cuda_rollout, cuda_step, cuda_step_vjp
     from jaxsim_tpu_torch.ops.policies import obs_dim
@@ -1256,13 +1447,14 @@ def kernels_probe(hum, gen) -> None:
                            cuda_step_vjp.job(hum), cuda_step_vjp.job(hum, params_grad=True), cuda_step.job(hum),
                            cuda_step.job(garp), cuda_step.job(hum_rr)])  # fmt: skip
     # Built for their SASS only: K1's RK4 and RK4-fast builds, soft and
-    # relaxed-rigid, K5-rr and K4-rr (the relaxed-rigid ones timed below).
+    # relaxed-rigid, K5-rr and K4-rr (all but K4-rr timed below).
     cuda_build.build_many([
         *(cuda_rollout.job(with_integrator(e, i)) for e in (hum, hum_rr) for i in RK4_INTEGRATORS),
         cuda_env_rollout.job(hum_rr, cuda_env_rollout.make_policy(hum_rr, **weights)),
         cuda_step_vjp.job(hum_rr), cuda_step_vjp.job(hum_rr, params_grad=True),
     ])  # fmt: skip
     rr_rk4 = {i: with_integrator(hum_rr, i) for i in RK4_INTEGRATORS}
+    soft_rk4 = {i: with_integrator(hum, i) for i in RK4_INTEGRATORS}
     rr_pol = cuda_env_rollout.make_policy(hum_rr, **weights)
     from jaxsim_tpu_torch.envs import BatchedEnv
 
@@ -1291,12 +1483,19 @@ def kernels_probe(hum, gen) -> None:
                             "rollout_rr_kernel", 3),
         env_rollout_relaxed_rigid=(lambda: cuda_env_rollout.env_rollout(hum_rr, rr_start, ES["steps"], **ES_OPTIONS,
                                                                         **weights), "env_rollout_rr_kernel", 3),
+        # The soft RK4 main path's K1 and soft RK4-fast, SOFT_RK4_HORIZON steps.
+        rollout_rk4=(lambda: cuda_rollout.rollout(soft_rk4["rk4"], state0, SOFT_RK4_HORIZON), "rollout_kernel", 3),
+        rollout_rk4fast=(lambda: cuda_rollout.rollout(soft_rk4["rk4fast"], state0, SOFT_RK4_HORIZON), "rollout_kernel",
+                         3),
     )  # fmt: skip
     for name, (fn, kernel, repeats) in calls.items():
         fn()  # warm-up
-        print(json.dumps({"kernels": {
-            "call": name, "kernel_ms": profiled_ms(fn, kernel, repeats), "event_ms": device_ms(fn, repeats),
-        }}), flush=True)  # fmt: skip
+        row = {"call": name, "event_ms": device_ms(fn, repeats)}
+        try:
+            row["kernel_ms"] = profiled_ms(fn, kernel, repeats)
+        except RuntimeError as exc:  # the profiler dropped a launch in every window
+            row["kernel_ms"] = str(exc)
+        print(json.dumps({"kernels": row}), flush=True)
     # The relaxed-rigid BatchedEnv.step (K3-rr and the torch ops around it):
     # wall ms a step over ENV_STEPS, synchronised, as chip_smoke.py times it.
     env_state, _ = rr_env.reset(torch.Generator(device).manual_seed(2), rr_start.p.shape[-1])
@@ -1681,6 +1880,76 @@ def rr_phases_probe(hum, gen) -> None:
         }}), flush=True)  # fmt: skip
 
 
+def rk4_variants_probe(hum, gen) -> None:
+    """The soft K1's RK4 and RK4-fast builds on the soft RK4 main path's shape
+    (the humanoid at 8192 envs from the main-path start, SOFT_RK4_HORIZON
+    steps), as the checkout builds them and with each of RK4_VARIANTS and
+    _RK4_OWNED whose texts the checkout's source holds; and built with the
+    clock stamps (_RK4_PH; also on _RK4_BLOCKED), each step's cycles in its
+    four rates and in the rest (the stage updates, y0, the torques, the
+    quaternion's normalisations and the barriers between them). Per build: its ptxas lines, spill stores,
+    launch geometry and local loads and stores, the worst field's max |Δ|
+    against the plain twin after LANE_CHECK_STEPS steps, kernel-only ms
+    (``torch.profiler``) and CUDA-event ms (median of REPEATS)."""
+    import re
+
+    import torch
+
+    from chip_smoke import RK4_INTEGRATORS, SOFT_RK4_HORIZON, pendulum_engine, profiled_ms, start_states, with_integrator
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_rollout
+
+    device = hum.S.device
+    state = start_states(pendulum_engine(device), hum)["humanoid23 main-path start"][1]
+    def fits(edits):
+        return all((cuda_build.CSRC / file).read_text().count(old) == 1 for file, old, _ in edits)
+
+    designs = {"as built": None}
+    for name, edits in RK4_VARIANTS.items():
+        if fits(edits):
+            designs[name] = _seeded_edits("rk4_variants", name, edits)
+    if fits(_RK4_OWNED):
+        owned = designs["registers, entries a lane writes"] = _seeded_edits("rk4_variants", "owned", _RK4_OWNED)
+        (owned / "rk4_owned.h").write_text(_rk4_owned_header(hum, cuda_rollout.LANES))
+    designs["clock stamps"] = _seeded_edits("rk4_variants", "clock stamps", _RK4_PH)
+    if fits(_RK4_BLOCKED):
+        designs["clock stamps, a lane's entries in a block of rows"] = _seeded_edits(
+            "rk4_variants", "clock stamps, blocked", _RK4_BLOCKED + _RK4_PH)
+    engines = {i: with_integrator(hum, i) for i in RK4_INTEGRATORS}
+    jobs = {}
+    for name, copy in designs.items():
+        for i, eng in engines.items():
+            job = cuda_rollout.job(eng)
+            jobs[(name, i)] = job if copy is None else dataclasses.replace(job, source=copy / job.source.name)
+    kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+    plains = {i: cuda_rollout.rollout_reference(eng, state, LANE_CHECK_STEPS) for i, eng in engines.items()}
+    for (name, i), kernel in kernels.items():
+        def run(kernel=kernel, eng=engines[i], steps=SOFT_RK4_HORIZON):
+            return cuda_rollout.launch(kernel, eng, state, steps, 60.0, 0.5)
+
+        geometry = cuda_rollout.geometry(kernel)
+        row = {"design": name, "integrator": i, "B": state.p.shape[-1], "steps": SOFT_RK4_HORIZON,
+               "geometry": geometry,
+               "ptxas": [ln.strip() for ln in kernel.ptxas_log.splitlines()
+                         if "registers" in ln or "stack frame" in ln or "spill" in ln],
+               "spill_stores": sum(map(int, re.findall(r"(\d+) bytes spill stores", kernel.ptxas_log))),
+               "local_loads_and_stores": cuda_rollout.lane_local_memory(kernel)}  # fmt: skip
+        if name.startswith("clock stamps"):
+            total, rates = (run().p[:2, :: geometry["envs"]].double().mean(1) / SOFT_RK4_HORIZON).tolist()
+            row.update(cycles_a_step=round(total), rates=[round(rates), round(rates / total, 4)],
+                       rest=[round(total - rates), round((total - rates) / total, 4)])  # fmt: skip
+        else:
+            got = run(steps=LANE_CHECK_STEPS)
+            row["max_abs_err_vs_plain"] = max(float((a - b).abs().max()) for a, b in zip(got.fields(), plains[i].fields())
+                                              if a.numel())  # fmt: skip
+        run()  # warm-up
+        row["event_ms"] = device_ms(run, REPEATS)
+        try:
+            row["kernel_ms"] = profiled_ms(run, "rollout_kernel", REPEATS)
+        except RuntimeError as exc:  # the profiler dropped a launch in every window
+            row["kernel_ms"] = str(exc)
+        print(json.dumps({"rk4_variants": row}), flush=True)
+
+
 PROBES = {
     "sweep": sweep_probe,
     "profile": profile_probe,
@@ -1708,6 +1977,7 @@ PROBES = {
     "rr_envs": rr_envs_probe,
     "rr_variants": rr_variants_probe,
     "rr_phases": rr_phases_probe,
+    "rk4_variants": rk4_variants_probe,
 }
 
 

@@ -53,7 +53,8 @@ plain PyTorch version on the card:
   ``fused_diff_rollout`` on garpez against the plain twin under autograd;
 * K1's RK4 and RK4-fast builds (``rollout.cu`` and ``rollout_rr.cu`` with
   ``JX_INTEGRATOR`` 1 and 2) in every state field: the soft one on CASES'
-  starts over shorter horizons (``RK4_CASES``), the relaxed-rigid one on
+  starts over shorter horizons and on the soft humanoid's touchdown
+  (``RK4_CASES``), the relaxed-rigid one on
   RR_CASES' starts over shorter horizons (``RR_RK4_CASES``), by the same
   statistics and limits;
 * K6 and K7 (``fma_probe.cu``), each FMA-rate probe variant against its
@@ -256,16 +257,24 @@ RR_TOUCHDOWN = dict(batch=1024, base=(0.0, 0.0, 0.93), iterations=3)
 # K1's RK4 and RK4-fast builds vs plain: CASES' and RR_CASES' starts, the
 # same statistics and limits, over shorter horizons, since an RK4 step of the
 # plain twin is four of its derivatives (a soft humanoid step about 0.3 s on
-# the card, a relaxed-rigid one about 0.9 s). The touchdown start is left
-# out: its feet strike about 75 steps in, and a relaxed-rigid RK4 twin there
-# would take minutes.
+# the card, a relaxed-rigid one about 0.9 s). The relaxed-rigid touchdown
+# start is left out: its feet strike about 75 steps in, and a relaxed-rigid
+# RK4 twin there would take minutes. The soft humanoid drops from
+# RR_TOUCHDOWN's base (``SOFT_TOUCHDOWN``, its own seed) over 100 steps, held
+# at its max as the relaxed-rigid touchdown and CASES' main-path start are:
+# its points engage from about 55 steps in (over a thousand of 48 × 1024 by
+# step 90), so that the stage update of m is held while they do; in the air
+# the joints rest, and the float32 and float64 twins stay 3e-5 apart in ṡ
+# by step 90 (on the CPU).
 RK4_CASES = (
     ("pendulum1", 100, "max"),
     ("humanoid23 main-path start", 25, "max"),
     ("humanoid23 joints moving", 10, "max"),
     ("humanoid23 joints moving", 25, "p99.9"),
     ("box spinning in the air", 100, "max"),
+    ("humanoid23 touchdown", 100, "max"),
 )
+SOFT_TOUCHDOWN = dict(batch=1024, base=(0.0, 0.0, 0.93), seed=7)
 RR_RK4_CASES = (
     ("humanoid23 relaxed-rigid main-path start", 20, "max", False),
     ("humanoid23 relaxed-rigid joints moving", 10, "max", True),
@@ -569,11 +578,14 @@ def start_states(pend, hum) -> dict:
     box = box_engine(device)
     spin = box.init_state(BOX_SPIN["batch"], base_position=(0.0, 0.0, BOX_SPIN["height"]), generator=gen)
     spin.v[3:6] = BOX_SPIN["rate"] / 3**0.5 * torch.randn((3, BOX_SPIN["batch"]), generator=gen, device=device)
+    touchdown = hum.init_state(SOFT_TOUCHDOWN["batch"], base_position=SOFT_TOUCHDOWN["base"],
+                               generator=torch.Generator(device).manual_seed(SOFT_TOUCHDOWN["seed"]))  # fmt: skip
     return {
         "pendulum1": (pend, pend_state),
         "humanoid23 main-path start": (hum, state0),
         "humanoid23 joints moving": (hum, moving),
         "box spinning in the air": (box, spin),
+        "humanoid23 touchdown": (hum, touchdown),
     }
 
 

@@ -37,10 +37,11 @@
 // JAX rollout kernel evaluates it). The step's start state y0 and the
 // accumulator k1 + 2 k2 + 2 k3 + k4 do not fit beside 32 slots in a block's
 // shared memory (two more copies of the humanoid's 203-float state), so they
-// live in device memory (Rk4Scratch, about 6.6 MB each for 8192 envs, which
-// stay in L2); each lane reads and writes only its own entries. Between the
-// rates, each lane forms its entries' next stage state y0 + c dt k in the
-// slot's state rows, which the next rate reads.
+// live in the registers of the env's lanes: lane g holds the state's entries
+// g, g + G, ... (RK_N of them, 51 for the humanoid), which it alone reads
+// and writes between the rates. Between the rates, each lane forms its
+// entries' next stage state y0 + c dt k in the slot's state rows, which the
+// next rate reads.
 
 #include "soft_step_lanes.cuh"
 
@@ -48,21 +49,28 @@ static_assert(FORWARD, "rollout.cu takes the forward-only slot (JX_LN_FORWARD 1)
 
 namespace {
 
+// The state's entries a lane holds through an RK4 step: lane g's j-th is
+// entry g + G j (past ST_N on the last lanes, none).
+constexpr int RK_N = (ST_N + G - 1) / G;
+
 constexpr size_t K1_SMEM_BYTES = (static_cast<size_t>(N_PARAMS) + static_cast<size_t>(SLOT) * ES) * sizeof(float);
 
 // n_steps RK4 (INTEGRATOR 1) or RK4-fast (2) steps of the env on lanes g of
-// the slot `sl`, whose state rows hold the state; y0 and acc are the env's
-// columns of the scratch rows (entry e at [e * stride]).
+// the slot `sl`, whose state rows hold the state.
 __device__ __forceinline__ void rk4_steps(const float* P, const Scalars& sc, Slot sl, int g, const EnvState<float>& x,
-                                          float* y0, float* acc, int stride, int n_steps) {
+                                          int n_steps) {
   float* st = sl.base + SL_ST * ES;  // the state's entry e at st[e * ES]
+  float* const mine = st + g * ES;   // the lane's j-th entry at mine[j * G * ES]
   const ColTau tau{{st + ST_TAU * ES, ES}};
   const float dt = sc.dt;
+  float y0[RK_N], acc[RK_N];  // the lane's entries of y0 and of the sum
 #pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
     if (g == 0) quat_normalize(x.q);
     ln_sync();
-    for (int e = g; e < ST_N; e += G) y0[e * stride] = st[e * ES];
+#pragma unroll
+    for (int j = 0; j < RK_N; ++j)
+      if (g + G * j < ST_N) y0[j] = mine[j * G * ES];
     for (int k = g; k < NJ; k += G) st[(ST_TAU + k) * ES] = -sc.kp * x.s[k] - sc.kd * x.sd[k];
     ln_sync();
 #pragma unroll 1
@@ -73,13 +81,30 @@ __device__ __forceinline__ void rk4_steps(const float* P, const Scalars& sc, Slo
         soft_step_lanes<STEP_RATE>(P, sc, sl, g, x, tau, nullptr);
       }
       ln_sync();
-      for (int e = g; e < ST_N; e += G) {
-        float a = stage == 0 ? 0.0f : acc[e * stride];
-        const float y = rk4_entry(stage, dt, st[e * ES], y0[e * stride], a);
-        acc[e * stride] = a;
-        // RK4-fast: m's rows keep the rate of the step's start through the
-        // stages (a frozen rate reads no stage state).
-        if (INTEGRATOR != 2 || e < ST_M || stage == 3) st[e * ES] = y;
+      // The lane's entries after stage S, its rates in their rows: one loop
+      // for each stage, so that rk4_entry's weights and its division by 6
+      // fold to the stage's own.
+      const auto update = [&](auto s) {
+        constexpr int S = decltype(s)::value;
+#pragma unroll
+        for (int j = 0; j < RK_N; ++j) {
+          const int e = g + G * j;
+          if (e < ST_N) {
+            const float y = rk4_entry(S, dt, mine[j * G * ES], y0[j], acc[j]);
+            // RK4-fast: m's rows keep the rate of the step's start through
+            // the stages (a frozen rate reads no stage state).
+            if (INTEGRATOR != 2 || e < ST_M || S == 3) mine[j * G * ES] = y;
+          }
+        }
+      };
+      if (stage == 0) {
+        update(std::integral_constant<int, 0>{});
+      } else if (stage == 1) {
+        update(std::integral_constant<int, 1>{});
+      } else if (stage == 2) {
+        update(std::integral_constant<int, 2>{});
+      } else {
+        update(std::integral_constant<int, 3>{});
       }
       ln_sync();
     }
@@ -89,8 +114,7 @@ __device__ __forceinline__ void rk4_steps(const float* P, const Scalars& sc, Slo
 }
 
 __global__ void __launch_bounds__(LN_THREADS, 1) rollout_kernel(const float* __restrict__ params, StateIn in,
-                                                                 StateOut out, int B, int n_steps, Scalars sc,
-                                                                 Rk4Scratch rk) {
+                                                                 StateOut out, int B, int n_steps, Scalars sc) {
   extern __shared__ float smem[];
   float* P = smem;
   load_params(params, P);
@@ -114,7 +138,7 @@ __global__ void __launch_bounds__(LN_THREADS, 1) rollout_kernel(const float* __r
       ln_sync();
     }
   } else {
-    rk4_steps(P, sc, sl, g, x, rk.y0 + b0, rk.acc + b0, rk.stride, n_steps);
+    rk4_steps(P, sc, sl, g, x, n_steps);
   }
   if (valid) store_state(x, B, b, out, g);
 }
@@ -128,15 +152,14 @@ int jx_param_count() { return N_PARAMS; }
 int jx_rollout(const float* params, const float* s, const float* sd, const float* p, const float* q, const float* v,
                const float* m, float* s_out, float* sd_out, float* p_out, float* q_out, float* v_out, float* m_out,
                int B, int n_steps, float K, float D, float k_over_d, float mu, float hc_p, float hc_q, float gz,
-               float dt, float kp, float kd, float* rk4_y0, float* rk4_acc, int rk4_stride, void* stream) {
+               float dt, float kp, float kd, void* stream) {
   const Scalars sc{K, D, k_over_d, mu, hc_p, hc_q, gz, dt, kp, kd};
   const cudaError_t rc = cudaFuncSetAttribute(rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                               static_cast<int>(K1_SMEM_BYTES));
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const int blocks = (B + ENVS - 1) / ENVS;
   rollout_kernel<<<blocks, LN_THREADS, K1_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      params, StateIn{s, sd, p, q, v, m}, StateOut{s_out, sd_out, p_out, q_out, v_out, m_out}, B, n_steps, sc,
-      Rk4Scratch{rk4_y0, rk4_acc, rk4_stride});
+      params, StateIn{s, sd, p, q, v, m}, StateOut{s_out, sd_out, p_out, q_out, v_out, m_out}, B, n_steps, sc);
   return static_cast<int>(cudaGetLastError());
 }
 

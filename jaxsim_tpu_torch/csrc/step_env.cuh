@@ -80,8 +80,8 @@ struct StateOut {
   float *s, *sd, *p, *q, *v, *m;
 };
 
-// An RK4 rollout's rows in device memory: the step's start state y0 and the
-// accumulator k1 + 2 k2 + 2 k3 + k4, entry e of env b at [e * stride + b].
+// A relaxed-rigid RK4 rollout's rows in device memory: the step's start state
+// y0 and the accumulator k1 + 2 k2 + 2 k3 + k4, entry e of env b at [e * stride + b].
 // The stride is at least the launch's envs, so that an env past the batch
 // (which runs env B - 1's steps) has columns of its own.
 struct Rk4Scratch {

@@ -10,8 +10,9 @@ the step's working set in shared memory: ``soft_step_lanes.cuh``'s
 forward-only slot), the relaxed-rigid one
 ``jaxsim_tpu_torch/csrc/rollout_rr.cu`` (``RR_LANES`` lanes an env, the
 contact solve's working set in shared memory), each built per topology and
-integrator; see the notes at their tops. An RK4 build takes two scratch
-arrays in device memory (the step's start state and the stages' sum), which
+integrator; see the notes at their tops. The soft RK4 build holds the
+step's start state and the stages' sum in its lanes' registers; the
+relaxed-rigid one takes them as two scratch arrays in device memory, which
 :func:`launch` allocates.
 
 :func:`rollout` dispatches on the device of the state: a CPU state goes to
@@ -36,9 +37,10 @@ ROLLOUT_RR_KERNEL_LAUNCHES = 0
 
 SOURCE = CSRC / "rollout.cu"
 # The entry points' arguments: the model arrays, the state in and out, B and
-# the steps, the scalars, the RK4 scratch (two pointers and their stride:
-# null and 0 for a semi-implicit Euler build), the stream.
-SIGNATURES = {"jx_rollout": [PTR] * 13 + [I32, I32] + [F32] * 10 + [PTR, PTR, I32, PTR], "jx_rollout_geometry": [PTR]}
+# the steps, the scalars, the stream; the relaxed-rigid one's also the RK4
+# scratch before the stream (two pointers and their stride: null and 0 for a
+# semi-implicit Euler build).
+SIGNATURES = {"jx_rollout": [PTR] * 13 + [I32, I32] + [F32] * 10 + [PTR], "jx_rollout_geometry": [PTR]}
 RR_SOURCE = CSRC / "rollout_rr.cu"
 RR_SIGNATURES = {"jx_rollout_rr": [PTR] * 13 + [I32, I32] + [F32] * 23 + [PTR, PTR, I32, PTR], "jx_rr_geometry": [PTR]}
 # Lanes of a warp that carry one env in the soft and the relaxed-rigid
@@ -126,13 +128,13 @@ def rollout_reference(
 
 
 def rk4_scratch(engine: BatchedEngine, B: int) -> tuple[torch.Tensor | None, int]:
-    """An RK4 launch's scratch in device memory, the step's start state and
-    the stages' sum, each with a column for every env of the launch's
-    blocks (``B`` and the last block's envs past it), and its stride; None
-    and 0 for a semi-implicit Euler engine."""
+    """A relaxed-rigid RK4 launch's scratch in device memory, the step's
+    start state and the stages' sum, each with a column for every env of
+    the launch's blocks (``B`` and the last block's envs past it), and its
+    stride; None and 0 for a semi-implicit Euler engine."""
     if engine.integrator == "sie":
         return None, 0
-    stride = B + (cuda_build.RR_MAX_ENVS if engine.contact_model == "relaxed_rigid" else cuda_build.LN_FORWARD_MAX_ENVS)
+    stride = B + cuda_build.RR_MAX_ENVS
     rows = 2 * engine.n_joints + 13 + 3 * engine.m_rows
     return torch.empty((2, rows, stride), dtype=engine.S.dtype, device=engine.S.device), stride
 
@@ -143,13 +145,15 @@ def launch(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, n_st
     relaxed = engine.contact_model == "relaxed_rigid"
     out = cuda_build.empty_state_like(state)
     B = state.p.shape[-1]
-    scratch, stride = rk4_scratch(engine, B)
-    y0, acc = (0, 0) if scratch is None else (scratch[0].data_ptr(), scratch[1].data_ptr())
+    rr_args = ()
+    if relaxed:
+        scratch, stride = rk4_scratch(engine, B)
+        y0, acc = (0, 0) if scratch is None else (scratch[0].data_ptr(), scratch[1].data_ptr())
+        rr_args = (*cuda_build.rr_scalars(engine), y0, acc, stride)
     cuda_build.launch(
         kernel, "jx_rollout_rr" if relaxed else "jx_rollout", packed_params(engine), state.p.device,
         *cuda_build.state_pointers(state), *cuda_build.state_pointers(out),
-        B, int(n_steps), *cuda_build.engine_scalars(engine), float(kp), float(kd),
-        *(cuda_build.rr_scalars(engine) if relaxed else ()), y0, acc, stride,
+        B, int(n_steps), *cuda_build.engine_scalars(engine), float(kp), float(kd), *rr_args,
     )  # fmt: skip
     return out
 

@@ -12,14 +12,17 @@ The kernels' logic: each kernel body, up to its ``extern "C"`` block, is
 compiled with g++ (``-std=c++20``) against ``CUDA_SHIM`` below, a small
 header of the CUDA names: one ``std::thread`` a CUDA thread and a block at
 a time, ``__syncthreads`` and ``__syncwarp`` as ``std::barrier``s, a warp's
-``__shfl_xor_sync`` through an array between two barriers, shared memory one
-array filled with NaN before each block (a field read before it is written
-shows). The binary runs as a subprocess with a hard timeout, so a barrier
-that deadlocks fails the test instead of hanging the suite, and its output
-is held against the plain versions (``rollout_reference``,
-``env_rollout_reference``) at ``chip_smoke.TOL``; K1 also built for RK4 and
-RK4-fast engines (``JX_INTEGRATOR`` 1 and 2), whose torques the body captures
-once a step. To run these alone:
+``__shfl_xor_sync`` through one of two arrays by turns behind one barrier,
+shared memory one array filled with NaN before each block (a field read
+before it is written shows). The binary runs as a subprocess with a hard
+timeout, so a barrier that deadlocks fails the test instead of hanging the
+suite, and its output is held against the plain versions
+(``rollout_reference``, ``env_rollout_reference``) at ``chip_smoke.TOL``;
+K1 also built for RK4 and RK4-fast engines (``JX_INTEGRATOR`` 1 and 2),
+whose torques the body captures once a step, and those two built with
+``float`` as ``double`` (``JX_DOUBLE``) on garpez rolled onto its limbs,
+held against the float64 plain rollout within 1e-9, where a fault of the
+stage update cannot hide under float32's rounding. To run these alone:
 
     python -m pytest -q tests/test_torch_lane_forward.py            # pendulum, garpez
     python -m pytest -q -m slow tests/test_torch_lane_forward.py    # the humanoid
@@ -206,14 +209,17 @@ void run_block(int block, int threads, F fn) {
 
 inline void __syncthreads() { shim::block_bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { shim::warps[threadIdx.x / 32]->bar.arrive_and_wait(); }
+// A warp's xor shuffle through one of two buffers by turns, behind one warp
+// barrier: every lane of a warp makes the same shuffles in order, so no lane
+// writes a buffer before every lane has read it.
 inline float __shfl_xor_sync(unsigned, float x, int off) {
-  shim::Warp& w = *shim::warps[threadIdx.x / 32];
-  const int lane = threadIdx.x % 32;
-  w.val[lane] = x;
-  w.bar.arrive_and_wait();
-  const float y = w.val[lane ^ off];
-  w.bar.arrive_and_wait();
-  return y;
+  static float buf[2][1024];
+  static thread_local int turn = 0;
+  const int t = turn;
+  turn ^= 1;
+  buf[t][threadIdx.x] = x;
+  shim::warps[threadIdx.x / 32]->bar.arrive_and_wait();
+  return buf[t][threadIdx.x ^ off];
 }
 inline float __ldg(const float* p) { return *p; }
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -226,68 +232,90 @@ inline unsigned __umulhi(unsigned a, unsigned b) { return static_cast<unsigned>(
 # and (K5) the Options' entries, floats in C99 hex. in.bin holds the packed
 # model arrays, the state leaves s, sd, p, q, v, m and (K5) the weights;
 # out.bin gets the state leaves and (K5) the reward sums, resets and steps.
+# JX_DOUBLE 1 builds K1's body with ``float`` as ``double`` (in.bin and
+# out.bin then hold doubles), as test_torch_rr_step's harness does.
 HARNESS = r"""
 #include "cuda_runtime.h"
 #include <cstdio>
 #include <cstdlib>
 #include <limits>
+#if JX_DOUBLE
+using Real = double;
+// The CUDA names the body calls, on double: the xor shuffle as CUDA_SHIM's.
+inline double __shfl_xor_sync(unsigned, double x, int off) {
+  static double buf[2][1024];
+  static thread_local int turn = 0;
+  const int t = turn;
+  turn ^= 1;
+  buf[t][threadIdx.x] = x;
+  shim::warps[threadIdx.x / 32]->bar.arrive_and_wait();
+  return buf[t][threadIdx.x ^ off];
+}
+#define float double
+#define sqrtf sqrt
+#define fmaxf fmax
+#define fminf fmin
+#define powf pow
+#define sinf sin
+#define cosf cos
+#else
+using Real = float;
+#endif
 namespace {
-alignas(16) float smem[232448 / 4];
+alignas(16) Real smem[232448 / 4];
 }
 #include "body.cu"
+#if JX_DOUBLE
+#undef float
+#endif
 
 int main(int argc, char** argv) {
   int a = 1;
   const char* in_path = argv[a++];
   const char* out_path = argv[a++];
   const int B = std::atoi(argv[a++]), n_steps = std::atoi(argv[a++]);
-  float f[10];
-  for (float& x : f) x = std::strtof(argv[a++], nullptr);
+  Real f[10];
+  for (Real& x : f) x = std::strtod(argv[a++], nullptr);
   const Scalars sc{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], f[8], f[9]};
-  std::vector<float> in;
+  std::vector<Real> in;
   {
     FILE* fp = std::fopen(in_path, "rb");
-    float x;
-    while (std::fread(&x, 4, 1, fp) == 1) in.push_back(x);
+    Real x;
+    while (std::fread(&x, sizeof(Real), 1, fp) == 1) in.push_back(x);
     std::fclose(fp);
   }
   const size_t sizes[6] = {size_t(NJ) * B, size_t(NJ) * B, 3u * B, 4u * B, 6u * B, size_t(NCM) * 3 * B};
-  const float* params = in.data();
-  const float* leaf[6];
+  const Real* params = in.data();
+  const Real* leaf[6];
   size_t off = N_PARAMS;
   for (int k = 0; k < 6; ++k) {
     leaf[k] = in.data() + off;
     off += sizes[k];
   }
-  std::vector<float> outs[6];
-  for (int k = 0; k < 6; ++k) outs[k].assign(sizes[k], std::numeric_limits<float>::quiet_NaN());
+  std::vector<Real> outs[6];
+  for (int k = 0; k < 6; ++k) outs[k].assign(sizes[k], std::numeric_limits<Real>::quiet_NaN());
   const StateIn state_in{leaf[0], leaf[1], leaf[2], leaf[3], leaf[4], leaf[5]};
   const StateOut sout{outs[0].data(), outs[1].data(), outs[2].data(), outs[3].data(), outs[4].data(), outs[5].data()};
 #if JX_KERNEL == 5
-  const float* weights = in.data() + off;
+  const Real* weights = in.data() + off;
   const Options o{std::atoi(argv[a]), std::strtof(argv[a + 1], nullptr), std::strtof(argv[a + 2], nullptr),
                   std::atoi(argv[a + 3]), std::strtof(argv[a + 4], nullptr), std::strtof(argv[a + 5], nullptr),
                   static_cast<unsigned>(std::strtoul(argv[a + 6], nullptr, 10)), std::atoi(argv[a + 7])};
   std::vector<float> reward(B);
   std::vector<int> resets(B), steps(B);
-#else
-  // K1's RK4 scratch (unread by a semi-implicit Euler build): the state's
-  // entries for every env of the blocks, NaN until written.
-  const int rk4_stride = (B + ENVS - 1) / ENVS * ENVS;
-  std::vector<float> rk4_y0(size_t(ST_N) * rk4_stride, std::numeric_limits<float>::quiet_NaN()), rk4_acc(rk4_y0);
 #endif
   for (int blk = 0; blk < (B + ENVS - 1) / ENVS; ++blk) {
-    for (float& x : smem) x = std::numeric_limits<float>::quiet_NaN();
+    for (Real& x : smem) x = std::numeric_limits<Real>::quiet_NaN();
     shim::run_block(blk, LN_THREADS, [&] {
 #if JX_KERNEL == 5
       env_rollout_kernel(params, weights, state_in, sout, reward.data(), resets.data(), steps.data(), B, n_steps, sc, o);
 #else
-      rollout_kernel(params, state_in, sout, B, n_steps, sc, Rk4Scratch{rk4_y0.data(), rk4_acc.data(), rk4_stride});
+      rollout_kernel(params, state_in, sout, B, n_steps, sc);
 #endif
     });
   }
   FILE* fp = std::fopen(out_path, "wb");
-  for (auto& o : outs) std::fwrite(o.data(), 4, o.size(), fp);
+  for (auto& o : outs) std::fwrite(o.data(), sizeof(Real), o.size(), fp);
 #if JX_KERNEL == 5
   for (int b = 0; b < B; ++b) {
     const float r[3] = {reward[b], float(resets[b]), float(steps[b])};
@@ -300,31 +328,35 @@ int main(int argc, char** argv) {
 """
 
 
-def _build(tmp_path, engine, job, kernel: int):
+def _build(tmp_path, engine, job, kernel: int, double: bool = False, csrc=None):
     """The kernel body of ``job.source`` (up to its ``extern "C"`` block)
-    and the harness, compiled with g++ for ``engine``'s generated header."""
+    and the harness, compiled with g++ for ``engine``'s generated header
+    (with ``double``, the body with ``float`` as ``double``), from ``csrc``
+    (the checkout's ``csrc/`` by default)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
-    text = job.source.read_text()
+    csrc = csrc or cuda_build.CSRC
+    text = (csrc / job.source.name).read_text()
     (tmp_path / "body.cu").write_text(text[: text.index('extern "C" {')])
     (tmp_path / "cuda_runtime.h").write_text(CUDA_SHIM)
     (tmp_path / cuda_build.GENERATED_HEADER).write_text(cuda_build.topology_header(engine, job.defines))
     (tmp_path / "harness.cpp").write_text(HARNESS)
     binary = tmp_path / "harness"
-    cmd = [gxx, "-std=c++20", "-O1", "-pthread", "-w", f"-DJX_KERNEL={kernel}", "-I", str(tmp_path),
-           "-I", str(cuda_build.CSRC), str(tmp_path / "harness.cpp"), "-o", str(binary)]  # fmt: skip
+    cmd = [gxx, "-std=c++20", "-O1", "-pthread", "-w", f"-DJX_KERNEL={kernel}", f"-DJX_DOUBLE={int(double)}",
+           "-I", str(tmp_path), "-I", str(csrc), str(tmp_path / "harness.cpp"), "-o", str(binary)]  # fmt: skip
     subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=TIMEOUT_S)
     return binary
 
 
-def _run(tmp_path, binary, engine, state, n_steps, scalars, options=(), weights=None) -> np.ndarray:
+def _run(tmp_path, binary, engine, state, n_steps, scalars, options=(), weights=None, double=False) -> np.ndarray:
+    real = np.float64 if double else np.float32
     arrays = [cuda_build.packed_params(engine), *state.fields(), *(() if weights is None else (weights,))]
-    np.concatenate([a.detach().numpy().astype(np.float32).ravel() for a in arrays]).tofile(tmp_path / "in.bin")
+    np.concatenate([a.detach().numpy().astype(real).ravel() for a in arrays]).tofile(tmp_path / "in.bin")
     args = [str(binary), str(tmp_path / "in.bin"), str(tmp_path / "out.bin"), str(state.p.shape[-1]), str(n_steps)]
-    args += [float(np.float32(x)).hex() for x in scalars] + [str(x) for x in options]
+    args += [float(real(x)).hex() for x in scalars] + [str(x) for x in options]
     subprocess.run(args, check=True, capture_output=True, timeout=TIMEOUT_S)
-    return np.fromfile(tmp_path / "out.bin", dtype=np.float32)
+    return np.fromfile(tmp_path / "out.bin", dtype=real)
 
 
 # Base heights of the seeded starts: garpez low and tilted, so that points
@@ -469,3 +501,90 @@ def test_humanoid_rk4_body_matches_plain(tmp_path, integrator):
     """The humanoid's RK4 and RK4-fast K1 bodies at the wrapper's lanes, 10
     steps of 3 envs."""
     _rollout_case(tmp_path, "humanoid23", cuda_rollout.LANES, B=3, n_steps=10, integrator=integrator)
+
+
+# ----- K1's RK4 bodies in float64 -----
+
+# Garpez rolled onto its limbs (test_torch_rr_step's start, soft contacts):
+# the base and at least two child links' points in contact, the base
+# spinning, so that the stage update of the state's m rows, of a child's s
+# and ṡ and of the base's quaternion reach the output; ``RK4_DOUBLE_B``
+# envs, a block's other envs past the batch.
+ROLLED_QUAT = (-0.348, -0.348, 0.596, -0.635)
+ROLLED_SPIN = (4.0, -3.0, 6.0)
+RK4_DOUBLE_B, RK4_DOUBLE_STEPS = 3, 3
+F64 = dict(rtol=1e-9, atol=1e-9)  # test_torch_autograd.F64
+
+
+@functools.lru_cache(maxsize=None)
+def _engine64(integrator: str) -> BatchedEngine:
+    model = JaxSimModel.build_from_model_description(models.build_garpez_urdf(), integrator=INTEGRATORS[integrator])
+    return BatchedEngine.build(model, device="cpu").to(torch.float64)
+
+
+def _rolled64(eng: BatchedEngine, B: int):
+    """Garpez rolled onto its limbs, its base spinning, its joints displaced
+    1.2·N(0, 1) rad and moving, each env lowered 4 mm into the ground,
+    float64."""
+    rng = np.random.default_rng(0)
+    st = {k: np.asarray(v, np.float64) for k, v in bridge.state_to_numpy(eng.init_state(B)).items()}
+    st["q"] = np.tile((np.asarray(ROLLED_QUAT) / np.linalg.norm(ROLLED_QUAT))[:, None], (1, B))
+    st["s"] = 1.2 * rng.standard_normal(st["s"].shape)
+    st["sd"] = 0.3 * rng.standard_normal(st["sd"].shape)
+    st["v"][:3] = 0.1 * rng.standard_normal((3, B))
+    st["v"][3:] = np.asarray(ROLLED_SPIN)[:, None]
+    st["p"][2] = 0.0
+
+    def as_state(a):
+        return bridge.state_from_numpy(a, device="cpu", dtype=torch.float64)
+
+    z = eng._point_geometry(*eng.fk(as_state(st)), eng.params())["pc"][2]
+    st["p"][2] = -(z.min(0).values.numpy() + 0.004)
+    state = as_state(st)
+    z = eng._point_geometry(*eng.fk(state), eng.params())["pc"][2]
+    parents = torch.tensor(eng.contact_parent)
+    assert sum(bool((z[parents == i] < 0).any()) for i in range(1, eng.n_links)) >= 2
+    return state
+
+
+def _rk4_double_case(tmp_path, integrator: str, csrc=None) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """K1's RK4 or RK4-fast body built with ``float`` as ``double`` from
+    ``csrc`` (the checkout's by default), one launch of RK4_DOUBLE_STEPS
+    steps on the rolled garpez, and the float64 plain rollout, by field."""
+    eng = _engine64(integrator)
+    state = _rolled64(eng, RK4_DOUBLE_B)
+    binary = _build(tmp_path, eng, cuda_rollout.job(eng), 1, double=True, csrc=csrc)
+    kp, kd = 60.0, 0.5
+    flat = _run(tmp_path, binary, eng, state, RK4_DOUBLE_STEPS, (*cuda_build.engine_scalars(eng), kp, kd), double=True)
+    got, _ = _fields(flat, state)
+    want = cuda_rollout.rollout_reference(eng, state, RK4_DOUBLE_STEPS, kp, kd)
+    return {name: (got[name], w.numpy()) for name, w in zip(bridge.STATE_FIELDS, want.fields())}
+
+
+@pytest.mark.parametrize("integrator", ("rk4", "rk4fast"))
+def test_rk4_bodies_in_double_match_float64_plain(tmp_path, integrator):
+    """K1's RK4 and RK4-fast bodies built with ``float`` as ``double``
+    against the float64 plain rollout within 1e-9 in every field
+    (``_rk4_double_case``): at the float32 limits a fault of the stage
+    update can hide under rounding; here it cannot."""
+    fields = _rk4_double_case(tmp_path, integrator)
+    for name, (got, want) in fields.items():
+        np.testing.assert_allclose(got, want, err_msg=name, **F64)
+    m0 = _rolled64(_engine64(integrator), RK4_DOUBLE_B).m.numpy()
+    assert float(np.abs(fields["m"][1] - m0).max()) > 1e-6
+
+
+def test_rk4_double_rehearsal_refuses_the_stage_update_fault(tmp_path):
+    """``chip_probe.RK4_FAULTS``' fault of the stage update, seeded into a
+    copy of ``csrc/``, moves some field of the RK4 body's float64 rehearsal
+    beyond 1e-9 of the float64 plain rollout."""
+    from tests.test_torch_rk4 import _chip_probe
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    for file, old, new in _chip_probe().RK4_FAULTS["y0 captured once a launch"]:
+        text = (csrc / file).read_text()
+        assert text.count(old) == 1
+        (csrc / file).write_text(text.replace(old, new))
+    fields = _rk4_double_case(tmp_path, "rk4", csrc)
+    assert not all(np.allclose(got, want, **F64) for got, want in fields.values())

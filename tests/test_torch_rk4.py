@@ -21,6 +21,7 @@ without one; they import no JAX:
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import os
 
@@ -110,6 +111,17 @@ def _jax_engine(case: str, integrator: str):
     return JaxEngine.build(model)
 
 
+def _stages_traced_once(jeng):
+    """A copy of the JAX engine whose derivative, which an RK4 step evaluates
+    four times, is one jitted function: tracing the step then traces it once
+    and JAX inlines it four times, the same arithmetic."""
+    import jax
+
+    eng = dataclasses.replace(jeng)
+    object.__setattr__(eng, "derivatives", jax.jit(eng.derivatives))
+    return eng
+
+
 def _port_engine(case: str, integrator: str, dtype=torch.float32) -> BatchedEngine:
     return bridge.engine_from_numpy(*bridge.reference_engine_arrays(_jax_engine(case, integrator)), device="cpu",
                                     dtype=dtype)  # fmt: skip
@@ -161,7 +173,7 @@ def _jax_steps(case, integrator, arrays, n_steps, x64):
 
     from jaxsim_tpu.ops.batched_engine import BatchedState as JaxState
 
-    jeng, tau_fn = _jax_engine(case, integrator), _tau_fn(case)
+    jeng, tau_fn = _stages_traced_once(_jax_engine(case, integrator)), _tau_fn(case)
     _, params = bridge.reference_engine_arrays(jeng)
     with jax.enable_x64(x64):
         dtype = jnp.float64 if x64 else jnp.float32
@@ -340,7 +352,7 @@ def test_soft_rk4_step_vjp_matches_jax(case):
 
     from jaxsim_tpu.ops.batched_engine import BatchedState as JaxState
 
-    jeng = _jax_engine(case, "rk4")
+    jeng = _stages_traced_once(_jax_engine(case, "rk4"))
     teng = _port_engine(case, "rk4", torch.float64)
     arrays = _arrays(case, teng)
     rng = np.random.default_rng(7)
@@ -375,15 +387,15 @@ def test_relaxed_rigid_rk4_step_vjp_matches_jax_vjp(integrator):
     """The relaxed-rigid RK4 and RK4-fast steps' VJP under autograd, on the
     box in contact, through four implicit PCG backwards (RK4) or one with
     frozen wrenches (RK4-fast), against ``jax.vjp`` of the JAX step in every
-    state leaf, float64, for a seeded output cotangent (the JAX VJPs compile
-    for about 50 s and 20 s, one a case, so that two workers compile them
-    side by side)."""
+    state leaf, float64, for a seeded output cotangent (the JAX VJPs take
+    about 40 s and 20 s to trace and compile, one a case, so that two
+    workers take them side by side)."""
     import jax
     import jax.numpy as jnp
 
     from jaxsim_tpu.ops.batched_engine import BatchedState as JaxState
 
-    jeng = _jax_engine("box_relaxed_rigid", integrator)
+    jeng = _stages_traced_once(_jax_engine("box_relaxed_rigid", integrator))
     teng = _port_engine("box_relaxed_rigid", integrator, torch.float64)
     arrays = _arrays("box_relaxed_rigid", teng)
     rng = np.random.default_rng(7)
@@ -573,7 +585,7 @@ def _chip_probe():
     return module
 
 
-@pytest.mark.parametrize("fault", ["stage weights", "torques re-read", "Baumgarte", "stage PCG"])
+@pytest.mark.parametrize("fault", ["stage weights", "torques re-read", "Baumgarte", "y0 captured", "stage PCG"])
 def test_rk4_faults_seed_into_the_sources(fault):
     """Each of ``chip_probe.RK4_FAULTS`` edits text that its source file
     holds exactly once, and the edit changes it, so the probe's seeded
@@ -583,6 +595,16 @@ def test_rk4_faults_seed_into_the_sources(fault):
     for file, old, new in faults[name]:
         assert old != new
         assert (cuda_build.CSRC / file).read_text().count(old) == 1, (name, file)
+
+
+def test_rk4_variants_and_stamps_apply_once():
+    """Each edit of ``chip_probe.RK4_VARIANTS``, of the owned-entries
+    variant and of the clock stamps (``chip_probe.py rk4_variants``) finds
+    its text once in its source, so the probe builds what it names."""
+    probe = _chip_probe()
+    edits = [e for edits in probe.RK4_VARIANTS.values() for e in edits] + probe._RK4_OWNED + probe._RK4_PH
+    for file, old, new in edits:
+        assert (cuda_build.CSRC / file).read_text().count(old) == 1 and old != new, old
 
 
 # ----- slow: garpez with relaxed-rigid contacts, the humanoid -----
