@@ -7,7 +7,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
     python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations] [rr] [rr_faults] [param_sum]
         [profiler] [vjp] [vjp_faults] [lanes] [quat] [k1_faults] [step] [step_faults] [kernels] [rk4_faults]
         [rr_step] [rr_step_faults] [rr_vjp] [rr_vjp_faults] [rr_vjp_phases] [rr_envs] [rr_phases]
-        [rr_variants] [rk4_variants]
+        [rr_variants] [rk4_variants] [rough_faults]
 
 With no argument it runs the first three. Probes of the flagship humanoid
 (soft contacts, flat ground, PD policy):
@@ -129,6 +129,12 @@ With no argument it runs the first three. Probes of the flagship humanoid
   ``rr_gates`` (RR_RK4_CASES); per case the worst field's statistic over
   its limit (> 1 is refused). A fault whose source edit a build does not
   include gives that build's own numbers.
+* rough_faults: ``ROUGH_FAULTS`` (the terrain offset's sign flipped, the
+  env's Kmul ignored, the tangential velocity split off flat ground's normal)
+  seeded into copies of ``csrc/`` under ``build/``, each built for the rough
+  humanoid with the terrain offset, and with the multipliers too, beside the
+  sound source and held with it by ``chip_smoke.rough_k1_gates`` on its two
+  rough cases: per case the worst statistic over its limit (> 1 is refused).
 * rr_step: K3-rr (``step_rr.cu``) at each envs a block in ``RR_STEP_ENVS``
   (the most that fit up to it), on the relaxed-rigid humanoid at 8192 envs
   (the relaxed-rigid main path's start and its PD torques) and on garpez
@@ -375,6 +381,20 @@ RK4_FAULTS = {
         "        wm[k] = Integrator == 1 && pt[k / 3] >= 0 ? y0m[(pt[k / 3] * 3 + k % 3) * rs] : m[k];\n"
         "      rr_solve(P, sc, sl, g, pt, wm, x);\n      if (Integrator == 2)",
     )],
+}
+
+# Faults of the soft lane step's terrain law (step_env.cuh's hc_terrain_law),
+# held by chip_smoke.rough_k1_gates on its two rough cases: the env's terrain
+# offset added where it is taken off, the env's Kmul ignored, and the
+# tangential velocity split off flat ground's normal (z) in place of the
+# terrain's.
+ROUGH_FAULTS = {
+    "terrOff with its sign flipped": [(
+        "step_env.cuh", "pc[0] - dom.ox : pc[0], y = TERR_OFF ? pc[1] - dom.oy",
+        "pc[0] + dom.ox : pc[0], y = TERR_OFF ? pc[1] + dom.oy")],
+    "Kmul ignored": [("step_env.cuh", "const float K = DOMAIN ? sc.K * dom.Kmul : sc.K", "const float K = sc.K")],
+    "tangential projection left flat ground's": [
+        ("step_env.cuh", "v_t[k] = pd[k] - ndotv * n[k];", "v_t[k] = k < 2 ? pd[k] : 0.0f;")],
 }
 
 # y0 and the stages' sum in shared memory, a lane's j-th entry at
@@ -1563,6 +1583,46 @@ def rk4_faults_probe(hum, gen) -> None:
     print(json.dumps({"rk4_faults": ratios}), flush=True)
 
 
+def rough_faults_probe(hum, gen) -> None:
+    """Each of ROUGH_FAULTS seeded into a copy of ``csrc/`` under ``build/``,
+    built for the rough humanoid with the terrain offset and with the
+    multipliers too beside the sound source, and every variant held to
+    ``chip_smoke.py``'s rough limits (``rough_k1_gates`` on its rough cases,
+    the main path's start, offsets and multipliers): per case the worst
+    statistic over its limit (> 1 is refused)."""
+    import torch
+
+    from chip_smoke import BATCH, humanoid_engine, pendulum_engine, rough_k1_gates, rough_options, rough_terrain, start_states
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_rollout
+
+    device = hum.S.device
+    rough = humanoid_engine(device, terrain=rough_terrain())
+    state0 = start_states(pendulum_engine(device), hum)["humanoid23 main-path start"][1]
+    terr_off, domain = rough_options(BATCH, device)
+    dirs = {"control": cuda_build.CSRC, **{name: _seeded_edits("rough_faults", name, edits)
+                                           for name, edits in ROUGH_FAULTS.items()}}  # fmt: skip
+    jobs = {}
+    for name, d in dirs.items():
+        for dom in (False, True):
+            job = cuda_rollout.job(rough, domain=dom, terr_off=True)
+            jobs[(name, dom)] = dataclasses.replace(job, source=d / job.source.name)
+    kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+
+    def variant(name):
+        def run(eng, st, n, domain=None, terr_off=None):
+            mul, off = cuda_build.domain_rows(eng, st.p.shape[-1], domain, terr_off, device)
+            return cuda_rollout.launch(kernels[(name, domain is not None)], eng, st, n, 60.0, 0.5, mul, off)
+
+        return run
+
+    rough_case = "humanoid23 rough, terrOff"
+    _, ratios = rough_k1_gates({
+        rough_case: ("rollout_rough", rough, state0, None, terr_off, None),
+        f"{rough_case}, five multipliers": ("rollout_rough_domain", rough, state0, domain, terr_off, rough_case),
+    }, {name: variant(name) for name in dirs})  # fmt: skip
+    print(json.dumps({"rough_faults": ratios}), flush=True)
+
+
 def rr_step_probe(hum, gen) -> None:
     """K3-rr at each envs a block of RR_STEP_ENVS on the relaxed-rigid
     humanoid and garpez (see the module's note)."""
@@ -1978,6 +2038,7 @@ PROBES = {
     "rr_variants": rr_variants_probe,
     "rr_phases": rr_phases_probe,
     "rk4_variants": rk4_variants_probe,
+    "rough_faults": rough_faults_probe,
 }
 
 

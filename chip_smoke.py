@@ -57,6 +57,20 @@ plain PyTorch version on the card:
   (``RK4_CASES``), the relaxed-rigid one on
   RR_CASES' starts over shorter horizons (``RR_RK4_CASES``), by the same
   statistics and limits;
+* rough terrain and an inclined plane: soft K1 (``rollout.cu`` built with
+  ``JX_TERRAIN`` 2 and ``JX_TERR_OFF``, and with ``JX_DOMAIN`` too) on
+  bench.py's rough humanoid (``ROUGH``) from the main path's start with
+  each env's ``terrOff`` and with the five multipliers, against the float32
+  and float64 twins (``rough_k1_gates``: the max after 10 steps and the
+  p99.9 after 50 against the float64 twin within 2× the float32 twin's own
+  distance, the median after 50 against the float32 twin, ≥ 10 % of the
+  active points on slopes, the multipliers moving p_z by more than the
+  gate); K1 on garpez on an inclined plane (``PLANE``, 100 steps); K2 and K3
+  (``step.cu`` built for each terrain) chained on both, at their max after
+  1 and 10 steps; and K5 (``env_rollout.cu`` with the three options) at
+  the ES shapes with ``terr_off``, the multipliers and the terrain-relative
+  height (``rough_env_gates``: resets and steps equal over 20 steps, an env
+  that parts over 50 only at a bound of the healthy range);
 * K6 and K7 (``fma_probe.cu``), each FMA-rate probe variant against its
   plain version at a small T, in units in the last place, at a multiplier
   and increment that move every chain at every iteration; and the FMA
@@ -99,6 +113,13 @@ before it and read just after:
   of ``SOFT_RK4_HORIZON`` steps;
 * RK4-fast, soft and relaxed-rigid, one K1 launch each at the two RK4 main
   paths' shapes (timing only);
+* rough terrain: bench.py's ``rough_terrain`` uncut, four chained
+  400-step K1 launches with each env's ``terrOff``, and one more with the
+  five multipliers; 10 K2 launches on the rough humanoid; three rough ES
+  generations (K5 with ``terr_off``, the multipliers and the
+  terrain-relative height); 20 rough ``BatchedEnv.step`` with the
+  terrain-relative height (K3); and garpez on the inclined plane, one
+  100-step K1 launch and 10 K3 launches;
 * the FMA-rate probes: K6's float32 peak, which is K7's float32 rate (one
   sweep, its launches counted as both), and K7's two bf16 rates, each the
   best of a sweep over chains per thread and blocks per SM, with its share
@@ -148,7 +169,9 @@ PROFILER_TRIES = 5
 PLAIN_TIMED_STEPS = dict(rollout=100, step_pd=10, step_tau=10, env_rollout=20, step_vjp=3, rollout_relaxed_rigid=20,
                          rollout_rk4=10, rollout_rk4fast=10, rollout_relaxed_rigid_rk4=5,
                          rollout_relaxed_rigid_rk4fast=5, step_pd_relaxed_rigid=3, step_tau_relaxed_rigid=3,
-                         env_rollout_relaxed_rigid=5, step_vjp_relaxed_rigid=3)  # fmt: skip
+                         env_rollout_relaxed_rigid=5, step_vjp_relaxed_rigid=3, rollout_rough=10,
+                         rollout_rough_domain=10, rollout_plane=10, step_pd_rough=5, step_tau_rough=5,
+                         step_tau_plane=5, env_rollout_rough=5)  # fmt: skip
 PER_STEP_LAUNCHES = 100  # K2 main path
 ENV_STEPS = 20  # BatchedEnv.step main path
 # ES main path: examples/train_es_mlp.py uncut.
@@ -402,6 +425,13 @@ REPLACES = dict(
     bf16_probe_f32="scripts/bf16_probe.py:36",
     bf16_probe_bf16="scripts/bf16_probe.py:36",
     bf16_probe_bf16_store="scripts/bf16_probe.py:36",
+    rollout_rough="jaxsim_tpu/ops/pallas_step.py:664",
+    rollout_rough_domain="jaxsim_tpu/ops/pallas_step.py:664",
+    rollout_plane="jaxsim_tpu/ops/pallas_step.py:664",
+    step_pd_rough="jaxsim_tpu/ops/pallas_step.py:86",
+    step_tau_rough="jaxsim_tpu/ops/pallas_step.py:178",
+    step_tau_plane="jaxsim_tpu/ops/pallas_step.py:178",
+    env_rollout_rough="jaxsim_tpu/ops/pallas_step.py:787",
 )
 SOURCES = dict(
     rollout="jaxsim_tpu_torch/csrc/rollout.cu",
@@ -426,6 +456,13 @@ SOURCES = dict(
     bf16_probe_f32="jaxsim_tpu_torch/csrc/fma_probe.cu",
     bf16_probe_bf16="jaxsim_tpu_torch/csrc/fma_probe.cu",
     bf16_probe_bf16_store="jaxsim_tpu_torch/csrc/fma_probe.cu",
+    rollout_rough="jaxsim_tpu_torch/csrc/rollout.cu",
+    rollout_rough_domain="jaxsim_tpu_torch/csrc/rollout.cu",
+    rollout_plane="jaxsim_tpu_torch/csrc/rollout.cu",
+    step_pd_rough="jaxsim_tpu_torch/csrc/step.cu",
+    step_tau_rough="jaxsim_tpu_torch/csrc/step.cu",
+    step_tau_plane="jaxsim_tpu_torch/csrc/step.cu",
+    env_rollout_rough="jaxsim_tpu_torch/csrc/env_rollout.cu",
 )
 
 
@@ -457,12 +494,14 @@ def with_integrator(engine, integrator: str):
     return out
 
 
-def humanoid_engine(device, integrator="sie"):
-    """The flagship model, lowered as bench.py lowers it."""
+def humanoid_engine(device, integrator="sie", terrain=None):
+    """The flagship model, lowered as bench.py lowers it (on ``terrain``,
+    flat ground by default: bench.py's rough_terrain takes the same contact
+    parameters)."""
     from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, models
     from jaxsim_tpu_torch.api.contact import estimate_good_contact_parameters
 
-    model = JaxSimModel.build_from_model_description(models.build_humanoid_urdf(),
+    model = JaxSimModel.build_from_model_description(models.build_humanoid_urdf(), terrain=terrain,
                                                      integrator=integrator_type(integrator))  # fmt: skip
     params = estimate_good_contact_parameters(
         model,
@@ -525,21 +564,23 @@ def all_finite(state) -> bool:
 
 
 def over_envs(diff: dict, stat: str) -> dict[str, float]:
-    """``stat`` (max or p99.9) over envs of each entry's per-env |Δ|."""
+    """``stat`` (max, median or p99.9) over envs of each entry's per-env |Δ|."""
     import torch
 
     if stat == "max":
         return {k: float(d.max()) for k, d in diff.items()}
-    return {k: float(torch.quantile(d.double(), 0.999)) for k, d in diff.items()}
+    q = 0.5 if stat == "median" else 0.999
+    return {k: float(torch.quantile(d.double(), q)) for k, d in diff.items()}
 
 
 def gate(name: str, diff: dict, stat: str, limits: dict | None = None) -> float:
-    """Fails when ``stat`` (max or p99.9 over envs) of any entry's per-env
+    """Fails when ``stat`` (max, median or p99.9 over envs) of any entry's per-env
     |Δ| exceeds its limit (TOL unless ``limits`` names one); returns the
     largest max |Δ| over the entries."""
     err, p999 = over_envs(diff, "max"), over_envs(diff, "p99.9")
-    print(f"{name}: max |Δ| {json.dumps(err)}, p99.9 over envs {json.dumps(p999)}", flush=True)
-    gated = err if stat == "max" else p999
+    extra = f", median over envs {json.dumps(over_envs(diff, 'median'))}" if stat == "median" else ""
+    print(f"{name}: max |Δ| {json.dumps(err)}, p99.9 over envs {json.dumps(p999)}{extra}", flush=True)
+    gated = {"max": err, "p99.9": p999}.get(stat) or over_envs(diff, stat)
     limits = limits or {}
     bad = {k: e for k, e in gated.items() if not e <= limits.get(k, TOL)}
     if bad:
@@ -693,22 +734,23 @@ def profiled_ms(fn, kernel: str, repeats: int) -> float:
     raise RuntimeError(f"the profiler missed launches of {kernel!r} in {PROFILER_TRIES} windows")
 
 
-def chained(engine, start, horizon: int, calls: int):
-    """K1 from ``start``: a warm-up launch, then ``calls`` chained launches
-    of ``horizon`` steps, each timed by wall clock and CUDA events and ended
-    by a synchronize: the last state and ``[(wall s, device ms), ...]``."""
+def chained(engine, start, horizon: int, calls: int, **options):
+    """K1 from ``start`` (with ``options``: its per-env rows): a warm-up
+    launch, then ``calls`` chained launches of ``horizon`` steps, each timed
+    by wall clock and CUDA events and ended by a synchronize: the last state
+    and ``[(wall s, device ms), ...]``."""
     import torch
 
     from jaxsim_tpu_torch.ops import cuda_rollout
 
-    out = cuda_rollout.rollout(engine, start, horizon)  # warm-up
+    out = cuda_rollout.rollout(engine, start, horizon, **options)  # warm-up
     torch.cuda.synchronize()
     times = []
     for _ in range(calls):
         start_ev, end_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start_ev.record()
-        out = cuda_rollout.rollout(engine, out, horizon)
+        out = cuda_rollout.rollout(engine, out, horizon, **options)
         end_ev.record()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0, start_ev.elapsed_time(end_ev)))
@@ -784,10 +826,11 @@ def es_population(theta_mu, gen, n: int, d: int):
     return eps, {k: t.reshape(P, *s).contiguous() for k, t, s in zip(("W1", "b1", "W2", "b2"), parts, shapes)}
 
 
-def garpez_engine(device):
+def garpez_engine(device, terrain=None):
     from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, models
 
-    return BatchedEngine.build(JaxSimModel.build_from_model_description(models.build_garpez_urdf()), device=device)
+    model = JaxSimModel.build_from_model_description(models.build_garpez_urdf(), terrain=terrain)
+    return BatchedEngine.build(model, device=device)
 
 
 def contact_branches(engine, state) -> tuple[int, int, int]:
@@ -1631,6 +1674,366 @@ def vjp_starts(pend, hum, garp, apg) -> tuple[dict, object]:
     return starts, case_tau
 
 
+# ----- rough terrain, an inclined plane and per-env domain multipliers -----
+
+# bench.py's rough_terrain (bench.py:409-440) uncut: the humanoid with the
+# flagship's contact parameters on FourierTerrain.build(seed=0, 8, 0.04, 0.7),
+# 8192 envs, 400 steps a K1 launch, each env's terrain query translated by
+# TERR_OFF_SCALE·N(0, 1) (its own patch of the terrain), the PD policy from
+# the main path's start. The domain multipliers' launch draws each env's
+# exp(σ·N(0, 1)) with the σ of DOMAIN_SIGMAS (examples/rough_terrain_rl.py's
+# ±30 % ground stiffness, and the other four).
+ROUGH = dict(seed=0, num_components=8, amplitude=0.04, wavelength=0.7)
+ROUGH_HORIZON, ROUGH_TIMED_CALLS = 400, 3
+TERR_OFF_SCALE = 10.0
+DOMAIN_SIGMAS = dict(Kmul=0.3, Dmul=0.3, mumul=0.2, gmul=0.05, Mmul=0.1)
+# Rough terrain is chaotic (ROADMAP Queue 3 facts: the JAX round's fused
+# rollout and engine part by 0.417 in v at 50 steps at their max, 0.011 at
+# their median): on an H100 the kernel and the float32 twin already part by
+# 3.0e-3 in ṡ after 10 steps at their max over 8192 envs (p99.9 3.0e-4), and
+# the float32 twin and the float64 twin part as far. So each rough case is
+# held, against the float64 twin, at its max over envs after ROUGH_SHORT
+# steps and at p99.9 after ROUGH_LONG, each within max(TOL, 2 × the float32
+# twin's own distance to it at that statistic) (the relaxed-rigid pattern,
+# RR_CASES), and at its median against the float32 twin after ROUGH_LONG. A
+# rough case fails unless SLOPE_SHARE of its active points (summed over the
+# plain trajectory's states after 1, ROUGH_SHORT and ROUGH_LONG steps) stand
+# where the terrain's n_z < SLOPE_NZ, so that a kernel with flat ground's
+# normal would breach it; the multipliers' case fails unless the multipliers
+# move the envs' p_z apart by more than TOL.
+ROUGH_SHORT, ROUGH_LONG = 10, 50
+# m, plausible base heights above the terrain under the base after the rough
+# main path: HEIGHT_BAND's, its floor lowered by four amplitudes, since the
+# terrain under the base point of a fallen humanoid can rise between the
+# pelvis's collision points, about the terrain's span over the pelvis.
+ROUGH_HEIGHT_BAND = (HEIGHT_BAND[0] - 4 * ROUGH["amplitude"], HEIGHT_BAND[1])
+SLOPE_NZ, SLOPE_SHARE = 0.99, 0.10
+# The inclined plane: garpez tilted low (RR_GARPEZ) on this plane, raised by
+# its height, at PLANE_BATCH envs: K1 PLANE_K1_STEPS steps, held at its max;
+# K3 PLANE_K3_STEPS steps, held at its max after one step and after ten, as
+# K2 and K3 are on the rough humanoid (no per-env options: the JAX kernels
+# take none).
+PLANE = dict(height=0.05, normal=(0.1, 0.0, 1.0))
+PLANE_BATCH, PLANE_K1_STEPS, PLANE_K3_STEPS = 1024, 100, 10
+ROUGH_PER_STEP_LAUNCHES = 10  # K2 on rough terrain, the per-step rollout
+# K5 on rough terrain (rough_env_gates): the ES main path's shapes, MLP and
+# options with terr_off, the five multipliers and the terrain-relative height,
+# its healthy range TERMINATION_Z (of relative height) so that envs end by it
+# from the first steps. Held at its max after ROUGH_SHORT steps against the
+# float64 plain version as the rough K1 cases are (on an H100 the kernel and
+# the float32 plain version part by 1.05e-3 in ṡ there); resets and
+# steps equal in every env after ROUGH_ENV_PARITY; after ROUGH_LONG, an env
+# whose resets or steps differ fails unless the plain version's relative
+# height at the step where the two part lies within ROUGH_ENV_BAND of a bound
+# of the range, and the other envs' fields and reward sums are held at the
+# rough cases' median and p99.9.
+ROUGH_ENV_PARITY, ROUGH_ENV_BAND = 20, 1e-3
+
+
+def rough_terrain():
+    from jaxsim_tpu_torch.terrain import FourierTerrain
+
+    return FourierTerrain.build(**ROUGH)
+
+
+def plane_terrain():
+    from jaxsim_tpu_torch.terrain import PlaneTerrain
+
+    return PlaneTerrain.build(PLANE["height"], normal=PLANE["normal"])
+
+
+def rough_options(B: int, device, seed: int = 9) -> tuple:
+    """Seeded per-env rows: ``terr_off`` TERR_OFF_SCALE·N(0, 1) of shape
+    (2, B), and the five multipliers exp(σ·N(0, 1))."""
+    import torch
+
+    gen = torch.Generator(device).manual_seed(seed)
+    terr_off = TERR_OFF_SCALE * torch.randn((2, B), generator=gen, device=device)
+    domain = {k: torch.exp(s * torch.randn(B, generator=gen, device=device)) for k, s in DOMAIN_SIGMAS.items()}
+    return terr_off, domain
+
+
+def plane_start(garp_plane, gen):
+    """Garpez tilted low (RR_GARPEZ) raised by the plane's height, so that
+    its corners press into the incline from step 0."""
+    state = garpez_tilted(garp_plane, gen)
+    state.p[2] += PLANE["height"]
+    return state
+
+
+def slope_points(engine, state, terr_off=None) -> tuple[int, int]:
+    """Contact points of ``state`` in contact on the engine's terrain (its
+    Fourier terrain with the envs' offsets, or its plane), over all envs, and
+    how many of them stand where the terrain's n_z < SLOPE_NZ."""
+    import torch
+
+    pr = engine.params(None if terr_off is None else {"terrOff": terr_off})
+    pc = engine._point_geometry(*engine.fk(state, pr), pr)["pc"]
+    if engine.terrain_kind == "fourier":
+        h, dhx, dhy = engine._fourier_height_grad(pr, pc[0], pc[1])
+        nz = 1.0 / torch.sqrt(dhx * dhx + dhy * dhy + 1.0)
+        active = (h - pc[2]) * nz > 0
+    else:
+        n = engine.terrain_normal
+        active = engine.terrain_offset - (n[0] * pc[0] + n[1] * pc[1] + n[2] * pc[2]) > 0
+        nz = torch.full_like(pc[0], n[2])
+    return int(active.sum()), int((active & (nz < SLOPE_NZ)).sum())
+
+
+def check_slopes(label: str, counts: list[tuple[int, int]]) -> None:
+    active, sloped = map(sum, zip(*counts))
+    print(f"{label}: active contact points {active}, of them where n_z < {SLOPE_NZ}: {sloped}", flush=True)
+    if not active or sloped < SLOPE_SHARE * active:
+        raise RuntimeError(f"{label}: fewer than {SLOPE_SHARE:.0%} of the active points on slopes; the gate is blind")
+
+
+def double_rows(rows: dict | None) -> dict | None:
+    return None if rows is None else {k: (None if t is None else t.double()) for k, t in rows.items()}
+
+
+def rough_twins(engine, state, steps: tuple[int, ...], domain=None, terr_off=None) -> dict:
+    """The plain K1 (PD) on ``engine`` from ``state`` with the per-env rows,
+    in float32 and float64: ``{"float32": {t: state}, "float64": {t: state
+    (as float32)}, "slopes": [(active, sloped), ...]}`` after each of
+    ``steps`` (and the slope counts after step 1 too)."""
+    import copy
+
+    import torch
+
+    from jaxsim_tpu_torch import BatchedState
+    from jaxsim_tpu_torch.ops import cuda_rollout
+
+    eng64 = copy.deepcopy(engine).double()
+    runs = {"float32": (engine, state, domain, terr_off),
+            "float64": (eng64, BatchedState(*(t.double() for t in state.fields())), double_rows(domain),
+                        None if terr_off is None else terr_off.double())}  # fmt: skip
+    out = {"float32": {}, "float64": {}, "slopes": []}
+    with torch.no_grad():
+        for kind, (eng, st, dom, off) in runs.items():
+            for t in range(1, max(steps) + 1):
+                st = cuda_rollout.rollout_reference(eng, st, 1, domain=dom, terr_off=off)
+                if t in steps:
+                    out[kind][t] = BatchedState(*(x.float() for x in st.fields()))
+                if kind == "float32" and (t == 1 or t in steps):
+                    out["slopes"].append(slope_points(engine, st, terr_off))
+    return out
+
+
+def rough_limits(label: str, twins: dict, n: int, stat: str) -> dict[str, float]:
+    """Each field's limit against the float64 twin after ``n`` steps at
+    ``stat`` over envs: max(TOL, 2 × the float32 twin's own distance to it)."""
+    spread = over_envs(per_env_abs_diff(twins["float32"][n], twins["float64"][n]), stat)
+    print(f"{label}: float32 twin vs float64 twin after {n} steps, {stat} over envs {json.dumps(spread)}", flush=True)
+    return {k: max(TOL, 2 * e) for k, e in spread.items()}
+
+
+def rough_k1_gates(cases: dict, variants=None) -> tuple[dict[str, list[float]], dict[str, dict[str, float]]]:
+    """Soft K1 on rough terrain against the plain twin: ``cases`` maps a name
+    to ``(kernel name, engine, state, domain, terr_off, reference case)``;
+    each held at its max after ROUGH_SHORT steps, and after ROUGH_LONG at its
+    median against the float32 twin and at p99.9 against the float64 twin
+    (:func:`rough_limits`), its slopes checked (:func:`check_slopes`); a case
+    with a reference case (the same start without the multipliers) fails
+    unless the multipliers move p_z by more than TOL. ``variants`` maps a
+    name to a function like ``cuda_rollout.rollout``: by default the wrapper,
+    gated (a breach raises); other variants (seeded faults) are held to the
+    same limits without raising. Returns the largest |Δ| of each case held
+    at its max by kernel name (the default variant's), and for each variant
+    and case its worst statistic over its limit (> 1 is refused)."""
+    import torch
+
+    from jaxsim_tpu_torch.ops import cuda_rollout
+
+    gated = variants is None
+    variants = variants or {"kernel": cuda_rollout.rollout}
+    errs, ratios, twins = {}, {name: {} for name in variants}, {}
+    for name, (kname, engine, state, domain, off, ref_case) in cases.items():
+        label = f"{kname} vs plain, {name} B={state.p.shape[-1]}"
+        tw = twins[name] = rough_twins(engine, state, (ROUGH_SHORT, ROUGH_LONG), domain, off)
+        check_slopes(label, tw["slopes"])
+        if ref_case is not None:
+            moved = float((tw["float32"][ROUGH_LONG].p[2] - twins[ref_case]["float32"][ROUGH_LONG].p[2]).abs().max())
+            print(f"{label}: the multipliers move p_z by {moved:.6g} m in {ROUGH_LONG} steps (max over envs)")
+            if not moved > TOL:
+                raise RuntimeError(f"{label}: the multipliers move no env by more than the gate")
+        short_limits = rough_limits(label, tw, ROUGH_SHORT, "max")
+        long_limits = rough_limits(label, tw, ROUGH_LONG, "p99.9")
+        for vname, run in variants.items():
+            short = run(engine, state, ROUGH_SHORT, domain=domain, terr_off=off)
+            long = run(engine, state, ROUGH_LONG, domain=domain, terr_off=off)
+            torch.cuda.synchronize()
+            if gated:
+                d32 = over_envs(per_env_abs_diff(short, tw["float32"][ROUGH_SHORT]), "max")
+                print(f"{label} {ROUGH_SHORT} steps: against the float32 twin (not gated), max over envs {json.dumps(d32)}")
+            checks = ((f"{ROUGH_SHORT} steps, against the float64 twin", short, tw["float64"][ROUGH_SHORT], "max",
+                       short_limits),
+                      (f"{ROUGH_LONG} steps", long, tw["float32"][ROUGH_LONG], "median", {}),
+                      (f"{ROUGH_LONG} steps, against the float64 twin", long, tw["float64"][ROUGH_LONG], "p99.9",
+                       long_limits))  # fmt: skip
+            for what, kern, ref, stat, lim in checks:
+                ratio = math.inf
+                if all_finite(kern):
+                    ratio = max(e / lim.get(k, TOL) for k, e in over_envs(per_env_abs_diff(kern, ref), stat).items())
+                ratios[vname][f"{name} {what}, {stat}"] = ratio
+                if gated:
+                    if not all_finite(kern):
+                        raise RuntimeError(f"{label} {what}: non-finite state")
+                    err = gate(f"{label} {what}", per_env_abs_diff(kern, ref), stat, lim)
+                    if stat == "max":
+                        errs.setdefault(kname, []).append(err)
+                else:
+                    print(f"{vname} vs plain, {name} {what}: worst field's {stat} over its limit {ratio:.6g}", flush=True)
+    return errs, ratios
+
+
+def terrain_step_gates(cases: dict, variants=None) -> tuple[dict[str, list[float]], dict[str, dict[str, float]]]:
+    """K2 and K3 on a terrain against the plain twin: ``cases`` maps a name
+    to ``(suffix, engine, state)``; K2 chained and K3 chained under the PD
+    torques, each held at its max after one step and after PLANE_K3_STEPS;
+    a rough case's slopes checked. ``variants`` as :func:`step_gates`'.
+    Returns the largest |Δ| by kernel name, and the ratios."""
+    import torch
+
+    from jaxsim_tpu_torch.ops import cuda_rollout, cuda_step
+
+    gated = variants is None
+    variants = variants or {"kernel": (cuda_step.step_pd, cuda_step.step_tau)}
+    errs, ratios = {}, {name: {} for name in variants}
+    for name, (suffix, engine, state) in cases.items():
+        plain, st = {}, state
+        with torch.no_grad():
+            for t in range(1, PLANE_K3_STEPS + 1):
+                st = cuda_rollout.rollout_reference(engine, st, 1)
+                plain[t] = st
+        if engine.terrain_kind == "fourier":
+            check_slopes(f"step.cu vs plain, {name}", [slope_points(engine, plain[t]) for t in (1, PLANE_K3_STEPS)])
+        for vname, (k2, k3) in variants.items():
+            for kname, one in ((f"step_pd{suffix}", lambda st: k2(engine, st)),
+                               (f"step_tau{suffix}", lambda st: k3(engine, st, (-60.0 * st.s - 0.5 * st.sd).contiguous(), None))):  # fmt: skip
+                kern = state
+                for t in range(1, PLANE_K3_STEPS + 1):
+                    kern = one(kern)
+                    if t not in (1, PLANE_K3_STEPS):
+                        continue
+                    torch.cuda.synchronize()
+                    label = f"{kname} vs plain, {name} B={state.p.shape[-1]} {t} steps"
+                    ratio = math.inf
+                    if all_finite(kern):
+                        ratio = max(over_envs(per_env_abs_diff(kern, plain[t]), "max").values()) / TOL
+                    ratios[vname][f"{kname} {name} {t} steps, max"] = ratio
+                    if gated:
+                        errs.setdefault(kname, []).append(compare_states(label, kern, plain[t], "max"))
+                    else:
+                        print(f"{label} ({vname}): worst field's max over its limit {ratio:.6g}", flush=True)
+    return errs, ratios
+
+
+def rough_env_gates(engine, state, opts: dict, variants=None) -> tuple[list[float], dict[str, dict[str, float]]]:
+    """K5 with ``opts`` (terr_off, domain, terrain_relative, the policy's
+    weights and options) against ``env_rollout_reference``, as ROUGH_ENV_PARITY
+    says: the max over envs after ROUGH_SHORT steps; resets and steps equal
+    in every env after ROUGH_ENV_PARITY; after ROUGH_LONG, every env whose
+    resets or steps differ parted from the plain version where its relative
+    height lay within ROUGH_ENV_BAND of a bound (the first of K5 launches of
+    1, 2, ... steps that differs), and the others' fields and reward sums at
+    the rough cases' median and p99.9 (against the float64 plain version).
+    ``variants`` maps a name to a function like ``env_rollout``. Returns the
+    largest |Δ| held at its max, and the ratios."""
+    import copy
+
+    import torch
+
+    from jaxsim_tpu_torch import BatchedState
+    from jaxsim_tpu_torch.ops import cuda_env_rollout
+
+    gated = variants is None
+    variants = variants or {"kernel": cuda_env_rollout.env_rollout}
+    errs, ratios = [], {name: {} for name in variants}
+    lo, hi = opts["healthy_z_range"]
+    traces = {"float32": [], "float64": []}
+    plain = {}
+    eng64 = copy.deepcopy(engine).double()
+    opts64 = {**opts, "terr_off": opts["terr_off"].double(), "domain": double_rows(opts["domain"]),
+              **{k: opts[k].double() for k in ("W1", "b1", "W2", "b2")}}  # fmt: skip
+    with torch.no_grad():
+        for kind, eng, st, o in (("float32", engine, state, opts),
+                                 ("float64", eng64, BatchedState(*(t.double() for t in state.fields())), opts64)):  # fmt: skip
+            def trace(t, sim, reward_sum, z, resets, steps, kind=kind):
+                traces[kind].append((z.float(), resets.clone(), steps.clone()))
+                if t + 1 == ROUGH_SHORT:
+                    plain[f"{kind} short"] = (BatchedState(*(x.float() for x in sim.fields())), reward_sum.float())
+
+            out = cuda_env_rollout.env_rollout_reference(eng, st, ROUGH_LONG, trace=trace, **o)
+            plain[kind] = (BatchedState(*(x.float() for x in out[0].fields())), out[1].float(), out[2], out[3])
+    parity = traces["float32"][ROUGH_ENV_PARITY - 1][1:]  # resets and steps after ROUGH_ENV_PARITY steps
+    print(f"env_rollout rough vs plain: envs reset by step {ROUGH_LONG}: {int((plain['float32'][2] > 0).sum())} of "
+          f"{state.p.shape[-1]}", flush=True)  # fmt: skip
+    z32 = torch.stack([z for z, _, _ in traces["float32"]])  # (steps, B)
+
+    def diff(kern, ref):
+        return {**per_env_abs_diff(kern[0], ref[0]), "reward_sum": (kern[1] - ref[1]).abs()}
+
+    spread = over_envs(diff(plain["float32 short"], plain["float64 short"]), "max")
+    print(f"env_rollout rough: float32 vs float64 plain version after {ROUGH_SHORT} steps, max over envs "
+          f"{json.dumps(spread)}", flush=True)  # fmt: skip
+    short_limits = {k: max(TOL, 2 * e) for k, e in spread.items()}
+    for vname, run in variants.items():
+        kern = run(engine, state, ROUGH_SHORT, **opts)
+        torch.cuda.synchronize()
+        if gated:
+            d32 = over_envs(diff(kern, plain["float32 short"]), "max")
+            print(f"env_rollout rough vs plain, {ROUGH_SHORT} steps: against the float32 plain version (not gated), "
+                  f"max over envs {json.dumps(d32)}")  # fmt: skip
+        d = diff(kern, plain["float64 short"])
+        ratio = max(e / short_limits[k] for k, e in over_envs(d, "max").items()) if all_finite(kern[0]) else math.inf
+        ratios[vname][f"{ROUGH_SHORT} steps, against the float64 plain version, max"] = ratio
+        if gated:
+            errs.append(gate(f"env_rollout rough vs plain, {ROUGH_SHORT} steps, against the float64 plain version", d,
+                             "max", short_limits))  # fmt: skip
+        kern = run(engine, state, ROUGH_ENV_PARITY, **opts)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(kern[2], parity[0]) and torch.equal(kern[3], parity[1]))
+        ratios[vname][f"{ROUGH_ENV_PARITY} steps, resets and steps equal"] = 0.0 if same else math.inf
+        print(f"env_rollout rough {vname} vs plain, {ROUGH_ENV_PARITY} steps: resets and steps equal in every env: "
+              f"{same}", flush=True)  # fmt: skip
+        if gated and not same:
+            raise RuntimeError(f"env_rollout rough: resets or steps differ after {ROUGH_ENV_PARITY} steps")
+        kern = run(engine, state, ROUGH_LONG, **opts)
+        torch.cuda.synchronize()
+        parted = (kern[2] != plain["float32"][2]) | (kern[3] != plain["float32"][3])
+        at_bound = torch.ones_like(parted)
+        if bool(parted.any()):
+            first, found = torch.zeros_like(kern[2]), torch.zeros_like(parted)
+            for t in range(1, ROUGH_LONG + 1):
+                k = run(engine, state, t, **opts)
+                _, r, s = traces["float32"][t - 1]
+                differs = (k[2] != r) | (k[3] != s)
+                first = torch.where(differs & ~found, torch.full_like(first, t - 1), first)
+                found |= differs
+            z = z32.gather(0, first[None].long())[0]  # the plain version's relative height where the two part
+            at_bound = ~parted | ((z - lo).abs() <= ROUGH_ENV_BAND) | ((z - hi).abs() <= ROUGH_ENV_BAND)
+        bad = int((~at_bound).sum())
+        print(f"env_rollout rough {vname} vs plain, {ROUGH_LONG} steps: envs whose resets or steps differ "
+              f"{int(parted.sum())}, of them away from a bound of {opts['healthy_z_range']}: {bad}", flush=True)  # fmt: skip
+        ratios[vname][f"{ROUGH_LONG} steps, parted away from a bound"] = float(bad)
+        if gated and bad:
+            raise RuntimeError(f"env_rollout rough: {bad} envs parted from the plain version away from a bound")
+        keep = ~parted
+        sub = lambda out: (BatchedState(*(t[..., keep] for t in out[0].fields())), out[1][keep])  # noqa: E731
+        spread = over_envs(diff(sub(plain["float32"]), sub(plain["float64"])), "p99.9")
+        limits = {k: max(TOL, 2 * e) for k, e in spread.items()}
+        for stat, ref, lim in (("median", plain["float32"], {}), ("p99.9", plain["float64"], limits)):
+            d = diff(sub(kern), sub(ref)) if all_finite(kern[0]) else None
+            ratio = max(e / lim.get(k, TOL) for k, e in over_envs(d, stat).items()) if d else math.inf
+            ratios[vname][f"{ROUGH_LONG} steps, {stat}"] = ratio
+            if gated:
+                gate(f"env_rollout rough vs plain, {ROUGH_LONG} steps, envs that did not part, {stat}"
+                     + (", against the float64 plain version" if lim else ""), d, stat, lim)  # fmt: skip
+            else:
+                print(f"env_rollout rough {vname}, {ROUGH_LONG} steps: worst {stat} over its limit {ratio:.6g}")
+    return errs, ratios
+
+
 def main() -> int:
     import torch
 
@@ -1659,6 +2062,8 @@ def main() -> int:
     garp = garpez_engine(device)
     hum_rr, garp_rr, hum_td = rr_humanoid_engine(device), rr_garpez_engine(device), rr_touchdown_engine(device)
     garp_rr_few = rr_vjp_garpez_engine(device)
+    hum_rough, garp_plane = humanoid_engine(device, terrain=rough_terrain()), garpez_engine(device, plane_terrain())
+    terr_off, domain = rough_options(BATCH, device)
     n, d = hum.n_joints, obs_dim(hum.n_joints)
     gen = torch.Generator(device).manual_seed(1)
     # The real-terminations case's linear policy: the PD gains written as a
@@ -1709,6 +2114,11 @@ def main() -> int:
             env_rollout_rr_garp=cuda_env_rollout.job(garp_rr, pd_policy),
             **{f"vjp_rr{'_params_grad' * pg}_{k}": cuda_step_vjp.job(e, params_grad=pg)
                for k, e in (("hum", hum_rr), ("garp", garp_rr), ("garp_few", garp_rr_few)) for pg in (False, True)},
+            rollout_rough=cuda_rollout.job(hum_rough, terr_off=True),
+            rollout_rough_domain=cuda_rollout.job(hum_rough, domain=True, terr_off=True),
+            rollout_plane=cuda_rollout.job(garp_plane), step_rough=cuda_step.job(hum_rough),
+            step_plane=cuda_step.job(garp_plane),
+            env_rollout_rough=cuda_env_rollout.job(hum_rough, pols["mlp"], domain=True, terr_off=True, terrain_rel=True),
         )  # fmt: skip
         builds = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
     print(f"nvcc seconds {json.dumps({k: round(b.seconds, 2) for k, b in builds.items()})}")
@@ -1733,6 +2143,12 @@ def main() -> int:
            for k in pols},
         step=(builds["step"], cuda_step.geometry, cuda_step.LANES, BATCH),
         step_garpez=(builds["step_garp"], cuda_step.geometry, cuda_step.LANES, APG["batch"]),
+        rollout_rough=(builds["rollout_rough"], cuda_rollout.geometry, cuda_rollout.LANES, BATCH),
+        rollout_rough_domain=(builds["rollout_rough_domain"], cuda_rollout.geometry, cuda_rollout.LANES, BATCH),
+        rollout_plane=(builds["rollout_plane"], cuda_rollout.geometry, cuda_rollout.LANES, PLANE_BATCH),
+        step_rough=(builds["step_rough"], cuda_step.geometry, cuda_step.LANES, BATCH),
+        step_plane=(builds["step_plane"], cuda_step.geometry, cuda_step.LANES, PLANE_BATCH),
+        env_rollout_rough=(builds["env_rollout_rough"], cuda_env_rollout.geometry, cuda_env_rollout.LANES, BATCH),
     )  # fmt: skip
     for name, (b, geometry, lanes, B) in lane_kernels.items():
         geo = geometry(b)
@@ -1813,6 +2229,33 @@ def main() -> int:
         errs, _ = step_gates(starts, case_tau, plains=plains)
         for kname, e in errs.items():
             max_errs[kname] += e
+
+    # ----- rough terrain and the inclined plane vs plain -----
+    plane_st = plane_start(garp_plane, torch.Generator(device).manual_seed(11))
+    rough_env_opts = dict(terr_off=terr_off, domain=domain, terrain_relative=True, **ES_OPTIONS, **mlp)
+    rough_env_opts["healthy_z_range"] = TERMINATION_Z
+    with phase("rough terrain and the inclined plane vs plain"):
+        rough = "humanoid23 rough, terrOff"
+        errs, _ = rough_k1_gates({
+            rough: ("rollout_rough", hum_rough, state0, None, terr_off, None),
+            f"{rough}, five multipliers": ("rollout_rough_domain", hum_rough, state0, domain, terr_off, rough),
+        })  # fmt: skip
+        for kname, e in errs.items():
+            max_errs[kname] += e
+        plane_case = f"garpez on the plane through height {PLANE['height']} m with normal {PLANE['normal']}"
+        active, _ = slope_points(garp_plane, plane_st)
+        print(f"{plane_case}: active contact points at the start {active}", flush=True)
+        if not active:
+            raise RuntimeError(f"{plane_case}: no point in contact, so the gate proves nothing about the plane")
+        max_errs["rollout_plane"], _ = k1_gates({plane_case: (garp_plane, plane_st)},
+                                               cases=((plane_case, PLANE_K1_STEPS, "max"),))  # fmt: skip
+        errs, _ = terrain_step_gates({"humanoid23 rough": ("_rough", hum_rough, state0),
+                                      plane_case: ("_plane", garp_plane, plane_st)})  # fmt: skip
+        for kname, e in errs.items():
+            max_errs.setdefault(kname, []).extend(e)
+
+    with phase("K5 rough vs plain"):
+        max_errs["env_rollout_rough"], _ = rough_env_gates(hum_rough, state0, rough_env_opts)
 
     # ----- K1's relaxed-rigid build vs plain -----
     with phase("K1 K2 K3 relaxed-rigid vs plain"):
@@ -2041,6 +2484,138 @@ def main() -> int:
             raise RuntimeError("BatchedEnv.step: non-finite output")
         if tuple(obs.shape) != (d, BATCH) or int(state.steps.max()) > 1 + ENV_STEPS:
             raise RuntimeError("BatchedEnv.step: wrong shapes or step counts")
+
+    # ----- rough terrain and the inclined plane -----
+    def relative_heights(engine, state, off=None):
+        pr = engine.params(None if off is None else {"terrOff": off})
+        return state.p[2] - engine._fourier_height_grad(pr, state.p[0], state.p[1])[0]
+
+    with phase("main path: rough rollout (K1)"):
+        (out, times), launches = main_path(
+            "rough rollout", dict(rollout=1 + ROUGH_TIMED_CALLS),
+            lambda: chained(hum_rough, state0, ROUGH_HORIZON, ROUGH_TIMED_CALLS, terr_off=terr_off),
+        )  # fmt: skip
+        wall = [t[0] for t in times]
+        results["rollout_rough"] = dict(launches=launches["rollout"], ms=statistics.median(t[1] for t in times))
+        print(f"K1 rough: {BATCH}x{ROUGH_HORIZON} steps per call, FourierTerrain {ROUGH}, terrOff {TERR_OFF_SCALE}·N(0, 1),"
+              f" wall s {wall}, device ms {[t[1] for t in times]}")  # fmt: skip
+        print(f"K1 rough env_steps_per_s (median wall): {BATCH * ROUGH_HORIZON / statistics.median(wall):.6g} on {smi}",
+              flush=True)  # fmt: skip
+        if not all_finite(out):
+            raise RuntimeError("rough rollout: non-finite final state")
+        z = relative_heights(hum_rough, out, terr_off)
+        print(f"rough: height above the terrain after {(1 + ROUGH_TIMED_CALLS) * ROUGH_HORIZON} steps: min "
+              f"{float(z.min()):.4f} m, max {float(z.max()):.4f} m, share of envs above 0.5 m {float((z > 0.5).float().mean()):.4f}")  # fmt: skip
+        if not ROUGH_HEIGHT_BAND[0] <= float(z.min()) <= float(z.max()) <= ROUGH_HEIGHT_BAND[1]:
+            raise RuntimeError(f"rough rollout: height above the terrain outside {ROUGH_HEIGHT_BAND} m")
+        rough_final = out
+
+    with phase("main path: rough rollout with the five multipliers (K1)"):
+        def domain_launch():
+            holder = {}
+            t0 = time.perf_counter()
+            ms = device_ms(lambda: holder.update(
+                out=cuda_rollout.rollout(hum_rough, state0, ROUGH_HORIZON, domain=domain, terr_off=terr_off)), 1)[0]
+            return holder["out"], ms, time.perf_counter() - t0
+
+        (out, ms, wall), launches = main_path("rough rollout, five multipliers", dict(rollout=1), domain_launch)
+        results["rollout_rough_domain"] = dict(launches=launches["rollout"], ms=ms)
+        print(f"K1 rough with {sorted(DOMAIN_SIGMAS)}: {BATCH}x{ROUGH_HORIZON} steps, device ms {ms:.6g}, env_steps_per_s "
+              f"(wall) {BATCH * ROUGH_HORIZON / wall:.6g} on {smi}", flush=True)  # fmt: skip
+        if not all_finite(out):
+            raise RuntimeError("rough rollout with the multipliers: non-finite final state")
+        rough_domain_final = out
+
+    with phase("main path: rough per-step rollout (K2)"):
+        def rough_per_step():
+            cuda_step.rollout_per_step(hum_rough, state0, 1)  # warm-up
+            sync()
+            holder = {}
+            ms = device_ms(lambda: holder.update(
+                out=cuda_step.rollout_per_step(hum_rough, state0, ROUGH_PER_STEP_LAUNCHES)), 1)[0]  # fmt: skip
+            return holder["out"], ms
+
+        (out, ms), launches = main_path("rough per-step rollout", dict(step_pd=1 + ROUGH_PER_STEP_LAUNCHES),
+                                        rough_per_step)  # fmt: skip
+        results["step_pd_rough"] = dict(launches=launches["step_pd"], ms=ms / ROUGH_PER_STEP_LAUNCHES)
+        print(f"K2 rough: {ROUGH_PER_STEP_LAUNCHES} launches at B={BATCH}, device ms per launch "
+              f"{ms / ROUGH_PER_STEP_LAUNCHES:.6g} on {smi}")  # fmt: skip
+        if not all_finite(out):
+            raise RuntimeError("non-finite state after the rough per-step rollout")
+
+    with phase("main path: rough ES generations (K5)"):
+        es_rough_opts = dict(terr_off=terr_off, domain=domain, terrain_relative=True, **ES_OPTIONS)
+
+        def rough_es():
+            cuda_env_rollout.env_rollout(hum_rough, state0, ES["steps"], **es_rough_opts, **mlp)  # warm-up
+            sync()
+            mean, gens = theta_mu.clone(), []
+            for _ in range(ES["generations"]):
+                eps, w = es_population(mean, gen, n, d)
+                holder = {}
+                ms = device_ms(lambda: holder.update(
+                    out=cuda_env_rollout.env_rollout(hum_rough, state0, ES["steps"], **es_rough_opts, **w)), 1)[0]  # fmt: skip
+                final, reward, resets, steps = holder["out"]
+                fitness = reward.reshape(ES["candidates"], -1).mean(1)
+                gens.append(dict(ms=ms, final=final, reward=reward, resets=resets, steps=steps))
+                adv = (fitness - fitness.mean()) / (fitness.std() + 1e-8)
+                mean = mean + ES["lr"] / (ES["candidates"] * ES["sigma"]) * (adv[:, None] * eps).sum(0)
+            return gens
+
+        rough_gens, launches = main_path("rough ES", dict(env_rollout=1 + ES["generations"]), rough_es)
+        results["env_rollout_rough"] = dict(launches=launches["env_rollout"],
+                                            ms=statistics.median(g["ms"] for g in rough_gens))  # fmt: skip
+        lo, hi = ES_OPTIONS["healthy_z_range"]
+        for i, g in enumerate(rough_gens):
+            print(f"rough ES generation {i}: device ms {g['ms']:.6g} on {smi}, env_steps_per_s "
+                  f"{BATCH * ES['steps'] / (g['ms'] * 1e-3):.6g}, resets {int(g['resets'].sum())}, mean reward "
+                  f"{float(g['reward'].mean()):.6g}")  # fmt: skip
+            if not (all_finite(g["final"]) and bool(torch.isfinite(g["reward"]).all())):
+                raise RuntimeError("rough ES: non-finite output")
+            z = relative_heights(hum_rough, g["final"], terr_off)
+            if not (lo <= float(z.min()) and float(z.max()) <= hi and int(g["resets"].sum()) > 0):
+                raise RuntimeError(f"rough ES: relative height outside {lo, hi} or no episode ended")
+
+    with phase("main path: rough BatchedEnv.step (K3)"):
+        rough_env = BatchedEnv(engine=hum_rough, episode_length=ES_OPTIONS["episode_length"],
+                               healthy_z_range=ES_OPTIONS["healthy_z_range"], terrain_relative=True)  # fmt: skip
+
+        def rough_env_steps():
+            state, obs = rough_env.reset(torch.Generator(device).manual_seed(2), BATCH)
+            state, obs, _, _ = rough_env.step(state, torch.zeros(n, BATCH, device=device))  # warm-up
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(ENV_STEPS):
+                state, obs, reward, done = rough_env.step(state, (-60.0 * state.sim.s - 0.5 * state.sim.sd).contiguous())
+            sync()
+            return state, obs, reward, (time.perf_counter() - t0) * 1e3 / ENV_STEPS
+
+        (state, obs, reward, step_ms), launches = main_path("rough BatchedEnv.step", dict(step_tau=1 + ENV_STEPS),
+                                                            rough_env_steps)  # fmt: skip
+        results["step_tau_rough"] = dict(launches=launches["step_tau"])
+        print(f"rough BatchedEnv.step: B={BATCH}, terrain-relative height, wall ms per step {step_ms:.6g} on {smi}")
+        if not (bool(torch.isfinite(obs).all()) and bool(torch.isfinite(reward).all())):
+            raise RuntimeError("rough BatchedEnv.step: non-finite output")
+        if not torch.allclose(obs[-1], relative_heights(hum_rough, state.sim)):
+            raise RuntimeError("rough BatchedEnv.step: the observation's height row is not the relative height")
+
+    with phase("main path: inclined plane (K1, K3)"):
+        def plane_path():
+            holder = {}
+            ms = device_ms(lambda: holder.update(out=cuda_rollout.rollout(garp_plane, plane_st, PLANE_K1_STEPS)), 1)[0]
+            st = plane_st
+            for _ in range(PLANE_K3_STEPS):
+                st = cuda_step.step_tau(garp_plane, st, (-60.0 * st.s - 0.5 * st.sd).contiguous())
+            sync()
+            return holder["out"], ms, st
+
+        (out, ms, st), launches = main_path("inclined plane", dict(rollout=1, step_tau=PLANE_K3_STEPS), plane_path)
+        results["rollout_plane"] = dict(launches=launches["rollout"], ms=ms)
+        results["step_tau_plane"] = dict(launches=launches["step_tau"])
+        print(f"K1 inclined plane: garpez B={PLANE_BATCH} {PLANE_K1_STEPS} steps, device ms {ms:.6g} on {smi}")
+        if not (all_finite(out) and all_finite(st)):
+            raise RuntimeError("inclined plane: non-finite state")
+        plane_final = out
 
     def timed_gradients(once, n: int):
         """``once()`` for a warm-up, then ``n`` times, each ended by a
@@ -2415,6 +2990,7 @@ def main() -> int:
             step_vjp_relaxed_rigid_params_grad=profiled_ms(vjp_calls["step_vjp_relaxed_rigid_params_grad"],
                                                            "step_vjp_rr_kernel", 10),
             param_sum_relaxed_rigid=profiled_ms(vjp_calls["param_sum_relaxed_rigid"], "param_sum_kernel", 10),
+            step_pd_rough=profiled_ms(lambda: cuda_step.step_pd(hum_rough, state0), "step_pd_kernel", 10),
         )
         library_kernel_only = dict(param_sum=profiled_ms(lambda: torch.sum(partials, 0), "", 10),
                                    param_sum_relaxed_rigid=profiled_ms(lambda: torch.sum(rr_partials, 0), "", 10))
@@ -2463,6 +3039,32 @@ def main() -> int:
             plain_ms[f"bf16_probe_{v}"] = wall_ms(lambda: fma_probe.probe_reference(v, x, 256, r["chains"])) * (
                 fma_probe.T_LONG / 256)  # fmt: skip
         plain_ms["fma_probe"] = plain_ms["bf16_probe_f32"]
+        # Rough terrain and the inclined plane.
+        tau_rough = (-60.0 * state0.s - 0.5 * state0.sd).contiguous()
+        tau_plane = (-60.0 * plane_st.s - 0.5 * plane_st.sd).contiguous()
+        for name, engine, start, tau in (("step_tau_rough", hum_rough, state0, tau_rough),
+                                         ("step_tau_plane", garp_plane, plane_st, tau_plane)):  # fmt: skip
+            cuda_step.step_tau(engine, start, tau)
+            sync()
+            results[name]["ms"] = statistics.median(device_ms(lambda: cuda_step.step_tau(engine, start, tau), 20))
+        rough_calls = dict(
+            rollout_rough=(hum_rough, state0, ROUGH_HORIZON, dict(terr_off=terr_off)),
+            rollout_rough_domain=(hum_rough, state0, ROUGH_HORIZON, dict(terr_off=terr_off, domain=domain)),
+            rollout_plane=(garp_plane, plane_st, PLANE_K1_STEPS, {}),
+        )
+        for name, (engine, start, horizon, options) in rough_calls.items():
+            k = PLAIN_TIMED_STEPS[name]
+            plain_ms[name] = wall_ms(lambda: cuda_rollout.rollout_reference(engine, start, k, **options)) * horizon / k
+        k = PLAIN_TIMED_STEPS["step_pd_rough"]
+        plain_ms["step_pd_rough"] = wall_ms(lambda: [cuda_step.step_pd_reference(hum_rough, state0)
+                                                     for _ in range(k)]) / k  # fmt: skip
+        for name, engine, start, tau in (("step_tau_rough", hum_rough, state0, tau_rough),
+                                         ("step_tau_plane", garp_plane, plane_st, tau_plane)):  # fmt: skip
+            k = PLAIN_TIMED_STEPS[name]
+            plain_ms[name] = wall_ms(lambda: [cuda_step.step_tau_reference(engine, start, tau) for _ in range(k)]) / k
+        k = PLAIN_TIMED_STEPS["env_rollout_rough"]
+        plain_ms["env_rollout_rough"] = wall_ms(lambda: cuda_env_rollout.env_rollout_reference(
+            hum_rough, state0, k, **es_rough_opts, **mlp)) * ES["steps"] / k  # fmt: skip
         library_ms = dict(param_sum=statistics.median(device_ms(lambda: torch.sum(partials, 0), 20)),
                           param_sum_relaxed_rigid=statistics.median(device_ms(lambda: torch.sum(rr_partials, 0), 20)))
         print(f"plain ms for each kernel's launch (timed over {json.dumps(PLAIN_TIMED_STEPS)} steps): {json.dumps(plain_ms)}")
@@ -2517,11 +3119,40 @@ def main() -> int:
         print(f"float32 operations an RK4 and an RK4-fast env-step need, soft and relaxed-rigid (the same count, over"
               f" {COUNT_ENVS} envs of each RK4 main path's final state): "
               + json.dumps({k: v for k, v in flops.items() if k.endswith(RK4_INTEGRATORS)}))  # fmt: skip
+        # Rough terrain (its sines and cosines one operation each) with the
+        # envs' offsets and multipliers, K2/K3's rough step without them, the
+        # plane, and K5's rough step with its policy, reward and reset
+        # selection, each at its main path's final state and rows.
+        cpu_rough = humanoid_engine("cpu", terrain=rough_terrain())
+        cpu_plane = garpez_engine("cpu", plane_terrain())
+        off_cpu, dom_cpu = terr_off.cpu(), {k: t.cpu() for k, t in domain.items()}
+        flops.update(
+            rough_step=flop_count.least_rollout_step_ops(cpu_rough, cpu_head(rough_final), COUNT_ENVS, terr_off=off_cpu),
+            rough_domain_step=flop_count.least_rollout_step_ops(cpu_rough, cpu_head(rough_domain_final), COUNT_ENVS,
+                                                                domain=dom_cpu, terr_off=off_cpu),
+            rough_step_no_offsets=flop_count.least_rollout_step_ops(cpu_rough, cpu_head(rough_final), COUNT_ENVS),
+            plane_step=flop_count.least_rollout_step_ops(cpu_plane, cpu_head(plane_final), COUNT_ENVS),
+        )  # fmt: skip
+
+        def rough_env_step(st):
+            k = st.p.shape[-1]
+            return cuda_env_rollout.env_rollout_reference(
+                cpu_rough, st, 1, **one, **{**es_rough_opts, "terr_off": off_cpu[:, :k],
+                                            "domain": {name: t[:k] for name, t in dom_cpu.items()}})  # fmt: skip
+
+        flops["rough_env_step"] = flop_count.least_step_ops(cpu_rough, rough_env_step, cpu_head(rough_gens[-1]["final"]))
+        print("float32 operations an env-step needs on rough terrain, with the terrain offset, with the multipliers too,"
+              " without either (K2, K3), on the inclined plane, and K5's rough step (the same count, sines and cosines"
+              f" one each, over {COUNT_ENVS} envs of each main path's final state): "
+              + json.dumps({k: flops[k] for k in ("rough_step", "rough_domain_step", "rough_step_no_offsets",
+                                                   "plane_step", "rough_env_step")}))  # fmt: skip
         sb, pb = state_bytes(hum, BATCH), 4 * cuda_build.packed_params(hum).numel()
         n_blocks, n_params = partials.shape
         vjp_bytes = 3 * sb + pb + 8 * n * BATCH  # state, tau, ct in; ct_state, ct_tau out
         rr_pb, (rr_rows, rr_n_params) = 4 * cuda_build.packed_params(hum_rr).numel(), rr_partials.shape
         rr_vjp_bytes = 3 * sb + rr_pb + 8 * n * BATCH
+        rough_pb = 4 * cuda_build.packed_params(hum_rough).numel()
+        plane_sb, plane_pb = state_bytes(garp_plane, PLANE_BATCH), 4 * cuda_build.packed_params(garp_plane).numel()
         work = dict(
             rollout=(flops["step"] * BATCH * HORIZON, 2 * sb + pb),
             step_pd=(flops["step"] * BATCH, 2 * sb + pb),
@@ -2548,6 +3179,15 @@ def main() -> int:
             **{f"rollout_relaxed_rigid_{i}": (flops[f"rr_step_{i}"] * BATCH * RR_RK4_HORIZON,
                                               2 * sb + 4 * cuda_build.packed_params(hum_rr).numel())
                for i in RK4_INTEGRATORS},
+            # The per-env rows: terrOff 2 floats an env, the multipliers 5.
+            rollout_rough=(flops["rough_step"] * BATCH * ROUGH_HORIZON, 2 * sb + rough_pb + 8 * BATCH),
+            rollout_rough_domain=(flops["rough_domain_step"] * BATCH * ROUGH_HORIZON, 2 * sb + rough_pb + 28 * BATCH),
+            step_pd_rough=(flops["rough_step_no_offsets"] * BATCH, 2 * sb + rough_pb),
+            step_tau_rough=(flops["rough_step_no_offsets"] * BATCH, 2 * sb + rough_pb + 4 * n * BATCH),
+            rollout_plane=(flops["plane_step"] * PLANE_BATCH * PLANE_K1_STEPS, 2 * plane_sb + plane_pb),
+            step_tau_plane=(flops["plane_step"] * PLANE_BATCH, 2 * plane_sb + plane_pb + 4 * garp_plane.n_joints * PLANE_BATCH),
+            env_rollout_rough=(flops["rough_env_step"] * BATCH * ES["steps"],
+                               2 * sb + rough_pb + 12 * BATCH + 4 * pols["mlp"].packed().numel() + 28 * BATCH),
         )  # fmt: skip
         peaks = {}
         for name in probe_names:

@@ -4,8 +4,10 @@ The port mirrors the JAX package's module paths, so the counterpart of
 ``jaxsim_tpu/ops/batched_engine.py`` is ``jaxsim_tpu_torch/ops/batched_engine.py``.
 It imports ``torch`` and NumPy and never ``jax``. It covers the flagship
 rollout: URDF → model → :class:`~jaxsim_tpu_torch.ops.batched_engine.BatchedEngine`
-(Hunt/Crossley soft or relaxed-rigid contacts, plane terrain, semi-implicit
-Euler, RK4 or RK4-fast), with the whole horizon in one hand-written CUDA kernel
+(Hunt/Crossley soft or relaxed-rigid contacts, plane terrain and, for soft
+contacts, Fourier rough terrain (:mod:`jaxsim_tpu_torch.terrain`) with per-env
+domain multipliers; semi-implicit Euler, RK4 or RK4-fast), with the whole
+horizon in one hand-written CUDA kernel
 (:mod:`jaxsim_tpu_torch.ops.cuda_rollout`, soft and relaxed-rigid bodies);
 one step per launch
 (:mod:`jaxsim_tpu_torch.ops.cuda_step`); and RL policy evaluation,
@@ -19,7 +21,7 @@ Entry points run on the CUDA card unless the caller names another device.
 
 from __future__ import annotations
 
-from . import api, envs, math, models, ops, parsers
+from . import api, envs, math, models, ops, parsers, terrain
 from .api.model import JaxSimModel
 from .ops.batched_engine import BatchedEngine, BatchedState
 

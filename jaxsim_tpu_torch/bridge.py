@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from jaxsim_tpu_torch.ops.batched_engine import BatchedEngine, BatchedState, resolve_device
+from jaxsim_tpu_torch.ops.batched_engine import DOMAIN_NAMES, BatchedEngine, BatchedState, resolve_device
 
 # Static fields of the JAX BatchedEngine that the port's engine takes.
 STATIC_FIELDS = (
@@ -34,6 +34,7 @@ STATIC_FIELDS = (
     "floating_base",
     "terrain_normal",
     "terrain_offset",
+    "terrain_kind",
     "contact_model",
     "integrator",
 )
@@ -59,12 +60,18 @@ ENV_FIELDS = (
     "reset_base_position",
     "reset_noise_std",
     "healthy_z_range",
+    "terrain_relative",
 )
 POLICY_WEIGHTS = ("W", "b", "W1", "b1", "W2", "b2")
+# Per-env rows of a rollout's ``domain``: the multipliers, each (B,), and
+# on Fourier terrain the terrain offset, (2, B).
+DOMAIN_ROWS = (*DOMAIN_NAMES, "terrOff")
 
 # Static fields whose value the port's engine does not implement otherwise:
 # each must be one of its tuple's values.
-_REQUIRED = dict(terrain_kind=("plane",), integrator=BatchedEngine.INTEGRATORS, constraint_parents=((),))
+_REQUIRED = dict(terrain_kind=BatchedEngine.TERRAIN_KINDS, integrator=BatchedEngine.INTEGRATORS, constraint_parents=((),))
+# Every model array a port engine may take, in the order of the kernels' packing.
+PARAM_NAMES = BatchedEngine.RR_PARAM_NAMES + (BatchedEngine.TERRAIN_PARAM,)
 
 
 def reference_engine_arrays(engine) -> tuple[dict, dict[str, np.ndarray]]:
@@ -92,7 +99,8 @@ def engine_from_numpy(
 ) -> BatchedEngine:
     """The port's engine from the JAX engine's static fields and ``params()``,
     on ``device`` (by default the CUDA card): soft or relaxed-rigid contacts,
-    plane terrain, semi-implicit Euler, RK4 or RK4-fast."""
+    plane terrain (and for soft contacts Fourier terrain, whose spectrum is
+    ``params["terr"]``), semi-implicit Euler, RK4 or RK4-fast."""
     for key, allowed in _REQUIRED.items():
         got = static.get(key, allowed[0])
         if (tuple(got) if isinstance(got, (list, tuple)) else got) not in allowed:
@@ -108,8 +116,10 @@ def engine_from_numpy(
     if relaxed and not static["n_points"]:
         params["rrMinv"] = np.zeros((1, 3, 3))
     names = BatchedEngine.RR_PARAM_NAMES if relaxed else BatchedEngine.PARAM_NAMES
+    if static.get("terrain_kind", "plane") == "fourier":
+        names = names + (BatchedEngine.TERRAIN_PARAM,)
     return BatchedEngine(
-        **{k: static[k] for k in STATIC_FIELDS},
+        **{k: static.get(k, "plane") if k == "terrain_kind" else static[k] for k in STATIC_FIELDS},
         **({k: static[k] for k in RR_FIELDS} if relaxed else {}),
         **{k: params[k] for k in names},
         device=device,
@@ -141,11 +151,11 @@ def state_to_numpy(state: BatchedState) -> dict[str, np.ndarray]:
 
 
 def reference_params_arrays(pr) -> dict[str, np.ndarray]:
-    """The :data:`BatchedEngine.RR_PARAM_NAMES` entries of a ``jaxsim_tpu``
-    model-array dict (``params()``, an override ``pr``, or the cotangent of
-    one from ``jax.vjp``/``jax.grad``) as NumPy arrays; a joint-free
-    model's ``(0,)`` axis array comes back as ``(0, 3)``."""
-    out = {k: np.asarray(pr[k]) for k in BatchedEngine.RR_PARAM_NAMES if k in pr}
+    """The :data:`PARAM_NAMES` entries of a ``jaxsim_tpu`` model-array dict
+    (``params()``, an override ``pr``, or the cotangent of one from
+    ``jax.vjp``/``jax.grad``) as NumPy arrays; a joint-free model's ``(0,)``
+    axis array comes back as ``(0, 3)``."""
+    out = {k: np.asarray(pr[k]) for k in PARAM_NAMES if k in pr}
     if "axis" in out:
         out["axis"] = out["axis"].reshape(-1, 3)
     return out
@@ -160,7 +170,7 @@ def params_from_numpy(
     """A ``pr`` dict of model arrays by name (see
     :meth:`BatchedEngine.params`) from NumPy arrays, on ``device`` (by
     default the CUDA card)."""
-    unknown = set(arrays) - set(BatchedEngine.RR_PARAM_NAMES)
+    unknown = set(arrays) - set(PARAM_NAMES)
     if unknown:
         raise ValueError(f"unknown model arrays: {sorted(unknown)}")
     device = resolve_device(device)
@@ -172,13 +182,32 @@ def params_to_numpy(pr: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
     return {k: t.detach().cpu().numpy() for k, t in pr.items()}
 
 
+def domain_from_numpy(
+    arrays: dict[str, np.ndarray],
+    *,
+    device: torch.device | str | None = None,
+    dtype: torch.dtype = torch.float32,
+) -> dict[str, torch.Tensor]:
+    """A rollout's ``domain`` (:data:`DOMAIN_ROWS`: multiplier rows ``(B,)``,
+    ``terrOff`` ``(2, B)``) from NumPy arrays, contiguous, on ``device`` (by
+    default the CUDA card)."""
+    unknown = set(arrays) - set(DOMAIN_ROWS)
+    if unknown:
+        raise ValueError(f"unknown domain rows: {sorted(unknown)}")
+    device = resolve_device(device)
+    return {k: torch.tensor(np.asarray(a), dtype=dtype, device=device).contiguous() for k, a in arrays.items()}
+
+
+def domain_to_numpy(domain: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """A ``domain``'s rows as NumPy arrays."""
+    return {k: t.detach().cpu().numpy() for k, t in domain.items()}
+
+
 def reference_env_fields(env) -> dict:
     """The :data:`ENV_FIELDS` of a ``jaxsim_tpu`` BatchedEnv, as Python values."""
     for name in ("reward_fn", "obs_fn"):
         if getattr(env, name) is not None:
             raise ValueError(f"a JAX {name} closure cannot be carried across")
-    if getattr(env, "terrain_relative", False):
-        raise ValueError("terrain_relative needs Fourier terrain, not ported yet")
     return {name: getattr(env, name) for name in ENV_FIELDS}
 
 
@@ -195,6 +224,7 @@ def env_from_numpy(static_env_fields: dict, engine: BatchedEngine):
         reset_base_position=tuple(float(x) for x in f["reset_base_position"]),
         reset_noise_std=float(f["reset_noise_std"]),
         healthy_z_range=tuple(float(x) for x in f["healthy_z_range"]),
+        terrain_relative=bool(f.get("terrain_relative", False)),
     )
 
 

@@ -3,8 +3,14 @@
 // of shared memory for the whole launch.
 //
 // Replaces jaxsim_tpu/ops/pallas_step.py::_env_rollout_kernel (built by
-// build_pallas_env_rollout, K5) for flat ground without per-env domain
-// multipliers. Each env, for n_steps:
+// build_pallas_env_rollout, K5) for soft contacts on flat ground, an
+// inclined plane or Fourier terrain (JX_TERRAIN), with the JAX kernel's
+// per-env options: the five domain multipliers (JX_DOMAIN) and the terrain
+// offset (JX_TERR_OFF), loaded once a launch into each env's lanes, and the
+// terrain-relative base height (JX_TERRAIN_REL: p_z - h(p_x - ox, p_y - oy)
+// in the observation's last row and in the healthy-height test; the reward
+// keeps the absolute p_z, as the JAX kernel's default reward does). Each
+// env, for n_steps:
 //   1. computes its torques from the state before the step: the PD closure,
 //      a linear policy tau = W obs + b, or a one-hidden-layer tanh MLP
 //      tau = W2 tanh(W1 obs + b1) + b2 (JX_POLICY 0, 1, 2; JX_HIDDEN = H),
@@ -47,18 +53,47 @@
 static_assert(FORWARD, "env_rollout.cu takes the forward-only slot (JX_LN_FORWARD 1)");
 static_assert(INTEGRATOR == 0, "env_rollout.cu implements semi-implicit Euler (JX_INTEGRATOR 0)");
 
+#ifndef JX_TERRAIN_REL
+#define JX_TERRAIN_REL 0
+#endif
+
 namespace {
 
-// An env's rows past the step's slot: its torques, and the MLP's hidden units.
-constexpr int SL_TAU = SLOT, SL_HID = SLOT + NJ, ENV_ROWS = SLOT + NJ + H_ROWS;
+constexpr bool TERRAIN_REL = JX_TERRAIN_REL != 0;
+static_assert(!TERRAIN_REL || TERRAIN == 2, "a terrain-relative height needs Fourier terrain");
+
+// An env's rows past the step's slot: its torques, the MLP's hidden units,
+// and with JX_TERRAIN_REL the observation's terrain-relative height.
+constexpr int SL_TAU = SLOT, SL_HID = SLOT + NJ, SL_HREL = SLOT + NJ + H_ROWS,
+              ENV_ROWS = SLOT + NJ + H_ROWS + (TERRAIN_REL ? 1 : 0);
 constexpr size_t K5_SMEM_BYTES =
     (static_cast<size_t>(N_PARAMS) + WSZ + static_cast<size_t>(ENV_ROWS) * ES) * sizeof(float);
 
-// Entry k of the observation [s, sd, q, v, p_z]: the slot's state rows.
+// Entry k of the observation [s, sd, q, v, p_z]: the slot's state rows (the
+// last, with JX_TERRAIN_REL, the terrain-relative height's row).
 struct Obs {
   Slot sl;
-  __device__ __forceinline__ float operator()(int k) const { return sl[SL_ST + (k < ST_P ? k : ST_P + 2)]; }
+  __device__ __forceinline__ float operator()(int k) const {
+    if constexpr (TERRAIN_REL) {
+      if (k == ST_P) return sl[SL_HREL];
+    }
+    return sl[SL_ST + (k < ST_P ? k : ST_P + 2)];
+  }
 };
+
+// The base's height: p_z, or with JX_TERRAIN_REL the terrain-relative
+// p_z - h(p_x - ox, p_y - oy).
+template <class X>
+__device__ __forceinline__ float base_height(const float* P, const X& x) {
+  if constexpr (TERRAIN_REL && TERR_OFF) {
+    return x.p[2] - fourier_height(P, x.p[0] - x.dom.ox, x.p[1] - x.dom.oy);
+  } else if constexpr (TERRAIN_REL) {
+    return x.p[2] - fourier_height(P, x.p[0], x.p[1]);
+  } else {
+    (void)P;
+    return x.p[2];
+  }
+}
 
 // Entry k of the slot's rows from j0 on.
 struct SlotRow {
@@ -104,7 +139,7 @@ __device__ void policy(const float* Wt, const Scalars& sc, const Options& o, Slo
 __global__ void __launch_bounds__(LN_THREADS, 1)
     env_rollout_kernel(const float* __restrict__ params, const float* __restrict__ weights, StateIn in,
                        StateOut out, float* __restrict__ reward_out, int* __restrict__ resets_out,
-                       int* __restrict__ steps_out, int B, int n_steps, Scalars sc, Options o) {
+                       int* __restrict__ steps_out, int B, int n_steps, Scalars sc, Options o, DomainRows dr) {
   extern __shared__ float smem[];
   float* P = smem;
   float* Wt = smem + N_PARAMS;
@@ -122,7 +157,7 @@ __global__ void __launch_bounds__(LN_THREADS, 1)
   const bool valid = b0 < B;
   const int b = valid ? b0 : B - 1;
   const Slot sl{smem + N_PARAMS + WSZ + e};
-  const EnvState<float> x = slot_state(sl);
+  const auto x = env_slot_state(sl, dr, B, b);
   load_state(in, B, b, x, g);
   __syncthreads();
 
@@ -130,13 +165,17 @@ __global__ void __launch_bounds__(LN_THREADS, 1)
   float reward_sum = 0.0f;
 #pragma unroll 1
   for (int t = 0; t < n_steps; ++t) {
+    if constexpr (TERRAIN_REL && JX_POLICY != 0) {  // the observation's height row
+      if (g == 0) sl[SL_HREL] = base_height(P, x);
+      ln_sync();
+    }
     policy(Wt, sc, o, sl, x, g);
     ln_sync();
     soft_step_lanes(P, sc, sl, g, x, SlotTau{sl}, nullptr);
     ln_sync();
 
     const int steps1 = steps + 1;
-    const float z = x.p[2];
+    const float pz = x.p[2], z = base_height(P, x);
     // The JAX kernel's comparisons: a NaN height ends no episode.
     const bool done = (z < o.z_lo) || (z > o.z_hi) || (steps1 >= o.episode_length);
     if (g == 0) {
@@ -145,11 +184,11 @@ __global__ void __launch_bounds__(LN_THREADS, 1)
         const float tk = sl[SL_TAU + k];
         ctrl = k ? mac(ctrl, tk, tk) : __fmul_rn(tk, tk);
       }
-      const float upright = z > 2.0f ? 2.0f : z;  // jnp.minimum: a NaN passes through
+      const float upright = pz > 2.0f ? 2.0f : pz;  // jnp.minimum: a NaN passes through
       reward_sum = __fadd_rn(reward_sum, __fsub_rn(upright, __fmul_rn(0.001f, ctrl)));
       resets += done;
     }
-    ln_sync();  // every lane has read z before a respawn writes p
+    ln_sync();  // every lane has read p before a respawn writes it
     if (done) {
       load_state(in, B, b, x, g);
       if (o.noise_half > 0.0f) {
@@ -187,7 +226,8 @@ int jx_env_rollout(const float* params, const float* s, const float* sd, const f
                    float* q_out, float* v_out, float* m_out, float* reward_out, int* resets_out, int* steps_out,
                    int B, int n_steps, float K, float D, float k_over_d, float mu, float hc_p, float hc_q, float gz,
                    float dt, float kp, float kd, int episode_length, float z_lo, float z_hi, int clip,
-                   float tau_limit, float noise_half, unsigned seed, int envs_per_candidate, void* stream) {
+                   float tau_limit, float noise_half, unsigned seed, int envs_per_candidate, const float* domain,
+                   const float* terr_off, void* stream) {
   const Scalars sc{K, D, k_over_d, mu, hc_p, hc_q, gz, dt, kp, kd};
   const Options o{episode_length, z_lo, z_hi, clip, tau_limit, noise_half, seed, envs_per_candidate};
   const cudaError_t rc = cudaFuncSetAttribute(env_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -196,7 +236,7 @@ int jx_env_rollout(const float* params, const float* s, const float* sd, const f
   const int blocks = (B + ENVS - 1) / ENVS;
   env_rollout_kernel<<<blocks, LN_THREADS, K5_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       params, weights, StateIn{s, sd, p, q, v, m}, StateOut{s_out, sd_out, p_out, q_out, v_out, m_out}, reward_out,
-      resets_out, steps_out, B, n_steps, sc, o);
+      resets_out, steps_out, B, n_steps, sc, o, DomainRows{domain, terr_off});
   return static_cast<int>(cudaGetLastError());
 }
 

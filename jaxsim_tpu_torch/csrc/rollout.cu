@@ -7,9 +7,13 @@
 // the three-pass articulated-body algorithm and the 6x6 base Cholesky, the
 // engine's integrator (JX_INTEGRATOR: semi-implicit Euler, RK4, or RK4-fast,
 // whose contact forces and m's rate are frozen at the step's start), and the
-// PD policy tau = -kp*s - kd*sd. Each env advances n_steps inside one launch;
-// the state crosses device memory once on the way in and once on the way
-// out. The step is soft_step_lanes (soft_step_lanes.cuh) on the forward-only
+// PD policy tau = -kp*s - kd*sd; with semi-implicit Euler also on an
+// inclined plane or Fourier terrain (JX_TERRAIN), and with the JAX kernel's
+// per-env options (`domain`, `terr_off`): five multiplier rows (JX_DOMAIN)
+// and a terrain offset (JX_TERR_OFF), which each env's lanes load once a
+// launch into registers (an EnvDomainState). Each env advances n_steps
+// inside one launch; the state crosses device memory once on the way in and
+// once on the way out. The step is soft_step_lanes (soft_step_lanes.cuh) on the forward-only
 // slot (JX_LN_FORWARD), which reads the state from the slot and writes the
 // new state back there, or under RK4 the stage state's rate. The
 // relaxed-rigid rollout is rollout_rr.cu.
@@ -46,6 +50,8 @@
 #include "soft_step_lanes.cuh"
 
 static_assert(FORWARD, "rollout.cu takes the forward-only slot (JX_LN_FORWARD 1)");
+static_assert(INTEGRATOR == 0 || (TERRAIN == 0 && !DOMAIN && !TERR_OFF),
+              "the RK4 builds take flat ground without per-env options");
 
 namespace {
 
@@ -56,8 +62,11 @@ constexpr int RK_N = (ST_N + G - 1) / G;
 constexpr size_t K1_SMEM_BYTES = (static_cast<size_t>(N_PARAMS) + static_cast<size_t>(SLOT) * ES) * sizeof(float);
 
 // n_steps RK4 (INTEGRATOR 1) or RK4-fast (2) steps of the env on lanes g of
-// the slot `sl`, whose state rows hold the state.
-__device__ __forceinline__ void rk4_steps(const float* P, const Scalars& sc, Slot sl, int g, const EnvState<float>& x,
+// the slot `sl`, whose state rows hold the state `x` (an EnvState; a
+// template, so that a build with per-env options, which takes no RK4,
+// instantiates it for its own state type).
+template <class X>
+__device__ __forceinline__ void rk4_steps(const float* P, const Scalars& sc, Slot sl, int g, const X& x,
                                           int n_steps) {
   float* st = sl.base + SL_ST * ES;  // the state's entry e at st[e * ES]
   float* const mine = st + g * ES;   // the lane's j-th entry at mine[j * G * ES]
@@ -114,7 +123,8 @@ __device__ __forceinline__ void rk4_steps(const float* P, const Scalars& sc, Slo
 }
 
 __global__ void __launch_bounds__(LN_THREADS, 1) rollout_kernel(const float* __restrict__ params, StateIn in,
-                                                                 StateOut out, int B, int n_steps, Scalars sc) {
+                                                                 StateOut out, int B, int n_steps, Scalars sc,
+                                                                 DomainRows dr) {
   extern __shared__ float smem[];
   float* P = smem;
   load_params(params, P);
@@ -126,7 +136,7 @@ __global__ void __launch_bounds__(LN_THREADS, 1) rollout_kernel(const float* __r
   const bool valid = b0 < B;
   const int b = valid ? b0 : B - 1;
   const Slot sl{smem + N_PARAMS + e};
-  const EnvState<float> x = slot_state(sl);
+  const auto x = env_slot_state(sl, dr, B, b);
   load_state(in, B, b, x, g);
   __syncthreads();
 
@@ -152,14 +162,15 @@ int jx_param_count() { return N_PARAMS; }
 int jx_rollout(const float* params, const float* s, const float* sd, const float* p, const float* q, const float* v,
                const float* m, float* s_out, float* sd_out, float* p_out, float* q_out, float* v_out, float* m_out,
                int B, int n_steps, float K, float D, float k_over_d, float mu, float hc_p, float hc_q, float gz,
-               float dt, float kp, float kd, void* stream) {
+               float dt, float kp, float kd, const float* domain, const float* terr_off, void* stream) {
   const Scalars sc{K, D, k_over_d, mu, hc_p, hc_q, gz, dt, kp, kd};
   const cudaError_t rc = cudaFuncSetAttribute(rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                               static_cast<int>(K1_SMEM_BYTES));
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const int blocks = (B + ENVS - 1) / ENVS;
   rollout_kernel<<<blocks, LN_THREADS, K1_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      params, StateIn{s, sd, p, q, v, m}, StateOut{s_out, sd_out, p_out, q_out, v_out, m_out}, B, n_steps, sc);
+      params, StateIn{s, sd, p, q, v, m}, StateOut{s_out, sd_out, p_out, q_out, v_out, m_out}, B, n_steps, sc,
+      DomainRows{domain, terr_off});
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,9 +3,10 @@
 // shared memory.
 //
 // It is the arithmetic of the twin's step (ops/batched_engine.py) with
-// step_env.cuh's algebra (fk, Hunt/Crossley soft contacts on flat ground, the
-// three-pass articulated-body algorithm with the 6x6 base Cholesky,
-// semi-implicit Euler), as one thread an env once ran it, rearranged for lanes:
+// step_env.cuh's algebra (fk, Hunt/Crossley soft contacts on flat ground, or
+// on the build's plane or Fourier terrain (JX_TERRAIN), the three-pass
+// articulated-body algorithm with the 6x6 base Cholesky, semi-implicit
+// Euler), as one thread an env once ran it, rearranged for lanes:
 //  * the tree passes run level by level (the generated header's schedule
 //    from JX_LAM; the humanoid's tree is 7 deep and at most 4 wide), the
 //    links of a level dealt to the env's lanes, a lane per link; a link's
@@ -43,6 +44,13 @@
 // the contact phase and leaves m as it is: pass 2 then takes the parents'
 // wrenches that the last STEP_RATE wrote (RK4-fast's, frozen at the step's
 // start).
+//
+// The soft rollouts K1 and K5 built with JX_DOMAIN or JX_TERR_OFF pass a
+// state that carries its env's EnvDomain (EnvDomainState, which every lane
+// of the env loads once a launch): the contact law takes the env's K, D and
+// mu and its terrain offset, pass 2 the link inertias M times Mmul (per env:
+// the block's shared P stays as loaded), pass 3 and the base's update the
+// gravity gz times gmul.
 //
 // The slot has one of two layouts, chosen at build time (JX_LN_FORWARD in
 // the generated header; cuda_build.lane_tables sizes both):
@@ -155,6 +163,12 @@ struct EnvState {
 };
 using EnvIn = EnvState<const float>;
 
+// An env's state with its domain multipliers and terrain offset (the soft
+// rollouts' builds with JX_DOMAIN or JX_TERR_OFF).
+struct EnvDomainState : EnvState<float> {
+  EnvDomain dom;
+};
+
 __device__ __forceinline__ EnvIn env_in(const StateIn& in, int B, int b) {
   return EnvIn{{in.s + b, B}, {in.sd + b, B}, {in.p + b, B}, {in.q + b, B}, {in.v + b, B}, {in.m + b, B}};
 }
@@ -246,6 +260,19 @@ __device__ __forceinline__ EnvState<float> slot_state(Slot sl) {
                          {st + ST_Q * ES, ES}, {st + ST_V * ES, ES}, {st + ST_M * ES, ES}};
 }
 
+// The state the soft rollouts step: the slot's rows, with env b's EnvDomain
+// from the launch's rows in a build with JX_DOMAIN or JX_TERR_OFF.
+__device__ __forceinline__ auto env_slot_state(Slot sl, const DomainRows& dr, int B, int b) {
+  if constexpr (DOMAIN || TERR_OFF) {
+    return EnvDomainState{slot_state(sl), load_domain(dr, B, b)};
+  } else {
+    (void)dr;
+    (void)B;
+    (void)b;
+    return slot_state(sl);
+  }
+}
+
 // The PD policy tau = -kp*s - kd*sd of the state before the step (a slot's:
 // pass 2 reads it before pass 3 writes the new s and sd).
 struct SlotPd {
@@ -279,6 +306,34 @@ __device__ __forceinline__ void store_state(const EnvState<float>& x, int B, int
   for (int k = g; k < NCM * 3; k += G) out.m[k * B + b] = x.m[k];
 }
 #endif
+
+// A point's contact law: hc_law on flat ground without multipliers, else the
+// terrain's with the env's multipliers and offset (x an EnvDomainState).
+template <class In>
+__device__ __forceinline__ auto contact_law(const float* P, const Scalars& sc, const In& x, const float* pc,
+                                            const float* pd, const float* mc) {
+  if constexpr (TERRAIN == 0 && !DOMAIN) {
+    (void)P;
+    (void)x;
+    return hc_law(sc, pc, pd, mc);
+  } else if constexpr (DOMAIN || TERR_OFF) {
+    return hc_terrain_law(P, sc, x.dom, pc, pd, mc);
+  } else {
+    (void)x;
+    return hc_terrain_law(P, sc, EnvDomain{}, pc, pd, mc);
+  }
+}
+
+// The env's gravity: gz, times its gmul with JX_DOMAIN.
+template <class In>
+__device__ __forceinline__ float env_gz(const Scalars& sc, const In& x) {
+  if constexpr (DOMAIN) {
+    return sc.gz * x.dom.gmul;
+  } else {
+    (void)x;
+    return sc.gz;
+  }
+}
 
 // The step's forms (above): the semi-implicit Euler step, and the rate of
 // the state with the contact phase or with the contacts frozen.
@@ -382,7 +437,7 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
         parent_pose(sl, par, true, R, Wp, Wv);
         point_kinematics(P, c, R, Wp, Wv, pc, pd);
         const float mc[3] = {x.m[c * 3], x.m[c * 3 + 1], x.m[c * 3 + 2]};
-        const HcLaw h = hc_law(sc, pc, pd, mc);
+        const auto h = contact_law(P, sc, x, pc, pd, mc);
         if constexpr (Mode != STEP_SIE) {
 #pragma unroll
           for (int j = 0; j < 3; ++j) x.m[c * 3 + j] = h.md[j];
@@ -422,6 +477,12 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
     for (int n = n0; n < n1; n += G) {
       const int i = lev < 0 ? 0 : JX_LN_LEV_LINK[n];
       const float* Mi = P + OFF_M + i * 36;
+      float Ms[DOMAIN ? 36 : 1];
+      if constexpr (DOMAIN) {  // the env's inertia, M times Mmul
+#pragma unroll
+        for (int k = 0; k < 36; ++k) Ms[k] = Mi[k] * x.dom.Mmul;
+        Mi = Ms;
+      }
       float v[6], MA[36], pA[6];
       sl.ld(i * LK + LK_V, 6, v);
       vxstar_Mv(v, Mi, pA);
@@ -527,7 +588,7 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
 #pragma unroll
       for (int k = 0; k < 6; ++k) a0[k] = -xs[k];
     } else {
-      const float g6[6] = {0.0f, 0.0f, sc.gz, 0.0f, 0.0f, 0.0f};
+      const float g6[6] = {0.0f, 0.0f, env_gz(sc, x), 0.0f, 0.0f, 0.0f};
       float R0i[9], p0i[3], t[6];
       base_inverse(sl, R0i, p0i);
       xv(R0i, p0i, g6, t);
@@ -591,7 +652,7 @@ __device__ void soft_step_lanes(const float* P, const Scalars& sc, Slot sl, int 
       sl.ld(LK_WP, 3, p0);
       sl.ld(LK_A, 6, a0);
       xv(R0, p0, a0, W_a);
-      W_a[2] += sc.gz;
+      W_a[2] += env_gz(sc, x);
     } else {
 #pragma unroll
       for (int k = 0; k < 6; ++k) W_a[k] = 0.0f;

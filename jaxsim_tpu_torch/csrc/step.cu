@@ -10,6 +10,9 @@
 //    the torques as an input and the model arrays as call-time inputs (the
 //    JAX `pr`), so new arrays need no rebuild: step_tau_kernel. The wrapper
 //    packs `pr` into the same buffer layout the other kernels read.
+// Both take flat ground, an inclined plane or Fourier terrain (JX_TERRAIN:
+// the lane step's contact law, the spectrum in the packed model arrays), and
+// no per-env options, as the JAX kernels take none.
 // Both run step_block, whose template argument picks the torque source: the
 // soft rollout's kernel (rollout.cu) with one step, soft_step_lanes
 // (soft_step_lanes.cuh) on the forward-only slot (JX_LN_FORWARD), which
@@ -39,6 +42,7 @@
 
 static_assert(FORWARD, "step.cu takes the forward-only slot (JX_LN_FORWARD 1)");
 static_assert(INTEGRATOR == 0, "step.cu implements semi-implicit Euler (JX_INTEGRATOR 0)");
+static_assert(!DOMAIN && !TERR_OFF, "step.cu takes no per-env options");
 
 namespace {
 

@@ -4,7 +4,10 @@
 // on flat ground with the three-pass articulated-body algorithm, the 6x6 base
 // Cholesky and the SIE update, with Hunt/Crossley soft contacts, in pieces:
 // the small dense algebra, the joint transforms, the Cholesky solve and the
-// contact law; and what the rollouts' RK4 steps (JX_INTEGRATOR 1 and 2) add:
+// contact law (hc_law on flat ground; hc_terrain_law on an inclined plane or
+// Fourier terrain, JX_TERRAIN, and with the env's domain multipliers and
+// terrain offset, JX_DOMAIN and JX_TERR_OFF); and what the rollouts' RK4
+// steps (JX_INTEGRATOR 1 and 2) add:
 // the quaternion's rate with its Baumgarte term, and an entry's stage and
 // accumulator update. It is written after jaxsim_tpu_torch/ops/batched_engine.py
 // (the plain version) line by line. The lane-spread soft step
@@ -24,8 +27,10 @@
 //  * The state keeps the env batch trailing, x[k * B + b], so the loads and
 //    stores of consecutive envs are coalesced across a warp.
 //  * IEEE float32 math (sqrtf, powf, sinf, cosf, true division), no
-//    --use_fast_math, and the plain version's clamps, so a kernel tracks the
-//    plain version to float32 roundoff.
+//    --use_fast_math and no __sinf/__cosf (a Fourier terrain's arguments reach
+//    hundreds of radians under a per-env terrain offset, where the fast
+//    intrinsics' error grows with the argument), and the plain version's
+//    clamps, so a kernel tracks the plain version to float32 roundoff.
 
 #pragma once
 
@@ -36,6 +41,32 @@
 
 #ifndef JX_INTEGRATOR
 #define JX_INTEGRATOR 0
+#endif
+// The terrain (0 flat ground, 1 an inclined or raised plane, 2 Fourier
+// terrain of JX_TERR_K components), the plane's unit normal JX_TERR_N* and
+// offset JX_TERR_H (n.p = H on the plane; h0 of a Fourier terrain), and the
+// per-env options of the soft rollouts: the domain multipliers (JX_DOMAIN)
+// and the terrain offset (JX_TERR_OFF). The generated header defines them
+// for a build that takes them only.
+#ifndef JX_TERRAIN
+#define JX_TERRAIN 0
+#endif
+#ifndef JX_TERR_K
+#define JX_TERR_K 0
+#endif
+#ifndef JX_TERR_NX
+#define JX_TERR_NX 0.0f
+#define JX_TERR_NY 0.0f
+#define JX_TERR_NZ 1.0f
+#endif
+#ifndef JX_TERR_H
+#define JX_TERR_H 0.0f
+#endif
+#ifndef JX_DOMAIN
+#define JX_DOMAIN 0
+#endif
+#ifndef JX_TERR_OFF
+#define JX_TERR_OFF 0
 #endif
 
 namespace {
@@ -51,6 +82,12 @@ constexpr bool RELAXED = JX_CONTACT == 1;  // relaxed-rigid contacts, else soft
 // m's rate frozen at the step's start).
 constexpr int INTEGRATOR = JX_INTEGRATOR;
 static_assert(INTEGRATOR >= 0 && INTEGRATOR <= 2, "JX_INTEGRATOR is 0, 1 or 2");
+constexpr int TERRAIN = JX_TERRAIN;
+constexpr int TERR_K = JX_TERR_K;
+constexpr bool DOMAIN = JX_DOMAIN != 0;
+constexpr bool TERR_OFF = JX_TERR_OFF != 0;
+static_assert(TERRAIN >= 0 && TERRAIN <= 2 && (TERRAIN == 2) == (TERR_K > 0), "JX_TERRAIN is 0, 1 or 2");
+static_assert(!TERR_OFF || TERRAIN == 2, "a terrain offset translates a Fourier terrain");
 
 // Packed model arrays, in BatchedEngine.PARAM_NAMES order, row-major.
 constexpr int OFF_S = 0;                          // (NL, 6)
@@ -60,7 +97,8 @@ constexpr int OFF_LAMH = OFF_AXIS + NJ * 3;       // (1+NJ, 4, 4)
 constexpr int OFF_SUCH = OFF_LAMH + (1 + NJ) * 16;  // (1+NJ, 4, 4)
 constexpr int OFF_CP = OFF_SUCH + (1 + NJ) * 16;  // (NCM, 3)
 constexpr int OFF_RRMINV = OFF_CP + NCM * 3;      // (NCM, 3, 3), relaxed-rigid only
-constexpr int N_PARAMS = OFF_RRMINV + (RELAXED ? NCM * 9 : 0);
+constexpr int OFF_TERR = OFF_RRMINV + (RELAXED ? NCM * 9 : 0);  // (4, TERR_K): amp, kx, ky, phase
+constexpr int N_PARAMS = OFF_TERR + 4 * TERR_K;
 static_assert(N_PARAMS * 4 <= 48 * 1024, "model arrays exceed static shared memory");
 
 // The relaxed-rigid tail (rr_*) is zero for a soft engine, and the kernels
@@ -385,6 +423,131 @@ __device__ __forceinline__ HcLaw hc_law(const Scalars& sc, const float* pc, cons
   h.f_lin[1] = h.f_s[1];
   h.f_lin[2] = h.f_s[2] + h.fn;
   return h;
+}
+
+// ----- terrain and per-env domain -----
+
+// An env's domain multipliers (JX_DOMAIN) and terrain offset (JX_TERR_OFF),
+// which a soft rollout's lanes load once a launch and keep in registers.
+struct EnvDomain {
+  float Kmul, Dmul, mumul, gmul, Mmul, ox, oy;
+};
+
+// A launch's per-env rows in device memory: the multipliers Kmul, Dmul,
+// mumul, gmul, Mmul (5 rows of B) and the terrain offset (2 rows of B), each
+// null where the build takes none.
+struct DomainRows {
+  const float* mul;
+  const float* off;
+};
+
+// Env b's EnvDomain (1 and 0 where the build takes no multipliers or offset).
+__device__ __forceinline__ EnvDomain load_domain(const DomainRows& r, int B, int b) {
+  EnvDomain d{1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 0.0f, 0.0f};
+  if constexpr (DOMAIN) {
+    d.Kmul = r.mul[b], d.Dmul = r.mul[B + b], d.mumul = r.mul[2 * B + b];
+    d.gmul = r.mul[3 * B + b], d.Mmul = r.mul[4 * B + b];
+  }
+  if constexpr (TERR_OFF) d.ox = r.off[b], d.oy = r.off[B + b];
+  return d;
+}
+
+// The Fourier terrain's height h0 + sum a sin(kx x + ky y + ph) and its
+// gradient at (x, y), the components summed in order as the twin sums them.
+// The argument is rounded at each product and sum (no FMA contraction), as
+// the plain version rounds it: it reaches hundreds of radians, where one
+// contraction moves it by 1e-5.
+__device__ __forceinline__ void fourier_height_grad(const float* T, float x, float y, float& h, float& dhx,
+                                                    float& dhy) {
+  h = 0.0f, dhx = 0.0f, dhy = 0.0f;
+#pragma unroll
+  for (int k = 0; k < TERR_K; ++k) {
+    const float a = T[k], kx = T[TERR_K + k], ky = T[2 * TERR_K + k], ph = T[3 * TERR_K + k];
+    const float arg = __fadd_rn(__fadd_rn(__fmul_rn(kx, x), __fmul_rn(ky, y)), ph);
+    const float sn = sinf(arg), cs = cosf(arg);
+    h = h + a * sn;
+    const float c = a * cs;
+    dhx = dhx + kx * c;
+    dhy = dhy + ky * c;
+  }
+  h = JX_TERR_H + h;
+}
+
+// The Fourier terrain's height at (x, y), the env's terrain offset already
+// taken off (K5's terrain-relative base height).
+__device__ __forceinline__ float fourier_height(const float* P, float x, float y) {
+  float h, dhx, dhy;
+  fourier_height_grad(P + OFF_TERR, x, y, h, dhx, dhy);
+  return h;
+}
+
+// What hc_terrain_law gives: the point's linear force and m's rate.
+struct TerrainLaw {
+  float f_lin[3], md[3];
+};
+
+// The Hunt/Crossley law of one point on the build's terrain, with the env's
+// multipliers: the twin's soft_contact_forces off flat ground (and on flat
+// ground with multipliers, which its normal (0, 0, 1) reduces to hc_law's
+// arithmetic). The plane's static normal, or the Fourier terrain's analytic
+// normal at the point's (x - ox, y - oy); the penetration delta = max(0,
+// offset - n.p) on the plane, max(0, (h - z) n_z) on Fourier terrain; v and
+// m split along the normal; K, D, K/D and mu the env's. hc_law itself stays
+// flat ground's: K4's reverse sweep reads its HcLaw fields.
+__device__ __forceinline__ TerrainLaw hc_terrain_law(const float* P, const Scalars& sc, const EnvDomain& dom,
+                                                     const float* pc, const float* pd, const float* mc) {
+  float n[3], delta, ndotv;
+  if constexpr (TERRAIN == 2) {
+    float h, dhx, dhy;
+    const float x = TERR_OFF ? pc[0] - dom.ox : pc[0], y = TERR_OFF ? pc[1] - dom.oy : pc[1];
+    fourier_height_grad(P + OFF_TERR, x, y, h, dhx, dhy);
+    const float inv_n = 1.0f / sqrtf(dhx * dhx + dhy * dhy + 1.0f);
+    n[0] = -dhx * inv_n, n[1] = -dhy * inv_n, n[2] = inv_n;
+    ndotv = n[0] * pd[0] + n[1] * pd[1] + n[2] * pd[2];
+    delta = fmaxf(0.0f, (h - pc[2]) * n[2]);
+  } else {
+    n[0] = JX_TERR_NX, n[1] = JX_TERR_NY, n[2] = JX_TERR_NZ;
+    ndotv = n[0] * pd[0] + n[1] * pd[1] + n[2] * pd[2];
+    delta = fmaxf(0.0f, JX_TERR_H - (n[0] * pc[0] + n[1] * pc[1] + n[2] * pc[2]));
+  }
+  const float delta_dot = delta > 0.0f ? -ndotv : 0.0f;
+  const float K = DOMAIN ? sc.K * dom.Kmul : sc.K, D = DOMAIN ? sc.D * dom.Dmul : sc.D;
+  const float mu = DOMAIN ? sc.mu * dom.mumul : sc.mu, k_over_d = DOMAIN ? K / D : sc.k_over_d;
+  const float Kdp = K * powf(delta + FLT_EPSILON, sc.hc_p), Ddq = D * powf(delta + FLT_EPSILON, sc.hc_q);
+  const float fn = fmaxf(0.0f, Kdp * delta + Ddq * delta_dot);
+  const float mdotn = n[0] * mc[0] + n[1] * mc[1] + n[2] * mc[2];
+  float v_t[3], m_n[3], m_t[3], f_t[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    v_t[k] = pd[k] - ndotv * n[k];
+    m_n[k] = mdotn * n[k];
+    m_t[k] = mc[k] - m_n[k];
+    f_t[k] = -(Kdp * m_t[k] + Ddq * v_t[k]);
+  }
+  const float f_t_sq = f_t[0] * f_t[0] + f_t[1] * f_t[1] + f_t[2] * f_t[2];
+  const bool no_contact = delta <= 0.0f;
+  const float mu_fn = mu * fn;
+  const bool sticking = no_contact || f_t_sq <= mu_fn * mu_fn;
+  if (!sticking) {
+    const float norm = sqrtf(fmaxf(f_t_sq, FLT_EPSILON * FLT_EPSILON));
+    const float scale = fminf(mu_fn, norm) / norm;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) f_t[k] = f_t[k] * scale;
+  }
+  TerrainLaw out;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (no_contact) {
+      f_t[k] = 0.0f;
+      out.md[k] = -k_over_d * mc[k];
+    } else if (sticking) {
+      out.md[k] = v_t[k] - k_over_d * m_n[k];
+    } else {
+      out.md[k] = -(f_t[k] + Kdp * m_t[k]) / Ddq;
+    }
+    out.f_lin[k] = f_t[k] + fn * n[k];
+  }
+  return out;
 }
 
 // ----- the RK4 step's pieces (the twin's _rk4_step and derivatives) -----

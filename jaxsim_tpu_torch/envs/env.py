@@ -47,8 +47,9 @@ class BatchedEnv:
         reset_base_position: Episode-start base position.
         reset_noise_std: Std of the Gaussian noise on the reset position.
         healthy_z_range: Episode terminates when base height leaves it.
-        terrain_relative: Terrain-relative height; needs Fourier terrain,
-            which is not ported yet (refused).
+        terrain_relative: With a Fourier-terrain engine, use the
+            terrain-relative base height (p_z − h(x, y)) in the default
+            observation and in the healthy-height termination test.
         reward_fn: ``(prev_sim, action, new_sim) -> (B,)``; default is an
             upright-height bonus minus a control cost.
         obs_fn: ``sim -> (obs_dim, B)``; default concatenates
@@ -66,10 +67,13 @@ class BatchedEnv:
     obs_fn: Callable | None = None
 
     def __post_init__(self):
-        if self.terrain_relative:
-            raise ValueError(
-                "terrain_relative needs Fourier terrain, not ported yet (ROADMAP Queue 1 item 4d)"
-            )
+        if self.terrain_relative and self.engine.terrain_kind != "fourier":
+            raise ValueError("terrain_relative requires a FourierTerrain engine")
+
+    def _height_rel(self, sim: BatchedState) -> torch.Tensor:
+        """p_z less the terrain's height under the base (the engine's own
+        arrays, no per-env offset)."""
+        return sim.p[2] - self.engine._fourier_height_grad(self.engine.params(), sim.p[0], sim.p[1])[0]
 
     @property
     def action_size(self) -> int:
@@ -78,7 +82,8 @@ class BatchedEnv:
     def _obs(self, sim: BatchedState) -> torch.Tensor:
         if self.obs_fn is not None:
             return self.obs_fn(sim)
-        return torch.cat([sim.s, sim.sd, sim.q, sim.v, sim.p[2:3]], dim=0)
+        z = self._height_rel(sim)[None] if self.terrain_relative else sim.p[2:3]
+        return torch.cat([sim.s, sim.sd, sim.q, sim.v, z], dim=0)
 
     def _reward(self, prev: BatchedState, action, new: BatchedState):
         if self.reward_fn is not None:
@@ -116,7 +121,7 @@ class BatchedEnv:
         steps = state.steps + 1
 
         lo, hi = self.healthy_z_range
-        z = new_sim.p[2]
+        z = self._height_rel(new_sim) if self.terrain_relative else new_sim.p[2]
         done = (z < lo) | (z > hi) | (steps >= self.episode_length)
         reward = self._reward(state.sim, action, new_sim)
 
@@ -145,8 +150,14 @@ class BatchedEnv:
         linear policy ``tau = W @ obs + b``; ``mlp_weights=(W1, b1, W2, b2)``
         a tanh MLP. Weights are call-time inputs, with an optional leading
         population axis ``P`` (env ``e`` uses candidate ``e // (B // P)``).
-        A ``policy`` closure runs on a CPU engine only, and ``domain`` is not
-        ported yet (both raise ``ValueError`` otherwise).
+        A ``policy`` closure runs on a CPU engine only (it raises
+        ``ValueError`` otherwise).
+
+        ``domain``: optional per-env multipliers, each ``(batch_size,)``:
+        ``Kmul``/``Dmul``/``mumul`` (contacts), ``gmul`` (gravity), ``Mmul``
+        (link inertias); with a Fourier-terrain engine also ``terrOff``
+        ``(2, batch_size)``, each env's terrain translation. The env's
+        ``terrain_relative`` carries over.
 
         Auto-reset respawns at the episode-start state without reset noise.
         Returns ``(final_sim, reward_sum (B,), resets (B,))``.
@@ -156,12 +167,22 @@ class BatchedEnv:
         if sum(x is not None for x in (policy, W, mlp_weights)) > 1:
             raise ValueError("pass exactly one of policy (closure), W/b (linear), or mlp_weights")
         W1, b1, W2, b2 = mlp_weights if mlp_weights is not None else (None,) * 4
+        terr_off = None
+        if domain is not None:
+            domain = dict(domain)  # its names are checked with the options
+            terr_off = domain.pop("terrOff", None)
+            for name, t in domain.items():
+                if tuple(t.shape) != (batch_size,):
+                    raise ValueError(f"domain[{name!r}] must have shape ({batch_size},), got {tuple(t.shape)}")
+            if terr_off is not None and tuple(terr_off.shape) != (2, batch_size):
+                raise ValueError(f"domain['terrOff'] must have shape (2, {batch_size}), got {tuple(terr_off.shape)}")
+            domain = domain or None
         sim = self._fresh_sim(batch_size, generator)
         final, reward_sum, resets, _ = cuda_env_rollout.env_rollout(
             self.engine, sim, n_steps, policy=policy, reward=self.reward_fn,
             W=W, b=b, W1=W1, b1=b1, W2=W2, b2=b2,
             episode_length=self.episode_length, healthy_z_range=self.healthy_z_range,
-            domain=domain,
+            domain=domain, terr_off=terr_off, terrain_relative=self.terrain_relative,
         )  # fmt: skip
         return final, reward_sum, resets
 

@@ -1,8 +1,11 @@
 """Batch-minor simulation engine in plain PyTorch (the CPU twin).
 
-Counterpart of ``jaxsim_tpu/ops/batched_engine.py`` on plane terrain:
-Hunt/Crossley soft contacts, or relaxed-rigid contacts (a matrix-free
-Jacobi-preconditioned CG on the articulated factorization), the three-pass
+Counterpart of ``jaxsim_tpu/ops/batched_engine.py`` on plane terrain
+(flat ground or an inclined plane) and on Fourier rough terrain:
+Hunt/Crossley soft contacts, or relaxed-rigid contacts on plane terrain (a
+matrix-free Jacobi-preconditioned CG on the articulated factorization), the
+per-env domain multipliers and terrain offset of the JAX engine's ``pr``
+(:data:`DOMAIN_NAMES`, ``terrOff``), the three-pass
 ABA with the 6×6 base Cholesky, and the JAX engine's three fixed-step
 integrators (semi-implicit Euler, RK4, and RK4-fast, whose contact forces
 are frozen at the step's start). Every tensor keeps the env batch in
@@ -14,7 +17,8 @@ The static tree topology is unrolled as Python loops over the parent array,
 and small matrix algebra is written as broadcast multiply-and-sum over the
 leading axes, so no product goes through a matrix library (and none through
 TF32 on a GPU). The JAX engine's other contact models (rigid) and terrains
-are not ported yet; the bridge refuses them with ``ValueError``.
+(heightmaps), and relaxed-rigid contacts on Fourier terrain, are not ported
+yet; the build and the bridge refuse them with ``ValueError``.
 """
 
 from __future__ import annotations
@@ -301,6 +305,14 @@ class _PcgImplicit(torch.autograd.Function):
 # State + engine
 # ----------------------------------------------------------------------
 
+# Per-env domain multipliers, each (B,), that an engine call may take in its
+# ``pr`` (the JAX engine's ``rollout(domain=)``): the soft contact law's
+# stiffness, damping and friction, gravity, and every link's spatial inertia.
+DOMAIN_NAMES = ("Kmul", "Dmul", "mumul", "gmul", "Mmul")
+# What a refusal of relaxed-rigid contacts off flat ground names (the twin's
+# on Fourier terrain, the kernels' on any terrain but flat ground).
+RR_ROUGH_ITEM = "ROADMAP Queue 1 item 15"
+
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
     """The device an entry point runs on: the caller's, else the CUDA card.
@@ -344,7 +356,13 @@ class BatchedEngine(nn.Module):
     # parent link's 3×3 linear mass block (the regularizer and the Jacobi
     # preconditioner of the contact solve).
     RR_PARAM_NAMES = PARAM_NAMES + ("rrMinv",)
+    # A Fourier-terrain engine's arrays end with the spectrum ``terr`` (4, K):
+    # rows amp, kx, ky, phase (the JAX engine's ``params()["terr"]``).
+    TERRAIN_PARAM = "terr"
     CONTACT_MODELS = ("soft", "relaxed_rigid")
+    # ``plane`` is flat ground (the default normal and offset) or an
+    # inclined plane; ``fourier`` the spectral rough terrain.
+    TERRAIN_KINDS = ("plane", "fourier")
     # Fixed-step integrators: semi-implicit Euler, RK4, and RK4 with the
     # contact forces and ṁ frozen at the step's start.
     INTEGRATORS = ("sie", "rk4", "rk4fast")
@@ -374,6 +392,8 @@ class BatchedEngine(nn.Module):
         cpoint,
         terrain_normal: tuple[float, float, float] = (0.0, 0.0, 1.0),
         terrain_offset: float = 0.0,
+        terrain_kind: str = "plane",
+        terr=None,
         contact_model: str = "soft",
         rr_d_min: float = 0.9,
         rr_d_max: float = 0.95,
@@ -394,11 +414,22 @@ class BatchedEngine(nn.Module):
         or ``"relaxed_rigid"`` (the ``rr_*`` scalars, ``rrMinv``, and μ;
         ``rr_iterations`` fixes the PCG's iterations, 0 for the automatic
         budget :attr:`_rr_n_iter`). ``integrator`` is one of
-        :attr:`INTEGRATORS`."""
+        :attr:`INTEGRATORS`. ``terrain_kind`` is ``"plane"`` (the plane
+        ``terrain_normal``·p = ``terrain_offset``) or ``"fourier"`` (the
+        spectrum ``terr``, offset by ``terrain_offset``)."""
         super().__init__()
         device = resolve_device(device)
         if contact_model not in self.CONTACT_MODELS:
             raise ValueError(f"contact_model must be one of {self.CONTACT_MODELS}, got {contact_model!r}")
+        if terrain_kind not in self.TERRAIN_KINDS:
+            raise ValueError(f"terrain_kind must be one of {self.TERRAIN_KINDS}, got {terrain_kind!r}")
+        if terrain_kind == "fourier" and contact_model == "relaxed_rigid":
+            raise ValueError(
+                "relaxed-rigid contacts on Fourier terrain need the rrKc block-Jacobi preconditioner and the"
+                f" per-point normals in the solve, not ported yet ({RR_ROUGH_ITEM})"
+            )
+        if (terrain_kind == "fourier") != (terr is not None):
+            raise ValueError("a Fourier-terrain engine, and only one, takes the spectrum terr")
         if integrator not in self.INTEGRATORS:
             raise ValueError(f"integrator must be one of {self.INTEGRATORS}, got {integrator!r}")
         self.contact_model = contact_model
@@ -428,11 +459,13 @@ class BatchedEngine(nn.Module):
         self.floating_base = bool(floating_base)
         # Plane terrain through (0, 0, H) with unit normal n̂ = (a, b, c);
         # terrain_offset = c·H, so the penetration is δ = max(0, offset − n̂·p).
-        # The default (ẑ, 0) takes the flat-ground code path.
+        # The default (ẑ, 0) takes the flat-ground code path. Fourier terrain:
+        # h(x, y) = terrain_offset + Σ amp sin(kx x + ky y + phase).
+        self.terrain_kind = terrain_kind
         self.terrain_normal = tuple(float(x) for x in terrain_normal)
         self.terrain_offset = float(terrain_offset)
 
-        arrays = dict(S=S, M=M, axis=axis, lamH=lamH, sucH=sucH, cpoint=cpoint, rrMinv=rrMinv)
+        arrays = dict(S=S, M=M, axis=axis, lamH=lamH, sucH=sucH, cpoint=cpoint, rrMinv=rrMinv, terr=terr)
         shapes = dict(
             S=(self.n_links, 6),
             M=(self.n_links, 6, 6),
@@ -441,11 +474,14 @@ class BatchedEngine(nn.Module):
             sucH=(1 + self.n_joints, 4, 4),
             cpoint=(self.m_rows, 3),
             rrMinv=(self.m_rows, 3, 3),
+            terr=(4, np.shape(terr)[-1] if terr is not None else 0),
         )
         if contact_model == "relaxed_rigid":
             self.PARAM_NAMES = self.RR_PARAM_NAMES
             if rrMinv is None:
                 raise ValueError("a relaxed-rigid engine needs rrMinv")
+        if terrain_kind == "fourier":
+            self.PARAM_NAMES = self.PARAM_NAMES + (self.TERRAIN_PARAM,)
         if len(self.lam) != self.n_links or len(self.joint_types) != 1 + self.n_joints:
             raise ValueError("topology sizes disagree with n_links/n_joints")
         if len(self.contact_parent) != self.n_points:
@@ -461,10 +497,21 @@ class BatchedEngine(nn.Module):
         model, *, dtype: torch.dtype = torch.float32, device=None
     ) -> "BatchedEngine":
         """Lower a :class:`~jaxsim_tpu_torch.api.model.JaxSimModel` (soft or
-        relaxed-rigid contacts, flat ground, any of its integrators: the
-        configurations the port's model expresses) to engine arrays, on
-        ``device`` (by default the CUDA card; see :func:`resolve_device`),
-        as ``jaxsim_tpu/ops/batched_engine.py::BatchedEngine.build`` does."""
+        relaxed-rigid contacts, flat ground, an inclined plane or, for soft
+        contacts, Fourier terrain, any of its integrators: the configurations
+        the port's model expresses) to engine arrays, on ``device`` (by
+        default the CUDA card; see :func:`resolve_device`), as
+        ``jaxsim_tpu/ops/batched_engine.py::BatchedEngine.build`` does."""
+        from jaxsim_tpu_torch.terrain import FlatTerrain, FourierTerrain
+
+        if isinstance(model.terrain, FourierTerrain):
+            terrain = dict(terrain_kind="fourier", terrain_offset=float(model.terrain._h0),
+                           terr=model.terrain.spectrum())  # fmt: skip
+        elif isinstance(model.terrain, FlatTerrain):
+            normal = tuple(float(x) for x in getattr(model.terrain, "_normal", (0.0, 0.0, 1.0)))
+            terrain = dict(terrain_normal=normal, terrain_offset=normal[2] * float(model.terrain._height))
+        else:
+            raise ValueError(f"the port's engine supports flat, plane and Fourier terrain, not {model.terrain!r}")
         kdp = model.kin_dyn_parameters
         cp = kdp.contact_parameters
         idx = cp.indices_of_enabled_collidable_points
@@ -512,6 +559,7 @@ class BatchedEngine(nn.Module):
         }[model.integrator]
         return BatchedEngine(
             **contact,
+            **terrain,
             integrator=integrator,
             n_links=kdp.number_of_links(),
             n_joints=kdp.number_of_joints(),
@@ -536,15 +584,27 @@ class BatchedEngine(nn.Module):
 
     def params(self, pr: dict[str, torch.Tensor] | None = None) -> dict[str, torch.Tensor]:
         """The numeric model arrays by name; entries of ``pr`` override the
-        engine's own (the call-time model arrays of the JAX engine's ``pr``)."""
+        engine's own (the call-time model arrays of the JAX engine's ``pr``).
+        ``pr`` may also hold the per-env domain multipliers
+        (:data:`DOMAIN_NAMES`, each ``(B,)``) and, on Fourier terrain, the
+        per-env terrain offset ``terrOff`` ``(2, B)``, which translates each
+        env's terrain query."""
         own = {name: getattr(self, name) for name in self.PARAM_NAMES}
         if pr is None:
             return own
-        unknown = set(pr) - set(own)
+        unknown = set(pr) - set(own) - set(DOMAIN_NAMES) - {"terrOff"}
         if unknown:
             raise ValueError(f"unknown model arrays in pr: {sorted(unknown)}")
         for name, t in pr.items():
-            if tuple(t.shape) != tuple(own[name].shape):
+            if name in DOMAIN_NAMES:
+                if t.ndim != 1:
+                    raise ValueError(f"pr[{name!r}] must be a (B,) row, got {tuple(t.shape)}")
+            elif name == "terrOff":
+                if self.terrain_kind != "fourier":
+                    raise ValueError("terrOff translates a Fourier terrain; this engine's terrain is a plane")
+                if t.ndim != 2 or t.shape[0] != 2:
+                    raise ValueError(f"pr['terrOff'] must have shape (2, B), got {tuple(t.shape)}")
+            elif tuple(t.shape) != tuple(own[name].shape):
                 raise ValueError(
                     f"pr[{name!r}] must have shape {tuple(own[name].shape)}, got {tuple(t.shape)}"
                 )
@@ -558,7 +618,12 @@ class BatchedEngine(nn.Module):
 
     @property
     def flat(self) -> bool:
-        return self.terrain_normal == (0.0, 0.0, 1.0) and self.terrain_offset == 0.0
+        return self.terrain_kind == "plane" and self.terrain_normal == (0.0, 0.0, 1.0) and self.terrain_offset == 0.0
+
+    @property
+    def terrain(self) -> str:
+        """``"flat"``, ``"plane"`` (an inclined or raised plane) or ``"fourier"``."""
+        return "flat" if self.flat else self.terrain_kind
 
     def init_state(
         self,
@@ -645,23 +710,51 @@ class BatchedEngine(nn.Module):
 
     # ----- contacts -----
 
+    def _fourier_height_grad(self, pr, x, y):
+        """Height h(x, y) and gradient (∂h/∂x, ∂h/∂y) of the spectral terrain
+        ``pr["terr"]``, elementwise, its components summed in order; an
+        optional ``pr["terrOff"]`` ((2,) or (2, B)) translates each env's
+        terrain query."""
+        T = pr["terr"]
+        if "terrOff" in pr:
+            x = x - pr["terrOff"][0]
+            y = y - pr["terrOff"][1]
+        h = torch.zeros_like(x)
+        dhx = torch.zeros_like(x)
+        dhy = torch.zeros_like(x)
+        for k in range(T.shape[1]):
+            a, kx, ky, ph = T[0, k], T[1, k], T[2, k], T[3, k]
+            arg = kx * x + ky * y + ph
+            h = h + a * torch.sin(arg)
+            c_ = a * torch.cos(arg)
+            dhx = dhx + kx * c_
+            dhy = dhy + ky * c_
+        return self.terrain_offset + h, dhx, dhy
+
     def soft_contact_forces(self, W_R, W_p, W_v, m, pr=None):
         """Hunt/Crossley per point, vectorized over the points; per-link 6D
-        inertial forces (list of (6,B) or None) and ṁ (nC,3,B)."""
+        inertial forces (list of (6,B) or None) and ṁ (nC,3,B). The plane's
+        static normal, or on Fourier terrain the analytic normal at each
+        point, with δ = (h − z)·n̂_z; ``pr``'s ``Kmul``, ``Dmul`` and
+        ``mumul`` scale K, D and μ per env."""
         f_links = [None] * self.n_links
         if self.n_points == 0:
             return f_links, torch.zeros_like(m)
+        pr = self.params(pr)
         eps = torch.finfo(torch.float32).eps
         ax, ay, az = self.terrain_normal
         off = self.terrain_offset
         flat = self.flat
-        K, D, mu = self.K, self.D, self.mu
+        fourier = self.terrain_kind == "fourier"
+        K = self.K * pr["Kmul"] if "Kmul" in pr else self.K
+        D = self.D * pr["Dmul"] if "Dmul" in pr else self.D
+        mu = self.mu * pr["mumul"] if "mumul" in pr else self.mu
 
         parents = self.contact_parent
         Rp = torch.stack([W_R[i] for i in parents], 2)  # (3,3,nC,B)
         pp = torch.stack([W_p[i] for i in parents], 1)  # (3,nC,B)
         vp = torch.stack([W_v[i] for i in parents], 1)  # (6,nC,B)
-        Lp = self.params(pr)["cpoint"].transpose(0, 1)[:, :, None]  # (3,nC,1)
+        Lp = pr["cpoint"].transpose(0, 1)[:, :, None]  # (3,nC,1)
         pc = _mv(Rp, Lp) + pp
         pd = vp[0:3] + _cross(vp[3:6], pc)
 
@@ -670,6 +763,14 @@ class BatchedEngine(nn.Module):
         if flat:
             delta = _maximum(-pc[2], 0.0)
             delta_dot = torch.where(delta > 0, -pd[2], zb)
+        elif fourier:
+            # The analytic height and normal at each point (δ = (h − z)·n̂_z).
+            h, dhx, dhy = self._fourier_height_grad(pr, pc[0], pc[1])
+            inv_n = 1.0 / torch.sqrt(dhx * dhx + dhy * dhy + 1.0)
+            ax, ay, az = -dhx * inv_n, -dhy * inv_n, inv_n
+            ndotv = ax * pd[0] + ay * pd[1] + az * pd[2]
+            delta = _maximum((h - pc[2]) * az, 0.0)
+            delta_dot = torch.where(delta > 0, -ndotv, zb)
         else:
             ndotp = ax * pc[0] + ay * pc[1] + az * pc[2]
             ndotv = ax * pd[0] + ay * pd[1] + az * pd[2]
@@ -845,7 +946,8 @@ class BatchedEngine(nn.Module):
         # Free point acceleration p̈ = R(a_lin + ω̇ × Lp) + g + ω × ṗ.
         acc = self._rr_gather(Rp, Lp, a_free)
         wxpd = _cross(omega, pd)
-        pdd = torch.stack([acc[0] + wxpd[0], acc[1] + wxpd[1], acc[2] + self.gravity_z + wxpd[2]])
+        gz = self._gravity(torch.zeros_like(state.p[0]), pr)
+        pdd = torch.stack([acc[0] + wxpd[0], acc[1] + wxpd[1], acc[2] + gz + wxpd[2]])
 
         # The μ²-scaled regularizer plus the impedance floor (1−ξ)/ξ · M⁻¹_jj,
         # the right-hand side and the Jacobi preconditioner, per component.
@@ -898,7 +1000,7 @@ class BatchedEngine(nn.Module):
         a_cont, sdd_cont = self._minv_apply(fact, self._rr_scatter(Rp, Lp, x.transpose(0, 1)), pr)
         if self.floating_base:
             zb = torch.zeros_like(state.p[0])
-            g6 = torch.stack([zb, zb, zb + self.gravity_z, zb, zb, zb])
+            g6 = torch.stack([zb, zb, gz, zb, zb, zb])
             W_a = _xv(W_R[0], W_p[0], a_free[0] + a_cont[0]) + g6
         else:
             W_a = torch.zeros_like(state.v)
@@ -906,8 +1008,16 @@ class BatchedEngine(nn.Module):
 
     # ----- dynamics -----
 
+    def _gravity(self, zb, pr):
+        """The gravity's z component per env from a zero row ``zb`` (B,):
+        ``gravity_z``, times ``pr["gmul"]`` when given."""
+        gz = zb + self.gravity_z
+        return gz * pr["gmul"] if "gmul" in pr else gz
+
     def aba(self, state: BatchedState, W_R, W_p, W_v, f_ext, tau, pr=None, return_aux: bool = False):
         """Articulated-Body Algorithm, trailing batch, unrolled tree.
+        ``pr``'s ``gmul`` scales gravity and its ``Mmul`` every link's
+        spatial inertia, per env.
         ``f_ext``: per-link world 6D forces, (6,B) or None. With
         ``return_aux`` a third value holds the link-frame accelerations ``a``
         and the configuration-only factorization (``U``, ``d``, the
@@ -916,9 +1026,11 @@ class BatchedEngine(nn.Module):
         nL = self.n_links
         pr = self.params(pr)
         S_all, M_all = pr["S"], pr["M"]
+        if "Mmul" in pr:
+            M_all = M_all[..., None] * pr["Mmul"]  # (nL, 6, 6, B)
         rel_R, rel_p = self._relative_transforms(state.s, pr)
         zb = torch.zeros_like(state.p[0])
-        g6 = torch.stack([zb, zb, zb + self.gravity_z, zb, zb, zb])
+        g6 = torch.stack([zb, zb, self._gravity(zb, pr), zb, zb, zb])
 
         inv_R = [None] * nL
         inv_p = [None] * nL
@@ -934,7 +1046,7 @@ class BatchedEngine(nn.Module):
         MA = [None] * nL
         v[0] = _xv(R0_inv, p0_inv, state.v) if self.floating_base else torch.zeros_like(state.v)
 
-        MA[0] = _c(M_all[0])
+        MA[0] = M_all[0] if "Mmul" in pr else _c(M_all[0])
         pA[0] = _vxstar_Mv(v[0], MA[0])
         if f_ext[0] is not None:
             pA[0] = pA[0] - _xtf(R0, p0, f_ext[0])
@@ -944,7 +1056,7 @@ class BatchedEngine(nn.Module):
             vJ = _c(S_all[i]) * state.sd[i - 1]
             v[i] = _xv(inv_R[i], inv_p[i], v[lam]) + vJ
             c[i] = _vx(v[i], vJ)
-            MA[i] = _c(M_all[i])
+            MA[i] = M_all[i] if "Mmul" in pr else _c(M_all[i])
             pA[i] = _vxstar_Mv(v[i], MA[i])
             if f_ext[i] is not None:
                 pA[i] = pA[i] - _xtf(W_R[i], W_p[i], f_ext[i])
@@ -1117,11 +1229,14 @@ class BatchedEngine(nn.Module):
             m=state.m + dt * md,
         )
 
-    def rollout(self, state: BatchedState, n_steps: int, policy=None, pr=None) -> BatchedState:
+    def rollout(self, state: BatchedState, n_steps: int, policy=None, pr=None, domain=None) -> BatchedState:
         """``n_steps`` of :meth:`step`; ``policy(state) -> (n, B)`` torques,
-        by default the PD policy ``-60·s - 0.5·ṡ``; ``pr`` as in :meth:`step`."""
+        by default the PD policy ``-60·s - 0.5·ṡ``; ``pr`` as in :meth:`step`;
+        ``domain``, per-env multipliers (:data:`DOMAIN_NAMES`) and on Fourier
+        terrain ``terrOff``, merged into ``pr`` (the JAX engine's
+        ``rollout(domain=)``)."""
         policy = policy or (lambda st: -60.0 * st.s - 0.5 * st.sd)
-        pr = self.params(pr)
+        pr = self.params({**(pr or {}), **(domain or {})})
         for _ in range(n_steps):
             state = self.step(state, policy(state), pr)
         return state

@@ -38,9 +38,10 @@ import subprocess
 import time
 import weakref
 
+import numpy as np
 import torch
 
-from .batched_engine import BatchedEngine, BatchedState
+from .batched_engine import DOMAIN_NAMES, RR_ROUGH_ITEM, BatchedEngine, BatchedState
 
 _PACKAGE = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
@@ -97,11 +98,33 @@ RR_MAX_ENVS = 64  # envs a block of the relaxed-rigid kernel, at most
 _PACKED: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
+def _float_literal(x: float) -> str:
+    """A C float literal of ``x`` rounded to float32 (as the twin rounds a
+    Python float against a float32 tensor), exactly, in hex."""
+    return float(np.float32(x)).hex() + "f"
+
+
+def terrain_header(engine: BatchedEngine) -> str:
+    """The generated header's terrain (nothing on flat ground, so that a flat
+    build's header is what it was before terrains came): ``JX_TERRAIN`` 1 and
+    the plane's unit normal ``JX_TERR_N*`` and offset ``JX_TERR_H``, or 2 and
+    the Fourier terrain's components ``JX_TERR_K`` and offset ``h0``."""
+    if engine.flat:
+        return ""
+    if engine.terrain_kind == "fourier":
+        return (f"#define JX_TERRAIN 2\n#define JX_TERR_K {engine.terr.shape[1]}\n"
+                f"#define JX_TERR_H {_float_literal(engine.terrain_offset)}\n")  # fmt: skip
+    nx, ny, nz = (_float_literal(v) for v in engine.terrain_normal)
+    return (f"#define JX_TERRAIN 1\n#define JX_TERR_NX {nx}\n#define JX_TERR_NY {ny}\n#define JX_TERR_NZ {nz}\n"
+            f"#define JX_TERR_H {_float_literal(engine.terrain_offset)}\n")  # fmt: skip
+
+
 def topology_header(engine: BatchedEngine | None, defines=()) -> str:
     """The generated header that specializes a kernel to one topology,
     contact model (``JX_CONTACT``: 0 soft, 1 relaxed-rigid, with
-    ``JX_RR_ITERS`` PCG iterations) and integrator (``JX_INTEGRATOR``: 0
-    semi-implicit Euler, 1 RK4, 2 RK4-fast); empty without an engine."""
+    ``JX_RR_ITERS`` PCG iterations), integrator (``JX_INTEGRATOR``: 0
+    semi-implicit Euler, 1 RK4, 2 RK4-fast) and terrain
+    (:func:`terrain_header`); empty without an engine."""
     if engine is None:
         return ""
 
@@ -122,6 +145,7 @@ def topology_header(engine: BatchedEngine | None, defines=()) -> str:
         f"#define JX_CONTACT {engine.CONTACT_MODELS.index(engine.contact_model)}\n"
         f"#define JX_RR_ITERS {engine._rr_n_iter if engine.contact_model == 'relaxed_rigid' else 0}\n"
         f"#define JX_INTEGRATOR {engine.INTEGRATORS.index(engine.integrator)}\n"
+        + terrain_header(engine)
         + "".join(f"#define {name} {int(value)}\n" for name, value in defines)
         + arr("JX_LAM", engine.lam)
         + arr("JX_JTYPE", engine.joint_types)
@@ -329,7 +353,7 @@ def policy_weight_count(n_joints: int, policy: int, hidden: int) -> int:
 
 def lane_tables(
     engine: BatchedEngine, lanes: int, params_grad: bool = False, *, forward: bool = False, policy: int = -1,
-    hidden: int = 0, step_envs: int = 0,
+    hidden: int = 0, step_envs: int = 0, terrain_rel: bool = False,
 ) -> dict:
     """What the lane-spread soft step (``soft_step_lanes.cuh``) takes from
     the topology for ``lanes`` lanes an env: :func:`_lane_schedule`'s point
@@ -342,7 +366,9 @@ def lane_tables(
     (``forward``) and a block of ``LN_FORWARD_MAX_ENVS`` envs, with the model
     arrays; the env rollout (K5, ``policy`` 0, 1 or 2 with ``hidden`` units)
     also a candidate's weights, and for each env its torques and hidden
-    units; the rollout K1 of an RK4 engine a row of the step's torques,
+    units (and with ``terrain_rel`` a row for the observation's
+    terrain-relative height); the rollout K1 of an RK4 engine a row of the
+    step's torques,
     captured once a step. The one-step kernels (K2, K3: ``forward`` with ``step_envs``)
     take a block of ``step_envs`` envs, each with a row of torques, and the
     model arrays. Each halves its envs while the block does not fit in its shared
@@ -368,7 +394,7 @@ def lane_tables(
         block_floats, env_floats, envs = n_params, engine.n_joints, step_envs
     elif forward:
         block_floats = n_params + (policy_weight_count(engine.n_joints, policy, hidden) if policy >= 0 else 0)
-        env_floats = engine.n_joints + (hidden if policy == 2 else 0) if policy >= 0 else 0
+        env_floats = engine.n_joints + (hidden if policy == 2 else 0) + int(terrain_rel) if policy >= 0 else 0
         envs = LN_FORWARD_MAX_ENVS
     else:
         block_floats, env_floats, envs = n_params if params_grad else 0, 0, 32 // lanes
@@ -395,6 +421,7 @@ def lane_header(engine: BatchedEngine, defines: dict) -> str:
         engine, defines["JX_LN_LANES"], bool(defines.get("JX_PARAMS_GRAD")),
         forward=bool(defines.get("JX_LN_FORWARD")), policy=defines.get("JX_POLICY", -1),
         hidden=defines.get("JX_HIDDEN", 0), step_envs=defines.get("JX_STEP_ENVS", 0),
+        terrain_rel=bool(defines.get("JX_TERRAIN_REL")),
     )  # fmt: skip
     rows = ", ".join(map(str, t["par_row"]))
     return _schedule_header("JX_LN", t) + f"__constant__ int JX_LN_PAR_ROW[{engine.n_links}] = {{{rows}}};\n"
@@ -507,11 +534,12 @@ def build(job: BuildJob) -> KernelBuild:
 
 def packed_params(engine: BatchedEngine, pr: dict[str, torch.Tensor] | None = None) -> torch.Tensor:
     """The model arrays, with ``pr``'s overrides, flattened in
-    ``PARAM_NAMES`` order (the kernels' shared-memory layout). The engine's
-    own arrays are packed once and again only after they change."""
+    ``PARAM_NAMES`` order (the kernels' shared-memory layout; a Fourier
+    engine's spectrum ``terr`` last). The engine's own arrays are packed
+    once and again only after they change."""
     arrays = engine.params(pr)
     if pr:
-        return torch.cat([t.reshape(-1) for t in arrays.values()]).contiguous()
+        return torch.cat([arrays[k].reshape(-1) for k in engine.PARAM_NAMES]).contiguous()
     stamp = tuple((t.data_ptr(), t._version) for t in arrays.values())
     cached = _PACKED.get(engine)
     if cached is None or cached[0] != stamp:
@@ -561,13 +589,24 @@ _STATE_NAMES = tuple(f"state.{f.name}" for f in dataclasses.fields(BatchedState)
 
 
 _INTEGRATOR_NAMES = dict(sie="semi-implicit Euler", rk4="RK4", rk4fast="RK4-fast")
+# Every terrain a soft kernel's build takes (BatchedEngine.terrain).
+TERRAINS = ("flat", "plane", "fourier")
+# The ROADMAP items a refusal names: the soft RK4 builds and K4 off flat
+# ground; the relaxed-rigid kernels off flat ground and with per-env options.
+ITEM_VARIANTS = "ROADMAP Queue 2 item 6"
+ITEM_RR_TERRAIN = RR_ROUGH_ITEM
+ITEM_RR_DOMAIN = "ROADMAP Queue 1 item 16"
 
 
-def check_cuda_call(engine: BatchedEngine, state: BatchedState, contact_models=("soft",), integrators=("sie",)) -> int:
-    """What every kernel takes: a flat-ground float32 engine with one of the
-    kernel's ``contact_models`` and ``integrators``, and a state on the
-    engine's device, float32, contiguous, of the engine's shapes. Returns the
-    batch size."""
+def check_cuda_call(
+    engine: BatchedEngine, state: BatchedState, contact_models=("soft",), integrators=("sie",), terrains=("flat",)
+) -> int:
+    """What every kernel takes: a float32 engine with one of the kernel's
+    ``contact_models`` and ``integrators`` on one of its ``terrains``
+    (:data:`TERRAINS`: a relaxed-rigid engine and an RK4 or RK4-fast engine
+    on flat ground only, whatever the kernel), and a state on the engine's
+    device, float32, contiguous, of the engine's shapes. Returns the batch
+    size."""
     if engine.contact_model not in contact_models:
         raise ValueError(
             f"this kernel implements {' and '.join(contact_models)} contacts, not {engine.contact_model}"
@@ -578,7 +617,14 @@ def check_cuda_call(engine: BatchedEngine, state: BatchedState, contact_models=(
             f"not {_INTEGRATOR_NAMES[engine.integrator]}"
         )
     if not engine.flat:
-        raise ValueError("the CUDA kernels implement flat ground only")
+        if engine.contact_model == "relaxed_rigid":
+            raise ValueError(f"the relaxed-rigid kernels take flat ground only ({ITEM_RR_TERRAIN})")
+        if engine.integrator != "sie":
+            raise ValueError(
+                f"the {_INTEGRATOR_NAMES[engine.integrator]} builds take flat ground only ({ITEM_VARIANTS})"
+            )
+        if engine.terrain not in terrains:
+            raise ValueError(f"this kernel takes flat ground only, not {engine.terrain} terrain ({ITEM_VARIANTS})")
     S = engine.S
     if S.dtype != torch.float32:
         raise ValueError(f"the kernel takes a float32 engine, got {S.dtype}")
@@ -601,6 +647,40 @@ def check_tensor(name: str, t: torch.Tensor, shape, device, dtype=torch.float32)
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def domain_rows(
+    engine: BatchedEngine, B: int, domain: dict | None, terr_off, device
+) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """A soft rollout's per-env options as its kernel takes them: the five
+    multipliers of ``domain`` (:data:`DOMAIN_NAMES`, each ``(B,)``, a missing
+    one 1) stacked ``(5, B)``, and ``terr_off`` ``(2, B)``; each None when not
+    given. Checks names, shapes, type and device, and refuses them where the
+    kernels do not take them (RK4, relaxed-rigid, a terrain offset off
+    Fourier terrain)."""
+    if domain is None and terr_off is None:
+        return None, None
+    if engine.contact_model == "relaxed_rigid":
+        raise ValueError(f"the relaxed-rigid kernels take no per-env domain or terrain offset ({ITEM_RR_DOMAIN})")
+    if engine.integrator != "sie":
+        raise ValueError(
+            f"the {_INTEGRATOR_NAMES[engine.integrator]} builds take no per-env domain or terrain offset"
+            f" ({ITEM_VARIANTS})"
+        )
+    mul = None
+    if domain is not None:
+        unknown = set(domain) - set(DOMAIN_NAMES)
+        if unknown:
+            raise ValueError(f"unknown domain multipliers: {sorted(unknown)} (terrOff is the terr_off argument)")
+        for name, t in domain.items():
+            check_tensor(f"domain[{name!r}]", t, (B,), device)
+        one = torch.ones(B, dtype=torch.float32, device=device)
+        mul = torch.stack([domain.get(name, one) for name in DOMAIN_NAMES]).contiguous()
+    if terr_off is not None:
+        if engine.terrain_kind != "fourier":
+            raise ValueError("terr_off translates a Fourier terrain; this engine's terrain is a plane")
+        check_tensor("terr_off", terr_off, (2, B), device)
+    return mul, terr_off
 
 
 def empty_state_like(state: BatchedState) -> BatchedState:

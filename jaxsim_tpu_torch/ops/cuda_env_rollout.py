@@ -8,7 +8,8 @@ per-env sums of the reward, the resets and the steps, all in one launch of
 an env, its state and the step's working set in shared memory, as the soft
 K1) or of ``jaxsim_tpu_torch/csrc/env_rollout_rr.cu`` for relaxed-rigid
 contacts (K1-rr's step and geometry, ``RR_LANES`` lanes an env; the respawn
-restores the start's ``m`` too), semi-implicit Euler only.
+restores the start's ``m`` too), semi-implicit Euler only; the soft build on
+flat ground, an inclined plane or Fourier terrain.
 
 Ported options: the policy (the PD closure with gains ``kp``, ``kd``; a
 linear policy ``W``, ``b``; a tanh MLP ``W1``, ``b1``, ``W2``, ``b2``, one
@@ -17,12 +18,18 @@ library per hidden width), per-candidate weights (a leading population axis
 ``per_tile_weights``), ``episode_length``, ``healthy_z_range``,
 ``tau_limit`` (a clip of the linear and MLP policies' torques, as in JAX),
 the default reward and ``reset_noise`` with ``seed`` (Philox4x32-10, see
-:mod:`jaxsim_tpu_torch.ops.philox`). Weights are call-time inputs.
+:mod:`jaxsim_tpu_torch.ops.philox`); for soft contacts ``domain``, the five
+per-env multipliers ``Kmul``, ``Dmul``, ``mumul``, ``gmul``, ``Mmul`` (each
+``(B,)``, a missing one 1), and on Fourier terrain ``terr_off`` ``(2, B)``
+and ``terrain_relative`` (the base height less the terrain's under it, with
+the env's offset, in the observation's last row and in the healthy-height
+test; the reward keeps the absolute height, as JAX's default reward).
+Weights are call-time inputs.
 
-Not ported yet, each refused with ``ValueError``: ``domain`` (per-env
-multipliers, ROADMAP Queue 1 item 4a), ``terr_off`` and ``terrain_relative``
-(Fourier terrain, item 4d), and a Python ``policy`` or ``reward`` closure on
-a CUDA state (a CPU state runs one in the plain version).
+Refused with ``ValueError``: ``domain`` and ``terr_off`` on the
+relaxed-rigid kernel (ROADMAP Queue 1 item 16), and a Python ``policy`` or
+``reward`` closure on a CUDA state (a CPU state runs one in the plain
+version).
 
 :func:`env_rollout` takes :func:`env_rollout_reference`, the plain version
 (a loop over the twin's step with :mod:`jaxsim_tpu_torch.ops.policies`), for
@@ -37,7 +44,7 @@ import dataclasses
 import torch
 
 from . import cuda_build, cuda_rollout
-from .batched_engine import BatchedEngine, BatchedState
+from .batched_engine import DOMAIN_NAMES, BatchedEngine, BatchedState
 from .cuda_build import CSRC, F32, I32, PTR, BuildJob, KernelBuild, packed_params
 from .philox import reset_noise as philox_reset_noise
 from .policies import default_reward, linear_policy_tau, mlp_policy_tau, obs_dim, select
@@ -51,7 +58,7 @@ SOURCE = CSRC / "env_rollout.cu"
 SIGNATURES = {
     "jx_weight_count": [],
     "jx_env_rollout": [PTR] * 17 + [I32, I32] + [F32] * 10
-    + [I32, F32, F32, I32, F32, F32, ctypes.c_uint, I32, PTR],
+    + [I32, F32, F32, I32, F32, F32, ctypes.c_uint, I32, PTR, PTR, PTR],
     "jx_env_geometry": [PTR],
 }
 RR_SOURCE = CSRC / "env_rollout_rr.cu"
@@ -125,6 +132,7 @@ def make_policy(engine: BatchedEngine, W=None, b=None, W1=None, b1=None, W2=None
 
 
 def check_options(
+    engine: BatchedEngine,
     device: torch.device,
     *,
     policy=None,
@@ -137,15 +145,13 @@ def check_options(
 ) -> None:
     """Refuse what the port does not run, before anything is built or
     launched; ``device`` is the state's."""
-    if domain is not None:
-        raise ValueError(
-            "per-env domain multipliers are not ported yet (ROADMAP Queue 1 item 4a)"
-        )
-    if terr_off is not None or terrain_relative:
-        raise ValueError(
-            "terr_off and terrain_relative need Fourier terrain, not ported yet"
-            " (ROADMAP Queue 1 item 4d)"
-        )
+    unknown = set(domain or {}) - set(DOMAIN_NAMES)
+    if unknown:
+        raise ValueError(f"unknown domain multipliers: {sorted(unknown)} (terrOff is the terr_off argument)")
+    if (terr_off is not None or terrain_relative) and engine.terrain_kind != "fourier":
+        raise ValueError("terr_off and terrain_relative need a Fourier-terrain engine")
+    if device.type == "cuda" and engine.contact_model == "relaxed_rigid" and (domain or terr_off is not None):
+        raise ValueError(f"the relaxed-rigid env rollout takes no per-env domain or terrain offset ({cuda_build.ITEM_RR_DOMAIN})")
     if policy is not None and learned:
         raise ValueError("pass either a policy closure or policy weights")
     if tau_limit is not None and not learned:
@@ -153,18 +159,21 @@ def check_options(
     if device.type == "cuda" and (policy is not None or reward is not None):
         raise ValueError(
             "a Python policy or reward closure cannot run inside the CUDA kernel"
-            " (custom closures: ROADMAP Queue 2, K5); on a CUDA state the kernel"
+            f" (custom closures: {cuda_build.ITEM_VARIANTS}); on a CUDA state the kernel"
             " takes the PD gains or linear/MLP weights and the default reward"
         )
 
 
-def _policy_fn(policy: Policy, kp, kd, tau_limit, candidates_axis: bool):
+def _policy_fn(policy: Policy, kp, kd, tau_limit, candidates_axis: bool, hrel_fn=None):
+    """The plain policy; ``hrel_fn(state)`` gives the observation's
+    terrain-relative height row where there is one."""
     if policy.kind == "pd":
         return lambda st: -kp * st.s - kd * st.sd
     w = policy.weights if candidates_axis else tuple(x[0] for x in policy.weights)
+    hrel = hrel_fn or (lambda st: None)
     if policy.kind == "linear":
-        return lambda st: linear_policy_tau(st, *w, tau_limit)
-    return lambda st: mlp_policy_tau(st, *w, tau_limit)
+        return lambda st: linear_policy_tau(st, *w, tau_limit, hrel(st))
+    return lambda st: mlp_policy_tau(st, *w, tau_limit, hrel(st))
 
 
 def env_rollout_reference(
@@ -190,20 +199,29 @@ def env_rollout_reference(
     domain=None,
     terr_off=None,
     terrain_relative: bool = False,
+    trace=None,
 ):
     """The plain version of :func:`env_rollout`: a loop over the twin's step.
     A Python ``policy(state) -> tau`` and ``reward(state, tau, new) -> (B,)``
-    may replace the PD closure and the default reward."""
+    may replace the PD closure and the default reward. ``trace(t, sim,
+    reward_sum, z, resets, steps)``, when given, sees after each step ``t``
+    the state, the reward sums and counts as they stand, and the base height
+    of the step's termination test (before a respawn)."""
     learned = W is not None or W1 is not None
     check_options(
-        torch.device("cpu"), policy=policy, reward=reward, tau_limit=tau_limit, learned=learned,
+        engine, torch.device("cpu"), policy=policy, reward=reward, tau_limit=tau_limit, learned=learned,
         domain=domain, terr_off=terr_off, terrain_relative=terrain_relative,
     )  # fmt: skip
     pol = make_policy(engine, W, b, W1, b1, W2, b2)
     B = state.p.shape[-1]
     if B % pol.candidates:
         raise ValueError(f"the batch {B} does not split into {pol.candidates} candidates")
-    tau_fn = policy or _policy_fn(pol, kp, kd, tau_limit, pol.candidates > 1)
+    pr = engine.params({**(domain or {}), **({} if terr_off is None else {"terrOff": terr_off})})
+
+    def hrel_fn(st):  # the JAX kernel's terrain-relative height, with the env's offset
+        return st.p[2] - engine._fourier_height_grad(pr, st.p[0], st.p[1])[0]
+
+    tau_fn = policy or _policy_fn(pol, kp, kd, tau_limit, pol.candidates > 1, hrel_fn if terrain_relative else None)
     reward = reward or default_reward
     z_lo, z_hi = float(healthy_z_range[0]), float(healthy_z_range[1])
 
@@ -214,9 +232,9 @@ def env_rollout_reference(
     reward_sum = torch.zeros(B, dtype=state.p.dtype, device=device)
     for t in range(n_steps):
         tau = tau_fn(sim)
-        new = engine.step(sim, tau)
+        new = engine.step(sim, tau, pr)
         steps1 = steps + 1
-        z = new.p[2]
+        z = hrel_fn(new) if terrain_relative else new.p[2]
         done = (z < z_lo) | (z > z_hi) | (steps1 >= episode_length)
         reward_sum = reward_sum + reward(sim, tau, new)
         p0 = init.p
@@ -226,39 +244,51 @@ def env_rollout_reference(
         sim = BatchedState(*(select(done, f, x) for f, x in zip(fresh, new.fields())))
         steps = torch.where(done, torch.zeros_like(steps1), steps1)
         resets = resets + done.to(torch.int32)
+        if trace is not None:
+            trace(t, sim, reward_sum, z, resets, steps)
     return sim, reward_sum, resets, steps
 
 
-def job(engine: BatchedEngine, policy: Policy, lanes: int | None = None) -> BuildJob:
+def job(
+    engine: BatchedEngine, policy: Policy, lanes: int | None = None, *, domain: bool = False, terr_off: bool = False,
+    terrain_rel: bool = False,
+) -> BuildJob:
     """The library for ``engine`` and ``policy``: the soft env rollout or the
     relaxed-rigid one, with ``lanes`` lanes an env (``LANES`` or
-    ``RR_LANES`` by default)."""
+    ``RR_LANES`` by default); the soft one's per-env options (``domain``:
+    ``JX_DOMAIN``, ``terr_off``: ``JX_TERR_OFF``, ``terrain_rel``:
+    ``JX_TERRAIN_REL``) each build a library of their own."""
     kind = (("JX_POLICY", POLICY_KINDS[policy.kind]), ("JX_HIDDEN", max(policy.hidden, 1)))
     if engine.contact_model == "relaxed_rigid":
         defines = (*kind, ("JX_RR_LANES", int(lanes or RR_LANES)), ("JX_RR_TAU_ROW", 1))
         return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, defines)
-    return BuildJob(engine, SOURCE, SIGNATURES, (*kind, ("JX_LN_LANES", int(lanes or LANES)), ("JX_LN_FORWARD", 1)))
+    options = (("JX_DOMAIN", 1),) * domain + (("JX_TERR_OFF", 1),) * terr_off + (("JX_TERRAIN_REL", 1),) * terrain_rel
+    return BuildJob(engine, SOURCE, SIGNATURES,
+                    (*kind, ("JX_LN_LANES", int(lanes or LANES)), ("JX_LN_FORWARD", 1), *options))  # fmt: skip
 
 
-def build(engine: BatchedEngine, policy: Policy) -> KernelBuild:
-    return cuda_build.build(job(engine, policy))
+def build(engine: BatchedEngine, policy: Policy, **options) -> KernelBuild:
+    return cuda_build.build(job(engine, policy, **options))
 
 
-def envs_per_block(engine: BatchedEngine, policy: Policy, lanes: int | None = None) -> int:
+def envs_per_block(engine: BatchedEngine, policy: Policy, lanes: int | None = None, terrain_rel: bool = False) -> int:
     """Envs a block of the kernel for ``policy`` takes (the generated
     header's: :func:`cuda_build.lane_tables`, or :func:`cuda_build.rr_tables`
     for a relaxed-rigid engine)."""
     kind, hidden = POLICY_KINDS[policy.kind], max(policy.hidden, 1)
     if engine.contact_model == "relaxed_rigid":
         return cuda_build.rr_tables(engine, lanes or RR_LANES, tau_row=True, policy=kind, hidden=hidden)["envs"]
-    return cuda_build.lane_tables(engine, lanes or LANES, forward=True, policy=kind, hidden=hidden)["envs"]
+    return cuda_build.lane_tables(engine, lanes or LANES, forward=True, policy=kind, hidden=hidden,
+                                  terrain_rel=terrain_rel)["envs"]  # fmt: skip
 
 
-def check_candidates(engine: BatchedEngine, B: int, policy: Policy, lanes: int | None = None) -> None:
+def check_candidates(
+    engine: BatchedEngine, B: int, policy: Policy, lanes: int | None = None, terrain_rel: bool = False
+) -> None:
     """A batch of ``B`` envs splits evenly into the policy's candidates, and
     with several candidates each candidate's envs fill whole blocks of the
     kernel, so that a block loads one candidate's weights."""
-    P, envs = policy.candidates, envs_per_block(engine, policy, lanes)
+    P, envs = policy.candidates, envs_per_block(engine, policy, lanes, terrain_rel)
     if B % P or (P > 1 and (B // P) % envs):
         raise ValueError(
             f"{P} candidates need a batch of P · k · {envs} envs (whole blocks per candidate), got {B}"
@@ -275,11 +305,13 @@ def geometry(kernel: KernelBuild) -> dict[str, int]:
 
 def launch(
     kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, n_steps: int, policy: Policy, *, kp, kd,
-    episode_length, healthy_z_range, tau_limit, reset_noise, seed,
+    episode_length, healthy_z_range, tau_limit, reset_noise, seed, mul=None, off=None,
 ):
     """One launch of ``kernel`` (the engine's env-rollout library for
-    ``policy``, or a variant of it) on a checked CUDA state; counts nothing.
-    Returns as :func:`env_rollout`."""
+    ``policy``, or a variant of it) on a checked CUDA state, with the soft
+    build's checked per-env rows ``mul`` and ``off``
+    (:func:`cuda_build.domain_rows`); counts nothing. Returns as
+    :func:`env_rollout`."""
     weights = policy.packed() if policy.weights else None
     if weights is not None:
         cuda_build.check_tensor("policy weights", weights, weights.shape, engine.S.device)
@@ -300,6 +332,7 @@ def launch(
         int(episode_length), float(healthy_z_range[0]), float(healthy_z_range[1]), int(tau_limit is not None), float(tau_limit or 0.0),
         float(reset_noise * 3.0**0.5) if reset_noise > 0.0 else 0.0,
         int(seed) & 0xFFFFFFFF, B // policy.candidates,
+        *(() if relaxed else (None if t is None else t.data_ptr() for t in (mul, off))),
     )  # fmt: skip
     return out, reward_sum, resets, steps
 
@@ -343,15 +376,17 @@ def env_rollout(
         return env_rollout_reference(engine, state, n_steps, **opts)
     learned = W is not None or W1 is not None
     check_options(
-        state.p.device, policy=policy, reward=reward, tau_limit=tau_limit, learned=learned,
+        engine, state.p.device, policy=policy, reward=reward, tau_limit=tau_limit, learned=learned,
         domain=domain, terr_off=terr_off, terrain_relative=terrain_relative,
     )  # fmt: skip
-    B = cuda_build.check_cuda_call(engine, state, cuda_rollout.CONTACT_MODELS)
+    B = cuda_build.check_cuda_call(engine, state, cuda_rollout.CONTACT_MODELS, terrains=cuda_build.TERRAINS)
+    mul, off = cuda_build.domain_rows(engine, B, domain, terr_off, engine.S.device)
     pol = make_policy(engine, W, b, W1, b1, W2, b2)
-    check_candidates(engine, B, pol)
+    check_candidates(engine, B, pol, terrain_rel=terrain_relative)
+    kernel = build(engine, pol, domain=mul is not None, terr_off=off is not None, terrain_rel=bool(terrain_relative))
     out = launch(
-        build(engine, pol), engine, state, n_steps, pol, kp=kp, kd=kd, episode_length=episode_length,
-        healthy_z_range=healthy_z_range, tau_limit=tau_limit, reset_noise=reset_noise, seed=seed,
+        kernel, engine, state, n_steps, pol, kp=kp, kd=kd, episode_length=episode_length,
+        healthy_z_range=healthy_z_range, tau_limit=tau_limit, reset_noise=reset_noise, seed=seed, mul=mul, off=off,
     )  # fmt: skip
     if engine.contact_model == "relaxed_rigid":
         ENV_ROLLOUT_RR_KERNEL_LAUNCHES += 1

@@ -4,7 +4,12 @@ Counterpart of ``jaxsim_tpu/ops/pallas_step.py::build_pallas_rollout`` and its
 ``_rollout_kernel``, for two bodies: soft or relaxed-rigid contacts, each on
 flat ground with the engine's integrator (semi-implicit Euler, RK4 or
 RK4-fast) and the PD policy ``tau = -kp·s - kd·ṡ``, evaluated once a step at
-its start, without per-env options. The soft kernel is
+its start. The soft semi-implicit Euler body also takes an inclined plane
+and Fourier terrain, and the JAX kernel's per-env options: ``domain``, the
+five multipliers ``Kmul``, ``Dmul``, ``mumul``, ``gmul``, ``Mmul`` (each
+``(B,)``, a missing one 1), and ``terr_off`` ``(2, B)`` on Fourier terrain.
+The RK4 builds and the relaxed-rigid body take neither (ROADMAP Queue 2
+item 6, Queue 1 items 15 and 16). The soft kernel is
 ``jaxsim_tpu_torch/csrc/rollout.cu`` (``LANES`` lanes an env, its state and
 the step's working set in shared memory: ``soft_step_lanes.cuh``'s
 forward-only slot), the relaxed-rigid one
@@ -40,7 +45,9 @@ SOURCE = CSRC / "rollout.cu"
 # the steps, the scalars, the stream; the relaxed-rigid one's also the RK4
 # scratch before the stream (two pointers and their stride: null and 0 for a
 # semi-implicit Euler build).
-SIGNATURES = {"jx_rollout": [PTR] * 13 + [I32, I32] + [F32] * 10 + [PTR], "jx_rollout_geometry": [PTR]}
+# The soft one's also the per-env rows (multipliers, terrain offset; null
+# where the build takes none) before the stream.
+SIGNATURES = {"jx_rollout": [PTR] * 13 + [I32, I32] + [F32] * 10 + [PTR] * 3, "jx_rollout_geometry": [PTR]}
 RR_SOURCE = CSRC / "rollout_rr.cu"
 RR_SIGNATURES = {"jx_rollout_rr": [PTR] * 13 + [I32, I32] + [F32] * 23 + [PTR, PTR, I32, PTR], "jx_rr_geometry": [PTR]}
 # Lanes of a warp that carry one env in the soft and the relaxed-rigid
@@ -51,19 +58,22 @@ CONTACT_MODELS = ("soft", "relaxed_rigid")
 INTEGRATORS = ("sie", "rk4", "rk4fast")
 
 
-def job(engine: BatchedEngine, lanes: int | None = None) -> BuildJob:
+def job(engine: BatchedEngine, lanes: int | None = None, domain: bool = False, terr_off: bool = False) -> BuildJob:
     """The library for ``engine``: the soft rollout or the relaxed-rigid one,
     with ``lanes`` lanes an env (``LANES`` or ``RR_LANES`` by default); the
-    generated header names the engine's integrator, so each integrator
-    builds a library of its own."""
+    generated header names the engine's integrator and terrain, so each
+    builds a library of its own, and so do the soft build's per-env options
+    (``domain``: ``JX_DOMAIN``, ``terr_off``: ``JX_TERR_OFF``)."""
     if engine.contact_model == "relaxed_rigid":
         return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, (("JX_RR_LANES", int(lanes or RR_LANES)),))
-    return BuildJob(engine, SOURCE, SIGNATURES, (("JX_LN_LANES", int(lanes or LANES)), ("JX_LN_FORWARD", 1)))
+    options = (("JX_DOMAIN", 1),) * domain + (("JX_TERR_OFF", 1),) * terr_off
+    return BuildJob(engine, SOURCE, SIGNATURES, (("JX_LN_LANES", int(lanes or LANES)), ("JX_LN_FORWARD", 1), *options))
 
 
-def build(engine: BatchedEngine) -> KernelBuild:
-    """Compile (or load from ``BUILD_DIR``) the kernel for ``engine``'s topology."""
-    return cuda_build.build(job(engine))
+def build(engine: BatchedEngine, domain: bool = False, terr_off: bool = False) -> KernelBuild:
+    """Compile (or load from ``BUILD_DIR``) the kernel for ``engine``'s
+    topology and the per-env options."""
+    return cuda_build.build(job(engine, domain=domain, terr_off=terr_off))
 
 
 def geometry(kernel: KernelBuild) -> dict[str, int]:
@@ -120,11 +130,13 @@ def rr_local_memory(kernel: KernelBuild) -> dict[str, int]:
 
 
 def rollout_reference(
-    engine: BatchedEngine, state: BatchedState, n_steps: int, kp: float = 60.0, kd: float = 0.5
+    engine: BatchedEngine, state: BatchedState, n_steps: int, kp: float = 60.0, kd: float = 0.5, domain=None,
+    terr_off=None,
 ) -> BatchedState:
     """The plain version: ``n_steps`` of the twin's step (its integrator's)
-    under the PD policy."""
-    return engine.rollout(state, n_steps, policy=lambda st: -kp * st.s - kd * st.sd)
+    under the PD policy, with the per-env ``domain`` and ``terr_off``."""
+    domain = {**(domain or {}), **({} if terr_off is None else {"terrOff": terr_off})}
+    return engine.rollout(state, n_steps, policy=lambda st: -kp * st.s - kd * st.sd, domain=domain)
 
 
 def rk4_scratch(engine: BatchedEngine, B: int) -> tuple[torch.Tensor | None, int]:
@@ -139,17 +151,23 @@ def rk4_scratch(engine: BatchedEngine, B: int) -> tuple[torch.Tensor | None, int
     return torch.empty((2, rows, stride), dtype=engine.S.dtype, device=engine.S.device), stride
 
 
-def launch(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, n_steps: int, kp: float, kd: float):
+def launch(
+    kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, n_steps: int, kp: float, kd: float, mul=None,
+    off=None,
+):
     """One launch of ``kernel`` (the engine's rollout library, or a variant
-    of it built from another source) on a checked CUDA state; counts nothing."""
+    of it built from another source) on a checked CUDA state, with the
+    soft build's checked per-env rows ``mul`` and ``off``
+    (:func:`cuda_build.domain_rows`); counts nothing."""
     relaxed = engine.contact_model == "relaxed_rigid"
     out = cuda_build.empty_state_like(state)
     B = state.p.shape[-1]
-    rr_args = ()
     if relaxed:
         scratch, stride = rk4_scratch(engine, B)
         y0, acc = (0, 0) if scratch is None else (scratch[0].data_ptr(), scratch[1].data_ptr())
         rr_args = (*cuda_build.rr_scalars(engine), y0, acc, stride)
+    else:
+        rr_args = tuple(None if t is None else t.data_ptr() for t in (mul, off))
     cuda_build.launch(
         kernel, "jx_rollout_rr" if relaxed else "jx_rollout", packed_params(engine), state.p.device,
         *cuda_build.state_pointers(state), *cuda_build.state_pointers(out),
@@ -159,16 +177,20 @@ def launch(kernel: KernelBuild, engine: BatchedEngine, state: BatchedState, n_st
 
 
 def rollout(
-    engine: BatchedEngine, state: BatchedState, n_steps: int, kp: float = 60.0, kd: float = 0.5
+    engine: BatchedEngine, state: BatchedState, n_steps: int, kp: float = 60.0, kd: float = 0.5, domain=None,
+    terr_off=None,
 ) -> BatchedState:
     """Advance every env ``n_steps`` under ``tau = -kp·s - kd·ṡ`` with the
-    engine's integrator: in one CUDA kernel launch for a CUDA state, with the
-    plain version for a CPU state."""
+    engine's integrator, with the per-env ``domain`` multipliers (each
+    ``(B,)``, float32 on the state's device; a missing one is 1) and on
+    Fourier terrain ``terr_off`` ``(2, B)``: in one CUDA kernel launch for a
+    CUDA state, with the plain version for a CPU state."""
     global ROLLOUT_KERNEL_LAUNCHES, ROLLOUT_RR_KERNEL_LAUNCHES
     if cuda_build.is_cpu(state, "rollout"):
-        return rollout_reference(engine, state, n_steps, kp, kd)
-    cuda_build.check_cuda_call(engine, state, CONTACT_MODELS, INTEGRATORS)
-    out = launch(build(engine), engine, state, n_steps, kp, kd)
+        return rollout_reference(engine, state, n_steps, kp, kd, domain, terr_off)
+    B = cuda_build.check_cuda_call(engine, state, CONTACT_MODELS, INTEGRATORS, cuda_build.TERRAINS)
+    mul, off = cuda_build.domain_rows(engine, B, domain, terr_off, engine.S.device)
+    out = launch(build(engine, mul is not None, off is not None), engine, state, n_steps, kp, kd, mul, off)
     if engine.contact_model == "relaxed_rigid":
         ROLLOUT_RR_KERNEL_LAUNCHES += 1
     else:

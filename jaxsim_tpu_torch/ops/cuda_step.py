@@ -23,7 +23,10 @@ up to 64), with a torque row in each env's slot. See the notes at the tops
 of the sources. Each wrapper takes its plain
 version (:func:`step_pd_reference`, :func:`step_tau_reference`, which call
 the twin) for a CPU state and its kernel for a CUDA state; a failed build or
-launch raises. Both take semi-implicit Euler only.
+launch raises. Both take semi-implicit Euler only, and the soft builds flat
+ground, an inclined plane or Fourier terrain, without per-env options, as
+the JAX kernels (a ``pr`` with domain multipliers or ``terrOff`` runs on the
+CPU only).
 """
 
 from __future__ import annotations
@@ -147,7 +150,7 @@ def step_pd(
     global STEP_PD_KERNEL_LAUNCHES, STEP_PD_RR_KERNEL_LAUNCHES
     if cuda_build.is_cpu(state, "step"):
         return step_pd_reference(engine, state, kp, kd)
-    cuda_build.check_cuda_call(engine, state, cuda_rollout.CONTACT_MODELS)
+    cuda_build.check_cuda_call(engine, state, cuda_rollout.CONTACT_MODELS, terrains=cuda_build.TERRAINS)
     if engine.contact_model == "relaxed_rigid":
         out = cuda_rollout.launch(cuda_rollout.build(engine), engine, state, 1, kp, kd)
         STEP_PD_RR_KERNEL_LAUNCHES += 1
@@ -166,8 +169,14 @@ def step_tau(
     global STEP_TAU_KERNEL_LAUNCHES, STEP_TAU_RR_KERNEL_LAUNCHES
     if cuda_build.is_cpu(state, "step"):
         return step_tau_reference(engine, state, tau, pr)
-    B = cuda_build.check_cuda_call(engine, state, cuda_rollout.CONTACT_MODELS)
+    B = cuda_build.check_cuda_call(engine, state, cuda_rollout.CONTACT_MODELS, terrains=cuda_build.TERRAINS)
     cuda_build.check_tensor("tau", tau, (engine.n_joints, B), engine.S.device)
+    per_env = sorted(set(pr or {}) - set(engine.PARAM_NAMES))
+    if per_env:
+        raise ValueError(
+            f"K3 takes the model arrays as pr, not per-env options {per_env}, as the JAX kernel"
+            f" ({cuda_build.ITEM_VARIANTS})"
+        )
     for name, t in (pr or {}).items():
         cuda_build.check_tensor(f"pr[{name!r}]", t, t.shape, engine.S.device)
     out = launch_tau(build(engine), engine, state, tau, packed_params(engine, pr))
@@ -194,7 +203,7 @@ def rollout_per_step(
             raise ValueError(
                 "a Python policy closure cannot run inside the CUDA kernel: the"
                 " per-step kernel takes the PD gains kp, kd (or use"
-                " cuda_step.step_tau with torques computed outside)"
+                f" cuda_step.step_tau with torques computed outside; {cuda_build.ITEM_VARIANTS})"
             )
         return engine.rollout(state, n_steps, policy=policy)
     for _ in range(n_steps):

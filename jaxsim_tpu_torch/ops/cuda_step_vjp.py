@@ -151,10 +151,12 @@ def check_scope(engine: BatchedEngine) -> None:
     relaxed-rigid step on flat ground; anything else raises. (The plain
     version differentiates any of the twin's integrators; K4 itself takes
     semi-implicit Euler only, and its wrapper refuses the others.)"""
-    if not engine.flat or engine.contact_model not in CONTACT_MODELS:
+    if engine.contact_model not in CONTACT_MODELS:
+        raise ValueError(f"the step VJP covers soft and relaxed-rigid contacts, not {engine.contact_model}")
+    if not engine.flat:
         raise ValueError(
-            "the step VJP covers soft and relaxed-rigid contacts on flat ground;"
-            " other terrains and contact models come with their twins (ROADMAP Queue 1 item 4)"
+            f"the step VJP covers flat ground, not {engine.terrain} terrain: K4 on an inclined plane and on"
+            f" Fourier terrain is {cuda_build.ITEM_VARIANTS}"
         )
 
 

@@ -7,7 +7,9 @@ torques ``tau`` and the model arrays in the engine's ``PARAM_NAMES`` order):
 forward K3 (:func:`cuda_step.step_tau`), backward K4
 (:func:`cuda_step_vjp.step_vjp`); for a relaxed-rigid engine K3-rr and K4-rr,
 whose backward differentiates the contact solve implicitly, as the JAX
-engine's ``pcg_implicit``. Without ``params_grad`` the model arrays
+engine's ``pcg_implicit``. Flat ground only, without per-env options: an
+engine on an inclined plane or Fourier terrain raises when the step or
+rollout is made (K4 has no terrain build yet, ROADMAP Queue 2 item 6). Without ``params_grad`` the model arrays
 are the engine's and constant; with it, gradients also flow to ``pr``, the
 model arrays by name (the engine's own ``PARAM_NAMES``: a relaxed-rigid
 engine's add ``rrMinv``), merged over the engine's own.
@@ -28,13 +30,17 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import cuda_step, cuda_step_vjp
+from . import cuda_build, cuda_step, cuda_step_vjp
 from .batched_engine import BatchedEngine, BatchedState
 
 
 def _model_arrays(engine: BatchedEngine, pr) -> tuple[torch.Tensor, ...]:
     """``pr`` merged over the engine's own arrays, in the engine's
-    ``PARAM_NAMES`` order."""
+    ``PARAM_NAMES`` order; per-env options (domain multipliers, ``terrOff``)
+    raise, since K3 and K4 take none."""
+    per_env = sorted(set(pr or {}) - set(engine.PARAM_NAMES))
+    if per_env:
+        raise ValueError(f"the differentiable step takes no per-env options {per_env} ({cuda_build.ITEM_VARIANTS})")
     arrays = engine.params(pr)
     return tuple(arrays[k].contiguous() for k in engine.PARAM_NAMES)
 

@@ -13,8 +13,10 @@ a run, counts the work, with what that work does not need taken out:
   out of contact);
 * a sum costs one operation per nonzero term it folds in after the first;
 * a negation costs nothing (it is an operand modifier on the card);
-* the other elementwise arithmetic costs one operation per output element;
-  copies, views, selections, comparisons and integer ops cost nothing.
+* the other elementwise arithmetic costs one operation per output element,
+  a sine or a cosine (the Fourier terrain's, a revolute joint's) one like a
+  product; copies, views, selections, comparisons and integer ops cost
+  nothing.
 
 :func:`least_step_ops` also counts the articulated-body algorithm's second
 pass in its least algebra: the twin forms each link's articulated inertia
@@ -29,7 +31,10 @@ points out of contact, whose activity 0 makes their share of each M⁻¹Jᵀ pas
 a product with 0. An RK4 step is four of the twin's derivatives and their
 sums, an RK4-fast step the same with the contact forces evaluated once; each
 derivative's ABA reuses its forward kinematics' joint transforms, and
-RK4-fast's contact evaluation the first stage's forward kinematics.
+RK4-fast's contact evaluation the first stage's forward kinematics. A step on
+rough terrain or with per-env multipliers (:func:`least_rollout_step_ops`)
+counts the terrain's sines and cosines at every point and the multipliers'
+products, each env's rows sliced with its state.
 """
 
 from __future__ import annotations
@@ -192,6 +197,23 @@ def least_step_ops(engine: BatchedEngine, fn, state: BatchedState, n: int | None
     if engine.integrator == "rk4fast" and engine.n_points:
         ops -= ops_per_env(lambda st: engine.fk(st, pr), state, n)
     return ops
+
+
+def least_rollout_step_ops(
+    engine: BatchedEngine, state: BatchedState, n: int | None = None, domain=None, terr_off=None, kp=60.0, kd=0.5
+) -> float:
+    """:func:`least_step_ops` of one step of K1's plain version under the PD
+    policy, with the per-env ``domain`` multipliers and ``terr_off`` (rows
+    over ``state``'s envs, sliced with it)."""
+    from .cuda_rollout import rollout_reference
+
+    def step(st):
+        k = st.p.shape[-1]
+        dom = None if domain is None else {name: t[..., :k] for name, t in domain.items()}
+        off = None if terr_off is None else terr_off[..., :k]
+        return rollout_reference(engine, st, 1, kp, kd, dom, off)
+
+    return least_step_ops(engine, step, state, n)
 
 
 def least_vjp_ops(

@@ -2,7 +2,7 @@
 rollout, in plain PyTorch.
 
 Counterparts of ``jaxsim_tpu/ops/pallas_step.py``'s ``obs_dim``,
-``_obs_rows``, ``_linear_policy_tau``, ``_mlp_policy_tau``,
+``_obs_rows`` (with its terrain-relative height row), ``_linear_policy_tau``, ``_mlp_policy_tau``,
 ``_default_reward`` and ``_sel``, used by the plain version of the env
 rollout (:func:`jaxsim_tpu_torch.ops.cuda_env_rollout.env_rollout_reference`).
 Every product is the JAX code's sequence of multiply-adds, bias first and the
@@ -28,9 +28,11 @@ def obs_dim(n_joints: int) -> int:
     return 2 * n_joints + 11
 
 
-def obs_rows(st: BatchedState) -> list[torch.Tensor]:
-    """The observation ``[s, sd, q, v, p_z]`` as a list of ``(B,)`` rows."""
-    return [*st.s, *st.sd, *st.q, *st.v, st.p[2]]
+def obs_rows(st: BatchedState, hrel: torch.Tensor | None = None) -> list[torch.Tensor]:
+    """The observation ``[s, sd, q, v, p_z]`` as a list of ``(B,)`` rows;
+    with ``hrel`` its last row is that terrain-relative height in place of
+    ``p_z`` (the JAX kernel's ``_obs_rows(st, hrel)``)."""
+    return [*st.s, *st.sd, *st.q, *st.v, st.p[2] if hrel is None else hrel]
 
 
 def per_env(w: torch.Tensor, batch: int, n_lead: int) -> torch.Tensor:
@@ -58,16 +60,18 @@ def _affine(W, b, rows, limit=None):
     return _clip(acc, limit)
 
 
-def linear_policy_tau(st: BatchedState, W, b, tau_limit=None) -> torch.Tensor:
-    """``tau = W @ obs + b``, clipped to ``±tau_limit`` when given."""
+def linear_policy_tau(st: BatchedState, W, b, tau_limit=None, hrel=None) -> torch.Tensor:
+    """``tau = W @ obs + b``, clipped to ``±tau_limit`` when given; ``hrel``
+    as in :func:`obs_rows`."""
     B = st.p.shape[-1]
-    return _affine(per_env(W, B, 2), per_env(b, B, 2), obs_rows(st), tau_limit)
+    return _affine(per_env(W, B, 2), per_env(b, B, 2), obs_rows(st, hrel), tau_limit)
 
 
-def mlp_policy_tau(st: BatchedState, W1, b1, W2, b2, tau_limit=None) -> torch.Tensor:
-    """``tau = W2 @ tanh(W1 @ obs + b1) + b2``, clipped to ``±tau_limit``."""
+def mlp_policy_tau(st: BatchedState, W1, b1, W2, b2, tau_limit=None, hrel=None) -> torch.Tensor:
+    """``tau = W2 @ tanh(W1 @ obs + b1) + b2``, clipped to ``±tau_limit``;
+    ``hrel`` as in :func:`obs_rows`."""
     B = st.p.shape[-1]
-    hidden = torch.tanh(_affine(per_env(W1, B, 2), per_env(b1, B, 2), obs_rows(st)))
+    hidden = torch.tanh(_affine(per_env(W1, B, 2), per_env(b1, B, 2), obs_rows(st, hrel)))
     return _affine(per_env(W2, B, 2), per_env(b2, B, 2), list(hidden), tau_limit)
 
 

@@ -424,9 +424,9 @@ def test_step_vjp_refuses_what_it_does_not_differentiate():
     ct = BatchedState(*(torch.ones_like(t) for t in state.fields()))
     tilted = copy.copy(eng)
     tilted.terrain_normal = (0.0, 0.1, 1.0)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 4"):
+    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 6"):
         cuda_step_vjp.step_vjp(tilted, state, tau, ct)
-    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 4"):
+    with pytest.raises(ValueError, match="ROADMAP Queue 2 item 6"):
         diff_step.fused_diff_step(tilted)
     with pytest.raises(ValueError, match="shape"):
         cuda_step_vjp.step_vjp(eng, state, tau, ct, {"M": eng.M[:1]})

@@ -129,16 +129,25 @@ def _jstate(arrays):
 @functools.lru_cache(maxsize=None)
 def _reference(name):
     """The JAX engine's fk, contacts, ABA (with f_ext) and step on the case's
-    inputs, traced and compiled once: compiling the humanoid dominates."""
-    jeng, _, arrays, tau, f_ext = _case(name)
+    inputs, traced and compiled once: compiling the humanoid dominates. The
+    engine's fk and contact law are jitted on a copy of it and called with
+    the arrays the step passes them, so that the step's own calls of them
+    reuse their traces (the same arithmetic; the humanoid's trace takes a
+    fifth less time)."""
+    import dataclasses
 
-    def run(st, tau, fl):
-        W = jeng.fk(st)
-        contacts = jeng.soft_contact_forces(*W, st.m) if jeng.n_points else None
-        return dict(fk=W, contacts=contacts, aba=jeng.aba(st, *W, fl, tau), step=jeng.step(st, tau))
+    jeng, _, arrays, tau, f_ext = _case(name)
+    eng = dataclasses.replace(jeng)
+    for stage in ("fk", "soft_contact_forces"):
+        object.__setattr__(eng, stage, jax.jit(getattr(eng, stage)))
+
+    def run(st, tau, fl, pr):
+        W = eng.fk(st, pr)
+        contacts = eng.soft_contact_forces(*W, st.m, pr) if eng.n_points else None
+        return dict(fk=W, contacts=contacts, aba=eng.aba(st, *W, fl, tau, pr), step=eng.step(st, tau, pr))
 
     fl = [jnp.asarray(f_ext[i]) for i in range(jeng.n_links)]
-    return jax.jit(run)(_jstate(arrays), jnp.asarray(tau), fl)
+    return jax.jit(run)(_jstate(arrays), jnp.asarray(tau), fl, jeng.params())
 
 
 def _close(got, ref, tol, what):

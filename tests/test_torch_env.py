@@ -419,9 +419,9 @@ def test_env_rollout_reset_noise_moves_only_respawned_envs():
 @pytest.mark.parametrize(
     "kwargs, match",
     [
-        (dict(domain={"Kmul": None}), "4a"),
-        (dict(terr_off=object()), "4d"),
-        (dict(terrain_relative=True), "4d"),
+        (dict(domain={"Kscale": None}), "unknown domain multipliers"),
+        (dict(terr_off=object()), "Fourier"),
+        (dict(terrain_relative=True), "Fourier"),
         (dict(policy=lambda st: st.s), "closure"),
         (dict(reward=lambda st, tau, new: new.p[2]), "closure"),
         (dict(tau_limit=1.0), "tau_limit"),
@@ -430,17 +430,19 @@ def test_env_rollout_reset_noise_moves_only_respawned_envs():
 )
 def test_options_refused_before_any_launch(kwargs, match):
     """The argument check that runs first for a CUDA state, on a CUDA-typed
-    device, with no card needed."""
+    device, with no card needed (the engine on flat ground, so that a
+    terrain offset and the terrain-relative height have no terrain)."""
+    _, teng = _tiny()
     with pytest.raises(ValueError, match=match):
-        cuda_env_rollout.check_options(torch.device("cuda"), **kwargs)
+        cuda_env_rollout.check_options(teng, torch.device("cuda"), **kwargs)
 
 
 def test_refusals_on_the_cpu():
     _, teng = _tiny()
     state = bridge.state_from_numpy(_start_arrays(teng), device="cpu")
-    with pytest.raises(ValueError, match="4a"):
-        cuda_env_rollout.env_rollout(teng, state, 1, domain={"Kmul": torch.ones(B)})
-    with pytest.raises(ValueError, match="4d"):
+    with pytest.raises(ValueError, match="Fourier"):
+        cuda_env_rollout.env_rollout(teng, state, 1, terr_off=torch.zeros(2, B))
+    with pytest.raises(ValueError, match="FourierTerrain"):
         BatchedEnv(engine=teng, terrain_relative=True)
     # On the CPU a closure runs in the plain version: zero torques and the
     # bare height are the PD policy with zero gains and the default reward.

@@ -230,10 +230,12 @@ inline unsigned __umulhi(unsigned a, unsigned b) { return static_cast<unsigned>(
 
 # The harness: argv = in.bin out.bin B n_steps, then the Scalars' ten floats
 # and (K5) the Options' entries, floats in C99 hex. in.bin holds the packed
-# model arrays, the state leaves s, sd, p, q, v, m and (K5) the weights;
-# out.bin gets the state leaves and (K5) the reward sums, resets and steps.
-# JX_DOUBLE 1 builds K1's body with ``float`` as ``double`` (in.bin and
-# out.bin then hold doubles), as test_torch_rr_step's harness does.
+# model arrays, the state leaves s, sd, p, q, v, m, (K5) the weights, and
+# the per-env rows the build takes: the five multipliers (JX_DOMAIN) and the
+# terrain offset (JX_TERR_OFF); out.bin gets the state leaves and (K5) the
+# reward sums, resets and steps. JX_DOUBLE 1 builds the body with ``float``
+# as ``double`` (in.bin and out.bin then hold doubles), as
+# test_torch_rr_step's harness does.
 HARNESS = r"""
 #include "cuda_runtime.h"
 #include <cstdio>
@@ -258,6 +260,10 @@ inline double __shfl_xor_sync(unsigned, double x, int off) {
 #define powf pow
 #define sinf sin
 #define cosf cos
+#define tanhf tanh
+inline double __fadd_rn(double a, double b) { return a + b; }
+inline double __fsub_rn(double a, double b) { return a - b; }
+inline double __fmul_rn(double a, double b) { return a * b; }
 #else
 using Real = float;
 #endif
@@ -298,6 +304,20 @@ int main(int argc, char** argv) {
   const StateOut sout{outs[0].data(), outs[1].data(), outs[2].data(), outs[3].data(), outs[4].data(), outs[5].data()};
 #if JX_KERNEL == 5
   const Real* weights = in.data() + off;
+  off += static_cast<size_t>(WSZ) * (B / std::atoi(argv[a + 7]));  // a candidate's weights each
+#endif
+  const Real* dom_mul = nullptr;
+  const Real* dom_off = nullptr;
+#if JX_DOMAIN
+  dom_mul = in.data() + off;
+  off += 5u * B;
+#endif
+#if JX_TERR_OFF
+  dom_off = in.data() + off;
+  off += 2u * B;
+#endif
+  const DomainRows rows{dom_mul, dom_off};
+#if JX_KERNEL == 5
   const Options o{std::atoi(argv[a]), std::strtof(argv[a + 1], nullptr), std::strtof(argv[a + 2], nullptr),
                   std::atoi(argv[a + 3]), std::strtof(argv[a + 4], nullptr), std::strtof(argv[a + 5], nullptr),
                   static_cast<unsigned>(std::strtoul(argv[a + 6], nullptr, 10)), std::atoi(argv[a + 7])};
@@ -308,9 +328,10 @@ int main(int argc, char** argv) {
     for (Real& x : smem) x = std::numeric_limits<Real>::quiet_NaN();
     shim::run_block(blk, LN_THREADS, [&] {
 #if JX_KERNEL == 5
-      env_rollout_kernel(params, weights, state_in, sout, reward.data(), resets.data(), steps.data(), B, n_steps, sc, o);
+      env_rollout_kernel(params, weights, state_in, sout, reward.data(), resets.data(), steps.data(), B, n_steps, sc, o,
+                         rows);
 #else
-      rollout_kernel(params, state_in, sout, B, n_steps, sc);
+      rollout_kernel(params, state_in, sout, B, n_steps, sc, rows);
 #endif
     });
   }
@@ -349,9 +370,11 @@ def _build(tmp_path, engine, job, kernel: int, double: bool = False, csrc=None):
     return binary
 
 
-def _run(tmp_path, binary, engine, state, n_steps, scalars, options=(), weights=None, double=False) -> np.ndarray:
+def _run(tmp_path, binary, engine, state, n_steps, scalars, options=(), weights=None, double=False, rows=()) -> np.ndarray:
+    """The harness on ``state``; ``rows``: the per-env rows the build takes
+    (the multipliers (5, B), the terrain offset (2, B))."""
     real = np.float64 if double else np.float32
-    arrays = [cuda_build.packed_params(engine), *state.fields(), *(() if weights is None else (weights,))]
+    arrays = [cuda_build.packed_params(engine), *state.fields(), *(() if weights is None else (weights,)), *rows]
     np.concatenate([a.detach().numpy().astype(real).ravel() for a in arrays]).tofile(tmp_path / "in.bin")
     args = [str(binary), str(tmp_path / "in.bin"), str(tmp_path / "out.bin"), str(state.p.shape[-1]), str(n_steps)]
     args += [float(real(x)).hex() for x in scalars] + [str(x) for x in options]

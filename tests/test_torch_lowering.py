@@ -130,6 +130,6 @@ def test_unsupported_configurations_raise():
     static, params = bridge.reference_engine_arrays(
         JaxEngine.build(js.JaxSimModel.build_from_model_description(models.build_box_urdf()))
     )
-    for key, value in (("integrator", "euler"), ("contact_model", "rigid"), ("terrain_kind", "fourier")):
+    for key, value in (("integrator", "euler"), ("contact_model", "rigid"), ("terrain_kind", "heightmap")):
         with pytest.raises(ValueError, match=key):
             bridge.engine_from_numpy({**static, key: value}, params, device="cpu")

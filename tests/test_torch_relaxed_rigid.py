@@ -226,6 +226,10 @@ def test_minv_apply_and_pcg_match_jax_in_float64():
     f_loc = [None if i == 2 else rng.standard_normal((6, B)) for i in range(teng.n_links)]
     tau = 3.0 * rng.standard_normal((teng.n_joints, B))
     _, params = bridge.reference_engine_arrays(jeng)
+    # The free ABA jitted on a copy of the engine: the solve's own call of it
+    # (the same arguments) reuses the reference's trace.
+    eng = dataclasses.replace(jeng)
+    object.__setattr__(eng, "aba", jax.jit(eng.aba, static_argnames=("return_aux",)))
     with jax.enable_x64(True):
         pr = {k: jnp.asarray(a, jnp.float64) for k, a in params.items()}
         st = JaxState(**{k: jnp.asarray(a, jnp.float64) for k, a in arrays.items()})
@@ -233,11 +237,11 @@ def test_minv_apply_and_pcg_match_jax_in_float64():
 
         @jax.jit
         def reference(st):
-            W_R, W_p, W_v = jeng.fk(st, pr)
-            _, _, fact = jeng.aba(st, W_R, W_p, W_v, [None] * jeng.n_links, tj, pr, return_aux=True)
+            W_R, W_p, W_v = eng.fk(st, pr)
+            _, _, fact = eng.aba(st, W_R, W_p, W_v, [None] * eng.n_links, tj, pr, return_aux=True)
             fl = [None if f is None else jnp.asarray(f) for f in f_loc]
-            a, sdd = jeng._minv_apply(fact, fl, st.p.shape[1:], pr)
-            _, (W_a, sdd_c), xs = jeng.relaxed_rigid_contact_forces(st, W_R, W_p, W_v, tj, pr, return_accelerations=True)
+            a, sdd = eng._minv_apply(fact, fl, st.p.shape[1:], pr)
+            _, (W_a, sdd_c), xs = eng.relaxed_rigid_contact_forces(st, W_R, W_p, W_v, tj, pr, return_accelerations=True)
             return jnp.stack(a), sdd, W_a, sdd_c, xs
 
         ref = [np.asarray(x) for x in reference(st)]

@@ -94,7 +94,10 @@ _STEP_VJPS: dict = {}
 def _jax_step_vjp(jeng):
     """The JAX step's output and ``jax.vjp`` at (state, tau, pr) for an
     output cotangent, jitted: one compile a model and precision (``_case``
-    keeps one JAX engine a model)."""
+    keeps one JAX engine a model), its VJP traced by JAX's JVP and partial
+    evaluation (``jax_use_direct_linearize`` off while it traces: the same
+    arithmetic, and for garpez's step a fifth less trace and compile time
+    than the direct linearization)."""
     import jax
 
     if id(jeng) not in _STEP_VJPS:
@@ -103,7 +106,17 @@ def _jax_step_vjp(jeng):
             out, back = jax.vjp(lambda a, b, c: jeng.step(a, b, c), st, tau, pr)
             return out, back(cts)
 
-        _STEP_VJPS[id(jeng)] = jax.jit(step_vjp)
+        jitted = jax.jit(step_vjp)
+
+        def call(*args):
+            old = jax.config.jax_use_direct_linearize
+            jax.config.update("jax_use_direct_linearize", False)
+            try:
+                return jitted(*args)
+            finally:
+                jax.config.update("jax_use_direct_linearize", old)
+
+        _STEP_VJPS[id(jeng)] = call
     return _STEP_VJPS[id(jeng)]
 
 

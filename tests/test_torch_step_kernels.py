@@ -170,7 +170,7 @@ def test_pr_refuses_unknown_or_misshapen_arrays():
     )
     st = eng.init_state(4, base_position=(0.0, 0.0, 0.0))
     with pytest.raises(ValueError, match="unknown"):
-        eng.step(st, None, {"Kmul": torch.ones(4)})
+        eng.step(st, None, {"Kscale": torch.ones(4)})
     with pytest.raises(ValueError, match="shape"):
         eng.step(st, None, {"M": eng.M[:1]})
 
