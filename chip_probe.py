@@ -7,7 +7,7 @@ Usage, from the root of a checkout, on a machine with a CUDA card:
     python3 chip_probe.py [sweep] [profile] [rounding] [k1] [launch] [terminations] [rr] [rr_faults] [param_sum]
         [profiler] [vjp] [vjp_faults] [lanes] [quat] [k1_faults] [step] [step_faults] [kernels] [rk4_faults]
         [rr_step] [rr_step_faults] [rr_vjp] [rr_vjp_faults] [rr_vjp_phases] [rr_envs] [rr_phases]
-        [rr_variants] [rk4_variants] [rough_faults]
+        [rr_variants] [rk4_variants] [rough_faults] [rough_rr_faults] [rough_rr_parting]
 
 With no argument it runs the first three. Probes of the flagship humanoid
 (soft contacts, flat ground, PD policy):
@@ -135,6 +135,13 @@ With no argument it runs the first three. Probes of the flagship humanoid
   humanoid with the terrain offset, and with the multipliers too, beside the
   sound source and held with it by ``chip_smoke.rough_k1_gates`` on its two
   rough cases: per case the worst statistic over its limit (> 1 is refused).
+* rough_rr_faults: ``ROUGH_RR_FAULTS`` the same way on the rough
+  relaxed-rigid humanoid (``chip_smoke.RR_ROUGH_CHECKS``).
+* rough_rr_parting: the env of ``chip_smoke.py``'s rough relaxed-rigid case
+  with terrOff and the multipliers where K1-rr parts furthest from the
+  float64 twin after ``ROUGH_SHORT`` steps (each field over its max limit),
+  followed step by step (see the function), its start and rows saved under
+  ``build/`` for the float64 rehearsal of K1-rr's body.
 * rr_step: K3-rr (``step_rr.cu``) at each envs a block in ``RR_STEP_ENVS``
   (the most that fit up to it), on the relaxed-rigid humanoid at 8192 envs
   (the relaxed-rigid main path's start and its PD torques) and on garpez
@@ -587,8 +594,27 @@ RR_STEP_FAULTS = {
     "K5 does not restore m on a respawn": [
         ("env_rollout_rr.cu", "      rr_load_m(in.m, B, bl, pt, m);\n", "")],
     "K5's reward from the state after the respawn": [
-        ("env_rollout_rr.cu", "      const float upright = z > 2.0f ? 2.0f : z;",
-         "      const float zr = done ? in.p[2 * B + bl] : z;\n      const float upright = zr > 2.0f ? 2.0f : zr;")],
+        ("env_rollout_rr.cu", "      const float upright = pz > 2.0f ? 2.0f : pz;",
+         "      const float zr = done ? in.p[2 * B + bl] : pz;\n      const float upright = zr > 2.0f ? 2.0f : zr;")],
+}
+
+# Seeded faults of the relaxed-rigid step on rough terrain (edits of
+# rr_step.cuh, old text to new) that rough_rr_gates must refuse: scalar Jacobi
+# (rrMinv's diagonal blocks) in place of the block form, flat ground's normal
+# at each point, gmul ignored by the free ABA and the base's world
+# acceleration, terrOff's sign flipped.
+ROUGH_RR_FAULTS = {
+    "scalar Jacobi in place of the block form": (
+        "  const float* K = P + OFF_RRKC + c * 9;", "  const float* K = P + OFF_RRMINV + c * 9;"),
+    "flat ground's normal": (
+        "      nh[0] = -dhx * inv_n, nh[1] = -dhy * inv_n, nh[2] = inv_n;",
+        "      nh[0] = 0.0f, nh[1] = 0.0f, nh[2] = 1.0f;"),
+    "gmul ignored": (
+        "  const float gz = DOMAIN ? sc.gz * dom.gmul : sc.gz;\n  rr_free_lanes<false>(",
+        "  const float gz = sc.gz;\n  rr_free_lanes<false>("),
+    "terrOff's sign flipped": (
+        "TERR_OFF ? pc[0] - dom.ox : pc[0], qy = TERR_OFF ? pc[1] - dom.oy : pc[1];",
+        "TERR_OFF ? pc[0] + dom.ox : pc[0], qy = TERR_OFF ? pc[1] + dom.oy : pc[1];"),
 }
 
 # The one-step kernels' model arrays read from device memory through L1 in
@@ -1432,7 +1458,7 @@ def kernels_probe(hum, gen) -> None:
     lane-spread K1 and K5 has, so that a copy of this script in an older
     checkout times that checkout's kernels; and the SHA-256 of each loaded
     library's SASS instructions (``cuobjdump -sass``), equal where the
-    machine code is."""
+    machine code is, with its ptxas lines (registers, stack, spills)."""
     import hashlib
     import re
     import time
@@ -1463,11 +1489,12 @@ def kernels_probe(hum, gen) -> None:
     rr_start = rr_start_states(hum_rr, rr_garpez_engine(device), hum_rr, torch.Generator(device).manual_seed(6))[
         RR_CASES[0][0]][1]  # fmt: skip
     rr_tau = (-60.0 * rr_start.s - 0.5 * rr_start.sd).contiguous()
+    rr_ct = vjp_cotangents(rr_start, gen)["all six"]
     cuda_build.build_many([cuda_rollout.job(hum), cuda_rollout.job(hum_rr), cuda_env_rollout.job(hum, pol),
                            cuda_step_vjp.job(hum), cuda_step_vjp.job(hum, params_grad=True), cuda_step.job(hum),
                            cuda_step.job(garp), cuda_step.job(hum_rr)])  # fmt: skip
-    # Built for their SASS only: K1's RK4 and RK4-fast builds, soft and
-    # relaxed-rigid, K5-rr and K4-rr (all but K4-rr timed below).
+    # K1's RK4 and RK4-fast builds, soft and relaxed-rigid, K5-rr and K4-rr
+    # (all timed below).
     cuda_build.build_many([
         *(cuda_rollout.job(with_integrator(e, i)) for e in (hum, hum_rr) for i in RK4_INTEGRATORS),
         cuda_env_rollout.job(hum_rr, cuda_env_rollout.make_policy(hum_rr, **weights)),
@@ -1507,6 +1534,13 @@ def kernels_probe(hum, gen) -> None:
         rollout_rk4=(lambda: cuda_rollout.rollout(soft_rk4["rk4"], state0, SOFT_RK4_HORIZON), "rollout_kernel", 3),
         rollout_rk4fast=(lambda: cuda_rollout.rollout(soft_rk4["rk4fast"], state0, SOFT_RK4_HORIZON), "rollout_kernel",
                          3),
+        # K4-rr, with and without the model arrays' cotangents, at the
+        # relaxed-rigid gradient main paths' shapes.
+        step_vjp_relaxed_rigid=(lambda: cuda_step_vjp.step_vjp(hum_rr, rr_start, rr_tau, rr_ct), "step_vjp_rr_kernel",
+                                LAUNCH_REPEATS),
+        step_vjp_relaxed_rigid_params_grad=(
+            lambda: cuda_step_vjp.step_vjp(hum_rr, rr_start, rr_tau, rr_ct, params_grad=True), "step_vjp_rr_kernel",
+            LAUNCH_REPEATS),
     )  # fmt: skip
     for name, (fn, kernel, repeats) in calls.items():
         fn()  # warm-up
@@ -1538,6 +1572,8 @@ def kernels_probe(hum, gen) -> None:
             "library": build.path.parent.name, "source": pathlib.Path(source).name,
             "header_sha256": hashlib.sha256(header.encode()).hexdigest()[:16],
             "sha256": hashlib.sha256(code.encode()).hexdigest(),
+            "ptxas": " | ".join(ln.strip() for ln in build.ptxas_log.splitlines()
+                                if "registers" in ln or "spill" in ln or "stack frame" in ln),
         }}), flush=True)  # fmt: skip
 
 
@@ -1592,7 +1628,10 @@ def rough_faults_probe(hum, gen) -> None:
     statistic over its limit (> 1 is refused)."""
     import torch
 
-    from chip_smoke import BATCH, humanoid_engine, pendulum_engine, rough_k1_gates, rough_options, rough_terrain, start_states
+    from chip_smoke import (
+        BATCH, ROUGH_CHECKS, humanoid_engine, pendulum_engine, rough_k1_gates, rough_options, rough_terrain,
+        start_states,
+    )  # fmt: skip
     from jaxsim_tpu_torch.ops import cuda_build, cuda_rollout
 
     device = hum.S.device
@@ -1617,10 +1656,151 @@ def rough_faults_probe(hum, gen) -> None:
 
     rough_case = "humanoid23 rough, terrOff"
     _, ratios = rough_k1_gates({
-        rough_case: ("rollout_rough", rough, state0, None, terr_off, None),
-        f"{rough_case}, five multipliers": ("rollout_rough_domain", rough, state0, domain, terr_off, rough_case),
+        rough_case: ("rollout_rough", rough, state0, None, terr_off, None, ROUGH_CHECKS),
+        f"{rough_case}, five multipliers": ("rollout_rough_domain", rough, state0, domain, terr_off, rough_case,
+                                            ROUGH_CHECKS),
     }, {name: variant(name) for name in dirs})  # fmt: skip
     print(json.dumps({"rough_faults": ratios}), flush=True)
+
+
+def rough_rr_faults_probe(hum, gen) -> None:
+    """Each of ROUGH_RR_FAULTS seeded into a copy of ``csrc/`` under
+    ``build/``, built for the rough relaxed-rigid humanoid without per-env
+    rows, with terrOff and the multipliers, and at RR_ROUGH_FEW PCG
+    iterations, beside the sound source, and every variant held to
+    ``chip_smoke.py``'s rough relaxed-rigid limits (``rough_k1_gates`` on
+    its K1-rr cases: RR_ROUGH_CHECKS' "few", the max over ROUGH_SHORT steps,
+    for the cases without rows, "rows" for the multipliers'): per case and check the
+    worst statistic over its limit (> 1 is refused)."""
+    import torch
+
+    from chip_smoke import (
+        BATCH, RR_ROUGH_CHECKS, RR_ROUGH_FEW, RR_ROUGH_GATE_BATCH, rough_k1_gates, rough_options, rough_terrain,
+        rr_humanoid_engine,
+    )  # fmt: skip
+    from jaxsim_tpu_torch import BatchedState
+    from jaxsim_tpu_torch.ops import cuda_build, cuda_rollout
+
+    device = hum.S.device
+    rough, few = (rr_humanoid_engine(device, terrain=rough_terrain()) for _ in range(2))
+    few.rr_iterations = RR_ROUGH_FEW
+    start = rough.init_state(BATCH, generator=torch.Generator(device).manual_seed(9))
+    start = BatchedState(*(t[..., :RR_ROUGH_GATE_BATCH].contiguous() for t in start.fields()))
+    terr_off, domain = rough_options(BATCH, device)
+    terr_off = terr_off[:, :RR_ROUGH_GATE_BATCH].contiguous()
+    domain = {k: t[:RR_ROUGH_GATE_BATCH].contiguous() for k, t in domain.items()}
+    dirs = {"control": cuda_build.CSRC, **{name: _seeded_edits("rough_rr_faults", name, [("rr_step.cuh", *edit)])
+                                           for name, edit in ROUGH_RR_FAULTS.items()}}  # fmt: skip
+    jobs = {}
+    for name, d in dirs.items():
+        for key, job in (("rough", cuda_rollout.job(rough)), ("domain", cuda_rollout.job(rough, domain=True, terr_off=True)),
+                         ("few", cuda_rollout.job(few))):  # fmt: skip
+            jobs[(name, key)] = dataclasses.replace(job, source=d / job.source.name)
+    kernels = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
+    for key in ("rough", "domain", "few"):
+        b = kernels[("control", key)]
+        print(f"rollout_rr {key}: nvcc {b.seconds:.1f} s; ptxas " + " | ".join(
+            ln.strip() for ln in b.ptxas_log.splitlines() if "registers" in ln or "stack frame" in ln), flush=True)  # fmt: skip
+
+    def variant(name):
+        def run(eng, st, n, domain=None, terr_off=None):
+            key = "few" if eng is few else "domain" if domain is not None else "rough"
+            mul, off = cuda_build.domain_rows(eng, st.p.shape[-1], domain, terr_off, device)
+            return cuda_rollout.launch(kernels[(name, key)], eng, st, n, 60.0, 0.5, mul, off)
+
+        return run
+
+    case = "humanoid23 relaxed-rigid rough"
+    _, ratios = rough_k1_gates({
+        case: ("rollout_relaxed_rigid_rough", rough, start, None, None, None, RR_ROUGH_CHECKS["few"]),
+        f"{case}, terrOff, five multipliers": ("rollout_relaxed_rigid_rough_domain", rough, start, domain, terr_off,
+                                               None, RR_ROUGH_CHECKS["rows"]),
+        f"{case}, {RR_ROUGH_FEW} PCG iterations": ("rollout_relaxed_rigid_rough_few", few, start, None, None, None,
+                                                  RR_ROUGH_CHECKS["few"]),
+    }, {name: variant(name) for name in dirs})  # fmt: skip
+    print(json.dumps({"rough_rr_faults": ratios}), flush=True)
+
+
+def rough_rr_parting_probe(hum, gen) -> None:
+    """The rows case of ``chip_smoke.py``'s rough relaxed-rigid gates (its
+    start, terrOff and multipliers on RR_ROUGH_GATE_BATCH envs, 16 PCG
+    iterations): the env where K1-rr's state after ROUGH_SHORT steps lies
+    furthest from the float64 twin's, each field (m relative,
+    ``rr_diff``) over the max limit the gate would set; then for that env,
+    after each step, K1-rr's and the float32 twin's worst field against the
+    float64 twin, and each contact point whose signed penetration
+    (h − z)·n_z changes sign in some version at that step, or has unlike
+    signs in two of them, with its value in the three. K1-rr is launched
+    twice for ROUGH_SHORT steps (bit-equal states or not). The start, the
+    rows and the float64 twin's states of that env go to
+    ``build/rough_rr_parting.npz``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from chip_smoke import (
+        BATCH, ROUGH_SHORT, RR_ROUGH_GATE_BATCH, TOL, double_rows, over_envs, rough_options, rough_terrain, rr_diff,
+        rr_humanoid_engine,
+    )  # fmt: skip
+    from jaxsim_tpu_torch import BatchedState
+    from jaxsim_tpu_torch.ops import cuda_rollout
+
+    device = hum.S.device
+    eng = rr_humanoid_engine(device, terrain=rough_terrain())
+    eng64 = copy.deepcopy(eng).double()
+    start = eng.init_state(BATCH, generator=torch.Generator(device).manual_seed(9))
+    start = BatchedState(*(t[..., :RR_ROUGH_GATE_BATCH].contiguous() for t in start.fields()))
+    off, dom = rough_options(BATCH, device)
+    off = off[:, :RR_ROUGH_GATE_BATCH].contiguous()
+    dom = {k: t[:RR_ROUGH_GATE_BATCH].contiguous() for k, t in dom.items()}
+    kern = {t: cuda_rollout.rollout(eng, start, t, domain=dom, terr_off=off) for t in range(1, ROUGH_SHORT + 1)}
+    again = cuda_rollout.rollout(eng, start, ROUGH_SHORT, domain=dom, terr_off=off)
+    same = all(torch.equal(a, b) for a, b in zip(kern[ROUGH_SHORT].fields(), again.fields()))
+    twins = {"float32": {0: start}, "float64": {0: BatchedState(*(t.double() for t in start.fields()))}}
+    runs = {"float32": (eng, dom, off), "float64": (eng64, double_rows(dom), off.double())}
+    with torch.no_grad():
+        for kind, (e, d, o) in runs.items():
+            for t in range(1, ROUGH_SHORT + 1):
+                twins[kind][t] = cuda_rollout.rollout_reference(e, twins[kind][t - 1], 1, domain=d, terr_off=o)
+    as32 = {t: BatchedState(*(x.float() for x in s.fields())) for t, s in twins["float64"].items()}
+    spread = over_envs(rr_diff(twins["float32"][ROUGH_SHORT], as32[ROUGH_SHORT]), "max")
+    limits = {k: max(TOL, 2 * e) for k, e in spread.items()}
+    d = rr_diff(kern[ROUGH_SHORT], as32[ROUGH_SHORT])
+    ratio = torch.stack([d[k] / limits[k] for k in d]).max(0).values
+    env = int(ratio.argmax())
+    print(json.dumps({"rough_rr_parting": {"env": env, "ratio": float(ratio[env]), "limits": limits,
+                                           "second_launch_equal": same,
+                                           "envs_over_limit": int((ratio > 1).sum())}}), flush=True)  # fmt: skip
+
+    def signed_penetration(e, state, o):
+        pr = e.params({"terrOff": o})
+        pc = e._point_geometry(*e.fk(state, pr), pr)["pc"]
+        h, dhx, dhy = e._fourier_height_grad(pr, pc[0], pc[1])
+        return ((h - pc[2]) / torch.sqrt(dhx * dhx + dhy * dhy + 1.0))[:, env].double().cpu()
+
+    versions = {"kernel": (eng, {0: start, **kern}, off), "float32": (eng, twins["float32"], off),
+                "float64": (eng64, twins["float64"], off.double())}  # fmt: skip
+    delta = {v: {t: signed_penetration(e, s, o) for t, s in states.items()} for v, (e, states, o) in versions.items()}
+    for t in range(1, ROUGH_SHORT + 1):
+        worst = {v: {k: float(x[env]) for k, x in rr_diff(s, as32[t]).items()}
+                 for v, s in (("kernel", kern[t]), ("float32", twins["float32"][t]))}  # fmt: skip
+        signs = {v: torch.sign(delta[v][t]) for v in delta}
+        flips = torch.zeros_like(signs["float64"], dtype=torch.bool)
+        for v in delta:
+            flips |= signs[v] != torch.sign(delta[v][t - 1])
+            flips |= signs[v] != signs["float64"]
+        points = {int(c): {v: float(delta[v][t][c]) for v in delta} for c in torch.nonzero(flips).flatten()}
+        print(json.dumps({"rough_rr_parting_step": {"step": t, "vs_float64": worst, "switching_points": points}}),
+              flush=True)  # fmt: skip
+    out = pathlib.Path("build")
+    out.mkdir(exist_ok=True)
+    pick = lambda s: {k: x[..., env].double().cpu().numpy() for k, x in zip(("s", "sd", "p", "q", "v", "m"), s.fields())}  # noqa: E731
+    np.savez(out / "rough_rr_parting.npz", env=env, terr_off=off[:, env].double().cpu().numpy(),
+             **{f"dom_{k}": np.float64(float(x[env])) for k, x in dom.items()},
+             **{f"start_{k}": x for k, x in pick(start).items()},
+             **{f"f64_{t}_{k}": x for t in range(1, ROUGH_SHORT + 1) for k, x in pick(twins["float64"][t]).items()},
+             **{f"kernel_{t}_{k}": x for t in range(1, ROUGH_SHORT + 1) for k, x in pick(kern[t]).items()})  # fmt: skip
 
 
 def rr_step_probe(hum, gen) -> None:
@@ -1891,12 +2071,12 @@ _PH_ABA = {
             ("      rr_solve(P, sc, sl, g, pt, m, x);\n", "      "))],
     "lanes": [
         ("rr_step.cuh", c, _ph_wrap(c, i)) for c, i in (
-            ("  rr_free_lanes<false>(P, sc.gz, sl, g, st, sdd, tau_of);\n", "  "),
-            ("      if (Integrator == 2)\n        rr_free_body<false>(P, sc.gz, sl, g, st, sdd, tau);\n"
-             "      else\n        rr_free_lanes<false>(P, sc.gz, sl, g, st, sdd, tau);\n", "      "),
-            ("    if (Integrator == 2) rr_free_body<true>(P, sc.gz, sl, g, st, sdd, tau);\n", "    "))] + [
+            ("  rr_free_lanes<false>(P, gz, dom.Mmul, sl, g, st, sdd, tau_of);\n", "  "),
+            ("      if (Integrator == 2)\n        rr_free_body<false>(P, sc.gz, 1.0f, sl, g, st, sdd, tau);\n"
+             "      else\n        rr_free_lanes<false>(P, sc.gz, 1.0f, sl, g, st, sdd, tau);\n", "      "),
+            ("    if (Integrator == 2) rr_free_body<true>(P, sc.gz, 1.0f, sl, g, st, sdd, tau);\n", "    "))] + [
         ("rr_step.cuh", c, _ph_wrap(c, i, 1)) for c, i in (
-            ("  float x[OWN * 3];\n  rr_solve(P, sc, sl, g, pt, m, x);\n", "  "),
+            ("  float x[OWN * 3];\n  rr_solve(P, sc, sl, g, pt, m, x, dom);\n", "  "),
             ("      rr_solve(P, sc, sl, g, pt, m, x);\n", "      "))],
 }
 
@@ -2039,6 +2219,8 @@ PROBES = {
     "rr_phases": rr_phases_probe,
     "rk4_variants": rk4_variants_probe,
     "rough_faults": rough_faults_probe,
+    "rough_rr_faults": rough_rr_faults_probe,
+    "rough_rr_parting": rough_rr_parting_probe,
 }
 
 

@@ -64,13 +64,18 @@ plain PyTorch version on the card:
   and float64 twins (``rough_k1_gates``: the max after 10 steps and the
   p99.9 after 50 against the float64 twin within 2× the float32 twin's own
   distance, the median after 50 against the float32 twin, ≥ 10 % of the
-  active points on slopes, the multipliers moving p_z by more than the
-  gate); K1 on garpez on an inclined plane (``PLANE``, 100 steps); K2 and K3
+  active points on slopes, the multipliers moving some field by more than
+  its limit); K1 on garpez on an inclined plane (``PLANE``, 100 steps); K2 and K3
   (``step.cu`` built for each terrain) chained on both, at their max after
   1 and 10 steps; and K5 (``env_rollout.cu`` with the three options) at
   the ES shapes with ``terr_off``, the multipliers and the terrain-relative
   height (``rough_env_gates``: resets and steps equal over 20 steps, an env
   that parts over 50 only at a bound of the healthy range);
+* relaxed-rigid contacts on rough terrain and the plane: K1-rr, K2-rr and
+  K3-rr on bench.py's rough relaxed-rigid humanoid at 1024 envs, K1-rr with
+  terrOff and the multipliers and built with 3 PCG iterations
+  (``rough_k1_gates`` on ``RR_ROUGH_CHECKS``), K5-rr with the three options
+  (``rough_env_gates``), and garpez on the plane (``rr_gates``);
 * K6 and K7 (``fma_probe.cu``), each FMA-rate probe variant against its
   plain version at a small T, in units in the last place, at a multiplier
   and increment that move every chain at every iteration; and the FMA
@@ -120,6 +125,11 @@ before it and read just after:
   terrain-relative height); 20 rough ``BatchedEnv.step`` with the
   terrain-relative height (K3); and garpez on the inclined plane, one
   100-step K1 launch and 10 K3 launches;
+* rough relaxed-rigid: bench.py's ``rough_relaxed_rigid`` uncut, four
+  chained 400-step K1-rr launches at 16 block-Jacobi PCG iterations, and
+  one more with terrOff and the multipliers; 10 K2-rr launches; three rough
+  ES generations on K5-rr; 20 rough ``BatchedEnv.step`` on K3-rr; garpez
+  on the plane, one 100-step K1-rr launch and 10 K3-rr launches;
 * the FMA-rate probes: K6's float32 peak, which is K7's float32 rate (one
   sweep, its launches counted as both), and K7's two bf16 rates, each the
   best of a sweep over chains per thread and blocks per SM, with its share
@@ -171,7 +181,10 @@ PLAIN_TIMED_STEPS = dict(rollout=100, step_pd=10, step_tau=10, env_rollout=20, s
                          rollout_relaxed_rigid_rk4fast=5, step_pd_relaxed_rigid=3, step_tau_relaxed_rigid=3,
                          env_rollout_relaxed_rigid=5, step_vjp_relaxed_rigid=3, rollout_rough=10,
                          rollout_rough_domain=10, rollout_plane=10, step_pd_rough=5, step_tau_rough=5,
-                         step_tau_plane=5, env_rollout_rough=5)  # fmt: skip
+                         step_tau_plane=5, env_rollout_rough=5, rollout_relaxed_rigid_rough=3,
+                         rollout_relaxed_rigid_rough_domain=3, step_pd_relaxed_rigid_rough=2,
+                         step_tau_relaxed_rigid_rough=2, env_rollout_relaxed_rigid_rough=3,
+                         rollout_relaxed_rigid_plane=10, step_tau_relaxed_rigid_plane=3)  # fmt: skip
 PER_STEP_LAUNCHES = 100  # K2 main path
 ENV_STEPS = 20  # BatchedEnv.step main path
 # ES main path: examples/train_es_mlp.py uncut.
@@ -432,6 +445,13 @@ REPLACES = dict(
     step_tau_rough="jaxsim_tpu/ops/pallas_step.py:178",
     step_tau_plane="jaxsim_tpu/ops/pallas_step.py:178",
     env_rollout_rough="jaxsim_tpu/ops/pallas_step.py:787",
+    rollout_relaxed_rigid_rough="jaxsim_tpu/ops/pallas_step.py:664",
+    rollout_relaxed_rigid_rough_domain="jaxsim_tpu/ops/pallas_step.py:664",
+    step_pd_relaxed_rigid_rough="jaxsim_tpu/ops/pallas_step.py:86",
+    step_tau_relaxed_rigid_rough="jaxsim_tpu/ops/pallas_step.py:178",
+    env_rollout_relaxed_rigid_rough="jaxsim_tpu/ops/pallas_step.py:787",
+    rollout_relaxed_rigid_plane="jaxsim_tpu/ops/pallas_step.py:664",
+    step_tau_relaxed_rigid_plane="jaxsim_tpu/ops/pallas_step.py:178",
 )
 SOURCES = dict(
     rollout="jaxsim_tpu_torch/csrc/rollout.cu",
@@ -463,6 +483,13 @@ SOURCES = dict(
     step_tau_rough="jaxsim_tpu_torch/csrc/step.cu",
     step_tau_plane="jaxsim_tpu_torch/csrc/step.cu",
     env_rollout_rough="jaxsim_tpu_torch/csrc/env_rollout.cu",
+    rollout_relaxed_rigid_rough="jaxsim_tpu_torch/csrc/rollout_rr.cu",
+    rollout_relaxed_rigid_rough_domain="jaxsim_tpu_torch/csrc/rollout_rr.cu",
+    step_pd_relaxed_rigid_rough="jaxsim_tpu_torch/csrc/rollout_rr.cu",
+    step_tau_relaxed_rigid_rough="jaxsim_tpu_torch/csrc/step_rr.cu",
+    env_rollout_relaxed_rigid_rough="jaxsim_tpu_torch/csrc/env_rollout_rr.cu",
+    rollout_relaxed_rigid_plane="jaxsim_tpu_torch/csrc/rollout_rr.cu",
+    step_tau_relaxed_rigid_plane="jaxsim_tpu_torch/csrc/step_rr.cu",
 )
 
 
@@ -512,24 +539,26 @@ def humanoid_engine(device, integrator="sie", terrain=None):
     return BatchedEngine.build(model.replace(contact_params=params), device=device)
 
 
-def rr_humanoid_engine(device, integrator="sie"):
+def rr_humanoid_engine(device, integrator="sie", terrain=None):
     """bench.py's relaxed-rigid model: the humanoid with
     ``RelaxedRigidContacts()`` and the default parameters (μ = 0.005); with
-    ``integrator="rk4"`` BASELINE config 5 (bench.py's relaxed_rigid_rk4)."""
+    ``integrator="rk4"`` BASELINE config 5 (bench.py's relaxed_rigid_rk4); on
+    ``terrain`` (flat ground by default), bench.py's rough_relaxed_rigid on
+    :func:`rough_terrain`."""
     from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, models
     from jaxsim_tpu_torch.ops.contacts.relaxed_rigid import RelaxedRigidContacts
 
     model = JaxSimModel.build_from_model_description(models.build_humanoid_urdf(), contact_model=RelaxedRigidContacts(),
-                                                     integrator=integrator_type(integrator))  # fmt: skip
+                                                     integrator=integrator_type(integrator), terrain=terrain)  # fmt: skip
     return BatchedEngine.build(model, device=device)
 
 
-def rr_garpez_engine(device, integrator="sie"):
+def rr_garpez_engine(device, integrator="sie", terrain=None):
     from jaxsim_tpu_torch import BatchedEngine, JaxSimModel, models
     from jaxsim_tpu_torch.ops.contacts.relaxed_rigid import RelaxedRigidContacts
 
     model = JaxSimModel.build_from_model_description(models.build_garpez_urdf(), contact_model=RelaxedRigidContacts(),
-                                                     integrator=integrator_type(integrator))  # fmt: skip
+                                                     integrator=integrator_type(integrator), terrain=terrain)  # fmt: skip
     return BatchedEngine.build(model, device=device)
 
 
@@ -1702,6 +1731,9 @@ DOMAIN_SIGMAS = dict(Kmul=0.3, Dmul=0.3, mumul=0.2, gmul=0.05, Mmul=0.1)
 # normal would breach it; the multipliers' case fails unless the multipliers
 # move the envs' p_z apart by more than TOL.
 ROUGH_SHORT, ROUGH_LONG = 10, 50
+# A rough case's checks (rough_k1_gates): (steps, statistic over envs,
+# against the float64 twin).
+ROUGH_CHECKS = ((ROUGH_SHORT, "max", True), (ROUGH_LONG, "median", False), (ROUGH_LONG, "p99.9", True))
 # m, plausible base heights above the terrain under the base after the rough
 # main path: HEIGHT_BAND's, its floor lowered by four amplitudes, since the
 # terrain under the base point of a fallen humanoid can rise between the
@@ -1819,70 +1851,100 @@ def rough_twins(engine, state, steps: tuple[int, ...], domain=None, terr_off=Non
     return out
 
 
-def rough_limits(label: str, twins: dict, n: int, stat: str) -> dict[str, float]:
-    """Each field's limit against the float64 twin after ``n`` steps at
-    ``stat`` over envs: max(TOL, 2 × the float32 twin's own distance to it)."""
-    spread = over_envs(per_env_abs_diff(twins["float32"][n], twins["float64"][n]), stat)
-    print(f"{label}: float32 twin vs float64 twin after {n} steps, {stat} over envs {json.dumps(spread)}", flush=True)
-    return {k: max(TOL, 2 * e) for k, e in spread.items()}
+def rough_kernels(kname: str) -> dict:
+    """The kernels a rough K1 case holds, by kernel name: K1 (``kname``)
+    and, on bench.py's relaxed-rigid case (``rollout_relaxed_rigid_rough``),
+    K2-rr and K3-rr chained a launch a step on the same plain trajectories
+    (K3's torques rounded as the kernels' PD law is,
+    :func:`pd_tau_as_kernels`); each like ``cuda_rollout.rollout``."""
+    from jaxsim_tpu_torch.ops import cuda_rollout, cuda_step
+
+    def k3(engine, state, n, domain=None, terr_off=None):
+        for _ in range(n):
+            state = cuda_step.step_tau(engine, state, pd_tau_as_kernels(state, 60.0, 0.5))
+        return state
+
+    out = {kname: cuda_rollout.rollout}
+    if kname == "rollout_relaxed_rigid_rough":
+        out.update(step_pd_relaxed_rigid_rough=lambda e, s, n, domain=None, terr_off=None: cuda_step.rollout_per_step(e, s, n),
+                   step_tau_relaxed_rigid_rough=k3)  # fmt: skip
+    return out
 
 
 def rough_k1_gates(cases: dict, variants=None) -> tuple[dict[str, list[float]], dict[str, dict[str, float]]]:
-    """Soft K1 on rough terrain against the plain twin: ``cases`` maps a name
-    to ``(kernel name, engine, state, domain, terr_off, reference case)``;
-    each held at its max after ROUGH_SHORT steps, and after ROUGH_LONG at its
-    median against the float32 twin and at p99.9 against the float64 twin
-    (:func:`rough_limits`), its slopes checked (:func:`check_slopes`); a case
-    with a reference case (the same start without the multipliers) fails
-    unless the multipliers move p_z by more than TOL. ``variants`` maps a
-    name to a function like ``cuda_rollout.rollout``: by default the wrapper,
-    gated (a breach raises); other variants (seeded faults) are held to the
-    same limits without raising. Returns the largest |Δ| of each case held
-    at its max by kernel name (the default variant's), and for each variant
-    and case its worst statistic over its limit (> 1 is refused)."""
+    """K1 on rough terrain against the plain twin: ``cases`` maps a name to
+    ``(kernel name, engine, state, domain, terr_off, reference case,
+    checks)``, ``checks`` a tuple of ``(steps, statistic over envs, against
+    the float64 twin)`` (ROUGH_CHECKS, RR_ROUGH_CHECKS): against the float64
+    twin each field within max(TOL, 2 × the float32 twin's own distance to it
+    at that statistic), against the float32 twin within TOL, a relaxed-rigid
+    engine's m relative to max(1, max |plain m|) (:func:`rr_diff`); its
+    slopes checked (:func:`check_slopes`). A case with multipliers fails
+    unless they move some field, at its first check, by more than that
+    check's limit: against its reference case's float32 twin (the same start
+    and terrain offset without them), or without one against the plain K1
+    with the terrain offset alone. ``variants`` maps a name to a function
+    like ``cuda_rollout.rollout``: by default :func:`rough_kernels` of the
+    case's kernel, gated (a breach raises); other variants (seeded faults)
+    are held to the same limits without raising. Returns the largest
+    unscaled |Δ| of each case's first check by kernel name, and for each
+    variant and case its worst statistic over its limit (> 1 is refused)."""
     import torch
 
     from jaxsim_tpu_torch.ops import cuda_rollout
 
     gated = variants is None
-    variants = variants or {"kernel": cuda_rollout.rollout}
-    errs, ratios, twins = {}, {name: {} for name in variants}, {}
-    for name, (kname, engine, state, domain, off, ref_case) in cases.items():
+    errs, ratios, twins = {}, {name: {} for name in variants or {}}, {}
+    for name, (kname, engine, state, domain, off, ref_case, checks) in cases.items():
+        diff = rr_diff if engine.contact_model == "relaxed_rigid" else per_env_abs_diff
         label = f"{kname} vs plain, {name} B={state.p.shape[-1]}"
-        tw = twins[name] = rough_twins(engine, state, (ROUGH_SHORT, ROUGH_LONG), domain, off)
+        if engine.contact_model == "relaxed_rigid":
+            label += f", {engine._rr_n_iter} PCG iterations"
+        tw = twins[name] = rough_twins(engine, state, tuple(sorted({n for n, *_ in checks})), domain, off)
         check_slopes(label, tw["slopes"])
-        if ref_case is not None:
-            moved = float((tw["float32"][ROUGH_LONG].p[2] - twins[ref_case]["float32"][ROUGH_LONG].p[2]).abs().max())
-            print(f"{label}: the multipliers move p_z by {moved:.6g} m in {ROUGH_LONG} steps (max over envs)")
-            if not moved > TOL:
-                raise RuntimeError(f"{label}: the multipliers move no env by more than the gate")
-        short_limits = rough_limits(label, tw, ROUGH_SHORT, "max")
-        long_limits = rough_limits(label, tw, ROUGH_LONG, "p99.9")
-        for vname, run in variants.items():
-            short = run(engine, state, ROUGH_SHORT, domain=domain, terr_off=off)
-            long = run(engine, state, ROUGH_LONG, domain=domain, terr_off=off)
-            torch.cuda.synchronize()
-            if gated:
-                d32 = over_envs(per_env_abs_diff(short, tw["float32"][ROUGH_SHORT]), "max")
-                print(f"{label} {ROUGH_SHORT} steps: against the float32 twin (not gated), max over envs {json.dumps(d32)}")
-            checks = ((f"{ROUGH_SHORT} steps, against the float64 twin", short, tw["float64"][ROUGH_SHORT], "max",
-                       short_limits),
-                      (f"{ROUGH_LONG} steps", long, tw["float32"][ROUGH_LONG], "median", {}),
-                      (f"{ROUGH_LONG} steps, against the float64 twin", long, tw["float64"][ROUGH_LONG], "p99.9",
-                       long_limits))  # fmt: skip
-            for what, kern, ref, stat, lim in checks:
-                ratio = math.inf
+        limits = []
+        for n, stat, against64 in checks:
+            spread = over_envs(diff(tw["float32"][n], tw["float64"][n]), stat) if against64 else {}
+            if against64:
+                print(f"{label}: float32 twin vs float64 twin after {n} steps, {stat} over envs {json.dumps(spread)}",
+                      flush=True)  # fmt: skip
+            limits.append({k: max(TOL, 2 * e) for k, e in spread.items()})
+        if domain is not None:
+            n, stat, _ = checks[0]
+            if ref_case is not None:
+                bare = twins[ref_case]["float32"][n]
+            else:
+                with torch.no_grad():
+                    bare = cuda_rollout.rollout_reference(engine, state, n, terr_off=off)
+            moved = {k: e / limits[0].get(k, TOL) for k, e in over_envs(diff(tw["float32"][n], bare), stat).items()}
+            print(f"{label}: the multipliers move each field in {n} steps ({stat} over envs) by this many times its"
+                  f" limit {json.dumps(moved)}", flush=True)  # fmt: skip
+            if not max(moved.values()) > 1.0:
+                raise RuntimeError(f"{label}: the multipliers move no field by more than its limit; the gate is blind")
+        for vname, run in (rough_kernels(kname) if gated else variants).items():
+            outs = {}
+            for c, ((n, stat, against64), lim) in enumerate(zip(checks, limits)):
+                what = f"{n} steps" + (", against the float64 twin" if against64 else "")
+                ref = tw["float64" if against64 else "float32"][n]
+                if n not in outs:
+                    outs[n] = run(engine, state, n, domain=domain, terr_off=off)
+                    torch.cuda.synchronize()
+                kern, ratio = outs[n], math.inf
                 if all_finite(kern):
-                    ratio = max(e / lim.get(k, TOL) for k, e in over_envs(per_env_abs_diff(kern, ref), stat).items())
-                ratios[vname][f"{name} {what}, {stat}"] = ratio
-                if gated:
-                    if not all_finite(kern):
-                        raise RuntimeError(f"{label} {what}: non-finite state")
-                    err = gate(f"{label} {what}", per_env_abs_diff(kern, ref), stat, lim)
-                    if stat == "max":
-                        errs.setdefault(kname, []).append(err)
-                else:
+                    ratio = max(e / lim.get(k, TOL) for k, e in over_envs(diff(kern, ref), stat).items())
+                ratios.setdefault(vname, {})[f"{name} {what}, {stat}"] = ratio
+                if not gated:
                     print(f"{vname} vs plain, {name} {what}: worst field's {stat} over its limit {ratio:.6g}", flush=True)
+                    continue
+                if not all_finite(kern):
+                    raise RuntimeError(f"{vname} vs plain, {name} {what}: non-finite state")
+                if against64:
+                    d32 = over_envs(diff(kern, tw["float32"][n]), stat)
+                    print(f"{vname} vs plain, {name} {what}: against the float32 twin (not gated), {stat} over envs"
+                          f" {json.dumps(d32)}", flush=True)  # fmt: skip
+                gate(f"{vname} vs plain, {name} B={state.p.shape[-1]} {what}", diff(kern, ref), stat, lim)
+                if c == 0:
+                    errs.setdefault(vname, []).append(max(float(d.max()) for d in per_env_abs_diff(kern, ref).values()))
     return errs, ratios
 
 
@@ -1928,17 +1990,20 @@ def terrain_step_gates(cases: dict, variants=None) -> tuple[dict[str, list[float
     return errs, ratios
 
 
-def rough_env_gates(engine, state, opts: dict, variants=None) -> tuple[list[float], dict[str, dict[str, float]]]:
+def rough_env_gates(engine, state, opts: dict, variants=None,
+                    long: int = ROUGH_LONG) -> tuple[list[float], dict[str, dict[str, float]]]:
     """K5 with ``opts`` (terr_off, domain, terrain_relative, the policy's
     weights and options) against ``env_rollout_reference``, as ROUGH_ENV_PARITY
     says: the max over envs after ROUGH_SHORT steps; resets and steps equal
-    in every env after ROUGH_ENV_PARITY; after ROUGH_LONG, every env whose
+    in every env after ROUGH_ENV_PARITY; after ``long`` steps (ROUGH_LONG by
+    default; K5-rr's ROUGH_ENV_PARITY), every env whose
     resets or steps differ parted from the plain version where its relative
     height lay within ROUGH_ENV_BAND of a bound (the first of K5 launches of
     1, 2, ... steps that differs), and the others' fields and reward sums at
     the rough cases' median and p99.9 (against the float64 plain version).
-    ``variants`` maps a name to a function like ``env_rollout``. Returns the
-    largest |Δ| held at its max, and the ratios."""
+    ``variants`` maps a name to a function like ``env_rollout``. A
+    relaxed-rigid engine's m is held relative to max(1, max |plain m|)
+    (:func:`rr_diff`). Returns the largest |Δ| held at its max, and the ratios."""
     import copy
 
     import torch
@@ -1963,15 +2028,17 @@ def rough_env_gates(engine, state, opts: dict, variants=None) -> tuple[list[floa
                 if t + 1 == ROUGH_SHORT:
                     plain[f"{kind} short"] = (BatchedState(*(x.float() for x in sim.fields())), reward_sum.float())
 
-            out = cuda_env_rollout.env_rollout_reference(eng, st, ROUGH_LONG, trace=trace, **o)
+            out = cuda_env_rollout.env_rollout_reference(eng, st, long, trace=trace, **o)
             plain[kind] = (BatchedState(*(x.float() for x in out[0].fields())), out[1].float(), out[2], out[3])
     parity = traces["float32"][ROUGH_ENV_PARITY - 1][1:]  # resets and steps after ROUGH_ENV_PARITY steps
-    print(f"env_rollout rough vs plain: envs reset by step {ROUGH_LONG}: {int((plain['float32'][2] > 0).sum())} of "
+    print(f"env_rollout rough vs plain: envs reset by step {long}: {int((plain['float32'][2] > 0).sum())} of "
           f"{state.p.shape[-1]}", flush=True)  # fmt: skip
     z32 = torch.stack([z for z, _, _ in traces["float32"]])  # (steps, B)
 
+    state_diff = rr_diff if engine.contact_model == "relaxed_rigid" else per_env_abs_diff
+
     def diff(kern, ref):
-        return {**per_env_abs_diff(kern[0], ref[0]), "reward_sum": (kern[1] - ref[1]).abs()}
+        return {**state_diff(kern[0], ref[0]), "reward_sum": (kern[1] - ref[1]).abs()}
 
     spread = over_envs(diff(plain["float32 short"], plain["float64 short"]), "max")
     print(f"env_rollout rough: float32 vs float64 plain version after {ROUGH_SHORT} steps, max over envs "
@@ -1998,13 +2065,13 @@ def rough_env_gates(engine, state, opts: dict, variants=None) -> tuple[list[floa
               f"{same}", flush=True)  # fmt: skip
         if gated and not same:
             raise RuntimeError(f"env_rollout rough: resets or steps differ after {ROUGH_ENV_PARITY} steps")
-        kern = run(engine, state, ROUGH_LONG, **opts)
+        kern = run(engine, state, long, **opts)
         torch.cuda.synchronize()
         parted = (kern[2] != plain["float32"][2]) | (kern[3] != plain["float32"][3])
         at_bound = torch.ones_like(parted)
         if bool(parted.any()):
             first, found = torch.zeros_like(kern[2]), torch.zeros_like(parted)
-            for t in range(1, ROUGH_LONG + 1):
+            for t in range(1, long + 1):
                 k = run(engine, state, t, **opts)
                 _, r, s = traces["float32"][t - 1]
                 differs = (k[2] != r) | (k[3] != s)
@@ -2013,9 +2080,9 @@ def rough_env_gates(engine, state, opts: dict, variants=None) -> tuple[list[floa
             z = z32.gather(0, first[None].long())[0]  # the plain version's relative height where the two part
             at_bound = ~parted | ((z - lo).abs() <= ROUGH_ENV_BAND) | ((z - hi).abs() <= ROUGH_ENV_BAND)
         bad = int((~at_bound).sum())
-        print(f"env_rollout rough {vname} vs plain, {ROUGH_LONG} steps: envs whose resets or steps differ "
+        print(f"env_rollout rough {vname} vs plain, {long} steps: envs whose resets or steps differ "
               f"{int(parted.sum())}, of them away from a bound of {opts['healthy_z_range']}: {bad}", flush=True)  # fmt: skip
-        ratios[vname][f"{ROUGH_LONG} steps, parted away from a bound"] = float(bad)
+        ratios[vname][f"{long} steps, parted away from a bound"] = float(bad)
         if gated and bad:
             raise RuntimeError(f"env_rollout rough: {bad} envs parted from the plain version away from a bound")
         keep = ~parted
@@ -2025,13 +2092,64 @@ def rough_env_gates(engine, state, opts: dict, variants=None) -> tuple[list[floa
         for stat, ref, lim in (("median", plain["float32"], {}), ("p99.9", plain["float64"], limits)):
             d = diff(sub(kern), sub(ref)) if all_finite(kern[0]) else None
             ratio = max(e / lim.get(k, TOL) for k, e in over_envs(d, stat).items()) if d else math.inf
-            ratios[vname][f"{ROUGH_LONG} steps, {stat}"] = ratio
+            ratios[vname][f"{long} steps, {stat}"] = ratio
             if gated:
-                gate(f"env_rollout rough vs plain, {ROUGH_LONG} steps, envs that did not part, {stat}"
+                gate(f"env_rollout rough vs plain, {long} steps, envs that did not part, {stat}"
                      + (", against the float64 plain version" if lim else ""), d, stat, lim)  # fmt: skip
             else:
-                print(f"env_rollout rough {vname}, {ROUGH_LONG} steps: worst {stat} over its limit {ratio:.6g}")
+                print(f"env_rollout rough {vname}, {long} steps: worst {stat} over its limit {ratio:.6g}")
     return errs, ratios
+
+
+# ----- relaxed-rigid contacts on rough terrain and an inclined plane -----
+
+# bench.py's rough_relaxed_rigid (bench.py:443-470) uncut: the humanoid with
+# RelaxedRigidContacts() defaults on rough_terrain(), min(3·nC, 16) =
+# RR_ROUGH_ITERATIONS PCG iterations a step with the block-Jacobi
+# preconditioner (rrKc), 8192 envs from rest, 400 steps a K1-rr call (bench's
+# case takes no terrain offset), 3 chained calls after a warm-up; one more
+# launch with terrOff TERR_OFF_SCALE·N(0, 1) and the five multipliers at
+# DOMAIN_SIGMAS (the relaxed-rigid step reads gmul and Mmul). The gates hold
+# the humanoid on the main path's first RR_ROUGH_GATE_BATCH envs by
+# rough_k1_gates, as the soft build, m relative to max(1, max |plain m|):
+# * K1-rr without per-env rows, and K2-rr and K3-rr chained a launch a step
+#   on the same plain trajectories (RR_ROUGH_CHECKS["bench"]): the max after
+#   ROUGH_SHORT steps and the p99.9 after ROUGH_LONG against the float64 twin
+#   within max(TOL, 2 × the float32 twin's own distance), the median after
+#   ROUGH_LONG against the float32 twin within TOL; SLOPE_SHARE of the
+#   active points on slopes (on the CPU every point in contact at the start
+#   stands where n_z < 0.99);
+# * K1-rr with terrOff and the multipliers (RR_ROUGH_CHECKS["rows"]): after
+#   ROUGH_SHORT and after ROUGH_LONG, the p99.9 against the float64 twin and
+#   the median against the float32 twin as above, and the multipliers moving
+#   some field of the float32 twin by more than its limit against the float32
+#   twin with terrOff alone. Not the max (PERF.md, open questions): on each
+#   env's own patch some envs start deep in the
+#   terrain, and a contact point at δ ≈ 0 switches on in one version and not
+#   in another, its force a large share of max |m| (on an H100 the kernel and
+#   the float64 twin part by 0.257 of max |m| in one env of 1024 after 10
+#   steps, the float32 twin by 0.020, at p99.9 by 0.011): the max is a
+#   lottery on switches, the median sees a fault (gmul ignored: 0.0104 in ṡ
+#   against 2e-5), the p99.9 a fault that moves many envs;
+# * K1-rr built with RR_ROUGH_FEW PCG iterations (RR_ROUGH_CHECKS["few"]):
+#   the max after ROUGH_SHORT as above. At 16 warm-started iterations the
+#   solve has converged so far that the scalar and the block preconditioner
+#   agree; at 3 they part (chip_probe.py rough_rr_faults);
+# * K5-rr with terr_off, the multipliers and the terrain-relative height at
+#   the ES shapes and options, one candidate, its healthy range TERMINATION_Z
+#   of relative height: rough_env_gates over ROUGH_ENV_PARITY steps;
+# * garpez tilted low on the plane (PLANE, plane_start), PLANE_BATCH envs:
+#   K1-rr, K2-rr and K3-rr over PLANE_K1_STEPS at their max against the
+#   float32 twin within TOL (rr_gates).
+RR_ROUGH_ITERATIONS = 16
+RR_ROUGH_GATE_BATCH = 1024
+RR_ROUGH_FEW = 3
+RR_ROUGH_CHECKS = dict(
+    bench=ROUGH_CHECKS,
+    rows=((ROUGH_SHORT, "p99.9", True), (ROUGH_SHORT, "median", False), (ROUGH_LONG, "median", False),
+          (ROUGH_LONG, "p99.9", True)),
+    few=((ROUGH_SHORT, "max", True),),
+)
 
 
 def main() -> int:
@@ -2063,6 +2181,9 @@ def main() -> int:
     hum_rr, garp_rr, hum_td = rr_humanoid_engine(device), rr_garpez_engine(device), rr_touchdown_engine(device)
     garp_rr_few = rr_vjp_garpez_engine(device)
     hum_rough, garp_plane = humanoid_engine(device, terrain=rough_terrain()), garpez_engine(device, plane_terrain())
+    hum_rr_rough, hum_rr_rough_few = (rr_humanoid_engine(device, terrain=rough_terrain()) for _ in range(2))
+    hum_rr_rough_few.rr_iterations = RR_ROUGH_FEW
+    garp_rr_plane = rr_garpez_engine(device, terrain=plane_terrain())
     terr_off, domain = rough_options(BATCH, device)
     n, d = hum.n_joints, obs_dim(hum.n_joints)
     gen = torch.Generator(device).manual_seed(1)
@@ -2082,6 +2203,7 @@ def main() -> int:
     pols_rr = {"mlp": cuda_env_rollout.make_policy(hum_rr, **mlp),
                "linear": cuda_env_rollout.make_policy(hum_rr, **pd_as_linear(hum_rr))}  # fmt: skip
     pd_policy = cuda_env_rollout.make_policy(garp_rr)
+    pol_rr_rough = cuda_env_rollout.make_policy(hum_rr_rough, **mlp)
 
     starts, case_tau = vjp_starts(pend, hum, garp, apg)
     box = starts["box spinning in the air"][0]
@@ -2119,6 +2241,11 @@ def main() -> int:
             rollout_plane=cuda_rollout.job(garp_plane), step_rough=cuda_step.job(hum_rough),
             step_plane=cuda_step.job(garp_plane),
             env_rollout_rough=cuda_env_rollout.job(hum_rough, pols["mlp"], domain=True, terr_off=True, terrain_rel=True),
+            rr_rough=cuda_rollout.job(hum_rr_rough), rr_rough_domain=cuda_rollout.job(hum_rr_rough, domain=True, terr_off=True),
+            rr_rough_few=cuda_rollout.job(hum_rr_rough_few), step_rr_rough=cuda_step.job(hum_rr_rough),
+            env_rollout_rr_rough=cuda_env_rollout.job(hum_rr_rough, pol_rr_rough, domain=True, terr_off=True,
+                                                      terrain_rel=True),
+            rr_plane=cuda_rollout.job(garp_rr_plane), step_rr_plane=cuda_step.job(garp_rr_plane),
         )  # fmt: skip
         builds = dict(zip(jobs, cuda_build.build_many(list(jobs.values()))))
     print(f"nvcc seconds {json.dumps({k: round(b.seconds, 2) for k, b in builds.items()})}")
@@ -2161,7 +2288,11 @@ def main() -> int:
               + f"; SASS local loads and stores (LDL, STL) {json.dumps(cuda_rollout.lane_local_memory(b))}",
               flush=True)  # fmt: skip
     for name, rr_build in (("rollout_relaxed_rigid", builds["rr"]),
-                           *((f"rollout_relaxed_rigid_{i}", builds[f"rr_{i}"]) for i in RK4_INTEGRATORS)):  # fmt: skip
+                           *((f"rollout_relaxed_rigid_{i}", builds[f"rr_{i}"]) for i in RK4_INTEGRATORS),
+                           ("rollout_relaxed_rigid_rough", builds["rr_rough"]),
+                           ("rollout_relaxed_rigid_rough_domain", builds["rr_rough_domain"]),
+                           ("rollout_relaxed_rigid_rough_few", builds["rr_rough_few"]),
+                           ("rollout_relaxed_rigid_plane", builds["rr_plane"])):  # fmt: skip
         geo = cuda_rollout.rr_geometry(rr_build)
         print(f"{name} ({cuda_rollout.RR_LANES} lanes an env): {geo['threads']} threads and {geo['envs']}"
               f" envs a block, {geo['smem_bytes']} B of dynamic shared memory a block, {geo['blocks_per_sm']} blocks an"
@@ -2173,7 +2304,11 @@ def main() -> int:
 
     for name, rr_build, geometry in (("step_tau_relaxed_rigid", builds["step_rr"], cuda_step.geometry),
                                      *((f"env_rollout_relaxed_rigid {k}", builds[f"env_rollout_rr_{k}"],
-                                        cuda_env_rollout.geometry) for k in pols_rr)):  # fmt: skip
+                                        cuda_env_rollout.geometry) for k in pols_rr),
+                                     ("step_tau_relaxed_rigid_rough", builds["step_rr_rough"], cuda_step.geometry),
+                                     ("step_tau_relaxed_rigid_plane", builds["step_rr_plane"], cuda_step.geometry),
+                                     ("env_rollout_relaxed_rigid_rough mlp", builds["env_rollout_rr_rough"],
+                                      cuda_env_rollout.geometry)):  # fmt: skip
         geo = geometry(rr_build)
         print(f"{name} ({cuda_rollout.RR_LANES} lanes an env): {geo['threads']} threads and {geo['envs']}"
               f" envs a block, {geo['smem_bytes']} B of dynamic shared memory a block, {geo['blocks_per_sm']} blocks an"
@@ -2237,8 +2372,9 @@ def main() -> int:
     with phase("rough terrain and the inclined plane vs plain"):
         rough = "humanoid23 rough, terrOff"
         errs, _ = rough_k1_gates({
-            rough: ("rollout_rough", hum_rough, state0, None, terr_off, None),
-            f"{rough}, five multipliers": ("rollout_rough_domain", hum_rough, state0, domain, terr_off, rough),
+            rough: ("rollout_rough", hum_rough, state0, None, terr_off, None, ROUGH_CHECKS),
+            f"{rough}, five multipliers": ("rollout_rough_domain", hum_rough, state0, domain, terr_off, rough,
+                                           ROUGH_CHECKS),
         })  # fmt: skip
         for kname, e in errs.items():
             max_errs[kname] += e
@@ -2269,6 +2405,39 @@ def main() -> int:
 
     with phase("K5 relaxed-rigid vs plain"):
         max_errs["env_rollout_relaxed_rigid"], _ = rr_env_gates(rr_env_cases(hum_rr, garp_rr, rr_starts, mlp))
+
+    # ----- relaxed-rigid contacts on rough terrain and the inclined plane vs plain -----
+    rr_rough_start = hum_rr_rough.init_state(BATCH, generator=torch.Generator(device).manual_seed(9))
+    rr_gate_start = BatchedState(*(t[..., :RR_ROUGH_GATE_BATCH].contiguous() for t in rr_rough_start.fields()))
+    gate_off = terr_off[:, :RR_ROUGH_GATE_BATCH].contiguous()
+    gate_domain = {k: t[:RR_ROUGH_GATE_BATCH].contiguous() for k, t in domain.items()}
+    plane_rr_st = plane_start(garp_rr_plane, torch.Generator(device).manual_seed(11))
+    with phase("rough relaxed-rigid and the inclined plane vs plain"):
+        rough_rr = "humanoid23 relaxed-rigid rough"
+        errs, _ = rough_k1_gates({
+            rough_rr: ("rollout_relaxed_rigid_rough", hum_rr_rough, rr_gate_start, None, None, None,
+                       RR_ROUGH_CHECKS["bench"]),
+            f"{rough_rr}, terrOff, five multipliers": ("rollout_relaxed_rigid_rough_domain", hum_rr_rough,
+                                                       rr_gate_start, gate_domain, gate_off, None,
+                                                       RR_ROUGH_CHECKS["rows"]),
+            f"{rough_rr}, {RR_ROUGH_FEW} PCG iterations": ("rollout_relaxed_rigid_rough_few", hum_rr_rough_few,
+                                                          rr_gate_start, None, None, None, RR_ROUGH_CHECKS["few"]),
+        })  # fmt: skip
+        for kname, e in errs.items():
+            if kname in max_errs:
+                max_errs[kname] += e
+        plane_rr_case = f"garpez relaxed-rigid on the plane through height {PLANE['height']} m with normal {PLANE['normal']}"
+        errs, _ = rr_gates({plane_rr_case: (garp_rr_plane, plane_rr_st, (60.0, 0.5))},
+                           cases=((plane_rr_case, PLANE_K1_STEPS, "max", False),))  # fmt: skip
+        max_errs["rollout_relaxed_rigid_plane"] += errs["rollout_relaxed_rigid"]
+        max_errs["step_tau_relaxed_rigid_plane"] += errs["step_tau_relaxed_rigid"]
+
+    with phase("K5-rr rough vs plain"):
+        one_mlp = {k: v[:1].contiguous() for k, v in mlp.items()}
+        rr_rough_env_opts = dict(terr_off=gate_off, domain=gate_domain, terrain_relative=True, **ES_OPTIONS, **one_mlp)
+        rr_rough_env_opts["healthy_z_range"] = TERMINATION_Z
+        max_errs["env_rollout_relaxed_rigid_rough"], _ = rough_env_gates(
+            hum_rr_rough, rr_gate_start, rr_rough_env_opts, long=ROUGH_ENV_PARITY)  # fmt: skip
 
     # ----- K1's RK4 and RK4-fast builds vs plain -----
     with phase("K1 RK4 and RK4-fast vs plain"):
@@ -2806,6 +2975,151 @@ def main() -> int:
         if tuple(obs.shape) != (d, BATCH) or int(state.steps.max()) > 1 + ENV_STEPS:
             raise RuntimeError("relaxed-rigid BatchedEnv.step: wrong shapes or step counts")
 
+    # ----- relaxed-rigid contacts on rough terrain and the inclined plane -----
+    with phase("main path: rough relaxed-rigid rollout (K1-rr)"):
+        if hum_rr_rough._rr_n_iter != RR_ROUGH_ITERATIONS:
+            raise RuntimeError(f"the rough relaxed-rigid humanoid runs {hum_rr_rough._rr_n_iter} PCG iterations, not"
+                               f" {RR_ROUGH_ITERATIONS}")  # fmt: skip
+        (out, times), launches = main_path(
+            "rough relaxed-rigid rollout", dict(rollout_relaxed_rigid=1 + RR_TIMED_CALLS),
+            lambda: chained(hum_rr_rough, rr_rough_start, RR_HORIZON, RR_TIMED_CALLS),
+        )  # fmt: skip
+        wall = [t[0] for t in times]
+        results["rollout_relaxed_rigid_rough"] = dict(launches=launches["rollout_relaxed_rigid"],
+                                                      ms=statistics.median(t[1] for t in times))  # fmt: skip
+        print(f"K1-rr rough: {BATCH}x{RR_HORIZON} steps per call, FourierTerrain {ROUGH}, {hum_rr_rough._rr_n_iter} PCG"
+              f" iterations a step (block Jacobi), wall s {wall}, device ms {[t[1] for t in times]}")  # fmt: skip
+        print(f"K1-rr rough env_steps_per_s (median wall): {BATCH * RR_HORIZON / statistics.median(wall):.6g} on {smi}",
+              flush=True)  # fmt: skip
+        if not all_finite(out):
+            raise RuntimeError("rough relaxed-rigid rollout: non-finite final state")
+        z = relative_heights(hum_rr_rough, out)
+        print(f"rough relaxed-rigid: height above the terrain after {(1 + RR_TIMED_CALLS) * RR_HORIZON} steps: min "
+              f"{float(z.min()):.4f} m, max {float(z.max()):.4f} m, share of envs above 0.5 m "
+              f"{float((z > 0.5).float().mean()):.4f}; max |m| {float(out.m.abs().max()):.6g} N")  # fmt: skip
+        if not ROUGH_HEIGHT_BAND[0] <= float(z.min()) <= float(z.max()) <= ROUGH_HEIGHT_BAND[1]:
+            raise RuntimeError(f"rough relaxed-rigid rollout: height above the terrain outside {ROUGH_HEIGHT_BAND} m")
+        rr_rough_final = out
+
+    with phase("main path: rough relaxed-rigid rollout with terrOff and the five multipliers (K1-rr)"):
+        def rr_domain_launch():
+            holder = {}
+            t0 = time.perf_counter()
+            ms = device_ms(lambda: holder.update(out=cuda_rollout.rollout(
+                hum_rr_rough, rr_rough_start, RR_HORIZON, domain=domain, terr_off=terr_off)), 1)[0]  # fmt: skip
+            return holder["out"], ms, time.perf_counter() - t0
+
+        (out, ms, wall), launches = main_path("rough relaxed-rigid rollout, terrOff and five multipliers",
+                                              dict(rollout_relaxed_rigid=1), rr_domain_launch)  # fmt: skip
+        results["rollout_relaxed_rigid_rough_domain"] = dict(launches=launches["rollout_relaxed_rigid"], ms=ms)
+        print(f"K1-rr rough with terrOff and {sorted(DOMAIN_SIGMAS)}: {BATCH}x{RR_HORIZON} steps, device ms {ms:.6g}, "
+              f"env_steps_per_s (wall) {BATCH * RR_HORIZON / wall:.6g} on {smi}", flush=True)  # fmt: skip
+        if not all_finite(out):
+            raise RuntimeError("rough relaxed-rigid rollout with the multipliers: non-finite final state")
+        z = relative_heights(hum_rr_rough, out, terr_off)
+        print(f"rough relaxed-rigid with terrOff and the multipliers: height above the terrain after {RR_HORIZON} "
+              f"steps: min {float(z.min()):.4f} m, max {float(z.max()):.4f} m")  # fmt: skip
+        if not ROUGH_HEIGHT_BAND[0] <= float(z.min()) <= float(z.max()) <= ROUGH_HEIGHT_BAND[1]:
+            raise RuntimeError(f"rough relaxed-rigid rollout with the multipliers: height outside {ROUGH_HEIGHT_BAND} m")
+        rr_rough_domain_final = out
+
+    with phase("main path: rough relaxed-rigid per-step rollout (K2-rr)"):
+        def rr_rough_per_step():
+            cuda_step.rollout_per_step(hum_rr_rough, rr_rough_start, 1)  # warm-up
+            sync()
+            holder = {}
+            ms = device_ms(lambda: holder.update(
+                out=cuda_step.rollout_per_step(hum_rr_rough, rr_rough_start, ROUGH_PER_STEP_LAUNCHES)), 1)[0]  # fmt: skip
+            return holder["out"], ms
+
+        (out, ms), launches = main_path("rough relaxed-rigid per-step rollout",
+                                        dict(step_pd_relaxed_rigid=1 + ROUGH_PER_STEP_LAUNCHES), rr_rough_per_step)  # fmt: skip
+        results["step_pd_relaxed_rigid_rough"] = dict(launches=launches["step_pd_relaxed_rigid"],
+                                                      ms=ms / ROUGH_PER_STEP_LAUNCHES)  # fmt: skip
+        print(f"K2-rr rough: {ROUGH_PER_STEP_LAUNCHES} launches at B={BATCH}, device ms per launch "
+              f"{ms / ROUGH_PER_STEP_LAUNCHES:.6g} on {smi}")  # fmt: skip
+        if not all_finite(out):
+            raise RuntimeError("non-finite state after the rough relaxed-rigid per-step rollout")
+
+    with phase("main path: rough relaxed-rigid ES generations (K5-rr)"):
+        es_rr_rough_opts = dict(terr_off=terr_off, domain=domain, terrain_relative=True, **ES_OPTIONS)
+
+        def rr_rough_es():
+            cuda_env_rollout.env_rollout(hum_rr_rough, rr_rough_start, ES["steps"], **es_rr_rough_opts, **mlp)  # warm-up
+            sync()
+            mean, gens_ = theta_mu.clone(), []
+            for _ in range(ES["generations"]):
+                eps, w = es_population(mean, gen, n, d)
+                holder = {}
+                ms = device_ms(lambda: holder.update(out=cuda_env_rollout.env_rollout(
+                    hum_rr_rough, rr_rough_start, ES["steps"], **es_rr_rough_opts, **w)), 1)[0]  # fmt: skip
+                final, reward, resets, steps = holder["out"]
+                fitness = reward.reshape(ES["candidates"], -1).mean(1)
+                gens_.append(dict(ms=ms, final=final, reward=reward, resets=resets, steps=steps))
+                adv = (fitness - fitness.mean()) / (fitness.std() + 1e-8)
+                mean = mean + ES["lr"] / (ES["candidates"] * ES["sigma"]) * (adv[:, None] * eps).sum(0)
+            return gens_
+
+        rr_rough_gens, launches = main_path("rough relaxed-rigid ES",
+                                            dict(env_rollout_relaxed_rigid=1 + ES["generations"]), rr_rough_es)  # fmt: skip
+        results["env_rollout_relaxed_rigid_rough"] = dict(launches=launches["env_rollout_relaxed_rigid"],
+                                                          ms=statistics.median(g["ms"] for g in rr_rough_gens))  # fmt: skip
+        lo, hi = ES_OPTIONS["healthy_z_range"]
+        for i, g in enumerate(rr_rough_gens):
+            print(f"rough relaxed-rigid ES generation {i}: device ms {g['ms']:.6g} on {smi}, env_steps_per_s "
+                  f"{BATCH * ES['steps'] / (g['ms'] * 1e-3):.6g}, resets {int(g['resets'].sum())}, mean reward "
+                  f"{float(g['reward'].mean()):.6g}")  # fmt: skip
+            if not (all_finite(g["final"]) and bool(torch.isfinite(g["reward"]).all())):
+                raise RuntimeError("rough relaxed-rigid ES: non-finite output")
+            z = relative_heights(hum_rr_rough, g["final"], terr_off)
+            if not (lo <= float(z.min()) and float(z.max()) <= hi and int(g["resets"].sum()) > 0):
+                raise RuntimeError(f"rough relaxed-rigid ES: relative height outside {lo, hi} or no episode ended")
+
+    with phase("main path: rough relaxed-rigid BatchedEnv.step (K3-rr)"):
+        rr_rough_env = BatchedEnv(engine=hum_rr_rough, episode_length=ES_OPTIONS["episode_length"],
+                                  healthy_z_range=ES_OPTIONS["healthy_z_range"], terrain_relative=True)  # fmt: skip
+
+        def rr_rough_env_steps():
+            state, obs = rr_rough_env.reset(torch.Generator(device).manual_seed(2), BATCH)
+            state, obs, _, _ = rr_rough_env.step(state, torch.zeros(n, BATCH, device=device))  # warm-up
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(ENV_STEPS):
+                state, obs, reward, done = rr_rough_env.step(state, (-60.0 * state.sim.s - 0.5 * state.sim.sd).contiguous())
+            sync()
+            return state, obs, reward, (time.perf_counter() - t0) * 1e3 / ENV_STEPS
+
+        (state, obs, reward, step_ms), launches = main_path(
+            "rough relaxed-rigid BatchedEnv.step", dict(step_tau_relaxed_rigid=1 + ENV_STEPS), rr_rough_env_steps)
+        results["step_tau_relaxed_rigid_rough"] = dict(launches=launches["step_tau_relaxed_rigid"])
+        print(f"rough relaxed-rigid BatchedEnv.step: B={BATCH}, terrain-relative height, wall ms per step "
+              f"{step_ms:.6g} on {smi}")  # fmt: skip
+        if not (bool(torch.isfinite(obs).all()) and bool(torch.isfinite(reward).all())):
+            raise RuntimeError("rough relaxed-rigid BatchedEnv.step: non-finite output")
+        if not torch.allclose(obs[-1], relative_heights(hum_rr_rough, state.sim)):
+            raise RuntimeError("rough relaxed-rigid BatchedEnv.step: the observation's height row is not the relative height")
+
+    with phase("main path: relaxed-rigid inclined plane (K1-rr, K3-rr)"):
+        def rr_plane_path():
+            holder = {}
+            ms = device_ms(lambda: holder.update(out=cuda_rollout.rollout(garp_rr_plane, plane_rr_st, PLANE_K1_STEPS)),
+                           1)[0]  # fmt: skip
+            st = plane_rr_st
+            for _ in range(PLANE_K3_STEPS):
+                st = cuda_step.step_tau(garp_rr_plane, st, (-60.0 * st.s - 0.5 * st.sd).contiguous())
+            sync()
+            return holder["out"], ms, st
+
+        (out, ms, st), launches = main_path("relaxed-rigid inclined plane",
+                                            dict(rollout_relaxed_rigid=1, step_tau_relaxed_rigid=PLANE_K3_STEPS),
+                                            rr_plane_path)  # fmt: skip
+        results["rollout_relaxed_rigid_plane"] = dict(launches=launches["rollout_relaxed_rigid"], ms=ms)
+        results["step_tau_relaxed_rigid_plane"] = dict(launches=launches["step_tau_relaxed_rigid"])
+        print(f"K1-rr inclined plane: garpez B={PLANE_BATCH} {PLANE_K1_STEPS} steps, device ms {ms:.6g} on {smi}")
+        if not (all_finite(out) and all_finite(st)):
+            raise RuntimeError("relaxed-rigid inclined plane: non-finite state")
+        rr_plane_final = out
+
     with phase("main path: relaxed-rigid policy gradient (K3-rr, K4-rr)"):
         rr_pg_rollout = diff_step.fused_diff_rollout(hum_rr, GRAD["steps"])
 
@@ -3065,6 +3379,44 @@ def main() -> int:
         k = PLAIN_TIMED_STEPS["env_rollout_rough"]
         plain_ms["env_rollout_rough"] = wall_ms(lambda: cuda_env_rollout.env_rollout_reference(
             hum_rough, state0, k, **es_rough_opts, **mlp)) * ES["steps"] / k  # fmt: skip
+        # Relaxed-rigid contacts on rough terrain and the inclined plane.
+        tau_rr_rough = (-60.0 * rr_rough_start.s - 0.5 * rr_rough_start.sd).contiguous()
+        tau_rr_plane = (-60.0 * plane_rr_st.s - 0.5 * plane_rr_st.sd).contiguous()
+        for name, engine, start, tau in (("step_tau_relaxed_rigid_rough", hum_rr_rough, rr_rough_start, tau_rr_rough),
+                                         ("step_tau_relaxed_rigid_plane", garp_rr_plane, plane_rr_st, tau_rr_plane)):  # fmt: skip
+            cuda_step.step_tau(engine, start, tau)
+            sync()
+            results[name]["ms"] = statistics.median(device_ms(lambda: cuda_step.step_tau(engine, start, tau), 20))
+            k = PLAIN_TIMED_STEPS[name]
+            plain_ms[name] = wall_ms(lambda: [cuda_step.step_tau_reference(engine, start, tau) for _ in range(k)]) / k
+        rr_rough_calls = dict(
+            rollout_relaxed_rigid_rough=(hum_rr_rough, rr_rough_start, RR_HORIZON, {}),
+            rollout_relaxed_rigid_rough_domain=(hum_rr_rough, rr_rough_start, RR_HORIZON,
+                                                dict(terr_off=terr_off, domain=domain)),
+            rollout_relaxed_rigid_plane=(garp_rr_plane, plane_rr_st, PLANE_K1_STEPS, {}),
+        )  # fmt: skip
+        for name, (engine, start, horizon, options) in rr_rough_calls.items():
+            k = PLAIN_TIMED_STEPS[name]
+            plain_ms[name] = wall_ms(lambda: cuda_rollout.rollout_reference(engine, start, k, **options)) * horizon / k
+        k = PLAIN_TIMED_STEPS["step_pd_relaxed_rigid_rough"]
+        plain_ms["step_pd_relaxed_rigid_rough"] = wall_ms(lambda: [cuda_step.step_pd_reference(hum_rr_rough, rr_rough_start)
+                                                                   for _ in range(k)]) / k  # fmt: skip
+        k = PLAIN_TIMED_STEPS["env_rollout_relaxed_rigid_rough"]
+        plain_ms["env_rollout_relaxed_rigid_rough"] = wall_ms(lambda: cuda_env_rollout.env_rollout_reference(
+            hum_rr_rough, rr_rough_start, k, **es_rr_rough_opts, **mlp)) * ES["steps"] / k  # fmt: skip
+        rr_rough_kernel_only = {}
+        for name, fn, kernel in (
+            ("step_pd_relaxed_rigid_rough", lambda: cuda_step.step_pd(hum_rr_rough, rr_rough_start), "rollout_rr_kernel"),
+            ("step_tau_relaxed_rigid_rough", lambda: cuda_step.step_tau(hum_rr_rough, rr_rough_start, tau_rr_rough),
+             "step_tau_rr_kernel"),
+        ):  # fmt: skip
+            try:
+                rr_rough_kernel_only[name] = profiled_ms(fn, kernel, 10)
+            except RuntimeError as exc:  # the profiler dropped a launch in every window: the event time stands
+                rr_rough_kernel_only[name] = f"not measured ({exc})"
+        print(f"rough relaxed-rigid kernel-only device ms a launch (torch.profiler, mean of 10): "
+              f"{json.dumps(rr_rough_kernel_only)}; CUDA events: "
+              f"{json.dumps({k: results[k]['ms'] for k in rr_rough_kernel_only})} on {smi}")  # fmt: skip
         library_ms = dict(param_sum=statistics.median(device_ms(lambda: torch.sum(partials, 0), 20)),
                           param_sum_relaxed_rigid=statistics.median(device_ms(lambda: torch.sum(rr_partials, 0), 20)))
         print(f"plain ms for each kernel's launch (timed over {json.dumps(PLAIN_TIMED_STEPS)} steps): {json.dumps(plain_ms)}")
@@ -3141,6 +3493,31 @@ def main() -> int:
                                             "domain": {name: t[:k] for name, t in dom_cpu.items()}})  # fmt: skip
 
         flops["rough_env_step"] = flop_count.least_step_ops(cpu_rough, rough_env_step, cpu_head(rough_gens[-1]["final"]))
+        # Relaxed-rigid contacts on rough terrain (16 PCG iterations, block
+        # Jacobi) without and with the rows, on the plane, and K5-rr's rough
+        # step, each at its main path's final state.
+        cpu_rr_rough = rr_humanoid_engine("cpu", terrain=rough_terrain())
+        cpu_rr_plane = rr_garpez_engine("cpu", terrain=plane_terrain())
+        flops.update(
+            rr_rough_step=flop_count.least_rollout_step_ops(cpu_rr_rough, cpu_head(rr_rough_final), COUNT_ENVS),
+            rr_rough_domain_step=flop_count.least_rollout_step_ops(cpu_rr_rough, cpu_head(rr_rough_domain_final),
+                                                                   COUNT_ENVS, domain=dom_cpu, terr_off=off_cpu),
+            rr_plane_step=flop_count.least_rollout_step_ops(cpu_rr_plane, cpu_head(rr_plane_final), COUNT_ENVS),
+        )  # fmt: skip
+
+        def rr_rough_env_step(st):
+            k = st.p.shape[-1]
+            return cuda_env_rollout.env_rollout_reference(
+                cpu_rr_rough, st, 1, **one, **{**es_rr_rough_opts, "terr_off": off_cpu[:, :k],
+                                               "domain": {name: t[:k] for name, t in dom_cpu.items()}})  # fmt: skip
+
+        flops["rr_rough_env_step"] = flop_count.least_step_ops(cpu_rr_rough, rr_rough_env_step,
+                                                               cpu_head(rr_rough_gens[-1]["final"]))  # fmt: skip
+        print("float32 operations a relaxed-rigid env-step needs on rough terrain (16 PCG iterations), with terrOff and"
+              " the multipliers, on the inclined plane, and K5-rr's rough step (the same count, over"
+              f" {COUNT_ENVS} envs of each main path's final state): "
+              + json.dumps({k: flops[k] for k in ("rr_rough_step", "rr_rough_domain_step", "rr_plane_step",
+                                                   "rr_rough_env_step")}))  # fmt: skip
         print("float32 operations an env-step needs on rough terrain, with the terrain offset, with the multipliers too,"
               " without either (K2, K3), on the inclined plane, and K5's rough step (the same count, sines and cosines"
               f" one each, over {COUNT_ENVS} envs of each main path's final state): "
@@ -3153,6 +3530,9 @@ def main() -> int:
         rr_vjp_bytes = 3 * sb + rr_pb + 8 * n * BATCH
         rough_pb = 4 * cuda_build.packed_params(hum_rough).numel()
         plane_sb, plane_pb = state_bytes(garp_plane, PLANE_BATCH), 4 * cuda_build.packed_params(garp_plane).numel()
+        rr_rough_pb = 4 * cuda_build.packed_params(hum_rr_rough).numel()
+        rr_plane_sb = state_bytes(garp_rr_plane, PLANE_BATCH)
+        rr_plane_pb = 4 * cuda_build.packed_params(garp_rr_plane).numel()
         work = dict(
             rollout=(flops["step"] * BATCH * HORIZON, 2 * sb + pb),
             step_pd=(flops["step"] * BATCH, 2 * sb + pb),
@@ -3188,6 +3568,17 @@ def main() -> int:
             step_tau_plane=(flops["plane_step"] * PLANE_BATCH, 2 * plane_sb + plane_pb + 4 * garp_plane.n_joints * PLANE_BATCH),
             env_rollout_rough=(flops["rough_env_step"] * BATCH * ES["steps"],
                                2 * sb + rough_pb + 12 * BATCH + 4 * pols["mlp"].packed().numel() + 28 * BATCH),
+            rollout_relaxed_rigid_rough=(flops["rr_rough_step"] * BATCH * RR_HORIZON, 2 * sb + rr_rough_pb),
+            rollout_relaxed_rigid_rough_domain=(flops["rr_rough_domain_step"] * BATCH * RR_HORIZON,
+                                                2 * sb + rr_rough_pb + 28 * BATCH),
+            step_pd_relaxed_rigid_rough=(flops["rr_rough_step"] * BATCH, 2 * sb + rr_rough_pb),
+            step_tau_relaxed_rigid_rough=(flops["rr_rough_step"] * BATCH, 2 * sb + rr_rough_pb + 4 * n * BATCH),
+            env_rollout_relaxed_rigid_rough=(flops["rr_rough_env_step"] * BATCH * ES["steps"],
+                                             2 * sb + rr_rough_pb + 12 * BATCH + 4 * pol_rr_rough.packed().numel()
+                                             + 28 * BATCH),
+            rollout_relaxed_rigid_plane=(flops["rr_plane_step"] * PLANE_BATCH * PLANE_K1_STEPS, 2 * rr_plane_sb + rr_plane_pb),
+            step_tau_relaxed_rigid_plane=(flops["rr_plane_step"] * PLANE_BATCH,
+                                          2 * rr_plane_sb + rr_plane_pb + 4 * garp_rr_plane.n_joints * PLANE_BATCH),
         )  # fmt: skip
         peaks = {}
         for name in probe_names:

@@ -14,7 +14,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from jaxsim_tpu_torch.ops.batched_engine import DOMAIN_NAMES, BatchedEngine, BatchedState, resolve_device
+from jaxsim_tpu_torch.ops.batched_engine import (
+    DOMAIN_NAMES, ITEM_HEIGHTMAP, ITEM_RIGID, BatchedEngine, BatchedState, resolve_device,
+)  # fmt: skip
 
 # Static fields of the JAX BatchedEngine that the port's engine takes.
 STATIC_FIELDS = (
@@ -71,7 +73,7 @@ DOMAIN_ROWS = (*DOMAIN_NAMES, "terrOff")
 # each must be one of its tuple's values.
 _REQUIRED = dict(terrain_kind=BatchedEngine.TERRAIN_KINDS, integrator=BatchedEngine.INTEGRATORS, constraint_parents=((),))
 # Every model array a port engine may take, in the order of the kernels' packing.
-PARAM_NAMES = BatchedEngine.RR_PARAM_NAMES + (BatchedEngine.TERRAIN_PARAM,)
+PARAM_NAMES = BatchedEngine.RR_PARAM_NAMES + (BatchedEngine.RR_KC_PARAM, BatchedEngine.TERRAIN_PARAM)
 
 
 def reference_engine_arrays(engine) -> tuple[dict, dict[str, np.ndarray]]:
@@ -99,15 +101,19 @@ def engine_from_numpy(
 ) -> BatchedEngine:
     """The port's engine from the JAX engine's static fields and ``params()``,
     on ``device`` (by default the CUDA card): soft or relaxed-rigid contacts,
-    plane terrain (and for soft contacts Fourier terrain, whose spectrum is
-    ``params["terr"]``), semi-implicit Euler, RK4 or RK4-fast."""
+    plane terrain or Fourier terrain (whose spectrum is ``params["terr"]``;
+    a relaxed-rigid engine there also takes the JAX engine's block-Jacobi
+    blocks ``params["rrKc"]``, or without them computes its own),
+    semi-implicit Euler, RK4 or RK4-fast."""
     for key, allowed in _REQUIRED.items():
         got = static.get(key, allowed[0])
         if (tuple(got) if isinstance(got, (list, tuple)) else got) not in allowed:
-            raise ValueError(f"the port's engine requires {key} in {allowed!r}, got {got!r}")
+            item = f" ({ITEM_HEIGHTMAP})" if key == "terrain_kind" else ""
+            raise ValueError(f"the port's engine requires {key} in {allowed!r}, got {got!r}{item}")
     if static["contact_model"] not in BatchedEngine.CONTACT_MODELS:
         raise ValueError(
-            f"the port's engine requires contact_model in {BatchedEngine.CONTACT_MODELS}, got {static['contact_model']!r}"
+            f"the port's engine requires contact_model in {BatchedEngine.CONTACT_MODELS}, got"
+            f" {static['contact_model']!r} ({ITEM_RIGID})"
         )
     relaxed = static["contact_model"] == "relaxed_rigid"
     # The JAX engine stores a joint-free model's axis array as (0,), and a
@@ -117,11 +123,13 @@ def engine_from_numpy(
         params["rrMinv"] = np.zeros((1, 3, 3))
     names = BatchedEngine.RR_PARAM_NAMES if relaxed else BatchedEngine.PARAM_NAMES
     if static.get("terrain_kind", "plane") == "fourier":
+        if relaxed and static["n_points"]:
+            names = names + (BatchedEngine.RR_KC_PARAM,)
         names = names + (BatchedEngine.TERRAIN_PARAM,)
     return BatchedEngine(
         **{k: static.get(k, "plane") if k == "terrain_kind" else static[k] for k in STATIC_FIELDS},
         **({k: static[k] for k in RR_FIELDS} if relaxed else {}),
-        **{k: params[k] for k in names},
+        **{k: params[k] for k in names if k != BatchedEngine.RR_KC_PARAM or k in params},
         device=device,
         dtype=dtype,
     )

@@ -3,8 +3,14 @@
 // its slot of shared memory, K1-rr's step and launch geometry.
 //
 // Replaces jaxsim_tpu/ops/pallas_step.py::_env_rollout_kernel (built by
-// build_pallas_env_rollout, K5) for relaxed-rigid engines on flat ground
-// without per-env domain multipliers. Each env, for n_steps, as the soft K5
+// build_pallas_env_rollout, K5) for relaxed-rigid engines on flat ground, an
+// inclined plane or Fourier terrain (JX_TERRAIN), with the JAX kernel's
+// per-env options as the soft K5 takes them: the multiplier rows (JX_DOMAIN;
+// the relaxed-rigid step reads gmul and Mmul), the terrain offset
+// (JX_TERR_OFF), each env's loaded once a launch (rr_load_domain), and the
+// terrain-relative base height (JX_TERRAIN_REL: p_z - h(p_x - ox, p_y - oy)
+// in the observation's last row and in the healthy-height test, the reward
+// keeping the absolute height). Each env, for n_steps, as the soft K5
 // (env_rollout.cu):
 //   1. computes its torques from the state before the step: the PD closure,
 //      a linear policy tau = W obs + b, or a one-hidden-layer tanh MLP
@@ -52,10 +58,31 @@
 #include "rr_step.cuh"
 #include "env_policy.cuh"
 
+#ifndef JX_TERRAIN_REL
+#define JX_TERRAIN_REL 0
+#endif
+
 static_assert(INTEGRATOR == 0, "env_rollout_rr.cu implements semi-implicit Euler (JX_INTEGRATOR 0)");
 static_assert(JX_RR_TAU_ROW, "env_rollout_rr.cu writes the policy's torques into the slot's torque row");
 
 namespace {
+
+constexpr bool TERRAIN_REL = JX_TERRAIN_REL != 0;
+static_assert(!TERRAIN_REL || TERRAIN == 2, "a terrain-relative height needs Fourier terrain");
+
+// The base's height in the slot (lane 0's rows): p_z, or with
+// JX_TERRAIN_REL the terrain-relative p_z - h(p_x - ox, p_y - oy).
+__device__ __forceinline__ float rr_base_height(const float* P, Slot sl, const EnvDomain& dom) {
+  const float pz = sl[rr_base_at(2)];
+  if constexpr (TERRAIN_REL) {
+    const float x = sl[rr_base_at(0)], y = sl[rr_base_at(1)];
+    return pz - fourier_height(P, TERR_OFF ? x - dom.ox : x, TERR_OFF ? y - dom.oy : y);
+  } else {
+    (void)P;
+    (void)dom;
+    return pz;
+  }
+}
 
 // The rows of an env's slot that no thread reads between a step's contact
 // solve and the next step's free ABA: the F rows and L0 (cuda_build's
@@ -106,7 +133,7 @@ __device__ void policy(const float* Wt, const Options& o, Slot sl, int g) {
 __global__ void __launch_bounds__(RR_THREADS, 1)
     env_rollout_rr_kernel(const float* __restrict__ params, const float* __restrict__ weights, StateIn in,
                           StateOut out, float* __restrict__ reward_out, int* __restrict__ resets_out,
-                          int* __restrict__ steps_out, int B, int n_steps, Scalars sc, Options o) {
+                          int* __restrict__ steps_out, int B, int n_steps, Scalars sc, Options o, DomainRows dr) {
   extern __shared__ float smem[];
   float* P = smem;
   float* Wt = smem + N_PARAMS;
@@ -131,6 +158,7 @@ __global__ void __launch_bounds__(RR_THREADS, 1)
   rr_load_m(in.m, B, bl, pt, m);
   RrLane st;
   rr_load_lane(in, B, bl, g, sl, st);
+  const EnvDomain dom = rr_load_domain(dr, B, bl);
   __syncthreads();
 
   int steps = 0, resets = 0;
@@ -155,7 +183,7 @@ __global__ void __launch_bounds__(RR_THREADS, 1)
     if (g == 0) {
 #pragma unroll
       for (int k = 0; k < 10; ++k) sl[SL_OBS + 2 * NJ + k] = sl[rr_base_at(3 + k)];  // q, v
-      sl[SL_OBS + 2 * NJ + 10] = sl[rr_base_at(2)];
+      sl[SL_OBS + 2 * NJ + 10] = rr_base_height(P, sl, dom);
     }
     __syncwarp();  // the observation is in
     policy(Wt, o, sl, g);
@@ -163,13 +191,13 @@ __global__ void __launch_bounds__(RR_THREADS, 1)
     __syncwarp();  // the torques are in
 
     // 2. The step.
-    rr_step_env(P, sc, sl, g, st, m, SlotTauRr{sl});
+    rr_step_env(P, sc, sl, g, st, m, SlotTauRr{sl}, dom);
 
     // 3. The episode's end, the reward and the base's respawn, on lane 0; the
     // lanes re-read their joints' and m rows on the flag it leaves.
     if (g == 0) {
       const int steps1 = steps + 1;
-      const float z = sl[rr_base_at(2)];
+      const float pz = sl[rr_base_at(2)], z = rr_base_height(P, sl, dom);
       // The JAX kernel's comparisons: a NaN height ends no episode.
       const bool done = (z < o.z_lo) || (z > o.z_hi) || (steps1 >= o.episode_length);
       float ctrl = 0.0f;
@@ -177,7 +205,7 @@ __global__ void __launch_bounds__(RR_THREADS, 1)
         const float tk = sl[SL_TAU + k];
         ctrl = k ? mac(ctrl, tk, tk) : __fmul_rn(tk, tk);
       }
-      const float upright = z > 2.0f ? 2.0f : z;  // jnp.minimum: a NaN passes through
+      const float upright = pz > 2.0f ? 2.0f : pz;  // jnp.minimum: a NaN passes through
       reward_sum = __fadd_rn(reward_sum, __fsub_rn(upright, __fmul_rn(0.001f, ctrl)));
       resets += done;
       steps = done ? 0 : steps1;
@@ -226,7 +254,7 @@ int jx_env_rollout_rr(const float* params, const float* s, const float* sd, cons
                       float rr_power, float rr_width, float rr_dmin, float rr_dmax, float rr_span, float rr_stiff,
                       float rr_damp, float rr_c2mu2, float rr_c1mu2, float rr_reg, int episode_length, float z_lo,
                       float z_hi, int clip, float tau_limit, float noise_half, unsigned seed, int envs_per_candidate,
-                      void* stream) {
+                      const float* domain, const float* terr_off, void* stream) {
   const Scalars sc{K,        D,       k_over_d, mu,       hc_p,     hc_q,    gz,
                    dt,       kp,      kd,       rr_ca,    rr_cb,    rr_mid,  rr_power,
                    rr_width, rr_dmin, rr_dmax,  rr_span,  rr_stiff, rr_damp, rr_c2mu2,
@@ -238,7 +266,7 @@ int jx_env_rollout_rr(const float* params, const float* s, const float* sd, cons
   const int blocks = (B + ENVS - 1) / ENVS;
   env_rollout_rr_kernel<<<blocks, RR_THREADS, K5_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       params, weights, StateIn{s, sd, p, q, v, m}, StateOut{s_out, sd_out, p_out, q_out, v_out, m_out}, reward_out,
-      resets_out, steps_out, B, n_steps, sc, o);
+      resets_out, steps_out, B, n_steps, sc, o, DomainRows{domain, terr_off});
   return static_cast<int>(cudaGetLastError());
 }
 

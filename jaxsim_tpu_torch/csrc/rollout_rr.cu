@@ -3,13 +3,19 @@
 // shared memory.
 //
 // Replaces jaxsim_tpu/ops/pallas_step.py::_rollout_kernel (built by
-// build_pallas_rollout) for relaxed-rigid engines: flat ground, the
+// build_pallas_rollout) for relaxed-rigid engines: flat ground, an inclined
+// plane or Fourier terrain (JX_TERRAIN; on Fourier terrain each point's own
+// normal and the block-Jacobi PCG on the nominal Delassus blocks rrKc), the
 // three-pass articulated-body algorithm with the 6x6 base Cholesky, the
 // matrix-free PCG of JX_RR_ITERS iterations warm-started from the forces the
 // state's m carries, the engine's integrator (JX_INTEGRATOR: semi-implicit
 // Euler, RK4, or RK4-fast with the contact forces frozen at the step's
-// start), and the PD policy tau = -kp*s - kd*sd, evaluated once a step at its
-// start. Each env advances n_steps inside one launch. Launched for one step
+// start; the RK4 builds on flat ground only), and the PD policy tau = -kp*s -
+// kd*sd, evaluated once a step at its start. A semi-implicit Euler build
+// takes the JAX kernel's per-env options: the multiplier rows (JX_DOMAIN, of
+// which the relaxed-rigid step reads gmul and Mmul) and the terrain offset
+// (JX_TERR_OFF), each env's loaded once a launch into its lanes' registers
+// (rr_load_domain). Each env advances n_steps inside one launch. Launched for one step
 // it is also the relaxed-rigid K2 (_step_kernel under the PD policy,
 // cuda_step.step_pd). The step is rr_step_env, or rr_rk4_step (rr_step.cuh),
 // which the relaxed-rigid K3 (step_rr.cu) and env rollout
@@ -49,7 +55,8 @@
 namespace {
 
 __global__ void __launch_bounds__(RR_THREADS, 1) rollout_rr_kernel(
-    const float* __restrict__ params, StateIn in, StateOut out, int B, int n_steps, Scalars sc, Rk4Scratch rk) {
+    const float* __restrict__ params, StateIn in, StateOut out, int B, int n_steps, Scalars sc, Rk4Scratch rk,
+    DomainRows dr) {
   extern __shared__ float smem[];
   float* P = smem;
   load_params(params, P);
@@ -71,8 +78,9 @@ __global__ void __launch_bounds__(RR_THREADS, 1) rollout_rr_kernel(
   rr_load_lane(in, B, bl, g, sl, st);
 
   if constexpr (INTEGRATOR == 0) {
+    const EnvDomain dom = rr_load_domain(dr, B, bl);
 #pragma unroll 1
-    for (int t = 0; t < n_steps; ++t) rr_step_env(P, sc, sl, g, st, m, RrPdTau{sc.kp, sc.kd});
+    for (int t = 0; t < n_steps; ++t) rr_step_env(P, sc, sl, g, st, m, RrPdTau{sc.kp, sc.kd}, dom);
   } else {
 #pragma unroll 1
     for (int t = 0; t < n_steps; ++t) rr_rk4_step<INTEGRATOR>(P, sc, sl, g, st, m, rk, b);
@@ -97,7 +105,7 @@ int jx_rollout_rr(const float* params, const float* s, const float* sd, const fl
                   float hc_p, float hc_q, float gz, float dt, float kp, float kd, float rr_ca, float rr_cb,
                   float rr_mid, float rr_power, float rr_width, float rr_dmin, float rr_dmax, float rr_span,
                   float rr_stiff, float rr_damp, float rr_c2mu2, float rr_c1mu2, float rr_reg, float* rk4_y0,
-                  float* rk4_acc, int rk4_stride, void* stream) {
+                  float* rk4_acc, int rk4_stride, const float* domain, const float* terr_off, void* stream) {
   const Scalars sc{K,        D,       k_over_d, mu,       hc_p,     hc_q,    gz,
                    dt,       kp,      kd,       rr_ca,    rr_cb,    rr_mid,  rr_power,
                    rr_width, rr_dmin, rr_dmax,  rr_span,  rr_stiff, rr_damp, rr_c2mu2,
@@ -108,7 +116,7 @@ int jx_rollout_rr(const float* params, const float* s, const float* sd, const fl
   const int blocks = (B + ENVS - 1) / ENVS;
   rollout_rr_kernel<<<blocks, RR_THREADS, RR_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       params, StateIn{s, sd, p, q, v, m}, StateOut{s_out, sd_out, p_out, q_out, v_out, m_out}, B, n_steps,
-      sc, Rk4Scratch{rk4_y0, rk4_acc, rk4_stride});
+      sc, Rk4Scratch{rk4_y0, rk4_acc, rk4_stride}, DomainRows{domain, terr_off});
   return static_cast<int>(cudaGetLastError());
 }
 

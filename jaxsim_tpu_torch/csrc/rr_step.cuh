@@ -3,17 +3,27 @@
 // memory.
 //
 // It is the arithmetic of jaxsim_tpu/ops/batched_engine.py::BatchedEngine.step
-// with relaxed_rigid_contact_forces and _minv_apply on flat ground, the
-// three-pass articulated-body algorithm, the 6x6 base Cholesky and the SIE
-// update, as the twin (jaxsim_tpu_torch/ops/batched_engine.py) computes it:
-// the free ABA (gravity and torques, no contacts), then per contact point the
+// with relaxed_rigid_contact_forces and _minv_apply, the three-pass
+// articulated-body algorithm, the 6x6 base Cholesky and the SIE update, as
+// the twin (jaxsim_tpu_torch/ops/batched_engine.py) computes it: the free ABA
+// (gravity and torques, no contacts), then per contact point the normal and
+// penetration (flat ground's; JX_TERRAIN 1, the plane's static ones from the
+// generated header; JX_TERRAIN 2, the Fourier terrain's at the point, from
+// fourier_height_grad, offset by the env's terrOff under JX_TERR_OFF), the
 // impedance, the reference acceleration, the regularizer with its impedance
-// floor and the Jacobi preconditioner; the warm start from m (a point with
-// |act m|^2 > 0 starts from its carried force, any other from the Jacobi
-// estimate); JX_RR_ITERS iterations of the preconditioned CG on
+// floor and the preconditioner (scalar Jacobi; block Jacobi on Fourier
+// terrain, rr_block_prec, from the nominal Delassus blocks rrKc); the warm
+// start from m (a point with |act m|^2 > 0 starts from its carried force, any
+// other from the preconditioner's estimate); JX_RR_ITERS iterations of the
+// preconditioned CG on
 // A x = -b, A = J M^-1 J^T + diag(r) + reg, with no early exit; the
 // accelerations a_free + M^-1 J^T x; m <- x, rounded operation by operation
-// as the twin writes it, m + dt ((x - m) / dt). IEEE float32 throughout.
+// as the twin writes it, m + dt ((x - m) / dt). With JX_DOMAIN the env's
+// gmul scales gravity (the free ABA's, the points' free acceleration's and
+// the base's world acceleration's) and its Mmul every link's inertia in the
+// free ABA (rr_step_env takes the env's rows); its Kmul, Dmul and mumul are
+// not read: the solve takes the engine's mu, as the JAX engine's. IEEE
+// float32 throughout.
 //
 // Who does what. Everything of an env runs on its own JX_RR_LANES lanes, so
 // a step needs warp barriers only; it takes one block barrier, after the free
@@ -50,8 +60,9 @@
 //    base's p, q and v (in link 0's slot rows, which no pass uses), each lane
 //    the m rows of its point slots.
 // A lane keeps its slots' point vectors (m, x, r, p, A p, the regularizer's
-// r_j and the activity) in registers; the Jacobi diagonal and r + reg are
-// recomputed from r_j, the activity and rrMinv, by the same expressions.
+// r_j and the activity) in registers; the Jacobi diagonal (or block) and
+// r + reg are recomputed from r_j, the activity and rrMinv (or rrKc), by the
+// same expressions.
 // Only the order of the sums in the dot products, and in the scatter within
 // a parent's points, depends on the lanes: with one lane it is the
 // sequential order. Two runs agree to the bit.
@@ -93,6 +104,8 @@ constexpr int ES = ENVS + 1;            // slot stride: odd, so envs fall in dis
 constexpr int RR_THREADS = ENVS * G;
 constexpr unsigned FULL = 0xffffffffu;
 static_assert(RELAXED && NC > 0, "rr_step.cuh is the relaxed-rigid step of a model with contact points");
+static_assert(INTEGRATOR == 0 || (TERRAIN == 0 && !DOMAIN && !TERR_OFF),
+              "the relaxed-rigid RK4 and RK4-fast builds take flat ground and no per-env rows");
 static_assert(32 % G == 0 && RR_THREADS % 32 == 0, "an env's lanes share a warp; a block is whole warps");
 
 // An env's slot, in floats.
@@ -292,16 +305,59 @@ __device__ __forceinline__ float rr_prec(const float* P, const Scalars& sc, int 
   return c < 0 ? 1.0f : act * P[OFF_RRMINV + c * 9 + j * 4] + rj + sc.rr_reg;
 }
 
+// Block Jacobi (JX_TERRAIN 2): z = P^-1 r for point c's residual r, P = act
+// K_c + diag(r_j) + reg I with K_c point c's nominal Delassus block (rrKc),
+// inverted in closed form by the symmetric adjugate over the determinant as
+// the twin's _block_jacobi_inverse, the product summed in j's order. P^-1 is
+// rebuilt from rrKc, the activity and r_j at each use, as rr_prec rebuilds
+// the diagonal: the solve's point vectors already fill the registers. A
+// padding slot (c < 0) takes z = r.
+__device__ __forceinline__ void rr_block_prec(const float* P, const Scalars& sc, int c, float act, const float* rj,
+                                              const float* r, float* z) {
+  if (c < 0) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) z[j] = r[j];
+    return;
+  }
+  const float* K = P + OFF_RRKC + c * 9;
+  const float m00 = act * K[0] + rj[0] + sc.rr_reg;
+  const float m11 = act * K[4] + rj[1] + sc.rr_reg;
+  const float m22 = act * K[8] + rj[2] + sc.rr_reg;
+  const float m01 = act * K[1], m02 = act * K[2], m12 = act * K[5];
+  const float c00 = m11 * m22 - m12 * m12;
+  const float c01 = m02 * m12 - m01 * m22;
+  const float c02 = m01 * m12 - m02 * m11;
+  const float c11 = m00 * m22 - m02 * m02;
+  const float c12 = m01 * m02 - m00 * m12;
+  const float c22 = m00 * m11 - m01 * m01;
+  const float inv_det = 1.0f / (m00 * c00 + m01 * c01 + m02 * c02);
+  const float Pi[9] = {c00 * inv_det, c01 * inv_det, c02 * inv_det, c01 * inv_det, c11 * inv_det,
+                       c12 * inv_det, c02 * inv_det, c12 * inv_det, c22 * inv_det};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) z[i] = Pi[i * 3] * r[0] + Pi[i * 3 + 1] * r[1] + Pi[i * 3 + 2] * r[2];
+}
+
+// Env b's rows of a relaxed-rigid build (JX_DOMAIN, JX_TERR_OFF): gmul, Mmul
+// and the terrain offset; Kmul, Dmul and mumul, which its solve does not
+// read, stay 1.
+__device__ __forceinline__ EnvDomain rr_load_domain(const DomainRows& r, int B, int b) {
+  EnvDomain d{1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 0.0f, 0.0f};
+  if constexpr (DOMAIN) d.gmul = r.mul[3 * B + b], d.Mmul = r.mul[4 * B + b];
+  if constexpr (TERR_OFF) d.ox = r.off[b], d.oy = r.off[B + b];
+  return d;
+}
+
 // ----- the step -----
 
 // The contact solve's set-up on the env's lanes (lane g of the env's slot
 // `sl`, its point slots `pt`, -1 for a padding slot), after the free ABA has
 // filled the slot: per point slot the activity `act`, the regularizer `rj`,
 // the right-hand side -b in `r` and the warm start in `x` from `m` (the
-// lane's m rows).
+// lane's m rows); `dom`, the env's gmul and terrain offset.
 __device__ __forceinline__ void rr_setup(const float* P, const Scalars& sc, Slot sl, const int* pt, const float* m,
-                                         float* act, float* rj, float* r, float* x) {
-  const float nh[3] = {0.0f, 0.0f, 1.0f};  // flat ground's normal
+                                         float* act, float* rj, float* r, float* x,
+                                         const EnvDomain& dom = EnvDomain{1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 0.0f, 0.0f}) {
+  const float gz = DOMAIN ? sc.gz * dom.gmul : sc.gz;
 #pragma unroll
   for (int k = 0; k < OWN; ++k) {
     const int c = pt[k];
@@ -325,7 +381,22 @@ __device__ __forceinline__ void rr_setup(const float* P, const Scalars& sc, Slot
     cross3(om, pc, t);
 #pragma unroll
     for (int j = 0; j < 3; ++j) pd[j] = Wv[j] + t[j];
-    const float delta = fmaxf(-pc[2], 0.0f);
+    // The point's unit normal and penetration.
+    float nh[3], delta;
+    if constexpr (TERRAIN == 2) {
+      float h, dhx, dhy;
+      const float qx = TERR_OFF ? pc[0] - dom.ox : pc[0], qy = TERR_OFF ? pc[1] - dom.oy : pc[1];
+      fourier_height_grad(P + OFF_TERR, qx, qy, h, dhx, dhy);
+      const float inv_n = 1.0f / sqrtf(dhx * dhx + dhy * dhy + 1.0f);
+      nh[0] = -dhx * inv_n, nh[1] = -dhy * inv_n, nh[2] = inv_n;
+      delta = fmaxf((h - pc[2]) * nh[2], 0.0f);
+    } else if constexpr (TERRAIN == 1) {
+      nh[0] = JX_TERR_NX, nh[1] = JX_TERR_NY, nh[2] = JX_TERR_NZ;
+      delta = fmaxf(JX_TERR_H - (nh[0] * pc[0] + nh[1] * pc[1] + nh[2] * pc[2]), 0.0f);
+    } else {
+      nh[0] = 0.0f, nh[1] = 0.0f, nh[2] = 1.0f;
+      delta = fmaxf(-pc[2], 0.0f);
+    }
     const float a_k = delta > 0.0f ? 1.0f : 0.0f;
     act[k] = a_k;
 
@@ -333,7 +404,7 @@ __device__ __forceinline__ void rr_setup(const float* P, const Scalars& sc, Slot
     float acc[3], wxpd[3];
     rr_gather(P, sl, k, c, true, acc);
     cross3(om, pd, wxpd);
-    const float pdd[3] = {acc[0] + wxpd[0], acc[1] + wxpd[1], (acc[2] + sc.gz) + wxpd[2]};
+    const float pdd[3] = {acc[0] + wxpd[0], acc[1] + wxpd[1], (acc[2] + gz) + wxpd[2]};
 
     float xi[3], aref[3], coeff[3];
 #pragma unroll
@@ -364,7 +435,14 @@ __device__ __forceinline__ void rr_setup(const float* P, const Scalars& sc, Slot
       const float neg_b = -(a_k * (pdd[j] - aref[j]));
       rj[k * 3 + j] = rjj;
       r[k * 3 + j] = neg_b;
-      x[k * 3 + j] = warm > 0.0f ? a_k * m[k * 3 + j] : neg_b / prec;
+      if constexpr (TERRAIN == 2) {
+        x[k * 3 + j] = a_k * m[k * 3 + j];  // a cold point's estimate follows
+      } else {
+        x[k * 3 + j] = warm > 0.0f ? a_k * m[k * 3 + j] : neg_b / prec;
+      }
+    }
+    if constexpr (TERRAIN == 2) {
+      if (!(warm > 0.0f)) rr_block_prec(P, sc, c, a_k, rj + k * 3, r + k * 3, x + k * 3);
     }
   }
 }
@@ -384,14 +462,21 @@ __device__ __forceinline__ void rr_cg(const float* P, const Scalars& sc, Slot sl
     // From zero: the residual is the right-hand side.
     float dot = 0.0f;
 #pragma unroll
-    for (int k = 0; k < OWN; ++k)
+    for (int k = 0; k < OWN; ++k) {
+      if constexpr (TERRAIN == 2) {
+        rr_block_prec(P, sc, pt[k], act[k], rj + k * 3, r + k * 3, pp + k * 3);
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int e = k * 3 + j;
-        const float z = r[e] / rr_prec(P, sc, pt[k], j, act[k], rj[e]);
-        pp[e] = z;
-        dot += r[e] * z;
+        for (int j = 0; j < 3; ++j) dot += r[k * 3 + j] * pp[k * 3 + j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int e = k * 3 + j;
+          const float z = r[e] / rr_prec(P, sc, pt[k], j, act[k], rj[e]);
+          pp[e] = z;
+          dot += r[e] * z;
+        }
       }
+    }
     rz = lanes_sum(dot);
   }
 #pragma unroll 1
@@ -420,38 +505,68 @@ __device__ __forceinline__ void rr_cg(const float* P, const Scalars& sc, Slot sl
     }
     if (first) {
 #pragma unroll
-      for (int k = 0; k < OWN; ++k)
+      for (int k = 0; k < OWN; ++k) {
+        if constexpr (TERRAIN == 2) {
 #pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const int e = k * 3 + j;
-          r[e] = r[e] - Ap[e];
-          const float z = r[e] / rr_prec(P, sc, pt[k], j, act[k], rj[e]);
-          pp[e] = z;
-          dot += r[e] * z;
+          for (int j = 0; j < 3; ++j) r[k * 3 + j] = r[k * 3 + j] - Ap[k * 3 + j];
+          rr_block_prec(P, sc, pt[k], act[k], rj + k * 3, r + k * 3, pp + k * 3);
+#pragma unroll
+          for (int j = 0; j < 3; ++j) dot += r[k * 3 + j] * pp[k * 3 + j];
+        } else {
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            const int e = k * 3 + j;
+            r[e] = r[e] - Ap[e];
+            const float z = r[e] / rr_prec(P, sc, pt[k], j, act[k], rj[e]);
+            pp[e] = z;
+            dot += r[e] * z;
+          }
         }
+      }
       rz = lanes_sum(dot);
       continue;
     }
     const float alpha = rz / (lanes_sum(dot) + 1e-20f);
     float rz_n = 0.0f;
+    if constexpr (TERRAIN == 2) {
+      // The block form's z = P^-1 r once a point, in Ap's place (Ap is
+      // spent once r is updated).
 #pragma unroll
-    for (int k = 0; k < OWN; ++k)
+      for (int k = 0; k < OWN; ++k) {
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int e = k * 3 + j;
-        x[e] = x[e] + alpha * pp[e];
-        r[e] = r[e] - alpha * Ap[e];
-        rz_n += r[e] * (r[e] / rr_prec(P, sc, pt[k], j, act[k], rj[e]));
+        for (int j = 0; j < 3; ++j) {
+          const int e = k * 3 + j;
+          x[e] = x[e] + alpha * pp[e];
+          r[e] = r[e] - alpha * Ap[e];
+        }
+        rr_block_prec(P, sc, pt[k], act[k], rj + k * 3, r + k * 3, Ap + k * 3);
+#pragma unroll
+        for (int j = 0; j < 3; ++j) rz_n += r[k * 3 + j] * Ap[k * 3 + j];
       }
-    rz_n = lanes_sum(rz_n);
-    const float beta = rz_n / (rz + 1e-20f);
+      rz_n = lanes_sum(rz_n);
+      const float beta = rz_n / (rz + 1e-20f);
 #pragma unroll
-    for (int k = 0; k < OWN; ++k)
+      for (int k = 0; k < OWN * 3; ++k) pp[k] = Ap[k] + beta * pp[k];
+    } else {
 #pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int e = k * 3 + j;
-        pp[e] = r[e] / rr_prec(P, sc, pt[k], j, act[k], rj[e]) + beta * pp[e];
-      }
+      for (int k = 0; k < OWN; ++k)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int e = k * 3 + j;
+          x[e] = x[e] + alpha * pp[e];
+          r[e] = r[e] - alpha * Ap[e];
+          rz_n += r[e] * (r[e] / rr_prec(P, sc, pt[k], j, act[k], rj[e]));
+        }
+      rz_n = lanes_sum(rz_n);
+      const float beta = rz_n / (rz + 1e-20f);
+#pragma unroll
+      for (int k = 0; k < OWN; ++k)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const int e = k * 3 + j;
+          pp[e] = r[e] / rr_prec(P, sc, pt[k], j, act[k], rj[e]) + beta * pp[e];
+        }
+    }
     rz = rz_n;
   }
 }
@@ -459,11 +574,13 @@ __device__ __forceinline__ void rr_cg(const float* P, const Scalars& sc, Slot sl
 // The contact solve on the env's lanes (lane g of the env's slot `sl`, its
 // point slots `pt`, -1 for a padding slot), after the free ABA has filled
 // the slot: rr_setup, then the PCG warm-started from `m` and the M^-1 J^T
-// pass of the solved forces (rr_cg). The lane's solved forces go to `x`.
+// pass of the solved forces (rr_cg). The lane's solved forces go to `x`;
+// `dom`, the env's gmul and terrain offset.
 __device__ __forceinline__ void rr_solve(const float* P, const Scalars& sc, Slot sl, int g, const int* pt,
-                                         const float* m, float* x) {
+                                         const float* m, float* x,
+                                         const EnvDomain& dom = EnvDomain{1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 0.0f, 0.0f}) {
   float act[OWN], rj[OWN * 3], r[OWN * 3];
-  rr_setup(P, sc, sl, pt, m, act, rj, r, x);
+  rr_setup(P, sc, sl, pt, m, act, rj, r, x, dom);
   rr_cg(P, sc, sl, g, pt, act, rj, r, x, true, true);
 }
 
@@ -679,12 +796,13 @@ constexpr int CON = 27;  // what it hands its parent: X^T Ma X's lower triangle,
 // The free step of the env of slot `sl` on its lane g: fills the slot's
 // factorization and contact-parent rows, each lane's sdd with its links'
 // free joint accelerations (by entry, as RrLane), and the slot's SL_A0 row
-// with the base's; gz is gravity's z. `tau_of(s, sd, k)` gives joint k's
+// with the base's; gz is gravity's z, mmul the env's Mmul (read by a
+// JX_DOMAIN build only). `tau_of(s, sd, k)` gives joint k's
 // torque. Frozen (RK4-fast's stages): the parents' PAR_A rows hold world
 // wrenches that act as external forces, and stay.
 template <bool Frozen, class Tau>
-__device__ __forceinline__ void rr_free_body(const float* P, float gz, Slot sl, int g, const RrLane& st,
-                                             float (&sdd)[NE], Tau tau_of) {
+__device__ __forceinline__ void rr_free_body(const float* P, float gz, float mmul, Slot sl, int g,
+                                             const RrLane& st, float (&sdd)[NE], Tau tau_of) {
   __syncwarp();  // the env's lanes are done with the slot's last use
   // Forward kinematics and the body velocities, root to leaves. A link's F
   // row takes its body velocity; its registers, what its children pull.
@@ -789,9 +907,16 @@ __device__ __forceinline__ void rr_free_body(const float* P, float gz, Slot sl, 
         if (i >= 0) {
           const float* M = P + OFF_M + i * 36;
           load_vec(sl, SL_F + i * 6, 6, v);
+          if constexpr (DOMAIN) {
+            // The env's inertia, M times Mmul (the twin's aba).
 #pragma unroll
-          for (int k = 0; k < 36; ++k) MA[k] = M[k];
-          vxstar_Mv(v, M, pA);
+            for (int k = 0; k < 36; ++k) MA[k] = M[k] * mmul;
+            vxstar_Mv(v, MA, pA);
+          } else {
+#pragma unroll
+            for (int k = 0; k < 36; ++k) MA[k] = M[k];
+            vxstar_Mv(v, M, pA);
+          }
           if (Frozen && JX_RR_PAR_OF[i] >= 0) {
             // The frozen wrench f enters as the twin's aba takes f_ext:
             // pA -= X^T f at the link's world pose.
@@ -950,9 +1075,9 @@ __device__ __forceinline__ void rr_free_body(const float* P, float gz, Slot sl, 
 // inlined, K1-rr and K5-rr 2-3 % (PERF.md). RK4-fast, whose four frozen
 // ABAs a step outnumber its one solve, inlines the body.
 template <bool Frozen, class Tau>
-__device__ __noinline__ void rr_free_lanes(const float* P, float gz, Slot sl, int g, const RrLane& st,
+__device__ __noinline__ void rr_free_lanes(const float* P, float gz, float mmul, Slot sl, int g, const RrLane& st,
                                           float (&sdd)[NE], Tau tau_of) {
-  rr_free_body<Frozen>(P, gz, sl, g, st, sdd, tau_of);
+  rr_free_body<Frozen>(P, gz, mmul, sl, g, st, sdd, tau_of);
 }
 
 // ----- the forward step: the state on the lanes, the SIE and RK4 steps -----
@@ -1019,15 +1144,14 @@ __device__ __forceinline__ void rr_step_bases(const float*& P, Slot& sl) {
 // registers are left to the solve's point vectors.
 __device__ __forceinline__ float* rr_local_rows(float* m) { return m + static_cast<int>(blockDim.x >> 11); }
 
-// The base's world-frame acceleration from its link-frame one a (gravity
+// The base's world-frame acceleration from its link-frame one a (gravity gz
 // added), at the pose of the base's state x (rr_base_load).
-__device__ __forceinline__ void rr_world_a(const float* P, const Scalars& sc, const float* x, const float* a,
-                                           float* W_a) {
+__device__ __forceinline__ void rr_world_a(const float* P, float gz, const float* x, const float* a, float* W_a) {
   if (FLOATING) {
     float WR[9], Wp[3];
     rr_base_pose(P, x + 3, x, WR, Wp);
     xv(WR, Wp, a, W_a);
-    W_a[2] += sc.gz;
+    W_a[2] += gz;
   } else {
 #pragma unroll
     for (int k = 0; k < 6; ++k) W_a[k] = 0.0f;
@@ -1036,17 +1160,21 @@ __device__ __forceinline__ void rr_world_a(const float* P, const Scalars& sc, co
 
 // One semi-implicit Euler step of the env of slot `sl` on its lane g, in
 // place: the free ABA (rr_free_lanes), the contact solve (rr_solve) on the
-// lane's point slots and m rows, and the update, each lane its own entries.
+// lane's point slots and m rows, and the update, each lane its own entries;
+// `dom`, the env's rows (rr_load_domain), which a build without JX_DOMAIN
+// and JX_TERR_OFF does not read.
 template <class Tau>
-__device__ void rr_step_env(const float* P, const Scalars& sc, Slot sl, int g, RrLane& st, float* m, Tau tau_of) {
+__device__ void rr_step_env(const float* P, const Scalars& sc, Slot sl, int g, RrLane& st, float* m, Tau tau_of,
+                            const EnvDomain& dom) {
   float sdd[NE];
-  rr_free_lanes<false>(P, sc.gz, sl, g, st, sdd, tau_of);
+  const float gz = DOMAIN ? sc.gz * dom.gmul : sc.gz;
+  rr_free_lanes<false>(P, gz, dom.Mmul, sl, g, st, sdd, tau_of);
   m = rr_local_rows(m);
   int pt[OWN];
   rr_step_points(g, pt);
   rr_step_bases(P, sl);
   float x[OWN * 3];
-  rr_solve(P, sc, sl, g, pt, m, x);
+  rr_solve(P, sc, sl, g, pt, m, x, dom);
 
   // m <- the solved forces, written as m + dt (x - m)/dt with each operation
   // rounded alone, as the plain version computes it.
@@ -1073,7 +1201,7 @@ __device__ void rr_step_env(const float* P, const Scalars& sc, Slot sl, int g, R
   rr_base_load(sl, base);
 #pragma unroll
   for (int k = 0; k < 6; ++k) a[k] = sl[SL_A0 + k] + sl[SL_F + k];
-  rr_world_a(P, sc, base, a, W_a);
+  rr_world_a(P, gz, base, a, W_a);
   float* const p = base;
   float* const q = base + 3;
   float* const v = base + 7;
@@ -1151,9 +1279,9 @@ __device__ void rr_rk4_step(const float* P, const Scalars& sc, Slot sl, int g, R
       int pt[OWN];
       rr_step_points(g, pt);
       if (Integrator == 2)
-        rr_free_body<false>(P, sc.gz, sl, g, st, sdd, tau);
+        rr_free_body<false>(P, sc.gz, 1.0f, sl, g, st, sdd, tau);
       else
-        rr_free_lanes<false>(P, sc.gz, sl, g, st, sdd, tau);
+        rr_free_lanes<false>(P, sc.gz, 1.0f, sl, g, st, sdd, tau);
       float x[OWN * 3];
       rr_solve(P, sc, sl, g, pt, m, x);
       if (Integrator == 2) rr_wrenches(P, sl, g, pt, x);
@@ -1181,7 +1309,7 @@ __device__ void rr_rk4_step(const float* P, const Scalars& sc, Slot sl, int g, R
     }
     // The stage's accelerations: the free ones plus the contacts' (RK4), or
     // the free ABA under the frozen wrenches (RK4-fast).
-    if (Integrator == 2) rr_free_body<true>(P, sc.gz, sl, g, st, sdd, tau);
+    if (Integrator == 2) rr_free_body<true>(P, sc.gz, 1.0f, sl, g, st, sdd, tau);
 
     // Each lane the rates of its entries and their next values.
 #pragma unroll
@@ -1205,7 +1333,7 @@ __device__ void rr_rk4_step(const float* P, const Scalars& sc, Slot sl, int g, R
     rr_base_load(sl, base);
 #pragma unroll
     for (int k = 0; k < 6; ++k) a[k] = Integrator == 1 ? sl[SL_A0 + k] + sl[SL_F + k] : sl[SL_A0 + k];
-    rr_world_a(P, sc, base, a, W_a);
+    rr_world_a(P, sc.gz, base, a, W_a);
     cross3(base + 10, base, pd);
 #pragma unroll
     for (int k = 0; k < 3; ++k) pd[k] = base[7 + k] + pd[k];

@@ -45,7 +45,7 @@
 // The terrain (0 flat ground, 1 an inclined or raised plane, 2 Fourier
 // terrain of JX_TERR_K components), the plane's unit normal JX_TERR_N* and
 // offset JX_TERR_H (n.p = H on the plane; h0 of a Fourier terrain), and the
-// per-env options of the soft rollouts: the domain multipliers (JX_DOMAIN)
+// per-env options of the rollouts: the domain multipliers (JX_DOMAIN)
 // and the terrain offset (JX_TERR_OFF). The generated header defines them
 // for a build that takes them only.
 #ifndef JX_TERRAIN
@@ -97,7 +97,10 @@ constexpr int OFF_LAMH = OFF_AXIS + NJ * 3;       // (1+NJ, 4, 4)
 constexpr int OFF_SUCH = OFF_LAMH + (1 + NJ) * 16;  // (1+NJ, 4, 4)
 constexpr int OFF_CP = OFF_SUCH + (1 + NJ) * 16;  // (NCM, 3)
 constexpr int OFF_RRMINV = OFF_CP + NCM * 3;      // (NCM, 3, 3), relaxed-rigid only
-constexpr int OFF_TERR = OFF_RRMINV + (RELAXED ? NCM * 9 : 0);  // (4, TERR_K): amp, kx, ky, phase
+// (NCM, 3, 3): the nominal Delassus blocks of the block-Jacobi PCG, a
+// relaxed-rigid engine's on Fourier terrain only.
+constexpr int OFF_RRKC = OFF_RRMINV + (RELAXED ? NCM * 9 : 0);
+constexpr int OFF_TERR = OFF_RRKC + (RELAXED && TERRAIN == 2 ? NCM * 9 : 0);  // (4, TERR_K): amp, kx, ky, phase
 constexpr int N_PARAMS = OFF_TERR + 4 * TERR_K;
 static_assert(N_PARAMS * 4 <= 48 * 1024, "model arrays exceed static shared memory");
 
@@ -428,7 +431,8 @@ __device__ __forceinline__ HcLaw hc_law(const Scalars& sc, const float* pc, cons
 // ----- terrain and per-env domain -----
 
 // An env's domain multipliers (JX_DOMAIN) and terrain offset (JX_TERR_OFF),
-// which a soft rollout's lanes load once a launch and keep in registers.
+// which a rollout's lanes load once a launch and keep in registers (a
+// relaxed-rigid step reads gmul, Mmul and the offset).
 struct EnvDomain {
   float Kmul, Dmul, mumul, gmul, Mmul, ox, oy;
 };

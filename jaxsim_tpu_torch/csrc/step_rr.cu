@@ -6,7 +6,9 @@
 // Replaces, for relaxed-rigid engines, _step_tau_kernel of
 // jaxsim_tpu/ops/pallas_step.py (built by build_pallas_step_tau, K3): one
 // step with the torques as an input and the model arrays as call-time inputs
-// (the JAX `pr`, rrMinv included), so new arrays need no rebuild. The
+// (the JAX `pr`, rrMinv included, and on Fourier terrain rrKc), so new arrays
+// need no rebuild; flat ground, an inclined plane or Fourier terrain
+// (JX_TERRAIN), without per-env rows, as the JAX kernel. The
 // wrapper packs `pr` into the same buffer layout the other kernels read.
 // Its relaxed-rigid sibling K2 (_step_kernel, one step under the PD policy)
 // needs no source of its own: it is K1-rr (rollout_rr.cu) launched for one
@@ -35,6 +37,7 @@
 
 static_assert(INTEGRATOR == 0, "step_rr.cu implements semi-implicit Euler (JX_INTEGRATOR 0)");
 static_assert(JX_RR_TAU_ROW, "step_rr.cu takes K3's torques in the slot's torque row (JX_RR_TAU_ROW 1)");
+static_assert(!DOMAIN && !TERR_OFF, "step_rr.cu takes no per-env rows");
 
 namespace {
 
@@ -68,7 +71,7 @@ __global__ void __launch_bounds__(RR_THREADS, 1)
     }
   __syncthreads();
 
-  rr_step_env(P, sc, sl, g, st, m, SlotTauRr{sl});
+  rr_step_env(P, sc, sl, g, st, m, SlotTauRr{sl}, EnvDomain{1.0f, 1.0f, 1.0f, 1.0f, 1.0f, 0.0f, 0.0f});
 
   if (b < B) {
     rr_step_points(g, pt);

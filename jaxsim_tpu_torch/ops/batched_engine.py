@@ -2,8 +2,10 @@
 
 Counterpart of ``jaxsim_tpu/ops/batched_engine.py`` on plane terrain
 (flat ground or an inclined plane) and on Fourier rough terrain:
-Hunt/Crossley soft contacts, or relaxed-rigid contacts on plane terrain (a
-matrix-free Jacobi-preconditioned CG on the articulated factorization), the
+Hunt/Crossley soft contacts, or relaxed-rigid contacts (a matrix-free
+preconditioned CG on the articulated factorization: scalar Jacobi on plane
+terrain, block Jacobi on the nominal Delassus blocks ``rrKc`` on Fourier
+terrain, with each point's own normal there), the
 per-env domain multipliers and terrain offset of the JAX engine's ``pr``
 (:data:`DOMAIN_NAMES`, ``terrOff``), the three-pass
 ABA with the 6×6 base Cholesky, and the JAX engine's three fixed-step
@@ -16,9 +18,9 @@ coalesced layout of the one-thread-per-env CUDA kernel in
 The static tree topology is unrolled as Python loops over the parent array,
 and small matrix algebra is written as broadcast multiply-and-sum over the
 leading axes, so no product goes through a matrix library (and none through
-TF32 on a GPU). The JAX engine's other contact models (rigid) and terrains
-(heightmaps), and relaxed-rigid contacts on Fourier terrain, are not ported
-yet; the build and the bridge refuse them with ``ValueError``.
+TF32 on a GPU). The JAX engine's other contact models (rigid, ROADMAP Queue
+1 item 6) and terrains (heightmaps, item 8) are not ported yet; the build and
+the bridge refuse them with ``ValueError``.
 """
 
 from __future__ import annotations
@@ -246,22 +248,55 @@ class _RrOperator:
         return A_apply
 
 
+def _prec_apply(prec, r):
+    """The preconditioner on a residual ``r (nC,3,B)``: ``r / prec`` for the
+    scalar Jacobi diagonal ``prec (nC,3,B)``, or for the inverted 3×3 blocks
+    ``prec (nC,3,3,B)`` of block Jacobi, ``z_i = Σ_j prec_ij r_j`` summed in
+    j's order (the JAX engine's ``prec_apply``)."""
+    if prec.dim() == r.dim():
+        return r / prec
+    return prec[:, :, 0] * r[:, None, 0] + prec[:, :, 1] * r[:, None, 1] + prec[:, :, 2] * r[:, None, 2]
+
+
+def _block_jacobi_inverse(Kc, act, rdiag, reg: float):
+    """The inverted block-Jacobi blocks ``(nC,3,3,B)``: P_c = act·K_c +
+    diag(r_c) + reg·I per point and env, inverted in closed form by the
+    symmetric adjugate over the determinant, as the JAX engine forms them
+    (``Kc (nC,3,3)``, ``act (nC,B)``, ``rdiag (nC,3,B)``)."""
+    K = Kc[..., None]
+    m00 = act * K[:, 0, 0] + rdiag[:, 0] + reg
+    m11 = act * K[:, 1, 1] + rdiag[:, 1] + reg
+    m22 = act * K[:, 2, 2] + rdiag[:, 2] + reg
+    m01 = act * K[:, 0, 1]
+    m02 = act * K[:, 0, 2]
+    m12 = act * K[:, 1, 2]
+    c00 = m11 * m22 - m12 * m12
+    c01 = m02 * m12 - m01 * m22
+    c02 = m01 * m12 - m02 * m11
+    c11 = m00 * m22 - m02 * m02
+    c12 = m01 * m02 - m00 * m12
+    c22 = m00 * m11 - m01 * m01
+    inv_det = 1.0 / (m00 * c00 + m01 * c01 + m02 * c02)
+    rows = [torch.stack([c00, c01, c02], 1), torch.stack([c01, c11, c12], 1), torch.stack([c02, c12, c22], 1)]
+    return torch.stack(rows, 1) * inv_det[:, None, None]
+
+
 def _pcg(A_apply, b, prec, n_iter: int, x0=None):
-    """``n_iter`` iterations of Jacobi-preconditioned CG on ``A x = b``, no
-    early exit, from ``x0`` or, without it, from zero (the JAX engine's
-    ``pcg_run``)."""
+    """``n_iter`` iterations of preconditioned CG on ``A x = b`` (scalar or
+    block Jacobi, :func:`_prec_apply`), no early exit, from ``x0`` or,
+    without it, from zero (the JAX engine's ``pcg_run``)."""
     if x0 is None:
         x, r = torch.zeros_like(b), b
     else:
         x, r = x0, b - A_apply(x0)
-    z = r / prec
+    z = _prec_apply(prec, r)
     p, rz = z, (r * z).sum((0, 1))
     for _ in range(n_iter):
         Ap = A_apply(p)
         alpha = rz / ((p * Ap).sum((0, 1)) + 1e-20)
         x = x + alpha * p
         r = r - alpha * Ap
-        z = r / prec
+        z = _prec_apply(prec, r)
         rz_n = (r * z).sum((0, 1))
         beta = rz_n / (rz + 1e-20)
         p, rz = z + beta * p, rz_n
@@ -274,9 +309,10 @@ class _PcgImplicit(torch.autograd.Function):
     ``pcg_bwd``): for x̄, λ = PCG(x̄) from zero on the same operator and
     preconditioner; −b's cotangent is λ, the operator inputs θ get
     ∂⟨−λ, A(θ) x⟩/∂θ, and the preconditioner and the warm start get none
-    (at convergence they do not move the solution). Autograd through the
-    unrolled iterations would give another gradient and NaN on inactive
-    points (``prec`` = reg there)."""
+    (at convergence they do not move the solution), whether it is the
+    scalar or the block Jacobi one. Autograd through the unrolled iterations
+    would give another gradient and NaN on inactive points (``prec`` = reg
+    there)."""
 
     @staticmethod
     def forward(ctx, operator: _RrOperator, n_iter: int, neg_b, prec, x0, *ops):
@@ -309,9 +345,9 @@ class _PcgImplicit(torch.autograd.Function):
 # ``pr`` (the JAX engine's ``rollout(domain=)``): the soft contact law's
 # stiffness, damping and friction, gravity, and every link's spatial inertia.
 DOMAIN_NAMES = ("Kmul", "Dmul", "mumul", "gmul", "Mmul")
-# What a refusal of relaxed-rigid contacts off flat ground names (the twin's
-# on Fourier terrain, the kernels' on any terrain but flat ground).
-RR_ROUGH_ITEM = "ROADMAP Queue 1 item 15"
+# What a refusal of the JAX engine's other contact models and terrains names.
+ITEM_RIGID = "rigid contacts: ROADMAP Queue 1 item 6"
+ITEM_HEIGHTMAP = "heightmap terrain: ROADMAP Queue 1 item 8"
 
 
 def resolve_device(device: torch.device | str | None) -> torch.device:
@@ -356,6 +392,10 @@ class BatchedEngine(nn.Module):
     # parent link's 3×3 linear mass block (the regularizer and the Jacobi
     # preconditioner of the contact solve).
     RR_PARAM_NAMES = PARAM_NAMES + ("rrMinv",)
+    # A relaxed-rigid engine on Fourier terrain adds rrKc (nC, 3, 3) after
+    # them: the nominal per-point Delassus blocks of the block-Jacobi
+    # preconditioner (the JAX engine's ``params()["rrKc"]``).
+    RR_KC_PARAM = "rrKc"
     # A Fourier-terrain engine's arrays end with the spectrum ``terr`` (4, K):
     # rows amp, kx, ky, phase (the JAX engine's ``params()["terr"]``).
     TERRAIN_PARAM = "terr"
@@ -405,6 +445,7 @@ class BatchedEngine(nn.Module):
         rr_reg: float = 1e-6,
         rr_iterations: int = 0,
         rrMinv=None,
+        rrKc=None,
         integrator: str = "sie",
         dtype: torch.dtype = torch.float32,
         device: torch.device | str | None = None,
@@ -416,18 +457,16 @@ class BatchedEngine(nn.Module):
         budget :attr:`_rr_n_iter`). ``integrator`` is one of
         :attr:`INTEGRATORS`. ``terrain_kind`` is ``"plane"`` (the plane
         ``terrain_normal``·p = ``terrain_offset``) or ``"fourier"`` (the
-        spectrum ``terr``, offset by ``terrain_offset``)."""
+        spectrum ``terr``, offset by ``terrain_offset``). A relaxed-rigid
+        engine with contact points on Fourier terrain takes ``rrKc``, the
+        nominal per-point Delassus blocks; without it the engine computes
+        them (:func:`nominal_delassus_blocks`)."""
         super().__init__()
         device = resolve_device(device)
         if contact_model not in self.CONTACT_MODELS:
-            raise ValueError(f"contact_model must be one of {self.CONTACT_MODELS}, got {contact_model!r}")
+            raise ValueError(f"contact_model must be one of {self.CONTACT_MODELS}, got {contact_model!r} ({ITEM_RIGID})")
         if terrain_kind not in self.TERRAIN_KINDS:
-            raise ValueError(f"terrain_kind must be one of {self.TERRAIN_KINDS}, got {terrain_kind!r}")
-        if terrain_kind == "fourier" and contact_model == "relaxed_rigid":
-            raise ValueError(
-                "relaxed-rigid contacts on Fourier terrain need the rrKc block-Jacobi preconditioner and the"
-                f" per-point normals in the solve, not ported yet ({RR_ROUGH_ITEM})"
-            )
+            raise ValueError(f"terrain_kind must be one of {self.TERRAIN_KINDS}, got {terrain_kind!r} ({ITEM_HEIGHTMAP})")
         if (terrain_kind == "fourier") != (terr is not None):
             raise ValueError("a Fourier-terrain engine, and only one, takes the spectrum terr")
         if integrator not in self.INTEGRATORS:
@@ -465,7 +504,7 @@ class BatchedEngine(nn.Module):
         self.terrain_normal = tuple(float(x) for x in terrain_normal)
         self.terrain_offset = float(terrain_offset)
 
-        arrays = dict(S=S, M=M, axis=axis, lamH=lamH, sucH=sucH, cpoint=cpoint, rrMinv=rrMinv, terr=terr)
+        arrays = dict(S=S, M=M, axis=axis, lamH=lamH, sucH=sucH, cpoint=cpoint, rrMinv=rrMinv, rrKc=rrKc, terr=terr)
         shapes = dict(
             S=(self.n_links, 6),
             M=(self.n_links, 6, 6),
@@ -474,31 +513,41 @@ class BatchedEngine(nn.Module):
             sucH=(1 + self.n_joints, 4, 4),
             cpoint=(self.m_rows, 3),
             rrMinv=(self.m_rows, 3, 3),
+            rrKc=(self.m_rows, 3, 3),
             terr=(4, np.shape(terr)[-1] if terr is not None else 0),
         )
         if contact_model == "relaxed_rigid":
             self.PARAM_NAMES = self.RR_PARAM_NAMES
             if rrMinv is None:
                 raise ValueError("a relaxed-rigid engine needs rrMinv")
+        block = contact_model == "relaxed_rigid" and terrain_kind == "fourier" and self.n_points > 0
+        if rrKc is not None and not block:
+            raise ValueError("rrKc is the block-Jacobi preconditioner of a relaxed-rigid engine on Fourier terrain")
+        if block:
+            self.PARAM_NAMES = self.PARAM_NAMES + (self.RR_KC_PARAM,)
         if terrain_kind == "fourier":
             self.PARAM_NAMES = self.PARAM_NAMES + (self.TERRAIN_PARAM,)
         if len(self.lam) != self.n_links or len(self.joint_types) != 1 + self.n_joints:
             raise ValueError("topology sizes disagree with n_links/n_joints")
         if len(self.contact_parent) != self.n_points:
             raise ValueError("contact_parent must have n_points entries")
+        if block and rrKc is None:
+            arrays["rrKc"] = np.zeros(shapes["rrKc"])  # computed below, from the other arrays
         for name in self.PARAM_NAMES:
             t = torch.tensor(np.array(arrays[name]), dtype=dtype, device=device)
             if tuple(t.shape) != shapes[name]:
                 raise ValueError(f"{name} must have shape {shapes[name]}, got {tuple(t.shape)}")
             self.register_buffer(name, t)
+        if block and rrKc is None:
+            self.rrKc.copy_(torch.tensor(nominal_delassus_blocks(self, arrays), dtype=dtype))
 
     @staticmethod
     def build(
         model, *, dtype: torch.dtype = torch.float32, device=None
     ) -> "BatchedEngine":
         """Lower a :class:`~jaxsim_tpu_torch.api.model.JaxSimModel` (soft or
-        relaxed-rigid contacts, flat ground, an inclined plane or, for soft
-        contacts, Fourier terrain, any of its integrators: the configurations
+        relaxed-rigid contacts, flat ground, an inclined plane or Fourier
+        terrain, any of its integrators: the configurations
         the port's model expresses) to engine arrays, on ``device`` (by
         default the CUDA card; see :func:`resolve_device`), as
         ``jaxsim_tpu/ops/batched_engine.py::BatchedEngine.build`` does."""
@@ -511,7 +560,9 @@ class BatchedEngine(nn.Module):
             normal = tuple(float(x) for x in getattr(model.terrain, "_normal", (0.0, 0.0, 1.0)))
             terrain = dict(terrain_normal=normal, terrain_offset=normal[2] * float(model.terrain._height))
         else:
-            raise ValueError(f"the port's engine supports flat, plane and Fourier terrain, not {model.terrain!r}")
+            raise ValueError(
+                f"the port's engine supports flat, plane and Fourier terrain, not {model.terrain!r} ({ITEM_HEIGHTMAP})"
+            )
         kdp = model.kin_dyn_parameters
         cp = kdp.contact_parameters
         idx = cp.indices_of_enabled_collidable_points
@@ -549,7 +600,9 @@ class BatchedEngine(nn.Module):
         elif isinstance(model.contact_model, SoftContacts):
             contact = dict(K=float(pars.K), D=float(pars.D), hc_p=float(pars.p), hc_q=float(pars.q))
         else:
-            raise ValueError(f"the port implements soft and relaxed-rigid contacts, not {model.contact_model!r}")
+            raise ValueError(
+                f"the port implements soft and relaxed-rigid contacts, not {model.contact_model!r} ({ITEM_RIGID})"
+            )
         from jaxsim_tpu_torch.api.model import IntegratorType
 
         integrator = {
@@ -825,11 +878,14 @@ class BatchedEngine(nn.Module):
     @property
     def _rr_n_iter(self) -> int:
         """PCG iterations of the relaxed-rigid solve: ``rr_iterations`` when
-        set, else the JAX engine's warm-started budget on plane terrain."""
+        set, else the JAX engine's warm-started budget, ``min(3·nC, 16)`` on
+        Fourier terrain and ``min(nC // 4 + 6, 8)`` on plane terrain."""
         if self.rr_iterations:
             return int(self.rr_iterations)
         if not self.n_points:
             return 0
+        if self.terrain_kind != "plane":
+            return min(3 * self.n_points, 16)
         return min(self.n_points // 4 + 6, 8)
 
     def _minv_apply(self, fact, f_loc, pr):
@@ -864,7 +920,10 @@ class BatchedEngine(nn.Module):
         offsets ``Lp (3,nC,1)``, world positions ``pc`` and velocities ``pd``
         (3,nC,B), the parents' angular velocities ``omega``, the penetration
         ``delta`` and the activity ``active = (delta > 0)`` (nC,B), and the
-        plane's unit normal ``n`` (three floats), vectorized over the points."""
+        unit normal ``n``: the plane's (three floats), or on Fourier terrain
+        each point's in each env (three (nC,B) tensors, from the analytic
+        gradient at the point, ``pr``'s ``terrOff`` honoured), with δ =
+        max(0, (h − z)·n̂_z); vectorized over the points."""
         ax, ay, az = self.terrain_normal
         parents = self.contact_parent
         Rp = torch.stack([W_R[i] for i in parents], 2)
@@ -876,6 +935,11 @@ class BatchedEngine(nn.Module):
         pd = vp[0:3] + _cross(omega, pc)
         if self.flat:
             delta = _maximum(-pc[2], 0.0)
+        elif self.terrain_kind == "fourier":
+            h, dhx, dhy = self._fourier_height_grad(pr, pc[0], pc[1])
+            inv_n = 1.0 / torch.sqrt(dhx * dhx + dhy * dhy + 1.0)
+            ax, ay, az = -dhx * inv_n, -dhy * inv_n, inv_n
+            delta = _maximum((h - pc[2]) * az, 0.0)
         else:
             delta = _maximum(self.terrain_offset - (ax * pc[0] + ay * pc[1] + az * pc[2]), 0.0)
         active = (delta > 0).to(pc.dtype)
@@ -900,14 +964,16 @@ class BatchedEngine(nn.Module):
 
     def relaxed_rigid_contact_forces(self, state: BatchedState, W_R, W_p, W_v, tau, pr=None, return_wrenches=False):
         """Relaxed-rigid (MJX-style soft-constraint) contact solve on plane
-        terrain, as ``jaxsim_tpu/ops/batched_engine.py::relaxed_rigid_contact_forces``
+        or Fourier terrain, as ``jaxsim_tpu/ops/batched_engine.py::relaxed_rigid_contact_forces``
         computes it with ``return_accelerations``.
 
         The SPD system ``A x = −b``, ``A = J M⁻¹ Jᵀ + diag(r) + reg·I``, is
-        solved matrix-free with ``_rr_n_iter`` iterations of scalar-Jacobi
-        preconditioned CG, warm-started from the previous step's forces in
-        ``state.m`` (a point without them starts from the Jacobi estimate
-        −b/diag). Each ``A y`` scatters the point forces to link wrenches,
+        solved matrix-free with ``_rr_n_iter`` iterations of preconditioned
+        CG, scalar Jacobi on plane terrain and block Jacobi on the nominal
+        Delassus blocks ``rrKc`` on Fourier terrain (where each point's
+        normal is its own), warm-started from the previous step's forces in
+        ``state.m`` (a point without them starts from the preconditioner's
+        estimate P⁻¹(−b)). Each ``A y`` scatters the point forces to link wrenches,
         runs :meth:`_minv_apply` on the free ABA's factorization and
         gathers the point accelerations. Returns the contact-coupled
         accelerations ``(W_a, sdd)``, the free ones plus M⁻¹ Jᵀ x, and the
@@ -962,8 +1028,11 @@ class BatchedEngine(nn.Module):
             b.append(active * (pdd[j] - aref[j]))
             prec.append(active * Minv[:, j, j] + r_j + reg)
         neg_b = -torch.stack(b, 1)  # (nC,3,B), the JAX solve's layout
-        prec = torch.stack(prec, 1)
         rdiag = torch.stack(rdiag, 1)
+        if "rrKc" in pr:  # block Jacobi on Fourier terrain
+            prec = _block_jacobi_inverse(pr["rrKc"], active, rdiag, reg)
+        else:
+            prec = torch.stack(prec, 1)
         act = active[:, None]
 
         # Everything the operator reads is an input of the implicit solve, as
@@ -977,10 +1046,11 @@ class BatchedEngine(nn.Module):
         operator = _RrOperator(self, {k: len(v) for k, v in ops.items()}, a_free[0].detach())
 
         # Warm start from the previous step's forces (masked to the active
-        # points); a point without them starts from the Jacobi estimate.
+        # points); a point without them starts from the preconditioner's
+        # estimate.
         m_carried = act * state.m
         has_warm = (m_carried * m_carried).sum(1, keepdim=True) > 0.0
-        x0 = torch.where(has_warm, m_carried, neg_b / prec)
+        x0 = torch.where(has_warm, m_carried, _prec_apply(prec, neg_b))
 
         # Preconditioned CG on A x = −b, a fixed number of iterations, with
         # its implicit backward (:class:`_PcgImplicit`).
@@ -1240,3 +1310,39 @@ class BatchedEngine(nn.Module):
         for _ in range(n_steps):
             state = self.step(state, policy(state), pr)
         return state
+
+
+def nominal_delassus_blocks(engine: BatchedEngine, arrays: dict) -> np.ndarray:
+    """``(nC, 3, 3)`` per-point Delassus blocks ``G_cc = (J M⁻¹ Jᵀ)_cc`` at
+    the nominal configuration (zero joints, the base at the origin with the
+    identity orientation, zero velocity), symmetrised as ½(K + Kᵀ): the
+    block-Jacobi preconditioner's payload of a relaxed-rigid engine on
+    Fourier terrain, as the JAX engine's ``_nominal_delassus_blocks`` builds
+    it through its CRBA and contact Jacobians. Here it comes from the
+    engine's own passes, in float64 on the CPU, from the model ``arrays`` by
+    name: the nominal free ABA's factorization (:meth:`BatchedEngine.aba`
+    with ``return_aux``), then for each point c and axis j a unit world
+    force scattered to the parent link (:meth:`BatchedEngine._rr_scatter`),
+    the substitution passes (:meth:`BatchedEngine._minv_apply`) and point
+    c's world acceleration gathered (:meth:`BatchedEngine._rr_gather`), the
+    3·nC unit forces batched as envs. At zero velocity the product does not
+    depend on how the base's velocity is represented."""
+    nC = engine.n_points
+    B = 3 * nC
+    f64 = dict(dtype=torch.float64, device="cpu")
+    pr = {k: torch.tensor(np.array(arrays[k]), **f64) for k in engine.PARAM_NAMES}
+    zeros = lambda *shape: torch.zeros(shape, **f64)  # noqa: E731
+    q = torch.tensor([1.0, 0.0, 0.0, 0.0], **f64)[:, None].repeat(1, B)
+    state = BatchedState(s=zeros(engine.n_joints, B), sd=zeros(engine.n_joints, B), p=zeros(3, B), q=q,
+                         v=zeros(6, B), m=zeros(engine.m_rows, 3, B))  # fmt: skip
+    W_R, W_p, W_v = engine.fk(state, pr)
+    _, _, fact = engine.aba(state, W_R, W_p, W_v, [None] * engine.n_links, zeros(engine.n_joints, B), pr,
+                            return_aux=True)  # fmt: skip
+    Rp = torch.stack([W_R[i] for i in engine.contact_parent], 2)
+    Lp = pr["cpoint"].transpose(0, 1)[:, :, None]
+    # Env 3c + j carries the unit force along axis j at point c.
+    y = torch.eye(B, **f64).reshape(nC, 3, B).transpose(0, 1)  # (3, nC, B)
+    a, _ = engine._minv_apply(fact, engine._rr_scatter(Rp, Lp, y), pr)
+    acc = engine._rr_gather(Rp, Lp, a)  # (3, nC, B): acc[i, c', 3c + j]
+    K = torch.stack([acc[:, c, 3 * c : 3 * c + 3] for c in range(nC)])  # (nC, 3, 3): K[c, i, j]
+    return (0.5 * (K + K.transpose(1, 2))).numpy()

@@ -41,7 +41,7 @@ import weakref
 import numpy as np
 import torch
 
-from .batched_engine import DOMAIN_NAMES, RR_ROUGH_ITEM, BatchedEngine, BatchedState
+from .batched_engine import DOMAIN_NAMES, BatchedEngine, BatchedState
 
 _PACKAGE = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
@@ -221,8 +221,10 @@ def rr_tables(
     ``rows``: an env's floats, the slot and, for the env rollout's MLP
     (``policy`` 2 with ``hidden`` units) whose hidden units do not fit beside
     the observation in the rows a step leaves dead (:func:`rr_dead_rows`), a row
-    for them; ``block_floats``: the model arrays and the env rollout's
-    candidate weights (``policy`` 0, 1 or 2); ``envs``: envs a block, the
+    for them; ``block_floats``: the model arrays (on Fourier terrain with
+    the block-Jacobi blocks ``rrKc``, 9 floats a point, and the spectrum)
+    and the env rollout's candidate weights (``policy`` 0, 1 or 2); ``envs``:
+    envs a block, the
     most up to ``max_envs`` whose rows and block floats fit in a block's
     shared memory; and ``smem_bytes``."""
     if engine.contact_model != "relaxed_rigid":
@@ -589,13 +591,12 @@ _STATE_NAMES = tuple(f"state.{f.name}" for f in dataclasses.fields(BatchedState)
 
 
 _INTEGRATOR_NAMES = dict(sie="semi-implicit Euler", rk4="RK4", rk4fast="RK4-fast")
-# Every terrain a soft kernel's build takes (BatchedEngine.terrain).
+# Every terrain a semi-implicit Euler kernel's build takes
+# (BatchedEngine.terrain).
 TERRAINS = ("flat", "plane", "fourier")
-# The ROADMAP items a refusal names: the soft RK4 builds and K4 off flat
-# ground; the relaxed-rigid kernels off flat ground and with per-env options.
+# The ROADMAP item a refusal names: the RK4 builds and K4 off flat ground or
+# with per-env options, K3 with per-env options, closures on the card.
 ITEM_VARIANTS = "ROADMAP Queue 2 item 6"
-ITEM_RR_TERRAIN = RR_ROUGH_ITEM
-ITEM_RR_DOMAIN = "ROADMAP Queue 1 item 16"
 
 
 def check_cuda_call(
@@ -603,8 +604,8 @@ def check_cuda_call(
 ) -> int:
     """What every kernel takes: a float32 engine with one of the kernel's
     ``contact_models`` and ``integrators`` on one of its ``terrains``
-    (:data:`TERRAINS`: a relaxed-rigid engine and an RK4 or RK4-fast engine
-    on flat ground only, whatever the kernel), and a state on the engine's
+    (:data:`TERRAINS`: an RK4 or RK4-fast engine on flat ground only,
+    whatever the kernel), and a state on the engine's
     device, float32, contiguous, of the engine's shapes. Returns the batch
     size."""
     if engine.contact_model not in contact_models:
@@ -617,8 +618,6 @@ def check_cuda_call(
             f"not {_INTEGRATOR_NAMES[engine.integrator]}"
         )
     if not engine.flat:
-        if engine.contact_model == "relaxed_rigid":
-            raise ValueError(f"the relaxed-rigid kernels take flat ground only ({ITEM_RR_TERRAIN})")
         if engine.integrator != "sie":
             raise ValueError(
                 f"the {_INTEGRATOR_NAMES[engine.integrator]} builds take flat ground only ({ITEM_VARIANTS})"
@@ -652,16 +651,17 @@ def check_tensor(name: str, t: torch.Tensor, shape, device, dtype=torch.float32)
 def domain_rows(
     engine: BatchedEngine, B: int, domain: dict | None, terr_off, device
 ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
-    """A soft rollout's per-env options as its kernel takes them: the five
-    multipliers of ``domain`` (:data:`DOMAIN_NAMES`, each ``(B,)``, a missing
-    one 1) stacked ``(5, B)``, and ``terr_off`` ``(2, B)``; each None when not
-    given. Checks names, shapes, type and device, and refuses them where the
-    kernels do not take them (RK4, relaxed-rigid, a terrain offset off
-    Fourier terrain)."""
+    """A rollout's per-env options (K1, K5, soft or relaxed-rigid) as its
+    kernel takes them: the five multipliers of ``domain``
+    (:data:`DOMAIN_NAMES`, each ``(B,)``, a missing one 1) stacked ``(5,
+    B)``, and ``terr_off`` ``(2, B)``; each None when not given. Checks
+    names, shapes, type and device, and refuses them where the kernels do
+    not take them (RK4, a terrain offset off Fourier terrain). A
+    relaxed-rigid build reads ``gmul`` and ``Mmul`` of the rows; its solve
+    takes the engine's μ, and ``Kmul``, ``Dmul`` and ``mumul`` change
+    nothing, as in the JAX engine."""
     if domain is None and terr_off is None:
         return None, None
-    if engine.contact_model == "relaxed_rigid":
-        raise ValueError(f"the relaxed-rigid kernels take no per-env domain or terrain offset ({ITEM_RR_DOMAIN})")
     if engine.integrator != "sie":
         raise ValueError(
             f"the {_INTEGRATOR_NAMES[engine.integrator]} builds take no per-env domain or terrain offset"

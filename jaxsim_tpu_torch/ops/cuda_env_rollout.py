@@ -8,8 +8,8 @@ per-env sums of the reward, the resets and the steps, all in one launch of
 an env, its state and the step's working set in shared memory, as the soft
 K1) or of ``jaxsim_tpu_torch/csrc/env_rollout_rr.cu`` for relaxed-rigid
 contacts (K1-rr's step and geometry, ``RR_LANES`` lanes an env; the respawn
-restores the start's ``m`` too), semi-implicit Euler only; the soft build on
-flat ground, an inclined plane or Fourier terrain.
+restores the start's ``m`` too), semi-implicit Euler only, on flat ground, an
+inclined plane or Fourier terrain.
 
 Ported options: the policy (the PD closure with gains ``kp``, ``kd``; a
 linear policy ``W``, ``b``; a tanh MLP ``W1``, ``b1``, ``W2``, ``b2``, one
@@ -18,18 +18,19 @@ library per hidden width), per-candidate weights (a leading population axis
 ``per_tile_weights``), ``episode_length``, ``healthy_z_range``,
 ``tau_limit`` (a clip of the linear and MLP policies' torques, as in JAX),
 the default reward and ``reset_noise`` with ``seed`` (Philox4x32-10, see
-:mod:`jaxsim_tpu_torch.ops.philox`); for soft contacts ``domain``, the five
-per-env multipliers ``Kmul``, ``Dmul``, ``mumul``, ``gmul``, ``Mmul`` (each
-``(B,)``, a missing one 1), and on Fourier terrain ``terr_off`` ``(2, B)``
+:mod:`jaxsim_tpu_torch.ops.philox`); ``domain``, the five per-env
+multipliers ``Kmul``, ``Dmul``, ``mumul``, ``gmul``, ``Mmul`` (each ``(B,)``,
+a missing one 1; a relaxed-rigid engine's step reads ``gmul`` and ``Mmul``,
+its solve the engine's μ, as the JAX engine's), and on Fourier terrain
+``terr_off`` ``(2, B)``
 and ``terrain_relative`` (the base height less the terrain's under it, with
 the env's offset, in the observation's last row and in the healthy-height
 test; the reward keeps the absolute height, as JAX's default reward).
 Weights are call-time inputs.
 
-Refused with ``ValueError``: ``domain`` and ``terr_off`` on the
-relaxed-rigid kernel (ROADMAP Queue 1 item 16), and a Python ``policy`` or
-``reward`` closure on a CUDA state (a CPU state runs one in the plain
-version).
+Refused with ``ValueError``: a Python ``policy`` or ``reward`` closure on a
+CUDA state (a CPU state runs one in the plain version; ROADMAP Queue 2 item
+6).
 
 :func:`env_rollout` takes :func:`env_rollout_reference`, the plain version
 (a loop over the twin's step with :mod:`jaxsim_tpu_torch.ops.policies`), for
@@ -67,7 +68,7 @@ RR_SOURCE = CSRC / "env_rollout_rr.cu"
 RR_SIGNATURES = {
     "jx_weight_count": [],
     "jx_env_rollout_rr": [PTR] * 17 + [I32, I32] + [F32] * 23
-    + [I32, F32, F32, I32, F32, F32, ctypes.c_uint, I32, PTR],
+    + [I32, F32, F32, I32, F32, F32, ctypes.c_uint, I32, PTR, PTR, PTR],
     "jx_env_rr_geometry": [PTR],
 }
 POLICY_KINDS = {"pd": 0, "linear": 1, "mlp": 2}
@@ -150,8 +151,6 @@ def check_options(
         raise ValueError(f"unknown domain multipliers: {sorted(unknown)} (terrOff is the terr_off argument)")
     if (terr_off is not None or terrain_relative) and engine.terrain_kind != "fourier":
         raise ValueError("terr_off and terrain_relative need a Fourier-terrain engine")
-    if device.type == "cuda" and engine.contact_model == "relaxed_rigid" and (domain or terr_off is not None):
-        raise ValueError(f"the relaxed-rigid env rollout takes no per-env domain or terrain offset ({cuda_build.ITEM_RR_DOMAIN})")
     if policy is not None and learned:
         raise ValueError("pass either a policy closure or policy weights")
     if tau_limit is not None and not learned:
@@ -255,14 +254,14 @@ def job(
 ) -> BuildJob:
     """The library for ``engine`` and ``policy``: the soft env rollout or the
     relaxed-rigid one, with ``lanes`` lanes an env (``LANES`` or
-    ``RR_LANES`` by default); the soft one's per-env options (``domain``:
+    ``RR_LANES`` by default); the per-env options (``domain``:
     ``JX_DOMAIN``, ``terr_off``: ``JX_TERR_OFF``, ``terrain_rel``:
     ``JX_TERRAIN_REL``) each build a library of their own."""
     kind = (("JX_POLICY", POLICY_KINDS[policy.kind]), ("JX_HIDDEN", max(policy.hidden, 1)))
-    if engine.contact_model == "relaxed_rigid":
-        defines = (*kind, ("JX_RR_LANES", int(lanes or RR_LANES)), ("JX_RR_TAU_ROW", 1))
-        return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, defines)
     options = (("JX_DOMAIN", 1),) * domain + (("JX_TERR_OFF", 1),) * terr_off + (("JX_TERRAIN_REL", 1),) * terrain_rel
+    if engine.contact_model == "relaxed_rigid":
+        defines = (*kind, ("JX_RR_LANES", int(lanes or RR_LANES)), ("JX_RR_TAU_ROW", 1), *options)
+        return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, defines)
     return BuildJob(engine, SOURCE, SIGNATURES,
                     (*kind, ("JX_LN_LANES", int(lanes or LANES)), ("JX_LN_FORWARD", 1), *options))  # fmt: skip
 
@@ -308,7 +307,7 @@ def launch(
     episode_length, healthy_z_range, tau_limit, reset_noise, seed, mul=None, off=None,
 ):
     """One launch of ``kernel`` (the engine's env-rollout library for
-    ``policy``, or a variant of it) on a checked CUDA state, with the soft
+    ``policy``, or a variant of it) on a checked CUDA state, with the
     build's checked per-env rows ``mul`` and ``off``
     (:func:`cuda_build.domain_rows`); counts nothing. Returns as
     :func:`env_rollout`."""
@@ -332,7 +331,7 @@ def launch(
         int(episode_length), float(healthy_z_range[0]), float(healthy_z_range[1]), int(tau_limit is not None), float(tau_limit or 0.0),
         float(reset_noise * 3.0**0.5) if reset_noise > 0.0 else 0.0,
         int(seed) & 0xFFFFFFFF, B // policy.candidates,
-        *(() if relaxed else (None if t is None else t.data_ptr() for t in (mul, off))),
+        *(None if t is None else t.data_ptr() for t in (mul, off)),
     )  # fmt: skip
     return out, reward_sum, resets, steps
 

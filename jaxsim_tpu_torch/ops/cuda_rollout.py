@@ -4,12 +4,14 @@ Counterpart of ``jaxsim_tpu/ops/pallas_step.py::build_pallas_rollout`` and its
 ``_rollout_kernel``, for two bodies: soft or relaxed-rigid contacts, each on
 flat ground with the engine's integrator (semi-implicit Euler, RK4 or
 RK4-fast) and the PD policy ``tau = -kp·s - kd·ṡ``, evaluated once a step at
-its start. The soft semi-implicit Euler body also takes an inclined plane
-and Fourier terrain, and the JAX kernel's per-env options: ``domain``, the
-five multipliers ``Kmul``, ``Dmul``, ``mumul``, ``gmul``, ``Mmul`` (each
-``(B,)``, a missing one 1), and ``terr_off`` ``(2, B)`` on Fourier terrain.
-The RK4 builds and the relaxed-rigid body take neither (ROADMAP Queue 2
-item 6, Queue 1 items 15 and 16). The soft kernel is
+its start. The semi-implicit Euler bodies also take an inclined plane and
+Fourier terrain (the relaxed-rigid one with each point's own normal and the
+block-Jacobi PCG there), and the JAX kernel's per-env options: ``domain``,
+the five multipliers ``Kmul``, ``Dmul``, ``mumul``, ``gmul``, ``Mmul`` (each
+``(B,)``, a missing one 1; the relaxed-rigid step reads ``gmul`` and
+``Mmul``, its solve the engine's μ, as the JAX engine's), and ``terr_off``
+``(2, B)`` on Fourier terrain. The RK4 builds take neither (ROADMAP Queue 2
+item 6). The soft kernel is
 ``jaxsim_tpu_torch/csrc/rollout.cu`` (``LANES`` lanes an env, its state and
 the step's working set in shared memory: ``soft_step_lanes.cuh``'s
 forward-only slot), the relaxed-rigid one
@@ -42,14 +44,15 @@ ROLLOUT_RR_KERNEL_LAUNCHES = 0
 
 SOURCE = CSRC / "rollout.cu"
 # The entry points' arguments: the model arrays, the state in and out, B and
-# the steps, the scalars, the stream; the relaxed-rigid one's also the RK4
-# scratch before the stream (two pointers and their stride: null and 0 for a
-# semi-implicit Euler build).
-# The soft one's also the per-env rows (multipliers, terrain offset; null
-# where the build takes none) before the stream.
+# the steps, the scalars, the per-env rows (multipliers, terrain offset; null
+# where the build takes none), the stream; the relaxed-rigid one's also the
+# RK4 scratch before the rows (two pointers and their stride: null and 0 for
+# a semi-implicit Euler build).
 SIGNATURES = {"jx_rollout": [PTR] * 13 + [I32, I32] + [F32] * 10 + [PTR] * 3, "jx_rollout_geometry": [PTR]}
 RR_SOURCE = CSRC / "rollout_rr.cu"
-RR_SIGNATURES = {"jx_rollout_rr": [PTR] * 13 + [I32, I32] + [F32] * 23 + [PTR, PTR, I32, PTR], "jx_rr_geometry": [PTR]}
+RR_SIGNATURES = {
+    "jx_rollout_rr": [PTR] * 13 + [I32, I32] + [F32] * 23 + [PTR, PTR, I32] + [PTR] * 3, "jx_rr_geometry": [PTR],
+}
 # Lanes of a warp that carry one env in the soft and the relaxed-rigid
 # kernel (build-time constants; PERF.md §6 has the times of the counts tried).
 LANES = 4
@@ -62,11 +65,11 @@ def job(engine: BatchedEngine, lanes: int | None = None, domain: bool = False, t
     """The library for ``engine``: the soft rollout or the relaxed-rigid one,
     with ``lanes`` lanes an env (``LANES`` or ``RR_LANES`` by default); the
     generated header names the engine's integrator and terrain, so each
-    builds a library of its own, and so do the soft build's per-env options
-    (``domain``: ``JX_DOMAIN``, ``terr_off``: ``JX_TERR_OFF``)."""
-    if engine.contact_model == "relaxed_rigid":
-        return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, (("JX_RR_LANES", int(lanes or RR_LANES)),))
+    builds a library of its own, and so do the per-env options (``domain``:
+    ``JX_DOMAIN``, ``terr_off``: ``JX_TERR_OFF``)."""
     options = (("JX_DOMAIN", 1),) * domain + (("JX_TERR_OFF", 1),) * terr_off
+    if engine.contact_model == "relaxed_rigid":
+        return BuildJob(engine, RR_SOURCE, RR_SIGNATURES, (("JX_RR_LANES", int(lanes or RR_LANES)), *options))
     return BuildJob(engine, SOURCE, SIGNATURES, (("JX_LN_LANES", int(lanes or LANES)), ("JX_LN_FORWARD", 1), *options))
 
 
@@ -157,17 +160,18 @@ def launch(
 ):
     """One launch of ``kernel`` (the engine's rollout library, or a variant
     of it built from another source) on a checked CUDA state, with the
-    soft build's checked per-env rows ``mul`` and ``off``
+    build's checked per-env rows ``mul`` and ``off``
     (:func:`cuda_build.domain_rows`); counts nothing."""
     relaxed = engine.contact_model == "relaxed_rigid"
     out = cuda_build.empty_state_like(state)
     B = state.p.shape[-1]
+    rows = tuple(None if t is None else t.data_ptr() for t in (mul, off))
     if relaxed:
         scratch, stride = rk4_scratch(engine, B)
         y0, acc = (0, 0) if scratch is None else (scratch[0].data_ptr(), scratch[1].data_ptr())
-        rr_args = (*cuda_build.rr_scalars(engine), y0, acc, stride)
+        rr_args = (*cuda_build.rr_scalars(engine), y0, acc, stride, *rows)
     else:
-        rr_args = tuple(None if t is None else t.data_ptr() for t in (mul, off))
+        rr_args = rows
     cuda_build.launch(
         kernel, "jx_rollout_rr" if relaxed else "jx_rollout", packed_params(engine), state.p.device,
         *cuda_build.state_pointers(state), *cuda_build.state_pointers(out),

@@ -23,10 +23,10 @@ up to 64), with a torque row in each env's slot. See the notes at the tops
 of the sources. Each wrapper takes its plain
 version (:func:`step_pd_reference`, :func:`step_tau_reference`, which call
 the twin) for a CPU state and its kernel for a CUDA state; a failed build or
-launch raises. Both take semi-implicit Euler only, and the soft builds flat
-ground, an inclined plane or Fourier terrain, without per-env options, as
-the JAX kernels (a ``pr`` with domain multipliers or ``terrOff`` runs on the
-CPU only).
+launch raises. Both take semi-implicit Euler only, on flat ground, an
+inclined plane or Fourier terrain, without per-env options, as the JAX
+kernels (a ``pr`` with domain multipliers or ``terrOff`` runs on the CPU
+only).
 """
 
 from __future__ import annotations

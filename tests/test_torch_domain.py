@@ -488,11 +488,12 @@ def test_wrappers_check_the_rows(monkeypatch):
 
 def test_what_stays_refused(monkeypatch):
     """Each refusal names its ROADMAP item, before any build: the RK4 builds
-    off flat ground or with per-env options, K4 and the differentiable step
-    off flat ground or with per-env options, K3 with per-env options, and a
-    Python closure on the card (Queue 2 item 6); the relaxed-rigid kernels
-    off flat ground (Queue 1 item 15) or with per-env options (item 16), and
-    a relaxed-rigid engine on Fourier terrain (item 15)."""
+    off flat ground or with per-env options (soft and relaxed-rigid), K4 and
+    the differentiable step off flat ground or with per-env options (K4-rr
+    too), K3 with per-env options (K3-rr too), and a Python closure on the
+    card (Queue 2 item 6); the engine refuses heightmap terrain (Queue 1
+    item 8) and rigid contacts (item 6). (The relaxed-rigid kernels now take
+    a plane, Fourier terrain and the per-env rows: ``tests/test_torch_rough_rr.py``.)"""
     monkeypatch.setattr(cuda_build, "is_cpu", lambda state, what: False)
     B = 64
     rk4 = _engines(IntegratorType.RungeKutta4)
@@ -520,18 +521,18 @@ def test_what_stays_refused(monkeypatch):
     with pytest.raises(ValueError, match="Queue 2 item 6"):
         diff_step.fused_diff_rollout(flat, 2, params_grad=True)(st, lambda s: torch.zeros_like(s.s), pr={"gmul": torch.ones(B)})
     rr = _engines(contact_model=RelaxedRigidContacts())
+    rr_rk4 = _engines(IntegratorType.RungeKutta4, RelaxedRigidContacts())
     plane, st = rr["plane"], rr["plane"].init_state(B)
-    for call in (lambda: cuda_rollout.rollout(plane, st, 1), lambda: cuda_step.step_pd(plane, st),
-                 lambda: cuda_step.step_tau(plane, st, torch.zeros_like(st.s)),
-                 lambda: cuda_env_rollout.env_rollout(plane, st, 1)):  # fmt: skip
-        with pytest.raises(ValueError, match="Queue 1 item 15"):
-            call()
-    flat, st = rr["flat"], rr["flat"].init_state(B)
-    with pytest.raises(ValueError, match="Queue 1 item 16"):
-        cuda_rollout.rollout(flat, st, 1, domain={"Kmul": torch.ones(B)})
-    with pytest.raises(ValueError, match="Queue 1 item 16"):
-        cuda_env_rollout.env_rollout(flat, st, 1, domain={"gmul": torch.ones(B)})
-    with pytest.raises(ValueError, match="Queue 1 item 15"):
-        BatchedEngine.build(JaxSimModel.build_from_model_description(
-            models.build_garpez_urdf(), contact_model=RelaxedRigidContacts(),
-            terrain=terrain.FourierTerrain.build()), device="cpu")  # fmt: skip
+    with pytest.raises(ValueError, match="Queue 2 item 6"):
+        cuda_rollout.rollout(rr_rk4["plane"], rr_rk4["plane"].init_state(B), 1)
+    with pytest.raises(ValueError, match="Queue 2 item 6"):
+        cuda_rollout.rollout(rr_rk4["flat"], rr_rk4["flat"].init_state(B), 1, domain={"gmul": torch.ones(B)})
+    with pytest.raises(ValueError, match="Queue 2 item 6"):
+        cuda_step_vjp.step_vjp(plane, st, torch.zeros_like(st.s), st)
+    with pytest.raises(ValueError, match="Queue 2 item 6"):
+        cuda_step.step_tau(plane, st, torch.zeros_like(st.s), {"gmul": torch.ones(B)})
+    static, params = bridge.reference_engine_arrays(_tiny()[0])
+    with pytest.raises(ValueError, match="Queue 1 item 8"):
+        bridge.engine_from_numpy({**static, "terrain_kind": "heightmap"}, params, device="cpu")
+    with pytest.raises(ValueError, match="Queue 1 item 6"):
+        bridge.engine_from_numpy({**static, "contact_model": "rigid"}, params, device="cpu")

@@ -264,11 +264,16 @@ def test_minv_apply_and_pcg_match_jax_in_float64():
 @pytest.mark.parametrize("n_steps", [1, 5])
 @pytest.mark.parametrize("name", ["box", "garpez"])
 def test_step_matches_jax_float32(name, n_steps):
+    """The float32 twin against the JAX engine's step on the same (float32)
+    inputs, at the JAX package's float32 tolerances. The reference is the
+    JAX step in float64, the compiled step of ``test_step_matches_jax_float64``
+    (one trace and compile a model for both tests)."""
     jeng, arrays, tau_fn = _case(name)
     teng = _port_engine(jeng)
     assert _active_points(teng, arrays) > 0
     got = _port_steps(teng, arrays, tau_fn, n_steps)[-1]
-    ref = _jax_steps(name, arrays, n_steps, x64=False)[-1]
+    inputs = {k: np.asarray(a, np.float32).astype(np.float64) for k, a in arrays.items()}
+    ref = _jax_steps(name, inputs, n_steps, x64=True)[-1]
     for k, tol in (BOX_TOL if name == "box" else GARPEZ_TOL).items():
         np.testing.assert_allclose(got[k], ref[k], err_msg=k, **tol)
     assert np.abs(ref["m"]).max() > 0
@@ -399,10 +404,12 @@ def test_relaxed_rigid_kernel_header(name, lanes):
 
 
 def test_relaxed_rigid_kernel_refuses(monkeypatch):
-    """The relaxed-rigid kernel takes relaxed-rigid, flat-ground, float32
-    engines with contact points: a soft engine has no relaxed-rigid header,
-    and the wrapper raises on a tilted plane or a float64 engine before any
-    build; the lanes an env divide a warp."""
+    """The relaxed-rigid kernel takes relaxed-rigid, float32 engines with
+    contact points: a soft engine has no relaxed-rigid header, and the
+    wrapper raises on a float64 engine and, for an RK4 engine, on a raised
+    plane before any build (the semi-implicit Euler build takes a plane and
+    Fourier terrain: tests/test_torch_rough_rr.py); the lanes an env divide a
+    warp."""
     monkeypatch.setattr(cuda_build, "is_cpu", lambda state, what: False)
     soft = BatchedEngine.build(JaxSimModel.build_from_model_description(models.build_box_urdf()), device="cpu")
     with pytest.raises(ValueError, match="relaxed-rigid engine"):
@@ -413,6 +420,7 @@ def test_relaxed_rigid_kernel_refuses(monkeypatch):
         cuda_build.rr_tables(eng, 3)
     tilted = _port_engine(_jax_engine("box"))
     tilted.terrain_offset = 0.1
+    tilted.integrator = "rk4"
     with pytest.raises(ValueError, match="flat ground"):
         cuda_rollout.rollout(tilted, tilted.init_state(4), 1)
     wide = _port_engine(_jax_engine("box"), torch.float64)

@@ -208,7 +208,10 @@ def _float32_case(case, integrator, n_steps=5):
     if teng.n_points:
         assert _in_contact(teng, arrays) > 0
     got = _port_steps(teng, case, arrays, n_steps)[-1]
-    ref = _jax_steps(case, integrator, arrays, n_steps, x64=False)[-1]
+    # The reference: the JAX step in float64 on the same (float32) inputs, the
+    # float64 test's compiled step (one compile a case for both tests).
+    inputs = {k: np.asarray(a, np.float32).astype(np.float64) for k, a in arrays.items()}
+    ref = _jax_steps(case, integrator, inputs, n_steps, x64=True)[-1]
     tols = PENDULUM_TOL if case.startswith("pendulum") else BOX_TOL if case.startswith("box") else dict(
         p=dict(rtol=1e-3, atol=1e-4), s=dict(rtol=1e-3, atol=1e-4), sd=dict(rtol=1e-2, atol=1e-2))  # fmt: skip
     for k, tol in tols.items():

@@ -143,7 +143,11 @@ def _check(name, x64: bool):
     teng = _port_engine(jeng, dtype)
     assert _active_points(teng, arrays) > 0
     pr = _cast(bridge.reference_params_arrays(jeng.params()), dtype_np)
-    ref = _jax_vjp(jeng, arrays, tau, ct, pr, x64)
+    # The reference is the JAX VJP in float64 (on the float32 case's
+    # float32-rounded inputs): the float64 case's compiled VJP, one trace and
+    # compile a model for both cases.
+    ref = _jax_vjp(jeng, _cast(arrays, np.float64), np.asarray(tau, np.float64), _cast(ct, np.float64),
+                   _cast(pr, np.float64), True)
     got = _port_vjp(teng, arrays, tau, ct, pr, dtype)
     assert "rrMinv" in got[2] and np.abs(ref[2]["rrMinv"]).max() > 0
     if x64:

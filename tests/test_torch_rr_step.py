@@ -110,9 +110,10 @@ inline float __shfl_sync(unsigned, float x, int src, int width = 32) {
 # ``double``. argv = in.bin out.bin B n_steps, then the Scalars' 23 floats in
 # C99 hex (kp, kd the 9th and 10th: K1's, K2's and K5's gains, and the gains
 # of K3's torques) and (K5) the Options' entries. in.bin holds the packed
-# model arrays, the state leaves s, sd, p, q, v, m and (K5) the weights;
-# out.bin gets the state leaves after n_steps and (K5) each env's reward
-# sum, resets and steps.
+# model arrays, the state leaves s, sd, p, q, v, m, (K5) the weights, and
+# the per-env rows the build takes (K1, K5): the five multipliers
+# (JX_DOMAIN) and the terrain offset (JX_TERR_OFF); out.bin gets the state
+# leaves after n_steps and (K5) each env's reward sum, resets and steps.
 HARNESS = r"""
 #include "cuda_runtime.h"
 #include <cstdio>
@@ -138,6 +139,7 @@ inline double __fdiv_rn(double a, double b) { return a / b; }
 #define powf pow
 #define sinf sin
 #define cosf cos
+#define tanhf tanh
 #else
 using Real = float;
 #endif
@@ -174,6 +176,20 @@ int main(int argc, char** argv) {
   std::vector<Real> cur(in.begin() + N_PARAMS, in.begin() + N_PARAMS + total);
   cur.resize(total + ENVS, nan);
   const int blocks = (B + ENVS - 1) / ENVS;
+  size_t row_at = N_PARAMS + total;
+#if JX_KERNEL == 5
+  row_at += static_cast<size_t>(WSZ) * (B / std::atoi(argv[a + 7]));  // a candidate's weights each
+#endif
+  const Real* dom_mul = nullptr;
+  const Real* dom_off = nullptr;
+#if JX_DOMAIN
+  dom_mul = in.data() + row_at;
+  row_at += 5u * B;
+#endif
+#if JX_TERR_OFF
+  dom_off = in.data() + row_at;
+#endif
+  const DomainRows dom_rows{dom_mul, dom_off};
 #if JX_KERNEL == 5 || JX_KERNEL == 1
   std::vector<Real> nxt(total + ENVS, nan);
   const Real* ci[6];
@@ -197,7 +213,8 @@ int main(int argc, char** argv) {
   for (int blk = 0; blk < blocks; ++blk) {
     for (Real& x : smem) x = nan;
     shim::run_block(blk, RR_THREADS, [&] {
-      env_rollout_rr_kernel(params, weights, si, so, reward.data(), resets.data(), steps.data(), B, n_steps, sc, o);
+      env_rollout_rr_kernel(params, weights, si, so, reward.data(), resets.data(), steps.data(), B, n_steps, sc, o,
+                            dom_rows);
     });
   }
   cur.swap(nxt);
@@ -211,7 +228,7 @@ int main(int argc, char** argv) {
   for (int blk = 0; blk < blocks; ++blk) {
     for (Real& x : smem) x = nan;
     shim::run_block(blk, RR_THREADS, [&] {
-      rollout_rr_kernel(params, si, so, B, n_steps, sc, Rk4Scratch{y0.data(), acc.data(), stride});
+      rollout_rr_kernel(params, si, so, B, n_steps, sc, Rk4Scratch{y0.data(), acc.data(), stride}, dom_rows);
     });
   }
   cur.swap(nxt);
@@ -235,7 +252,7 @@ int main(int argc, char** argv) {
       for (Real& x : smem) x = nan;
       shim::run_block(blk, RR_THREADS, [&] {
 #if JX_KERNEL == 2
-        rollout_rr_kernel(params, si, so, B, 1, sc, Rk4Scratch{nullptr, nullptr, 0});
+        rollout_rr_kernel(params, si, so, B, 1, sc, Rk4Scratch{nullptr, nullptr, 0}, dom_rows);
 #else
         Scalars s3 = sc;
         s3.kp = s3.kd = 0.0f;
@@ -302,9 +319,11 @@ def _build(tmp_path, engine, job, kernel: int, double: bool = False, csrc=None):
 
 
 def _run(tmp_path, binary, engine, state, n_steps, params, gains, options=(), weights=None,
-         double: bool = False) -> np.ndarray:
+         double: bool = False, rows=()) -> np.ndarray:
+    """The harness on ``state``; ``rows``: the per-env rows the build takes
+    (the multipliers (5, B), the terrain offset (2, B))."""
     real = np.float64 if double else np.float32
-    arrays = [params, *state.fields(), *(() if weights is None else (weights,))]
+    arrays = [params, *state.fields(), *(() if weights is None else (weights,)), *rows]
     np.concatenate([a.detach().numpy().astype(real).ravel() for a in arrays]).tofile(tmp_path / "in.bin")
     scalars = (*cuda_build.engine_scalars(engine), *gains, *cuda_build.rr_scalars(engine))
     args = [str(binary), str(tmp_path / "in.bin"), str(tmp_path / "out.bin"), str(state.p.shape[-1]), str(n_steps),
